@@ -1,0 +1,279 @@
+"""Shared transformer ops for the talker and code-predictor stacks.
+
+PyTorch port of ``qwen3_tts_tpu/ops/nn.py``, in the JAX package's layout:
+
+* Layer weights are stacked along a leading layer axis (``[L, in, out]``,
+  so a projection is ``x @ w``); ``run_layer_stack`` loops over the layers.
+* KV caches are fixed-shape ``[num_layers, batch, max_seq, kv_heads,
+  head_dim]`` tensors. Where JAX updates them functionally, the port writes
+  the new rows **in place** (no second copy of the cache per step).
+* Attention masks are causal on absolute positions, so right-padded prompts
+  and unwritten cache rows never change results.
+* Norm and softmax accumulate in float32 and cast back; activations round to
+  the compute dtype at the same points as the JAX package (a bf16 matmul
+  returns bf16, elementwise ops round per op).
+
+Left out: ``tiered_decode_attention``, ``decode_attention_flash`` and the
+MRoPE tables (all off by default in the JAX package; for TTS MRoPE equals
+standard RoPE).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+
+@dataclass(frozen=True)
+class LayerStackConfig:
+    """Shape config for a stack of identical decoder layers."""
+
+    hidden_size: int
+    intermediate_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rms_norm_eps: float = 1e-6
+    rope_theta: float = 1e6
+
+
+class KVCache(NamedTuple):
+    """Pre-allocated per-stack KV cache.
+
+    k, v: [num_layers, batch, max_seq, num_kv_heads, head_dim]
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @property
+    def max_seq(self) -> int:
+        return self.k.shape[2]
+
+
+def init_kv_cache(
+    cfg: LayerStackConfig,
+    batch: int,
+    max_seq: int,
+    dtype: torch.dtype = torch.bfloat16,
+    device: torch.device | str = "cpu",
+) -> KVCache:
+    shape = (cfg.num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+    return KVCache(
+        torch.zeros(shape, dtype=dtype, device=device),
+        torch.zeros(shape, dtype=dtype, device=device),
+    )
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm with float32 accumulation, cast back to input dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    normed = xf * torch.rsqrt(var + eps)
+    return (normed * weight.float()).to(x.dtype)
+
+
+def rope_inv_freq(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """[head_dim/2] inverse frequencies: theta^(-2i/D), float32."""
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (torch.tensor(theta, dtype=torch.float32, device=device) ** exponents)
+
+
+def rope_cos_sin(
+    positions: torch.Tensor, inv_freq: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables [..., head_dim/2] for float32 positions."""
+    freqs = positions[..., None].float() * inv_freq
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Split-half rotary embedding on [..., seq, heads, head_dim].
+
+    cos/sin: [seq, head_dim/2] (broadcast over batch and heads).
+    """
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    cos = cos[..., :, None, :].to(x.dtype)
+    sin = sin[..., :, None, :].to(x.dtype)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def swiglu(x: torch.Tensor, gate_w: torch.Tensor, up_w: torch.Tensor, down_w: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP; weights pre-transposed to [in, out]."""
+    return (F.silu(x @ gate_w) * (x @ up_w)) @ down_w
+
+
+def swiglu_layer(layer_params: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU using either fused [gate|up] or separate projections."""
+    if "gateup_proj" in layer_params:
+        gu = x @ layer_params["gateup_proj"]
+        inter = gu.shape[-1] // 2
+        return (F.silu(gu[..., :inter]) * gu[..., inter:]) @ layer_params["down_proj"]
+    return swiglu(x, layer_params["gate_proj"], layer_params["up_proj"], layer_params["down_proj"])
+
+
+def gqa_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mask: torch.Tensor | None,
+    scale: float,
+) -> torch.Tensor:
+    """Grouped-query attention.
+
+    q: [B, Sq, H, D]; k, v: [B, Sk, KV, D]; H = KV * G.
+    mask: broadcastable to [B, 1, 1, Sq, Sk] boolean, True = attend.
+    Returns [B, Sq, H, D]. Scores and softmax in float32; the weights round
+    to v's dtype before the value product, as in the JAX package.
+    """
+    b, sq, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    qg = q.reshape(b, sq, kv, g, d)
+    # scores: [B, KV, G, Sq, Sk]
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    if mask is not None:
+        scores = scores.masked_fill(~mask, -1e30)
+    weights = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", weights, v)
+    return out.reshape(b, sq, h, d)
+
+
+def _attention_block(
+    layer_params: dict,
+    x: torch.Tensor,
+    cfg: LayerStackConfig,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    write_pos: int,
+    mask: torch.Tensor | None,
+    self_only: bool = False,
+) -> torch.Tensor:
+    """QKV projection + QK-norm + RoPE + in-place cache write + GQA attention.
+
+    x: [B, S, hidden]. cache_k/v: [B, max_seq, KV, D] views of one layer of
+    the cache; the S new K/V rows are written at ``write_pos``.
+    ``self_only=True`` (fresh-cache prefill): attention reads only the S new
+    rows (S x S), and ``mask`` must be [..., Sq, S].
+    """
+    b, s, _ = x.shape
+    q_dim = cfg.num_heads * cfg.head_dim
+    kv_dim = cfg.num_kv_heads * cfg.head_dim
+    if "qkv_proj" in layer_params:
+        qkv = x @ layer_params["qkv_proj"]
+        q, k, v = qkv[..., :q_dim], qkv[..., q_dim : q_dim + kv_dim], qkv[..., q_dim + kv_dim :]
+    else:
+        q = x @ layer_params["q_proj"]
+        k = x @ layer_params["k_proj"]
+        v = x @ layer_params["v_proj"]
+    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+
+    # Per-head RMSNorm on Q and K (Qwen3 QK-norm).
+    q = rms_norm(q, layer_params["q_norm"], cfg.rms_norm_eps)
+    k = rms_norm(k, layer_params["k_norm"], cfg.rms_norm_eps)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    k = k.to(cache_k.dtype)
+    v = v.to(cache_v.dtype)
+    cache_k[:, write_pos : write_pos + s] = k
+    cache_v[:, write_pos : write_pos + s] = v
+
+    scale = 1.0 / (cfg.head_dim**0.5)
+    if self_only:
+        attn = gqa_attention(q, k, v, mask, scale)
+    else:
+        attn = gqa_attention(q, cache_k, cache_v, mask, scale)
+    return attn.reshape(b, s, q_dim) @ layer_params["o_proj"]
+
+
+def decoder_layer(
+    layer_params: dict,
+    x: torch.Tensor,
+    cfg: LayerStackConfig,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    write_pos: int,
+    mask: torch.Tensor | None,
+    self_only: bool = False,
+) -> torch.Tensor:
+    """Pre-norm decoder layer: RMSNorm -> attn -> +res -> RMSNorm -> MLP -> +res.
+
+    Writes this layer's new K/V rows into ``cache_k``/``cache_v`` in place.
+    """
+    attn_out = _attention_block(
+        layer_params,
+        rms_norm(x, layer_params["input_ln"], cfg.rms_norm_eps),
+        cfg,
+        cos,
+        sin,
+        cache_k,
+        cache_v,
+        write_pos,
+        mask,
+        self_only=self_only,
+    )
+    h = x + attn_out
+    mlp_out = swiglu_layer(layer_params, rms_norm(h, layer_params["post_ln"], cfg.rms_norm_eps))
+    return h + mlp_out
+
+
+def layer_params_at(stacked_params: dict, i: int) -> dict:
+    """Layer ``i``'s weights as views into the stacked ``[L, ...]`` tree."""
+    return {name: w[i] for name, w in stacked_params.items()}
+
+
+def run_layer_stack(
+    stacked_params: dict,
+    x: torch.Tensor,
+    cfg: LayerStackConfig,
+    cache: KVCache,
+    positions: torch.Tensor,
+    write_pos: int,
+    self_attn_prefill: bool = False,
+) -> torch.Tensor:
+    """Run all layers against the full pre-allocated cache (updated in place).
+
+    x: [B, S, hidden] new token embeddings at absolute ``positions`` [S]
+    (int64); their K/V rows are written starting at cache row ``write_pos``.
+    Prompts are right-padded, so the pure causal mask ``key_row <=
+    query_position`` is exact (see the JAX package's docstring).
+
+    ``self_attn_prefill=True``: fresh-cache prefill (write_pos == 0, no
+    earlier live rows); attention runs over the S new rows only.
+    """
+    inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, device=x.device)
+    cos, sin = rope_cos_sin(positions.float(), inv_freq)
+    if self_attn_prefill:
+        mask = positions[None, :] <= positions[:, None]
+    else:
+        key_pos = torch.arange(cache.max_seq, device=x.device)
+        mask = key_pos[None, :] <= positions[:, None]
+    mask = mask[None, None, None]  # [B=1, KV=1, G=1, Sq, Sk]
+
+    h = x
+    for i in range(cfg.num_layers):
+        h = decoder_layer(
+            layer_params_at(stacked_params, i),
+            h,
+            cfg,
+            cos,
+            sin,
+            cache.k[i],
+            cache.v[i],
+            write_pos,
+            mask,
+            self_only=self_attn_prefill,
+        )
+    return h

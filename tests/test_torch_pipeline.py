@@ -1,0 +1,122 @@
+"""The port's main path against the JAX package's, end to end (f32, CPU).
+
+``tests/test_pipeline.tiny_model()`` goes to numpy and into the port
+(``Qwen3TTS.from_numpy``). With ``seed=42, temperature=0.9`` the frames must
+be token-exact and the audio within atol 1e-5; ``synthesize_with_voice``
+must give the same audio as ``synthesize_with_timing``. The one-frame step
+that ``__graft_entry__.entry()`` builds is compared the same way at the
+tiny size.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qwen3_tts_tpu.models import code_predictor as jcp
+from qwen3_tts_tpu.models import talker as jtalker
+from qwen3_tts_tpu.ops import nn as jnn
+from qwen3_tts_tpu.ops import sampling as jsampling
+from qwen3_tts_tpu.pipeline import SynthesisOptions as JOptions
+from qwen3_tts_tpu_torch.models import code_predictor as tcp
+from qwen3_tts_tpu_torch.models import talker as ttalker
+from qwen3_tts_tpu_torch.models.codec import vocoder as tvoc
+from qwen3_tts_tpu_torch.models.config import config_for_variant
+from qwen3_tts_tpu_torch.ops import nn as tnn
+from qwen3_tts_tpu_torch.ops import sampling as tsampling
+from qwen3_tts_tpu_torch.pipeline import Qwen3TTS, SynthesisOptions
+from test_pipeline import TINY_VOC, FakeTokenizer, tiny_model
+
+torch.set_num_threads(1)
+
+TEXT = "Hello there, general."
+
+
+def _numpy(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope="module")
+def models():
+    jm = tiny_model()
+    # The port's own dataclasses, built from the JAX model's config values.
+    tcfg = config_for_variant("0.6B", "custom_voice")
+    from dataclasses import asdict, replace
+
+    from qwen3_tts_tpu_torch.models.config import CodePredictorConfig, TalkerConfig
+
+    tcfg = replace(
+        tcfg,
+        talker=TalkerConfig(**asdict(jm.config.talker)),
+        code_predictor=CodePredictorConfig(**asdict(jm.config.code_predictor)),
+    )
+    vcfg = tvoc.VocoderConfig(**asdict(TINY_VOC))
+    tm = Qwen3TTS.from_numpy(
+        tcfg, _numpy(jm.talker_params), _numpy(jm.cp_params), _numpy(jm.vocoder_params),
+        FakeTokenizer(), vocoder_config=vcfg,
+    )
+    return jm, tm
+
+
+@pytest.mark.parametrize("max_length", [8, 20])
+def test_synthesize_with_timing_matches_jax(models, max_length):
+    jm, tm = models
+    jopts = JOptions(max_length=max_length, seed=42, temperature=0.9)
+    topts = SynthesisOptions(max_length=max_length, seed=42, temperature=0.9)
+
+    jframes = jm._custom_voice_session(TEXT, "ryan", "english", jopts).run_to_completion()
+    started, uniforms = tm._prefill_custom_voice(TEXT, "ryan", "english", topts)
+    tframes = tm._generate(started, uniforms, topts)
+    np.testing.assert_array_equal(tframes, jframes)
+
+    jaudio, jtiming = jm.synthesize_with_timing(TEXT, "ryan", "english", jopts)
+    taudio, ttiming = tm.synthesize_with_timing(TEXT, "ryan", "english", topts)
+    assert ttiming.generation_frames == jtiming.generation_frames == len(jframes)
+    assert taudio.samples.shape == jaudio.samples.shape
+    np.testing.assert_allclose(taudio.samples, jaudio.samples, rtol=0, atol=1e-5)
+    assert np.abs(taudio.samples - jaudio.samples).max() <= 1e-4 * np.abs(jaudio.samples).max()
+
+    voiced = tm.synthesize_with_voice(TEXT, "ryan", "english", topts)
+    np.testing.assert_array_equal(voiced.samples, taudio.samples)
+
+
+def test_one_frame_step_matches_jax(models):
+    """The frame step of ``__graft_entry__.entry()`` (embed -> CP 15 codes ->
+    talker step -> penalties -> sample) at the tiny size, both packages."""
+    jm, tm = models
+    tcfg_j, cpcfg_j = jm.config.talker, jm.config.code_predictor
+    tcfg_t, cpcfg_t = tm.config.talker, tm.config.code_predictor
+    rs = np.random.RandomState(0)
+    hidden = rs.randn(1, 1, tcfg_j.hidden_size).astype(np.float32)
+    penalty = (rs.rand(tcfg_j.codec_vocab_size) < 0.01).astype(np.float32)
+    token, pos, uniform, max_seq = 100, 10, np.float32(0.5), 32
+
+    jcache = jnn.init_kv_cache(tcfg_j.layer_stack(), 1, max_seq, jnp.float32)
+    jsem = jtalker.embed_codec(jm.talker_params, jnp.int32(token))[None, None, :]
+    jcodes = jcp.predict_acoustic_codes(jm.cp_params, cpcfg_j, jnp.asarray(hidden), jsem)
+    jstep = jsem + jcp.acoustic_embedding_sum(jm.cp_params, jcodes)
+    jh, jlogits, jcache = jtalker.decode_step(jm.talker_params, tcfg_j, jstep, jnp.int32(pos), jcache)
+    jscfg = jsampling.SamplingConfig()
+    jlogits = jsampling.apply_generation_penalties(
+        jlogits, jnp.asarray(penalty), jsampling.build_suppression_mask(), jscfg, jnp.int32(5)
+    )
+    jnext = int(jsampling.sample(jlogits, jscfg, jnp.float32(uniform))[0])
+
+    with torch.no_grad():
+        tcache = tnn.init_kv_cache(tcfg_t.layer_stack(), 1, max_seq, torch.float32)
+        tsem = ttalker.embed_codec(tm.talker_params, torch.tensor(token))[None, None, :]
+        tcodes = tcp.predict_acoustic_codes(tm.cp_params, cpcfg_t, torch.from_numpy(hidden), tsem)
+        tstep = tsem + tcp.acoustic_embedding_sum(tm.cp_params, tcodes)
+        th, tlogits = ttalker.decode_step(tm.talker_params, tcfg_t, tstep, pos, tcache)
+        tscfg = tsampling.SamplingConfig()
+        tlogits = tsampling.apply_generation_penalties(
+            tlogits, torch.from_numpy(penalty), tsampling.build_suppression_mask(), tscfg, 5
+        )
+        tnext = int(tsampling.sample(tlogits, tscfg, torch.tensor(uniform))[0])
+
+    np.testing.assert_array_equal(tcodes.numpy(), np.asarray(jcodes))
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), rtol=0, atol=1e-5)
+    assert tnext == jnext
+    np.testing.assert_allclose(tcache.k[:, :, pos].numpy(), np.asarray(jcache.k[:, :, pos]), rtol=0, atol=1e-5)
