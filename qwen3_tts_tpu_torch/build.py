@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, loaded with ``ctypes``.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all at once, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``.
 The library is built at first use into ``qwen3_tts_tpu_torch/_build/``
 (listed in ``.gitignore``) and rebuilt whenever a source changes: its file
 name carries a hash of the sources. Nothing here runs at import time.
@@ -22,7 +23,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 ]
 
 _lib: ctypes.CDLL | None = None
@@ -63,12 +64,36 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), "-Xptxas", "-v", *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in CSRC.glob("*.cu")]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    print(proc.stderr, file=sys.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    procs = [
+        subprocess.Popen(
+            [nvcc, "-Xptxas", "-v", *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        for src, obj in zip(sources, objects)
+    ]
+    try:
+        errs = [proc.communicate()[1] for proc in procs]
+        failed = [
+            f"{src.name} ({proc.returncode}):\n{err}"
+            for src, proc, err in zip(sources, procs, errs)
+            if proc.returncode != 0
+        ]
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *[str(o) for o in objects]],
+            capture_output=True, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        print("".join(errs), file=sys.stderr)
+        os.replace(tmp, out)
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     return out
 
 

@@ -16,7 +16,7 @@
 //
 // Design: one C entry point per frame runs a fixed sequence of simple
 // kernels on the caller's stream. GEMVs read the [in, out] weights with
-// 16-byte vector loads, split K over grid.y into 64-row slices (>= 128 blocks
+// 16-byte (int8: 8-byte) vector loads, split K over grid.y into 64-row slices (>= 128 blocks
 // per GEMV so the card's SMs all stream), and write f32 partial sums that the
 // consumer kernel adds in a fixed order -- deterministic, no atomics. The
 // RMSNorm that precedes a projection is fused into the GEMV's input staging,
@@ -27,6 +27,15 @@
 // plain PyTorch version, so the f32 program equals it up to summation order.
 // The TPU kernel's VMEM residency, DMA rings and split embedding tables are
 // TPU artefacts and are not carried over; wgmma/TMA/persistence come later.
+//
+// Int8 mode (weight-only int8, the TPU kernel's int8 tiles): the layer
+// projections and the lm heads are int8 with per-column f32 scales, read as
+// one byte each (half the bytes of bf16); every GEMV input is rounded to
+// bf16 and the scale multiplies the finished column sum once, before the
+// column is rounded to the working type -- the JAX package's
+// `acc * scale` points. Activations, norms, embeddings and the mtp
+// projection stay in the working type (f32 or bf16). The split-K GEMV and
+// its input staging are shared with the talker step (common.cuh).
 
 #include <algorithm>
 
@@ -34,112 +43,7 @@
 
 namespace q3 {
 
-constexpr int kGemvRows = 64;      // K rows per split (grid.y)
-constexpr int kGemvThreads = 256;  // 8 warps, each a strided subset of the 64 rows
 constexpr int kCpMaxRows = 16;     // 2 prefill rows + 14 code rows
-
-template <typename T> __device__ __forceinline__ void load16(const T* p, float* out);
-template <> __device__ __forceinline__ void load16<float>(const float* p, float* out) {
-  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-template <> __device__ __forceinline__ void load16<__nv_bfloat16>(const __nv_bfloat16* p, float* out) {
-  const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ float sum_parts(const float* part, int nsplit, int n, int col) {
-  float s = 0.f;
-  for (int i = 0; i < nsplit; ++i) s += part[(size_t)i * n + col];
-  return s;
-}
-
-// Where a GEMV reads its input vector x[k], k < K: an f32 vector `xf`; or
-// row (`idx ? *idx : row`) of the T matrix `table`; or, with `gu_part`,
-// round(SiLU(gate)) * up from the gate|up GEMV's partials (N = 2K there).
-// With `ln` the input is RMS-normalised first (the whole vector's sum of
-// squares, reduced identically in every block) and rounded to T.
-template <typename T>
-struct GemvInput {
-  const float* xf;
-  const T* table;
-  const int* idx;
-  int row;
-  const float* gu_part;
-  int gu_nsplit;
-  const T* ln;
-  float eps;
-};
-
-template <typename T>
-__device__ __forceinline__ float gemv_x(const GemvInput<T>& in, const T* row, int K, int k) {
-  if (in.gu_part) {
-    const float g = round_to<T>(sum_parts(in.gu_part, in.gu_nsplit, 2 * K, k));
-    const float u = round_to<T>(sum_parts(in.gu_part, in.gu_nsplit, 2 * K, K + k));
-    return mul_t<T>(round_to<T>(__fdiv_rn(g, __fadd_rn(1.f, expf(-g)))), u);
-  }
-  return row ? to_float<T>(row[k]) : in.xf[k];
-}
-
-// part[split, col] = sum over the split's 64 rows k of x[k] * w[k, col].
-template <typename T>
-__global__ void __launch_bounds__(kGemvThreads)
-gemv_partial(const GemvInput<T> in, const T* __restrict__ w, int K, int N, float* __restrict__ part) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int COLS = 32 * VEC;
-  constexpr int WARPS = kGemvThreads / 32;
-  __shared__ float xs[kGemvRows];
-  __shared__ float red[WARPS][COLS];
-  __shared__ float buf[32];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int col0 = blockIdx.x * COLS, k0 = blockIdx.y * kGemvRows;
-  const T* row = in.table ? in.table + (size_t)(in.idx ? in.idx[0] : in.row) * K : nullptr;
-
-  float inv = 1.f;
-  if (in.ln) {
-    float ss = 0.f;
-    for (int k = tid; k < K; k += kGemvThreads) {
-      const float v = gemv_x(in, row, K, k);
-      ss += v * v;
-    }
-    ss = block_sum(ss, buf);
-    inv = rsqrtf(__fadd_rn(__fmul_rn(ss, 1.f / K), in.eps));
-  }
-  if (tid < kGemvRows) {
-    const int k = k0 + tid;
-    float v = gemv_x(in, row, K, k);
-    if (in.ln) v = round_to<T>(__fmul_rn(__fmul_rn(v, inv), to_float<T>(in.ln[k])));
-    xs[tid] = v;
-  }
-  __syncthreads();
-
-  float acc[VEC];
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) acc[j] = 0.f;
-#pragma unroll
-  for (int r = warp; r < kGemvRows; r += WARPS) {
-    float wv[VEC];
-    load16<T>(w + (size_t)(k0 + r) * N + col0 + lane * VEC, wv);
-    const float xv = xs[r];
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) acc[j] = fmaf(xv, wv[j], acc[j]);
-  }
-#pragma unroll
-  for (int j = 0; j < VEC; ++j) red[warp][lane * VEC + j] = acc[j];
-  __syncthreads();
-  for (int c = tid; c < COLS; c += kGemvThreads) {
-    float s = 0.f;
-#pragma unroll
-    for (int wi = 0; wi < WARPS; ++wi) s += red[wi][c];
-    part[(size_t)blockIdx.y * N + col0 + c] = s;
-  }
-}
 
 // x <- the input row of a position: round(round(row @ mtp_w) + mtp_b) when
 // `part` holds the mtp GEMV, else the raw row of `table`.
@@ -156,24 +60,6 @@ __global__ void embed_post(const float* __restrict__ part, int nsplit, const T* 
   }
 }
 
-// RMSNorm over the block's head_dim values `v`, then split-half RoPE at
-// `pos`, rounding as the plain version. `vals`: blockDim floats of shared
-// scratch; `buf`: block_sum's.
-template <typename T>
-__device__ float qk_norm_rope(float v, const T* __restrict__ w, const float* __restrict__ cos_t,
-                              const float* __restrict__ sin_t, int pos, float eps, float* vals, float* buf) {
-  const int D = blockDim.x, t = threadIdx.x, half = D / 2, f = t < half ? t : t - half;
-  const float ss = block_sum(v * v, buf);
-  const float inv = rsqrtf(__fadd_rn(__fmul_rn(ss, 1.f / D), eps));
-  vals[t] = round_to<T>(__fmul_rn(__fmul_rn(v, inv), to_float<T>(w[t])));
-  __syncthreads();
-  const float c = round_to<T>(cos_t[pos * half + f]), s = round_to<T>(sin_t[pos * half + f]);
-  const float out = t < half ? sub_t<T>(mul_t<T>(vals[t], c), mul_t<T>(vals[t + half], s))
-                             : add_t<T>(mul_t<T>(vals[t], c), mul_t<T>(vals[t - half], s));
-  __syncthreads();  // vals is reused by the next call
-  return out;
-}
-
 // One block per q head (blockDim = head_dim): finish the qkv sums, QK-norm +
 // RoPE on q and on its kv head's k, append k and v to cache row `pos` (the
 // first q head of each kv group writes them), then causal GQA over rows
@@ -181,7 +67,8 @@ __device__ float qk_norm_rope(float v, const T* __restrict__ w, const float* __r
 // to T. Rows < pos were written by earlier launches, so no block reads a row
 // that another block of this launch writes.
 template <typename T>
-__global__ void attention_step(const float* __restrict__ part, int nsplit, const T* __restrict__ qn,
+__global__ void attention_step(const float* __restrict__ part, int nsplit, const float* __restrict__ qkv_s,
+                               const T* __restrict__ qn,
                                const T* __restrict__ kn, const float* __restrict__ cos_t,
                                const float* __restrict__ sin_t, int pos, int Hq, int KV, float eps, float scale,
                                float* __restrict__ kc, float* __restrict__ vc, float* __restrict__ out) {
@@ -190,11 +77,12 @@ __global__ void attention_step(const float* __restrict__ part, int nsplit, const
   __shared__ float sc[kCpMaxRows];
   const int D = blockDim.x, t = threadIdx.x, h = blockIdx.x, group = Hq / KV;
   const int N = (Hq + 2 * KV) * D, kvd = KV * D, col = (h / group) * D + t;
-  const float q = qk_norm_rope<T>(round_to<T>(sum_parts(part, nsplit, N, h * D + t)), qn, cos_t, sin_t, pos, eps,
-                                  vals, buf);
-  const float k = qk_norm_rope<T>(round_to<T>(sum_parts(part, nsplit, N, Hq * D + col)), kn, cos_t, sin_t, pos,
-                                  eps, vals, buf);
-  const float v = round_to<T>(sum_parts(part, nsplit, N, (Hq + KV) * D + col));
+  const int qc = h * D + t, kc_ = Hq * D + col, vc_ = (Hq + KV) * D + col;
+  const float q = qk_norm_rope<T>(round_to<T>(scaled(sum_parts(part, nsplit, N, qc), qkv_s, qc)), qn, cos_t, sin_t,
+                                  pos, eps, vals, buf);
+  const float k = qk_norm_rope<T>(round_to<T>(scaled(sum_parts(part, nsplit, N, kc_), qkv_s, kc_)), kn, cos_t,
+                                  sin_t, pos, eps, vals, buf);
+  const float v = round_to<T>(scaled(sum_parts(part, nsplit, N, vc_), qkv_s, vc_));
   if (h % group == 0) {
     kc[(size_t)pos * kvd + col] = k;
     vc[(size_t)pos * kvd + col] = v;
@@ -216,25 +104,18 @@ __global__ void attention_step(const float* __restrict__ part, int nsplit, const
   out[h * D + t] = round_to<T>(acc);
 }
 
-// x <- round(x + round(sum of the partials)): the o / down residual.
-template <typename T>
-__global__ void residual_add(const float* __restrict__ part, int nsplit, int H, float* __restrict__ x) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < H) x[i] = add_t<T>(x[i], round_to<T>(sum_parts(part, nsplit, H, i)));
-}
-
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
 // Pass 1 of the argmax: each 256-column block of the logits (rounded to T).
 template <typename T>
-__global__ void argmax_partial(const float* __restrict__ part, int nsplit, int V, float* __restrict__ best_v,
-                               int* __restrict__ best_i) {
+__global__ void argmax_partial(const float* __restrict__ part, int nsplit, int V, const float* __restrict__ scale,
+                               float* __restrict__ best_v, int* __restrict__ best_i) {
   __shared__ float sv[256];
   __shared__ int si[256];
   const int t = threadIdx.x, c = blockIdx.x * 256 + t;
-  sv[t] = c < V ? round_to<T>(sum_parts(part, nsplit, V, c)) : -INFINITY;
+  sv[t] = c < V ? round_to<T>(scaled(sum_parts(part, nsplit, V, c), scale, c)) : -INFINITY;
   si[t] = c < V ? c : 0x7fffffff;
   __syncthreads();
   for (int s = 128; s > 0; s >>= 1) {
@@ -274,8 +155,6 @@ struct CpLayout {
   size_t x, attn, part, gu_part, kc, vc, best_v, best_i, total;
 };
 
-static size_t split_size(int k, int n) { return (size_t)(k / kGemvRows) * n; }
-
 static CpLayout cp_layout(const CpDims& d) {
   CpLayout L{};
   size_t o = 0;
@@ -303,33 +182,18 @@ static CpLayout cp_layout(const CpDims& d) {
 
 struct CpArgs {
   const void *xs, *etab, *mtp_w, *mtp_b, *qkv_w, *o_w, *gu_w, *down_w;
+  const float *qkv_s, *o_s, *gu_s, *down_s;  // int8 mode: [L, N] scales; else null
   const void *input_ln, *post_ln, *q_norm, *k_norm, *final_norm, *heads;
+  const float* heads_s;  // int8 mode: [G, V]; else null
   const float *cos_t, *sin_t;
   float eps;
   float* scratch;
   int* codes;
 };
 
-#define Q3_CHECK_LAUNCH()                          \
-  do {                                             \
-    const cudaError_t e_ = cudaGetLastError();     \
-    if (e_ != cudaSuccess) return e_;              \
-  } while (0)
-
-template <typename T>
-static cudaError_t gemv(const GemvInput<T>& in, const T* w, int K, int N, float* part, cudaStream_t st) {
-  constexpr int COLS = 32 * (16 / sizeof(T));
-  const dim3 grid(N / COLS, K / kGemvRows);
-  gemv_partial<T><<<grid, kGemvThreads, 0, st>>>(in, w, K, N, part);
-  return cudaGetLastError();
-}
-
-template <typename T>
-static GemvInput<T> vec_input(const float* xf, const T* ln = nullptr, float eps = 0.f) {
-  return GemvInput<T>{xf, nullptr, nullptr, 0, nullptr, 0, ln, eps};
-}
-
-template <typename T>
+// T: activations, norms, embeddings, mtp projection; W: the layer
+// projections and heads (T, or int8_t with the scales in `a`).
+template <typename T, typename W>
 static cudaError_t run_frame(const CpDims& d, const CpArgs& a, cudaStream_t st) {
   const CpLayout L = cp_layout(d);
   float* s = a.scratch;
@@ -342,19 +206,20 @@ static cudaError_t run_frame(const CpDims& d, const CpArgs& a, cudaStream_t st) 
   const T* etab = static_cast<const T*>(a.etab);
   const T* mtp_w = static_cast<const T*>(a.mtp_w);
   const T* mtp_b = static_cast<const T*>(a.mtp_b);
-  const T* qkv_w = static_cast<const T*>(a.qkv_w);
-  const T* o_w = static_cast<const T*>(a.o_w);
-  const T* gu_w = static_cast<const T*>(a.gu_w);
-  const T* down_w = static_cast<const T*>(a.down_w);
+  const W* qkv_w = static_cast<const W*>(a.qkv_w);
+  const W* o_w = static_cast<const W*>(a.o_w);
+  const W* gu_w = static_cast<const W*>(a.gu_w);
+  const W* down_w = static_cast<const W*>(a.down_w);
   const T* in_ln = static_cast<const T*>(a.input_ln);
   const T* post_ln = static_cast<const T*>(a.post_ln);
   const T* qn = static_cast<const T*>(a.q_norm);
   const T* kn = static_cast<const T*>(a.k_norm);
   const T* fnorm = static_cast<const T*>(a.final_norm);
-  const T* heads = static_cast<const T*>(a.heads);
+  const W* heads = static_cast<const W*>(a.heads);
+  // Per-layer / per-head scale rows (null in plain mode).
+  auto srow = [](const float* s, size_t off) { return s ? s + off : nullptr; };
   const float scale = (float)(1.0 / sqrt((double)D));  // as Python rounds 1/sqrt(D)
   const int ew = 256;
-  const GemvInput<T> swiglu_in{nullptr, nullptr, nullptr, 0, gu_part, H / kGemvRows, nullptr, 0.f};
   cudaError_t e;
 
   for (int p = 0; p <= d.groups; ++p) {
@@ -363,8 +228,8 @@ static cudaError_t run_frame(const CpDims& d, const CpArgs& a, cudaStream_t st) 
     const int* idx = p < 2 ? nullptr : a.codes + (p - 2);
     const int row = p < 2 ? p : 0;
     if (mtp_w) {
-      const GemvInput<T> row_in{nullptr, table, idx, row, nullptr, 0, nullptr, 0.f};
-      if ((e = gemv<T>(row_in, mtp_w, E, H, part, st))) return e;
+      const GemvInput<T> row_in{nullptr, table, idx, row, nullptr, 0, nullptr, nullptr, 0.f};
+      if ((e = gemv<T, T>(row_in, mtp_w, E, H, part, st))) return e;
       embed_post<T><<<(H + ew - 1) / ew, ew, 0, st>>>(part, E / kGemvRows, mtp_b, nullptr, nullptr, 0, H, x);
     } else {
       embed_post<T><<<(H + ew - 1) / ew, ew, 0, st>>>(nullptr, 0, nullptr, table, idx, row, H, x);
@@ -373,29 +238,32 @@ static cudaError_t run_frame(const CpDims& d, const CpArgs& a, cudaStream_t st) 
 
     for (int l = 0; l < d.layers; ++l) {
       // RMSNorm -> qkv; QK-norm + RoPE + KV append + GQA; o; residual.
-      if ((e = gemv<T>(vec_input<T>(x, in_ln + (size_t)l * H, a.eps), qkv_w + (size_t)l * H * nqkv, H, nqkv, part,
-                       st)))
+      if ((e = gemv<T, W>(vec_input<T>(x, in_ln + (size_t)l * H, a.eps), qkv_w + (size_t)l * H * nqkv, H, nqkv,
+                          part, st)))
         return e;
-      attention_step<T><<<Hq, D, 0, st>>>(part, H / kGemvRows, qn + (size_t)l * D, kn + (size_t)l * D, a.cos_t,
-                                          a.sin_t, p, Hq, KV, a.eps, scale, kc + (size_t)l * kCpMaxRows * kvd,
-                                          vc + (size_t)l * kCpMaxRows * kvd, attn);
+      attention_step<T><<<Hq, D, 0, st>>>(part, H / kGemvRows, srow(a.qkv_s, (size_t)l * nqkv), qn + (size_t)l * D,
+                                          kn + (size_t)l * D, a.cos_t, a.sin_t, p, Hq, KV, a.eps, scale,
+                                          kc + (size_t)l * kCpMaxRows * kvd, vc + (size_t)l * kCpMaxRows * kvd, attn);
       Q3_CHECK_LAUNCH();
-      if ((e = gemv<T>(vec_input<T>(attn), o_w + (size_t)l * qd * H, qd, H, part, st))) return e;
-      residual_add<T><<<(H + ew - 1) / ew, ew, 0, st>>>(part, qd / kGemvRows, H, x);
+      if ((e = gemv<T, W>(vec_input<T>(attn), o_w + (size_t)l * qd * H, qd, H, part, st))) return e;
+      residual_add<T><<<(H + ew - 1) / ew, ew, 0, st>>>(part, qd / kGemvRows, H, srow(a.o_s, (size_t)l * H), x);
       Q3_CHECK_LAUNCH();
       // RMSNorm -> gate|up; SiLU*up feeding down; residual.
-      if ((e = gemv<T>(vec_input<T>(x, post_ln + (size_t)l * H, a.eps), gu_w + (size_t)l * H * 2 * I, H, 2 * I,
-                       gu_part, st)))
+      if ((e = gemv<T, W>(vec_input<T>(x, post_ln + (size_t)l * H, a.eps), gu_w + (size_t)l * H * 2 * I, H, 2 * I,
+                          gu_part, st)))
         return e;
-      if ((e = gemv<T>(swiglu_in, down_w + (size_t)l * I * H, I, H, part, st))) return e;
-      residual_add<T><<<(H + ew - 1) / ew, ew, 0, st>>>(part, I / kGemvRows, H, x);
+      const GemvInput<T> swiglu_in{nullptr, nullptr, nullptr, 0, gu_part, H / kGemvRows,
+                                   srow(a.gu_s, (size_t)l * 2 * I), nullptr, 0.f};
+      if ((e = gemv<T, W>(swiglu_in, down_w + (size_t)l * I * H, I, H, part, st))) return e;
+      residual_add<T><<<(H + ew - 1) / ew, ew, 0, st>>>(part, I / kGemvRows, H, srow(a.down_s, (size_t)l * H), x);
       Q3_CHECK_LAUNCH();
     }
 
     if (p >= 1) {  // head p-1 predicts code p-1
-      if ((e = gemv<T>(vec_input<T>(x, fnorm, a.eps), heads + (size_t)(p - 1) * H * V, H, V, part, st))) return e;
+      if ((e = gemv<T, W>(vec_input<T>(x, fnorm, a.eps), heads + (size_t)(p - 1) * H * V, H, V, part, st))) return e;
       const int nb = (V + 255) / 256;
-      argmax_partial<T><<<nb, 256, 0, st>>>(part, H / kGemvRows, V, best_v, best_i);
+      argmax_partial<T><<<nb, 256, 0, st>>>(part, H / kGemvRows, V, srow(a.heads_s, (size_t)(p - 1) * V), best_v,
+                                            best_i);
       Q3_CHECK_LAUNCH();
       argmax_final<<<1, 1, 0, st>>>(best_v, best_i, nb, a.codes + (p - 1));
       Q3_CHECK_LAUNCH();
@@ -404,14 +272,16 @@ static cudaError_t run_frame(const CpDims& d, const CpArgs& a, cudaStream_t st) 
   return cudaSuccess;
 }
 
-static bool cp_dims_ok(const CpDims& d, int dtype) {
-  const int cols = dtype == 0 ? 128 : 256;  // GEMV columns per block
+static bool cp_dims_ok(const CpDims& d, int dtype, int int8) {
+  const int cols = int8 ? gemv_cols<int8_t>() : dtype == 0 ? gemv_cols<float>() : gemv_cols<__nv_bfloat16>();
   const int ns[] = {d.nqkv(), d.hidden, 2 * d.inter, d.vocab};
   for (int n : ns)
     if (n % cols) return false;
   const int ks[] = {d.hidden, d.qdim(), d.inter, d.embed};
   for (int k : ks)
     if (k % kGemvRows) return false;
+  // The mtp projection [E, H] keeps the working type in both modes.
+  if (d.hidden % (dtype == 0 ? gemv_cols<float>() : gemv_cols<__nv_bfloat16>())) return false;
   return d.groups + 1 <= kCpMaxRows && d.head_dim % 64 == 0 && d.head_dim <= 256 && d.heads % d.kv_heads == 0 &&
          d.vocab <= 256 * 256 && d.layers > 0;
 }
@@ -421,31 +291,43 @@ static bool cp_dims_ok(const CpDims& d, int dtype) {
 extern "C" {
 
 // Floats of f32 scratch one frame needs (0 when the shapes are unsupported).
-size_t q3_cp_frame_scratch_floats(int dtype, int layers, int hidden, int heads, int kv_heads, int head_dim,
-                                  int inter, int vocab, int embed, int groups) {
+size_t q3_cp_frame_scratch_floats(int dtype, int int8, int layers, int hidden, int heads, int kv_heads,
+                                  int head_dim, int inter, int vocab, int embed, int groups) {
   const q3::CpDims d{layers, hidden, heads, kv_heads, head_dim, inter, vocab, embed, groups};
-  return q3::cp_dims_ok(d, dtype) ? q3::cp_layout(d).total : 0;
+  return q3::cp_dims_ok(d, dtype, int8) ? q3::cp_layout(d).total : 0;
 }
 
 // All `groups` acoustic codes of one frame into `codes` (int32, on device).
-// dtype 0 = f32, 1 = bf16 for every weight and activation. Weight layouts
-// (fused, stacked over layers, [in, out]): qkv_w [L, H, (Hq+2KV)*D],
-// o_w [L, Hq*D, H], gu_w [L, H, 2I], down_w [L, I, H]; input_ln/post_ln
-// [L, H], q_norm/k_norm [L, D], final_norm [H], heads [G, H, V],
-// etab [G, V, E], xs [2, E] (talker hidden, semantic embedding), mtp_w
-// [E, H] and mtp_b [H] or both null; cos_t/sin_t [16, D/2] f32.
-int q3_cp_frame(int dtype, const void* xs, const void* etab, const void* mtp_w, const void* mtp_b,
-                const void* qkv_w, const void* o_w, const void* gu_w, const void* down_w, const void* input_ln,
+// dtype 0 = f32, 1 = bf16 for activations, norms, embeddings and the mtp
+// projection; int8 = 0: the layer projections and heads in that dtype too,
+// and the five scale pointers null; int8 = 1: those weights int8 with f32
+// per-column scales (qkv_s [L, (Hq+2KV)*D], o_s [L, H], gu_s [L, 2I],
+// down_s [L, H], heads_s [G, V]). Weight layouts (fused, stacked over
+// layers, [in, out]): qkv_w [L, H, (Hq+2KV)*D], o_w [L, Hq*D, H], gu_w
+// [L, H, 2I], down_w [L, I, H]; input_ln/post_ln [L, H], q_norm/k_norm
+// [L, D], final_norm [H], heads [G, H, V], etab [G, V, E], xs [2, E]
+// (talker hidden, semantic embedding), mtp_w [E, H] and mtp_b [H] or both
+// null; cos_t/sin_t [16, D/2] f32.
+int q3_cp_frame(int dtype, int int8, const void* xs, const void* etab, const void* mtp_w, const void* mtp_b,
+                const void* qkv_w, const void* o_w, const void* gu_w, const void* down_w, const float* qkv_s,
+                const float* o_s, const float* gu_s, const float* down_s, const void* input_ln,
                 const void* post_ln, const void* q_norm, const void* k_norm, const void* final_norm,
-                const void* heads, const float* cos_t, const float* sin_t, int layers, int hidden, int n_heads,
-                int kv_heads, int head_dim, int inter, int vocab, int embed, int groups, float eps,
-                float* scratch, int* codes, void* stream) {
+                const void* heads, const float* heads_s, const float* cos_t, const float* sin_t, int layers,
+                int hidden, int n_heads, int kv_heads, int head_dim, int inter, int vocab, int embed, int groups,
+                float eps, float* scratch, int* codes, void* stream) {
   const q3::CpDims d{layers, hidden, n_heads, kv_heads, head_dim, inter, vocab, embed, groups};
-  if (!q3::cp_dims_ok(d, dtype) || (!mtp_w && embed != hidden)) return (int)cudaErrorInvalidValue;
-  const q3::CpArgs a{xs,     etab,   mtp_w,      mtp_b, qkv_w, o_w,   gu_w,    down_w, input_ln, post_ln,
-                     q_norm, k_norm, final_norm, heads, cos_t, sin_t, eps,     scratch, codes};
+  if (!q3::cp_dims_ok(d, dtype, int8) || (!mtp_w && embed != hidden)) return (int)cudaErrorInvalidValue;
+  if (int8 && !(qkv_s && o_s && gu_s && down_s && heads_s)) return (int)cudaErrorInvalidValue;
+  if (!int8) qkv_s = o_s = gu_s = down_s = heads_s = nullptr;
+  const q3::CpArgs a{xs,       etab,    mtp_w,  mtp_b,  qkv_w,      o_w,   gu_w,    down_w, qkv_s,
+                     o_s,      gu_s,    down_s, input_ln, post_ln, q_norm, k_norm, final_norm, heads,
+                     heads_s,  cos_t,   sin_t,  eps,    scratch,    codes};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = dtype == 0 ? q3::run_frame<float>(d, a, st) : q3::run_frame<__nv_bfloat16>(d, a, st);
+  cudaError_t e;
+  if (int8)
+    e = dtype == 0 ? q3::run_frame<float, int8_t>(d, a, st) : q3::run_frame<__nv_bfloat16, int8_t>(d, a, st);
+  else
+    e = dtype == 0 ? q3::run_frame<float, float>(d, a, st) : q3::run_frame<__nv_bfloat16, __nv_bfloat16>(d, a, st);
   return (int)e;
 }
 

@@ -1,0 +1,302 @@
+// Kernel 3 of the port: one batch-1 talker decode step on int8 weights.
+//
+// Replaces the TPU kernel qwen3_tts_tpu/ops/fused_layer.py:
+// _streamed_talker_kernel (entry streamed_talker_step): the step's input
+// embedding through every talker layer (RMSNorm -> int8 qkv -> QK-norm ->
+// RoPE -> KV append at row `pos` -> GQA over the cache rows <= pos -> int8 o
+// -> residual -> RMSNorm -> int8 gate|up -> SiLU*up -> int8 down ->
+// residual), returning the last layer's output (the final norm and codec
+// head stay outside, as in the JAX package).
+//
+// What bounds it on an H100: at 1.7B a step streams 28 layers x 50.3 MB of
+// int8 weights (1.41 GB, ~0.42 ms at 3.35 TB/s) plus the live cache rows
+// (2 x 28 x (pos+1) x 1024 bf16: 117 KB per row); one GEMV per projection
+// at batch 1, so bytes, not flops -- and in this first version the ~250
+// dependent launches of a step.
+//
+// Design: one C entry point per step runs a fixed sequence of simple
+// kernels on the caller's stream, built from the split-K GEMV of the
+// code-predictor frame (common.cuh): int8 weights read one byte each with
+// the per-column scale applied once to the finished column sum (the JAX
+// kernel's `acc * scale`), RMSNorm and SiLU*up fused into the GEMV input
+// staging, fixed-order partial sums (deterministic, no atomics). The TPU
+// kernel's [H, H] tile re-layout, weight DMA ring, per-layer cache-plane
+// copies and 16-row write-back slab are TPU artefacts: here the weights stay
+// in the canonical [L, K, N] layout and the step writes row `pos` of each
+// layer's K and V in place in the [L, S, KV*D] cache view. Attention splits
+// the rows <= pos into 64-row chunks (a block per q head and chunk: 16 x 33
+// blocks at the 2048-frame tier), in three passes with a fixed-order
+// combine: scores and each chunk's maximum; exp against the maximum over
+// all chunks, each chunk's weight sum and weighted value sum (weights
+// rounded to the working type); the combine and division. The result does
+// not depend on timing or on the chunking of other blocks.
+
+#include <algorithm>
+
+#include "common.cuh"
+
+namespace q3 {
+
+constexpr int kAttnChunk = 64;   // cache rows per attention block
+constexpr int kAttnWarps = 4;    // warps of a score block (one row per warp at a time)
+
+struct TalkerDims {
+  int layers, hidden, heads, kv_heads, head_dim, inter, max_seq;
+  int qdim() const { return heads * head_dim; }
+  int kvdim() const { return kv_heads * head_dim; }
+  int nqkv() const { return qdim() + 2 * kvdim(); }
+  int nchunks() const { return (max_seq + kAttnChunk - 1) / kAttnChunk; }
+};
+
+struct TalkerLayout {
+  size_t x, q, attn, part, gu_part, scores, cmax, lsum, acc, total;
+};
+
+static TalkerLayout talker_layout(const TalkerDims& d) {
+  TalkerLayout L{};
+  size_t o = 0;
+  auto take = [&](size_t n) {
+    const size_t at = o;
+    o += (n + 63) / 64 * 64;
+    return at;
+  };
+  size_t part = split_size(d.hidden, d.nqkv());
+  part = std::max(part, split_size(d.qdim(), d.hidden));
+  part = std::max(part, split_size(d.inter, d.hidden));
+  const size_t hc = (size_t)d.heads * d.nchunks();
+  L.x = take(d.hidden);
+  L.q = take(d.qdim());
+  L.attn = take(d.qdim());
+  L.part = take(part);
+  L.gu_part = take(split_size(d.hidden, 2 * d.inter));
+  L.scores = take((size_t)d.heads * d.max_seq);
+  L.cmax = take(hc);
+  L.lsum = take(hc);
+  L.acc = take(hc * d.head_dim);
+  L.total = o;
+  return L;
+}
+
+template <typename T>
+__global__ void load_input(const T* __restrict__ in, int H, float* __restrict__ x) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < H) x[i] = to_float<T>(in[i]);
+}
+
+template <typename T>
+__global__ void store_output(const float* __restrict__ x, int H, T* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < H) out[i] = from_float<T>(x[i]);
+}
+
+// Blocks 0..Hq-1 (blockDim = head_dim): q head b, finished from the qkv
+// partials (round_T(sum * scale)), QK-normed and rotated, into `q`. Blocks
+// Hq..Hq+KV-1: kv head j's k (normed, rotated) and v, written to cache row
+// `pos` of this layer. Every later pass reads row `pos` from the cache.
+template <typename T>
+__global__ void qkv_finish(const float* __restrict__ part, int nsplit, const float* __restrict__ qkv_s,
+                           const T* __restrict__ qn, const T* __restrict__ kn, const float* __restrict__ cos_t,
+                           const float* __restrict__ sin_t, int pos, int Hq, int KV, float eps, float* __restrict__ q,
+                           T* __restrict__ ck, T* __restrict__ cv) {
+  __shared__ float vals[256];
+  __shared__ float buf[32];
+  const int D = blockDim.x, t = threadIdx.x, b = blockIdx.x;
+  const int qd = Hq * D, kvd = KV * D, N = qd + 2 * kvd;
+  if (b < Hq) {
+    const int c = b * D + t;
+    q[c] = qk_norm_rope<T>(round_to<T>(scaled(sum_parts(part, nsplit, N, c), qkv_s, c)), qn, cos_t, sin_t, pos, eps,
+                           vals, buf);
+  } else {
+    const int col = (b - Hq) * D + t, kc = qd + col, vc = qd + kvd + col;
+    const float k = qk_norm_rope<T>(round_to<T>(scaled(sum_parts(part, nsplit, N, kc), qkv_s, kc)), kn, cos_t, sin_t,
+                                    pos, eps, vals, buf);
+    const float v = round_to<T>(scaled(sum_parts(part, nsplit, N, vc), qkv_s, vc));
+    ck[(size_t)pos * kvd + col] = from_float<T>(k);
+    cv[(size_t)pos * kvd + col] = from_float<T>(v);
+  }
+}
+
+// Pass 1, grid (Hq, chunks up to pos), kAttnWarps warps: scores[h, r] =
+// (q_h . k_r) * scale for the chunk's rows r <= pos, a warp per row at a
+// time (lanes own head_dim/32 dims, butterfly sum), and the chunk's maximum.
+template <typename T>
+__global__ void __launch_bounds__(kAttnWarps * 32)
+attn_scores(const float* __restrict__ q, const T* __restrict__ ck, int pos, int Hq, int KV, int D, int S,
+            float scale, float* __restrict__ scores, float* __restrict__ cmax) {
+  __shared__ float qs[256];
+  __shared__ float wmax[kAttnWarps];
+  const int h = blockIdx.x, c = blockIdx.y, nch = gridDim.y, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int kvd = KV * D, koff = (h / (Hq / KV)) * D, per = D / 32;
+  for (int i = t; i < D; i += blockDim.x) qs[i] = q[h * D + i];
+  __syncthreads();
+  const int r0 = c * kAttnChunk, r1 = min(r0 + kAttnChunk, pos + 1);
+  float m = -INFINITY;
+  for (int r = r0 + warp; r < r1; r += kAttnWarps) {
+    const T* krow = ck + (size_t)r * kvd + koff + lane * per;
+    float s = 0.f;
+    for (int j = 0; j < per; ++j) s = fmaf(qs[lane * per + j], to_float<T>(krow[j]), s);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    s = __fmul_rn(s, scale);
+    if (lane == 0) scores[(size_t)h * S + r] = s;
+    m = fmaxf(m, s);
+  }
+  if (lane == 0) wmax[warp] = m;
+  __syncthreads();
+  if (t == 0) {
+    float bm = wmax[0];
+    for (int w = 1; w < kAttnWarps; ++w) bm = fmaxf(bm, wmax[w]);
+    cmax[h * nch + c] = bm;
+  }
+}
+
+// Pass 2, grid (Hq, chunks), blockDim = head_dim: against the maximum over
+// all chunks, p_r = exp(s_r - max); the chunk's sum of p (f32) and, per
+// dim, sum of round_T(p_r) * v_r.
+template <typename T>
+__global__ void attn_values(const float* __restrict__ scores, const float* __restrict__ cmax,
+                            const T* __restrict__ cv, int pos, int Hq, int KV, int S, float* __restrict__ lsum,
+                            float* __restrict__ acc) {
+  const int h = blockIdx.x, c = blockIdx.y, nch = gridDim.y, D = blockDim.x, t = threadIdx.x;
+  const int kvd = KV * D, voff = (h / (Hq / KV)) * D;
+  float mx = cmax[h * nch];
+  for (int i = 1; i < nch; ++i) mx = fmaxf(mx, cmax[h * nch + i]);
+  const int r0 = c * kAttnChunk, r1 = min(r0 + kAttnChunk, pos + 1);
+  float l = 0.f, a = 0.f;
+  for (int r = r0; r < r1; ++r) {
+    const float p = expf(__fsub_rn(scores[(size_t)h * S + r], mx));
+    l += p;
+    a = fmaf(round_to<T>(p), to_float<T>(cv[(size_t)r * kvd + voff + t]), a);
+  }
+  acc[((size_t)h * nch + c) * D + t] = a;
+  if (t == 0) lsum[h * nch + c] = l;
+}
+
+// Pass 3, grid Hq, blockDim = head_dim: chunks added in order, divided.
+// The o GEMV rounds the result to bf16 in its input staging.
+__global__ void attn_combine(const float* __restrict__ lsum, const float* __restrict__ acc, int nch,
+                             float* __restrict__ out) {
+  const int h = blockIdx.x, D = blockDim.x, t = threadIdx.x;
+  float l = 0.f, a = 0.f;
+  for (int c = 0; c < nch; ++c) {
+    l += lsum[h * nch + c];
+    a += acc[((size_t)h * nch + c) * D + t];
+  }
+  out[h * D + t] = __fdiv_rn(a, l);
+}
+
+struct TalkerArgs {
+  const void* x;
+  const int8_t *qkv_w, *o_w, *gu_w, *down_w;
+  const float *qkv_s, *o_s, *gu_s, *down_s;
+  const void *input_ln, *post_ln, *q_norm, *k_norm;
+  const float *cos_t, *sin_t;
+  void *ck, *cv;
+  int pos;
+  float eps;
+  float* scratch;
+  void* y;
+};
+
+template <typename T>
+static cudaError_t run_step(const TalkerDims& d, const TalkerArgs& a, cudaStream_t st) {
+  const TalkerLayout Lo = talker_layout(d);
+  float* s = a.scratch;
+  float *x = s + Lo.x, *q = s + Lo.q, *attn = s + Lo.attn, *part = s + Lo.part, *gu_part = s + Lo.gu_part;
+  float *scores = s + Lo.scores, *cmax = s + Lo.cmax, *lsum = s + Lo.lsum, *acc = s + Lo.acc;
+  const int H = d.hidden, D = d.head_dim, I = d.inter, S = d.max_seq;
+  const int Hq = d.heads, KV = d.kv_heads, kvd = d.kvdim(), qd = d.qdim(), nqkv = d.nqkv();
+  const T* in_ln = static_cast<const T*>(a.input_ln);
+  const T* post_ln = static_cast<const T*>(a.post_ln);
+  const T* qn = static_cast<const T*>(a.q_norm);
+  const T* kn = static_cast<const T*>(a.k_norm);
+  T* ck = static_cast<T*>(a.ck);
+  T* cv = static_cast<T*>(a.cv);
+  const float scale = (float)(1.0 / sqrt((double)D));  // as Python rounds 1/sqrt(D)
+  const int ew = 256, nlive = a.pos / kAttnChunk + 1;
+  const dim3 attn_grid(Hq, nlive);
+  cudaError_t e;
+
+  load_input<T><<<(H + ew - 1) / ew, ew, 0, st>>>(static_cast<const T*>(a.x), H, x);
+  Q3_CHECK_LAUNCH();
+  for (int l = 0; l < d.layers; ++l) {
+    T* ckl = ck + (size_t)l * S * kvd;
+    T* cvl = cv + (size_t)l * S * kvd;
+    // RMSNorm -> qkv; q / k norms, RoPE, k|v append; attention; o; residual.
+    if ((e = gemv<T, int8_t>(vec_input<T>(x, in_ln + (size_t)l * H, a.eps), a.qkv_w + (size_t)l * H * nqkv, H, nqkv,
+                             part, st)))
+      return e;
+    qkv_finish<T><<<Hq + KV, D, 0, st>>>(part, H / kGemvRows, a.qkv_s + (size_t)l * nqkv, qn + (size_t)l * D,
+                                         kn + (size_t)l * D, a.cos_t, a.sin_t, a.pos, Hq, KV, a.eps, q, ckl, cvl);
+    Q3_CHECK_LAUNCH();
+    attn_scores<T><<<attn_grid, kAttnWarps * 32, 0, st>>>(q, ckl, a.pos, Hq, KV, D, S, scale, scores, cmax);
+    Q3_CHECK_LAUNCH();
+    attn_values<T><<<attn_grid, D, 0, st>>>(scores, cmax, cvl, a.pos, Hq, KV, S, lsum, acc);
+    Q3_CHECK_LAUNCH();
+    attn_combine<<<Hq, D, 0, st>>>(lsum, acc, nlive, attn);
+    Q3_CHECK_LAUNCH();
+    if ((e = gemv<T, int8_t>(vec_input<T>(attn), a.o_w + (size_t)l * qd * H, qd, H, part, st))) return e;
+    residual_add<T><<<(H + ew - 1) / ew, ew, 0, st>>>(part, qd / kGemvRows, H, a.o_s + (size_t)l * H, x);
+    Q3_CHECK_LAUNCH();
+    // RMSNorm -> gate|up; SiLU*up feeding down; residual.
+    if ((e = gemv<T, int8_t>(vec_input<T>(x, post_ln + (size_t)l * H, a.eps), a.gu_w + (size_t)l * H * 2 * I, H,
+                             2 * I, gu_part, st)))
+      return e;
+    const GemvInput<T> swiglu_in{nullptr, nullptr, nullptr, 0, gu_part, H / kGemvRows,
+                                 a.gu_s + (size_t)l * 2 * I, nullptr, 0.f};
+    if ((e = gemv<T, int8_t>(swiglu_in, a.down_w + (size_t)l * I * H, I, H, part, st))) return e;
+    residual_add<T><<<(H + ew - 1) / ew, ew, 0, st>>>(part, I / kGemvRows, H, a.down_s + (size_t)l * H, x);
+    Q3_CHECK_LAUNCH();
+  }
+  store_output<T><<<(H + ew - 1) / ew, ew, 0, st>>>(x, H, static_cast<T*>(a.y));
+  Q3_CHECK_LAUNCH();
+  return cudaSuccess;
+}
+
+static bool talker_dims_ok(const TalkerDims& d) {
+  const int cols = gemv_cols<int8_t>();
+  const int ns[] = {d.nqkv(), d.hidden, 2 * d.inter};
+  for (int n : ns)
+    if (n % cols) return false;
+  const int ks[] = {d.hidden, d.qdim(), d.inter};
+  for (int k : ks)
+    if (k % kGemvRows) return false;
+  return d.head_dim % 32 == 0 && d.head_dim <= 256 && d.heads % d.kv_heads == 0 && d.layers > 0 &&
+         d.max_seq > 0;
+}
+
+}  // namespace q3
+
+extern "C" {
+
+// Floats of f32 scratch one step needs (0 when the shapes are unsupported).
+size_t q3_talker_step_scratch_floats(int dtype, int layers, int hidden, int heads, int kv_heads, int head_dim,
+                                     int inter, int max_seq) {
+  const q3::TalkerDims d{layers, hidden, heads, kv_heads, head_dim, inter, max_seq};
+  return (dtype == 0 || dtype == 1) && q3::talker_dims_ok(d) ? q3::talker_layout(d).total : 0;
+}
+
+// One decode step: y [H] <- the last layer's output for input x [H], and
+// row `pos` of every layer of ck, cv [L, S, KV*D] written in place. dtype
+// 0 = f32, 1 = bf16 for x, y, the norms and the caches. Int8 weights
+// (fused, stacked over layers, [in, out]) with f32 per-column scales:
+// qkv_w [L, H, (Hq+2KV)*D] / qkv_s [L, (Hq+2KV)*D], o_w [L, Hq*D, H] / o_s
+// [L, H], gu_w [L, H, 2I] / gu_s [L, 2I], down_w [L, I, H] / down_s [L, H];
+// input_ln/post_ln [L, H], q_norm/k_norm [L, D]; cos_t/sin_t [S, D/2] f32.
+int q3_talker_step(int dtype, const void* x, const int8_t* qkv_w, const float* qkv_s, const int8_t* o_w,
+                   const float* o_s, const int8_t* gu_w, const float* gu_s, const int8_t* down_w,
+                   const float* down_s, const void* input_ln, const void* post_ln, const void* q_norm,
+                   const void* k_norm, const float* cos_t, const float* sin_t, void* ck, void* cv, int layers,
+                   int hidden, int heads, int kv_heads, int head_dim, int inter, int max_seq, int pos, float eps,
+                   float* scratch, void* y, void* stream) {
+  const q3::TalkerDims d{layers, hidden, heads, kv_heads, head_dim, inter, max_seq};
+  if (!(dtype == 0 || dtype == 1) || !q3::talker_dims_ok(d) || pos < 0 || pos >= max_seq)
+    return (int)cudaErrorInvalidValue;
+  const q3::TalkerArgs a{x,        qkv_w,   o_w,    gu_w,   down_w, qkv_s, o_s, gu_s,    down_s, input_ln,
+                         post_ln,  q_norm,  k_norm, cos_t,  sin_t,  ck,    cv,  pos,     eps,    scratch, y};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t e = dtype == 0 ? q3::run_step<float>(d, a, st) : q3::run_step<__nv_bfloat16>(d, a, st);
+  return (int)e;
+}
+
+}  // extern "C"

@@ -90,6 +90,9 @@ def generate_frames(
     max_new = state.frames.shape[0]
     frame_limit = min(frame_limit, max_new)  # never run past the frames buffer
     tb = trailing.shape[0]
+    # Whole-step kernel mode: take the cache's [L, S, KV*D] plane views once
+    # for the whole loop (views of the same memory, written in place).
+    planes = talker.plane_views(state.cache) if talker.stream_plane_mode(talker_params, tcfg, state.cache) else None
 
     while state.frame_idx < frame_limit and not bool(state.done):
         idx = state.frame_idx
@@ -102,7 +105,10 @@ def generate_frames(
         text_add = trailing[min(idx, tb - 1)] if idx < trailing_len else pad_embed
         step_input = semantic_embed + acoustic_sum + text_add.to(semantic_embed.dtype)[None, None, :]
 
-        hidden, logits = talker.decode_step(talker_params, tcfg, step_input, state.pos, state.cache)
+        if planes is not None:
+            hidden, logits = talker.decode_step_planes(talker_params, tcfg, step_input, state.pos, *planes)
+        else:
+            hidden, logits = talker.decode_step(talker_params, tcfg, step_input, state.pos, state.cache)
 
         token_count = idx + 1
         logits = sampling.apply_generation_penalties(

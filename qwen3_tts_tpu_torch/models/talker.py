@@ -2,8 +2,11 @@
 
 PyTorch port of the CustomVoice path of ``qwen3_tts_tpu/models/talker.py``
 (dual text/codec embeddings, SiLU text projection, final norm + codec head).
-The talker runs on the plain layer path (``ops/nn.py``); the plane, tensor-
-parallel and ICL variants of the JAX module are not ported yet.
+The prefill runs on the layer path (``ops/nn.py``, plain or int8 weights).
+A decode step with int8 weights runs the whole-step kernel on the cache's
+[L, S, KV*D] plane view (``stream_plane_mode``, ``decode_step_planes``);
+otherwise the layer path. The tensor-parallel and ICL variants of the JAX
+module are not ported yet.
 
 CustomVoice prompt layout, 10 positions:
     [0..3)  text_proj(text_emb([im_start, assistant, newline]))
@@ -17,7 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..ops import nn
+from ..ops import fused_layer, nn
+from ..ops.quant import mm
 from . import tokens as T
 from .config import TalkerConfig
 
@@ -101,7 +105,7 @@ def forward(
 
 def codec_logits(params: dict, hidden: torch.Tensor) -> torch.Tensor:
     """Codec head on (already normed) hidden states: [..., codec_vocab]."""
-    return hidden @ params["codec_head"]
+    return mm(hidden, params["codec_head"])
 
 
 def prefill(
@@ -123,6 +127,45 @@ def prefill(
     return last, codec_logits(params, last)[:, 0, :]
 
 
+def stream_plane_mode(params: dict, cfg: TalkerConfig, cache: nn.KVCache) -> bool:
+    """True when decode steps run the whole-step int8 kernel, which takes the
+    cache as [L, S, KV*D] planes: int8 fused weights whose dims tile by the
+    hidden size, a batch-1 cache, and at most ``TALKER_STREAM_MAX_SEQ`` rows
+    (the JAX package's gate, without its stream pack).
+
+    Callers that loop decode steps (``generation/core.py``) take the plane
+    views once per loop; the cache is contiguous, so the views are free.
+    """
+    return (
+        fused_layer.stream_dims_ok(params["layers"], cfg.hidden_size)
+        and cache.k.ndim == 5
+        and cache.k.shape[1] == 1
+        and cache.max_seq <= fused_layer.TALKER_STREAM_MAX_SEQ
+    )
+
+
+def plane_views(cache: nn.KVCache) -> tuple[torch.Tensor, torch.Tensor]:
+    """[L, S, KV*D] views of a batch-1 cache [L, 1, S, KV, D] (no copy)."""
+    layers, _, seq, kv, d = cache.k.shape
+    return cache.k.view(layers, seq, kv * d), cache.v.view(layers, seq, kv * d)
+
+
+def decode_step_planes(
+    params: dict,
+    cfg: TalkerConfig,
+    step_embed: torch.Tensor,
+    pos: int,
+    ck: torch.Tensor,
+    cv: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One whole-step kernel generation step on the plane views [L, S, KV*D]
+    (row ``pos`` written in place). Returns (normed hidden [1,1,hidden],
+    logits [1, codec_vocab])."""
+    h = fused_layer.talker_step(params["layers"], step_embed, cfg.layer_stack(), ck, cv, pos)
+    h = nn.rms_norm(h, params["norm"], cfg.rms_norm_eps)
+    return h, codec_logits(params, h)[:, 0, :]
+
+
 def decode_step(
     params: dict,
     cfg: TalkerConfig,
@@ -132,9 +175,13 @@ def decode_step(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One generation step with a pre-fused input embedding [1, 1, hidden].
 
-    Writes cache row ``pos`` in place. Returns (normed hidden [1,1,hidden],
-    logits [1, codec_vocab]).
+    Writes cache row ``pos`` in place. With int8 weights and a cache the
+    kernel takes (``stream_plane_mode``) the whole step is one
+    ``fused_layer.talker_step``; otherwise the layer path. Returns (normed
+    hidden [1,1,hidden], logits [1, codec_vocab]).
     """
+    if stream_plane_mode(params, cfg, cache):
+        return decode_step_planes(params, cfg, step_embed, pos, *plane_views(cache))
     positions = torch.full((1,), pos, dtype=torch.int64, device=step_embed.device)
     h = forward(params, cfg, step_embed, cache, positions, pos)
     return h, codec_logits(params, h)[:, 0, :]

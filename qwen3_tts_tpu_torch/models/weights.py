@@ -58,10 +58,13 @@ def from_numpy_tree(tree, device: torch.device | str, dtype: torch.dtype | None 
 
     Dicts, lists and tuples keep their structure; a ``None`` leaf (e.g.
     ``mtp_proj`` on the 0.6B code predictor) stays ``None``. Float leaves are
-    cast to ``dtype`` when it is given.
+    cast to ``dtype`` when it is given, except inside a quantized linear
+    (``{"q8", "scale"}``), whose int8 weights and f32 scales are kept.
     """
     if tree is None:
         return None
+    if isinstance(tree, dict) and "q8" in tree:
+        return {k: _to_tensor(v, device, None) for k, v in tree.items()}
     if isinstance(tree, dict):
         return {k: from_numpy_tree(v, device, dtype) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

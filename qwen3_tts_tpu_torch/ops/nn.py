@@ -3,7 +3,8 @@
 PyTorch port of ``qwen3_tts_tpu/ops/nn.py``, in the JAX package's layout:
 
 * Layer weights are stacked along a leading layer axis (``[L, in, out]``,
-  so a projection is ``x @ w``); ``run_layer_stack`` loops over the layers.
+  so a projection is ``x @ w``, or ``quant.mm`` for int8 weights);
+  ``run_layer_stack`` loops over the layers.
 * KV caches are fixed-shape ``[num_layers, batch, max_seq, kv_heads,
   head_dim]`` tensors. Where JAX updates them functionally, the port writes
   the new rows **in place** (no second copy of the cache per step).
@@ -25,6 +26,8 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from .quant import mm
 
 
 @dataclass(frozen=True)
@@ -108,13 +111,15 @@ def swiglu(x: torch.Tensor, gate_w: torch.Tensor, up_w: torch.Tensor, down_w: to
     return (F.silu(x @ gate_w) * (x @ up_w)) @ down_w
 
 
-def swiglu_layer(layer_params: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU using either fused [gate|up] or separate projections."""
+def swiglu_layer(layer_params: dict, x: torch.Tensor, matmul=mm) -> torch.Tensor:
+    """SwiGLU using either fused [gate|up] or separate projections, plain
+    or int8 (``matmul``: ``quant.mm``, or ``quant.mm_plain``)."""
     if "gateup_proj" in layer_params:
-        gu = x @ layer_params["gateup_proj"]
+        gu = matmul(x, layer_params["gateup_proj"])
         inter = gu.shape[-1] // 2
-        return (F.silu(gu[..., :inter]) * gu[..., inter:]) @ layer_params["down_proj"]
-    return swiglu(x, layer_params["gate_proj"], layer_params["up_proj"], layer_params["down_proj"])
+        return matmul(F.silu(gu[..., :inter]) * gu[..., inter:], layer_params["down_proj"])
+    gate = F.silu(matmul(x, layer_params["gate_proj"]))
+    return matmul(gate * matmul(x, layer_params["up_proj"]), layer_params["down_proj"])
 
 
 def gqa_attention(
@@ -155,6 +160,7 @@ def _attention_block(
     write_pos: int,
     mask: torch.Tensor | None,
     self_only: bool = False,
+    matmul=mm,
 ) -> torch.Tensor:
     """QKV projection + QK-norm + RoPE + in-place cache write + GQA attention.
 
@@ -167,12 +173,12 @@ def _attention_block(
     q_dim = cfg.num_heads * cfg.head_dim
     kv_dim = cfg.num_kv_heads * cfg.head_dim
     if "qkv_proj" in layer_params:
-        qkv = x @ layer_params["qkv_proj"]
+        qkv = matmul(x, layer_params["qkv_proj"])
         q, k, v = qkv[..., :q_dim], qkv[..., q_dim : q_dim + kv_dim], qkv[..., q_dim + kv_dim :]
     else:
-        q = x @ layer_params["q_proj"]
-        k = x @ layer_params["k_proj"]
-        v = x @ layer_params["v_proj"]
+        q = matmul(x, layer_params["q_proj"])
+        k = matmul(x, layer_params["k_proj"])
+        v = matmul(x, layer_params["v_proj"])
     q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
     k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
@@ -193,7 +199,7 @@ def _attention_block(
         attn = gqa_attention(q, k, v, mask, scale)
     else:
         attn = gqa_attention(q, cache_k, cache_v, mask, scale)
-    return attn.reshape(b, s, q_dim) @ layer_params["o_proj"]
+    return matmul(attn.reshape(b, s, q_dim), layer_params["o_proj"])
 
 
 def decoder_layer(
@@ -207,10 +213,12 @@ def decoder_layer(
     write_pos: int,
     mask: torch.Tensor | None,
     self_only: bool = False,
+    matmul=mm,
 ) -> torch.Tensor:
     """Pre-norm decoder layer: RMSNorm -> attn -> +res -> RMSNorm -> MLP -> +res.
 
     Writes this layer's new K/V rows into ``cache_k``/``cache_v`` in place.
+    ``matmul`` multiplies by every projection (``quant.mm`` by default).
     """
     attn_out = _attention_block(
         layer_params,
@@ -223,15 +231,20 @@ def decoder_layer(
         write_pos,
         mask,
         self_only=self_only,
+        matmul=matmul,
     )
     h = x + attn_out
-    mlp_out = swiglu_layer(layer_params, rms_norm(h, layer_params["post_ln"], cfg.rms_norm_eps))
+    mlp_out = swiglu_layer(layer_params, rms_norm(h, layer_params["post_ln"], cfg.rms_norm_eps), matmul)
     return h + mlp_out
 
 
 def layer_params_at(stacked_params: dict, i: int) -> dict:
-    """Layer ``i``'s weights as views into the stacked ``[L, ...]`` tree."""
-    return {name: w[i] for name, w in stacked_params.items()}
+    """Layer ``i``'s weights as views into the stacked ``[L, ...]`` tree
+    (a quantized linear's ``q8`` and ``scale`` alike)."""
+    return {
+        name: {k: t[i] for k, t in w.items()} if isinstance(w, dict) else w[i]
+        for name, w in stacked_params.items()
+    }
 
 
 def run_layer_stack(
@@ -242,6 +255,7 @@ def run_layer_stack(
     positions: torch.Tensor,
     write_pos: int,
     self_attn_prefill: bool = False,
+    matmul=mm,
 ) -> torch.Tensor:
     """Run all layers against the full pre-allocated cache (updated in place).
 
@@ -252,6 +266,7 @@ def run_layer_stack(
 
     ``self_attn_prefill=True``: fresh-cache prefill (write_pos == 0, no
     earlier live rows); attention runs over the S new rows only.
+    ``matmul``: as ``decoder_layer``'s.
     """
     inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, device=x.device)
     cos, sin = rope_cos_sin(positions.float(), inv_freq)
@@ -275,5 +290,6 @@ def run_layer_stack(
             write_pos,
             mask,
             self_only=self_attn_prefill,
+            matmul=matmul,
         )
     return h

@@ -6,7 +6,8 @@ PyTorch port of the CustomVoice batch-1 path of ``qwen3_tts_tpu/pipeline.py``
 staged: prefill, then every frame, then one bucketed vocoder decode. The JAX
 package's pipelined and streaming forms produce the same audio (its
 streaming decode is sample-exact to the batch decode); they are not ported
-yet, nor are voice cloning, voice design, batching and int8.
+yet, nor are voice cloning, voice design and batching. Weight-only int8
+(``quantize_int8=True``) is ported.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from .models import tokens as T
 from .models import weights as W
 from .models.codec import vocoder
 from .models.config import ModelConfig, ModelType
-from .ops import nn, rng, sampling
+from .ops import nn, quant, rng, sampling
 from .utils.bucketing import next_bucket
 
 logger = logging.getLogger("qwen3_tts_tpu_torch")
@@ -77,6 +78,13 @@ class Qwen3TTS:
     The code predictor's layer weights are kept fused (q|k|v, gate|up): the
     frame kernel takes that layout. The talker keeps the separate
     projections, as the JAX package's main path does.
+
+    ``quantize_int8=True``: weight-only int8, as the JAX package's (without
+    its [H, H] stream-tile re-layout). The talker and the code predictor are
+    fused, then their layer projections, the codec head and the lm heads
+    are quantized; decode steps then run the whole-step talker kernel and
+    the int8 code-predictor frame, the prefill and codec head the W8A16
+    matmul.
     """
 
     def __init__(
@@ -87,11 +95,15 @@ class Qwen3TTS:
         vocoder_params: dict,
         tokenizer=None,
         vocoder_config: vocoder.VocoderConfig = vocoder.VocoderConfig(),
+        quantize_int8: bool = False,
     ):
         self.config = config
-        self.talker_params = talker_params
         if "qkv_proj" not in cp_params["layers"]:
             cp_params = W.fuse_model_params(cp_params)
+        if quantize_int8:
+            talker_params = quant.quantize_talker_params(W.fuse_model_params(talker_params))
+            cp_params = quant.quantize_code_predictor_params(cp_params)
+        self.talker_params = talker_params
         self.cp_params = cp_params
         self.compute_dtype = talker_params["norm"].dtype
         self.device = talker_params["norm"].device
@@ -106,6 +118,7 @@ class Qwen3TTS:
         seed: int = 0,
         device: torch.device | str = "cpu",
         tokenizer=None,
+        quantize_int8: bool = False,
     ) -> "Qwen3TTS":
         """Synthetic weights at real dimensions, drawn from ``seed`` on
         ``device`` (bf16 talker and code predictor, f32 vocoder)."""
@@ -117,6 +130,7 @@ class Qwen3TTS:
             W.init_code_predictor_params(gen, config.code_predictor),
             vocoder.init_vocoder_params(gen),
             tokenizer,
+            quantize_int8=quantize_int8,
         )
 
     @classmethod
@@ -129,6 +143,7 @@ class Qwen3TTS:
         tokenizer=None,
         vocoder_config: vocoder.VocoderConfig = vocoder.VocoderConfig(),
         device: torch.device | str = "cpu",
+        quantize_int8: bool = False,
     ) -> "Qwen3TTS":
         """A model from a JAX model's parameter trees converted to numpy
         (``jax.tree.map(np.asarray, model.talker_params)`` etc.)."""
@@ -139,6 +154,7 @@ class Qwen3TTS:
             W.from_numpy_tree(vocoder_tree, device),
             tokenizer,
             vocoder_config=vocoder_config,
+            quantize_int8=quantize_int8,
         )
 
     # ------------------------------------------------------------------

@@ -84,3 +84,36 @@ def test_fuse_layer_params_matches_jax():
     assert sorted(got) == sorted(want)
     for key in want:
         np.testing.assert_array_equal(got[key].numpy(), want[key])
+
+
+@pytest.mark.parametrize("embed_dim", [None, 128])
+def test_int8_plain_frame_matches_jax_kernel_and_reference(embed_dim):
+    """Weight-only int8 (the JAX package's quantize_code_predictor_params):
+    the port's plain frame gives the codes of the interpret-mode
+    ``streamed_cp_frame`` on int8 tiles and of the pack-free int8
+    ``predict_acoustic_codes``, exactly (greedy codes; f32 activations)."""
+    from qwen3_tts_tpu.ops import quant as jq
+
+    cfg = dc_replace(STREAM_CFG, codec_embed_dim=embed_dim)
+    base = jq.quantize_code_predictor_params(
+        JW.fuse_model_params(JW.init_code_predictor_params(jax.random.PRNGKey(13), cfg, jnp.float32))
+    )
+    params_frame = dict(base)
+    params_frame["stream_pack"] = jfl.make_stream_pack(base["layers"], cfg.layer_stack())
+    assert params_frame["stream_pack"]["tiles"].dtype == jnp.int8
+    assert jfl.supports_cp_frame_kernel(params_frame, cfg)
+
+    rs = np.random.RandomState(8)
+    e = cfg.embed_dim
+    hidden = rs.randn(1, 1, e).astype(np.float32)
+    semantic = rs.randn(1, 1, e).astype(np.float32)
+    want_kernel = np.asarray(jfl.streamed_cp_frame(params_frame, cfg, jnp.asarray(hidden), jnp.asarray(semantic)))
+    want_ref = np.asarray(jcp.predict_acoustic_codes(base, cfg, jnp.asarray(hidden), jnp.asarray(semantic)))
+    np.testing.assert_array_equal(want_kernel, want_ref)
+
+    tparams = TW.from_numpy_tree(_numpy(base), "cpu")
+    assert tparams["lm_heads"]["q8"].dtype == torch.int8
+    before = tfl.cp_frame.launches
+    got = tcp.predict_acoustic_codes(tparams, _port_cfg(cfg), torch.from_numpy(hidden), torch.from_numpy(semantic))
+    assert tfl.cp_frame.launches == before
+    np.testing.assert_array_equal(got.numpy(), want_kernel)

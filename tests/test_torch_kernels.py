@@ -12,8 +12,8 @@ import torch
 from qwen3_tts_tpu_torch import build
 from qwen3_tts_tpu_torch.models import weights as W
 from qwen3_tts_tpu_torch.models.codec import fused_blocks
-from qwen3_tts_tpu_torch.models.config import CodePredictorConfig
-from qwen3_tts_tpu_torch.ops import fused_layer
+from qwen3_tts_tpu_torch.models.config import CodePredictorConfig, TalkerConfig
+from qwen3_tts_tpu_torch.ops import fused_layer, quant
 
 torch.set_num_threads(1)
 
@@ -22,6 +22,11 @@ CP_CFG = CodePredictorConfig(
     hidden_size=256, intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
     num_key_value_heads=2, head_dim=64, vocab_size=512, codec_embed_dim=512,
 )
+# Small shapes the talker step kernel takes (int8 GEMVs: N multiples of 256).
+TALKER_STACK = TalkerConfig(
+    text_embed_dim=128, hidden_size=256, text_proj_intermediate=128, intermediate_size=512,
+    num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2, head_dim=64,
+).layer_stack()
 
 
 def _cuda():
@@ -37,6 +42,21 @@ def _cp_inputs(device, dtype, seed=0):
     hidden = torch.randn((1, 1, 512), generator=gen, device=device).to(dtype)
     semantic = (torch.randn((1, 1, 512), generator=gen, device=device) * 0.02).to(dtype)
     return params, hidden, semantic
+
+
+def _talker_inputs(device, dtype, rows, seed=0):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    st = TALKER_STACK
+    stacked = W.init_layer_stack(
+        gen, st.num_layers, st.hidden_size, st.intermediate_size, st.num_heads, st.num_kv_heads, st.head_dim, dtype
+    )
+    layers = quant.quantize_layer_stack(W.fuse_layer_params(stacked))
+    kvd = st.num_kv_heads * st.head_dim
+    ck = torch.randn((st.num_layers, rows, kvd), generator=gen, device=device).to(dtype)
+    cv = torch.randn((st.num_layers, rows, kvd), generator=gen, device=device).to(dtype)
+    x = torch.randn((1, 1, st.hidden_size), generator=gen, device=device).to(dtype)
+    return layers, x, ck, cv
 
 
 def _unit_params(device, c, seed=0):
@@ -63,13 +83,24 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     x = torch.zeros((1, 40, 16), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         fused_blocks.residual_unit(x, _unit_params("cpu", 16), 1)
+    params8 = quant.quantize_code_predictor_params(params)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_layer.cp_frame(params8, CP_CFG, hidden.to("meta"), semantic.to("meta"))
+    layers, xt, ck, cv = _talker_inputs("cpu", torch.float32, 8)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_layer.talker_step(layers, xt.to("meta"), TALKER_STACK, ck.to("meta"), cv.to("meta"), 3)
+    w = quant.quantize_linear(torch.randn(128, 256))
+    with pytest.raises(ValueError, match="no kernel"):
+        quant.int8_matmul(torch.zeros((2, 128), device="meta"), w["q8"], w["scale"])
 
 
 def test_kernel_library_name_tracks_the_sources():
     path = build.library_path()
     assert path == build.library_path()
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
-    assert {p.name for p in build.CSRC.glob("*.cu")} == {"cp_frame.cu", "residual_unit.cu"}
+    assert {p.name for p in build.CSRC.glob("*.cu")} == {
+        "cp_frame.cu", "int8_matmul.cu", "residual_unit.cu", "talker_step.cu",
+    }
 
 
 @pytest.mark.gpu
@@ -88,6 +119,75 @@ def test_cuda_cp_frame_matches_plain(dtype):
         assert torch.equal(got, want)
     else:
         assert got[0] == want[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_cp_frame_int8_matches_plain(dtype):
+    """Weight-only int8 tree: the first code agrees with the plain version
+    (sums in another order can flip a later near-tied logit), and most
+    codes do."""
+    dev = _cuda()
+    params, hidden, semantic = _cp_inputs(dev, dtype, seed=3)
+    params = quant.quantize_code_predictor_params(params)
+    before = fused_layer.cp_frame.launches
+    got = fused_layer.cp_frame(params, CP_CFG, hidden, semantic)
+    assert fused_layer.cp_frame.launches == before + 1
+    want = fused_layer.cp_frame_plain(params, CP_CFG, hidden, semantic)
+    assert got.dtype == torch.int32 and got.shape == (CP_CFG.num_acoustic,)
+    assert got[0] == want[0]
+    assert (got == want).float().mean().item() >= 0.5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,pos", [(32, 29), (288, 270)])
+def test_cuda_talker_step_matches_plain(rows, pos, dtype):
+    """Hidden within 1e-4 (f32) / 3e-2 (bf16) of max|plain| (sums in another
+    order; bf16 roundings move by an ulp here and there), the written row
+    likewise, every other cache row bit-unchanged."""
+    dev = _cuda()
+    layers, x, ck0, cv0 = _talker_inputs(dev, dtype, rows)
+    ck, cv, ckp, cvp = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
+    before = fused_layer.talker_step.launches
+    got = fused_layer.talker_step(layers, x, TALKER_STACK, ck, cv, pos)
+    assert fused_layer.talker_step.launches == before + 1
+    want = fused_layer.talker_step_plain(layers, x, TALKER_STACK, ckp, cvp, pos)
+    assert got.dtype == dtype and got.shape == (1, 1, TALKER_STACK.hidden_size)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol * want.float().abs().max().item())
+    for c, cp_ in ((ck, ckp), (cv, cvp)):
+        torch.testing.assert_close(c[:, pos].float(), cp_[:, pos].float(), rtol=0,
+                                   atol=tol * cp_[:, pos].float().abs().max().item())
+    others = torch.ones(rows, dtype=torch.bool, device=dev)
+    others[pos] = False
+    assert torch.equal(ck[:, others], ck0[:, others]) and torch.equal(cv[:, others], cv0[:, others])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n", [(1, 384), (10, 384), (1024, 384), (1024, 1152)])
+def test_cuda_int8_matmul_matches_plain(m, n, dtype):
+    """f32 out: within 1e-5 of max|plain| (the same exact products in
+    another order); bf16 out: within one bf16 ulp of the output's scale.
+    N = 384 splits K over blocks at every m; m = 1024 at N = 1152 does not."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(m)
+    x = torch.randn((m, 256), generator=gen, device=dev).to(dtype)
+    w = quant.quantize_linear(torch.randn((256, n), generator=gen, device=dev) * 0.05)
+    before = quant.int8_matmul.launches
+    got = quant.int8_matmul(x, w["q8"], w["scale"])
+    assert quant.int8_matmul.launches == before + 1
+    want = quant.int8_matmul_plain(x, w["q8"], w["scale"])
+    assert got.dtype == dtype and got.shape == (m, n)
+    tol = 1e-5 if dtype == torch.float32 else 2.0**-7
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol * want.float().abs().max().item())
+    # A shape outside the kernel's gate takes the plain form, as the JAX
+    # package takes XLA's dequant-then-dot.
+    w_odd = quant.quantize_linear(torch.randn((256, 100), generator=gen, device=dev))
+    out = quant.int8_matmul(x, w_odd["q8"], w_odd["scale"])
+    assert quant.int8_matmul.launches == before + 1
+    assert torch.equal(out, quant.int8_matmul_plain(x, w_odd["q8"], w_odd["scale"]))
 
 
 @pytest.mark.gpu

@@ -120,3 +120,64 @@ def test_one_frame_step_matches_jax(models):
     np.testing.assert_allclose(tlogits.numpy(), np.asarray(jlogits), rtol=0, atol=1e-5)
     assert tnext == jnext
     np.testing.assert_allclose(tcache.k[:, :, pos].numpy(), np.asarray(jcache.k[:, :, pos]), rtol=0, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def int8_models():
+    """The split-free tiny model of tests/test_fused_layer.py in weight-only
+    int8: the port quantizes the f32 trees itself (bit for bit as JAX)."""
+    from dataclasses import asdict
+
+    from qwen3_tts_tpu.pipeline import Qwen3TTS as JQwen3TTS
+    from qwen3_tts_tpu_torch.models.config import CodePredictorConfig, ModelConfig, ModelType, TalkerConfig
+    from test_fused_layer import _tiny_pipeline_args
+
+    args, tiny_voc = _tiny_pipeline_args()
+    jcfg = args[0]
+    tcfg = ModelConfig(
+        model_type=ModelType.CUSTOM_VOICE, model_size="0b6",
+        talker=TalkerConfig(**asdict(jcfg.talker)),
+        code_predictor=CodePredictorConfig(**asdict(jcfg.code_predictor)),
+    )
+    tm = Qwen3TTS.from_numpy(
+        tcfg, *(_numpy(t) for t in args[1:4]), args[4],
+        vocoder_config=tvoc.VocoderConfig(**asdict(tiny_voc)), quantize_int8=True,
+    )
+    j_packs = JQwen3TTS(*args, vocoder_config=tiny_voc, quantize_int8=True)
+    assert "stream_pack" in j_packs.talker_params and "stream_pack" in j_packs.cp_params
+    j_plain = JQwen3TTS(*args, vocoder_config=tiny_voc, quantize_int8=True)
+    j_plain.talker_params.pop("stream_pack")
+    j_plain.cp_params.pop("stream_pack")
+    return tm, j_plain, j_packs
+
+
+def test_int8_pipeline_matches_jax(int8_models):
+    """Against the JAX int8 model without its stream packs (the layer scan
+    and the per-matmul dequant path, which round where the port's plain
+    versions round): frames token-exact, audio within atol 1e-5. Against the
+    JAX int8 model with both packs (its interpret-mode streamed kernels,
+    which sum in other orders): the JAX package's own bar for that pair
+    (tests/test_fused_layer.py::test_streamed_talker_full_pipeline_codes),
+    the first 2 frames equal and >= 90% of all codes."""
+    tm, j_plain, j_packs = int8_models
+    text = "stream talker"
+    assert tm.talker_params["layers"]["qkv_proj"]["q8"].dtype == torch.int8
+    jopts = JOptions(max_length=6, seed=42)
+    topts = SynthesisOptions(max_length=6, seed=42)
+
+    want = j_plain._custom_voice_session(text, "ryan", "english", jopts).run_to_completion()
+    started, uniforms = tm._prefill_custom_voice(text, "ryan", "english", topts)
+    assert ttalker.stream_plane_mode(tm.talker_params, tm.config.talker, started[0].cache)
+    got = tm._generate(started, uniforms, topts)
+    np.testing.assert_array_equal(got, want)
+
+    jaudio, _ = j_plain.synthesize_with_timing(text, "ryan", "english", jopts)
+    taudio, ttiming = tm.synthesize_with_timing(text, "ryan", "english", topts)
+    assert ttiming.generation_frames == len(want)
+    np.testing.assert_allclose(taudio.samples, jaudio.samples, rtol=0, atol=1e-5)
+
+    packed = j_packs.synthesize_streaming(text, "ryan", "english", jopts).run_to_completion()
+    n = min(len(got), len(packed))
+    assert n >= 2
+    np.testing.assert_array_equal(got[:2], packed[:2])
+    assert (got[:n] == packed[:n]).mean() >= 0.9
