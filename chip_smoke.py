@@ -27,10 +27,26 @@ Phases, each printing a line (any failure exits nonzero before the last):
   6. kernel 4 (W8A16 matmul) against its plain version at the main path's
      shapes (prefill m = 10, codec head m = 1) and m = 1024: within one
      bf16 ulp of the plain output's scale; both timed;
-  7. end to end: a small f32 model on the card against the same weights on
+  7. kernels 5 and 6 (int8 attention and MLP sub-layer steps) against their
+     plain versions at the 1.7B code predictor's widths (17 cache rows, 16
+     random (x, pos), bf16 and f32, residual) and at the 1.7B talker's
+     4-chip tensor-parallel shard (4 / 2 heads, intermediate 1536, 2080
+     cache rows, pos near the top, no residual): output and written row
+     within STEP_TOL of the plain version's scale, every other row
+     bit-unchanged (rows above pos hold NaN, which must not be read); timed;
+  8. kernel 7 (int8 code-predictor decode step) against its plain version on
+     the 1.7B int8 code predictor, bf16, with the same checks; timed;
+  9. the per-step path at full width: the 1.7B int8 code predictor on 32
+     random frames through ``_predict_acoustic_codes_fused``, kernel 7 per
+     step and kernels 5 + 6 per layer, each held to the same route on the
+     plain versions by kernel 1's int8 bars, beside kernel 1's codes and
+     time;
+ 10. end to end: a small f32 model on the card against the same weights on
      the CPU (identical frames, close audio); a small model in int8 on
      the card against the CPU over 6 frames (first 2 frames equal, >= 90%
-     of codes); then
+     of codes); two small int8 models whose code predictor the JAX gates
+     send to the per-step path (kernels 5 + 6; kernel 7), under the same
+     bars, launching their route's kernels and never kernel 1; then
      the 1.7B CustomVoice main path (``Qwen3TTS.from_random(
      config_for_variant("1.7B", "custom_voice"))``, the fixed 13-token
      prompt, 125 frames, seed 42, temperature 0.9): one warm run, then one
@@ -38,17 +54,24 @@ Phases, each printing a line (any failure exits nonzero before the last):
      timed run's audio must equal the warm run's bit for bit (same seed,
      deterministic kernels); then the same in int8 (``quantize_int8=True``
      on the same synthetic trees, as bench.py builds its int8 model), where
-     all four int8-path kernels must launch;
-  8. a JSON line of the kernels, then the JSON result as the last line.
+     all four int8-path kernels must launch; then two 1.7B int8 models whose
+     code predictor takes the per-step path (vocab 2047: kernel 7;
+     intermediate 2816: kernels 5 + 6), the same way;
+ 11. a JSON line of the kernels (each with its launches on its main path,
+     its time, its plain version's, the card's bound for the same work and,
+     where one PyTorch call computes the same function, that call's time),
+     then the JSON result as the last line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -62,6 +85,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import qwen3_tts_tpu_torch  # noqa: E402,F401  (sets the TF32 switches)
 from qwen3_tts_tpu_torch import build  # noqa: E402
+from qwen3_tts_tpu_torch.models import code_predictor as cp  # noqa: E402
 from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
 from qwen3_tts_tpu_torch.models.codec import fused_blocks  # noqa: E402
 from qwen3_tts_tpu_torch.models.codec import vocoder  # noqa: E402
@@ -88,6 +112,28 @@ TALKER_MIN_ARGMAX_EQUAL = 14  # of TALKER_TRIALS
 # carries them on. Bars relative to max|plain| of the compared tensor.
 HIDDEN_TOL = 0.05
 ROW_TOL = 0.05
+# Kernels 5-7 against their plain versions, relative to max|plain| of the
+# compared tensor. The int8 matmuls round their inputs to bf16 in f32
+# programs too, so a sum in another order can flip an input's rounding by a
+# bf16 ulp (2^-8) where a value sits near a rounding boundary (f32, one
+# sub-layer: 1e-3); in bf16 any element may round one ulp the other way,
+# which moves the rest of the step by a few ulps.
+STEP_TOL = {torch.float32: 1e-3, torch.bfloat16: 3e-2}
+# Kernel 7 in f32 through 5 layers: the plain step itself moves ~4e-4 under
+# a 2^-22 change of every scale, and such flips compound over the 5 layers
+# (the kernel has read up to 3.0e-3 here); a step whose residual stream is
+# rounded to bf16 reads at least 5.6e-3 (``bf16_residual_step``, which must
+# fail the bar).
+STEP7_F32_TOL = 4e-3
+STEP_TRIALS = 16
+# The 1.7B talker's per-chip shard on 4 chips (tp_decode_step's kernels 5 / 6).
+TP4 = dict(hidden=2048, heads=4, kv_heads=2, head_dim=128, inter=1536, rows=2080)
+# The 1.7B code predictor's intermediate on the main path that takes kernels
+# 5 + 6 (not a multiple of the hidden 1024: the JAX package holds no pack).
+LAYER_STEPS_INTER = 2816
+# The card's published peaks (H100 SXM data sheet) for the bounds.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
 KERNEL_ROWS = []
 
 
@@ -112,6 +158,37 @@ def time_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def nbytes(*trees) -> int:
+    """Bytes of every tensor in ``trees`` (dicts and lists of tensors)."""
+    total = 0
+    for t in trees:
+        if isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+        elif isinstance(t, dict):
+            total += nbytes(*t.values())
+        elif isinstance(t, (list, tuple)):
+            total += nbytes(*t)
+    return total
+
+
+def bound(n_bytes: float, ops: float, kind: str = "bf16") -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate for their type, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit equality (NaN rows included)."""
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16}[a.dtype]
+    return torch.equal(a.view(bits), b.view(bits))
 
 
 def print_card() -> None:
@@ -144,6 +221,23 @@ def cp_compare(params: dict, cfg: CodePredictorConfig, xs: list) -> dict:
     }
 
 
+def cp_frame_bound(params: dict, cfg: CodePredictorConfig, dtype: torch.dtype) -> dict:
+    """Kernel 1, one frame: every weight read once (layer projections, norms,
+    heads, mtp projection), the 14 embedding rows the codes pick, the two
+    input rows and the 15 codes written; operations: the 16 positions
+    through every layer projection and the mtp projection, and 15 heads."""
+    layers, heads, mtp = params["layers"], params["lm_heads"], params.get("mtp_proj")
+    g, e, item = cfg.num_acoustic, cfg.embed_dim, torch.finfo(dtype).bits // 8
+    n_bytes = nbytes(layers, heads, params["norm"], mtp) + (g + 1) * e * item + g * 4
+
+    def n(w):
+        return (w["q8"] if quant.is_quantized(w) else w).numel()
+
+    proj = sum(n(layers[p]) for p in ("qkv_proj", "o_proj", "gateup_proj", "down_proj"))
+    mtp_n = 0 if mtp is None else mtp["w"].numel()
+    return bound(n_bytes, 2 * (16 * (proj + mtp_n) + n(heads)))
+
+
 def check_bf16_bars(r: dict, what: str) -> None:
     # bf16 results depend on summation order: once one code differs, the rest
     # of the frame follows another path. A right kernel agrees on the first
@@ -172,6 +266,7 @@ def kernel1() -> None:
         ("int8", quant.quantize_code_predictor_params(cp_params(cfg, torch.bfloat16, seed=2)), bf16_inputs),
     ):
         r = result[name] = cp_compare(params, cfg, xs)
+        r.update(cp_frame_bound(params, cfg, xs[0][0].dtype))
         phase("kernel1", f"{name}: {CP_FRAMES} frames x {cfg.num_acoustic} codes, share equal "
               f"{r['equal']:.4f}, first codes equal {r['first_equal']}/{CP_FRAMES}, max |code diff| {r['err']}, "
               f"kernel {r['ms']:.4f} ms/frame, plain {r['plain_ms']:.4f} ms/frame")
@@ -188,7 +283,8 @@ def kernel1() -> None:
             "launches": 0, "path": "bf16" if dtype == "bfloat16" else "int8", "dtype": dtype,
             "max_abs_err": float(r["err"]), "share_equal": r["equal"],
             "first_codes_equal": f"{r['first_equal']}/{CP_FRAMES}",
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,
         }
         if name == "cp_frame":
             row["f32_max_abs_err"] = float(result["float32"]["err"])
@@ -214,6 +310,7 @@ def kernel2() -> None:
     # then the decoder blocks' rates 8, 5, 4, 3): C=384 at 20480 rows, etc.
     shapes = [(384, 128 * 4 * 8 * 5), (192, 128 * 4 * 8 * 5 * 4), (96, 128 * 4 * 8 * 5 * 4 * 3)]
     total_ms = total_plain = worst = 0.0
+    work_bytes = work_ops = 0
     for c, t in shapes:
         for dil in (1, 3, 9):
             p = unit_params(gen, c)
@@ -235,12 +332,16 @@ def kernel2() -> None:
             total_ms += ms
             total_plain += plain_ms
             worst = max(worst, err)
+            # x read, y written, the weights; the k7 and 1x1 convolutions' MACs (f32).
+            work_bytes += 2 * nbytes(x) + nbytes(p)
+            work_ops += 2 * t * c * c * 8
     phase("kernel2", f"all 9 units of a 128-frame decode: kernel {total_ms:.4f} ms, plain {total_plain:.4f} ms")
     KERNEL_ROWS.append({
         "name": "residual_unit", "route": "cuda",
         "source": "qwen3_tts_tpu_torch/csrc/residual_unit.cu",
         "replaces": "qwen3_tts_tpu/models/codec/fused_blocks.py:69",
         "launches": 0, "path": "bf16", "max_abs_err": worst, "ms": total_ms, "plain_ms": total_plain,
+        **bound(work_bytes, work_ops, "f32"), "library_ms": None,
     })
 
 
@@ -261,7 +362,8 @@ def kernel3() -> None:
         return int(torch.argmax(quant.mm_plain(normed, params["codec_head"])))
 
     row = {"name": "talker_step", "route": "cuda", "source": "qwen3_tts_tpu_torch/csrc/talker_step.cu",
-           "replaces": "qwen3_tts_tpu/ops/fused_layer.py:1261", "launches": 0, "path": "int8", "max_abs_err": 0.0}
+           "replaces": "qwen3_tts_tpu/ops/fused_layer.py:1261", "launches": 0, "path": "int8", "max_abs_err": 0.0,
+           "library_ms": None}
     for rows in (160, 2080):
         ck0 = torch.randn((n_layers, rows, kvd), generator=gen, device=DEV).to(bf16)
         cv0 = torch.randn((n_layers, rows, kvd), generator=gen, device=DEV).to(bf16)
@@ -296,6 +398,14 @@ def kernel3() -> None:
         check(untouched, f"kernel 3 S={rows}: a cache row other than pos changed")
         suffix = "" if rows == 160 else f"_{rows}"  # 160 rows: the 125-frame main path's cache
         row[f"ms{suffix}"], row[f"plain_ms{suffix}"] = ms, plain_ms
+        # The weights once, x and y, the pos live rows of K and V read and
+        # row pos written in every layer; the projections' and attention's MACs.
+        proj = sum(layers[p]["q8"].numel() for p in ("qkv_proj", "o_proj", "gateup_proj", "down_proj"))
+        cache_bytes = n_layers * (pos + 1) * 2 * kvd * 2
+        b = bound(nbytes(layers) + 2 * nbytes(x) + cache_bytes,
+                  2 * proj + n_layers * 4 * (pos + 1) * stack.num_heads * stack.head_dim)
+        row[f"bound_ms{suffix}"] = b["bound_ms"]
+        row["bound_by"] = b["bound_by"]
         row[f"argmax_equal{suffix}"] = f"{same_argmax}/{TALKER_TRIALS}"
         row[f"hidden_rel_err{suffix}"] = h_err
         del ck0, cv0, ck, cv, ckp, cvp
@@ -304,11 +414,15 @@ def kernel3() -> None:
 
 def kernel4() -> None:
     """The W8A16 matmul against its plain version: the main path's shapes
-    (talker prefill, 10 rows; codec head, 1 row every frame) and m = 1024."""
+    (talker prefill, 10 rows; codec head, 1 row every frame), m = 1024, and
+    the per-step code predictor's (1.7B, intermediate 2816 as on its main
+    path and the stock 3072): the 2-row prefill's projections and the
+    1-row lm heads, each at m = 2 and m = 1."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(6)
+    cp_kn = [(1024, 4096), (2048, 1024), (1024, 5632), (2816, 1024), (1024, 6144), (3072, 1024), (1024, 2048)]
     shapes = [(10, 2048, 4096), (10, 2048, 2048), (10, 2048, 12288), (10, 6144, 2048), (1, 2048, 3072),
-              (1024, 2048, 4096)]
+              (1024, 2048, 4096)] + [(m, k, n) for k, n in cp_kn for m in (2, 1)]
     row = {"name": "int8_matmul", "route": "cuda", "source": "qwen3_tts_tpu_torch/csrc/int8_matmul.cu",
            "replaces": "qwen3_tts_tpu/ops/quant.py:168", "launches": 0, "path": "int8", "max_abs_err": 0.0,
            "shapes": []}
@@ -324,14 +438,294 @@ def kernel4() -> None:
         tol = want.float().abs().max().item() * 2.0**-7  # one bf16 ulp at the output's scale
         ms = time_ms(lambda: quant.int8_matmul(x, w["q8"], w["scale"]), iters=20)
         plain_ms = time_ms(lambda: quant.int8_matmul_plain(x, w["q8"], w["scale"]), iters=20)
+        # The library yardstick: one bf16 matmul on the weight dequantized
+        # once ahead of time (timed here only; the port never calls it).
+        w_deq = (w["q8"].float() * w["scale"]).to(torch.bfloat16)
+        library_ms = time_ms(lambda: torch.matmul(x, w_deq), iters=20)
+        b = bound(nbytes(x, w) + m * n * x.element_size(), 2 * m * k * n)
         phase("kernel4", f"m={m} K={k} N={n}: max|err| {err:.4e} (bar {tol:.4e}), kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
+              f"plain {plain_ms:.4f} ms, library (dequantized bf16 matmul) {library_ms:.4f} ms, "
+              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
         check(err <= tol, f"kernel 4 m={m} K={k} N={n}: max|err| {err:.4e} > {tol:.4e}")
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["shapes"].append({"m": m, "k": k, "n": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        row["shapes"].append({"m": m, "k": k, "n": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                              "library_ms": library_ms, **b})
         if (m, k, n) == (1, 2048, 3072):  # the codec head, every frame
-            row["ms"], row["plain_ms"] = ms, plain_ms
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
     KERNEL_ROWS.append(row)
+
+
+def step_layer(gen: torch.Generator, dims: dict, dtype: torch.dtype) -> dict:
+    """One int8 decoder layer (weights fused and quantized; norms off 1, in
+    ``dtype``) at ``dims``."""
+    stacked = W.init_layer_stack(
+        gen, 1, dims["hidden"], dims["inter"], dims["heads"], dims["kv_heads"], dims["head_dim"], dtype
+    )
+    layer = nn.layer_params_at(quant.quantize_layer_stack(W.fuse_layer_params(stacked)), 0)
+    for name in ("input_ln", "post_ln", "q_norm", "k_norm"):
+        layer[name] = (1 + 0.1 * torch.randn(layer[name].shape, generator=gen, device=DEV)).to(dtype)
+    return layer
+
+
+def live_cache(gen: torch.Generator, shape: tuple, pos: int, dtype: torch.dtype) -> torch.Tensor:
+    """A random cache [..., S, KV*D] whose rows above ``pos`` hold NaN."""
+    c = torch.randn(shape, generator=gen, device=DEV).to(dtype)
+    c[..., pos + 1 :, :] = float("nan")
+    return c
+
+
+def attention_bound(layer: dict, dims: dict, pos: int, item: int) -> dict:
+    """Kernel 5: x, y, the layer's weights and norms, the RoPE row, the pos
+    live K and V rows read and row pos written; the projections' and the
+    attention's MACs."""
+    qd, kvd = dims["heads"] * dims["head_dim"], dims["kv_heads"] * dims["head_dim"]
+    weights = nbytes(*(layer[k] for k in ("input_ln", "qkv_proj", "q_norm", "k_norm", "o_proj")))
+    n_bytes = weights + 2 * dims["hidden"] * item + dims["head_dim"] * 4 + (pos + 1) * 2 * kvd * item
+    ops = 2 * (layer["qkv_proj"]["q8"].numel() + layer["o_proj"]["q8"].numel()) + 4 * (pos + 1) * qd
+    return bound(n_bytes, ops)
+
+
+def mlp_bound(layer: dict, dims: dict, item: int) -> dict:
+    """Kernel 6: x, y, the layer's MLP weights and norm; their MACs."""
+    n_bytes = nbytes(layer["post_ln"], layer["gateup_proj"], layer["down_proj"]) + 2 * dims["hidden"] * item
+    return bound(n_bytes, 2 * (layer["gateup_proj"]["q8"].numel() + layer["down_proj"]["q8"].numel()))
+
+
+def step_case(dims: dict, dtype: torch.dtype, residual: bool, positions: list, seed: int) -> dict:
+    """Kernels 5 and 6 against their plain versions at ``dims`` on one
+    random layer, for each pos (a fresh x and cache each); both timed at the
+    last pos. Returns errors, times and bounds."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    layer = step_layer(gen, dims, dtype)
+    rows, kvd = dims["rows"], dims["kv_heads"] * dims["head_dim"]
+    cos_t, sin_t = fused_layer.rope_tables(dims["head_dim"], 1e6, rows, DEV)
+    attn = (dims["heads"], dims["kv_heads"], dims["head_dim"], 1e-6, residual)
+    r = {"attn_err": 0.0, "row_err": 0.0, "mlp_err": 0.0, "attn_abs": 0.0, "mlp_abs": 0.0, "untouched": True}
+    for pos in positions:
+        x = torch.randn((1, dims["hidden"]), generator=gen, device=DEV).to(dtype)
+        ck0, cv0 = live_cache(gen, (rows, kvd), pos, dtype), live_cache(gen, (rows, kvd), pos, dtype)
+        ck, cv, ckp, cvp = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
+        got = fused_layer.fused_attention_step(x, layer, cos_t, sin_t, ck, cv, pos, *attn)
+        want = fused_layer.fused_attention_step_plain(x, layer, cos_t, sin_t, ckp, cvp, pos, *attn)
+        got6 = fused_layer.fused_mlp_step(x, layer, dims["inter"], 1e-6, residual)
+        want6 = fused_layer.fused_mlp_step_plain(x, layer, dims["inter"], 1e-6, residual)
+        torch.cuda.synchronize()
+        r["attn_err"] = max(r["attn_err"], rel_err(got, want))
+        r["attn_abs"] = max(r["attn_abs"], (got.float() - want.float()).abs().max().item())
+        r["mlp_err"] = max(r["mlp_err"], rel_err(got6, want6))
+        r["mlp_abs"] = max(r["mlp_abs"], (got6.float() - want6.float()).abs().max().item())
+        for c, c0, cp_ in ((ck, ck0, ckp), (cv, cv0, cvp)):
+            r["row_err"] = max(r["row_err"], rel_err(c[pos], cp_[pos]))
+            others = torch.arange(rows, device=DEV) != pos
+            r["untouched"] &= same_bits(c[others], c0[others])
+    item = x.element_size()
+    r["ms"] = time_ms(lambda: fused_layer.fused_attention_step(x, layer, cos_t, sin_t, ck, cv, pos, *attn), iters=50)
+    r["plain_ms"] = time_ms(
+        lambda: fused_layer.fused_attention_step_plain(x, layer, cos_t, sin_t, ckp, cvp, pos, *attn), iters=10)
+    r["mlp_ms"] = time_ms(lambda: fused_layer.fused_mlp_step(x, layer, dims["inter"], 1e-6, residual), iters=50)
+    r["mlp_plain_ms"] = time_ms(
+        lambda: fused_layer.fused_mlp_step_plain(x, layer, dims["inter"], 1e-6, residual), iters=10)
+    r["bound"], r["mlp_bound"] = attention_bound(layer, dims, pos, item), mlp_bound(layer, dims, item)
+    return r
+
+
+def kernels5_6() -> None:
+    """Kernels 5 and 6 at the widths of the 1.7B code predictor whose main
+    path launches them (``per_step_main_paths``: intermediate 2816; 17
+    rows, residual; bf16 as there, and f32), at the stock intermediate 3072
+    (``per_step_path``), and at the 4-chip talker shard (2080 rows, pos near
+    the top, no residual)."""
+    cpd = replace(config_for_variant("1.7B", "custom_voice").code_predictor, intermediate_size=LAYER_STEPS_INTER)
+    cp_dims = dict(hidden=cpd.hidden_size, heads=cpd.num_attention_heads, kv_heads=cpd.num_key_value_heads,
+                   head_dim=cpd.head_dim, inter=cpd.intermediate_size, rows=fused_layer.CP_MAX_SEQ)
+    stock_dims = dict(cp_dims, inter=config_for_variant("1.7B", "custom_voice").code_predictor.intermediate_size)
+    rng = np.random.default_rng(7)
+    cp_pos = [int(p) for p in rng.integers(2, fused_layer.CP_MAX_SEQ, size=STEP_TRIALS)]
+    tp_pos = [TP4["rows"] - 1 - 3 * i for i in range(STEP_TRIALS)]
+    cases = [
+        ("cp-bf16", cp_dims, torch.bfloat16, True, cp_pos),
+        ("cp-f32", cp_dims, torch.float32, True, cp_pos),
+        ("cp-stock-bf16", stock_dims, torch.bfloat16, True, cp_pos),
+        ("tp4-bf16", TP4, torch.bfloat16, False, tp_pos),
+    ]
+    res = {}
+    for i, (name, dims, dtype, residual, positions) in enumerate(cases):
+        r = res[name] = step_case(dims, dtype, residual, positions, seed=10 + i)
+        tol = STEP_TOL[dtype]
+        phase("kernel5", f"{name} (H {dims['hidden']}, {dims['heads']}/{dims['kv_heads']} heads, {dims['rows']} "
+              f"rows, residual {residual}), {len(positions)} trials: output max|err|/max|plain| "
+              f"{r['attn_err']:.4e}, written row {r['row_err']:.4e} (bar {tol}), other rows bit-unchanged "
+              f"{r['untouched']}, kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound']['bound_ms']:.4f} ms ({r['bound']['bound_by']})")
+        phase("kernel6", f"{name} (I {dims['inter']}): output max|err|/max|plain| {r['mlp_err']:.4e} (bar {tol}), "
+              f"kernel {r['mlp_ms']:.4f} ms, plain {r['mlp_plain_ms']:.4f} ms, bound "
+              f"{r['mlp_bound']['bound_ms']:.4f} ms ({r['mlp_bound']['bound_by']})")
+        check(r["attn_err"] <= tol, f"kernel 5 {name}: output error {r['attn_err']:.4e} > {tol}")
+        check(r["row_err"] <= tol, f"kernel 5 {name}: written cache row error {r['row_err']:.4e} > {tol}")
+        check(r["untouched"], f"kernel 5 {name}: a cache row other than pos changed")
+        check(r["mlp_err"] <= tol, f"kernel 6 {name}: output error {r['mlp_err']:.4e} > {tol}")
+    main, f32, stock, tp = res["cp-bf16"], res["cp-f32"], res["cp-stock-bf16"], res["tp4-bf16"]
+    common = {"route": "cuda", "source": "qwen3_tts_tpu_torch/csrc/fused_step.cu", "launches": 0,
+              "path": f"int8_cp_inter_{LAYER_STEPS_INTER}", "dtype": "bfloat16", "library_ms": None,
+              "intermediate": LAYER_STEPS_INTER}
+    KERNEL_ROWS.append({
+        "name": "fused_attention_step", "replaces": "qwen3_tts_tpu/ops/fused_layer.py:56", **common,
+        "max_abs_err": main["attn_abs"], "rel_err": main["attn_err"], "row_rel_err": main["row_err"],
+        "ms": main["ms"], "plain_ms": main["plain_ms"], **main["bound"],
+        "f32_rel_err": f32["attn_err"], "ms_f32": f32["ms"], "plain_ms_f32": f32["plain_ms"],
+        "tp4_rel_err": tp["attn_err"], "ms_tp4": tp["ms"], "plain_ms_tp4": tp["plain_ms"],
+        "bound_ms_tp4": tp["bound"]["bound_ms"],
+    })
+    KERNEL_ROWS.append({
+        "name": "fused_mlp_step", "replaces": "qwen3_tts_tpu/ops/fused_layer.py:151", **common,
+        "max_abs_err": main["mlp_abs"], "rel_err": main["mlp_err"],
+        "ms": main["mlp_ms"], "plain_ms": main["mlp_plain_ms"], **main["mlp_bound"],
+        "f32_rel_err": f32["mlp_err"], "ms_f32": f32["mlp_ms"], "plain_ms_f32": f32["mlp_plain_ms"],
+        "i3072_rel_err": stock["mlp_err"], "ms_i3072": stock["mlp_ms"], "plain_ms_i3072": stock["mlp_plain_ms"],
+        "bound_ms_i3072": stock["mlp_bound"]["bound_ms"],
+        "tp4_rel_err": tp["mlp_err"], "ms_tp4": tp["mlp_ms"], "plain_ms_tp4": tp["mlp_plain_ms"],
+        "bound_ms_tp4": tp["mlp_bound"]["bound_ms"],
+    })
+
+
+def bf16_residual_step(layers: dict, x, stack, ck, cv, pos: int, cos_t, sin_t) -> torch.Tensor:
+    """Kernel 7's plain f32 step with its residual stream rounded to bf16
+    after every sub-layer: a faulty step that the f32 bar must reject."""
+    bf16, H = torch.bfloat16, stack.hidden_size
+    cos_row, sin_row = cos_t[pos : pos + 1].to(bf16), sin_t[pos : pos + 1].to(bf16)
+    h = x.reshape(1, H)
+    for l in range(ck.shape[0]):
+        layer = nn.layer_params_at(layers, l)
+        h = fused_layer._attention_plain(h, layer, cos_row, sin_row, ck[l], cv[l], pos, stack.num_heads,
+                                         stack.num_kv_heads, stack.head_dim, stack.rms_norm_eps, True, H)
+        h = h.to(bf16).float()
+        h = fused_layer._mlp_plain(h, layer, stack.intermediate_size, stack.rms_norm_eps, True, H)
+        h = h.to(bf16).float()
+    return h.reshape(1, 1, H)
+
+
+def kernel7() -> None:
+    """Kernel 7 against its plain version on the 1.7B int8 code predictor
+    (5 layers, 17 rows): bf16 activations (the main path's), and f32 beside
+    a faulty step (``bf16_residual_step``) that its bar must reject."""
+    cfg = config_for_variant("1.7B", "custom_voice").code_predictor
+    stack = cfg.layer_stack()
+    rows, kvd, n_layers = fused_layer.CP_MAX_SEQ, stack.num_kv_heads * stack.head_dim, stack.num_layers
+    cos_t, sin_t = fused_layer.rope_tables(stack.head_dim, stack.rope_theta, rows, DEV)
+    positions = [int(p) for p in np.random.default_rng(9).integers(2, rows, size=STEP_TRIALS)]
+    res = {}
+    for dtype, tol in ((torch.bfloat16, STEP_TOL[torch.bfloat16]), (torch.float32, STEP7_F32_TOL)):
+        layers = quant.quantize_code_predictor_params(cp_params(cfg, dtype, seed=2))["layers"]
+        gen = torch.Generator(device=DEV).manual_seed(8)
+        r = res[dtype] = {"err": 0.0, "abs": 0.0, "row_err": 0.0, "untouched": True, "faulty_err": math.inf}
+        for pos in positions:
+            x = torch.randn((1, 1, stack.hidden_size), generator=gen, device=DEV).to(dtype)
+            ck0 = live_cache(gen, (n_layers, rows, kvd), pos, dtype)
+            cv0 = live_cache(gen, (n_layers, rows, kvd), pos, dtype)
+            ck, cv, ckp, cvp = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
+            got = fused_layer.streamed_decode_step(layers, x, stack, ck, cv, pos, cos_t, sin_t)
+            want = fused_layer.streamed_decode_step_plain(layers, x, stack, ckp, cvp, pos, cos_t, sin_t)
+            if dtype == torch.float32:
+                faulty = bf16_residual_step(layers, x, stack, ck0.clone(), cv0.clone(), pos, cos_t, sin_t)
+                r["faulty_err"] = min(r["faulty_err"], rel_err(faulty, want))
+            torch.cuda.synchronize()
+            r["err"] = max(r["err"], rel_err(got, want))
+            r["abs"] = max(r["abs"], (got.float() - want.float()).abs().max().item())
+            for c, c0, cp_ in ((ck, ck0, ckp), (cv, cv0, cvp)):
+                r["row_err"] = max(r["row_err"], rel_err(c[:, pos], cp_[:, pos]))
+                others = torch.arange(rows, device=DEV) != pos
+                r["untouched"] &= same_bits(c[:, others], c0[:, others])
+        r["ms"] = time_ms(lambda: fused_layer.streamed_decode_step(layers, x, stack, ck, cv, pos, cos_t, sin_t),
+                          iters=50)
+        r["plain_ms"] = time_ms(
+            lambda: fused_layer.streamed_decode_step_plain(layers, x, stack, ckp, cvp, pos, cos_t, sin_t), iters=10)
+        proj = sum(layers[p]["q8"].numel() for p in ("qkv_proj", "o_proj", "gateup_proj", "down_proj"))
+        item = x.element_size()
+        # The weights once, x and y, the RoPE row, the live K and V rows.
+        r.update(bound(nbytes(layers) + 2 * nbytes(x) + stack.head_dim * 4 + n_layers * (pos + 1) * 2 * kvd * item,
+                       2 * proj + n_layers * 4 * (pos + 1) * stack.num_heads * stack.head_dim))
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        faulty_msg = "" if dtype == torch.bfloat16 else (
+            f", a step with a bf16 residual stream {r['faulty_err']:.4e} at the least (must exceed the bar)")
+        phase("kernel7", f"1.7B int8 code-predictor step, {name}, {STEP_TRIALS} trials: output max|err|/max|plain| "
+              f"{r['err']:.4e}, written rows {r['row_err']:.4e} (bar {tol}){faulty_msg}, other rows bit-unchanged "
+              f"{r['untouched']}, kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        check(r["err"] <= tol, f"kernel 7 {name}: output error {r['err']:.4e} > {tol}")
+        check(r["row_err"] <= tol, f"kernel 7 {name}: written cache rows error {r['row_err']:.4e} > {tol}")
+        check(r["untouched"], f"kernel 7 {name}: a cache row other than pos changed")
+        check(r["faulty_err"] > tol, f"kernel 7 {name}: the bar {tol} does not reject a bf16 residual stream "
+                                     f"({r['faulty_err']:.4e})")
+        del layers
+    r, f32 = res[torch.bfloat16], res[torch.float32]
+    KERNEL_ROWS.append({
+        "name": "streamed_decode_step", "route": "cuda", "source": "qwen3_tts_tpu_torch/csrc/cp_step.cu",
+        "replaces": "qwen3_tts_tpu/ops/fused_layer.py:412", "launches": 0, "path": "int8_cp_vocab_2047",
+        "dtype": "bfloat16", "max_abs_err": r["abs"], "rel_err": r["err"], "row_rel_err": r["row_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None, "f32_rel_err": f32["err"], "f32_row_rel_err": f32["row_err"],
+        "f32_bf16_residual_rel_err": f32["faulty_err"], "ms_f32": f32["ms"], "plain_ms_f32": f32["plain_ms"],
+    })
+
+
+STEP_WRAPPERS = (
+    (fused_layer, "streamed_decode_step", fused_layer.streamed_decode_step_plain),
+    (fused_layer, "fused_attention_step", fused_layer.fused_attention_step_plain),
+    (fused_layer, "fused_mlp_step", fused_layer.fused_mlp_step_plain),
+    (quant, "int8_matmul", quant.int8_matmul_plain),
+)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The per-step path on the card with every kernel's plain version in
+    place of its wrapper (the route's reference)."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in STEP_WRAPPERS]
+    try:
+        for mod, name, plain in STEP_WRAPPERS:
+            setattr(mod, name, plain)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def per_step_path() -> None:
+    """The per-step int8 code predictor at full width (1.7B), 32 random
+    frames, on each route: kernel 7, and kernels 5 + 6; each against the
+    same route on the plain versions by kernel 1's int8 bars, beside kernel
+    1's codes and time."""
+    cfg = config_for_variant("1.7B", "custom_voice").code_predictor
+    params = quant.quantize_code_predictor_params(cp_params(cfg, torch.bfloat16, seed=2))
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    e = cfg.embed_dim
+    xs = [(torch.randn((1, 1, e), generator=gen, device=DEV).to(torch.bfloat16),
+           (torch.randn((1, 1, e), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)) for _ in range(CP_FRAMES)]
+    h0, s0 = xs[0]
+    frame = torch.stack([fused_layer.cp_frame(params, cfg, h, s) for h, s in xs])
+    frame_ms = time_ms(lambda: fused_layer.cp_frame(params, cfg, h0, s0), iters=20)
+    for streamed, name, kernels in ((True, "streamed_step", ("streamed_decode_step",)),
+                                    (False, "layer_steps", ("fused_attention_step", "fused_mlp_step"))):
+        for k in COUNTERS.values():
+            k.launches = 0
+        got = torch.stack([cp._predict_acoustic_codes_fused(params, cfg, h, s, streamed) for h, s in xs])
+        torch.cuda.synchronize()
+        launches = {k: COUNTERS[k].launches for k in ("cp_frame", *kernels)}
+        with plain_kernels():
+            want = torch.stack([cp._predict_acoustic_codes_fused(params, cfg, h, s, streamed) for h, s in xs])
+            plain_ms = time_ms(lambda: cp._predict_acoustic_codes_fused(params, cfg, h0, s0, streamed), iters=3)
+        ms = time_ms(lambda: cp._predict_acoustic_codes_fused(params, cfg, h0, s0, streamed), iters=10)
+        r = {"equal": (got == want).float().mean().item(), "first_equal": int((got[:, 0] == want[:, 0]).sum())}
+        to_frame = (got == frame).float().mean().item()
+        phase("per-step", f"1.7B int8 code predictor, route {name}: {CP_FRAMES} frames, share of codes equal to "
+              f"the plain route {r['equal']:.4f}, first codes equal {r['first_equal']}/{CP_FRAMES}, share equal to "
+              f"kernel 1's codes {to_frame:.4f}; {ms:.4f} ms/frame (plain route {plain_ms:.4f}, kernel 1 "
+              f"{frame_ms:.4f}); launches {launches}")
+        check_bf16_bars(r, f"per-step route {name}")
+        steps = CP_FRAMES * (cfg.num_acoustic - 1)
+        want_launches = steps if streamed else steps * cfg.num_hidden_layers
+        check(launches["cp_frame"] == 0 and all(launches[k] == want_launches for k in kernels),
+              f"per-step route {name}: launches {launches}, want {want_launches} of {kernels} and no cp_frame")
 
 
 class BenchTokenizer:
@@ -411,12 +805,43 @@ def small_model_agrees() -> None:
     check(err <= 1e-4, f"small model: audio differs from the CPU plain run by {err:.3e}")
 
 
-def small_int8_agrees() -> None:
-    """A small f32 model in int8 (widths the int8 GEMVs take: multiples of
-    256) on the card against the CPU, over the 6 frames of the JAX package's
-    own bar for its int8 kernels against its plain int8 path
-    (tests/test_fused_layer.py::test_streamed_talker_full_pipeline_codes):
-    the first 2 frames equal and >= 90% of codes.
+SMALL_TALKER = TalkerConfig(
+    text_embed_dim=128, hidden_size=256, text_proj_intermediate=128,
+    intermediate_size=512, num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
+    head_dim=64,
+)
+SMALL_VOC = vocoder.VocoderConfig(
+    codebook_dim=32, latent_dim=48, hidden_size=32, num_layers=2, num_heads=2, head_dim=16,
+    intermediate_size=64, codebook_embed_dim=16, decoder_dim=64,
+)
+# Small int8 models (widths the int8 GEMVs take: multiples of 256) and the
+# code-predictor route the JAX gates give each: kernel 1; kernels 5 + 6 (the
+# intermediate 768 is not a multiple of the hidden 512: no stream pack);
+# kernel 7 (the dims tile by 256, but the vocab 255 is odd). Seeds whose CPU
+# codes do not move under the 2^-22 scale nudge (see small_int8_agrees).
+SMALL_INT8 = [
+    ("frame", CodePredictorConfig(
+        hidden_size=256, intermediate_size=256, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=2, head_dim=64, vocab_size=256), 4,
+     ("cp_frame", "talker_step", "int8_matmul"), ("fused_attention_step", "fused_mlp_step", "streamed_decode_step")),
+    ("layer_steps", CodePredictorConfig(
+        hidden_size=512, intermediate_size=768, num_hidden_layers=2, num_attention_heads=8,
+        num_key_value_heads=4, head_dim=64, vocab_size=256, codec_embed_dim=256), 1,
+     ("fused_attention_step", "fused_mlp_step", "talker_step", "int8_matmul"), ("cp_frame", "streamed_decode_step")),
+    ("streamed_step", CodePredictorConfig(
+        hidden_size=256, intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
+        num_key_value_heads=2, head_dim=64, vocab_size=255), 0,
+     ("streamed_decode_step", "talker_step", "int8_matmul"), ("cp_frame", "fused_attention_step", "fused_mlp_step")),
+]
+
+
+def small_int8_agrees(route: str, cpc: CodePredictorConfig, seed: int, kernels: tuple, absent: tuple) -> None:
+    """A small f32 model in int8 on the card against the CPU, over the 6
+    frames of the JAX package's own bar for its int8 kernels against its
+    plain int8 path (tests/test_fused_layer.py::
+    test_streamed_talker_full_pipeline_codes): the first 2 frames equal and
+    >= 90% of codes. ``route``: the code predictor's route, whose kernels
+    (``kernels``) must launch and ``absent`` must not.
 
     Matmul inputs are rounded to bf16, so a last-bit difference in an f32
     sum (the kernels sum in other orders) can move an input by a bf16 ulp.
@@ -426,38 +851,26 @@ def small_int8_agrees() -> None:
     CPU run must give the same codes when every int8 scale is moved by one
     part in 2^22 either way (many seeds fail this within 12 frames).
     """
-    talker = TalkerConfig(
-        text_embed_dim=128, hidden_size=256, text_proj_intermediate=128,
-        intermediate_size=512, num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2,
-        head_dim=64,
-    )
-    cpc = CodePredictorConfig(
-        hidden_size=256, intermediate_size=256, num_hidden_layers=2, num_attention_heads=4,
-        num_key_value_heads=2, head_dim=64, vocab_size=256,
-    )
-    voc = vocoder.VocoderConfig(
-        codebook_dim=32, latent_dim=48, hidden_size=32, num_layers=2, num_heads=2, head_dim=16,
-        intermediate_size=64, codebook_embed_dim=16, decoder_dim=64,
-    )
-    cfg = ModelConfig(model_type=ModelType.CUSTOM_VOICE, model_size="small", talker=talker, code_predictor=cpc)
-    counters = (fused_layer.cp_frame, fused_layer.talker_step, quant.int8_matmul)
+    cfg = ModelConfig(model_type=ModelType.CUSTOM_VOICE, model_size="small", talker=SMALL_TALKER, code_predictor=cpc)
+    counters = [COUNTERS[k] for k in kernels + absent]
     before = [k.launches for k in counters]
     nudges = (1 + 2.0**-22, 1 - 2.0**-22)
-    runs = _small_runs(cfg, voc, seed=4, quantize_int8=True, frames=6, nudges=nudges)
-    launched = [k.launches - b for k, b in zip(counters, before)]
+    runs = _small_runs(cfg, SMALL_VOC, seed=seed, quantize_int8=True, frames=6, nudges=nudges)
+    launched = dict(zip(kernels + absent, (k.launches - b for k, b in zip(counters, before))))
     (f_cpu, _), (f_gpu, a_gpu) = runs["cpu"], runs["card"]
     stable = all(np.array_equal(runs[f][0], f_cpu) for f in nudges)
     n = min(len(f_cpu), len(f_gpu))
     share = float((f_cpu[:n] == f_gpu[:n]).mean()) if n else 0.0
     first2 = n >= 2 and bool((f_cpu[:2] == f_gpu[:2]).all())
-    phase("e2e-small-int8", f"CPU codes unmoved by scales x (1 +- 2^-22): {stable}; {len(f_gpu)} frames on the "
-          f"card, {len(f_cpu)} on the CPU: first 2 frames equal {first2}, share of equal codes {share:.4f}; "
-          f"launches (cp_frame, talker_step, int8_matmul) {launched}; "
-          f"audio finite {bool(np.isfinite(a_gpu).all())}")
-    check(stable, "small int8 model: its CPU codes move under a 2^-22 scale nudge (a near-tied model)")
-    check(all(v > 0 for v in launched), f"small int8 model: a kernel never launched on the card: {launched}")
-    check(first2, "small int8 model: the first 2 frames on the card differ from the CPU plain run")
-    check(share >= 0.9, f"small int8 model: share of equal codes {share:.4f} < 0.9")
+    label = f"small int8 model, code-predictor route {route}"
+    phase("e2e-small-int8", f"{label}: CPU codes unmoved by scales x (1 +- 2^-22): {stable}; {len(f_gpu)} frames "
+          f"on the card, {len(f_cpu)} on the CPU: first 2 frames equal {first2}, share of equal codes {share:.4f}; "
+          f"launches {launched}; audio finite {bool(np.isfinite(a_gpu).all())}")
+    check(stable, f"{label}: its CPU codes move under a 2^-22 scale nudge (a near-tied model)")
+    check(all(launched[k] > 0 for k in kernels), f"{label}: a kernel of the route never launched: {launched}")
+    check(all(launched[k] == 0 for k in absent), f"{label}: a kernel of another route launched: {launched}")
+    check(first2, f"{label}: the first 2 frames on the card differ from the CPU plain run")
+    check(share >= 0.9, f"{label}: share of equal codes {share:.4f} < 0.9")
 
 
 COUNTERS = {
@@ -465,12 +878,16 @@ COUNTERS = {
     "talker_step": fused_layer.talker_step,
     "int8_matmul": quant.int8_matmul,
     "residual_unit": fused_blocks.residual_unit,
+    "fused_attention_step": fused_layer.fused_attention_step,
+    "fused_mlp_step": fused_layer.fused_mlp_step,
+    "streamed_decode_step": fused_layer.streamed_decode_step,
 }
 
 
-def run_main_path(model: Qwen3TTS, label: str, kernels: tuple) -> dict:
+def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = ()) -> dict:
     """One warm run, then one timed run with every launch count set to 0
-    just before it; the counts are read just after."""
+    just before it; the counts are read just after. Every kernel of
+    ``kernels`` must launch in it, and none of ``absent``."""
     opts = SynthesisOptions(max_length=FRAMES, min_new_tokens=FRAMES, seed=42, temperature=0.9)
     text = "The quick brown fox jumps over the lazy dog near the river bank today."
 
@@ -490,6 +907,7 @@ def run_main_path(model: Qwen3TTS, label: str, kernels: tuple) -> dict:
     check(samples.shape == (FRAMES * SAMPLES_PER_FRAME,), f"{label}: audio shape {samples.shape}")
     check(bool(torch.isfinite(torch.from_numpy(samples)).all()), f"{label}: audio has non-finite samples")
     check(all(launches[k] > 0 for k in kernels), f"{label}: a kernel of the path never launched: {launches}")
+    check(all(launches[k] == 0 for k in absent), f"{label}: a kernel of another path launched: {launches}")
     repeatable = bool((warm.samples == samples).all())
     check(repeatable, f"{label}: the timed run's audio differs from the warm run's (same seed)")
     rtf = wall / (len(samples) / OUTPUT_SAMPLE_RATE)
@@ -518,8 +936,39 @@ def main_path() -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     phase("e2e", f"1.7B int8 model quantized from the same trees in {time.perf_counter() - t0:.1f} s")
-    int8 = run_main_path(m8, "1.7B int8", ("cp_frame", "talker_step", "int8_matmul", "residual_unit"))
-    return {"bf16": bf16, "int8": int8}
+    int8 = run_main_path(m8, "1.7B int8", ("cp_frame", "talker_step", "int8_matmul", "residual_unit"),
+                         absent=("fused_attention_step", "fused_mlp_step", "streamed_decode_step"))
+    del m8
+    runs = {"bf16": bf16, "int8": int8, **per_step_main_paths()}
+    return runs
+
+
+def per_step_main_paths() -> dict:
+    """The 1.7B int8 main path with a code predictor that the JAX gates send
+    to the per-step path: vocab 2047 (odd; kernel 7 per step) and
+    intermediate 2816 (not a multiple of 1024; kernels 5 + 6 per layer)."""
+    base = config_for_variant("1.7B", "custom_voice")
+    runs = {}
+    for path, change, route, kernels in (
+        ("int8_cp_vocab_2047", dict(vocab_size=2047), "streamed_step", ("streamed_decode_step",)),
+        (f"int8_cp_inter_{LAYER_STEPS_INTER}", dict(intermediate_size=LAYER_STEPS_INTER), "layer_steps",
+         ("fused_attention_step", "fused_mlp_step")),
+    ):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cfg = replace(base, code_predictor=replace(base.code_predictor, **change))
+        model = Qwen3TTS.from_random(cfg, seed=0, device=DEV, quantize_int8=True)
+        model.tokenizer = BenchTokenizer()
+        torch.cuda.synchronize()
+        got = cp.cp_route(model.cp_params, cfg.code_predictor)
+        phase("e2e", f"1.7B int8, code predictor {change}: built in {time.perf_counter() - t0:.1f} s, route {got}")
+        check(got == route, f"1.7B int8 {change}: code-predictor route {got}, want {route}")
+        others = tuple(k for k in ("cp_frame", "fused_attention_step", "fused_mlp_step", "streamed_decode_step")
+                       if k not in kernels)
+        runs[path] = run_main_path(model, f"1.7B int8 ({path})",
+                                   ("talker_step", "int8_matmul", "residual_unit") + kernels, absent=others)
+        del model
+    return runs
 
 
 def main() -> None:
@@ -533,11 +982,16 @@ def main() -> None:
     kernel2()
     kernel3()
     kernel4()
+    kernels5_6()
+    kernel7()
+    per_step_path()
     small_model_agrees()
-    small_int8_agrees()
+    for case in SMALL_INT8:
+        small_int8_agrees(*case)
     launches = main_path()
     for row in KERNEL_ROWS:
         row["launches"] = launches[row["path"]][row["name"].removesuffix("_int8")]
+    check(len({row["replaces"] for row in KERNEL_ROWS}) == 7, "the kernels line must list the seven TPU kernels")
     print(json.dumps({"kernels": KERNEL_ROWS}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

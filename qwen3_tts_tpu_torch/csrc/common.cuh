@@ -1,12 +1,14 @@
 // Shared device code for the port's kernels: element types, the rounding
-// points of the working dtype, deterministic block reductions, and the
-// split-K GEMV (with RMSNorm / SiLU*up in its input staging) that the
-// code-predictor frame (cp_frame.cu) and the talker step (talker_step.cu)
-// are built from.
+// points of the working dtype, deterministic block reductions, the split-K
+// GEMV (with RMSNorm / SiLU*up in its input staging), and one decode step's
+// qkv finish (QK-norm, RoPE, cache append) and attention scores, that the
+// code-predictor frame (cp_frame.cu), the talker step (talker_step.cu) and
+// the code-predictor decode steps (decode_layer.cuh) are built from.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace q3 {
@@ -234,18 +236,37 @@ template <typename W> constexpr int gemv_cols() { return 32 * WVec<W>::n; }
 
 static size_t split_size(int k, int n) { return (size_t)(k / kGemvRows) * n; }
 
-// x <- round(x + round(sum of the partials [* scale])): the o / down residual.
-template <typename T>
-static __global__ void residual_add(const float* __restrict__ part, int nsplit, int H, const float* __restrict__ scale,
-                             float* __restrict__ x) {
+// The K splits of column `col`, added within each chunk of `per` splits and
+// then chunk after chunk, in ascending order (per >= nsplit: sum_parts).
+__device__ __forceinline__ float sum_parts_chunked(const float* part, int nsplit, int per, int n, int col) {
+  float acc = 0.f;
+  for (int c0 = 0; c0 < nsplit; c0 += per) {
+    const int c1 = min(c0 + per, nsplit);
+    float s = 0.f;
+    for (int i = c0; i < c1; ++i) s += part[(size_t)i * n + col];
+    acc = c0 ? acc + s : s;
+  }
+  return acc;
+}
+
+// The o / down residual: y <- round_T(x + o) (`residual`) or o, with o =
+// round_T(sum of the partials [* scale]) summed in `per`-split chunks. X is
+// the residual stream's storage: f32 scratch holding T-rounded values
+// (kernels 1 and 3) or T itself (the decode-layer steps). y may be x (each
+// thread reads and writes one element).
+template <typename T, typename X>
+static __global__ void residual_out(const float* __restrict__ part, int nsplit, int per, int H,
+                                    const float* __restrict__ scale, const X* x, int residual, X* y) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < H) x[i] = add_t<T>(x[i], round_to<T>(scaled(sum_parts(part, nsplit, H, i), scale, i)));
+  if (i >= H) return;
+  const float o = round_to<T>(scaled(sum_parts_chunked(part, nsplit, per, H, i), scale, i));
+  y[i] = from_float<X>(residual ? add_t<T>(to_float<X>(x[i]), o) : o);
 }
 
 // RMSNorm over the block's head_dim values `v`, then split-half RoPE at
-// `pos` (cos_t/sin_t rows [pos, D/2]), rounding as the plain version.
-// `vals`: blockDim floats of shared scratch; `buf`: block_sum's.
-template <typename T>
+// `pos` (cos_t/sin_t rows [pos, D/2], rounded to C), rounding as the plain
+// version. `vals`: blockDim floats of shared scratch; `buf`: block_sum's.
+template <typename T, typename C = T>
 __device__ float qk_norm_rope(float v, const T* __restrict__ w, const float* __restrict__ cos_t,
                               const float* __restrict__ sin_t, int pos, float eps, float* vals, float* buf) {
   const int D = blockDim.x, t = threadIdx.x, half = D / 2, f = t < half ? t : t - half;
@@ -253,11 +274,81 @@ __device__ float qk_norm_rope(float v, const T* __restrict__ w, const float* __r
   const float inv = rsqrtf(__fadd_rn(__fmul_rn(ss, 1.f / D), eps));
   vals[t] = round_to<T>(__fmul_rn(__fmul_rn(v, inv), to_float<T>(w[t])));
   __syncthreads();
-  const float c = round_to<T>(cos_t[(size_t)pos * half + f]), s = round_to<T>(sin_t[(size_t)pos * half + f]);
+  const float c = round_to<C>(cos_t[(size_t)pos * half + f]), s = round_to<C>(sin_t[(size_t)pos * half + f]);
   const float out = t < half ? sub_t<T>(mul_t<T>(vals[t], c), mul_t<T>(vals[t + half], s))
                              : add_t<T>(mul_t<T>(vals[t], c), mul_t<T>(vals[t - half], s));
   __syncthreads();  // vals is reused by the next call
   return out;
+}
+
+// ---------------------------------------------------------------------------
+// One decode step's attention pieces over a [S, KV*D] cache plane, shared by
+// the talker step and the code-predictor steps. Attention splits the rows
+// <= pos into kAttnChunk-row chunks (a block per q head and chunk).
+// ---------------------------------------------------------------------------
+
+constexpr int kAttnChunk = 64;   // cache rows per attention block
+constexpr int kAttnWarps = 4;    // warps of a score block (one row per warp at a time)
+
+// Blocks 0..Hq-1 (blockDim = head_dim): q head b, finished from the qkv
+// partials (round_T(sum * scale)), QK-normed and rotated, into `q`. Blocks
+// Hq..Hq+KV-1: kv head j's k (normed, rotated) and v, written to cache row
+// `pos` of this layer. Every later pass reads row `pos` from the cache.
+template <typename T, typename C = T>
+static __global__ void qkv_finish(const float* __restrict__ part, int nsplit, const float* __restrict__ qkv_s,
+                                  const T* __restrict__ qn, const T* __restrict__ kn, const float* __restrict__ cos_t,
+                                  const float* __restrict__ sin_t, int pos, int Hq, int KV, float eps,
+                                  float* __restrict__ q, T* __restrict__ ck, T* __restrict__ cv) {
+  __shared__ float vals[256];
+  __shared__ float buf[32];
+  const int D = blockDim.x, t = threadIdx.x, b = blockIdx.x;
+  const int qd = Hq * D, kvd = KV * D, N = qd + 2 * kvd;
+  if (b < Hq) {
+    const int c = b * D + t;
+    q[c] = qk_norm_rope<T, C>(round_to<T>(scaled(sum_parts(part, nsplit, N, c), qkv_s, c)), qn, cos_t, sin_t, pos,
+                              eps, vals, buf);
+  } else {
+    const int col = (b - Hq) * D + t, kc = qd + col, vc = qd + kvd + col;
+    const float k = qk_norm_rope<T, C>(round_to<T>(scaled(sum_parts(part, nsplit, N, kc), qkv_s, kc)), kn, cos_t,
+                                       sin_t, pos, eps, vals, buf);
+    const float v = round_to<T>(scaled(sum_parts(part, nsplit, N, vc), qkv_s, vc));
+    ck[(size_t)pos * kvd + col] = from_float<T>(k);
+    cv[(size_t)pos * kvd + col] = from_float<T>(v);
+  }
+}
+
+// Pass 1, grid (Hq, chunks up to pos), kAttnWarps warps: scores[h, r] =
+// (q_h . k_r) * scale for the chunk's rows r <= pos, a warp per row at a
+// time (lanes own head_dim/32 dims, butterfly sum), and the chunk's maximum.
+template <typename T>
+static __global__ void __launch_bounds__(kAttnWarps * 32)
+attn_scores(const float* __restrict__ q, const T* __restrict__ ck, int pos, int Hq, int KV, int D, int S,
+            float scale, float* __restrict__ scores, float* __restrict__ cmax) {
+  __shared__ float qs[256];
+  __shared__ float wmax[kAttnWarps];
+  const int h = blockIdx.x, c = blockIdx.y, nch = gridDim.y, t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int kvd = KV * D, koff = (h / (Hq / KV)) * D, per = D / 32;
+  for (int i = t; i < D; i += blockDim.x) qs[i] = q[h * D + i];
+  __syncthreads();
+  const int r0 = c * kAttnChunk, r1 = min(r0 + kAttnChunk, pos + 1);
+  float m = -INFINITY;
+  for (int r = r0 + warp; r < r1; r += kAttnWarps) {
+    const T* krow = ck + (size_t)r * kvd + koff + lane * per;
+    float s = 0.f;
+    for (int j = 0; j < per; ++j) s = fmaf(qs[lane * per + j], to_float<T>(krow[j]), s);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    s = __fmul_rn(s, scale);
+    if (lane == 0) scores[(size_t)h * S + r] = s;
+    m = fmaxf(m, s);
+  }
+  if (lane == 0) wmax[warp] = m;
+  __syncthreads();
+  if (t == 0) {
+    float bm = wmax[0];
+    for (int w = 1; w < kAttnWarps; ++w) bm = fmaxf(bm, wmax[w]);
+    cmax[h * nch + c] = bm;
+  }
 }
 
 }  // namespace q3

@@ -246,7 +246,8 @@ static cudaError_t run_frame(const CpDims& d, const CpArgs& a, cudaStream_t st) 
                                           kc + (size_t)l * kCpMaxRows * kvd, vc + (size_t)l * kCpMaxRows * kvd, attn);
       Q3_CHECK_LAUNCH();
       if ((e = gemv<T, W>(vec_input<T>(attn), o_w + (size_t)l * qd * H, qd, H, part, st))) return e;
-      residual_add<T><<<(H + ew - 1) / ew, ew, 0, st>>>(part, qd / kGemvRows, H, srow(a.o_s, (size_t)l * H), x);
+      residual_out<T, float><<<(H + ew - 1) / ew, ew, 0, st>>>(
+          part, qd / kGemvRows, qd / kGemvRows, H, srow(a.o_s, (size_t)l * H), x, 1, x);
       Q3_CHECK_LAUNCH();
       // RMSNorm -> gate|up; SiLU*up feeding down; residual.
       if ((e = gemv<T, W>(vec_input<T>(x, post_ln + (size_t)l * H, a.eps), gu_w + (size_t)l * H * 2 * I, H, 2 * I,
@@ -255,7 +256,8 @@ static cudaError_t run_frame(const CpDims& d, const CpArgs& a, cudaStream_t st) 
       const GemvInput<T> swiglu_in{nullptr, nullptr, nullptr, 0, gu_part, H / kGemvRows,
                                    srow(a.gu_s, (size_t)l * 2 * I), nullptr, 0.f};
       if ((e = gemv<T, W>(swiglu_in, down_w + (size_t)l * I * H, I, H, part, st))) return e;
-      residual_add<T><<<(H + ew - 1) / ew, ew, 0, st>>>(part, I / kGemvRows, H, srow(a.down_s, (size_t)l * H), x);
+      residual_out<T, float><<<(H + ew - 1) / ew, ew, 0, st>>>(
+          part, I / kGemvRows, I / kGemvRows, H, srow(a.down_s, (size_t)l * H), x, 1, x);
       Q3_CHECK_LAUNCH();
     }
 

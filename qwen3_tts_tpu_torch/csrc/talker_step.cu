@@ -37,9 +37,6 @@
 
 namespace q3 {
 
-constexpr int kAttnChunk = 64;   // cache rows per attention block
-constexpr int kAttnWarps = 4;    // warps of a score block (one row per warp at a time)
-
 struct TalkerDims {
   int layers, hidden, heads, kv_heads, head_dim, inter, max_seq;
   int qdim() const { return heads * head_dim; }
@@ -87,67 +84,6 @@ template <typename T>
 __global__ void store_output(const float* __restrict__ x, int H, T* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < H) out[i] = from_float<T>(x[i]);
-}
-
-// Blocks 0..Hq-1 (blockDim = head_dim): q head b, finished from the qkv
-// partials (round_T(sum * scale)), QK-normed and rotated, into `q`. Blocks
-// Hq..Hq+KV-1: kv head j's k (normed, rotated) and v, written to cache row
-// `pos` of this layer. Every later pass reads row `pos` from the cache.
-template <typename T>
-__global__ void qkv_finish(const float* __restrict__ part, int nsplit, const float* __restrict__ qkv_s,
-                           const T* __restrict__ qn, const T* __restrict__ kn, const float* __restrict__ cos_t,
-                           const float* __restrict__ sin_t, int pos, int Hq, int KV, float eps, float* __restrict__ q,
-                           T* __restrict__ ck, T* __restrict__ cv) {
-  __shared__ float vals[256];
-  __shared__ float buf[32];
-  const int D = blockDim.x, t = threadIdx.x, b = blockIdx.x;
-  const int qd = Hq * D, kvd = KV * D, N = qd + 2 * kvd;
-  if (b < Hq) {
-    const int c = b * D + t;
-    q[c] = qk_norm_rope<T>(round_to<T>(scaled(sum_parts(part, nsplit, N, c), qkv_s, c)), qn, cos_t, sin_t, pos, eps,
-                           vals, buf);
-  } else {
-    const int col = (b - Hq) * D + t, kc = qd + col, vc = qd + kvd + col;
-    const float k = qk_norm_rope<T>(round_to<T>(scaled(sum_parts(part, nsplit, N, kc), qkv_s, kc)), kn, cos_t, sin_t,
-                                    pos, eps, vals, buf);
-    const float v = round_to<T>(scaled(sum_parts(part, nsplit, N, vc), qkv_s, vc));
-    ck[(size_t)pos * kvd + col] = from_float<T>(k);
-    cv[(size_t)pos * kvd + col] = from_float<T>(v);
-  }
-}
-
-// Pass 1, grid (Hq, chunks up to pos), kAttnWarps warps: scores[h, r] =
-// (q_h . k_r) * scale for the chunk's rows r <= pos, a warp per row at a
-// time (lanes own head_dim/32 dims, butterfly sum), and the chunk's maximum.
-template <typename T>
-__global__ void __launch_bounds__(kAttnWarps * 32)
-attn_scores(const float* __restrict__ q, const T* __restrict__ ck, int pos, int Hq, int KV, int D, int S,
-            float scale, float* __restrict__ scores, float* __restrict__ cmax) {
-  __shared__ float qs[256];
-  __shared__ float wmax[kAttnWarps];
-  const int h = blockIdx.x, c = blockIdx.y, nch = gridDim.y, t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int kvd = KV * D, koff = (h / (Hq / KV)) * D, per = D / 32;
-  for (int i = t; i < D; i += blockDim.x) qs[i] = q[h * D + i];
-  __syncthreads();
-  const int r0 = c * kAttnChunk, r1 = min(r0 + kAttnChunk, pos + 1);
-  float m = -INFINITY;
-  for (int r = r0 + warp; r < r1; r += kAttnWarps) {
-    const T* krow = ck + (size_t)r * kvd + koff + lane * per;
-    float s = 0.f;
-    for (int j = 0; j < per; ++j) s = fmaf(qs[lane * per + j], to_float<T>(krow[j]), s);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-    s = __fmul_rn(s, scale);
-    if (lane == 0) scores[(size_t)h * S + r] = s;
-    m = fmaxf(m, s);
-  }
-  if (lane == 0) wmax[warp] = m;
-  __syncthreads();
-  if (t == 0) {
-    float bm = wmax[0];
-    for (int w = 1; w < kAttnWarps; ++w) bm = fmaxf(bm, wmax[w]);
-    cmax[h * nch + c] = bm;
-  }
 }
 
 // Pass 2, grid (Hq, chunks), blockDim = head_dim: against the maximum over
@@ -236,7 +172,8 @@ static cudaError_t run_step(const TalkerDims& d, const TalkerArgs& a, cudaStream
     attn_combine<<<Hq, D, 0, st>>>(lsum, acc, nlive, attn);
     Q3_CHECK_LAUNCH();
     if ((e = gemv<T, int8_t>(vec_input<T>(attn), a.o_w + (size_t)l * qd * H, qd, H, part, st))) return e;
-    residual_add<T><<<(H + ew - 1) / ew, ew, 0, st>>>(part, qd / kGemvRows, H, a.o_s + (size_t)l * H, x);
+    residual_out<T, float><<<(H + ew - 1) / ew, ew, 0, st>>>(
+        part, qd / kGemvRows, qd / kGemvRows, H, a.o_s + (size_t)l * H, x, 1, x);
     Q3_CHECK_LAUNCH();
     // RMSNorm -> gate|up; SiLU*up feeding down; residual.
     if ((e = gemv<T, int8_t>(vec_input<T>(x, post_ln + (size_t)l * H, a.eps), a.gu_w + (size_t)l * H * 2 * I, H,
@@ -245,7 +182,8 @@ static cudaError_t run_step(const TalkerDims& d, const TalkerArgs& a, cudaStream
     const GemvInput<T> swiglu_in{nullptr, nullptr, nullptr, 0, gu_part, H / kGemvRows,
                                  a.gu_s + (size_t)l * 2 * I, nullptr, 0.f};
     if ((e = gemv<T, int8_t>(swiglu_in, a.down_w + (size_t)l * I * H, I, H, part, st))) return e;
-    residual_add<T><<<(H + ew - 1) / ew, ew, 0, st>>>(part, I / kGemvRows, H, a.down_s + (size_t)l * H, x);
+    residual_out<T, float><<<(H + ew - 1) / ew, ew, 0, st>>>(
+        part, I / kGemvRows, I / kGemvRows, H, a.down_s + (size_t)l * H, x, 1, x);
     Q3_CHECK_LAUNCH();
   }
   store_output<T><<<(H + ew - 1) / ew, ew, 0, st>>>(x, H, static_cast<T*>(a.y));

@@ -36,6 +36,16 @@ DECODE_BUCKET = 64
 CUSTOM_VOICE_PROMPT_LEN = 10
 
 
+def _device_or_card(device: torch.device | str | None) -> torch.device:
+    """``device``, or the CUDA card when it is None; raises when there is no
+    card rather than building the model on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("Qwen3TTS: no CUDA device; pass device='cpu' to build the model on the CPU")
+    return torch.device("cuda")
+
+
 @dataclass(frozen=True)
 class SynthesisOptions:
     """Generation options; the defaults match the JAX package's.
@@ -83,8 +93,12 @@ class Qwen3TTS:
     its [H, H] stream-tile re-layout). The talker and the code predictor are
     fused, then their layer projections, the codec head and the lm heads
     are quantized; decode steps then run the whole-step talker kernel and
-    the int8 code-predictor frame, the prefill and codec head the W8A16
-    matmul.
+    the int8 code-predictor frame (or, for a code predictor the frame kernel
+    does not take, its per-step kernels: ``models/code_predictor``), the
+    prefill and codec head the W8A16 matmul.
+
+    ``from_random`` and ``from_numpy`` build on the CUDA card unless given
+    ``device="cpu"``.
     """
 
     def __init__(
@@ -116,12 +130,14 @@ class Qwen3TTS:
         cls,
         config: ModelConfig,
         seed: int = 0,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
         tokenizer=None,
         quantize_int8: bool = False,
     ) -> "Qwen3TTS":
         """Synthetic weights at real dimensions, drawn from ``seed`` on
-        ``device`` (bf16 talker and code predictor, f32 vocoder)."""
+        ``device`` (bf16 talker and code predictor, f32 vocoder). The
+        default device is the CUDA card; ``device="cpu"`` builds on the CPU."""
+        device = _device_or_card(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         return cls(
@@ -142,11 +158,13 @@ class Qwen3TTS:
         vocoder_tree: dict,
         tokenizer=None,
         vocoder_config: vocoder.VocoderConfig = vocoder.VocoderConfig(),
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
         quantize_int8: bool = False,
     ) -> "Qwen3TTS":
         """A model from a JAX model's parameter trees converted to numpy
-        (``jax.tree.map(np.asarray, model.talker_params)`` etc.)."""
+        (``jax.tree.map(np.asarray, model.talker_params)`` etc.), on
+        ``device``: the CUDA card by default, or ``device="cpu"``."""
+        device = _device_or_card(device)
         return cls(
             config,
             W.from_numpy_tree(talker_tree, device),

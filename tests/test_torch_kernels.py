@@ -12,8 +12,8 @@ import torch
 from qwen3_tts_tpu_torch import build
 from qwen3_tts_tpu_torch.models import weights as W
 from qwen3_tts_tpu_torch.models.codec import fused_blocks
-from qwen3_tts_tpu_torch.models.config import CodePredictorConfig, TalkerConfig
-from qwen3_tts_tpu_torch.ops import fused_layer, quant
+from qwen3_tts_tpu_torch.models.config import CodePredictorConfig, TalkerConfig, config_for_variant
+from qwen3_tts_tpu_torch.ops import fused_layer, nn, quant
 
 torch.set_num_threads(1)
 
@@ -27,6 +27,11 @@ TALKER_STACK = TalkerConfig(
     text_embed_dim=128, hidden_size=256, text_proj_intermediate=128, intermediate_size=512,
     num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2, head_dim=64,
 ).layer_stack()
+
+
+# The 1.7B code predictor's widths (H 1024, 16 / 8 heads of 128, I 3072):
+# the shapes of kernels 5, 6 and 7 on the per-step path.
+CP_STACK = config_for_variant("1.7B", "custom_voice").code_predictor.layer_stack()
 
 
 def _cuda():
@@ -92,6 +97,15 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     w = quant.quantize_linear(torch.randn(128, 256))
     with pytest.raises(ValueError, match="no kernel"):
         quant.int8_matmul(torch.zeros((2, 128), device="meta"), w["q8"], w["scale"])
+    layer = nn.layer_params_at(layers, 0)
+    cos_t, sin_t = fused_layer.rope_tables(64, 1e6, 8, torch.device("cpu"))
+    xm = xt.reshape(1, -1).to("meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_layer.fused_attention_step(xm, layer, cos_t, sin_t, ck[0].to("meta"), cv[0].to("meta"), 3, 4, 2, 64, 1e-6)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_layer.fused_mlp_step(xm, layer, TALKER_STACK.intermediate_size, 1e-6)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_layer.streamed_decode_step(layers, xt.to("meta"), TALKER_STACK, ck.to("meta"), cv.to("meta"), 3, cos_t, sin_t)
 
 
 def test_kernel_library_name_tracks_the_sources():
@@ -99,7 +113,7 @@ def test_kernel_library_name_tracks_the_sources():
     assert path == build.library_path()
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
     assert {p.name for p in build.CSRC.glob("*.cu")} == {
-        "cp_frame.cu", "int8_matmul.cu", "residual_unit.cu", "talker_step.cu",
+        "cp_frame.cu", "cp_step.cu", "fused_step.cu", "int8_matmul.cu", "residual_unit.cu", "talker_step.cu",
     }
 
 
@@ -223,3 +237,130 @@ def test_cuda_wrappers_check_their_inputs():
         fused_blocks.residual_unit(x.transpose(1, 2).contiguous().transpose(1, 2), p, 3)
     with pytest.raises(ValueError):
         fused_blocks.residual_unit(x.double(), p, 3)
+
+
+def _cp_step_inputs(device, dtype, layers, seed=0):
+    """Int8 layers at the 1.7B code predictor's widths, random caches of
+    CP_MAX_SEQ rows, an input row, and the RoPE tables."""
+    st = CP_STACK
+    gen = torch.Generator(device=device).manual_seed(seed)
+    stacked = W.init_layer_stack(
+        gen, layers, st.hidden_size, st.intermediate_size, st.num_heads, st.num_kv_heads, st.head_dim, dtype
+    )
+    stacked = quant.quantize_layer_stack(W.fuse_layer_params(stacked))
+    kvd = st.num_kv_heads * st.head_dim
+    ck = torch.randn((layers, fused_layer.CP_MAX_SEQ, kvd), generator=gen, device=device).to(dtype)
+    cv = torch.randn((layers, fused_layer.CP_MAX_SEQ, kvd), generator=gen, device=device).to(dtype)
+    x = torch.randn((1, st.hidden_size), generator=gen, device=device).to(dtype)
+    cos_t, sin_t = fused_layer.rope_tables(st.head_dim, st.rope_theta, fused_layer.CP_MAX_SEQ, torch.device(device))
+    return stacked, x, ck, cv, cos_t, sin_t
+
+
+def _step_tol(dtype, layers=1):
+    # Relative to max|plain|. The int8 matmuls round their inputs to bf16 in
+    # f32 programs too, so a sum in another order can flip an input's
+    # rounding by a bf16 ulp (2^-8) wherever a value sits near a rounding
+    # boundary; through 5 layers and 17 live cache rows that moves an f32 step
+    # by up to ~4e-4 of its scale even for a 2^-22 change of every scale
+    # (plain version on the CPU); over chip_smoke.py's 16 random steps the
+    # kernel lies up to 3.0e-3 away, a step whose residual stream is rounded
+    # to bf16 (``_bf16_residual_step``) at least 5.6e-3, so the 5-layer f32
+    # bar sits between. In bf16 every element may round one ulp the other
+    # way, and that moves the rest of the step by a few ulps.
+    if dtype == torch.float32:
+        return 1e-3 if layers == 1 else 4e-3
+    return 3e-2
+
+
+def _bf16_residual_step(layers, x, ck, cv, pos, cos_t, sin_t):
+    """Kernel 7's plain step with its residual stream rounded to bf16 after
+    every sub-layer: a faulty f32 step that the f32 bar must reject."""
+    st, bf16 = CP_STACK, torch.bfloat16
+    cos_row, sin_row = cos_t[pos : pos + 1].to(bf16), sin_t[pos : pos + 1].to(bf16)
+    h = x.reshape(1, st.hidden_size)
+    for l in range(ck.shape[0]):
+        layer = nn.layer_params_at(layers, l)
+        h = fused_layer._attention_plain(
+            h, layer, cos_row, sin_row, ck[l], cv[l], pos, st.num_heads, st.num_kv_heads, st.head_dim,
+            st.rms_norm_eps, True, st.hidden_size,
+        ).to(bf16).float()
+        h = fused_layer._mlp_plain(h, layer, st.intermediate_size, st.rms_norm_eps, True, st.hidden_size)
+        h = h.to(bf16).float()
+    return h.reshape(1, 1, st.hidden_size)
+
+
+def _assert_rows(ck, ck0, ckp, pos, tol):
+    torch.testing.assert_close(ck[..., pos, :].float(), ckp[..., pos, :].float(), rtol=0,
+                               atol=tol * ckp[..., pos, :].float().abs().max().item())
+    others = torch.ones(ck.shape[-2], dtype=torch.bool, device=ck.device)
+    others[pos] = False
+    bits = torch.int32 if ck.dtype == torch.float32 else torch.int16  # NaN rows compare by their bits
+    assert torch.equal(ck[..., others, :].view(bits), ck0[..., others, :].view(bits))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [True, False])
+@pytest.mark.parametrize("pos", [2, 16])
+def test_cuda_attention_step_matches_plain(pos, residual, dtype):
+    """Kernel 5 at the 1.7B code predictor's widths, S = 17; rows above pos
+    hold NaN, which the kernel must not read."""
+    dev = _cuda()
+    layers, x, ck0, cv0, cos_t, sin_t = _cp_step_inputs(dev, dtype, 1)
+    layer = nn.layer_params_at(layers, 0)
+    ck0[0, pos + 1 :], cv0[0, pos + 1 :] = float("nan"), float("nan")
+    ck, cv, ckp, cvp = ck0[0].clone(), cv0[0].clone(), ck0[0].clone(), cv0[0].clone()
+    st = CP_STACK
+    args = (pos, st.num_heads, st.num_kv_heads, st.head_dim, st.rms_norm_eps, residual)
+    before = fused_layer.fused_attention_step.launches
+    got = fused_layer.fused_attention_step(x, layer, cos_t, sin_t, ck, cv, *args)
+    assert fused_layer.fused_attention_step.launches == before + 1
+    want = fused_layer.fused_attention_step_plain(x, layer, cos_t, sin_t, ckp, cvp, *args)
+    assert got.dtype == dtype and got.shape == x.shape and bool(torch.isfinite(got).all())
+    tol = _step_tol(dtype)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol * want.float().abs().max().item())
+    _assert_rows(ck, ck0[0], ckp, pos, tol)
+    _assert_rows(cv, cv0[0], cvp, pos, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [True, False])
+def test_cuda_mlp_step_matches_plain(residual, dtype):
+    """Kernel 6 at the 1.7B code predictor's widths."""
+    dev = _cuda()
+    layers, x, *_ = _cp_step_inputs(dev, dtype, 1, seed=1)
+    layer = nn.layer_params_at(layers, 0)
+    before = fused_layer.fused_mlp_step.launches
+    got = fused_layer.fused_mlp_step(x, layer, CP_STACK.intermediate_size, CP_STACK.rms_norm_eps, residual)
+    assert fused_layer.fused_mlp_step.launches == before + 1
+    want = fused_layer.fused_mlp_step_plain(x, layer, CP_STACK.intermediate_size, CP_STACK.rms_norm_eps, residual)
+    assert got.dtype == dtype and got.shape == x.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=_step_tol(dtype) * want.float().abs().max().item())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos", [2, 16])
+def test_cuda_streamed_step_matches_plain(pos, dtype):
+    """Kernel 7 through the 1.7B code predictor's 5 layers, S = 17. In f32
+    the bar must also reject a step whose residual stream is bf16."""
+    dev = _cuda()
+    layers, x, ck0, cv0, cos_t, sin_t = _cp_step_inputs(dev, dtype, CP_STACK.num_layers, seed=2)
+    ck0[:, pos + 1 :], cv0[:, pos + 1 :] = float("nan"), float("nan")
+    ck, cv, ckp, cvp = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
+    x = x.reshape(1, 1, -1)
+    before = fused_layer.streamed_decode_step.launches
+    got = fused_layer.streamed_decode_step(layers, x, CP_STACK, ck, cv, pos, cos_t, sin_t)
+    assert fused_layer.streamed_decode_step.launches == before + 1
+    want = fused_layer.streamed_decode_step_plain(layers, x, CP_STACK, ckp, cvp, pos, cos_t, sin_t)
+    assert got.dtype == dtype and got.shape == x.shape and bool(torch.isfinite(got).all())
+    tol = _step_tol(dtype, CP_STACK.num_layers)
+    scale = want.float().abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol * scale)
+    _assert_rows(ck, ck0, ckp, pos, tol)
+    _assert_rows(cv, cv0, cvp, pos, tol)
+    if dtype == torch.float32:
+        faulty = _bf16_residual_step(layers, x, ck0.clone(), cv0.clone(), pos, cos_t, sin_t)
+        assert (faulty - want).abs().max().item() > tol * scale

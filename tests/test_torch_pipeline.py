@@ -54,7 +54,7 @@ def models():
     vcfg = tvoc.VocoderConfig(**asdict(TINY_VOC))
     tm = Qwen3TTS.from_numpy(
         tcfg, _numpy(jm.talker_params), _numpy(jm.cp_params), _numpy(jm.vocoder_params),
-        FakeTokenizer(), vocoder_config=vcfg,
+        FakeTokenizer(), vocoder_config=vcfg, device="cpu",
     )
     return jm, tm
 
@@ -141,7 +141,7 @@ def int8_models():
     )
     tm = Qwen3TTS.from_numpy(
         tcfg, *(_numpy(t) for t in args[1:4]), args[4],
-        vocoder_config=tvoc.VocoderConfig(**asdict(tiny_voc)), quantize_int8=True,
+        vocoder_config=tvoc.VocoderConfig(**asdict(tiny_voc)), quantize_int8=True, device="cpu",
     )
     j_packs = JQwen3TTS(*args, vocoder_config=tiny_voc, quantize_int8=True)
     assert "stream_pack" in j_packs.talker_params and "stream_pack" in j_packs.cp_params
