@@ -25,8 +25,11 @@ Phases, each printing a line (any failure exits nonzero before the last):
      scale, the written row within ROW_TOL, every other row bit-unchanged;
      both timed;
   6. kernel 4 (W8A16 matmul) against its plain version at the main path's
-     shapes (prefill m = 10, codec head m = 1) and m = 1024: within one
-     bf16 ulp of the plain output's scale; both timed;
+     shapes (prefill m = 10, codec head m = 1), m = 32, 64 and 1024, and
+     the per-step code predictor's: within one bf16 ulp of the plain
+     output's scale, the same bits twice; its device span (CUDA graph,
+     weights cold in L2) and its time per call (host included), beside a
+     bf16 matmul on the dequantized weight timed both ways;
   7. kernels 5 and 6 (int8 attention and MLP sub-layer steps) against their
      plain versions at the 1.7B code predictor's widths (17 cache rows, 16
      random (x, pos), bf16 and f32, residual) and at the 1.7B talker's
@@ -85,6 +88,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import qwen3_tts_tpu_torch  # noqa: E402,F401  (sets the TF32 switches)
 from qwen3_tts_tpu_torch import build  # noqa: E402
+from qwen3_tts_tpu_torch import int8_matmul_timing as k4t  # noqa: E402
 from qwen3_tts_tpu_torch.models import code_predictor as cp  # noqa: E402
 from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
 from qwen3_tts_tpu_torch.models.codec import fused_blocks  # noqa: E402
@@ -413,45 +417,52 @@ def kernel3() -> None:
 
 
 def kernel4() -> None:
-    """The W8A16 matmul against its plain version: the main path's shapes
-    (talker prefill, 10 rows; codec head, 1 row every frame), m = 1024, and
-    the per-step code predictor's (1.7B, intermediate 2816 as on its main
-    path and the stock 3072): the 2-row prefill's projections and the
-    1-row lm heads, each at m = 2 and m = 1."""
+    """The W8A16 matmul against its plain version at ``k4t.SHAPES``: the main
+    path's (talker prefill, 10 rows; codec head, 1 row every frame), a
+    longer prompt's prefill (m = 32, 64), m = 1024 (the GEMM tier), and the
+    per-step code predictor's (1.7B, intermediate 2816 as on its main path
+    and the stock 3072): the 2-row prefill's projections and the 1-row lm
+    heads, each at m = 2 and m = 1. Each shape is timed by
+    ``k4t.time_shape``: per call from Python as the path pays it (host
+    included; ``ms``, ``library_ms``, as in earlier runs) and its device
+    span (``device_ms``, ``library_device_ms``: a CUDA graph, weights cold
+    in L2 as on the path, where the talker step's 1.4 GB pass between two
+    calls)."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(6)
-    cp_kn = [(1024, 4096), (2048, 1024), (1024, 5632), (2816, 1024), (1024, 6144), (3072, 1024), (1024, 2048)]
-    shapes = [(10, 2048, 4096), (10, 2048, 2048), (10, 2048, 12288), (10, 6144, 2048), (1, 2048, 3072),
-              (1024, 2048, 4096)] + [(m, k, n) for k, n in cp_kn for m in (2, 1)]
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
     row = {"name": "int8_matmul", "route": "cuda", "source": "qwen3_tts_tpu_torch/csrc/int8_matmul.cu",
            "replaces": "qwen3_tts_tpu/ops/quant.py:168", "launches": 0, "path": "int8", "max_abs_err": 0.0,
            "shapes": []}
-    for m, k, n in shapes:
+    for m, k, n in k4t.SHAPES:
         x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
         w = quant.quantize_linear(torch.randn((k, n), generator=gen, device=DEV) * 0.02)
         before = quant.int8_matmul.launches
         got = quant.int8_matmul(x, w["q8"], w["scale"])
+        again = quant.int8_matmul(x, w["q8"], w["scale"])
         want = quant.int8_matmul_plain(x, w["q8"], w["scale"])
         torch.cuda.synchronize()
-        check(quant.int8_matmul.launches == before + 1, f"kernel 4 did not launch at m={m} K={k} N={n}")
+        check(quant.int8_matmul.launches == before + 2, f"kernel 4 did not launch at m={m} K={k} N={n}")
+        check(same_bits(got, again), f"kernel 4 m={m} K={k} N={n}: two calls gave different bits")
         err = (got.float() - want.float()).abs().max().item()
         tol = want.float().abs().max().item() * 2.0**-7  # one bf16 ulp at the output's scale
-        ms = time_ms(lambda: quant.int8_matmul(x, w["q8"], w["scale"]), iters=20)
-        plain_ms = time_ms(lambda: quant.int8_matmul_plain(x, w["q8"], w["scale"]), iters=20)
-        # The library yardstick: one bf16 matmul on the weight dequantized
-        # once ahead of time (timed here only; the port never calls it).
-        w_deq = (w["q8"].float() * w["scale"]).to(torch.bfloat16)
-        library_ms = time_ms(lambda: torch.matmul(x, w_deq), iters=20)
+        # The library yardstick in time_shape: one bf16 matmul on the weight
+        # dequantized ahead of time (timed here only; the port never calls it).
+        times = {**k4t.time_shape(quant, x, w),
+                 "plain_ms": time_ms(lambda: quant.int8_matmul_plain(x, w["q8"], w["scale"]), iters=20)}
         b = bound(nbytes(x, w) + m * n * x.element_size(), 2 * m * k * n)
-        phase("kernel4", f"m={m} K={k} N={n}: max|err| {err:.4e} (bar {tol:.4e}), kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, library (dequantized bf16 matmul) {library_ms:.4f} ms, "
-              f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        plan = quant.int8_matmul_plan(m, k, n, sms)
+        phase("kernel4", f"m={m} K={k} N={n} (tier {plan.tier}, {plan.splits} K splits): max|err| {err:.4e} "
+              f"(bar {tol:.4e}); per call as the path pays it (host included): kernel {times['ms']:.4f} ms, "
+              f"library (dequantized bf16 matmul) {times['library_ms']:.4f} ms, plain {times['plain_ms']:.4f} "
+              f"ms; device span: kernel {times['device_ms']:.4f} ms, library {times['library_device_ms']:.4f} "
+              f"ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
         check(err <= tol, f"kernel 4 m={m} K={k} N={n}: max|err| {err:.4e} > {tol:.4e}")
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        row["shapes"].append({"m": m, "k": k, "n": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                              "library_ms": library_ms, **b})
+        row["shapes"].append({"m": m, "k": k, "n": n, "tier": plan.tier, "splits": plan.splits,
+                              "max_abs_err": err, **times, **b})
         if (m, k, n) == (1, 2048, 3072):  # the codec head, every frame
-            row.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
+            row.update(**times, **b)
     KERNEL_ROWS.append(row)
 
 

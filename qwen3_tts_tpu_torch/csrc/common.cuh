@@ -3,7 +3,10 @@
 // GEMV (with RMSNorm / SiLU*up in its input staging), and one decode step's
 // qkv finish (QK-norm, RoPE, cache append) and attention scores, that the
 // code-predictor frame (cp_frame.cu), the talker step (talker_step.cu) and
-// the code-predictor decode steps (decode_layer.cuh) are built from.
+// the code-predictor decode steps (decode_layer.cuh) are built from; and
+// the tensor-core and asynchronous-copy wrappers (cp.async, ldmatrix, the
+// bf16 mma, the exact int8 -> bf16 convert, mbarriers and st.async into
+// another block of the cluster) of the W8A16 matmul (int8_matmul.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -349,6 +352,116 @@ attn_scores(const float* __restrict__ q, const T* __restrict__ ck, int pos, int 
     for (int w = 1; w < kAttnWarps; ++w) bm = fmaxf(bm, wmax[w]);
     cmax[h * nch + c] = bm;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core and asynchronous-copy building blocks (inline PTX): cp.async
+// 16-byte copies with commit / wait groups, ldmatrix, the bf16 m16n8k16 mma
+// with f32 accumulation, the exact int8 -> bf16 convert (sm_80+), and
+// mbarriers with st.async between the blocks of a cluster (sm_90).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, through L2 only (the weights are read once).
+// Both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(smem)), "l"(gmem));
+}
+// The same, or 16 zero bytes into `smem` when `live` is false (gmem is then
+// not read, but must still be a valid address).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(smem)), "l"(gmem),
+               "r"(live ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// Wait until at most N of this thread's committed groups are still in flight.
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 b16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8. For an m16k16 A tile (row-major, rows 16 bytes
+// apart or more) lane l points at row l % 16, column (l / 16) * 8: r[0..3]
+// are then the mma's A fragment a0..a7 in order.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 sums. With g = lane / 4,
+// t = lane % 4: b0 holds B[2t, g], B[2t+1, g] (low half first), b1 the rows
+// 2t+8, 2t+9; d[0], d[1] are D[g, 2t], D[g, 2t+1] and d[2], d[3] row g + 8.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Shared-memory barriers (mbarrier) and asynchronous stores into another
+// block of the cluster that complete on the target's barrier (sm_90).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+// Arrive once, expecting `bytes` more of asynchronous transactions in this phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(bytes)
+               : "memory");
+}
+// Makes the barriers this thread initialised visible to the cluster (before
+// the cluster barrier that the other blocks wait on).
+__device__ __forceinline__ void fence_mbar_init() { asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory"); }
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+  return done;
+}
+// This block's shared address `addr` as the same offset in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+// 16 bytes into another block's shared memory; completes as 16 transaction
+// bytes on that block's barrier `bar` (both cluster addresses).
+__device__ __forceinline__ void st_async_f4(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(
+                   addr),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+               : "memory");
+}
+
+// Four int8 (one 32-bit word, byte j = value j) -> four exact floats: each
+// biased byte v + 128 becomes the low byte of 2^23's mantissa, and one
+// subtraction of 2^23 + 128 leaves v (no int -> float conversion unit).
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float (&f)[4]) {
+  const uint32_t u = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - 8388736.f;
+}
+
+// Two int8 words of the same four columns in rows k (lo) and k + 1 (hi) ->
+// four bf16x2 words, word j = (row k, row k + 1) of column j, row k in the
+// low half: an mma B-fragment register per column. Exact: an integer of at
+// most 8 significant bits has a zero low half as an f32, so its high half is
+// the bf16 of the same value.
+__device__ __forceinline__ void i8x4_pair_to_bf16x2(uint32_t lo, uint32_t hi, uint32_t (&out)[4]) {
+  float a[4], b[4];
+  i8x4_to_f32(lo, a);
+  i8x4_to_f32(hi, b);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) out[j] = __byte_perm(__float_as_uint(a[j]), __float_as_uint(b[j]), 0x7632);
 }
 
 }  // namespace q3

@@ -10,9 +10,10 @@ bf16, the exact int8 -> bf16 weights, an f32 sum, times the per-column f32
 scale, cast to x's dtype. On a CUDA tensor it launches the hand-written
 W8A16 kernel (``csrc/int8_matmul.cu``, the port of ``_make_pallas_matmul``)
 for the shapes the JAX package gives its Pallas kernel (m <= 1024 rows,
-K and N multiples of 128); other shapes take the plain form, as the JAX
-package takes XLA's dequant-then-dot. On a CPU tensor it is always the
-plain form; any other device raises.
+K and N multiples of 128), with the launch plan of ``int8_matmul_plan``;
+other shapes take the plain form, as the JAX package takes XLA's
+dequant-then-dot. On a CPU tensor it is always the plain form; any other
+device raises.
 
 The w8a8 scope (dynamic activation quantization) serves batched programs
 only and comes with batching.
@@ -21,6 +22,8 @@ only and comes with batching.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -69,18 +72,66 @@ def int8_matmul_plain(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -
     return (acc * scale.float()).to(x2.dtype)
 
 
+# csrc/int8_matmul.cu's two instantiations, (rows, K rows per chunk) of a
+# block's tile: tier 0 for m <= 16, tier 1 above (the C entry refuses any
+# other pair). Every tile is 128 columns.
+INT8_MM_TIERS = ((16, 64), (64, 32))
+INT8_MM_COLS = 128
+# A tile's K splits form one thread-block cluster. The kernel takes up to 16
+# (an H100's largest cluster); the plan stops at 8, the portable cluster
+# size: above it no GEMV shape of the 1.7B model ran more than 4% faster
+# than at its best count of 8 or fewer on an H100, and most ran slower
+# (PERF.md, PR 5).
+INT8_MM_MAX_SPLITS = 8
+INT8_MM_WAVE = 0.75  # the share of the SMs a split launch aims to fill
+
+
+class Int8MatmulPlan(NamedTuple):
+    tier: int  # 0: m <= 16 (weight-bound); 1: 16 < m <= 1024
+    bm: int  # output rows per block
+    bk: int  # K rows per chunk (one stage of the kernel's ring)
+    splits: int  # K splits (grid.z), whole chunks spread evenly
+
+
+@functools.lru_cache(maxsize=None)
+def int8_matmul_plan(m: int, k: int, n: int, sms: int) -> Int8MatmulPlan:
+    """The launch plan of the W8A16 kernel for ``[m, k] @ [k, n]`` on a card
+    with ``sms`` SMs.
+
+    The tier follows m. When the output tiles alone leave much of the
+    card idle (the GEMV shapes), K is split into runs of whole chunks so
+    that the blocks come nearest to three quarters of the SMs, at most
+    ``INT8_MM_MAX_SPLITS`` (a tile's splits are one cluster, which adds
+    their partial sums in shared memory: no scratch); the splits cover K
+    exactly and none is empty. On an H100 a sweep of every split count at
+    the 1.7B model's GEMV shapes found this count the fastest, or within 3%
+    of it, at all but one: at N 12288 (96 tiles, 1 split) 2 splits ran 5-7%
+    faster (PERF.md, PR 5).
+    """
+    if not (1 <= m <= KERNEL_MAX_ROWS and k > 0 and k % KERNEL_ALIGN == 0 and n > 0 and n % KERNEL_ALIGN == 0):
+        raise ValueError(f"int8_matmul_plan: the kernel does not take m={m} K={k} N={n}")
+    tier = 0 if m <= 16 else 1
+    bm, bk = INT8_MM_TIERS[tier]
+    tiles = (n // INT8_MM_COLS) * -(-m // bm)
+    splits = max(1, min(round(sms * INT8_MM_WAVE / tiles), k // bk, INT8_MM_MAX_SPLITS))
+    return Int8MatmulPlan(tier, bm, bk, splits)
+
+
 def _kernel_lib():
     from .. import build
 
     lib = build.load()
     if not getattr(lib, "_q3_int8_mm_bound", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.q3_int8_matmul_scratch_floats.restype = ctypes.c_size_t
-        lib.q3_int8_matmul_scratch_floats.argtypes = [i32, i32, i32]
         lib.q3_int8_matmul.restype = i32
-        lib.q3_int8_matmul.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, ptr, ptr]
+        lib.q3_int8_matmul.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
         lib._q3_int8_mm_bound = True
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _int8_mm_core(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -102,13 +153,14 @@ def _int8_mm_core(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> to
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"int8_matmul: {name} must be contiguous on {dev}")
     x2 = x2.contiguous()
+    for name, t in (("x", x2), ("q8", q8), ("scale", scale)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"int8_matmul: {name} is not 16-byte aligned (a view at an odd offset)")
+    plan = int8_matmul_plan(m, k, n, _sm_count(dev))
     out = torch.empty((m, n), dtype=x2.dtype, device=dev)
-    lib = _kernel_lib()
-    n_scratch = lib.q3_int8_matmul_scratch_floats(m, k, n)
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev) if n_scratch else None
-    err = lib.q3_int8_matmul(
-        _DTYPES[x2.dtype], x2.data_ptr(), q8.data_ptr(), scale.data_ptr(), out.data_ptr(),
-        m, k, n, None if scratch is None else scratch.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    err = _kernel_lib().q3_int8_matmul(
+        _DTYPES[x2.dtype], x2.data_ptr(), q8.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k, n,
+        plan.bm, plan.bk, plan.splits, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {err}")

@@ -180,27 +180,34 @@ def test_cuda_talker_step_matches_plain(rows, pos, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,n", [(1, 384), (10, 384), (1024, 384), (1024, 1152)])
-def test_cuda_int8_matmul_matches_plain(m, n, dtype):
-    """f32 out: within 1e-5 of max|plain| (the same exact products in
-    another order); bf16 out: within one bf16 ulp of the output's scale.
-    N = 384 splits K over blocks at every m; m = 1024 at N = 1152 does not."""
+@pytest.mark.parametrize("k,n", [(128, 128), (256, 384), (2048, 3072), (6144, 2048), (4096, 256)])
+@pytest.mark.parametrize("m", [1, 2, 10, 16, 17, 64, 65, 1000, 1024])
+def test_cuda_int8_matmul_matches_plain(m, k, n, dtype):
+    """f32 out: within 1e-5 of max|plain| (the same exact products, summed
+    by the tensor cores and the K splits in another order); bf16 out: within
+    one bf16 ulp of the output's scale. Both tiers (m <= 16, m > 16), K with
+    fewer chunks than the ring has stages (128), split K and not (m >= 1000
+    at N >= 2048 fills the card without), and the plan's largest clusters
+    (K 4096, N 256: 2 tiles, 8 splits). One launch per call, and the same bits
+    twice (the splits are added in a fixed order)."""
     dev = _cuda()
-    gen = torch.Generator(device=dev).manual_seed(m)
-    x = torch.randn((m, 256), generator=gen, device=dev).to(dtype)
-    w = quant.quantize_linear(torch.randn((256, n), generator=gen, device=dev) * 0.05)
+    gen = torch.Generator(device=dev).manual_seed(m * 7 + k)
+    x = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    w = quant.quantize_linear(torch.randn((k, n), generator=gen, device=dev) * 0.05)
     before = quant.int8_matmul.launches
     got = quant.int8_matmul(x, w["q8"], w["scale"])
     assert quant.int8_matmul.launches == before + 1
+    again = quant.int8_matmul(x, w["q8"], w["scale"])
     want = quant.int8_matmul_plain(x, w["q8"], w["scale"])
     assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.equal(got, again)
     tol = 1e-5 if dtype == torch.float32 else 2.0**-7
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol * want.float().abs().max().item())
     # A shape outside the kernel's gate takes the plain form, as the JAX
     # package takes XLA's dequant-then-dot.
-    w_odd = quant.quantize_linear(torch.randn((256, 100), generator=gen, device=dev))
+    w_odd = quant.quantize_linear(torch.randn((k, 100), generator=gen, device=dev))
     out = quant.int8_matmul(x, w_odd["q8"], w_odd["scale"])
-    assert quant.int8_matmul.launches == before + 1
+    assert quant.int8_matmul.launches == before + 2
     assert torch.equal(out, quant.int8_matmul_plain(x, w_odd["q8"], w_odd["scale"]))
 
 
@@ -237,6 +244,31 @@ def test_cuda_wrappers_check_their_inputs():
         fused_blocks.residual_unit(x.transpose(1, 2).contiguous().transpose(1, 2), p, 3)
     with pytest.raises(ValueError):
         fused_blocks.residual_unit(x.double(), p, 3)
+    # Kernel 4 copies x, q8 and scale with 16-byte cp.async: a contiguous view
+    # at an odd offset raises (no fallback), the aligned one launches.
+    w = quant.quantize_linear(torch.randn((256, 384), device=dev))
+    flat = torch.randn(2 * 256 + 8, device=dev).to(torch.bfloat16)
+    before = quant.int8_matmul.launches
+    with pytest.raises(ValueError, match="aligned"):
+        quant.int8_matmul(flat[1 : 1 + 2 * 256].view(2, 256), w["q8"], w["scale"])
+    scale_view = torch.cat([w["scale"][:1], w["scale"]])[1:]  # contiguous, 4 bytes in
+    with pytest.raises(ValueError, match="aligned"):
+        quant.int8_matmul(flat[:512].view(2, 256), w["q8"], scale_view)
+    assert quant.int8_matmul.launches == before
+    quant.int8_matmul(flat[8 : 8 + 2 * 256].view(2, 256), w["q8"], w["scale"])
+    assert quant.int8_matmul.launches == before + 1
+    # The plan's tile sizes are the kernel's own: its C entry takes both of
+    # the plan's tiers and refuses any other (rows, chunk rows) pair.
+    x = flat[:512].view(2, 256)
+    out = torch.empty((2, 384), dtype=x.dtype, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def entry(bm, bk):
+        return quant._kernel_lib().q3_int8_matmul(1, x.data_ptr(), w["q8"].data_ptr(), w["scale"].data_ptr(),
+                                                  out.data_ptr(), 2, 256, 384, bm, bk, 1, stream)
+
+    assert [entry(bm, bk) for bm, bk in quant.INT8_MM_TIERS] == [0, 0]
+    assert entry(16, 32) != 0 and entry(64, 64) != 0
 
 
 def _cp_step_inputs(device, dtype, layers, seed=0):

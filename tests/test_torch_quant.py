@@ -17,6 +17,7 @@ import torch
 
 from qwen3_tts_tpu.models import weights as JW
 from qwen3_tts_tpu.ops import quant as jq
+from qwen3_tts_tpu_torch import int8_matmul_timing as k4t
 from qwen3_tts_tpu_torch.models import weights as TW
 from qwen3_tts_tpu_torch.ops import nn as tnn
 from qwen3_tts_tpu_torch.ops import quant as tq
@@ -141,6 +142,80 @@ def test_int8_matmul_plain_matches_pallas_kernel_interpret():
         torch.from_numpy(np.array(q["scale"])),
     )
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), rtol=2e-2, atol=1e-3)
+
+
+# Every (K, N) that kernel 4 takes at the 1.7B widths: the talker's qkv, o,
+# gate|up and down projections and codec head; the code predictor's qkv, o,
+# gate|up and down (intermediate 3072, and 2816 on its per-step path) and
+# lm heads.
+WIDTHS_1P7B = [
+    (2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048), (2048, 3072),
+    (1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024), (1024, 5632), (2816, 1024), (1024, 2048),
+]
+H100_SMS = 132
+
+
+def _check_plan(m, k, n):
+    """The rules of a kernel-4 launch plan on an H100: the tier follows m;
+    every split covers whole K chunks and the splits cover K exactly, none
+    empty; at most 8 splits (a tile's cluster); the block count is the
+    nearest to three quarters of the SMs that whole splits give (unless the
+    chunks or the cluster cap it), so shapes with fewer tiles are split and
+    shapes with that many tiles or more are not. Returns the blocks."""
+    p = tq.int8_matmul_plan(m, k, n, H100_SMS)
+    assert p.tier == (0 if m <= 16 else 1)
+    assert (p.bm, p.bk) == tq.INT8_MM_TIERS[p.tier]
+    chunks = k // p.bk
+    assert chunks * p.bk == k
+    spans = [(z * chunks // p.splits, (z + 1) * chunks // p.splits) for z in range(p.splits)]
+    assert spans[0][0] == 0 and spans[-1][1] == chunks
+    assert all(end > start for start, end in spans)
+    assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    tiles = (n // tq.INT8_MM_COLS) * -(-m // p.bm)
+    blocks = tiles * p.splits
+    cap = min(chunks, tq.INT8_MM_MAX_SPLITS)
+    assert 1 <= p.splits <= cap
+    target = tq.INT8_MM_WAVE * H100_SMS
+    if p.splits < cap:
+        assert blocks >= target - tiles / 2
+    if p.splits > 1:
+        assert blocks <= target + tiles / 2
+    if tiles >= target:
+        assert p.splits == 1
+    return blocks
+
+
+@pytest.mark.parametrize("k,n", WIDTHS_1P7B)
+def test_int8_matmul_plan_every_m_at_1p7b_widths(k, n):
+    for m in range(1, tq.KERNEL_MAX_ROWS + 1):
+        _check_plan(m, k, n)
+
+
+# The K splits of the plan at the GEMV (m <= 16) shapes chip_smoke.py
+# times, by (K, N): the counts chosen against a sweep of every count on an
+# H100 (PERF.md, PR 5). At least 64 blocks (8 tiles x 8) stream weights.
+GEMV_SPLITS = {
+    (2048, 4096): 3, (2048, 2048): 6, (2048, 12288): 1, (6144, 2048): 6, (2048, 3072): 4,
+    (1024, 4096): 3, (2048, 1024): 8, (1024, 5632): 2, (2816, 1024): 8, (1024, 6144): 2, (3072, 1024): 8,
+    (1024, 2048): 6,
+}
+
+
+@pytest.mark.parametrize("m,k,n", k4t.SHAPES)
+def test_int8_matmul_plan_at_timed_shapes(m, k, n):
+    blocks = _check_plan(m, k, n)
+    if m <= 16:
+        assert tq.int8_matmul_plan(m, k, n, H100_SMS).splits == GEMV_SPLITS[(k, n)]
+        assert blocks >= 64
+
+
+def test_int8_matmul_plan_refuses_shapes_outside_the_gate():
+    for m, k, n in ((0, 128, 128), (1025, 128, 128), (1, 64, 128), (1, 128, 100)):
+        with pytest.raises(ValueError, match="does not take"):
+            tq.int8_matmul_plan(m, k, n, H100_SMS)
+    # The smallest K: two 64-row chunks (tier 0) or four 32-row ones (tier 1).
+    assert tq.int8_matmul_plan(1, 128, 128, H100_SMS) == (0, 16, 64, 2)
+    assert tq.int8_matmul_plan(1024, 128, 128, H100_SMS) == (1, 64, 32, 4)
 
 
 def test_int8_layer_stack_matches_jax():
