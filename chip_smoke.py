@@ -18,12 +18,16 @@ Phases, each printing a line (any failure exits nonzero before the last):
   4. kernel 2 (vocoder residual unit) against its plain version at C =
      384/192/96 and dilations 1/3/9 over the time lengths of a 128-frame
      decode: within atol = 1e-5 * max|x|, a prefix bit-identical, both timed;
-  5. kernel 3 (int8 talker step) against its plain version on the 1.7B
-     talker quantized to int8, with bf16 caches of 160 and 2080 rows, 16
-     random (x, pos) each with pos near the top: the codec-head argmax
-     equal in >= 14 of 16, hidden within HIDDEN_TOL of the plain version's
-     scale, the written row within ROW_TOL, every other row bit-unchanged;
-     both timed;
+  5. kernel 3 (talker step) against its plain version on the 1.7B talker
+     in its three forms, each with caches of 160 and 2080 rows and 16
+     random (x, pos) each with pos near the top: quantized to int8 and
+     plain bf16 (the int8 and bf16 main paths' forms; bf16 caches): the
+     codec-head argmax equal in >= 14 of 16, hidden within HIDDEN_TOL of
+     the plain version's scale, the written row within ROW_TOL, every other
+     row bit-unchanged; plain f32: argmax 16 of 16, hidden and written rows
+     within F32_STEP_TOL, and the same against the eager layer path on the
+     unfused talker (``talker.decode_step``); kernel, plain version and
+     layer path timed;
   6. kernel 4 (W8A16 matmul) against its plain version at the main path's
      shapes (prefill m = 10, codec head m = 1), m = 32, 64 and 1024, and
      the per-step code predictor's: within one bf16 ulp of the plain
@@ -44,8 +48,10 @@ Phases, each printing a line (any failure exits nonzero before the last):
      step and kernels 5 + 6 per layer, each held to the same route on the
      plain versions by kernel 1's int8 bars, beside kernel 1's codes and
      time;
- 10. end to end: a small f32 model on the card against the same weights on
-     the CPU (identical frames, close audio); a small model in int8 on
+ 10. end to end: a small f32 model on the card (kernel 3 on plain f32
+     weights and kernel 1, each once a frame) against the same weights on
+     the CPU's layer path (identical frames, close audio); a small model in
+     int8 on
      the card against the CPU over 6 frames (first 2 frames equal, >= 90%
      of codes); two small int8 models whose code predictor the JAX gates
      send to the per-step path (kernels 5 + 6; kernel 7), under the same
@@ -53,9 +59,11 @@ Phases, each printing a line (any failure exits nonzero before the last):
      the 1.7B CustomVoice main path (``Qwen3TTS.from_random(
      config_for_variant("1.7B", "custom_voice"))``, the fixed 13-token
      prompt, 125 frames, seed 42, temperature 0.9): one warm run, then one
-     timed run with the kernels' launch counts reset just before it; the
-     timed run's audio must equal the warm run's bit for bit (same seed,
-     deterministic kernels); then the same in int8 (``quantize_int8=True``
+     timed run with the kernels' launch counts reset just before it, in
+     which kernels 1, 2 and 3 (125 times: the talker fused on the card)
+     must launch and the int8-path kernels must not; the timed run's audio
+     must equal the warm run's bit for bit (same seed, deterministic
+     kernels); then the same in int8 (``quantize_int8=True``
      on the same synthetic trees, as bench.py builds its int8 model), where
      all four int8-path kernels must launch; then two 1.7B int8 models whose
      code predictor takes the per-step path (vocab 2047: kernel 7;
@@ -90,6 +98,7 @@ import qwen3_tts_tpu_torch  # noqa: E402,F401  (sets the TF32 switches)
 from qwen3_tts_tpu_torch import build  # noqa: E402
 from qwen3_tts_tpu_torch import int8_matmul_timing as k4t  # noqa: E402
 from qwen3_tts_tpu_torch.models import code_predictor as cp  # noqa: E402
+from qwen3_tts_tpu_torch.models import talker  # noqa: E402
 from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
 from qwen3_tts_tpu_torch.models.codec import fused_blocks  # noqa: E402
 from qwen3_tts_tpu_torch.models.codec import vocoder  # noqa: E402
@@ -116,6 +125,10 @@ TALKER_MIN_ARGMAX_EQUAL = 14  # of TALKER_TRIALS
 # carries them on. Bars relative to max|plain| of the compared tensor.
 HIDDEN_TOL = 0.05
 ROW_TOL = 0.05
+# Kernel 3 on plain f32 weights after 28 layers, against its plain version
+# and the eager layer path: the same rounding points, only f32 sums in
+# another order (matmul inputs stay f32 on plain weights).
+F32_STEP_TOL = 1e-4
 # Kernels 5-7 against their plain versions, relative to max|plain| of the
 # compared tensor. The int8 matmuls round their inputs to bf16 in f32
 # programs too, so a sum in another order can flip an input's rounding by a
@@ -349,71 +362,122 @@ def kernel2() -> None:
     })
 
 
-def kernel3() -> None:
-    """The int8 talker step against its plain version at 1.7B."""
-    tcfg = config_for_variant("1.7B", "custom_voice").talker
+def talker_trials(params: dict, tcfg: TalkerConfig, dtype: torch.dtype, gen: torch.Generator, rows: int,
+                  unfused: dict | None = None) -> dict:
+    """Kernel 3 against its plain version on ``params`` (the fused talker,
+    int8 or plain) with caches of ``rows`` rows in ``dtype``, on
+    TALKER_TRIALS random (x, pos), pos near the top; with ``unfused`` (the
+    same talker's unfused tree) also against the eager layer path
+    (``talker.decode_step``, what the JAX main path computes): the normed
+    hidden, the written rows and the codec-head argmax. Kernel, plain
+    version and (with ``unfused``) layer path timed at the last pos."""
     stack = tcfg.layer_stack()
+    layers = params["layers"]
+    n_layers, kvh, hd = stack.num_layers, stack.num_kv_heads, stack.head_dim
+    kvd = kvh * hd
+
+    def head(h):
+        normed = nn.rms_norm(h, params["norm"], tcfg.rms_norm_eps)
+        return normed, int(torch.argmax(quant.mm_plain(normed, params["codec_head"])))
+
+    ck0 = torch.randn((n_layers, rows, kvd), generator=gen, device=DEV).to(dtype)
+    cv0 = torch.randn((n_layers, rows, kvd), generator=gen, device=DEV).to(dtype)
+    r = {"argmax": 0, "h_err": 0.0, "row_err": 0.0, "abs": 0.0, "untouched": True,
+         "eager_argmax": 0, "eager_err": 0.0, "eager_row_err": 0.0}
+    for trial in range(TALKER_TRIALS):
+        pos = rows - 1 - 3 * trial
+        x = torch.randn((1, 1, stack.hidden_size), generator=gen, device=DEV).to(dtype)
+        ck, cv, ckp, cvp = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
+        got = fused_layer.talker_step(layers, x, stack, ck, cv, pos)
+        want = fused_layer.talker_step_plain(layers, x, stack, ckp, cvp, pos)
+        torch.cuda.synchronize()
+        (h_got, a_got), (_, a_want) = head(got), head(want)
+        r["argmax"] += a_got == a_want
+        r["h_err"] = max(r["h_err"], rel_err(got, want))
+        r["abs"] = max(r["abs"], (got.float() - want.float()).abs().max().item())
+        for c, c0, cp_ in ((ck, ck0, ckp), (cv, cv0, cvp)):
+            r["row_err"] = max(r["row_err"], rel_err(c[:, pos], cp_[:, pos]))
+            others = torch.arange(rows, device=DEV) != pos
+            r["untouched"] &= same_bits(c[:, others], c0[:, others])
+        if unfused is not None:
+            cache = nn.KVCache(ck0.clone().view(n_layers, 1, rows, kvh, hd), cv0.clone().view(n_layers, 1, rows, kvh, hd))
+            h_eager, logits = talker.decode_step(unfused, tcfg, x, pos, cache)
+            r["eager_argmax"] += a_got == int(torch.argmax(logits))
+            r["eager_err"] = max(r["eager_err"], rel_err(h_got, h_eager))
+            for c, ce in ((ck, cache.k), (cv, cache.v)):
+                r["eager_row_err"] = max(r["eager_row_err"], rel_err(c[:, pos], ce[:, 0, pos].reshape(n_layers, kvd)))
+    r["ms"] = time_ms(lambda: fused_layer.talker_step(layers, x, stack, ck, cv, pos), iters=20)
+    r["plain_ms"] = time_ms(lambda: fused_layer.talker_step_plain(layers, x, stack, ckp, cvp, pos), iters=3)
+    if unfused is not None:
+        r["eager_ms"] = time_ms(lambda: talker.decode_step(unfused, tcfg, x, pos, cache), iters=3)
+    # The weights once, x and y, the pos live rows of K and V read and row
+    # pos written in every layer; the projections' and attention's MACs.
+    proj = sum((w["q8"] if quant.is_quantized(w) else w).numel()
+               for w in (layers[p] for p in ("qkv_proj", "o_proj", "gateup_proj", "down_proj")))
+    cache_bytes = n_layers * (pos + 1) * 2 * kvd * ck0.element_size()
+    r.update(bound(nbytes(layers) + 2 * nbytes(x) + cache_bytes,
+                   2 * proj + n_layers * 4 * (pos + 1) * stack.num_heads * stack.head_dim))
+    del ck0, cv0, ck, cv, ckp, cvp
+    return r
+
+
+def kernel3() -> None:
+    """Kernel 3 in both forms against its plain version at 1.7B: int8 (the
+    int8 path's), plain bf16 (the bf16 main path's) and plain f32, which is
+    also held to the eager layer path on the unfused talker."""
+    tcfg = config_for_variant("1.7B", "custom_voice").talker
     gen = torch.Generator(device=DEV)
     gen.manual_seed(4)
-    params = quant.quantize_talker_params(W.fuse_model_params(W.init_talker_params(gen, tcfg, torch.bfloat16)))
-    layers = params["layers"]
-    n_layers, hidden = stack.num_layers, stack.hidden_size
-    kvd = stack.num_kv_heads * stack.head_dim
-    bf16 = torch.bfloat16
-
-    def argmax_logits(h):
-        normed = nn.rms_norm(h, params["norm"], tcfg.rms_norm_eps)
-        return int(torch.argmax(quant.mm_plain(normed, params["codec_head"])))
-
-    row = {"name": "talker_step", "route": "cuda", "source": "qwen3_tts_tpu_torch/csrc/talker_step.cu",
-           "replaces": "qwen3_tts_tpu/ops/fused_layer.py:1261", "launches": 0, "path": "int8", "max_abs_err": 0.0,
-           "library_ms": None}
-    for rows in (160, 2080):
-        ck0 = torch.randn((n_layers, rows, kvd), generator=gen, device=DEV).to(bf16)
-        cv0 = torch.randn((n_layers, rows, kvd), generator=gen, device=DEV).to(bf16)
-        same_argmax, h_err, row_err, untouched = 0, 0.0, 0.0, True
-        for trial in range(TALKER_TRIALS):
-            pos = rows - 1 - 3 * trial
-            x = torch.randn((1, 1, hidden), generator=gen, device=DEV).to(bf16)
-            ck, cv, ckp, cvp = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
-            got = fused_layer.talker_step(layers, x, stack, ck, cv, pos)
-            want = fused_layer.talker_step_plain(layers, x, stack, ckp, cvp, pos)
-            torch.cuda.synchronize()
-            same_argmax += argmax_logits(got) == argmax_logits(want)
-            h_err = max(h_err, ((got.float() - want.float()).abs().max() / want.float().abs().max()).item())
-            for c, cp_ in ((ck, ckp), (cv, cvp)):
-                row_err = max(row_err, ((c[:, pos].float() - cp_[:, pos].float()).abs().max()
-                                        / cp_[:, pos].float().abs().max()).item())
-            others = torch.ones(rows, dtype=torch.bool, device=DEV)
-            others[pos] = False
-            untouched &= torch.equal(ck[:, others], ck0[:, others]) and torch.equal(cv[:, others], cv0[:, others])
-            row["max_abs_err"] = max(row["max_abs_err"], (got.float() - want.float()).abs().max().item())
-        pos = rows - 1
-        ms = time_ms(lambda: fused_layer.talker_step(layers, x, stack, ck, cv, pos), iters=20)
-        plain_ms = time_ms(lambda: fused_layer.talker_step_plain(layers, x, stack, ckp, cvp, pos), iters=3)
-        phase("kernel3", f"1.7B int8 talker step, {rows}-row cache, {TALKER_TRIALS} trials: logits argmax equal "
-              f"{same_argmax}/{TALKER_TRIALS}, hidden max|err|/max|plain| {h_err:.4e} (bar {HIDDEN_TOL}), written "
-              f"row {row_err:.4e} (bar {ROW_TOL}), other rows bit-unchanged {untouched}, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
-        check(same_argmax >= TALKER_MIN_ARGMAX_EQUAL,
-              f"kernel 3 S={rows}: argmax equal in {same_argmax}/{TALKER_TRIALS} (< {TALKER_MIN_ARGMAX_EQUAL})")
-        check(h_err <= HIDDEN_TOL, f"kernel 3 S={rows}: hidden error {h_err:.4e} > {HIDDEN_TOL}")
-        check(row_err <= ROW_TOL, f"kernel 3 S={rows}: written cache row error {row_err:.4e} > {ROW_TOL}")
-        check(untouched, f"kernel 3 S={rows}: a cache row other than pos changed")
-        suffix = "" if rows == 160 else f"_{rows}"  # 160 rows: the 125-frame main path's cache
-        row[f"ms{suffix}"], row[f"plain_ms{suffix}"] = ms, plain_ms
-        # The weights once, x and y, the pos live rows of K and V read and
-        # row pos written in every layer; the projections' and attention's MACs.
-        proj = sum(layers[p]["q8"].numel() for p in ("qkv_proj", "o_proj", "gateup_proj", "down_proj"))
-        cache_bytes = n_layers * (pos + 1) * 2 * kvd * 2
-        b = bound(nbytes(layers) + 2 * nbytes(x) + cache_bytes,
-                  2 * proj + n_layers * 4 * (pos + 1) * stack.num_heads * stack.head_dim)
-        row[f"bound_ms{suffix}"] = b["bound_ms"]
-        row["bound_by"] = b["bound_by"]
-        row[f"argmax_equal{suffix}"] = f"{same_argmax}/{TALKER_TRIALS}"
-        row[f"hidden_rel_err{suffix}"] = h_err
-        del ck0, cv0, ck, cv, ckp, cvp
-    KERNEL_ROWS.append(row)
+    forms = (
+        ("int8", torch.bfloat16, lambda t: quant.quantize_talker_params(W.fuse_model_params(t))),
+        ("bf16", torch.bfloat16, W.fuse_model_params),
+        ("f32", torch.float32, W.fuse_model_params),
+    )
+    res = {}
+    for form, dtype, make in forms:
+        unfused = W.init_talker_params(gen, tcfg, torch.float32 if form == "f32" else torch.bfloat16)
+        params = make(unfused)
+        if form == "int8":
+            unfused = None
+        for rows in (160, 2080):  # 160 rows: the 125-frame main path's cache
+            r = res[form, rows] = talker_trials(params, tcfg, dtype, gen, rows, unfused)
+            argmax_min, h_tol, row_tol = (TALKER_TRIALS, F32_STEP_TOL, F32_STEP_TOL) if form == "f32" else (
+                TALKER_MIN_ARGMAX_EQUAL, HIDDEN_TOL, ROW_TOL)
+            eager = "" if unfused is None else (
+                f"; eager layer path: argmax equal {r['eager_argmax']}/{TALKER_TRIALS}, normed hidden "
+                f"{r['eager_err']:.4e}, written rows {r['eager_row_err']:.4e}, {r['eager_ms']:.4f} ms")
+            phase("kernel3", f"1.7B {form} talker step, {rows}-row cache, {TALKER_TRIALS} trials: logits argmax equal "
+                  f"{r['argmax']}/{TALKER_TRIALS} (bar {argmax_min}), hidden max|err|/max|plain| {r['h_err']:.4e} "
+                  f"(bar {h_tol}), written row {r['row_err']:.4e} (bar {row_tol}), other rows bit-unchanged "
+                  f"{r['untouched']}, kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}){eager}")
+            what = f"kernel 3 {form} S={rows}"
+            check(r["argmax"] >= argmax_min, f"{what}: argmax equal in {r['argmax']}/{TALKER_TRIALS} (< {argmax_min})")
+            check(r["h_err"] <= h_tol, f"{what}: hidden error {r['h_err']:.4e} > {h_tol}")
+            check(r["row_err"] <= row_tol, f"{what}: written cache row error {r['row_err']:.4e} > {row_tol}")
+            check(r["untouched"], f"{what}: a cache row other than pos changed")
+            if form == "f32":
+                check(r["eager_argmax"] == TALKER_TRIALS,
+                      f"{what}: argmax equal to the layer path's in {r['eager_argmax']}/{TALKER_TRIALS}")
+                check(r["eager_err"] <= F32_STEP_TOL and r["eager_row_err"] <= F32_STEP_TOL,
+                      f"{what}: layer path error {r['eager_err']:.4e} / {r['eager_row_err']:.4e} > {F32_STEP_TOL}")
+        del params, unfused
+        torch.cuda.empty_cache()
+    for form, name in (("bf16", "talker_step"), ("int8", "talker_step_int8")):
+        row = {"name": name, "route": "cuda", "source": "qwen3_tts_tpu_torch/csrc/talker_step.cu",
+               "replaces": "qwen3_tts_tpu/ops/fused_layer.py:1261", "launches": 0, "path": form,
+               "dtype": "bfloat16", "max_abs_err": max(res[form, n]["abs"] for n in (160, 2080)), "library_ms": None}
+        for rows, suffix in ((160, ""), (2080, "_2080")):
+            r = res[form, rows]
+            row.update({f"ms{suffix}": r["ms"], f"plain_ms{suffix}": r["plain_ms"], f"bound_ms{suffix}": r["bound_ms"],
+                        f"argmax_equal{suffix}": f"{r['argmax']}/{TALKER_TRIALS}", f"hidden_rel_err{suffix}": r["h_err"]})
+            if form == "bf16":
+                f32 = res["f32", rows]
+                row.update({f"eager_ms{suffix}": r["eager_ms"], f"ms_f32{suffix}": f32["ms"],
+                            f"plain_ms_f32{suffix}": f32["plain_ms"], f"eager_ms_f32{suffix}": f32["eager_ms"],
+                            f"f32_rel_err{suffix}": f32["h_err"], f"f32_eager_rel_err{suffix}": f32["eager_err"]})
+        row["bound_by"] = res[form, 160]["bound_by"]
+        KERNEL_ROWS.append(row)
 
 
 def kernel4() -> None:
@@ -792,7 +856,7 @@ def _small_runs(
 def small_model_agrees() -> None:
     """A small f32 model whose shapes the kernels take: the card's run must
     give the CPU plain run's frames exactly and its audio within 1e-4."""
-    talker = TalkerConfig(
+    talker_cfg = TalkerConfig(
         text_embed_dim=128, hidden_size=128, text_proj_intermediate=128,
         intermediate_size=256, num_hidden_layers=2, num_attention_heads=2, num_key_value_heads=1,
         head_dim=64,
@@ -805,13 +869,18 @@ def small_model_agrees() -> None:
         codebook_dim=32, latent_dim=48, hidden_size=32, num_layers=2, num_heads=2, head_dim=16,
         intermediate_size=64, codebook_embed_dim=16, decoder_dim=64,
     )
-    cfg = ModelConfig(model_type=ModelType.CUSTOM_VOICE, model_size="small", talker=talker, code_predictor=cpc)
+    cfg = ModelConfig(model_type=ModelType.CUSTOM_VOICE, model_size="small", talker=talker_cfg, code_predictor=cpc)
+    kernels = ("cp_frame", "talker_step", "residual_unit")
+    before = {k: COUNTERS[k].launches for k in kernels}
     runs = _small_runs(cfg, voc, seed=5, quantize_int8=False, frames=24)
+    launched = {k: COUNTERS[k].launches - before[k] for k in kernels}
     (f_cpu, a_cpu), (f_gpu, a_gpu) = runs["cpu"], runs["card"]
     same = f_cpu.shape == f_gpu.shape and bool((f_cpu == f_gpu).all())
     err = float(abs(a_cpu - a_gpu).max()) if a_cpu.shape == a_gpu.shape else math.inf
     phase("e2e-small", f"{len(f_gpu)} frames identical to the CPU plain run: {same}; "
-          f"audio max|err| {err:.3e} (peak {float(abs(a_cpu).max()):.3e})")
+          f"audio max|err| {err:.3e} (peak {float(abs(a_cpu).max()):.3e}); launches on the card {launched}")
+    check(launched["talker_step"] == len(f_gpu) and launched["cp_frame"] == len(f_gpu),
+          f"small model: the card's run did not take kernels 1 and 3 once a frame: {launched}")
     check(same, "small model: frames on the card differ from the CPU plain run")
     check(err <= 1e-4, f"small model: audio differs from the CPU plain run by {err:.3e}")
 
@@ -898,7 +967,8 @@ COUNTERS = {
 def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = ()) -> dict:
     """One warm run, then one timed run with every launch count set to 0
     just before it; the counts are read just after. Every kernel of
-    ``kernels`` must launch in it, and none of ``absent``."""
+    ``kernels`` must launch in it, kernel 3 (the talker step) once a frame
+    where it is one of them, and none of ``absent``."""
     opts = SynthesisOptions(max_length=FRAMES, min_new_tokens=FRAMES, seed=42, temperature=0.9)
     text = "The quick brown fox jumps over the lazy dog near the river bank today."
 
@@ -919,6 +989,8 @@ def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = (
     check(bool(torch.isfinite(torch.from_numpy(samples)).all()), f"{label}: audio has non-finite samples")
     check(all(launches[k] > 0 for k in kernels), f"{label}: a kernel of the path never launched: {launches}")
     check(all(launches[k] == 0 for k in absent), f"{label}: a kernel of another path launched: {launches}")
+    check("talker_step" not in kernels or launches["talker_step"] == FRAMES,
+          f"{label}: the talker step kernel launched {launches['talker_step']} times, not once a frame")
     repeatable = bool((warm.samples == samples).all())
     check(repeatable, f"{label}: the timed run's audio differs from the warm run's (same seed)")
     rtf = wall / (len(samples) / OUTPUT_SAMPLE_RATE)
@@ -932,13 +1004,15 @@ def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = (
 
 
 def main_path() -> dict:
-    """The 1.7B main path in bf16, then in int8 on the same synthetic trees."""
+    """The 1.7B main path in bf16 (the talker fused on the card: kernel 3 on
+    plain weights), then in int8 on the same synthetic trees."""
     t0 = time.perf_counter()
     model = Qwen3TTS.from_random(config_for_variant("1.7B", "custom_voice"), seed=0, device=DEV)
     model.tokenizer = BenchTokenizer()
     torch.cuda.synchronize()
     phase("e2e", f"1.7B CustomVoice synthetic weights built in {time.perf_counter() - t0:.1f} s")
-    bf16 = run_main_path(model, "1.7B bf16", ("cp_frame", "residual_unit"))
+    bf16 = run_main_path(model, "1.7B bf16", ("cp_frame", "talker_step", "residual_unit"),
+                         absent=("int8_matmul", "fused_attention_step", "fused_mlp_step", "streamed_decode_step"))
 
     t0 = time.perf_counter()
     m8 = Qwen3TTS(model.config, model.talker_params, model.cp_params, model.vocoder_params, model.tokenizer,

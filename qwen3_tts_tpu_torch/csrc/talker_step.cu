@@ -1,35 +1,41 @@
-// Kernel 3 of the port: one batch-1 talker decode step on int8 weights.
+// Kernel 3 of the port: one batch-1 talker decode step, on int8 weights or
+// on plain weights in the working type.
 //
 // Replaces the TPU kernel qwen3_tts_tpu/ops/fused_layer.py:
-// _streamed_talker_kernel (entry streamed_talker_step): the step's input
-// embedding through every talker layer (RMSNorm -> int8 qkv -> QK-norm ->
-// RoPE -> KV append at row `pos` -> GQA over the cache rows <= pos -> int8 o
-// -> residual -> RMSNorm -> int8 gate|up -> SiLU*up -> int8 down ->
-// residual), returning the last layer's output (the final norm and codec
-// head stay outside, as in the JAX package).
+// _streamed_talker_kernel (entry streamed_talker_step), in both its forms
+// (`quantized` True / False): the step's input embedding through every
+// talker layer (RMSNorm -> qkv -> QK-norm -> RoPE -> KV append at row `pos`
+// -> GQA over the cache rows <= pos -> o -> residual -> RMSNorm -> gate|up
+// -> SiLU*up -> down -> residual), returning the last layer's output (the
+// final norm and codec head stay outside, as in the JAX package).
 //
-// What bounds it on an H100: at 1.7B a step streams 28 layers x 50.3 MB of
-// int8 weights (1.41 GB, ~0.42 ms at 3.35 TB/s) plus the live cache rows
-// (2 x 28 x (pos+1) x 1024 bf16: 117 KB per row); one GEMV per projection
-// at batch 1, so bytes, not flops -- and in this first version the ~250
-// dependent launches of a step.
+// What bounds it on an H100: at 1.7B a step streams 28 layers of weights,
+// 50.3 MB each in int8 (1.41 GB, ~0.42 ms at 3.35 TB/s) or 100.7 MB in bf16
+// (2.82 GB, ~0.84 ms), plus the live cache rows (2 x 28 x (pos+1) x 1024
+// bf16: 117 KB per row); one GEMV per projection at batch 1, so bytes, not
+// flops -- and in this first version the ~280 dependent launches of a step.
 //
 // Design: one C entry point per step runs a fixed sequence of simple
 // kernels on the caller's stream, built from the split-K GEMV of the
-// code-predictor frame (common.cuh): int8 weights read one byte each with
-// the per-column scale applied once to the finished column sum (the JAX
-// kernel's `acc * scale`), RMSNorm and SiLU*up fused into the GEMV input
-// staging, fixed-order partial sums (deterministic, no atomics). The TPU
-// kernel's [H, H] tile re-layout, weight DMA ring, per-layer cache-plane
-// copies and 16-row write-back slab are TPU artefacts: here the weights stay
-// in the canonical [L, K, N] layout and the step writes row `pos` of each
-// layer's K and V in place in the [L, S, KV*D] cache view. Attention splits
-// the rows <= pos into 64-row chunks (a block per q head and chunk: 16 x 33
-// blocks at the 2048-frame tier), in three passes with a fixed-order
-// combine: scores and each chunk's maximum; exp against the maximum over
-// all chunks, each chunk's weight sum and weighted value sum (weights
-// rounded to the working type); the combine and division. The result does
-// not depend on timing or on the chunking of other blocks.
+// code-predictor frame (common.cuh), instantiated for the weight type W:
+// int8 weights read one byte each with the per-column scale applied once to
+// the finished column sum (the JAX kernel's `acc * scale`), matmul inputs
+// rounded to bf16; plain weights (W = T, the JAX kernel's `quantized=False`)
+// read in their own type, no scale, matmul inputs kept in T. RMSNorm and
+// SiLU*up are fused into the GEMV input staging, partial sums are added in a
+// fixed order (deterministic, no atomics), and o and down add their K
+// splits in H-wide chunks in ascending order, as the JAX kernel adds its
+// K tiles. The TPU kernel's [H, H] tile re-layout, weight DMA ring,
+// per-layer cache-plane copies and 16-row write-back slab are TPU
+// artefacts: here the weights stay in the canonical [L, K, N] layout and
+// the step writes row `pos` of each layer's K and V in place in the [L, S,
+// KV*D] cache view. Attention splits the rows <= pos into 64-row chunks (a
+// block per q head and chunk: 16 x 33 blocks at the 2048-frame tier), in
+// three passes with a fixed-order combine: scores and each chunk's maximum;
+// exp against the maximum over all chunks, each chunk's weight sum and
+// weighted value sum (weights rounded to the working type); the combine and
+// division. The result does not depend on timing or on the chunking of
+// other blocks.
 
 #include <algorithm>
 
@@ -121,9 +127,11 @@ __global__ void attn_combine(const float* __restrict__ lsum, const float* __rest
   out[h * D + t] = __fdiv_rn(a, l);
 }
 
+// The projections are int8 with f32 per-column scales, or plain (the
+// working type, scales null).
 struct TalkerArgs {
   const void* x;
-  const int8_t *qkv_w, *o_w, *gu_w, *down_w;
+  const void *qkv_w, *o_w, *gu_w, *down_w;
   const float *qkv_s, *o_s, *gu_s, *down_s;
   const void *input_ln, *post_ln, *q_norm, *k_norm;
   const float *cos_t, *sin_t;
@@ -134,7 +142,10 @@ struct TalkerArgs {
   void* y;
 };
 
-template <typename T>
+// A scale row of layer l, or null for plain weights.
+static const float* layer_scale(const float* s, int l, int n) { return s ? s + (size_t)l * n : nullptr; }
+
+template <typename T, typename W>
 static cudaError_t run_step(const TalkerDims& d, const TalkerArgs& a, cudaStream_t st) {
   const TalkerLayout Lo = talker_layout(d);
   float* s = a.scratch;
@@ -148,8 +159,12 @@ static cudaError_t run_step(const TalkerDims& d, const TalkerArgs& a, cudaStream
   const T* kn = static_cast<const T*>(a.k_norm);
   T* ck = static_cast<T*>(a.ck);
   T* cv = static_cast<T*>(a.cv);
+  const W* qkv_w = static_cast<const W*>(a.qkv_w);
+  const W* o_w = static_cast<const W*>(a.o_w);
+  const W* gu_w = static_cast<const W*>(a.gu_w);
+  const W* down_w = static_cast<const W*>(a.down_w);
   const float scale = (float)(1.0 / sqrt((double)D));  // as Python rounds 1/sqrt(D)
-  const int ew = 256, nlive = a.pos / kAttnChunk + 1;
+  const int ew = 256, nlive = a.pos / kAttnChunk + 1, per = H / kGemvRows;
   const dim3 attn_grid(Hq, nlive);
   cudaError_t e;
 
@@ -159,10 +174,10 @@ static cudaError_t run_step(const TalkerDims& d, const TalkerArgs& a, cudaStream
     T* ckl = ck + (size_t)l * S * kvd;
     T* cvl = cv + (size_t)l * S * kvd;
     // RMSNorm -> qkv; q / k norms, RoPE, k|v append; attention; o; residual.
-    if ((e = gemv<T, int8_t>(vec_input<T>(x, in_ln + (size_t)l * H, a.eps), a.qkv_w + (size_t)l * H * nqkv, H, nqkv,
-                             part, st)))
+    if ((e = gemv<T, W>(vec_input<T>(x, in_ln + (size_t)l * H, a.eps), qkv_w + (size_t)l * H * nqkv, H, nqkv, part,
+                        st)))
       return e;
-    qkv_finish<T><<<Hq + KV, D, 0, st>>>(part, H / kGemvRows, a.qkv_s + (size_t)l * nqkv, qn + (size_t)l * D,
+    qkv_finish<T><<<Hq + KV, D, 0, st>>>(part, H / kGemvRows, layer_scale(a.qkv_s, l, nqkv), qn + (size_t)l * D,
                                          kn + (size_t)l * D, a.cos_t, a.sin_t, a.pos, Hq, KV, a.eps, q, ckl, cvl);
     Q3_CHECK_LAUNCH();
     attn_scores<T><<<attn_grid, kAttnWarps * 32, 0, st>>>(q, ckl, a.pos, Hq, KV, D, S, scale, scores, cmax);
@@ -171,19 +186,19 @@ static cudaError_t run_step(const TalkerDims& d, const TalkerArgs& a, cudaStream
     Q3_CHECK_LAUNCH();
     attn_combine<<<Hq, D, 0, st>>>(lsum, acc, nlive, attn);
     Q3_CHECK_LAUNCH();
-    if ((e = gemv<T, int8_t>(vec_input<T>(attn), a.o_w + (size_t)l * qd * H, qd, H, part, st))) return e;
-    residual_out<T, float><<<(H + ew - 1) / ew, ew, 0, st>>>(
-        part, qd / kGemvRows, qd / kGemvRows, H, a.o_s + (size_t)l * H, x, 1, x);
+    if ((e = gemv<T, W>(vec_input<T>(attn), o_w + (size_t)l * qd * H, qd, H, part, st))) return e;
+    residual_out<T, float><<<(H + ew - 1) / ew, ew, 0, st>>>(part, qd / kGemvRows, per, H, layer_scale(a.o_s, l, H),
+                                                             x, 1, x);
     Q3_CHECK_LAUNCH();
     // RMSNorm -> gate|up; SiLU*up feeding down; residual.
-    if ((e = gemv<T, int8_t>(vec_input<T>(x, post_ln + (size_t)l * H, a.eps), a.gu_w + (size_t)l * H * 2 * I, H,
-                             2 * I, gu_part, st)))
+    if ((e = gemv<T, W>(vec_input<T>(x, post_ln + (size_t)l * H, a.eps), gu_w + (size_t)l * H * 2 * I, H, 2 * I,
+                        gu_part, st)))
       return e;
     const GemvInput<T> swiglu_in{nullptr, nullptr, nullptr, 0, gu_part, H / kGemvRows,
-                                 a.gu_s + (size_t)l * 2 * I, nullptr, 0.f};
-    if ((e = gemv<T, int8_t>(swiglu_in, a.down_w + (size_t)l * I * H, I, H, part, st))) return e;
-    residual_out<T, float><<<(H + ew - 1) / ew, ew, 0, st>>>(
-        part, I / kGemvRows, I / kGemvRows, H, a.down_s + (size_t)l * H, x, 1, x);
+                                 layer_scale(a.gu_s, l, 2 * I), nullptr, 0.f};
+    if ((e = gemv<T, W>(swiglu_in, down_w + (size_t)l * I * H, I, H, part, st))) return e;
+    residual_out<T, float><<<(H + ew - 1) / ew, ew, 0, st>>>(part, I / kGemvRows, per, H,
+                                                             layer_scale(a.down_s, l, H), x, 1, x);
     Q3_CHECK_LAUNCH();
   }
   store_output<T><<<(H + ew - 1) / ew, ew, 0, st>>>(x, H, static_cast<T*>(a.y));
@@ -191,8 +206,9 @@ static cudaError_t run_step(const TalkerDims& d, const TalkerArgs& a, cudaStream
   return cudaSuccess;
 }
 
+template <typename W>
 static bool talker_dims_ok(const TalkerDims& d) {
-  const int cols = gemv_cols<int8_t>();
+  const int cols = gemv_cols<W>();
   const int ns[] = {d.nqkv(), d.hidden, 2 * d.inter};
   for (int n : ns)
     if (n % cols) return false;
@@ -203,37 +219,54 @@ static bool talker_dims_ok(const TalkerDims& d) {
          d.max_seq > 0;
 }
 
+// Whether the kernel takes these shapes for dtype (0 f32, 1 bf16) and
+// weight kind (quantized: int8, else plain in the working type).
+static bool talker_takes(int dtype, int quantized, const TalkerDims& d) {
+  if (quantized != 0 && quantized != 1) return false;
+  if (dtype == 0) return quantized ? talker_dims_ok<int8_t>(d) : talker_dims_ok<float>(d);
+  if (dtype == 1) return quantized ? talker_dims_ok<int8_t>(d) : talker_dims_ok<__nv_bfloat16>(d);
+  return false;
+}
+
 }  // namespace q3
 
 extern "C" {
 
-// Floats of f32 scratch one step needs (0 when the shapes are unsupported).
-size_t q3_talker_step_scratch_floats(int dtype, int layers, int hidden, int heads, int kv_heads, int head_dim,
-                                     int inter, int max_seq) {
+// Floats of f32 scratch one step needs (0 when the kernel does not take the
+// dtype, weight kind or shapes).
+size_t q3_talker_step_scratch_floats(int dtype, int quantized, int layers, int hidden, int heads, int kv_heads,
+                                     int head_dim, int inter, int max_seq) {
   const q3::TalkerDims d{layers, hidden, heads, kv_heads, head_dim, inter, max_seq};
-  return (dtype == 0 || dtype == 1) && q3::talker_dims_ok(d) ? q3::talker_layout(d).total : 0;
+  return q3::talker_takes(dtype, quantized, d) ? q3::talker_layout(d).total : 0;
 }
 
 // One decode step: y [H] <- the last layer's output for input x [H], and
 // row `pos` of every layer of ck, cv [L, S, KV*D] written in place. dtype
-// 0 = f32, 1 = bf16 for x, y, the norms and the caches. Int8 weights
-// (fused, stacked over layers, [in, out]) with f32 per-column scales:
-// qkv_w [L, H, (Hq+2KV)*D] / qkv_s [L, (Hq+2KV)*D], o_w [L, Hq*D, H] / o_s
-// [L, H], gu_w [L, H, 2I] / gu_s [L, 2I], down_w [L, I, H] / down_s [L, H];
+// 0 = f32, 1 = bf16 for x, y, the norms and the caches. The projections are
+// fused and stacked over layers, [in, out]: qkv_w [L, H, (Hq+2KV)*D], o_w
+// [L, Hq*D, H], gu_w [L, H, 2I], down_w [L, I, H]; quantized = 1: int8 with
+// f32 per-column scales qkv_s [L, (Hq+2KV)*D], o_s [L, H], gu_s [L, 2I],
+// down_s [L, H]; quantized = 0: plain in the working type, scales null.
 // input_ln/post_ln [L, H], q_norm/k_norm [L, D]; cos_t/sin_t [S, D/2] f32.
-int q3_talker_step(int dtype, const void* x, const int8_t* qkv_w, const float* qkv_s, const int8_t* o_w,
-                   const float* o_s, const int8_t* gu_w, const float* gu_s, const int8_t* down_w,
-                   const float* down_s, const void* input_ln, const void* post_ln, const void* q_norm,
-                   const void* k_norm, const float* cos_t, const float* sin_t, void* ck, void* cv, int layers,
-                   int hidden, int heads, int kv_heads, int head_dim, int inter, int max_seq, int pos, float eps,
-                   float* scratch, void* y, void* stream) {
+int q3_talker_step(int dtype, int quantized, const void* x, const void* qkv_w, const float* qkv_s, const void* o_w,
+                   const float* o_s, const void* gu_w, const float* gu_s, const void* down_w, const float* down_s,
+                   const void* input_ln, const void* post_ln, const void* q_norm, const void* k_norm,
+                   const float* cos_t, const float* sin_t, void* ck, void* cv, int layers, int hidden, int heads,
+                   int kv_heads, int head_dim, int inter, int max_seq, int pos, float eps, float* scratch, void* y,
+                   void* stream) {
   const q3::TalkerDims d{layers, hidden, heads, kv_heads, head_dim, inter, max_seq};
-  if (!(dtype == 0 || dtype == 1) || !q3::talker_dims_ok(d) || pos < 0 || pos >= max_seq)
-    return (int)cudaErrorInvalidValue;
+  if (!q3::talker_takes(dtype, quantized, d) || pos < 0 || pos >= max_seq) return (int)cudaErrorInvalidValue;
+  const bool scales = qkv_s && o_s && gu_s && down_s, no_scales = !qkv_s && !o_s && !gu_s && !down_s;
+  if (quantized ? !scales : !no_scales) return (int)cudaErrorInvalidValue;
   const q3::TalkerArgs a{x,        qkv_w,   o_w,    gu_w,   down_w, qkv_s, o_s, gu_s,    down_s, input_ln,
                          post_ln,  q_norm,  k_norm, cos_t,  sin_t,  ck,    cv,  pos,     eps,    scratch, y};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = dtype == 0 ? q3::run_step<float>(d, a, st) : q3::run_step<__nv_bfloat16>(d, a, st);
+  cudaError_t e;
+  if (dtype == 0)
+    e = quantized ? q3::run_step<float, int8_t>(d, a, st) : q3::run_step<float, float>(d, a, st);
+  else
+    e = quantized ? q3::run_step<__nv_bfloat16, int8_t>(d, a, st)
+                  : q3::run_step<__nv_bfloat16, __nv_bfloat16>(d, a, st);
   return (int)e;
 }
 

@@ -39,7 +39,7 @@ def cp_route(params: dict, cfg: CodePredictorConfig) -> str:
         return "frame"
     layers = params["layers"]
     if fused_layer.supports_fused_step(layers):
-        return "streamed_step" if fused_layer.stream_dims_ok(layers, cfg.hidden_size) else "layer_steps"
+        return "streamed_step" if fused_layer.has_stream_pack(layers, cfg.hidden_size) else "layer_steps"
     return "layers"
 
 
@@ -77,13 +77,13 @@ def _predict_acoustic_codes_fused(
     ``fused_layer.run_fused_decode_step``, written in place in the planes.
     ``streamed``: kernel 7 (True) or kernels 5 + 6 per layer (False); None
     takes the JAX package's choice, kernel 7 exactly when it would hold a
-    stream pack (``stream_dims_ok``).
+    stream pack (``has_stream_pack``).
     """
     stack = cfg.layer_stack()
     layers = params["layers"]
     dev = talker_hidden.device
     if streamed is None:
-        streamed = fused_layer.stream_dims_ok(layers, stack.hidden_size)
+        streamed = fused_layer.has_stream_pack(layers, stack.hidden_size)
     cache = nn.init_kv_cache(stack, 1, CP_MAX_SEQ, talker_hidden.dtype, dev)
     x = fused_layer.mtp_project(params, torch.cat([talker_hidden, semantic_embed], dim=1))
     h = nn.run_layer_stack(layers, x, stack, cache, torch.arange(2, device=dev), 0, self_attn_prefill=True)

@@ -2,11 +2,12 @@
 
 PyTorch port of the CustomVoice path of ``qwen3_tts_tpu/models/talker.py``
 (dual text/codec embeddings, SiLU text projection, final norm + codec head).
-The prefill runs on the layer path (``ops/nn.py``, plain or int8 weights).
-A decode step with int8 weights runs the whole-step kernel on the cache's
-[L, S, KV*D] plane view (``stream_plane_mode``, ``decode_step_planes``);
-otherwise the layer path. The tensor-parallel and ICL variants of the JAX
-module are not ported yet.
+The prefill runs on the layer path (``ops/nn.py``, plain or int8 weights,
+fused or not). A decode step on a fused tree (all int8, or all plain: what
+the JAX package would stream-pack) runs the whole-step kernel on the
+cache's [L, S, KV*D] plane view (``stream_plane_mode``,
+``decode_step_planes``); on an unfused tree, the layer path. The
+tensor-parallel and ICL variants of the JAX module are not ported yet.
 
 CustomVoice prompt layout, 10 positions:
     [0..3)  text_proj(text_emb([im_start, assistant, newline]))
@@ -128,16 +129,18 @@ def prefill(
 
 
 def stream_plane_mode(params: dict, cfg: TalkerConfig, cache: nn.KVCache) -> bool:
-    """True when decode steps run the whole-step int8 kernel, which takes the
-    cache as [L, S, KV*D] planes: int8 fused weights whose dims tile by the
-    hidden size, a batch-1 cache, and at most ``TALKER_STREAM_MAX_SEQ`` rows
-    (the JAX package's gate, without its stream pack).
+    """True when decode steps run the whole-step kernel, which takes the
+    cache as [L, S, KV*D] planes: a fused tree, all int8 or all plain, whose
+    dims tile by the hidden size (the JAX package's ``make_stream_pack``
+    gate: in the JAX package the pack's presence is the gate, in the port
+    the fused tree stands for the pack), a batch-1 cache, and at most
+    ``TALKER_STREAM_MAX_SEQ`` rows.
 
     Callers that loop decode steps (``generation/core.py``) take the plane
     views once per loop; the cache is contiguous, so the views are free.
     """
     return (
-        fused_layer.stream_dims_ok(params["layers"], cfg.hidden_size)
+        fused_layer.has_stream_pack(params["layers"], cfg.hidden_size)
         and cache.k.ndim == 5
         and cache.k.shape[1] == 1
         and cache.max_seq <= fused_layer.TALKER_STREAM_MAX_SEQ
@@ -175,10 +178,10 @@ def decode_step(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One generation step with a pre-fused input embedding [1, 1, hidden].
 
-    Writes cache row ``pos`` in place. With int8 weights and a cache the
+    Writes cache row ``pos`` in place. With a fused tree and a cache the
     kernel takes (``stream_plane_mode``) the whole step is one
-    ``fused_layer.talker_step``; otherwise the layer path. Returns (normed
-    hidden [1,1,hidden], logits [1, codec_vocab]).
+    ``fused_layer.talker_step`` (int8 or plain weights); otherwise the layer
+    path. Returns (normed hidden [1,1,hidden], logits [1, codec_vocab]).
     """
     if stream_plane_mode(params, cfg, cache):
         return decode_step_planes(params, cfg, step_embed, pos, *plane_views(cache))

@@ -10,8 +10,9 @@ each with the mtp projection and a greedy argmax). It takes plain (f32 or
 bf16) and weight-only int8 code-predictor trees.
 
 ``talker_step`` runs one batch-1 decode step through every talker layer on
-int8 weights (``csrc/talker_step.cu``, the port of
-``streamed_talker_step``); its plain version is ``talker_step_plain``.
+int8 or plain (f32 / bf16) weights (``csrc/talker_step.cu``, the port of
+both forms of ``streamed_talker_step``); its plain version is
+``talker_step_plain``.
 
 The per-step int8 code predictor, for trees the frame kernel does not take
 (``supports_cp_frame_kernel``): ``fused_attention_step`` and
@@ -118,6 +119,15 @@ def _check_linear(w, name: str, shape: tuple, dtype, device, op: str) -> bool:
     return False
 
 
+def _check_linears(linears: dict, dtype, device, op: str) -> bool:
+    """Check every linear of ``linears`` (name -> (weight, shape)); returns
+    whether they are int8, and raises unless all are int8 or all plain."""
+    int8 = {name: _check_linear(w, name, shape, dtype, device, op) for name, (w, shape) in linears.items()}
+    if len(set(int8.values())) != 1:
+        raise ValueError(f"{op}: the projections must be all int8 or all plain ({int8})")
+    return next(iter(int8.values()))
+
+
 _ROPE_TABLES: dict = {}
 
 
@@ -144,9 +154,9 @@ def _kernel_lib():
             [i32, i32] + [ptr] * 21 + [i32] * 9 + [ctypes.c_float, ptr, ptr, ptr]
         )
         lib.q3_talker_step_scratch_floats.restype = ctypes.c_size_t
-        lib.q3_talker_step_scratch_floats.argtypes = [i32] * 8
+        lib.q3_talker_step_scratch_floats.argtypes = [i32] * 9
         lib.q3_talker_step.restype = i32
-        lib.q3_talker_step.argtypes = [i32] + [ptr] * 17 + [i32] * 8 + [ctypes.c_float, ptr, ptr, ptr]
+        lib.q3_talker_step.argtypes = [i32, i32] + [ptr] * 17 + [i32] * 8 + [ctypes.c_float, ptr, ptr, ptr]
         lib._q3_fused_bound = True
     return lib
 
@@ -182,16 +192,13 @@ def cp_frame(params: dict, cfg, talker_hidden: torch.Tensor, semantic_embed: tor
     if "qkv_proj" not in layers or "gateup_proj" not in layers:
         raise ValueError("cp_frame: the kernel needs fused qkv_proj / gateup_proj weights")
     linears = {
-        "qkv_proj": (L, H, qd + 2 * kvd),
-        "o_proj": (L, qd, H),
-        "gateup_proj": (L, H, 2 * I),
-        "down_proj": (L, I, H),
+        "qkv_proj": (layers["qkv_proj"], (L, H, qd + 2 * kvd)),
+        "o_proj": (layers["o_proj"], (L, qd, H)),
+        "gateup_proj": (layers["gateup_proj"], (L, H, 2 * I)),
+        "down_proj": (layers["down_proj"], (L, I, H)),
+        "lm_heads": (params["lm_heads"], (G, H, V)),
     }
-    int8 = {name: _check_linear(layers[name], name, shape, dtype, dev, "cp_frame") for name, shape in linears.items()}
-    int8["lm_heads"] = _check_linear(params["lm_heads"], "lm_heads", (G, H, V), dtype, dev, "cp_frame")
-    quantized = int8["qkv_proj"]
-    if any(v != quantized for v in int8.values()):
-        raise ValueError(f"cp_frame: layer projections and heads must be all int8 or all plain ({int8})")
+    quantized = _check_linears(linears, dtype, dev, "cp_frame")
     for name, shape in {"input_ln": (L, H), "post_ln": (L, H), "q_norm": (L, D), "k_norm": (L, D)}.items():
         _check(layers[name], name, shape, dtype, dev)
     _check(params["norm"], "norm", (H,), dtype, dev)
@@ -245,7 +252,7 @@ cp_frame.launches = 0  # frames the kernel ran (CPU-plain calls are not counted)
 
 
 # ---------------------------------------------------------------------------
-# The talker decode step on int8 weights
+# The talker decode step (int8 or plain weights)
 # ---------------------------------------------------------------------------
 
 
@@ -265,46 +272,48 @@ def _fused_dims_tile(layers: dict, hidden: int) -> bool:
     return all(d % hidden == 0 for d in dims)
 
 
-def stream_dims_ok(layers: dict, hidden: int) -> bool:
-    """The JAX gate of ``make_stream_pack`` on an int8 tree: all four
-    projections int8 and every fused dim a multiple of the hidden size."""
-    return supports_fused_step(layers) and _fused_dims_tile(layers, hidden)
+def _acc(x: torch.Tensor, w, k0: int = 0, k1: int | None = None) -> torch.Tensor:
+    """f32 sum of x @ w[k0:k1], x rounded to the matmul input type: bf16
+    for an int8 linear (exact products, before the scale), the weights' own
+    dtype for a plain one."""
+    if quant.is_quantized(w):
+        return x.to(torch.bfloat16).float() @ w["q8"][k0:k1].float()
+    return x.to(w.dtype).float() @ w[k0:k1].float()
 
 
-def _dq(x: torch.Tensor, w: dict, k0: int = 0, k1: int | None = None) -> torch.Tensor:
-    """f32 sum of bf16(x) @ q8[k0:k1] (exact products), before the scale."""
-    return x.to(torch.bfloat16).float() @ w["q8"][k0:k1].float()
-
-
-def _dq_out(x: torch.Tensor, w: dict, dtype: torch.dtype, k_chunk: int | None) -> torch.Tensor:
-    """round_T(acc * scale): acc one whole dot (``k_chunk`` None) or the sum
-    over ``k_chunk``-wide K chunks in ascending order."""
+def _mm_out(x: torch.Tensor, w, dtype: torch.dtype, k_chunk: int | None) -> torch.Tensor:
+    """round_T(acc [* scale]): acc one whole dot (``k_chunk`` None) or the
+    sum over ``k_chunk``-wide K chunks in ascending order; an int8 linear's
+    scale applied to the finished sum."""
     if k_chunk is None:
-        acc = _dq(x, w)
+        acc = _acc(x, w)
     else:
         acc = None
         for k0 in range(0, x.shape[-1], k_chunk):
-            part = _dq(x[:, k0 : k0 + k_chunk], w, k0, k0 + k_chunk)
+            part = _acc(x[:, k0 : k0 + k_chunk], w, k0, k0 + k_chunk)
             acc = part if acc is None else acc + part
-    return (acc * w["scale"]).to(dtype)
+    return (acc * w["scale"] if quant.is_quantized(w) else acc).to(dtype)
 
 
 def talker_step_plain(
     layers: dict, x: torch.Tensor, cfg, ck: torch.Tensor, cv: torch.Tensor, pos: int
 ) -> torch.Tensor:
-    """One batch-1 decode step through every layer on int8 weights, plain.
+    """One batch-1 decode step through every layer, plain, on the fused
+    tree with int8 or plain (T) projections.
 
     x: [1, 1, H] in the compute dtype T (f32 or bf16); ck, cv: [L, S, KV*D]
     caches in T, whose row ``pos`` of every layer is written in place.
     Returns the last layer's output [1, 1, H] (before the final norm).
-    Rounding points (those of the JAX kernel): projection inputs bf16;
-    qkv = round_T(acc * scale); QK-norm and RoPE in T; scores f32 with the
-    softmax over rows <= pos, unnormalised weights rounded to T before the
-    value sum; o and down summed over H-wide K chunks in ascending order,
-    times the scale, rounded to T; gate|up rounded to T, SiLU in f32.
-    One point differs at T = f32: the JAX kernel rounds q to bf16 for its
-    scores, while this version (and the kernel) keep q in T, as the JAX
-    package's layer scan does.
+    Rounding points (those of the JAX kernel, ``quantized`` True or False):
+    projection inputs bf16 (int8) or T (plain); qkv = round_T(acc [*
+    scale]); QK-norm and RoPE in T; scores f32 with the softmax over rows <=
+    pos, unnormalised weights rounded to T before the value sum; the
+    attention output rounded to the matmul input type before o; o and down
+    summed over H-wide K chunks in ascending order [times the scale],
+    rounded to T; gate|up rounded to T, SiLU in f32. One point differs for
+    int8 at T = f32: the JAX kernel rounds q to bf16 for its scores, while
+    this version (and the kernel) keep q in T, as the JAX package's layer
+    scan does; plain weights keep q in T in both.
     """
     dt = x.dtype
     H, D = cfg.hidden_size, cfg.head_dim
@@ -317,7 +326,7 @@ def talker_step_plain(
     h = x.reshape(1, H)
     for l in range(ck.shape[0]):
         layer = nn.layer_params_at(layers, l)
-        qkv = _dq_out(nn.rms_norm(h, layer["input_ln"], eps), layer["qkv_proj"], dt, None)
+        qkv = _mm_out(nn.rms_norm(h, layer["input_ln"], eps), layer["qkv_proj"], dt, None)
         q = nn.rms_norm(qkv[:, :qd].reshape(1, hq, D), layer["q_norm"], eps)
         k = nn.rms_norm(qkv[:, qd : qd + kvd].reshape(1, kv, D), layer["k_norm"], eps)
         q = nn.apply_rope(q, cos, sin)[0]  # [hq, D]
@@ -332,11 +341,11 @@ def talker_step_plain(
         p = torch.exp(s - s.amax(dim=-1, keepdim=True))
         pv = torch.einsum("kgs,skd->kgd", p.to(dt).float(), vals)
         attn = (pv / p.sum(dim=-1, keepdim=True)).reshape(1, qd)
-        h = h + _dq_out(attn, layer["o_proj"], dt, H)
+        h = h + _mm_out(attn, layer["o_proj"], dt, H)
 
-        gu = _dq_out(nn.rms_norm(h, layer["post_ln"], eps), layer["gateup_proj"], dt, None)
+        gu = _mm_out(nn.rms_norm(h, layer["post_ln"], eps), layer["gateup_proj"], dt, None)
         act = F.silu(gu[:, :inter].float()).to(dt) * gu[:, inter:]
-        h = h + _dq_out(act, layer["down_proj"], dt, H)
+        h = h + _mm_out(act, layer["down_proj"], dt, H)
     return h.reshape(1, 1, H)
 
 
@@ -344,8 +353,10 @@ def talker_step(layers: dict, x: torch.Tensor, cfg, ck: torch.Tensor, cv: torch.
     """One talker decode step: the CUDA kernel on a CUDA tensor, the plain
     version on a CPU tensor (arguments and result as ``talker_step_plain``).
 
-    The kernel takes the canonical fused int8 tree (``[L, K, N]`` int8 with
-    ``[L, N]`` f32 scales), norms and caches in x's dtype.
+    The kernel takes the canonical fused tree with all four projections
+    int8 (``[L, K, N]`` int8 with ``[L, N]`` f32 scales) or all plain in x's
+    dtype (``[L, K, N]``); norms and caches in x's dtype. A mixed tree
+    raises.
     """
     dev = x.device
     if dev.type == "cpu":
@@ -359,10 +370,8 @@ def talker_step(layers: dict, x: torch.Tensor, cfg, ck: torch.Tensor, cv: torch.
     hq, kv = cfg.num_heads, cfg.num_kv_heads
     qd, kvd = hq * D, kv * D
     L, S = ck.shape[0], ck.shape[1]
-    linears = {"qkv_proj": (L, H, qd + 2 * kvd), "o_proj": (L, qd, H), "gateup_proj": (L, H, 2 * I), "down_proj": (L, I, H)}
-    for name, shape in linears.items():
-        if not _check_linear(layers[name], name, shape, dtype, dev, "talker_step"):
-            raise ValueError(f"talker_step: the kernel takes int8 weights only ({name} is plain)")
+    shapes = {"qkv_proj": (L, H, qd + 2 * kvd), "o_proj": (L, qd, H), "gateup_proj": (L, H, 2 * I), "down_proj": (L, I, H)}
+    quantized = _check_linears({n: (layers[n], shape) for n, shape in shapes.items()}, dtype, dev, "talker_step")
     for name, shape in {"input_ln": (L, H), "post_ln": (L, H), "q_norm": (L, D), "k_norm": (L, D)}.items():
         _check(layers[name], name, shape, dtype, dev, "talker_step")
     _check(ck, "cache k", (L, S, kvd), dtype, dev, "talker_step")
@@ -373,15 +382,19 @@ def talker_step(layers: dict, x: torch.Tensor, cfg, ck: torch.Tensor, cv: torch.
     _check(xin, "x", (H,), dtype, dev, "talker_step")
 
     lib = _kernel_lib()
-    n_scratch = lib.q3_talker_step_scratch_floats(_DTYPES[dtype], L, H, hq, kv, D, I, S)
+    n_scratch = lib.q3_talker_step_scratch_floats(_DTYPES[dtype], int(quantized), L, H, hq, kv, D, I, S)
     if n_scratch == 0:
-        raise ValueError(f"talker_step: the kernel does not take these shapes ({cfg}, S={S})")
+        raise ValueError(f"talker_step: the kernel does not take these shapes ({cfg}, S={S}, int8={quantized})")
     cos_t, sin_t = rope_tables(D, cfg.rope_theta, S, dev)
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
     y = torch.empty(H, dtype=dtype, device=dev)
+    weights = [
+        p for name in _PROJS
+        for p in ((layers[name]["q8"].data_ptr(), layers[name]["scale"].data_ptr()) if quantized
+                  else (layers[name].data_ptr(), None))
+    ]
     err = lib.q3_talker_step(
-        _DTYPES[dtype], xin.data_ptr(),
-        *[t.data_ptr() for name in _PROJS for t in (layers[name]["q8"], layers[name]["scale"])],
+        _DTYPES[dtype], int(quantized), xin.data_ptr(), *weights,
         layers["input_ln"].data_ptr(), layers["post_ln"].data_ptr(),
         layers["q_norm"].data_ptr(), layers["k_norm"].data_ptr(),
         cos_t.data_ptr(), sin_t.data_ptr(), ck.data_ptr(), cv.data_ptr(),
@@ -394,7 +407,7 @@ def talker_step(layers: dict, x: torch.Tensor, cfg, ck: torch.Tensor, cv: torch.
     return y.reshape(1, 1, H)
 
 
-talker_step.launches = 0  # steps the kernel ran (CPU-plain calls are not counted)
+talker_step.launches = 0  # steps the kernel ran, either form (CPU-plain calls are not counted)
 
 
 # ---------------------------------------------------------------------------
@@ -411,11 +424,10 @@ def supports_fused_step(layers: dict) -> bool:
 
 
 def has_stream_pack(layers: dict, hidden: int) -> bool:
-    """Whether the JAX ``Qwen3TTS`` on the TPU would have built a stream pack
-    for this layer stack: a fused tree, all int8 or all plain (f32 / bf16),
-    whose dims tile by ``hidden``. (On the CPU the JAX package builds no plain
-    pack; there the frame route and the plain layer path run the same plain
-    function, so the port decides by the tiling alone.)"""
+    """The gate of the JAX ``make_stream_pack`` on this layer stack: a fused
+    tree, all int8 or all plain (f32 / bf16), whose dims tile by ``hidden``.
+    The port holds no pack: the whole-step kernels (1, 3, 7) read the fused
+    tree itself, so the tree's form is the gate."""
     if "qkv_proj" not in layers:
         return False
     flags = {quant.is_quantized(layers.get(p)) for p in _PROJS}
@@ -444,7 +456,7 @@ def _attention_plain(
     ck, cv: [S, KV*D] in T, row ``pos`` written in place, rows > pos unread."""
     dt = x.dtype
     qd, kvd = heads * head_dim, kv_heads * head_dim
-    qkv = _dq_out(nn.rms_norm(x, layer["input_ln"], eps), layer["qkv_proj"], dt, None)
+    qkv = _mm_out(nn.rms_norm(x, layer["input_ln"], eps), layer["qkv_proj"], dt, None)
     q = nn.rms_norm(qkv[:, :qd].reshape(1, heads, head_dim), layer["q_norm"], eps)
     k = nn.rms_norm(qkv[:, qd : qd + kvd].reshape(1, kv_heads, head_dim), layer["k_norm"], eps)
     q = nn.apply_rope(q, cos_row, sin_row)[0]  # [heads, D]
@@ -459,17 +471,17 @@ def _attention_plain(
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     w = (p / p.sum(dim=-1, keepdim=True)).to(cv.dtype)  # normalised, then rounded
     out = torch.einsum("kgs,skd->kgd", w.float(), vals).to(dt)
-    o = _dq_out(out.reshape(1, qd), layer["o_proj"], dt, k_chunk)
+    o = _mm_out(out.reshape(1, qd), layer["o_proj"], dt, k_chunk)
     return x + o if residual else o
 
 
 def _mlp_plain(x, layer, intermediate, eps, residual, k_chunk) -> torch.Tensor:
     """The MLP sub-layer of kernels 6 and 7, plain (x: [1, H] in T)."""
     dt = x.dtype
-    gu = _dq_out(nn.rms_norm(x, layer["post_ln"], eps), layer["gateup_proj"], dt, None)
+    gu = _mm_out(nn.rms_norm(x, layer["post_ln"], eps), layer["gateup_proj"], dt, None)
     g = gu[:, :intermediate].float()
     silu = (g * (1.0 / (1.0 + torch.exp(-g)))).to(dt)
-    down = _dq_out(silu * gu[:, intermediate:], layer["down_proj"], dt, k_chunk)
+    down = _mm_out(silu * gu[:, intermediate:], layer["down_proj"], dt, k_chunk)
     return x + down if residual else down
 
 

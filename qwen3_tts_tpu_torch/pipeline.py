@@ -86,16 +86,21 @@ class Qwen3TTS:
     """End-to-end CustomVoice TTS on one device (a CUDA card, or the CPU).
 
     The code predictor's layer weights are kept fused (q|k|v, gate|up): the
-    frame kernel takes that layout. The talker keeps the separate
-    projections, as the JAX package's main path does.
+    frame kernel takes that layout. On a CUDA card the talker is fused too,
+    once, here: its decode steps then run the whole-step talker kernel on
+    plain weights (the JAX package's plain stream pack, without its [H, H]
+    tile re-layout), and the separate projections are dropped. On the CPU
+    the talker keeps the separate projections, as the JAX package's main
+    path does (a talker tree handed in fused stays fused). Prefill runs the
+    layer path on either tree.
 
     ``quantize_int8=True``: weight-only int8, as the JAX package's (without
     its [H, H] stream-tile re-layout). The talker and the code predictor are
-    fused, then their layer projections, the codec head and the lm heads
-    are quantized; decode steps then run the whole-step talker kernel and
-    the int8 code-predictor frame (or, for a code predictor the frame kernel
-    does not take, its per-step kernels: ``models/code_predictor``), the
-    prefill and codec head the W8A16 matmul.
+    fused (unless already), then their layer projections, the codec head and
+    the lm heads are quantized; decode steps then run the whole-step talker
+    kernel and the int8 code-predictor frame (or, for a code predictor the
+    frame kernel does not take, its per-step kernels:
+    ``models/code_predictor``), the prefill and codec head the W8A16 matmul.
 
     ``from_random`` and ``from_numpy`` build on the CUDA card unless given
     ``device="cpu"``.
@@ -114,8 +119,11 @@ class Qwen3TTS:
         self.config = config
         if "qkv_proj" not in cp_params["layers"]:
             cp_params = W.fuse_model_params(cp_params)
+        on_card = talker_params["norm"].device.type == "cuda"
+        if (quantize_int8 or on_card) and "qkv_proj" not in talker_params["layers"]:
+            talker_params = W.fuse_model_params(talker_params)
         if quantize_int8:
-            talker_params = quant.quantize_talker_params(W.fuse_model_params(talker_params))
+            talker_params = quant.quantize_talker_params(talker_params)
             cp_params = quant.quantize_code_predictor_params(cp_params)
         self.talker_params = talker_params
         self.cp_params = cp_params

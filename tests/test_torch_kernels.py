@@ -22,11 +22,14 @@ CP_CFG = CodePredictorConfig(
     hidden_size=256, intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
     num_key_value_heads=2, head_dim=64, vocab_size=512, codec_embed_dim=512,
 )
-# Small shapes the talker step kernel takes (int8 GEMVs: N multiples of 256).
-TALKER_STACK = TalkerConfig(
+# Small shapes the talker step kernel takes (int8 and bf16 GEMVs: N multiples
+# of 256).
+TALKER_CFG = TalkerConfig(
     text_embed_dim=128, hidden_size=256, text_proj_intermediate=128, intermediate_size=512,
     num_hidden_layers=3, num_attention_heads=4, num_key_value_heads=2, head_dim=64,
-).layer_stack()
+    text_vocab_size=1024, codec_vocab_size=512,
+)
+TALKER_STACK = TALKER_CFG.layer_stack()
 
 
 # The 1.7B code predictor's widths (H 1024, 16 / 8 heads of 128, I 3072):
@@ -49,14 +52,16 @@ def _cp_inputs(device, dtype, seed=0):
     return params, hidden, semantic
 
 
-def _talker_inputs(device, dtype, rows, seed=0):
+def _talker_inputs(device, dtype, rows, seed=0, quantized=True):
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     st = TALKER_STACK
     stacked = W.init_layer_stack(
         gen, st.num_layers, st.hidden_size, st.intermediate_size, st.num_heads, st.num_kv_heads, st.head_dim, dtype
     )
-    layers = quant.quantize_layer_stack(W.fuse_layer_params(stacked))
+    layers = W.fuse_layer_params(stacked)
+    if quantized:
+        layers = quant.quantize_layer_stack(layers)
     kvd = st.num_kv_heads * st.head_dim
     ck = torch.randn((st.num_layers, rows, kvd), generator=gen, device=device).to(dtype)
     cv = torch.randn((st.num_layers, rows, kvd), generator=gen, device=device).to(dtype)
@@ -94,6 +99,9 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     layers, xt, ck, cv = _talker_inputs("cpu", torch.float32, 8)
     with pytest.raises(ValueError, match="no kernel"):
         fused_layer.talker_step(layers, xt.to("meta"), TALKER_STACK, ck.to("meta"), cv.to("meta"), 3)
+    plain = _talker_inputs("cpu", torch.float32, 8, quantized=False)[0]
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_layer.talker_step(plain, xt.to("meta"), TALKER_STACK, ck.to("meta"), cv.to("meta"), 3)
     w = quant.quantize_linear(torch.randn(128, 256))
     with pytest.raises(ValueError, match="no kernel"):
         quant.int8_matmul(torch.zeros((2, 128), device="meta"), w["q8"], w["scale"])
@@ -154,14 +162,16 @@ def test_cuda_cp_frame_int8_matches_plain(dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("weights", ["int8", "plain"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rows,pos", [(32, 29), (288, 270)])
-def test_cuda_talker_step_matches_plain(rows, pos, dtype):
-    """Hidden within 1e-4 (f32) / 3e-2 (bf16) of max|plain| (sums in another
-    order; bf16 roundings move by an ulp here and there), the written row
-    likewise, every other cache row bit-unchanged."""
+def test_cuda_talker_step_matches_plain(rows, pos, dtype, weights):
+    """Int8 or plain (x's dtype) fused weights: hidden within 1e-4 (f32) /
+    3e-2 (bf16) of max|plain| (sums in another order; bf16 roundings move by
+    an ulp here and there), the written row likewise, every other cache row
+    bit-unchanged."""
     dev = _cuda()
-    layers, x, ck0, cv0 = _talker_inputs(dev, dtype, rows)
+    layers, x, ck0, cv0 = _talker_inputs(dev, dtype, rows, quantized=weights == "int8")
     ck, cv, ckp, cvp = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
     before = fused_layer.talker_step.launches
     got = fused_layer.talker_step(layers, x, TALKER_STACK, ck, cv, pos)
@@ -176,6 +186,43 @@ def test_cuda_talker_step_matches_plain(rows, pos, dtype):
     others = torch.ones(rows, dtype=torch.bool, device=dev)
     others[pos] = False
     assert torch.equal(ck[:, others], ck0[:, others]) and torch.equal(cv[:, others], cv0[:, others])
+
+
+@pytest.mark.gpu
+def test_cuda_talker_step_refuses_mixed_trees():
+    """A tree with int8 and plain projections, or plain weights in another
+    dtype than x, raises on the card instead of running anything."""
+    dev = _cuda()
+    layers, x, ck, cv = _talker_inputs(dev, torch.bfloat16, 32)
+    plain = _talker_inputs(dev, torch.bfloat16, 32, quantized=False)[0]
+    before = fused_layer.talker_step.launches
+    with pytest.raises(ValueError, match="all int8 or all plain"):
+        fused_layer.talker_step(dict(plain, o_proj=layers["o_proj"]), x, TALKER_STACK, ck, cv, 5)
+    with pytest.raises(ValueError, match="qkv_proj must be"):
+        fused_layer.talker_step(dict(plain, qkv_proj=plain["qkv_proj"].float()), x, TALKER_STACK, ck, cv, 5)
+    assert fused_layer.talker_step.launches == before
+
+
+@pytest.mark.gpu
+def test_cuda_model_fuses_its_plain_talker():
+    """``Qwen3TTS.from_random`` on the card holds a fused bf16 talker (no
+    separate projections), and its decode steps take kernel 3."""
+    from qwen3_tts_tpu_torch.models import talker
+    from qwen3_tts_tpu_torch.models.config import ModelConfig, ModelType
+    from qwen3_tts_tpu_torch.pipeline import Qwen3TTS
+
+    dev = _cuda()
+    cfg = ModelConfig(model_type=ModelType.CUSTOM_VOICE, model_size="small", talker=TALKER_CFG, code_predictor=CP_CFG)
+    model = Qwen3TTS.from_random(cfg, seed=0, device=dev)
+    layers = model.talker_params["layers"]
+    assert layers["qkv_proj"].dtype == torch.bfloat16 and layers["qkv_proj"].device.type == "cuda"
+    assert not {"q_proj", "k_proj", "v_proj", "gate_proj", "up_proj"} & set(layers)
+    cache = nn.init_kv_cache(TALKER_STACK, 1, 64, torch.bfloat16, dev)
+    assert talker.stream_plane_mode(model.talker_params, TALKER_CFG, cache)
+    before = fused_layer.talker_step.launches
+    x = torch.zeros((1, 1, TALKER_CFG.hidden_size), dtype=torch.bfloat16, device=dev)
+    talker.decode_step(model.talker_params, TALKER_CFG, x, 3, cache)
+    assert fused_layer.talker_step.launches == before + 1
 
 
 @pytest.mark.gpu

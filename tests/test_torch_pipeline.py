@@ -5,7 +5,10 @@
 be token-exact and the audio within atol 1e-5; ``synthesize_with_voice``
 must give the same audio as ``synthesize_with_timing``. The one-frame step
 that ``__graft_entry__.entry()`` builds is compared the same way at the
-tiny size.
+tiny size. A model built on the CPU keeps its talker unfused (the layer
+path); handed a fused f32 talker, its decode steps take the whole-step
+path, and its frames must equal those of the JAX model with the plain
+stream pack (``QWEN3_TTS_BF16_STREAM_PACK=1``), audio within atol 1e-5.
 """
 
 import jax
@@ -122,13 +125,24 @@ def test_one_frame_step_matches_jax(models):
     np.testing.assert_allclose(tcache.k[:, :, pos].numpy(), np.asarray(jcache.k[:, :, pos]), rtol=0, atol=1e-5)
 
 
-@pytest.fixture(scope="module")
-def int8_models():
-    """The split-free tiny model of tests/test_fused_layer.py in weight-only
-    int8: the port quantizes the f32 trees itself (bit for bit as JAX)."""
+def test_cpu_model_keeps_talker_unfused(models):
+    """On the CPU the talker keeps its separate projections, as the JAX main
+    path does: decode steps take the layer path."""
+    _, tm = models
+    layers = tm.talker_params["layers"]
+    assert "q_proj" in layers and "qkv_proj" not in layers
+    cache = tnn.init_kv_cache(tm.config.talker.layer_stack(), 1, 32, torch.float32)
+    assert not ttalker.stream_plane_mode(tm.talker_params, tm.config.talker, cache)
+
+
+def _split_free_port(quantize_int8: bool, fuse_talker: bool = False):
+    """The port's model of the split-free tiny config of
+    tests/test_fused_layer.py on the CPU (its talker tree handed in fused
+    when ``fuse_talker``), with the JAX arguments (config, trees, tokenizer)
+    and vocoder config."""
     from dataclasses import asdict
 
-    from qwen3_tts_tpu.pipeline import Qwen3TTS as JQwen3TTS
+    from qwen3_tts_tpu.models import weights as JW
     from qwen3_tts_tpu_torch.models.config import CodePredictorConfig, ModelConfig, ModelType, TalkerConfig
     from test_fused_layer import _tiny_pipeline_args
 
@@ -139,10 +153,51 @@ def int8_models():
         talker=TalkerConfig(**asdict(jcfg.talker)),
         code_predictor=CodePredictorConfig(**asdict(jcfg.code_predictor)),
     )
+    trees = (JW.fuse_model_params(args[1]) if fuse_talker else args[1], args[2], args[3])
     tm = Qwen3TTS.from_numpy(
-        tcfg, *(_numpy(t) for t in args[1:4]), args[4],
-        vocoder_config=tvoc.VocoderConfig(**asdict(tiny_voc)), quantize_int8=True, device="cpu",
+        tcfg, *(_numpy(t) for t in trees), args[4],
+        vocoder_config=tvoc.VocoderConfig(**asdict(tiny_voc)), quantize_int8=quantize_int8, device="cpu",
     )
+    return tm, args, tiny_voc
+
+
+def test_fused_f32_talker_pipeline_matches_jax_plain_pack(monkeypatch):
+    """A fused f32 talker handed to the port on the CPU: decode steps take
+    the whole-step path (``talker_step_plain``); against the JAX model with
+    its opt-in plain stream pack (the interpret-mode ``streamed_talker_step``
+    with ``quantized=False``), frames token-exact over 4 frames, audio
+    within atol 1e-5."""
+    from qwen3_tts_tpu.pipeline import Qwen3TTS as JQwen3TTS
+
+    tm, args, tiny_voc = _split_free_port(quantize_int8=False, fuse_talker=True)
+    monkeypatch.setenv("QWEN3_TTS_BF16_STREAM_PACK", "1")
+    jm = JQwen3TTS(*args, vocoder_config=tiny_voc)
+    assert jm.talker_params["stream_pack"]["tiles"].dtype == jnp.float32
+    assert tm.talker_params["layers"]["qkv_proj"].dtype == torch.float32
+    text = "plain pack"
+    jopts = JOptions(max_length=4, seed=42)
+    topts = SynthesisOptions(max_length=4, seed=42)
+
+    want = jm._custom_voice_session(text, "ryan", "english", jopts).run_to_completion()
+    started, uniforms = tm._prefill_custom_voice(text, "ryan", "english", topts)
+    assert ttalker.stream_plane_mode(tm.talker_params, tm.config.talker, started[0].cache)
+    got = tm._generate(started, uniforms, topts)
+    assert got.shape == want.shape == (4, 16)
+    np.testing.assert_array_equal(got, want)
+
+    jaudio, _ = jm.synthesize_with_timing(text, "ryan", "english", jopts)
+    taudio, ttiming = tm.synthesize_with_timing(text, "ryan", "english", topts)
+    assert ttiming.generation_frames == len(want)
+    np.testing.assert_allclose(taudio.samples, jaudio.samples, rtol=0, atol=1e-5)
+
+
+@pytest.fixture(scope="module")
+def int8_models():
+    """The split-free tiny model of tests/test_fused_layer.py in weight-only
+    int8: the port quantizes the f32 trees itself (bit for bit as JAX)."""
+    from qwen3_tts_tpu.pipeline import Qwen3TTS as JQwen3TTS
+
+    tm, args, tiny_voc = _split_free_port(quantize_int8=True)
     j_packs = JQwen3TTS(*args, vocoder_config=tiny_voc, quantize_int8=True)
     assert "stream_pack" in j_packs.talker_params and "stream_pack" in j_packs.cp_params
     j_plain = JQwen3TTS(*args, vocoder_config=tiny_voc, quantize_int8=True)
