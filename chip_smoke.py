@@ -9,12 +9,17 @@ Phases, each printing a line (any failure exits nonzero before the last):
   1. card: name and power limit (nvidia-smi);
   2. build: every CUDA kernel from qwen3_tts_tpu_torch/csrc (one nvcc per
      source, all at once, into qwen3_tts_tpu_torch/_build/);
-  3. kernel 1 (code-predictor frame) against its plain version at the 1.7B
-     code-predictor shapes on 32 random frames: f32 codes identical; bf16
-     (the main path's dtype) first codes equal in >= 28 of 32 frames and
-     >= 50% of all codes equal; both timed; then the same 1.7B code
-     predictor quantized to int8 (weight-only, bf16 activations), held to
-     the bf16 bars and timed;
+  3. kernel 1 (code-predictor frame, one persistent launch) against its
+     plain version at the 1.7B code-predictor shapes on 32 random frames:
+     f32 codes identical; bf16 (the main path's dtype) first codes equal in
+     >= 28 of 32 frames and >= 50% of all codes equal; then the same 1.7B
+     code predictor quantized to int8 (weight-only, bf16 activations), held
+     to the bf16 bars; every form gives the same bits twice, and is timed
+     per call from Python (host included) and by its device span (20
+     frames in a CUDA graph); the device kernels one call launches, read
+     with torch.profiler, must be 1; then the seeded 1.7B f32 code predictor
+     of ``qwen3_tts_tpu_torch/cp_fixture.py`` must give the JAX package's
+     codes (the committed fixture) token for token;
   4. kernel 2 (vocoder residual unit) against its plain version at C =
      384/192/96 and dilations 1/3/9 over the time lengths of a 128-frame
      decode: within atol = 1e-5 * max|x|, a prefix bit-identical, both timed;
@@ -60,8 +65,9 @@ Phases, each printing a line (any failure exits nonzero before the last):
      config_for_variant("1.7B", "custom_voice"))``, the fixed 13-token
      prompt, 125 frames, seed 42, temperature 0.9): one warm run, then one
      timed run with the kernels' launch counts reset just before it, in
-     which kernels 1, 2 and 3 (125 times: the talker fused on the card)
-     must launch and the int8-path kernels must not; the timed run's audio
+     which kernels 1 and 3 must launch once a frame (125 times; the talker
+     fused on the card), kernel 2 must launch, and the int8-path kernels
+     must not; the timed run's audio
      must equal the warm run's bit for bit (same seed, deterministic
      kernels); then the same in int8 (``quantize_int8=True``
      on the same synthetic trees, as bench.py builds its int8 model), where
@@ -95,8 +101,8 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import qwen3_tts_tpu_torch  # noqa: E402,F401  (sets the TF32 switches)
-from qwen3_tts_tpu_torch import build  # noqa: E402
-from qwen3_tts_tpu_torch import int8_matmul_timing as k4t  # noqa: E402
+from qwen3_tts_tpu_torch import build, cp_fixture  # noqa: E402
+from qwen3_tts_tpu_torch import kernel_timing as kt  # noqa: E402
 from qwen3_tts_tpu_torch.models import code_predictor as cp  # noqa: E402
 from qwen3_tts_tpu_torch.models import talker  # noqa: E402
 from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
@@ -223,9 +229,12 @@ def cp_params(cfg: CodePredictorConfig, dtype: torch.dtype, seed: int) -> dict:
     return W.fuse_model_params(W.init_code_predictor_params(gen, cfg, dtype))
 
 
-def cp_compare(params: dict, cfg: CodePredictorConfig, xs: list) -> dict:
-    """Kernel 1 against its plain version on the same frames; both timed."""
-    got = torch.stack([fused_layer.cp_frame(params, cfg, h, s) for h, s in xs])
+def cp_compare(params: dict, cfg: CodePredictorConfig, xs: list, pack: fused_layer.CpFramePack) -> dict:
+    """Kernel 1 (through the tree's ``pack``) against its plain version on
+    the same frames, twice (the same bits); timed per call from Python and
+    by its device span (``kt.time_frame``)."""
+    got = torch.stack([fused_layer.cp_frame(params, cfg, h, s, pack) for h, s in xs])
+    again = torch.stack([fused_layer.cp_frame(params, cfg, h, s, pack) for h, s in xs])
     want = torch.stack([fused_layer.cp_frame_plain(params, cfg, h, s) for h, s in xs])
     torch.cuda.synchronize()
     h0, s0 = xs[0]
@@ -233,7 +242,8 @@ def cp_compare(params: dict, cfg: CodePredictorConfig, xs: list) -> dict:
         "equal": (got == want).float().mean().item(),
         "first_equal": int((got[:, 0] == want[:, 0]).sum().item()),
         "err": (got.long() - want.long()).abs().max().item(),
-        "ms": time_ms(lambda: fused_layer.cp_frame(params, cfg, h0, s0), iters=20),
+        "same_bits": torch.equal(got, again),
+        **kt.time_frame(fused_layer, params, cfg, h0, s0),
         "plain_ms": time_ms(lambda: fused_layer.cp_frame_plain(params, cfg, h0, s0), iters=5),
     }
 
@@ -242,17 +252,60 @@ def cp_frame_bound(params: dict, cfg: CodePredictorConfig, dtype: torch.dtype) -
     """Kernel 1, one frame: every weight read once (layer projections, norms,
     heads, mtp projection), the 14 embedding rows the codes pick, the two
     input rows and the 15 codes written; operations: the 16 positions
-    through every layer projection and the mtp projection, and 15 heads."""
+    through every layer projection and the mtp projection, and 15 heads.
+    Beside it, ``reread_floor_ms``: the bytes the kernel cannot avoid on
+    this card, where the layers do not stay in the 50 MB L2 between the 15
+    dependent passes (the two prefill rows share one): the layers, their
+    norms and the mtp projection 15 times, the rest once."""
     layers, heads, mtp = params["layers"], params["lm_heads"], params.get("mtp_proj")
     g, e, item = cfg.num_acoustic, cfg.embed_dim, torch.finfo(dtype).bits // 8
     n_bytes = nbytes(layers, heads, params["norm"], mtp) + (g + 1) * e * item + g * 4
+    per_pass = nbytes(layers, mtp)
 
     def n(w):
         return (w["q8"] if quant.is_quantized(w) else w).numel()
 
     proj = sum(n(layers[p]) for p in ("qkv_proj", "o_proj", "gateup_proj", "down_proj"))
     mtp_n = 0 if mtp is None else mtp["w"].numel()
-    return bound(n_bytes, 2 * (16 * (proj + mtp_n) + n(heads)))
+    return dict(bound(n_bytes, 2 * (16 * (proj + mtp_n) + n(heads))),
+                reread_floor_ms=(n_bytes + (g - 1) * per_pass) / HBM_BYTES_PER_S * 1e3)
+
+
+def cp_device_kernels(
+    params: dict, cfg: CodePredictorConfig, h: torch.Tensor, s: torch.Tensor, pack: fused_layer.CpFramePack
+) -> list | None:
+    """The device kernels one warm ``cp_frame`` call launches, by name, as
+    torch.profiler records them (None where it records no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fused_layer.cp_frame(params, cfg, h, s, pack)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fused_layer.cp_frame(params, cfg, h, s, pack)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names or None
+
+
+def kernel1_fixture() -> None:
+    """The seeded 1.7B f32 code predictor (``cp_fixture``) on the card: kernel
+    1 in f32 (no TF32: CUDA-core FMAs) must give the codes the JAX package
+    gives on the CPU, token for token."""
+    cfg = cp_fixture.config()
+    params = W.fuse_model_params(W.from_numpy_tree(cp_fixture.numpy_params(cfg), DEV))
+    fixture = cp_fixture.load()
+    pack = fused_layer.CpFramePack(params, cfg, torch.float32, DEV)
+    before = fused_layer.cp_frame.launches
+    got = [fused_layer.cp_frame(params, cfg, torch.from_numpy(h).to(DEV), torch.from_numpy(s).to(DEV), pack).tolist()
+           for h, s in cp_fixture.numpy_inputs(cfg)]
+    launched = fused_layer.cp_frame.launches - before
+    equal = sum(a == b for g, w in zip(got, fixture["codes"]) for a, b in zip(g, w))
+    total = sum(len(w) for w in fixture["codes"])
+    phase("kernel1", f"seeded 1.7B f32 code predictor, {len(got)} frames: {equal}/{total} codes equal to the JAX "
+          f"package's (fixture {cp_fixture.FIXTURE.name}, smallest top-2 gap "
+          f"{min(map(min, fixture['top2_gap'])):.3e}); {launched} launches")
+    check(got == fixture["codes"] and launched == len(got),
+          f"kernel 1 f32 differs from the JAX package's codes at 1.7B: {got} vs {fixture['codes']}")
 
 
 def check_bf16_bars(r: dict, what: str) -> None:
@@ -282,16 +335,26 @@ def kernel1() -> None:
         ("bfloat16", cp_params(cfg, torch.bfloat16, seed=2), bf16_inputs),
         ("int8", quant.quantize_code_predictor_params(cp_params(cfg, torch.bfloat16, seed=2)), bf16_inputs),
     ):
-        r = result[name] = cp_compare(params, cfg, xs)
+        pack = fused_layer.CpFramePack(params, cfg, xs[0][0].dtype, DEV)
+        r = result[name] = cp_compare(params, cfg, xs, pack)
         r.update(cp_frame_bound(params, cfg, xs[0][0].dtype))
+        r["device_kernels"] = cp_device_kernels(params, cfg, *xs[0], pack)
         phase("kernel1", f"{name}: {CP_FRAMES} frames x {cfg.num_acoustic} codes, share equal "
               f"{r['equal']:.4f}, first codes equal {r['first_equal']}/{CP_FRAMES}, max |code diff| {r['err']}, "
-              f"kernel {r['ms']:.4f} ms/frame, plain {r['plain_ms']:.4f} ms/frame")
-        del params
+              f"same bits twice {r['same_bits']}; kernel {r['ms']:.4f} ms/frame per call (host included), "
+              f"device span {r['device_ms']:.4f} ms/frame, plain {r['plain_ms']:.4f} ms/frame; bound "
+              f"{r['bound_ms']:.4f} ms, re-read floor {r['reread_floor_ms']:.4f} ms; device kernels per call "
+              + (f"{len(r['device_kernels'])} {sorted(set(r['device_kernels']))}" if r["device_kernels"]
+                 else "not measured (the profiler recorded no device activity)"))
+        check(r["same_bits"], f"kernel 1 {name}: two runs of the same frames differ")
+        check(r["device_kernels"] is None or len(r["device_kernels"]) == 1,
+              f"kernel 1 {name}: one call launched {r['device_kernels']} on the device, not one kernel")
+        del params, pack
     check(result["float32"]["equal"] == 1.0,
           f"kernel 1 f32 codes differ from the plain version ({result['float32']['equal']:.4f} equal)")
     check_bf16_bars(result["bfloat16"], "kernel 1 bf16")
     check_bf16_bars(result["int8"], "kernel 1 int8")
+    kernel1_fixture()
     for name, dtype, r in (("cp_frame", "bfloat16", result["bfloat16"]), ("cp_frame_int8", "int8", result["int8"])):
         row = {
             "name": name, "route": "cuda",
@@ -300,11 +363,12 @@ def kernel1() -> None:
             "launches": 0, "path": "bf16" if dtype == "bfloat16" else "int8", "dtype": dtype,
             "max_abs_err": float(r["err"]), "share_equal": r["equal"],
             "first_codes_equal": f"{r['first_equal']}/{CP_FRAMES}",
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None,
+            "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
         }
         if name == "cp_frame":
             row["f32_max_abs_err"] = float(result["float32"]["err"])
+            row["f32_ms"], row["f32_device_ms"] = result["float32"]["ms"], result["float32"]["device_ms"]
         KERNEL_ROWS.append(row)
 
 
@@ -481,13 +545,13 @@ def kernel3() -> None:
 
 
 def kernel4() -> None:
-    """The W8A16 matmul against its plain version at ``k4t.SHAPES``: the main
+    """The W8A16 matmul against its plain version at ``kt.SHAPES``: the main
     path's (talker prefill, 10 rows; codec head, 1 row every frame), a
     longer prompt's prefill (m = 32, 64), m = 1024 (the GEMM tier), and the
     per-step code predictor's (1.7B, intermediate 2816 as on its main path
     and the stock 3072): the 2-row prefill's projections and the 1-row lm
     heads, each at m = 2 and m = 1. Each shape is timed by
-    ``k4t.time_shape``: per call from Python as the path pays it (host
+    ``kt.time_shape``: per call from Python as the path pays it (host
     included; ``ms``, ``library_ms``, as in earlier runs) and its device
     span (``device_ms``, ``library_device_ms``: a CUDA graph, weights cold
     in L2 as on the path, where the talker step's 1.4 GB pass between two
@@ -498,7 +562,7 @@ def kernel4() -> None:
     row = {"name": "int8_matmul", "route": "cuda", "source": "qwen3_tts_tpu_torch/csrc/int8_matmul.cu",
            "replaces": "qwen3_tts_tpu/ops/quant.py:168", "launches": 0, "path": "int8", "max_abs_err": 0.0,
            "shapes": []}
-    for m, k, n in k4t.SHAPES:
+    for m, k, n in kt.SHAPES:
         x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
         w = quant.quantize_linear(torch.randn((k, n), generator=gen, device=DEV) * 0.02)
         before = quant.int8_matmul.launches
@@ -512,7 +576,7 @@ def kernel4() -> None:
         tol = want.float().abs().max().item() * 2.0**-7  # one bf16 ulp at the output's scale
         # The library yardstick in time_shape: one bf16 matmul on the weight
         # dequantized ahead of time (timed here only; the port never calls it).
-        times = {**k4t.time_shape(quant, x, w),
+        times = {**kt.time_shape(quant, x, w),
                  "plain_ms": time_ms(lambda: quant.int8_matmul_plain(x, w["q8"], w["scale"]), iters=20)}
         b = bound(nbytes(x, w) + m * n * x.element_size(), 2 * m * k * n)
         plan = quant.int8_matmul_plan(m, k, n, sms)
@@ -777,8 +841,9 @@ def per_step_path() -> None:
     xs = [(torch.randn((1, 1, e), generator=gen, device=DEV).to(torch.bfloat16),
            (torch.randn((1, 1, e), generator=gen, device=DEV) * 0.02).to(torch.bfloat16)) for _ in range(CP_FRAMES)]
     h0, s0 = xs[0]
-    frame = torch.stack([fused_layer.cp_frame(params, cfg, h, s) for h, s in xs])
-    frame_ms = time_ms(lambda: fused_layer.cp_frame(params, cfg, h0, s0), iters=20)
+    pack = fused_layer.CpFramePack(params, cfg, torch.bfloat16, DEV)
+    frame = torch.stack([fused_layer.cp_frame(params, cfg, h, s, pack) for h, s in xs])
+    frame_ms = time_ms(lambda: fused_layer.cp_frame(params, cfg, h0, s0, pack), iters=20)
     for streamed, name, kernels in ((True, "streamed_step", ("streamed_decode_step",)),
                                     (False, "layer_steps", ("fused_attention_step", "fused_mlp_step"))):
         for k in COUNTERS.values():
@@ -967,8 +1032,9 @@ COUNTERS = {
 def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = ()) -> dict:
     """One warm run, then one timed run with every launch count set to 0
     just before it; the counts are read just after. Every kernel of
-    ``kernels`` must launch in it, kernel 3 (the talker step) once a frame
-    where it is one of them, and none of ``absent``."""
+    ``kernels`` must launch in it, kernels 1 and 3 (the code-predictor frame,
+    the talker step) once a frame where they are among them, and none of
+    ``absent``."""
     opts = SynthesisOptions(max_length=FRAMES, min_new_tokens=FRAMES, seed=42, temperature=0.9)
     text = "The quick brown fox jumps over the lazy dog near the river bank today."
 
@@ -989,8 +1055,9 @@ def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = (
     check(bool(torch.isfinite(torch.from_numpy(samples)).all()), f"{label}: audio has non-finite samples")
     check(all(launches[k] > 0 for k in kernels), f"{label}: a kernel of the path never launched: {launches}")
     check(all(launches[k] == 0 for k in absent), f"{label}: a kernel of another path launched: {launches}")
-    check("talker_step" not in kernels or launches["talker_step"] == FRAMES,
-          f"{label}: the talker step kernel launched {launches['talker_step']} times, not once a frame")
+    for name in ("cp_frame", "talker_step"):
+        check(name not in kernels or launches[name] == FRAMES,
+              f"{label}: kernel {name} launched {launches[name]} times, not once a frame")
     repeatable = bool((warm.samples == samples).all())
     check(repeatable, f"{label}: the timed run's audio differs from the warm run's (same seed)")
     rtf = wall / (len(samples) / OUTPUT_SAMPLE_RATE)

@@ -2,11 +2,13 @@
 // points of the working dtype, deterministic block reductions, the split-K
 // GEMV (with RMSNorm / SiLU*up in its input staging), and one decode step's
 // qkv finish (QK-norm, RoPE, cache append) and attention scores, that the
-// code-predictor frame (cp_frame.cu), the talker step (talker_step.cu) and
-// the code-predictor decode steps (decode_layer.cuh) are built from; and
-// the tensor-core and asynchronous-copy wrappers (cp.async, ldmatrix, the
-// bf16 mma, the exact int8 -> bf16 convert, mbarriers and st.async into
-// another block of the cluster) of the W8A16 matmul (int8_matmul.cu).
+// talker step (talker_step.cu) and the code-predictor decode steps
+// (decode_layer.cuh) are built from; and the tensor-core and
+// asynchronous-copy wrappers (cp.async, ldmatrix, the bf16 mma, the exact
+// int8 -> bf16 convert, mbarriers and st.async into another block of the
+// cluster) of the W8A16 matmul (int8_matmul.cu), which the code-predictor
+// frame (cp_frame.cu) also takes its element types, cp.async and int8
+// convert from.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -82,6 +82,7 @@ def generate_frames(
     pad_embed: torch.Tensor,  # [hidden] tts_pad addition after trailing
     uniforms: torch.Tensor,  # [max_new + 1] float32 seeded uniform stream
     frame_limit: int,
+    cp_frame_pack=None,  # the code predictor's fused_layer.CpFramePack, on the card
 ) -> GenState:
     """Advance the loop until EOS or ``frame_limit`` frames exist."""
     suppression = sampling.build_suppression_mask(
@@ -97,7 +98,7 @@ def generate_frames(
     while state.frame_idx < frame_limit and not bool(state.done):
         idx = state.frame_idx
         semantic_embed = talker.embed_codec(talker_params, state.token)[None, None, :]
-        codes = cp.predict_acoustic_codes(cp_params, cpcfg, state.last_hidden, semantic_embed)
+        codes = cp.predict_acoustic_codes(cp_params, cpcfg, state.last_hidden, semantic_embed, cp_frame_pack)
         state.frames[idx, 0] = state.token
         state.frames[idx, 1:] = codes
 

@@ -48,15 +48,18 @@ def predict_acoustic_codes(
     cfg: CodePredictorConfig,
     talker_hidden: torch.Tensor,
     semantic_embed: torch.Tensor,
+    frame_pack: fused_layer.CpFramePack | None = None,
 ) -> torch.Tensor:
     """All 15 acoustic codes for one frame.
 
     talker_hidden, semantic_embed: [1, 1, embed_dim] (talker hidden size).
-    Returns int32 [num_acoustic] on the inputs' device.
+    ``frame_pack``: the tree's ``fused_layer.CpFramePack`` for the frame
+    kernel (built per call when None). Returns int32 [num_acoustic] on the
+    inputs' device.
     """
     route = cp_route(params, cfg)
     if route == "frame":
-        return fused_layer.cp_frame(params, cfg, talker_hidden, semantic_embed)
+        return fused_layer.cp_frame(params, cfg, talker_hidden, semantic_embed, frame_pack)
     if route == "layers":
         return fused_layer.cp_frame_layers(params, cfg, talker_hidden, semantic_embed, quant.mm)
     return _predict_acoustic_codes_fused(params, cfg, talker_hidden, semantic_embed)

@@ -29,6 +29,7 @@ CUDA tensors (or raises), and raises on any other device.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -148,11 +149,18 @@ def _kernel_lib():
     if not getattr(lib, "_q3_fused_bound", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.q3_cp_frame_scratch_floats.restype = ctypes.c_size_t
-        lib.q3_cp_frame_scratch_floats.argtypes = [i32] * 11
+        lib.q3_cp_frame_scratch_floats.argtypes = [ctypes.POINTER(i32)]
         lib.q3_cp_frame.restype = i32
-        lib.q3_cp_frame.argtypes = (
-            [i32, i32] + [ptr] * 21 + [i32] * 9 + [ctypes.c_float, ptr, ptr, ptr]
-        )
+        lib.q3_cp_frame.argtypes = [
+            i32, i32, ctypes.POINTER(i32), ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ptr), ptr, ptr, ptr, ptr, ptr,
+            ptr,
+        ]
+        lib.q3_cp_frame_maps_bytes.restype = ctypes.c_size_t
+        lib.q3_cp_frame_maps_bytes.argtypes = []
+        lib.q3_cp_frame_maps.restype = i32
+        lib.q3_cp_frame_maps.argtypes = [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(ptr), ptr]
+        lib.q3_cp_frame_trace_slots.restype = i32
+        lib.q3_cp_frame_trace_slots.argtypes = [ctypes.POINTER(i32)]
         lib.q3_talker_step_scratch_floats.restype = ctypes.c_size_t
         lib.q3_talker_step_scratch_floats.argtypes = [i32] * 9
         lib.q3_talker_step.restype = i32
@@ -165,90 +173,356 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def cp_frame(params: dict, cfg, talker_hidden: torch.Tensor, semantic_embed: torch.Tensor) -> torch.Tensor:
-    """All acoustic codes of one frame: the CUDA kernel on a CUDA tensor, the
-    plain version on a CPU tensor. Returns int32 [G] on the input's device.
+# ---------------------------------------------------------------------------
+# Kernel 1: the code-predictor frame, one persistent launch per frame
+# ---------------------------------------------------------------------------
+
+# The frame kernel's constants (csrc/cp_frame.cu): threads per block, ring
+# stages, the shared memory an H100 block may take. The plan lays out the
+# block's shared memory; the kernel takes the offsets and checks them.
+CP_FRAME_THREADS = 256
+CP_FRAME_STAGES = 4
+CP_FRAME_SMEM_LIMIT = 232448
+# Floats of attention and argmax scratch (the kernel uses 1888 of them).
+CP_FRAME_MISC_FLOATS = 2048
+# The most columns a TMA box row holds.
+CP_FRAME_BOX_COLUMNS = 256
+# The projections in the order a pass runs them (the kernel's enum Proj).
+CP_FRAME_PROJS = ("mtp", "qkv", "o", "gate_up", "down", "head")
+_WEIGHT_KINDS = {"float32": torch.float32, "bfloat16": torch.bfloat16, "int8": torch.int8}
+
+
+class CpProjPlan(NamedTuple):
+    """One projection of the frame kernel: ``k`` input rows, ``n`` output
+    columns (the row stride) in ``halves`` halves (2 for gate|up: a block
+    owns the same columns of both, so it finishes SiLU*up itself), cut into
+    vectors of ``vec`` columns (16 bytes of weights). Block b owns vectors
+    [b*nv, min((b+1)*nv, n/halves/vec)) of each half over the whole K;
+    ``blocks`` blocks own any. A ring tile holds ``tile_rows`` K rows of a
+    block's slice, loaded as TMA boxes of ``box_rows`` rows; a box row is
+    the slice's ``nv`` vectors in one segment of ``box_vecs`` vectors (all
+    ``nv``) or, for a slice wider than a box row's 256 columns, in segments
+    of 256 columns (``box_vecs`` each)."""
+
+    k: int
+    n: int
+    halves: int
+    vec: int
+    nv: int
+    blocks: int
+    tile_rows: int
+    box_rows: int
+    box_vecs: int
+
+    def columns(self, block: int) -> list[int]:
+        """The output columns ``block`` owns (every half)."""
+        half = self.n // self.halves
+        v0, v1 = block * self.nv, min((block + 1) * self.nv, half // self.vec)
+        return [h * half + c for h in range(self.halves) for c in range(v0 * self.vec, max(v0, v1) * self.vec)]
+
+
+class CpFramePlan(NamedTuple):
+    """The launch plan of the frame kernel: ``grid`` co-resident blocks of
+    ``CP_FRAME_THREADS`` threads, each with ``smem_bytes`` of dynamic shared
+    memory: a ring of ``CP_FRAME_STAGES`` tiles of ``stage_bytes``, then the
+    regions at the byte offsets ``regions`` (the staged matmul inputs, the
+    column reduction, the column sums, the block's own columns of x, the
+    attention and argmax scratch); and each projection's ownership
+    (``projs``; no "mtp" entry without the mtp projection)."""
+
+    grid: int
+    stage_bytes: int
+    regions: dict
+    smem_bytes: int
+    projs: dict
+
+    def ints(self, cfg) -> list[int]:
+        """The dims and the plan as the kernel's C entry takes them."""
+        sc = cfg.layer_stack()
+        dims = [sc.num_layers, sc.hidden_size, sc.num_heads, sc.num_kv_heads, sc.head_dim, sc.intermediate_size,
+                cfg.vocab_size, cfg.embed_dim, cfg.num_acoustic, int("mtp" in self.projs)]
+        per = []
+        for name in CP_FRAME_PROJS:
+            p = self.projs.get(name)
+            per += [p.nv, p.blocks, p.tile_rows, p.box_rows, p.box_vecs] if p else [1, 0, 1, 1, 1]
+        return dims + [self.grid, self.stage_bytes, *self.regions.values(), self.smem_bytes] + per
+
+
+def cp_frame_plan(cfg, weight_kind: str, dtype: torch.dtype | None = None, sms: int = 132) -> CpFramePlan:
+    """The frame kernel's launch plan for code predictor ``cfg`` with
+    ``weight_kind`` ("float32", "bfloat16" or "int8") layer projections and
+    heads, activations in ``dtype`` (default: the weights' type, bf16 for
+    int8), on a card with ``sms`` SMs.
+
+    Each projection's columns go to the fewest blocks that fit the card: a
+    block owns ``nv`` vectors of 16 weight bytes (4 f32, 8 bf16 or 16 int8
+    columns: a TMA box row holds at least 16 bytes), ``nv`` the smallest
+    power of two that leaves at most ``sms`` owning blocks (a thread per
+    vector: at most 256 a block). The grid is the most any projection uses
+    (at least one block per q head, for attention). The rest of the shared
+    memory (two staged input rows of the largest K, the column reduction
+    and sums, the block's columns of x, attention scratch) is fixed by the
+    shapes; the ring of ``CP_FRAME_STAGES`` tiles takes what is left of an
+    H100 block's 232,448 bytes. A TMA box is the largest power of two of
+    rows, at most 256, that divides K and fits a tile, each row the block's
+    slice (in 256-column segments where it is wider); a tile is as many
+    boxes as fit. Raises on shapes the kernel
+    does not take.
+    """
+    if weight_kind not in _WEIGHT_KINDS:
+        raise ValueError(f"cp_frame_plan: unknown weight kind {weight_kind!r}")
+    if dtype is None:
+        dtype = torch.bfloat16 if weight_kind == "int8" else _WEIGHT_KINDS[weight_kind]
+    if dtype not in _DTYPES or (weight_kind != "int8" and dtype != _WEIGHT_KINDS[weight_kind]):
+        raise ValueError(f"cp_frame_plan: {weight_kind} weights with {dtype} activations")
+    sc = cfg.layer_stack()
+    H, I, D, Hq, KV, L = (sc.hidden_size, sc.intermediate_size, sc.head_dim, sc.num_heads, sc.num_kv_heads,
+                          sc.num_layers)
+    G, V, E = cfg.num_acoustic, cfg.vocab_size, cfg.embed_dim
+    qd, nqkv = Hq * D, (Hq + 2 * KV) * D
+    if not (L >= 1 and G >= 1 and G + 1 <= CP_MAX_SEQ - 1 and 2 <= D <= CP_FRAME_THREADS and D % 2 == 0
+            and KV >= 1 and Hq % KV == 0 and 1 <= Hq <= sms and min(H, I, V, E) >= 1):
+        raise ValueError(f"cp_frame_plan: the kernel does not take {cfg}")
+    t_vec = 4 if dtype == torch.float32 else 8
+    w_vec = {"float32": 4, "bfloat16": 8, "int8": 16}[weight_kind]
+    shapes = {"mtp": (E, H, 1), "qkv": (H, nqkv, 1), "o": (qd, H, 1), "gate_up": (H, 2 * I, 2), "down": (I, H, 1),
+              "head": (H, V, 1)}
+    if not cfg.needs_projection:
+        del shapes["mtp"]
+    owners = {}
+    for name, (k, n, halves) in shapes.items():
+        vec = t_vec if name == "mtp" else w_vec
+        if (n // halves) % vec:
+            raise ValueError(f"cp_frame_plan: {name} has {n // halves} columns, not a multiple of {vec}")
+        nvec, nv = n // halves // vec, 1
+        while -(-nvec // nv) > sms:
+            nv *= 2
+        if nv * halves > CP_FRAME_THREADS:
+            raise ValueError(f"cp_frame_plan: {name} needs {nv} vectors a block on {sms} SMs")
+        owners[name] = (k, n, halves, vec, nv, -(-nvec // nv))
+    grid = max([Hq] + [o[-1] for o in owners.values()])
+    # Each region holds two rows, in floats rounded up to 128 bytes.
+    sizes = {
+        "xs": max(o[0] for o in owners.values()),
+        "red": max((8 if o[4] * o[2] < 32 else CP_FRAME_THREADS // (o[4] * o[2])) * o[4] * o[2] * o[3]
+                   for o in owners.values()),
+        "cs": max(o[4] * o[2] * o[3] for o in owners.values()),
+        "own": owners["o"][4] * owners["o"][3],  # the block's own columns of x
+    }
+    rest = sum(-(-8 * n // 128) * 128 for n in sizes.values()) + 4 * CP_FRAME_MISC_FLOATS
+    stage_bytes = (CP_FRAME_SMEM_LIMIT - rest) // CP_FRAME_STAGES // 128 * 128
+    regions, at = {}, CP_FRAME_STAGES * stage_bytes
+    for name, n in sizes.items():
+        regions[name], at = at, at + -(-8 * n // 128) * 128
+    regions["misc"] = at
+    projs = {}
+    for name, (k, n, halves, vec, nv, blocks) in owners.items():
+        row_bytes = nv * halves * 16
+        box_vecs = min(nv, CP_FRAME_BOX_COLUMNS // vec)
+        if box_vecs < nv and (n // halves) % CP_FRAME_BOX_COLUMNS:
+            raise ValueError(f"cp_frame_plan: {name}'s {n // halves} columns are no whole 256-column segments")
+        box = 256
+        while box > 1 and (k % box or box * row_bytes > stage_bytes):
+            box //= 2
+        if k % box or box * row_bytes > stage_bytes or box * nv * 16 % 128:
+            raise ValueError(f"cp_frame_plan: {name}'s K {k} takes no TMA box of 128-byte-aligned rows")
+        tile_rows = min(k, stage_bytes // row_bytes // box * box)
+        projs[name] = CpProjPlan(k, n, halves, vec, nv, blocks, tile_rows, box, box_vecs)
+    return CpFramePlan(grid, stage_bytes, regions, at + 4 * CP_FRAME_MISC_FLOATS, projs)
+
+
+def _frame_leaves(params: dict) -> tuple:
+    """The tensors the frame kernel reads, in a fixed order: weight and
+    scale (None for plain weights) of qkv, o, gate|up, down and the heads;
+    the four layer norms, the final norm, the embeddings, the mtp weight and
+    bias (None without)."""
+    layers = params["layers"]
+    if "qkv_proj" not in layers or "gateup_proj" not in layers:
+        raise ValueError("cp_frame: the kernel needs fused qkv_proj / gateup_proj weights")
+
+    def parts(w):
+        return (w["q8"], w["scale"]) if quant.is_quantized(w) else (w, None)
+
+    mtp = params.get("mtp_proj")
+    return (
+        *parts(layers["qkv_proj"]), *parts(layers["o_proj"]), *parts(layers["gateup_proj"]),
+        *parts(layers["down_proj"]), *parts(params["lm_heads"]),
+        layers["input_ln"], layers["post_ln"], layers["q_norm"], layers["k_norm"], params["norm"],
+        params["codec_embeddings"], None if mtp is None else mtp["w"], None if mtp is None else mtp["b"],
+    )
+
+
+class CpFramePack:
+    """What the frame kernel needs of one parameter tree, checked and
+    gathered once: the plan, the C entry's argument arrays, the weights' TMA
+    descriptors, and a scratch that is zeroed once (its barrier count
+    carries over from frame to frame) and serves one frame at a time.
+
+    Its owner keeps it beside the tree (``pipeline.Qwen3TTS`` builds one on
+    the card) and hands it to every ``cp_frame`` of that tree. The pack
+    holds the tree's tensors, so the pointers in its descriptors stay valid
+    while it lives. Its frames run on the stream of its first frame; a frame
+    on another stream raises, since two frames must not share the scratch at
+    once. A CUDA graph that captures frames replays on the pack's scratch,
+    so frames outside the graph take a pack of their own.
+    """
+
+    def __init__(self, params: dict, cfg, dtype: torch.dtype, dev: torch.device | str):
+        dev = torch.device(dev)
+        if dev.type != "cuda" or dtype not in _DTYPES:
+            raise ValueError(f"CpFramePack: the kernel runs on CUDA in float32 or bfloat16, not {dtype} on {dev}")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        leaves = _frame_leaves(params)
+        sc = cfg.layer_stack()
+        L, H, D, I = sc.num_layers, sc.hidden_size, sc.head_dim, sc.intermediate_size
+        qd, kvd = sc.num_heads * D, sc.num_kv_heads * D
+        G, V, E = cfg.num_acoustic, cfg.vocab_size, cfg.embed_dim
+        layers = params["layers"]
+        linears = {
+            "qkv_proj": (layers["qkv_proj"], (L, H, qd + 2 * kvd)),
+            "o_proj": (layers["o_proj"], (L, qd, H)),
+            "gateup_proj": (layers["gateup_proj"], (L, H, 2 * I)),
+            "down_proj": (layers["down_proj"], (L, I, H)),
+            "lm_heads": (params["lm_heads"], (G, H, V)),
+        }
+        quantized = _check_linears(linears, dtype, dev, "cp_frame")
+        for name, shape in {"input_ln": (L, H), "post_ln": (L, H), "q_norm": (L, D), "k_norm": (L, D)}.items():
+            _check(layers[name], name, shape, dtype, dev)
+        _check(params["norm"], "norm", (H,), dtype, dev)
+        _check(params["codec_embeddings"], "codec_embeddings", (G, V, E), dtype, dev)
+        mtp = params.get("mtp_proj")
+        if (mtp is not None) != cfg.needs_projection:
+            raise ValueError("cp_frame: the kernel takes an mtp projection exactly when embed_dim != hidden_size")
+        if mtp is not None:
+            _check(mtp["w"], "mtp_proj.w", (E, H), dtype, dev)
+            _check(mtp["b"], "mtp_proj.b", (H,), dtype, dev)
+        if any(t is not None and t.data_ptr() % 16 for t in leaves):
+            raise ValueError("cp_frame: every weight must be 16-byte aligned")
+        kind = "int8" if quantized else {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+        self.plan = cp_frame_plan(cfg, kind, dtype, min(quant._sm_count(dev), 132))
+
+        lib = _kernel_lib()
+        ints = self.plan.ints(cfg)
+        self.ints = (ctypes.c_int * len(ints))(*ints)
+        self.floats = (ctypes.c_float * 1)(sc.rms_norm_eps)
+        self.scratch = torch.zeros(lib.q3_cp_frame_scratch_floats(self.ints), dtype=torch.float32, device=dev)
+        rope = rope_tables(D, sc.rope_theta, CP_MAX_SEQ - 1, dev)
+        qkv_w, qkv_s, o_w, o_s, gu_w, gu_s, down_w, down_s, heads_w, heads_s = leaves[:10]
+        in_ln, post_ln, q_norm, k_norm, norm, etab, mtp_w, mtp_b = leaves[10:]
+        ptrs = [etab, mtp_w, mtp_b, qkv_w, o_w, gu_w, down_w, heads_w, qkv_s, o_s, gu_s, down_s, heads_s,
+                in_ln, post_ln, q_norm, k_norm, norm, *rope, self.scratch]
+        self.ptrs = (ctypes.c_void_p * len(ptrs))(*[_ptr(t) for t in ptrs])
+        self.maps = ctypes.create_string_buffer(lib.q3_cp_frame_maps_bytes())
+        err = lib.q3_cp_frame_maps(_DTYPES[dtype], int(quantized), self.ints, self.ptrs, self.maps)
+        if err != 0:
+            raise RuntimeError(f"cp_frame: the weights' TMA descriptors were refused: CUDA error {err}")
+        self.leaves = leaves
+        self.key = (cfg, dtype, dev)
+        self.quantized = quantized
+        self.embed = E
+        self.groups = G
+        self.lib = lib
+        self.stream = None  # the stream of the first frame
+
+    def holds(self, params: dict, cfg, dtype: torch.dtype, dev: torch.device) -> bool:
+        """Whether this pack was built for ``params`` (the same tensors) at
+        this config, dtype and device."""
+        return self.key == (cfg, dtype, dev) and all(a is b for a, b in zip(self.leaves, _frame_leaves(params)))
+
+
+def cp_frame(
+    params: dict,
+    cfg,
+    talker_hidden: torch.Tensor,
+    semantic_embed: torch.Tensor,
+    pack: CpFramePack | None = None,
+    trace: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """All acoustic codes of one frame: the CUDA kernel on a CUDA tensor (one
+    launch), the plain version on a CPU tensor. Returns int32 [G] on the
+    input's device; with ``trace`` (the card only) also the kernel's int64
+    [grid, slots] phase stamps in ns (``cp_frame_trace_phases`` reads them).
 
     The kernel takes the fused stacked layer weights (``qkv_proj``,
     ``gateup_proj``; see ``models/weights.fuse_model_params``) in the
     inputs' dtype (float32 or bfloat16), or the int8 tree of
     ``quant.quantize_code_predictor_params`` (int8 layer projections and
-    lm heads with f32 scales; everything else in the inputs' dtype).
+    lm heads with f32 scales; everything else in the inputs' dtype); a tree
+    the kernel does not take raises. ``pack``: the tree's ``CpFramePack``,
+    which spares each frame the checks and the set-up; without one, the
+    call builds a pack for itself.
     """
     dev = talker_hidden.device
     if dev.type == "cpu":
         return cp_frame_plain(params, cfg, talker_hidden, semantic_embed)
     if dev.type != "cuda":
         raise ValueError(f"cp_frame: no kernel for device {dev}")
-
     dtype = talker_hidden.dtype
     if dtype not in _DTYPES:
         raise ValueError(f"cp_frame: unsupported dtype {dtype}")
-    sc = cfg.layer_stack()
-    L, H, D, I = sc.num_layers, sc.hidden_size, sc.head_dim, sc.intermediate_size
-    qd, kvd = sc.num_heads * D, sc.num_kv_heads * D
-    G, V, E = cfg.num_acoustic, cfg.vocab_size, cfg.embed_dim
-    layers = params["layers"]
-    if "qkv_proj" not in layers or "gateup_proj" not in layers:
-        raise ValueError("cp_frame: the kernel needs fused qkv_proj / gateup_proj weights")
-    linears = {
-        "qkv_proj": (layers["qkv_proj"], (L, H, qd + 2 * kvd)),
-        "o_proj": (layers["o_proj"], (L, qd, H)),
-        "gateup_proj": (layers["gateup_proj"], (L, H, 2 * I)),
-        "down_proj": (layers["down_proj"], (L, I, H)),
-        "lm_heads": (params["lm_heads"], (G, H, V)),
-    }
-    quantized = _check_linears(linears, dtype, dev, "cp_frame")
-    for name, shape in {"input_ln": (L, H), "post_ln": (L, H), "q_norm": (L, D), "k_norm": (L, D)}.items():
-        _check(layers[name], name, shape, dtype, dev)
-    _check(params["norm"], "norm", (H,), dtype, dev)
-    _check(params["codec_embeddings"], "codec_embeddings", (G, V, E), dtype, dev)
-    mtp = params.get("mtp_proj")
-    if mtp is not None:
-        _check(mtp["w"], "mtp_proj.w", (E, H), dtype, dev)
-        _check(mtp["b"], "mtp_proj.b", (H,), dtype, dev)
-    xs = torch.cat([talker_hidden, semantic_embed], dim=1).reshape(2, E).contiguous()
-    _check(xs, "talker_hidden|semantic_embed", (2, E), dtype, dev)
-
-    def w_and_s(w):
-        return (w["q8"], w["scale"]) if quantized else (w, None)
-
-    qkv_w, qkv_s = w_and_s(layers["qkv_proj"])
-    o_w, o_s = w_and_s(layers["o_proj"])
-    gu_w, gu_s = w_and_s(layers["gateup_proj"])
-    down_w, down_s = w_and_s(layers["down_proj"])
-    heads_w, heads_s = w_and_s(params["lm_heads"])
-
-    lib = _kernel_lib()
-    n_scratch = lib.q3_cp_frame_scratch_floats(
-        _DTYPES[dtype], int(quantized), L, H, sc.num_heads, sc.num_kv_heads, D, I, V, E, G
-    )
-    if n_scratch == 0:
-        raise ValueError(f"cp_frame: the kernel does not take these shapes ({cfg})")
-    cos_t, sin_t = rope_tables(D, sc.rope_theta, CP_MAX_SEQ - 1, dev)
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
-    codes = torch.empty(G, dtype=torch.int32, device=dev)
+    if pack is None:
+        pack = CpFramePack(params, cfg, dtype, dev)
+    elif not pack.holds(params, cfg, dtype, dev):
+        raise ValueError("cp_frame: the pack was built for another tree, config, dtype or device")
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.q3_cp_frame(
-        _DTYPES[dtype], int(quantized), xs.data_ptr(), params["codec_embeddings"].data_ptr(),
-        _ptr(mtp["w"]) if mtp is not None else None,
-        _ptr(mtp["b"]) if mtp is not None else None,
-        qkv_w.data_ptr(), o_w.data_ptr(), gu_w.data_ptr(), down_w.data_ptr(),
-        _ptr(qkv_s), _ptr(o_s), _ptr(gu_s), _ptr(down_s),
-        layers["input_ln"].data_ptr(), layers["post_ln"].data_ptr(),
-        layers["q_norm"].data_ptr(), layers["k_norm"].data_ptr(),
-        params["norm"].data_ptr(), heads_w.data_ptr(), _ptr(heads_s),
-        cos_t.data_ptr(), sin_t.data_ptr(),
-        L, H, sc.num_heads, sc.num_kv_heads, D, I, V, E, G, sc.rms_norm_eps,
-        scratch.data_ptr(), codes.data_ptr(), stream,
+    if pack.stream is None:
+        pack.stream = stream
+    elif stream != pack.stream:
+        raise RuntimeError(
+            f"cp_frame: the pack's frames run on stream {pack.stream:#x}, not {stream:#x}; "
+            "give each stream a pack of its own"
+        )
+    for name, t in (("talker_hidden", talker_hidden), ("semantic_embed", semantic_embed)):
+        if t.device != dev or t.dtype != dtype or t.numel() != pack.embed or not t.is_contiguous():
+            raise ValueError(
+                f"cp_frame: {name} must be a contiguous {dtype} tensor of {pack.embed} values on {dev}; "
+                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    codes = torch.empty(pack.groups, dtype=torch.int32, device=dev)
+    stamps = None
+    if trace:
+        slots = pack.lib.q3_cp_frame_trace_slots(pack.ints)
+        stamps = torch.zeros((pack.plan.grid, slots), dtype=torch.int64, device=dev)
+    err = pack.lib.q3_cp_frame(
+        _DTYPES[dtype], int(pack.quantized), pack.ints, pack.floats, pack.ptrs, pack.maps,
+        talker_hidden.data_ptr(), semantic_embed.data_ptr(), codes.data_ptr(), _ptr(stamps), stream,
     )
     if err != 0:
         raise RuntimeError(f"cp_frame kernel launch failed: CUDA error {err}")
     cp_frame.launches += 1
-    return codes
+    return (codes, stamps) if trace else codes
 
 
 cp_frame.launches = 0  # frames the kernel ran (CPU-plain calls are not counted)
+
+
+def cp_frame_trace_phases(stamps: torch.Tensor, cfg) -> dict:
+    """Where a traced frame's time went, from ``cp_frame(..., trace=True)``'s
+    stamps, in µs summed over the frame's phases (each phase: the blocks
+    between two barriers): ``span`` the frame from the first block's first
+    stamp to the last leave; per phase kind (mtp, qkv, attention, o, gate_up,
+    down, head), ``work`` from the phase's start (the previous barrier's
+    last leave) to its last arrival, of which ``stage`` to the last block's
+    GEMV start and ``tiles`` the longest GEMV, and ``barrier`` from the last
+    arrival to the last leave."""
+    st = stamps.cpu().double().reshape(stamps.shape[0], -1, 4) / 1e3  # [blocks, phases, 4] in µs
+    layers = cfg.layer_stack().num_layers
+    kinds = (["mtp"] if cfg.needs_projection else []) + ["qkv", "attention", "o", "gate_up", "down"] * layers + ["head"]
+    out = {k: {"work": 0.0, "stage": 0.0, "tiles": 0.0, "barrier": 0.0, "phases": 0} for k in dict.fromkeys(kinds)}
+    begin = st[:, 0][st[:, 0] > 0].min().item()
+    prev = begin
+    for i in range(st.shape[1]):
+        start, end, arrive, leave = (st[:, i, k] for k in range(4))
+        kind = out[kinds[i % len(kinds)]]
+        kind["phases"] += 1
+        kind["work"] += arrive.max().item() - prev
+        if (start > 0).any():
+            kind["stage"] += start[start > 0].max().item() - prev
+            kind["tiles"] += (end - start)[start > 0].max().item()
+        kind["barrier"] += leave.max().item() - arrive.max().item()
+        prev = leave.max().item()
+    return {"span": prev - begin, **out}
 
 
 # ---------------------------------------------------------------------------
@@ -437,15 +711,23 @@ def has_stream_pack(layers: dict, hidden: int) -> bool:
 def supports_cp_frame_kernel(params: dict, cfg) -> bool:
     """The JAX gate of the whole-frame kernel (``supports_cp_frame_kernel``)
     given the pack the JAX package would hold (``has_stream_pack``): stacked
-    lm heads, at most 15 acoustic groups, an even embedding vocab."""
+    lm heads, at most 15 acoustic groups, an even embedding vocab; and the
+    port's kernel must take the shapes (``cp_frame_plan`` on an H100's 132
+    SMs), else the tree takes the per-step or the layer path."""
     if not has_stream_pack(params["layers"], cfg.hidden_size):
         return False
     heads = params.get("lm_heads")
     if not (quant.is_quantized(heads) or getattr(heads, "ndim", 0) == 3):
         return False
-    if cfg.num_acoustic + 1 > 16:
+    if cfg.num_acoustic + 1 > 16 or params["codec_embeddings"].shape[1] % 2:
         return False
-    return params["codec_embeddings"].shape[1] % 2 == 0
+    dtype = params["norm"].dtype
+    kind = "int8" if quant.is_quantized(heads) else {torch.float32: "float32", torch.bfloat16: "bfloat16"}.get(dtype)
+    try:
+        cp_frame_plan(cfg, kind, dtype)
+    except ValueError:
+        return False
+    return True
 
 
 def _attention_plain(

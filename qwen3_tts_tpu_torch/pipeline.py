@@ -21,11 +21,12 @@ import torch
 
 from .audio.io import AudioBuffer
 from .generation import core, prefill
+from .models import code_predictor as cp
 from .models import tokens as T
 from .models import weights as W
 from .models.codec import vocoder
 from .models.config import ModelConfig, ModelType
-from .ops import nn, quant, rng, sampling
+from .ops import fused_layer, nn, quant, rng, sampling
 from .utils.bucketing import next_bucket
 
 logger = logging.getLogger("qwen3_tts_tpu_torch")
@@ -102,6 +103,10 @@ class Qwen3TTS:
     frame kernel does not take, its per-step kernels:
     ``models/code_predictor``), the prefill and codec head the W8A16 matmul.
 
+    On the card, a code predictor that takes the frame kernel gets its
+    ``fused_layer.CpFramePack`` here (checked, packed and given its scratch
+    once); every frame of this model uses it, on the stream of the first.
+
     ``from_random`` and ``from_numpy`` build on the CUDA card unless given
     ``device="cpu"``.
     """
@@ -129,6 +134,10 @@ class Qwen3TTS:
         self.cp_params = cp_params
         self.compute_dtype = talker_params["norm"].dtype
         self.device = talker_params["norm"].device
+        self.cp_frame_pack = None
+        if on_card and cp.cp_route(cp_params, config.code_predictor) == "frame":
+            self.cp_frame_pack = fused_layer.CpFramePack(cp_params, config.code_predictor, self.compute_dtype,
+                                                         self.device)
         self.vocoder_params = vocoder_params
         self.vocoder_config = vocoder_config
         self.tokenizer = tokenizer
@@ -277,6 +286,7 @@ class Qwen3TTS:
             pad,
             uniforms,
             options.max_length,
+            self.cp_frame_pack,
         )
         return state.frames[: state.frame_idx].cpu().numpy()
 

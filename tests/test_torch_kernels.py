@@ -6,6 +6,8 @@ tests/test_torch_kernels.py``. Tests marked ``gpu`` skip without a CUDA
 device; the others check the wrappers' routing on any machine.
 """
 
+from dataclasses import replace
+
 import pytest
 import torch
 
@@ -22,6 +24,9 @@ CP_CFG = CodePredictorConfig(
     hidden_size=256, intermediate_size=512, num_hidden_layers=2, num_attention_heads=4,
     num_key_value_heads=2, head_dim=64, vocab_size=512, codec_embed_dim=512,
 )
+# The widest vocab the frame kernel takes (2^16), over 3 acoustic groups: a
+# block's head slice is wider than one TMA box row (256 columns).
+CP_WIDE_VOCAB = replace(CP_CFG, vocab_size=65536, num_code_groups=4)
 # Small shapes the talker step kernel takes (int8 and bf16 GEMVs: N multiples
 # of 256).
 TALKER_CFG = TalkerConfig(
@@ -43,10 +48,10 @@ def _cuda():
     return torch.device("cuda", 0)
 
 
-def _cp_inputs(device, dtype, seed=0):
+def _cp_inputs(device, dtype, seed=0, cfg=CP_CFG):
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    params = W.fuse_model_params(W.init_code_predictor_params(gen, CP_CFG, dtype))
+    params = W.fuse_model_params(W.init_code_predictor_params(gen, cfg, dtype))
     hidden = torch.randn((1, 1, 512), generator=gen, device=device).to(dtype)
     semantic = (torch.randn((1, 1, 512), generator=gen, device=device) * 0.02).to(dtype)
     return params, hidden, semantic
@@ -129,12 +134,16 @@ def test_kernel_library_name_tracks_the_sources():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_cp_frame_matches_plain(dtype):
     """f32: codes identical to the plain version. bf16: the first code agrees
-    (later codes may follow a near-tied logit that rounds the other way)."""
+    (later codes may follow a near-tied logit that rounds the other way).
+    One launch a frame, and the same bits twice."""
     dev = _cuda()
     params, hidden, semantic = _cp_inputs(dev, dtype)
     before = fused_layer.cp_frame.launches
     got = fused_layer.cp_frame(params, CP_CFG, hidden, semantic)
     assert fused_layer.cp_frame.launches == before + 1
+    again = fused_layer.cp_frame(params, CP_CFG, hidden, semantic)
+    assert fused_layer.cp_frame.launches == before + 2
+    assert torch.equal(got, again) and got.data_ptr() != again.data_ptr()
     want = fused_layer.cp_frame_plain(params, CP_CFG, hidden, semantic)
     assert got.dtype == want.dtype == torch.int32 and got.shape == (CP_CFG.num_acoustic,)
     if dtype == torch.float32:
@@ -155,10 +164,103 @@ def test_cuda_cp_frame_int8_matches_plain(dtype):
     before = fused_layer.cp_frame.launches
     got = fused_layer.cp_frame(params, CP_CFG, hidden, semantic)
     assert fused_layer.cp_frame.launches == before + 1
+    again = fused_layer.cp_frame(params, CP_CFG, hidden, semantic)
+    assert fused_layer.cp_frame.launches == before + 2 and torch.equal(got, again)
     want = fused_layer.cp_frame_plain(params, CP_CFG, hidden, semantic)
     assert got.dtype == torch.int32 and got.shape == (CP_CFG.num_acoustic,)
     assert got[0] == want[0]
     assert (got == want).float().mean().item() >= 0.5
+
+
+@pytest.mark.gpu
+def test_cuda_cp_frame_trace():
+    """A traced frame gives the same codes in one launch, and every block's
+    stamps of a phase run in order (GEMV start <= end <= barrier arrival <=
+    leave, the GEMV stamps 0 where the block owns no columns)."""
+    dev = _cuda()
+    params, hidden, semantic = _cp_inputs(dev, torch.bfloat16)
+    want = fused_layer.cp_frame(params, CP_CFG, hidden, semantic)
+    before = fused_layer.cp_frame.launches
+    got, stamps = fused_layer.cp_frame(params, CP_CFG, hidden, semantic, trace=True)
+    assert fused_layer.cp_frame.launches == before + 1 and torch.equal(got, want)
+    st = stamps.cpu().reshape(stamps.shape[0], -1, 4)
+    start, end, arrive, leave = st.unbind(-1)
+    assert (arrive > 0).all() and (arrive <= leave).all()
+    owns = start > 0
+    assert ((start <= end) & (end <= arrive))[owns].all() and (end[~owns] == 0).all()
+    assert fused_layer.cp_frame_trace_phases(stamps, CP_CFG)["span"] > 0
+
+
+@pytest.mark.gpu
+def test_cuda_cp_frame_checks_a_tree_once():
+    """A pack checks and packs its tree once and serves every frame of it
+    with one scratch (the same codes as a call that packs for itself); it
+    refuses a tree holding other tensors, and a tree the kernel does not
+    take raises before any launch."""
+    dev = _cuda()
+    params, hidden, semantic = _cp_inputs(dev, torch.bfloat16)
+    pack = fused_layer.CpFramePack(params, CP_CFG, torch.bfloat16, dev)
+    first = fused_layer.cp_frame(params, CP_CFG, hidden, semantic, pack)
+    scratch = pack.scratch.data_ptr()
+    assert torch.equal(fused_layer.cp_frame(params, CP_CFG, hidden, semantic, pack), first)
+    assert pack.scratch.data_ptr() == scratch
+    assert torch.equal(fused_layer.cp_frame(params, CP_CFG, hidden, semantic), first)
+    heads = params["lm_heads"]
+    params["lm_heads"] = heads.clone()
+    before = fused_layer.cp_frame.launches
+    with pytest.raises(ValueError, match="another tree"):
+        fused_layer.cp_frame(params, CP_CFG, hidden, semantic, pack)
+    params["lm_heads"] = heads.float()
+    with pytest.raises(ValueError, match="lm_heads"):
+        fused_layer.cp_frame(params, CP_CFG, hidden, semantic)
+    with pytest.raises(ValueError, match="talker_hidden"):
+        fused_layer.cp_frame(dict(params, lm_heads=heads), CP_CFG, hidden.expand(1, 2, -1), semantic, pack)
+    assert fused_layer.cp_frame.launches == before
+
+
+@pytest.mark.gpu
+def test_cuda_cp_frame_pack_keeps_to_one_stream():
+    """A pack's scratch serves one frame at a time: its frames run on the
+    stream of its first, a frame on another stream raises before any
+    launch, and a pack of that stream's own gives the same codes."""
+    dev = _cuda()
+    params, hidden, semantic = _cp_inputs(dev, torch.float32)
+    pack = fused_layer.CpFramePack(params, CP_CFG, torch.float32, dev)
+    want = fused_layer.cp_frame(params, CP_CFG, hidden, semantic, pack)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    before = fused_layer.cp_frame.launches
+    with torch.cuda.stream(side):
+        with pytest.raises(RuntimeError, match="stream"):
+            fused_layer.cp_frame(params, CP_CFG, hidden, semantic, pack)
+        assert fused_layer.cp_frame.launches == before
+        own = fused_layer.CpFramePack(params, CP_CFG, torch.float32, dev)
+        got = fused_layer.cp_frame(params, CP_CFG, hidden, semantic, own)
+    torch.cuda.synchronize(dev)
+    assert fused_layer.cp_frame.launches == before + 1 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weights", ["float32", "bfloat16", "int8"])
+def test_cuda_cp_frame_takes_a_wide_vocab(weights):
+    """Vocab 65,536: each block's head slice is wider than a TMA box row,
+    so it streams in 256-column segments. f32: codes identical to the plain
+    version; bf16 and int8: the first code agrees."""
+    dev = _cuda()
+    dtype = torch.float32 if weights == "float32" else torch.bfloat16
+    params, hidden, semantic = _cp_inputs(dev, dtype, cfg=CP_WIDE_VOCAB)
+    if weights == "int8":
+        params = quant.quantize_code_predictor_params(params)
+    pack = fused_layer.CpFramePack(params, CP_WIDE_VOCAB, dtype, dev)
+    head = pack.plan.projs["head"]
+    assert head.box_vecs < head.nv
+    got = fused_layer.cp_frame(params, CP_WIDE_VOCAB, hidden, semantic, pack)
+    want = fused_layer.cp_frame_plain(params, CP_WIDE_VOCAB, hidden, semantic)
+    assert got.shape == (CP_WIDE_VOCAB.num_acoustic,)
+    if weights == "float32":
+        assert torch.equal(got, want)
+    else:
+        assert got[0] == want[0]
 
 
 @pytest.mark.gpu

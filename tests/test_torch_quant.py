@@ -17,7 +17,7 @@ import torch
 
 from qwen3_tts_tpu.models import weights as JW
 from qwen3_tts_tpu.ops import quant as jq
-from qwen3_tts_tpu_torch import int8_matmul_timing as k4t
+from qwen3_tts_tpu_torch import kernel_timing as kt
 from qwen3_tts_tpu_torch.models import weights as TW
 from qwen3_tts_tpu_torch.ops import nn as tnn
 from qwen3_tts_tpu_torch.ops import quant as tq
@@ -201,7 +201,7 @@ GEMV_SPLITS = {
 }
 
 
-@pytest.mark.parametrize("m,k,n", k4t.SHAPES)
+@pytest.mark.parametrize("m,k,n", kt.SHAPES)
 def test_int8_matmul_plan_at_timed_shapes(m, k, n):
     blocks = _check_plan(m, k, n)
     if m <= 16:
