@@ -23,16 +23,22 @@ Phases, each printing a line (any failure exits nonzero before the last):
   4. kernel 2 (vocoder residual unit) against its plain version at C =
      384/192/96 and dilations 1/3/9 over the time lengths of a 128-frame
      decode: within atol = 1e-5 * max|x|, a prefix bit-identical, both timed;
-  5. kernel 3 (talker step) against its plain version on the 1.7B talker
-     in its three forms, each with caches of 160 and 2080 rows and 16
-     random (x, pos) each with pos near the top: quantized to int8 and
-     plain bf16 (the int8 and bf16 main paths' forms; bf16 caches): the
-     codec-head argmax equal in >= 14 of 16, hidden within HIDDEN_TOL of
-     the plain version's scale, the written row within ROW_TOL, every other
-     row bit-unchanged; plain f32: argmax 16 of 16, hidden and written rows
-     within F32_STEP_TOL, and the same against the eager layer path on the
-     unfused talker (``talker.decode_step``); kernel, plain version and
-     layer path timed;
+  5. kernel 3 (talker step, one persistent launch) against its plain
+     version on the 1.7B talker in its three forms, each through the tree's
+     pack, with caches of 160 and 2080 rows and 16 random (x, pos) each
+     with pos near the top: quantized to int8 and plain bf16 (the int8 and
+     bf16 main paths' forms; bf16 caches): the codec-head argmax equal in
+     >= 14 of 16, hidden within HIDDEN_TOL of the plain version's scale,
+     the written row within ROW_TOL, every other row bit-unchanged, each
+     step the same bits twice; plain f32: argmax 16 of 16, hidden and
+     written rows within F32_STEP_TOL, and the same against the eager
+     layer path on the unfused talker (``talker.decode_step``); the kernel
+     timed per call from Python and by its device span (20 steps in a CUDA
+     graph), its device kernels per call (torch.profiler) must be 1, and
+     its per-phase trace printed; plain version and layer path timed; then
+     the seeded 1.7B-width f32 talker of
+     ``qwen3_tts_tpu_torch/talker_fixture.py`` must give the JAX package's
+     codec-head argmaxes (the committed fixture);
   6. kernel 4 (W8A16 matmul) against its plain version at the main path's
      shapes (prefill m = 10, codec head m = 1), m = 32, 64 and 1024, and
      the per-step code predictor's: within one bf16 ulp of the plain
@@ -101,7 +107,7 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import qwen3_tts_tpu_torch  # noqa: E402,F401  (sets the TF32 switches)
-from qwen3_tts_tpu_torch import build, cp_fixture  # noqa: E402
+from qwen3_tts_tpu_torch import build, cp_fixture, talker_fixture  # noqa: E402
 from qwen3_tts_tpu_torch import kernel_timing as kt  # noqa: E402
 from qwen3_tts_tpu_torch.models import code_predictor as cp  # noqa: E402
 from qwen3_tts_tpu_torch.models import talker  # noqa: E402
@@ -426,15 +432,32 @@ def kernel2() -> None:
     })
 
 
+def talker_device_kernels(layers: dict, stack, x, ck, cv, pos: int, pack) -> list | None:
+    """The device kernels one warm ``talker_step`` call launches, by name, as
+    torch.profiler records them (None where it records no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fused_layer.talker_step(layers, x, stack, ck, cv, pos, pack)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fused_layer.talker_step(layers, x, stack, ck, cv, pos, pack)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names or None
+
+
 def talker_trials(params: dict, tcfg: TalkerConfig, dtype: torch.dtype, gen: torch.Generator, rows: int,
-                  unfused: dict | None = None) -> dict:
-    """Kernel 3 against its plain version on ``params`` (the fused talker,
-    int8 or plain) with caches of ``rows`` rows in ``dtype``, on
-    TALKER_TRIALS random (x, pos), pos near the top; with ``unfused`` (the
-    same talker's unfused tree) also against the eager layer path
-    (``talker.decode_step``, what the JAX main path computes): the normed
-    hidden, the written rows and the codec-head argmax. Kernel, plain
-    version and (with ``unfused``) layer path timed at the last pos."""
+                  pack: fused_layer.TalkerStepPack, unfused: dict | None = None) -> dict:
+    """Kernel 3 (through the tree's ``pack``) against its plain version on
+    ``params`` (the fused talker, int8 or plain) with caches of ``rows``
+    rows in ``dtype``, on TALKER_TRIALS random (x, pos), pos near the top,
+    each step twice (the same bits); with ``unfused`` (the same talker's
+    unfused tree) also against the eager layer path (``talker.decode_step``,
+    what the JAX main path computes): the normed hidden, the written rows
+    and the codec-head argmax. At the last pos: kernel timed per call from
+    Python and by its device span (``kt.time_step``: 20 steps in a CUDA
+    graph), its device kernels per call (torch.profiler) and its per-phase
+    trace; the plain version and (with ``unfused``) the layer path timed."""
     stack = tcfg.layer_stack()
     layers = params["layers"]
     n_layers, kvh, hd = stack.num_layers, stack.num_kv_heads, stack.head_dim
@@ -446,15 +469,17 @@ def talker_trials(params: dict, tcfg: TalkerConfig, dtype: torch.dtype, gen: tor
 
     ck0 = torch.randn((n_layers, rows, kvd), generator=gen, device=DEV).to(dtype)
     cv0 = torch.randn((n_layers, rows, kvd), generator=gen, device=DEV).to(dtype)
-    r = {"argmax": 0, "h_err": 0.0, "row_err": 0.0, "abs": 0.0, "untouched": True,
+    r = {"argmax": 0, "h_err": 0.0, "row_err": 0.0, "abs": 0.0, "untouched": True, "same_bits": True,
          "eager_argmax": 0, "eager_err": 0.0, "eager_row_err": 0.0}
     for trial in range(TALKER_TRIALS):
         pos = rows - 1 - 3 * trial
         x = torch.randn((1, 1, stack.hidden_size), generator=gen, device=DEV).to(dtype)
         ck, cv, ckp, cvp = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
-        got = fused_layer.talker_step(layers, x, stack, ck, cv, pos)
+        got = fused_layer.talker_step(layers, x, stack, ck, cv, pos, pack)
+        again = fused_layer.talker_step(layers, x, stack, ck0.clone(), cv0.clone(), pos, pack)
         want = fused_layer.talker_step_plain(layers, x, stack, ckp, cvp, pos)
         torch.cuda.synchronize()
+        r["same_bits"] &= same_bits(got, again)
         (h_got, a_got), (_, a_want) = head(got), head(want)
         r["argmax"] += a_got == a_want
         r["h_err"] = max(r["h_err"], rel_err(got, want))
@@ -470,7 +495,12 @@ def talker_trials(params: dict, tcfg: TalkerConfig, dtype: torch.dtype, gen: tor
             r["eager_err"] = max(r["eager_err"], rel_err(h_got, h_eager))
             for c, ce in ((ck, cache.k), (cv, cache.v)):
                 r["eager_row_err"] = max(r["eager_row_err"], rel_err(c[:, pos], ce[:, 0, pos].reshape(n_layers, kvd)))
-    r["ms"] = time_ms(lambda: fused_layer.talker_step(layers, x, stack, ck, cv, pos), iters=20)
+    r.update(kt.time_step(fused_layer, layers, stack, x, ck, cv, pos))
+    r["device_kernels"] = talker_device_kernels(layers, stack, x, ck, cv, pos, pack)
+    traced, stamps = fused_layer.talker_step(layers, x, stack, ck0.clone(), cv0.clone(), pos, pack, trace=True)
+    r["traced_same_bits"] = same_bits(traced, fused_layer.talker_step(layers, x, stack, ck0.clone(), cv0.clone(),
+                                                                      pos, pack))
+    r["phases"] = fused_layer.talker_step_trace_phases(stamps, stack)
     r["plain_ms"] = time_ms(lambda: fused_layer.talker_step_plain(layers, x, stack, ckp, cvp, pos), iters=3)
     if unfused is not None:
         r["eager_ms"] = time_ms(lambda: talker.decode_step(unfused, tcfg, x, pos, cache), iters=3)
@@ -503,19 +533,32 @@ def kernel3() -> None:
         params = make(unfused)
         if form == "int8":
             unfused = None
+        pack = fused_layer.TalkerStepPack(params["layers"], tcfg.layer_stack(), dtype, DEV)
         for rows in (160, 2080):  # 160 rows: the 125-frame main path's cache
-            r = res[form, rows] = talker_trials(params, tcfg, dtype, gen, rows, unfused)
+            r = res[form, rows] = talker_trials(params, tcfg, dtype, gen, rows, pack, unfused)
             argmax_min, h_tol, row_tol = (TALKER_TRIALS, F32_STEP_TOL, F32_STEP_TOL) if form == "f32" else (
                 TALKER_MIN_ARGMAX_EQUAL, HIDDEN_TOL, ROW_TOL)
             eager = "" if unfused is None else (
                 f"; eager layer path: argmax equal {r['eager_argmax']}/{TALKER_TRIALS}, normed hidden "
                 f"{r['eager_err']:.4e}, written rows {r['eager_row_err']:.4e}, {r['eager_ms']:.4f} ms")
+            kernels = r["device_kernels"]
+            ph = r["phases"]
+            trace = ", ".join(f"{k} {ph[k]['work']:.1f} (stage {ph[k]['stage']:.1f}, tiles {ph[k]['tiles']:.1f}, "
+                              f"epilogue {ph[k]['epilogue']:.1f}, barrier {ph[k]['barrier']:.1f})"
+                              for k in ("qkv", "attention", "o", "gate_up", "down"))
             phase("kernel3", f"1.7B {form} talker step, {rows}-row cache, {TALKER_TRIALS} trials: logits argmax equal "
                   f"{r['argmax']}/{TALKER_TRIALS} (bar {argmax_min}), hidden max|err|/max|plain| {r['h_err']:.4e} "
                   f"(bar {h_tol}), written row {r['row_err']:.4e} (bar {row_tol}), other rows bit-unchanged "
-                  f"{r['untouched']}, kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}){eager}")
+                  f"{r['untouched']}, same bits twice {r['same_bits']}; kernel {r['ms']:.4f} ms per call (host "
+                  f"included), device span {r['device_ms']:.4f} ms (20 steps in a CUDA graph), plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); device kernels per call "
+                  + (f"{len(kernels)} {sorted(set(kernels))}" if kernels
+                     else "not measured (the profiler recorded no device activity)")
+                  + f"; trace (us, one step, same bits {r['traced_same_bits']}): span {ph['span']:.1f}: {trace}"
+                  + eager)
             what = f"kernel 3 {form} S={rows}"
+            check(r["same_bits"] and r["traced_same_bits"], f"{what}: two calls on the same inputs differ")
+            check(kernels is None or len(kernels) == 1, f"{what}: one call launched {kernels} on the device")
             check(r["argmax"] >= argmax_min, f"{what}: argmax equal in {r['argmax']}/{TALKER_TRIALS} (< {argmax_min})")
             check(r["h_err"] <= h_tol, f"{what}: hidden error {r['h_err']:.4e} > {h_tol}")
             check(r["row_err"] <= row_tol, f"{what}: written cache row error {r['row_err']:.4e} > {row_tol}")
@@ -525,23 +568,54 @@ def kernel3() -> None:
                       f"{what}: argmax equal to the layer path's in {r['eager_argmax']}/{TALKER_TRIALS}")
                 check(r["eager_err"] <= F32_STEP_TOL and r["eager_row_err"] <= F32_STEP_TOL,
                       f"{what}: layer path error {r['eager_err']:.4e} / {r['eager_row_err']:.4e} > {F32_STEP_TOL}")
-        del params, unfused
+        del params, unfused, pack
         torch.cuda.empty_cache()
+    kernel3_fixture()
     for form, name in (("bf16", "talker_step"), ("int8", "talker_step_int8")):
         row = {"name": name, "route": "cuda", "source": "qwen3_tts_tpu_torch/csrc/talker_step.cu",
                "replaces": "qwen3_tts_tpu/ops/fused_layer.py:1261", "launches": 0, "path": form,
                "dtype": "bfloat16", "max_abs_err": max(res[form, n]["abs"] for n in (160, 2080)), "library_ms": None}
         for rows, suffix in ((160, ""), (2080, "_2080")):
             r = res[form, rows]
-            row.update({f"ms{suffix}": r["ms"], f"plain_ms{suffix}": r["plain_ms"], f"bound_ms{suffix}": r["bound_ms"],
+            row.update({f"ms{suffix}": r["ms"], f"device_ms{suffix}": r["device_ms"], f"plain_ms{suffix}": r["plain_ms"],
+                        f"bound_ms{suffix}": r["bound_ms"],
                         f"argmax_equal{suffix}": f"{r['argmax']}/{TALKER_TRIALS}", f"hidden_rel_err{suffix}": r["h_err"]})
             if form == "bf16":
                 f32 = res["f32", rows]
                 row.update({f"eager_ms{suffix}": r["eager_ms"], f"ms_f32{suffix}": f32["ms"],
+                            f"device_ms_f32{suffix}": f32["device_ms"],
                             f"plain_ms_f32{suffix}": f32["plain_ms"], f"eager_ms_f32{suffix}": f32["eager_ms"],
                             f"f32_rel_err{suffix}": f32["h_err"], f"f32_eager_rel_err{suffix}": f32["eager_err"]})
         row["bound_by"] = res[form, 160]["bound_by"]
         KERNEL_ROWS.append(row)
+
+
+def kernel3_fixture() -> None:
+    """The seeded 1.7B-width f32 talker of ``talker_fixture`` (2 layers) on the
+    card: kernel 3 in f32 (CUDA-core FMAs) over its decode steps must give
+    the codec-head argmaxes the JAX package gives on the CPU."""
+    tcfg = talker_fixture.config()
+    params = W.fuse_model_params(W.from_numpy_tree(talker_fixture.numpy_params(tcfg), DEV))
+    stack = tcfg.layer_stack()
+    k0, v0, xs = talker_fixture.numpy_inputs(tcfg)
+    kvd = stack.num_kv_heads * stack.head_dim
+    ck = torch.from_numpy(k0).to(DEV).reshape(stack.num_layers, talker_fixture.ROWS, kvd)
+    cv = torch.from_numpy(v0).to(DEV).reshape(stack.num_layers, talker_fixture.ROWS, kvd)
+    pack = fused_layer.TalkerStepPack(params["layers"], stack, torch.float32, DEV)
+    fixture = talker_fixture.load()
+    before = fused_layer.talker_step.launches
+    got = []
+    for i, x in enumerate(xs):
+        h = fused_layer.talker_step(params["layers"], torch.from_numpy(x).to(DEV), stack, ck, cv,
+                                    talker_fixture.START + i, pack)
+        normed = nn.rms_norm(h, params["norm"], tcfg.rms_norm_eps)
+        got.append(int(torch.argmax(quant.mm_plain(normed, params["codec_head"]))))
+    launched = fused_layer.talker_step.launches - before
+    phase("kernel3", f"seeded 1.7B-width f32 talker ({talker_fixture.LAYERS} layers), {len(got)} steps: codec-head "
+          f"argmax {got}, the JAX package's {fixture['codes']} (fixture {talker_fixture.FIXTURE.name}, smallest "
+          f"top-2 gap {min(fixture['top2_gap']):.3e}); {launched} launches")
+    check(got == fixture["codes"] and launched == len(got),
+          f"kernel 3 f32 differs from the JAX package's argmaxes at 1.7B widths: {got} vs {fixture['codes']}")
 
 
 def kernel4() -> None:

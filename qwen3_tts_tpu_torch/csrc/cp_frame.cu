@@ -61,19 +61,15 @@
 // softmax in f32 with the weights rounded to T; SiLU in f32. Activations,
 // norms, embeddings and the mtp projection stay in T in the int8 form.
 
-#include <cuda.h>
-#include <cudaTypedefs.h>
 #include <string.h>
 
-#include "common.cuh"
+#include "persistent.cuh"
 
 namespace q3 {
 
 constexpr int kCpMaxRows = 16;        // 2 prefill rows + 14 code rows
-constexpr int kFrameThreads = 256;
 constexpr int kRingStages = 4;        // fused_layer.CP_FRAME_STAGES
 constexpr int kMiscFloats = 1888;     // the misc region's use (see cp_frame_kernel)
-constexpr int kSmemLimit = 232448;    // an H100 block's dynamic shared memory
 
 // The projections in the order a pass runs them (fused_layer.CP_FRAME_PROJS).
 enum Proj { kMtp, kQkv, kO, kGu, kDown, kHead, kProjs };
@@ -122,13 +118,6 @@ __host__ __device__ inline ProjGeom proj_geom(const FrameArgs& a, int j) {
   }
 }
 
-// A weight vector: 16 bytes of a row, the least a TMA box row may hold
-// (4 f32, 8 bf16 or 16 int8 columns).
-constexpr int kVecBytes = 16;
-template <typename X> struct Vec {
-  static constexpr int n = kVecBytes / (int)sizeof(X);
-};
-
 // The TMA descriptors of the six projections' weights, each viewed as a
 // row-major [rows, N] matrix (layers or heads stacked over rows) with a box
 // of [box_rows, nv vectors]; built once per tree (q3_cp_frame_maps).
@@ -147,12 +136,6 @@ __host__ __device__ inline int trace_slots(const FrameArgs& a) {
 struct FrameLayout {
   size_t bar, x, qkv, attn, act, kc, vc, best_v, best_i, total;
 };
-
-__host__ __device__ inline size_t take64(size_t& o, size_t n) {
-  const size_t at = o;
-  o += (n + 63) / 64 * 64;
-  return at;
-}
 
 __host__ __device__ inline FrameLayout frame_layout(const FrameArgs& a) {
   FrameLayout L{};
@@ -215,90 +198,6 @@ static bool frame_ok(const FrameArgs& a, int vec_t, int vec_w) {
 // ---------------------------------------------------------------------------
 // Device pieces
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-__device__ __forceinline__ unsigned long long atom_add_release_gpu(unsigned long long* p, unsigned long long v) {
-  unsigned long long old;
-  asm volatile("atom.add.release.gpu.global.u64 %0, [%1], %2;\n" : "=l"(old) : "l"(p), "l"(v) : "memory");
-  return old;
-}
-
-__device__ __forceinline__ unsigned long long ld_acquire_gpu(const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// A barrier that has waited this long will never open (a block is missing):
-// the kernel traps, so that the launch fails with an error instead of
-// holding the card.
-constexpr unsigned long long kBarrierTimeoutNs = 5000000000ull;
-
-// Every block arrives, then leaves once all have. `count` counts arrivals
-// and is never reset: an arrival that finds `old` arrivals belongs to round
-// old / nblocks, which is complete once the count reaches the next multiple
-// of nblocks (each launch adds a multiple of nblocks, so the count carries
-// over to the next launch). The arrival is a release and the wait an
-// acquire at GPU scope: writes before the barrier are visible to every
-// block after it (the blocks read each other's data through L2). `stamp`,
-// when not null, gets the arrival and leave times.
-__device__ __forceinline__ void grid_sync(unsigned long long* count, unsigned nblocks, unsigned long long* stamp) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    if (stamp) stamp[0] = global_ns();
-    const unsigned long long old = atom_add_release_gpu(count, 1ull);
-    const unsigned long long target = (old / nblocks + 1) * nblocks;
-    const unsigned long long t0 = global_ns();
-    while (ld_acquire_gpu(count) < target)
-      if (global_ns() - t0 > kBarrierTimeoutNs) __trap();
-    if (stamp) stamp[1] = global_ns();
-  }
-  __syncthreads();
-}
-
-// One TMA box of `map` at (c0, c1, row r0) into shared memory, landing as
-// transaction bytes on `bar`.
-__device__ __forceinline__ void tma_load_3d(void* smem, const CUtensorMap* map, int c0, int c1, int r0,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
-          smem_addr(smem)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(r0), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// One weight vector from the ring as floats (int8: exact).
-template <typename X> __device__ __forceinline__ void lds_w(const unsigned char* p, float* out);
-template <> __device__ __forceinline__ void lds_w<float>(const unsigned char* p, float* out) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-template <> __device__ __forceinline__ void lds_w<__nv_bfloat16>(const unsigned char* p, float* out) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    out[2 * i] = f.x;
-    out[2 * i + 1] = f.y;
-  }
-}
-template <> __device__ __forceinline__ void lds_w<int8_t>(const unsigned char* p, float* out) {
-  const uint4 v = *reinterpret_cast<const uint4*>(p);
-  const uint32_t words[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float f[4];
-    i8x4_to_f32(words[i], f);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) out[4 * i + k] = f[k];
-  }
-}
 
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
@@ -427,49 +326,6 @@ struct FrameSmem {
   float *xs, *red, *cs, *xown, *misc;
 };
 
-// Sums over the row lanes of each owned column, in a fixed order: within a
-// warp by an xor butterfly over the lanes of one vector, then over the
-// warps (or row lanes) in index order. cs[n][v * VEC + i] for the nvt
-// vectors of the block.
-template <int VEC, int NR>
-__device__ void reduce_cols(float (&acc)[NR][VEC], int nvt, float* red, float* cs) {
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5, v = t & (nvt - 1), cols = nvt * VEC;
-  int groups;
-  if (nvt < 32) {
-    for (int off = 16; off >= nvt; off >>= 1) {
-#pragma unroll
-      for (int n = 0; n < NR; ++n) {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) acc[n][i] += __shfl_xor_sync(0xffffffffu, acc[n][i], off);
-      }
-    }
-    groups = kFrameThreads / 32;
-    if (lane < nvt) {
-#pragma unroll
-      for (int n = 0; n < NR; ++n) {
-#pragma unroll
-        for (int i = 0; i < VEC; ++i) red[(n * groups + warp) * cols + lane * VEC + i] = acc[n][i];
-      }
-    }
-  } else {
-    groups = kFrameThreads / nvt;
-    const int g = t / nvt;
-#pragma unroll
-    for (int n = 0; n < NR; ++n) {
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) red[(n * groups + g) * cols + v * VEC + i] = acc[n][i];
-    }
-  }
-  __syncthreads();
-  for (int c = t; c < NR * cols; c += kFrameThreads) {
-    const int n = c / cols, cc = c - n * cols;
-    float s = 0.f;
-    for (int g = 0; g < groups; ++g) s += red[(n * groups + g) * cols + cc];
-    cs[c] = s;
-  }
-  __syncthreads();
-}
-
 // The block's column sums of projection j over the staged inputs xs [NR][K],
 // consuming its tiles from the ring (and refilling it) as they land.
 template <typename T, typename W, typename X, int NR>
@@ -513,60 +369,11 @@ __device__ void gemv_proj(Ring<T, W>& ring, int j, const FrameSmem& s) {
   reduce_cols<VEC, NR>(acc, nvt, s.red, s.cs);
 }
 
-// xs[n][k] <- the matmul input M of RMSNorm(row n) with weight ln (rounded
-// to T first), rows from the f32 scratch `xg` or, when it is null, the T
-// rows `rows`. Every block computes the same sum of squares.
-template <typename T, typename M, int NR>
-__device__ void stage_rmsnorm(const float* xg, const T* const* rows, int H, const T* ln, float eps,
-                              const FrameSmem& s) {
-  float* buf = s.misc + 1312;
-  for (int n = 0; n < NR; ++n) {
-    float* xs = s.xs + n * H;
-    float ss = 0.f;
-    for (int k = threadIdx.x; k < H; k += kFrameThreads) {
-      const float v = xg ? __ldcg(xg + n * H + k) : to_float<T>(rows[n][k]);
-      xs[k] = v;
-      ss += v * v;
-    }
-    ss = block_sum(ss, buf);
-    const float inv = rsqrtf(__fadd_rn(__fmul_rn(ss, 1.f / H), eps));
-    for (int k = threadIdx.x; k < H; k += kFrameThreads)
-      xs[k] = round_to<M>(round_to<T>(__fmul_rn(__fmul_rn(xs[k], inv), to_float<T>(ln[k]))));
-  }
-  __syncthreads();
-}
-
 // xs[n][k] <- round_M(src[n][k]) for an f32 scratch row pair of width K.
 template <typename M, int NR>
 __device__ void stage_scratch(const float* src, int K, const FrameSmem& s) {
   for (int c = threadIdx.x; c < NR * K; c += kFrameThreads) s.xs[c] = round_to<M>(__ldcg(src + c));
   __syncthreads();
-}
-
-// Sums over the block of N values each thread holds, in a fixed order
-// (within a warp by an xor butterfly, then the 8 warps in index order):
-// every thread gets all N back in v. buf: 8 * N floats; out: N floats.
-template <int N>
-__device__ void block_sums(float (&v)[N], float* buf, float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) v[i] += __shfl_xor_sync(0xffffffffu, v[i], off);
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) buf[warp * N + i] = v[i];
-  }
-  __syncthreads();
-  if (threadIdx.x < N) {
-    float sum = 0.f;
-    for (int w = 0; w < kFrameThreads / 32; ++w) sum += buf[w * N + threadIdx.x];
-    out[threadIdx.x] = sum;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = out[i];
 }
 
 // Block h = q head h, for the pass's NR rows at positions pos0 ...: q and
@@ -748,7 +555,7 @@ __device__ void frame_pass(Ring<T, W>& ring, const FrameSmem& s, const T* const 
     if (const int own = owned(a, kQkv, VW)) {
       const int cols = a.proj[kQkv].nv * VW;
       stage_rmsnorm<T, M, NR>(from_rows ? nullptr : xg, rows, H, static_cast<const T*>(a.input_ln) + (size_t)l * H,
-                              a.eps, s);
+                              a.eps, s.xs, s.misc + 1312);
       gemv_proj<T, W, W, NR>(ring, kQkv, s);
       const float* scale = srow(a.qkv_s, (size_t)l * nqkv);
       for (int c = t; c < NR * cols; c += kFrameThreads) {
@@ -780,7 +587,8 @@ __device__ void frame_pass(Ring<T, W>& ring, const FrameSmem& s, const T* const 
     // RMSNorm -> gate|up -> SiLU(gate) * up.
     if (const int own = owned(a, kGu, VW)) {
       const int cols = a.proj[kGu].nv * VW;
-      stage_rmsnorm<T, M, NR>(xg, rows, H, static_cast<const T*>(a.post_ln) + (size_t)l * H, a.eps, s);
+      stage_rmsnorm<T, M, NR>(xg, rows, H, static_cast<const T*>(a.post_ln) + (size_t)l * H, a.eps, s.xs,
+                              s.misc + 1312);
       gemv_proj<T, W, W, NR>(ring, kGu, s);
       const float* scale = srow(a.gu_s, (size_t)l * 2 * I);
       for (int c = t; c < NR * cols; c += kFrameThreads) {
@@ -809,7 +617,8 @@ __device__ void frame_pass(Ring<T, W>& ring, const FrameSmem& s, const T* const 
   // Final norm -> head on the pass's last row -> this block's best.
   if (const int own = owned(a, kHead, VW)) {
     const int cols = a.proj[kHead].nv * VW;
-    stage_rmsnorm<T, M, 1>(xg + (NR - 1) * H, nullptr, H, static_cast<const T*>(a.final_norm), a.eps, s);
+    stage_rmsnorm<T, M, 1>(xg + (NR - 1) * H, nullptr, H, static_cast<const T*>(a.final_norm), a.eps, s.xs,
+                           s.misc + 1312);
     gemv_proj<T, W, W, 1>(ring, kHead, s);
     const float* scale = srow(a.heads_s, (size_t)pass * a.vocab);
     float bv = -INFINITY;
@@ -923,15 +732,8 @@ static cudaError_t launch_frame(FrameArgs a, const FrameMaps& maps, const void* 
 // fits a box row, else 256; boxes of [box_rows][nv vectors / S][S or nv
 // vectors], no swizzle (a box lands as its rows one after another).
 static cudaError_t encode_maps(const FrameArgs& a, int dtype, int int8, FrameMaps* out) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (!encode) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (e != cudaSuccess) return e;
-    if (found != cudaDriverEntryPointSuccess || !fn) return cudaErrorNotSupported;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
+  PFN_cuTensorMapEncodeTiled_v12000 encode;
+  if (const cudaError_t e = tensor_map_encoder(&encode)) return e;
   const CUtensorMapDataType t_type = dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   const CUtensorMapDataType w_type = int8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : t_type;
   const int t_item = dtype == 0 ? 4 : 2, w_item = int8 ? 1 : t_item;

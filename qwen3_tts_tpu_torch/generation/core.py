@@ -83,6 +83,7 @@ def generate_frames(
     uniforms: torch.Tensor,  # [max_new + 1] float32 seeded uniform stream
     frame_limit: int,
     cp_frame_pack=None,  # the code predictor's fused_layer.CpFramePack, on the card
+    talker_step_pack=None,  # the talker's fused_layer.TalkerStepPack, on the card
 ) -> GenState:
     """Advance the loop until EOS or ``frame_limit`` frames exist."""
     suppression = sampling.build_suppression_mask(
@@ -107,7 +108,8 @@ def generate_frames(
         step_input = semantic_embed + acoustic_sum + text_add.to(semantic_embed.dtype)[None, None, :]
 
         if planes is not None:
-            hidden, logits = talker.decode_step_planes(talker_params, tcfg, step_input, state.pos, *planes)
+            hidden, logits = talker.decode_step_planes(talker_params, tcfg, step_input, state.pos, *planes,
+                                                       talker_step_pack)
         else:
             hidden, logits = talker.decode_step(talker_params, tcfg, step_input, state.pos, state.cache)
 

@@ -1,7 +1,7 @@
 """A kernel's timings on the card, for comparing two checkouts.
 
-    python3 qwen3_tts_tpu_torch/kernel_timing.py --kernel int8_matmul|cp_frame [--root DIR] [--tag NAME]
-        [--repeats R] [--sweep] [--sass] [--trace]
+    python3 qwen3_tts_tpu_torch/kernel_timing.py --kernel int8_matmul|cp_frame|talker_step [--root DIR]
+        [--tag NAME] [--repeats R] [--sweep] [--sass] [--trace] [--forms F,...] [--kernels]
 
 Times one kernel's wrapper of the checkout at ``--root`` (default: the one
 that holds this file), ``--repeats`` times at each shape, in two ways: its
@@ -27,6 +27,17 @@ layers do not stay in the 50 MB L2 anyway). ``--trace`` adds, for each
 form, where one frame's device time went by phase kind
 (``fused_layer.cp_frame_trace_phases``: the work between barriers, its
 staging and its GEMV, and the barriers).
+
+``--kernel talker_step`` (kernel 3, ``ops.fused_layer.talker_step``): one
+decode step of the 1.7B talker's 28 layers (random weights from seed 4) in
+f32, bf16 and int8 (bf16 activations), with caches of 160 rows (the
+125-frame main path's) and 2080 rows (the 2048-frame tier's), at the pos
+``chip_smoke.py`` times it at (``time_step``; the 1.4-5.6 GB of weights do
+not stay in L2). ``--trace`` adds each form's breakdown by phase kind
+(``fused_layer.talker_step_trace_phases``), where the checkout has one;
+``--kernels`` the device kernels one call launches (torch.profiler; one
+``--forms`` a process, since a process's later profiler sessions may
+record no device activity).
 
 ``--sweep`` (int8_matmul) also times the kernel at every K split count its plan could
 pick, at each m <= 16 shape, through the library's C entry directly (the
@@ -54,6 +65,8 @@ import torch
 # Weight bytes a timing cycles through: 2.4x an H100's 50 MB L2.
 COLD_BYTES = 120e6
 GRAPH_CALLS = 20
+# Kernel 3's cache sizes: the 125-frame main path's and the 2048-frame tier's.
+TALKER_ROWS = (160, 2080)
 CP_FORMS = (("float32", torch.float32), ("bfloat16", torch.bfloat16), ("int8", torch.bfloat16))
 # The code predictor's (K, N) on its per-step path (1.7B, intermediate 2816
 # on that path and the stock 3072): qkv, o, gate|up, down, lm heads.
@@ -238,6 +251,86 @@ def cp_frame_lines(tag: str, repeats: int, trace: bool):
         torch.cuda.empty_cache()
 
 
+def step_call(fused_layer, layers: dict, stack, x, ck, cv, pos: int):
+    """One ``talker_step`` call as the checkout's main path makes it: through
+    a pack of its own where the checkout has packs (built here, outside the
+    call)."""
+    if not hasattr(fused_layer, "TalkerStepPack"):
+        return lambda: fused_layer.talker_step(layers, x, stack, ck, cv, pos)
+    pack = fused_layer.TalkerStepPack(layers, stack, x.dtype, x.device)
+    return lambda: fused_layer.talker_step(layers, x, stack, ck, cv, pos, pack)
+
+
+def time_step(fused_layer, layers: dict, stack, x, ck, cv, pos: int) -> dict:
+    """Kernel 3 on one step: ``ms`` per call from Python and ``device_ms``
+    the device span (each through its own pack, where the checkout has
+    packs: a graph keeps its steps' scratch)."""
+    return {
+        "ms": call_ms(step_call(fused_layer, layers, stack, x, ck, cv, pos)),
+        "device_ms": graph_ms([step_call(fused_layer, layers, stack, x, ck, cv, pos)], GRAPH_CALLS),
+    }
+
+
+def device_kernels(fn) -> list | None:
+    """The device kernels one warm call of ``fn`` launches, by name, as
+    torch.profiler records them (None where it records no device activity:
+    a process's later profiler sessions may record none, so run one form a
+    process to count each)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names or None
+
+
+def talker_step_lines(tag: str, repeats: int, trace: bool, forms: tuple = (), kernels: bool = False):
+    """One JSON line per form of kernel 3 at 1.7B (those in ``forms``, or
+    all) and cache size; with ``kernels``, the first cache size's line also
+    lists the device kernels one call launches."""
+    from qwen3_tts_tpu_torch import build
+    from qwen3_tts_tpu_torch.models import weights as W
+    from qwen3_tts_tpu_torch.models.config import config_for_variant
+    from qwen3_tts_tpu_torch.ops import fused_layer, quant
+
+    build.build()
+    dev = torch.device("cuda", 0)
+    stack = config_for_variant("1.7B", "custom_voice").talker.layer_stack()
+    kvd = stack.num_kv_heads * stack.head_dim
+    for form, dtype in CP_FORMS:
+        if forms and form not in forms:
+            continue
+        gen = torch.Generator(device=dev).manual_seed(4)
+        layers = W.fuse_layer_params(W.init_layer_stack(
+            gen, stack.num_layers, stack.hidden_size, stack.intermediate_size, stack.num_heads,
+            stack.num_kv_heads, stack.head_dim, dtype))
+        if form == "int8":
+            layers = quant.quantize_layer_stack(layers)
+        x = torch.randn((1, 1, stack.hidden_size), generator=gen, device=dev).to(dtype)
+        for rows in TALKER_ROWS:
+            ck = torch.randn((stack.num_layers, rows, kvd), generator=gen, device=dev).to(dtype)
+            cv = torch.randn((stack.num_layers, rows, kvd), generator=gen, device=dev).to(dtype)
+            pos = rows - 1 - 3 * 15  # chip_smoke.py's timed pos (its last trial)
+            runs = [time_step(fused_layer, layers, stack, x, ck, cv, pos) for _ in range(repeats)]
+            y = fused_layer.talker_step(layers, x, stack, ck, cv, pos)
+            line = {"tag": tag, "form": form, "rows": rows, "pos": pos, "y_abs_sum": y.float().abs().sum().item(),
+                    **{key: [r[key] for r in runs] for key in runs[0]}}
+            if kernels and rows == TALKER_ROWS[0]:
+                line["device_kernels"] = device_kernels(step_call(fused_layer, layers, stack, x, ck, cv, pos))
+            if trace and hasattr(fused_layer, "talker_step_trace_phases"):
+                got, stamps = fused_layer.talker_step(layers, x, stack, ck, cv, pos, trace=True)
+                torch.cuda.synchronize()
+                line["traced_equal"] = torch.equal(got, y)
+                line["phases_us"] = fused_layer.talker_step_trace_phases(stamps, stack)
+            yield line
+            del ck, cv
+        del layers
+        torch.cuda.empty_cache()
+
+
 def int8_matmul_lines(tag: str, repeats: int, sweep: bool):
     """One JSON line per shape of kernel 4."""
     from qwen3_tts_tpu_torch.ops import quant
@@ -256,14 +349,17 @@ def int8_matmul_lines(tag: str, repeats: int, sweep: bool):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", required=True, choices=("int8_matmul", "cp_frame"))
+    ap.add_argument("--kernel", required=True, choices=("int8_matmul", "cp_frame", "talker_step"))
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent.parent,
                     help="checkout whose qwen3_tts_tpu_torch is timed")
     ap.add_argument("--tag", default="", help="name printed on every line (default: --root)")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--sweep", action="store_true", help="int8_matmul: also time every K split count at m <= 16")
     ap.add_argument("--sass", action="store_true", help="int8_matmul: first count the kernel's SASS instructions")
-    ap.add_argument("--trace", action="store_true", help="cp_frame: add each form's per-phase breakdown")
+    ap.add_argument("--trace", action="store_true", help="cp_frame, talker_step: add each form's per-phase breakdown")
+    ap.add_argument("--forms", default="", help="talker_step: only these comma-separated forms (float32, bfloat16, int8)")
+    ap.add_argument("--kernels", action="store_true",
+                    help="talker_step: add the device kernels one call launches (torch.profiler)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timing: no CUDA device")
@@ -272,6 +368,11 @@ def main() -> None:
     tag = args.tag or str(args.root)
     if args.kernel == "cp_frame":
         for line in cp_frame_lines(tag, args.repeats, args.trace):
+            print(json.dumps(line), flush=True)
+        return
+    if args.kernel == "talker_step":
+        forms = tuple(f for f in args.forms.split(",") if f)
+        for line in talker_step_lines(tag, args.repeats, args.trace, forms, args.kernels):
             print(json.dumps(line), flush=True)
         return
     if args.sass:

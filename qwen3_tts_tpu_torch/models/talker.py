@@ -133,8 +133,9 @@ def stream_plane_mode(params: dict, cfg: TalkerConfig, cache: nn.KVCache) -> boo
     cache as [L, S, KV*D] planes: a fused tree, all int8 or all plain, whose
     dims tile by the hidden size (the JAX package's ``make_stream_pack``
     gate: in the JAX package the pack's presence is the gate, in the port
-    the fused tree stands for the pack), a batch-1 cache, and at most
-    ``TALKER_STREAM_MAX_SEQ`` rows.
+    the fused tree stands for the pack), a batch-1 cache, at most
+    ``TALKER_STREAM_MAX_SEQ`` rows, and shapes the kernel's plan takes
+    (``fused_layer.supports_talker_step_kernel``; else the layer path).
 
     Callers that loop decode steps (``generation/core.py``) take the plane
     views once per loop; the cache is contiguous, so the views are free.
@@ -144,6 +145,7 @@ def stream_plane_mode(params: dict, cfg: TalkerConfig, cache: nn.KVCache) -> boo
         and cache.k.ndim == 5
         and cache.k.shape[1] == 1
         and cache.max_seq <= fused_layer.TALKER_STREAM_MAX_SEQ
+        and fused_layer.supports_talker_step_kernel(params["layers"], cfg, cache.max_seq)
     )
 
 
@@ -160,11 +162,13 @@ def decode_step_planes(
     pos: int,
     ck: torch.Tensor,
     cv: torch.Tensor,
+    pack: fused_layer.TalkerStepPack | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One whole-step kernel generation step on the plane views [L, S, KV*D]
-    (row ``pos`` written in place). Returns (normed hidden [1,1,hidden],
-    logits [1, codec_vocab])."""
-    h = fused_layer.talker_step(params["layers"], step_embed, cfg.layer_stack(), ck, cv, pos)
+    (row ``pos`` written in place), through the tree's ``pack`` on the card
+    when given. Returns (normed hidden [1,1,hidden], logits [1,
+    codec_vocab])."""
+    h = fused_layer.talker_step(params["layers"], step_embed, cfg.layer_stack(), ck, cv, pos, pack)
     h = nn.rms_norm(h, params["norm"], cfg.rms_norm_eps)
     return h, codec_logits(params, h)[:, 0, :]
 

@@ -11,8 +11,9 @@ bf16) and weight-only int8 code-predictor trees.
 
 ``talker_step`` runs one batch-1 decode step through every talker layer on
 int8 or plain (f32 / bf16) weights (``csrc/talker_step.cu``, the port of
-both forms of ``streamed_talker_step``); its plain version is
-``talker_step_plain``.
+both forms of ``streamed_talker_step``), one persistent launch a step
+through the tree's ``TalkerStepPack`` (plan: ``talker_step_plan``); its
+plain version is ``talker_step_plain``.
 
 The per-step int8 code predictor, for trees the frame kernel does not take
 (``supports_cp_frame_kernel``): ``fused_attention_step`` and
@@ -29,6 +30,7 @@ CUDA tensors (or raises), and raises on any other device.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -162,9 +164,18 @@ def _kernel_lib():
         lib.q3_cp_frame_trace_slots.restype = i32
         lib.q3_cp_frame_trace_slots.argtypes = [ctypes.POINTER(i32)]
         lib.q3_talker_step_scratch_floats.restype = ctypes.c_size_t
-        lib.q3_talker_step_scratch_floats.argtypes = [i32] * 9
+        lib.q3_talker_step_scratch_floats.argtypes = [ctypes.POINTER(i32)]
+        lib.q3_talker_step_maps_bytes.restype = ctypes.c_size_t
+        lib.q3_talker_step_maps_bytes.argtypes = []
+        lib.q3_talker_step_maps.restype = i32
+        lib.q3_talker_step_maps.argtypes = [i32, i32, ctypes.POINTER(i32), ctypes.POINTER(ptr), ptr]
+        lib.q3_talker_step_trace_slots.restype = i32
+        lib.q3_talker_step_trace_slots.argtypes = [ctypes.POINTER(i32)]
         lib.q3_talker_step.restype = i32
-        lib.q3_talker_step.argtypes = [i32, i32] + [ptr] * 17 + [i32] * 8 + [ctypes.c_float, ptr, ptr, ptr]
+        lib.q3_talker_step.argtypes = [
+            i32, i32, ctypes.POINTER(i32), ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ptr), ptr, ptr, ptr, ptr,
+            ptr, i32, i32, ptr, ptr,
+        ]
         lib._q3_fused_bound = True
     return lib
 
@@ -497,18 +508,14 @@ def cp_frame(
 cp_frame.launches = 0  # frames the kernel ran (CPU-plain calls are not counted)
 
 
-def cp_frame_trace_phases(stamps: torch.Tensor, cfg) -> dict:
-    """Where a traced frame's time went, from ``cp_frame(..., trace=True)``'s
-    stamps, in µs summed over the frame's phases (each phase: the blocks
-    between two barriers): ``span`` the frame from the first block's first
-    stamp to the last leave; per phase kind (mtp, qkv, attention, o, gate_up,
-    down, head), ``work`` from the phase's start (the previous barrier's
+def _phase_sums(stamps: torch.Tensor, kinds: list) -> dict:
+    """Sums of a traced launch's phases (``kinds``: the kind of each phase,
+    in order) in µs: ``span`` from the first block's first stamp to the last
+    leave; per kind, ``work`` from the phase's start (the previous barrier's
     last leave) to its last arrival, of which ``stage`` to the last block's
-    GEMV start and ``tiles`` the longest GEMV, and ``barrier`` from the last
-    arrival to the last leave."""
+    work start and ``tiles`` the longest work (a GEMV's tile loop, or
+    attention), and ``barrier`` from the last arrival to the last leave."""
     st = stamps.cpu().double().reshape(stamps.shape[0], -1, 4) / 1e3  # [blocks, phases, 4] in µs
-    layers = cfg.layer_stack().num_layers
-    kinds = (["mtp"] if cfg.needs_projection else []) + ["qkv", "attention", "o", "gate_up", "down"] * layers + ["head"]
     out = {k: {"work": 0.0, "stage": 0.0, "tiles": 0.0, "barrier": 0.0, "phases": 0} for k in dict.fromkeys(kinds)}
     begin = st[:, 0][st[:, 0] > 0].min().item()
     prev = begin
@@ -523,6 +530,16 @@ def cp_frame_trace_phases(stamps: torch.Tensor, cfg) -> dict:
         kind["barrier"] += leave.max().item() - arrive.max().item()
         prev = leave.max().item()
     return {"span": prev - begin, **out}
+
+
+def cp_frame_trace_phases(stamps: torch.Tensor, cfg) -> dict:
+    """Where a traced frame's time went, from ``cp_frame(..., trace=True)``'s
+    stamps, in µs summed over the frame's phases (each phase: the blocks
+    between two barriers), by phase kind (mtp, qkv, attention, o, gate_up,
+    down, head): see ``_phase_sums``."""
+    layers = cfg.layer_stack().num_layers
+    kinds = (["mtp"] if cfg.needs_projection else []) + ["qkv", "attention", "o", "gate_up", "down"] * layers + ["head"]
+    return _phase_sums(stamps, kinds)
 
 
 # ---------------------------------------------------------------------------
@@ -623,14 +640,279 @@ def talker_step_plain(
     return h.reshape(1, 1, H)
 
 
-def talker_step(layers: dict, x: torch.Tensor, cfg, ck: torch.Tensor, cv: torch.Tensor, pos: int) -> torch.Tensor:
-    """One talker decode step: the CUDA kernel on a CUDA tensor, the plain
-    version on a CPU tensor (arguments and result as ``talker_step_plain``).
+def _layer_stack(cfg):
+    """The layer-stack config of a talker config, or the layer-stack config itself."""
+    return cfg.layer_stack() if hasattr(cfg, "layer_stack") else cfg
+
+
+# Kernel 3's constants (csrc/talker_step.cu): ring stages, the attention
+# chunks of a head (at most; rows each at least), the widest head, the most
+# q heads, the attention scratch's fixed floats. The plan lays out the
+# block's shared memory; the kernel takes the offsets and checks them.
+TALKER_STEP_STAGES = 4
+TALKER_STEP_MAX_CHUNKS = 8
+TALKER_STEP_CHUNK_ROWS = 256
+TALKER_STEP_MAX_HEAD_DIM = 128
+TALKER_STEP_MAX_HEADS = 128
+TALKER_STEP_MISC_FIXED = 4096
+# The projections in the order a layer runs them (the kernel's enum StepProj).
+TALKER_STEP_PROJS = ("qkv", "o", "gate_up", "down")
+
+
+class TalkerProjPlan(NamedTuple):
+    """One projection of the talker step kernel: ``k`` input rows, ``n``
+    output columns (the row stride) in ``halves`` halves (2 for gate|up: a
+    group holds the same columns of both, so its block finishes SiLU*up),
+    summed in fixed-order chunks of ``chunk`` rows (H for o and down, as
+    the plain version sums them; the whole K for qkv and gate|up), cut into
+    vectors of ``vec`` columns (16 bytes of weights). Block g streams and
+    owns column group g: vectors [g*nv, min((g+1)*nv, n/halves/vec)) of
+    each half, over the whole K; ``groups`` blocks own any. A ring tile
+    holds ``tile_rows`` K rows of a block's slice (never across a chunk),
+    loaded as TMA boxes of ``box_rows`` rows."""
+
+    k: int
+    n: int
+    halves: int
+    chunk: int
+    vec: int
+    nv: int
+    groups: int
+    tile_rows: int
+    box_rows: int
+
+    def columns(self, group: int) -> list[int]:
+        """The output columns of column group ``group`` (every half)."""
+        half = self.n // self.halves
+        v0, v1 = group * self.nv, min((group + 1) * self.nv, half // self.vec)
+        return [h * half + c for h in range(self.halves) for c in range(v0 * self.vec, max(v0, v1) * self.vec)]
+
+
+class TalkerStepPlan(NamedTuple):
+    """The launch plan of the talker step kernel: ``grid`` co-resident
+    blocks of 256 threads, each with ``smem_bytes`` of dynamic shared
+    memory: a ring of ``TALKER_STEP_STAGES`` tiles of ``stage_bytes``, then
+    the regions at the byte offsets ``regions`` (the staged matmul input,
+    the column reduction, the column sums, the attention scratch); and each
+    projection's column groups (``projs``)."""
+
+    grid: int
+    stage_bytes: int
+    regions: dict
+    smem_bytes: int
+    projs: dict
+
+    def ints(self, cfg, max_seq: int) -> list[int]:
+        """The dims and the plan as the kernel's C entry takes them."""
+        sc = _layer_stack(cfg)
+        dims = [sc.num_layers, sc.hidden_size, sc.num_heads, sc.num_kv_heads, sc.head_dim, sc.intermediate_size,
+                max_seq]
+        per = [v for name in TALKER_STEP_PROJS for v in (
+            self.projs[name].nv, self.projs[name].groups, self.projs[name].tile_rows, self.projs[name].box_rows)]
+        return dims + [self.grid, self.stage_bytes, *self.regions.values(), self.smem_bytes] + per
+
+
+def _reduce_groups(nvt: int) -> int:
+    """Row lanes the kernel's column reduction keeps for ``nvt`` vectors."""
+    return CP_FRAME_THREADS // 32 if nvt < 32 and nvt & (nvt - 1) == 0 else CP_FRAME_THREADS // nvt
+
+
+def talker_step_plan(
+    cfg, weight_kind: str, dtype: torch.dtype | None = None, sms: int = 132,
+    max_seq: int = TALKER_STREAM_MAX_SEQ,
+) -> TalkerStepPlan:
+    """The talker step kernel's launch plan for talker ``cfg`` (a talker or
+    layer-stack config) with ``weight_kind`` ("float32", "bfloat16" or
+    "int8") projections, activations in ``dtype`` (default: the weights'
+    type, bf16 for int8), caches of at most ``max_seq`` rows, on a card with
+    ``sms`` SMs.
+
+    Each projection's columns go to as many blocks as the card has SMs: a
+    block owns ``nv`` vectors of 16 weight bytes (of each half), the fewest
+    that leave at most ``sms`` groups and whose TMA box rows land 128-byte
+    aligned, over the whole K. So every SM streams a slice of every
+    projection, and at any moment the blocks read neighbouring columns of
+    the same K rows (on an H100 faster than K parts of wider rows, whose
+    sums another block must add: PERF.md). The grid is the most any
+    projection uses (at least one block per q head). The staged input (the
+    widest K), the column reduction and sums (two rows) and the attention
+    scratch (its chunk's scores: the most rows a chunk holds below
+    ``max_seq``) are fixed by the shapes; the ring takes what is left of an
+    H100 block's 232,448 bytes. A TMA box is the largest power of two of
+    rows, at most 256, that divides the projection's chunk, lands 128-byte
+    aligned and fits a tile; a tile is the most boxes that fit and divide
+    the chunk. Raises on shapes the kernel does not take.
+    """
+    if weight_kind not in _WEIGHT_KINDS:
+        raise ValueError(f"talker_step_plan: unknown weight kind {weight_kind!r}")
+    if dtype is None:
+        dtype = torch.bfloat16 if weight_kind == "int8" else _WEIGHT_KINDS[weight_kind]
+    if dtype not in _DTYPES or (weight_kind != "int8" and dtype != _WEIGHT_KINDS[weight_kind]):
+        raise ValueError(f"talker_step_plan: {weight_kind} weights with {dtype} activations")
+    sc = _layer_stack(cfg)
+    H, I, D, Hq, KV, L = (sc.hidden_size, sc.intermediate_size, sc.head_dim, sc.num_heads, sc.num_kv_heads,
+                          sc.num_layers)
+    qd, nqkv = Hq * D, (Hq + 2 * KV) * D
+    t_vec = 4 if dtype == torch.float32 else 8
+    w_vec = {"float32": 4, "bfloat16": 8, "int8": 16}[weight_kind]
+    if not (L >= 1 and 2 <= D <= TALKER_STEP_MAX_HEAD_DIM and D % t_vec == 0 and KV >= 1 and Hq % KV == 0
+            and 1 <= Hq <= min(sms, TALKER_STEP_MAX_HEADS) and min(H, I) >= 1 and qd % H == 0 and I % H == 0
+            and max_seq >= 1):
+        raise ValueError(f"talker_step_plan: the kernel does not take {sc} with {max_seq} cache rows")
+    shapes = {"qkv": (H, nqkv, 1, H), "o": (qd, H, 1, H), "gate_up": (H, 2 * I, 2, H), "down": (I, H, 1, H)}
+    chosen = {}
+    for name, (k, n, halves, chunk) in shapes.items():
+        if (n // halves) % w_vec:
+            raise ValueError(f"talker_step_plan: {name} has {n // halves} columns, not a multiple of {w_vec}")
+        nvec = n // halves // w_vec
+        nv = -(-nvec // sms)
+        while nv * halves <= CP_FRAME_THREADS and nv * w_vec <= CP_FRAME_BOX_COLUMNS and chunk % (8 // math.gcd(nv, 8)):
+            nv += 1
+        if nv * halves > CP_FRAME_THREADS or nv * w_vec > CP_FRAME_BOX_COLUMNS:
+            raise ValueError(f"talker_step_plan: {name} ({k} x {n}) takes no column groups on {sms} SMs")
+        chosen[name] = (k, n, halves, chunk, nv, -(-nvec // nv))
+    grid = max([Hq] + [c[5] for c in chosen.values()])
+    chunk_rows = max(TALKER_STEP_CHUNK_ROWS, -(-max_seq // min(TALKER_STEP_MAX_CHUNKS, grid // Hq)))
+    floats = {
+        "xs": max(c[0] for c in chosen.values()),
+        "red": max(_reduce_groups(c[4] * c[2]) * c[4] * c[2] * w_vec for c in chosen.values()),
+        "cs": 2 * max(c[4] * c[2] * w_vec for c in chosen.values()),
+        "misc": TALKER_STEP_MISC_FIXED + -(-chunk_rows // 32) * 32,
+    }
+    nbytes = {name: -(-4 * f // 128) * 128 for name, f in floats.items()}
+    stage_bytes = (CP_FRAME_SMEM_LIMIT - sum(nbytes.values())) // TALKER_STEP_STAGES // 128 * 128
+    regions, at = {}, TALKER_STEP_STAGES * stage_bytes
+    for name, size in nbytes.items():
+        regions[name], at = at, at + size
+    projs = {}
+    for name, (k, n, halves, chunk, nv, groups) in chosen.items():
+        row_bytes = nv * halves * 16
+        box = 256
+        while box > 1 and (chunk % box or box * row_bytes > stage_bytes):
+            box //= 2
+        if chunk % box or box * row_bytes > stage_bytes or box * nv * 16 % 128:
+            raise ValueError(f"talker_step_plan: {name}'s {chunk}-row chunks take no TMA box of 128-byte-aligned rows")
+        tile_rows = min(chunk, stage_bytes // row_bytes // box * box)
+        while chunk % tile_rows:
+            tile_rows -= box
+        projs[name] = TalkerProjPlan(k, n, halves, chunk, w_vec, nv, groups, tile_rows, box)
+    return TalkerStepPlan(grid, stage_bytes, regions, at, projs)
+
+
+def _talker_leaves(layers: dict) -> tuple:
+    """The tensors the talker step kernel reads, in a fixed order: weight
+    and scale (None for plain weights) of qkv, o, gate|up and down; the four
+    layer norms."""
+    if "qkv_proj" not in layers or "gateup_proj" not in layers:
+        raise ValueError("talker_step: the kernel needs fused qkv_proj / gateup_proj weights")
+
+    def parts(w):
+        return (w["q8"], w["scale"]) if quant.is_quantized(w) else (w, None)
+
+    return (*(t for name in _PROJS for t in parts(layers[name])),
+            layers["input_ln"], layers["post_ln"], layers["q_norm"], layers["k_norm"])
+
+
+def supports_talker_step_kernel(layers: dict, cfg, max_seq: int) -> bool:
+    """Whether the talker step kernel takes this fused tree (all int8 or all
+    plain) with caches of up to ``max_seq`` rows: ``talker_step_plan`` on
+    an H100's 132 SMs; a tree it refuses takes the layer path."""
+    qkv = layers.get("qkv_proj")
+    if qkv is None or "input_ln" not in layers:
+        return False
+    dtype = layers["input_ln"].dtype
+    kind = "int8" if quant.is_quantized(qkv) else {torch.float32: "float32", torch.bfloat16: "bfloat16"}.get(qkv.dtype)
+    if kind is None:
+        return False
+    try:
+        talker_step_plan(cfg, kind, dtype, max_seq=max_seq)
+    except ValueError:
+        return False
+    return True
+
+
+class TalkerStepPack:
+    """What the talker step kernel needs of one fused talker tree, checked
+    and gathered once: the plan, the C entry's argument arrays, the
+    weights' TMA descriptors, the RoPE tables for ``max_seq`` rows, and a
+    scratch that is zeroed once (its barrier count and flags carry over from
+    step to step) and serves one step at a time.
+
+    Its owner keeps it beside the tree (``pipeline.Qwen3TTS`` builds one on
+    the card) and hands it to every ``talker_step`` of that tree, with any
+    cache of at most ``max_seq`` rows. The pack holds the tree's tensors, so
+    the pointers in its descriptors stay valid while it lives. Its steps run
+    on the stream of its first step; a step on another stream raises, since
+    two steps must not share the scratch at once. A CUDA graph that captures
+    steps replays on the pack's scratch, so steps outside the graph take a
+    pack of their own.
+    """
+
+    def __init__(self, layers: dict, cfg, dtype: torch.dtype, dev: torch.device | str,
+                 max_seq: int = TALKER_STREAM_MAX_SEQ):
+        dev = torch.device(dev)
+        if dev.type != "cuda" or dtype not in _DTYPES:
+            raise ValueError(f"TalkerStepPack: the kernel runs on CUDA in float32 or bfloat16, not {dtype} on {dev}")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        leaves = _talker_leaves(layers)
+        sc = _layer_stack(cfg)
+        L, H, D, I = sc.num_layers, sc.hidden_size, sc.head_dim, sc.intermediate_size
+        qd, kvd = sc.num_heads * D, sc.num_kv_heads * D
+        linears = {"qkv_proj": (L, H, qd + 2 * kvd), "o_proj": (L, qd, H), "gateup_proj": (L, H, 2 * I),
+                   "down_proj": (L, I, H)}
+        quantized = _check_linears({n: (layers[n], shape) for n, shape in linears.items()}, dtype, dev, "talker_step")
+        for name, shape in {"input_ln": (L, H), "post_ln": (L, H), "q_norm": (L, D), "k_norm": (L, D)}.items():
+            _check(layers[name], name, shape, dtype, dev, "talker_step")
+        if any(t is not None and t.data_ptr() % 16 for t in leaves):
+            raise ValueError("talker_step: every weight must be 16-byte aligned")
+        kind = "int8" if quantized else {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
+        self.plan = talker_step_plan(sc, kind, dtype, min(quant._sm_count(dev), 132), max_seq)
+
+        lib = _kernel_lib()
+        ints = self.plan.ints(sc, max_seq)
+        self.ints = (ctypes.c_int * len(ints))(*ints)
+        self.floats = (ctypes.c_float * 1)(sc.rms_norm_eps)
+        self.scratch = torch.zeros(lib.q3_talker_step_scratch_floats(self.ints), dtype=torch.float32, device=dev)
+        self.rope = rope_tables(D, sc.rope_theta, max_seq, dev)
+        qkv_w, qkv_s, o_w, o_s, gu_w, gu_s, down_w, down_s, in_ln, post_ln, q_norm, k_norm = leaves
+        ptrs = [qkv_w, o_w, gu_w, down_w, qkv_s, o_s, gu_s, down_s, in_ln, post_ln, q_norm, k_norm, *self.rope,
+                self.scratch]
+        self.ptrs = (ctypes.c_void_p * len(ptrs))(*[_ptr(t) for t in ptrs])
+        self.maps = ctypes.create_string_buffer(lib.q3_talker_step_maps_bytes())
+        err = lib.q3_talker_step_maps(_DTYPES[dtype], int(quantized), self.ints, self.ptrs, self.maps)
+        if err != 0:
+            raise RuntimeError(f"talker_step: the weights' TMA descriptors were refused: CUDA error {err}")
+        self.leaves = leaves
+        self.key = (sc, dtype, dev)
+        self.quantized = quantized
+        self.max_seq = max_seq
+        self.lib = lib
+        self.stream = None  # the stream of the first step
+
+    def holds(self, layers: dict, cfg, dtype: torch.dtype, dev: torch.device) -> bool:
+        """Whether this pack was built for ``layers`` (the same tensors) at
+        this config, dtype and device."""
+        return self.key == (_layer_stack(cfg), dtype, dev) and all(
+            a is b for a, b in zip(self.leaves, _talker_leaves(layers)))
+
+
+def talker_step(
+    layers: dict, x: torch.Tensor, cfg, ck: torch.Tensor, cv: torch.Tensor, pos: int,
+    pack: TalkerStepPack | None = None, trace: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """One talker decode step: the CUDA kernel on a CUDA tensor (one
+    launch), the plain version on a CPU tensor (arguments and result as
+    ``talker_step_plain``); with ``trace`` (the card only) also the
+    kernel's int64 [grid, slots] phase stamps in ns
+    (``talker_step_trace_phases`` reads them).
 
     The kernel takes the canonical fused tree with all four projections
     int8 (``[L, K, N]`` int8 with ``[L, N]`` f32 scales) or all plain in x's
     dtype (``[L, K, N]``); norms and caches in x's dtype. A mixed tree
-    raises.
+    raises. ``pack``: the tree's ``TalkerStepPack``, which spares each step
+    the checks and the set-up; without one, the call builds a pack for
+    itself (for this cache's rows).
     """
     dev = x.device
     if dev.type == "cpu":
@@ -640,48 +922,63 @@ def talker_step(layers: dict, x: torch.Tensor, cfg, ck: torch.Tensor, cv: torch.
     dtype = x.dtype
     if dtype not in _DTYPES:
         raise ValueError(f"talker_step: unsupported dtype {dtype}")
-    H, D, I = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
-    hq, kv = cfg.num_heads, cfg.num_kv_heads
-    qd, kvd = hq * D, kv * D
-    L, S = ck.shape[0], ck.shape[1]
-    shapes = {"qkv_proj": (L, H, qd + 2 * kvd), "o_proj": (L, qd, H), "gateup_proj": (L, H, 2 * I), "down_proj": (L, I, H)}
-    quantized = _check_linears({n: (layers[n], shape) for n, shape in shapes.items()}, dtype, dev, "talker_step")
-    for name, shape in {"input_ln": (L, H), "post_ln": (L, H), "q_norm": (L, D), "k_norm": (L, D)}.items():
-        _check(layers[name], name, shape, dtype, dev, "talker_step")
-    _check(ck, "cache k", (L, S, kvd), dtype, dev, "talker_step")
-    _check(cv, "cache v", (L, S, kvd), dtype, dev, "talker_step")
+    sc = _layer_stack(cfg)
+    H, kvd, L = sc.hidden_size, sc.num_kv_heads * sc.head_dim, sc.num_layers
+    S = ck.shape[1] if ck.dim() == 3 else 0
+    for name, c in (("cache k", ck), ("cache v", cv)):
+        _check(c, name, (L, S, kvd), dtype, dev, "talker_step")
+        if c.data_ptr() % 16:
+            raise ValueError(f"talker_step: {name} must be 16-byte aligned")
     if not 0 <= pos < S:
         raise ValueError(f"talker_step: pos {pos} outside the {S}-row cache")
-    xin = x.reshape(H).contiguous()
-    _check(xin, "x", (H,), dtype, dev, "talker_step")
-
-    lib = _kernel_lib()
-    n_scratch = lib.q3_talker_step_scratch_floats(_DTYPES[dtype], int(quantized), L, H, hq, kv, D, I, S)
-    if n_scratch == 0:
-        raise ValueError(f"talker_step: the kernel does not take these shapes ({cfg}, S={S}, int8={quantized})")
-    cos_t, sin_t = rope_tables(D, cfg.rope_theta, S, dev)
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
+    if pack is None:
+        pack = TalkerStepPack(layers, sc, dtype, dev, max_seq=S)
+    elif not pack.holds(layers, sc, dtype, dev):
+        raise ValueError("talker_step: the pack was built for another tree, config, dtype or device")
+    if S > pack.max_seq:
+        raise ValueError(f"talker_step: a {S}-row cache; the pack takes at most {pack.max_seq} rows")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if pack.stream is None:
+        pack.stream = stream
+    elif stream != pack.stream:
+        raise RuntimeError(
+            f"talker_step: the pack's steps run on stream {pack.stream:#x}, not {stream:#x}; "
+            "give each stream a pack of its own"
+        )
+    if x.numel() != H or not x.is_contiguous():
+        raise ValueError(f"talker_step: x must be a contiguous {dtype} tensor of {H} values on {dev}; "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
     y = torch.empty(H, dtype=dtype, device=dev)
-    weights = [
-        p for name in _PROJS
-        for p in ((layers[name]["q8"].data_ptr(), layers[name]["scale"].data_ptr()) if quantized
-                  else (layers[name].data_ptr(), None))
-    ]
-    err = lib.q3_talker_step(
-        _DTYPES[dtype], int(quantized), xin.data_ptr(), *weights,
-        layers["input_ln"].data_ptr(), layers["post_ln"].data_ptr(),
-        layers["q_norm"].data_ptr(), layers["k_norm"].data_ptr(),
-        cos_t.data_ptr(), sin_t.data_ptr(), ck.data_ptr(), cv.data_ptr(),
-        L, H, hq, kv, D, I, S, pos, cfg.rms_norm_eps,
-        scratch.data_ptr(), y.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    stamps = None
+    if trace:
+        slots = pack.lib.q3_talker_step_trace_slots(pack.ints)
+        stamps = torch.zeros((pack.plan.grid, slots), dtype=torch.int64, device=dev)
+    err = pack.lib.q3_talker_step(
+        _DTYPES[dtype], int(pack.quantized), pack.ints, pack.floats, pack.ptrs, pack.maps,
+        x.data_ptr(), y.data_ptr(), ck.data_ptr(), cv.data_ptr(), S, pos, _ptr(stamps), stream,
     )
     if err != 0:
         raise RuntimeError(f"talker_step kernel launch failed: CUDA error {err}")
     talker_step.launches += 1
-    return y.reshape(1, 1, H)
+    y = y.reshape(1, 1, H)
+    return (y, stamps) if trace else y
 
 
 talker_step.launches = 0  # steps the kernel ran, either form (CPU-plain calls are not counted)
+
+
+def talker_step_trace_phases(stamps: torch.Tensor, cfg) -> dict:
+    """Where a traced step's time went, from ``talker_step(..., trace=True)``'s
+    stamps, in µs summed over the step's phases by kind (qkv, attention, o,
+    gate_up, down; see ``_phase_sums``: ``tiles`` is a GEMV's tile loop, or
+    the attention itself), and each kind's ``epilogue``: its work after
+    staging and the longest work (the columns finished and written)."""
+    kinds = ["qkv", "attention", "o", "gate_up", "down"] * _layer_stack(cfg).num_layers
+    out = _phase_sums(stamps, kinds)
+    for kind in TALKER_STEP_PROJS[:1] + ("attention",) + TALKER_STEP_PROJS[1:]:
+        k = out[kind]
+        k["epilogue"] = k["work"] - k["stage"] - k["tiles"]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -104,8 +104,10 @@ class Qwen3TTS:
     ``models/code_predictor``), the prefill and codec head the W8A16 matmul.
 
     On the card, a code predictor that takes the frame kernel gets its
-    ``fused_layer.CpFramePack`` here (checked, packed and given its scratch
-    once); every frame of this model uses it, on the stream of the first.
+    ``fused_layer.CpFramePack`` here, and the fused talker its
+    ``fused_layer.TalkerStepPack`` (each checked, packed and given its
+    scratch once); every frame of this model uses them, on the stream of
+    the first.
 
     ``from_random`` and ``from_numpy`` build on the CUDA card unless given
     ``device="cpu"``.
@@ -138,6 +140,11 @@ class Qwen3TTS:
         if on_card and cp.cp_route(cp_params, config.code_predictor) == "frame":
             self.cp_frame_pack = fused_layer.CpFramePack(cp_params, config.code_predictor, self.compute_dtype,
                                                          self.device)
+        self.talker_step_pack = None
+        layers, stack = talker_params["layers"], config.talker.layer_stack()
+        if (on_card and fused_layer.has_stream_pack(layers, stack.hidden_size)
+                and fused_layer.supports_talker_step_kernel(layers, stack, fused_layer.TALKER_STREAM_MAX_SEQ)):
+            self.talker_step_pack = fused_layer.TalkerStepPack(layers, stack, self.compute_dtype, self.device)
         self.vocoder_params = vocoder_params
         self.vocoder_config = vocoder_config
         self.tokenizer = tokenizer
@@ -287,6 +294,7 @@ class Qwen3TTS:
             uniforms,
             options.max_length,
             self.cp_frame_pack,
+            self.talker_step_pack,
         )
         return state.frames[: state.frame_idx].cpu().numpy()
 

@@ -306,6 +306,84 @@ def test_cuda_talker_step_refuses_mixed_trees():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("weights", ["int8", "plain"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_talker_step_same_bits_in_one_launch(dtype, weights):
+    """Through one pack, two steps on the same inputs give the same bits
+    (no float atomics, every sum in a fixed order), each in one launch and,
+    where torch.profiler records the card, one device kernel; a pack-free
+    call (which packs for itself) gives them too."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _cuda()
+    layers, x, ck0, cv0 = _talker_inputs(dev, dtype, 288, quantized=weights == "int8")
+    pack = fused_layer.TalkerStepPack(layers, TALKER_STACK, dtype, dev)
+    ck, cv = ck0.clone(), cv0.clone()
+    first = fused_layer.talker_step(layers, x, TALKER_STACK, ck, cv, 270, pack)
+    torch.cuda.synchronize()
+    before = fused_layer.talker_step.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = fused_layer.talker_step(layers, x, TALKER_STACK, ck, cv, 270, pack)
+        torch.cuda.synchronize()
+    assert fused_layer.talker_step.launches == before + 1
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert not kernels or len(kernels) == 1, kernels
+    assert torch.equal(first, again)
+    assert torch.equal(fused_layer.talker_step(layers, x, TALKER_STACK, ck0.clone(), cv0.clone(), 270), first)
+
+
+@pytest.mark.gpu
+def test_cuda_talker_step_pack_keeps_to_its_tree_and_stream():
+    """A pack serves its own tree (the same tensors) on the stream of its
+    first step, with any cache up to its rows: another tree, a wider cache or
+    another stream raises before any launch, and a pack of that stream's
+    own gives the same bits."""
+    dev = _cuda()
+    layers, x, ck, cv = _talker_inputs(dev, torch.float32, 64)
+    pack = fused_layer.TalkerStepPack(layers, TALKER_STACK, torch.float32, dev, max_seq=64)
+    want = fused_layer.talker_step(layers, x, TALKER_STACK, ck.clone(), cv.clone(), 40, pack)
+    before = fused_layer.talker_step.launches
+    other = dict(layers, o_proj={k: v.clone() for k, v in layers["o_proj"].items()})
+    with pytest.raises(ValueError, match="another tree"):
+        fused_layer.talker_step(other, x, TALKER_STACK, ck.clone(), cv.clone(), 40, pack)
+    wide = torch.zeros((TALKER_STACK.num_layers, 96, ck.shape[2]), device=dev)
+    with pytest.raises(ValueError, match="at most 64 rows"):
+        fused_layer.talker_step(layers, x, TALKER_STACK, wide, wide.clone(), 40, pack)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        with pytest.raises(RuntimeError, match="stream"):
+            fused_layer.talker_step(layers, x, TALKER_STACK, ck.clone(), cv.clone(), 40, pack)
+        assert fused_layer.talker_step.launches == before
+        own = fused_layer.TalkerStepPack(layers, TALKER_STACK, torch.float32, dev, max_seq=64)
+        got = fused_layer.talker_step(layers, x, TALKER_STACK, ck.clone(), cv.clone(), 40, own)
+    torch.cuda.synchronize(dev)
+    assert fused_layer.talker_step.launches == before + 1 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_talker_step_trace():
+    """A traced step gives the same bits in one launch, and every block's
+    stamps of a phase run in order (work start <= end <= barrier arrival
+    <= leave, the work stamps 0 where the block has none)."""
+    dev = _cuda()
+    layers, x, ck, cv = _talker_inputs(dev, torch.bfloat16, 288)
+    pack = fused_layer.TalkerStepPack(layers, TALKER_STACK, torch.bfloat16, dev)
+    want = fused_layer.talker_step(layers, x, TALKER_STACK, ck.clone(), cv.clone(), 270, pack)
+    before = fused_layer.talker_step.launches
+    got, stamps = fused_layer.talker_step(layers, x, TALKER_STACK, ck.clone(), cv.clone(), 270, pack, trace=True)
+    assert fused_layer.talker_step.launches == before + 1 and torch.equal(got, want)
+    st = stamps.cpu().reshape(stamps.shape[0], -1, 4)
+    assert st.shape[1] == 5 * TALKER_STACK.num_layers
+    start, end, arrive, leave = st.unbind(-1)
+    assert (arrive > 0).all() and (arrive <= leave).all()
+    owns = start > 0
+    assert ((start <= end) & (end <= arrive))[owns].all() and (end[~owns] == 0).all()
+    phases = fused_layer.talker_step_trace_phases(stamps, TALKER_STACK)
+    assert phases["span"] > 0 and phases["attention"]["tiles"] > 0
+
+
+@pytest.mark.gpu
 def test_cuda_model_fuses_its_plain_talker():
     """``Qwen3TTS.from_random`` on the card holds a fused bf16 talker (no
     separate projections), and its decode steps take kernel 3."""
