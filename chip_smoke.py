@@ -20,9 +20,16 @@ Phases, each printing a line (any failure exits nonzero before the last):
      with torch.profiler, must be 1; then the seeded 1.7B f32 code predictor
      of ``qwen3_tts_tpu_torch/cp_fixture.py`` must give the JAX package's
      codes (the committed fixture) token for token;
-  4. kernel 2 (vocoder residual unit) against its plain version at C =
-     384/192/96 and dilations 1/3/9 over the time lengths of a 128-frame
-     decode: within atol = 1e-5 * max|x|, a prefix bit-identical, both timed;
+  4. kernel 2 (vocoder residual unit, a 3xTF32 implicit GEMM) against its
+     plain version at C = 384/192/96 and dilations 1/3/9 over the time
+     lengths of a 128-frame decode: within atol = 1e-5 * max|x|, the same
+     bits twice, a prefix bit-identical; timed per call from Python and by
+     its device span (CUDA graph), beside the plain version and the library
+     yardstick (cuDNN's dilated conv plus one matmul, no snakes), and the 9
+     calls' device span in one graph; then the seeded full-width vocoder of
+     ``qwen3_tts_tpu_torch/vocoder_fixture.py`` through ``decode_bucketed``
+     on the card (kernel 2 launched 9 times) must give the JAX package's
+     audio (the committed fixture) within 1e-5 and 1e-4 of max|audio|;
   5. kernel 3 (talker step, one persistent launch) against its plain
      version on the 1.7B talker in its three forms, each through the tree's
      pack, with caches of 160 and 2080 rows and 16 random (x, pos) each
@@ -72,8 +79,9 @@ Phases, each printing a line (any failure exits nonzero before the last):
      prompt, 125 frames, seed 42, temperature 0.9): one warm run, then one
      timed run with the kernels' launch counts reset just before it, in
      which kernels 1 and 3 must launch once a frame (125 times; the talker
-     fused on the card), kernel 2 must launch, and the int8-path kernels
-     must not; the timed run's audio
+     fused on the card), kernel 2 9 times (its calls timed by CUDA events,
+     which split decode into kernel 2's share and the rest), and the
+     int8-path kernels must not; the timed run's audio
      must equal the warm run's bit for bit (same seed, deterministic
      kernels); then the same in int8 (``quantize_int8=True``
      on the same synthetic trees, as bench.py builds its int8 model), where
@@ -107,12 +115,12 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import qwen3_tts_tpu_torch  # noqa: E402,F401  (sets the TF32 switches)
-from qwen3_tts_tpu_torch import build, cp_fixture, talker_fixture  # noqa: E402
+from qwen3_tts_tpu_torch import build, cp_fixture, talker_fixture, vocoder_fixture  # noqa: E402
 from qwen3_tts_tpu_torch import kernel_timing as kt  # noqa: E402
 from qwen3_tts_tpu_torch.models import code_predictor as cp  # noqa: E402
 from qwen3_tts_tpu_torch.models import talker  # noqa: E402
 from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
-from qwen3_tts_tpu_torch.models.codec import fused_blocks  # noqa: E402
+from qwen3_tts_tpu_torch.models.codec import blocks, fused_blocks  # noqa: E402
 from qwen3_tts_tpu_torch.models.codec import vocoder  # noqa: E402
 from qwen3_tts_tpu_torch.models.config import (  # noqa: E402
     CodePredictorConfig,
@@ -162,7 +170,7 @@ TP4 = dict(hidden=2048, heads=4, kv_heads=2, head_dim=128, inter=1536, rows=2080
 LAYER_STEPS_INTER = 2816
 # The card's published peaks (H100 SXM data sheet) for the bounds.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "tf32": 495e12}
 KERNEL_ROWS = []
 
 
@@ -378,31 +386,26 @@ def kernel1() -> None:
         KERNEL_ROWS.append(row)
 
 
-def unit_params(gen: torch.Generator, c: int) -> dict:
-    def rnd(shape, scale):
-        return torch.randn(shape, generator=gen, device=DEV) * scale
-
-    return {
-        "act1_alpha": rnd((c,), 0.1), "act1_beta": rnd((c,), 0.1),
-        "conv1_w": rnd((7, c, c), 0.05), "conv1_b": rnd((c,), 0.1),
-        "act2_alpha": rnd((c,), 0.1), "act2_beta": rnd((c,), 0.1),
-        "conv2_w": rnd((1, c, c), 0.05), "conv2_b": rnd((c,), 0.1),
-    }
-
-
 def kernel2() -> None:
+    """Kernel 2 at the 9 residual-unit shapes of a 128-frame decode bucket
+    (``kernel_timing.RU_SHAPES``): within 1e-5 * max|x| of the plain version,
+    the same bits twice, a prefix run bit-identical; timed per call from
+    Python, by its device span (calls in a CUDA graph), beside the plain
+    version and the library yardstick (cuDNN's dilated conv plus one matmul,
+    no snakes; never called by the port); then the 9 calls' device span in
+    one graph."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(3)
-    # Residual-unit time lengths of a 128-frame decode bucket (4x upsample,
-    # then the decoder blocks' rates 8, 5, 4, 3): C=384 at 20480 rows, etc.
-    shapes = [(384, 128 * 4 * 8 * 5), (192, 128 * 4 * 8 * 5 * 4), (96, 128 * 4 * 8 * 5 * 4 * 3)]
-    total_ms = total_plain = worst = 0.0
+    totals = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    worst = 0.0
     work_bytes = work_ops = 0
-    for c, t in shapes:
-        for dil in (1, 3, 9):
-            p = unit_params(gen, c)
+    calls = []
+    for c, t in kt.RU_SHAPES:
+        for dil in kt.RU_DILATIONS:
+            p = kt.unit_params(gen, c)
             x = torch.randn((1, t, c), generator=gen, device=DEV)
             got = fused_blocks.residual_unit(x, p, dil)
+            again = fused_blocks.residual_unit(x, p, dil)
             want = fused_blocks.residual_unit_plain(x, p, dil)
             t_short = t - 1000 - 17  # not a multiple of the kernel's tile
             short = fused_blocks.residual_unit(x[:, :t_short].contiguous(), p, dil)
@@ -410,26 +413,66 @@ def kernel2() -> None:
             err = (got - want).abs().max().item()
             tol = 1e-5 * x.abs().max().item()
             prefix_equal = torch.equal(short, got[:, :t_short])
-            ms = time_ms(lambda: fused_blocks.residual_unit(x, p, dil), iters=5)
-            plain_ms = time_ms(lambda: fused_blocks.residual_unit_plain(x, p, dil), iters=5)
-            phase("kernel2", f"C={c} T={t} dilation={dil}: max|err| {err:.3e} (atol {tol:.3e}), "
-                  f"prefix bit-exact {prefix_equal}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            repeat_equal = same_bits(got, again)
+            fn = lambda x=x, p=p, dil=dil: fused_blocks.residual_unit(x, p, dil)  # noqa: E731
+            r = {"ms": time_ms(fn, iters=5), "device_ms": kt.graph_ms([fn], 5),
+                 "plain_ms": time_ms(lambda: fused_blocks.residual_unit_plain(x, p, dil), iters=5),
+                 "library_ms": time_ms(kt.library_unit(x, p, dil), iters=5)}
+            plan = fused_blocks.residual_unit_plan(c, dil)
+            phase("kernel2", f"C={c} T={t} dilation={dil} (tile {plan.tm} rows, chunk {plan.kc} x {plan.stages}): "
+                  f"max|err| {err:.3e} (atol {tol:.3e}), same bits twice {repeat_equal}, prefix bit-exact "
+                  f"{prefix_equal}, kernel {r['ms']:.4f} ms per call / {r['device_ms']:.4f} device span, plain "
+                  f"{r['plain_ms']:.4f}, library (conv1d + matmul, no snakes) {r['library_ms']:.4f}")
             check(err <= tol, f"kernel 2 C={c} dilation={dil}: max|err| {err:.3e} > {tol:.3e}")
             check(prefix_equal, f"kernel 2 C={c} dilation={dil}: prefix run differs from the long run")
-            total_ms += ms
-            total_plain += plain_ms
+            check(repeat_equal, f"kernel 2 C={c} dilation={dil}: two runs differ")
+            for key in totals:
+                totals[key] += r[key]
             worst = max(worst, err)
+            calls.append(fn)
             # x read, y written, the weights; the k7 and 1x1 convolutions' MACs (f32).
             work_bytes += 2 * nbytes(x) + nbytes(p)
             work_ops += 2 * t * c * c * 8
-    phase("kernel2", f"all 9 units of a 128-frame decode: kernel {total_ms:.4f} ms, plain {total_plain:.4f} ms")
+    span9 = kt.graph_ms(calls, len(calls)) * len(calls)
+    fma_bound = bound(work_bytes, work_ops, "f32")
+    tc_bound = bound(work_bytes, 3 * work_ops, "tf32")
+    phase("kernel2", f"all 9 units of a 128-frame decode: device span of the 9 in one graph {span9:.4f} ms; per call "
+          f"{totals['ms']:.4f}, device spans {totals['device_ms']:.4f}, plain {totals['plain_ms']:.4f}, library "
+          f"{totals['library_ms']:.4f}; bounds: 3xTF32 {tc_bound['bound_ms']:.4f} ms, f32 FMA "
+          f"{fma_bound['bound_ms']:.4f} ms ({work_ops / 1e9:.1f} GFLOP)")
     KERNEL_ROWS.append({
         "name": "residual_unit", "route": "cuda",
         "source": "qwen3_tts_tpu_torch/csrc/residual_unit.cu",
         "replaces": "qwen3_tts_tpu/models/codec/fused_blocks.py:69",
-        "launches": 0, "path": "bf16", "max_abs_err": worst, "ms": total_ms, "plain_ms": total_plain,
-        **bound(work_bytes, work_ops, "f32"), "library_ms": None,
+        "launches": 0, "path": "bf16", "max_abs_err": worst, "ms": totals["ms"], "device_ms": span9,
+        "plain_ms": totals["plain_ms"], **tc_bound, "f32_fma_bound_ms": fma_bound["bound_ms"],
+        "library_ms": totals["library_ms"],
     })
+
+
+def vocoder_fixture_check() -> None:
+    """The seeded full-width vocoder (``qwen3_tts_tpu_torch/vocoder_fixture.py``)
+    on the card through ``decode_bucketed``: kernel 2 for its 9 residual
+    units with C <= 512, launched 9 times (counts set to 0 just before, read
+    just after); the audio must be the JAX package's (the committed fixture)
+    within 1e-5 and 1e-4 of max|audio|."""
+    cfg = vocoder_fixture.config()
+    params = W.from_numpy_tree(vocoder_fixture.numpy_params(cfg), DEV)
+    codes = vocoder_fixture.numpy_codes(cfg)
+    want = vocoder_fixture.load()
+    for k in COUNTERS.values():
+        k.launches = 0
+    got = vocoder.decode_bucketed(params, cfg, codes)
+    launches = fused_blocks.residual_unit.launches
+    err = float(np.abs(got - want).max())
+    bar = min(1e-5, 1e-4 * float(np.abs(want).max()))
+    phase("decode", f"seeded full-width vocoder, {codes.shape[-1]} frames (bucket 64) on the card: max|audio - JAX "
+          f"fixture| {err:.3e} (bar {bar:.3e}), max|audio| {float(np.abs(got).max()):.4f}, kernel 2 launches "
+          f"{launches}")
+    check(got.shape == want.shape and bool(np.isfinite(got).all()), f"decode: audio shape {got.shape}, or non-finite")
+    check(err <= bar, f"decode: the card's audio is {err:.3e} from the JAX fixture (bar {bar:.3e})")
+    check(launches == 9, f"decode: kernel 2 launched {launches} times, want 9")
+    del params
 
 
 def talker_device_kernels(layers: dict, stack, x, ck, cv, pos: int, pack) -> list | None:
@@ -1103,6 +1146,32 @@ COUNTERS = {
 }
 
 
+@contextlib.contextmanager
+def unit_events():
+    """CUDA events around every residual unit that takes kernel 2 (the
+    vocoder's blocks route each unit through ``blocks.residual_unit``), to
+    split decode into kernel 2's share and the rest. Yields the list of
+    (start, end) pairs."""
+    spans = []
+    routed = blocks.residual_unit
+
+    def timed(x, p, dilation):
+        if not fused_blocks.residual_unit_should_fuse(x):
+            return routed(x, p, dilation)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        y = routed(x, p, dilation)
+        end.record()
+        spans.append((start, end))
+        return y
+
+    blocks.residual_unit = timed
+    try:
+        yield spans
+    finally:
+        blocks.residual_unit = routed
+
+
 def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = ()) -> dict:
     """One warm run, then one timed run with every launch count set to 0
     just before it; the counts are read just after. Every kernel of
@@ -1117,10 +1186,13 @@ def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = (
     torch.cuda.reset_peak_memory_stats()
     for k in COUNTERS.values():
         k.launches = 0
-    t0 = time.perf_counter()
-    audio, timing = model.synthesize_with_timing(text, "ryan", "english", opts)
-    wall = time.perf_counter() - t0
+    with unit_events() as spans:
+        t0 = time.perf_counter()
+        audio, timing = model.synthesize_with_timing(text, "ryan", "english", opts)
+        wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in COUNTERS.items()}
+    torch.cuda.synchronize()
+    k2_ms = sum(start.elapsed_time(end) for start, end in spans)
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
     samples = audio.samples
@@ -1129,6 +1201,8 @@ def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = (
     check(bool(torch.isfinite(torch.from_numpy(samples)).all()), f"{label}: audio has non-finite samples")
     check(all(launches[k] > 0 for k in kernels), f"{label}: a kernel of the path never launched: {launches}")
     check(all(launches[k] == 0 for k in absent), f"{label}: a kernel of another path launched: {launches}")
+    check(launches["residual_unit"] == len(spans) == 9,
+          f"{label}: kernel 2 launched {launches['residual_unit']} times in {len(spans)} units, want 9")
     for name in ("cp_frame", "talker_step"):
         check(name not in kernels or launches[name] == FRAMES,
               f"{label}: kernel {name} launched {launches[name]} times, not once a frame")
@@ -1137,7 +1211,8 @@ def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = (
     rtf = wall / (len(samples) / OUTPUT_SAMPLE_RATE)
     phase("e2e", f"{label} timed run: prefill {timing.prefill_ms:.2f} ms, "
           f"{timing.generation_ms / timing.generation_frames:.3f} ms/frame over {timing.generation_frames} frames "
-          f"(generation {timing.generation_ms:.1f} ms), decode {timing.decode_ms:.1f} ms, "
+          f"(generation {timing.generation_ms:.1f} ms), decode {timing.decode_ms:.1f} ms (kernel 2's {len(spans)} "
+          f"calls {k2_ms:.2f} ms, the rest {timing.decode_ms - k2_ms:.1f}), "
           f"wall {wall * 1e3:.1f} ms, RTF {rtf:.4f}, peak allocated {peak_mb:.0f} MiB, "
           f"launches {launches}, audio peak {float(abs(samples).max()):.3e}, "
           f"audio equal to the warm run's {repeatable}")
@@ -1206,6 +1281,7 @@ def main() -> None:
     phase("build", f"{path.name} in {time.perf_counter() - t0:.1f} s")
     kernel1()
     kernel2()
+    vocoder_fixture_check()
     kernel3()
     kernel4()
     kernels5_6()

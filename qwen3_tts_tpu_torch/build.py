@@ -16,6 +16,7 @@ import os
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent
@@ -56,8 +57,8 @@ def build() -> Path:
     """Compile the kernels unless the current sources are already built.
 
     Returns the library path. A build prints ``nvcc``'s register and
-    shared-memory report (``-Xptxas -v``) to stderr; a cached library
-    prints nothing.
+    shared-memory report (``-Xptxas -v``) and each source's compile time
+    to stderr; a cached library prints nothing.
     """
     out = library_path()
     if out.exists():
@@ -67,15 +68,24 @@ def build() -> Path:
     nvcc = _nvcc()
     sources = sorted(CSRC.glob("*.cu"))
     objects = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
-    procs = [
-        subprocess.Popen(
-            [nvcc, "-Xptxas", "-v", *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-        )
-        for src, obj in zip(sources, objects)
-    ]
+    logs = [obj.with_suffix(".log") for obj in objects]
+    t0 = time.perf_counter()
+    procs = []
+    for src, obj, log in zip(sources, objects, logs):
+        with open(log, "w") as err:
+            procs.append(subprocess.Popen(
+                [nvcc, "-Xptxas", "-v", *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.DEVNULL, stderr=err,
+            ))
     try:
-        errs = [proc.communicate()[1] for proc in procs]
+        # Each source's compile time, for the build's report.
+        seconds = [None] * len(procs)
+        while None in seconds:
+            time.sleep(0.05)
+            for i, proc in enumerate(procs):
+                if seconds[i] is None and proc.poll() is not None:
+                    seconds[i] = time.perf_counter() - t0
+        errs = [log.read_text() for log in logs]
         failed = [
             f"{src.name} ({proc.returncode}):\n{err}"
             for src, proc, err in zip(sources, procs, errs)
@@ -90,10 +100,11 @@ def build() -> Path:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
         print("".join(errs), file=sys.stderr)
+        print("nvcc seconds: " + ", ".join(f"{src.name} {t:.1f}" for src, t in zip(sources, seconds)), file=sys.stderr)
         os.replace(tmp, out)
     finally:
-        for obj in objects:
-            obj.unlink(missing_ok=True)
+        for path in objects + logs:
+            path.unlink(missing_ok=True)
     return out
 
 

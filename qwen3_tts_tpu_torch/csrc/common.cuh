@@ -8,7 +8,8 @@
 // int8 -> bf16 convert, mbarriers and st.async into another block of the
 // cluster) of the W8A16 matmul (int8_matmul.cu), which the code-predictor
 // frame (cp_frame.cu) also takes its element types, cp.async and int8
-// convert from.
+// convert from; and the TF32 split and mma of the vocoder residual unit's
+// 3xTF32 implicit GEMM (residual_unit.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -358,9 +359,10 @@ attn_scores(const float* __restrict__ q, const T* __restrict__ ck, int pos, int 
 
 // ---------------------------------------------------------------------------
 // Tensor-core and asynchronous-copy building blocks (inline PTX): cp.async
-// 16-byte copies with commit / wait groups, ldmatrix, the bf16 m16n8k16 mma
-// with f32 accumulation, the exact int8 -> bf16 convert (sm_80+), and
-// mbarriers with st.async between the blocks of a cluster (sm_90).
+// 16- and 4-byte copies with commit / wait groups, ldmatrix, the bf16
+// m16n8k16 mma with f32 accumulation, the TF32 split and m16n8k8 mma of the
+// 3xTF32 products, the exact int8 -> bf16 convert (sm_80+), and mbarriers
+// with st.async between the blocks of a cluster (sm_90).
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -403,6 +405,56 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 4 bytes global -> shared (through L1), or 4 zero bytes when `live` is false
+// (gmem is then not read, but must still be a valid address).
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem, bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(smem)), "l"(gmem),
+               "r"(live ? 4 : 0));
+}
+// cp_async_wait<n> for a count known only at run time (0 <= n <= 6).
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    default: cp_async_wait<6>(); break;
+  }
+}
+
+// The 3xTF32 split: x = hi + lo, hi = x rounded to TF32 (an f32 whose low 13
+// mantissa bits are zero; nearest, ties away from zero: x + 2^12 in the bits,
+// then the low 13 cleared, as cvt.rna.tf32.f32 does for finite x, in two
+// integer ops) and lo = x - hi exactly. The tensor core reads lo's leading
+// 11 bits, so hi + lo keeps ~21 of x's 24.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// d += a (16x8 tf32, row) * b (8x8 tf32, col), f32 sums. With g = lane / 4,
+// t = lane % 4: a0 = A[g, t], a1 = A[g+8, t], a2 = A[g, t+4], a3 = A[g+8, t+4]
+// (ldmatrix_x4 on rows of f32 gives them in this order); b0 = B[t, g], b1 =
+// B[t+4, g]; d[0], d[1] are D[g, 2t], D[g, 2t+1] and d[2], d[3] row g + 8.
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The same with a zero accumulator: d = a * b.
+__device__ __forceinline__ void mma_tf32_1688_zero(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
 }
 
 // Shared-memory barriers (mbarrier) and asynchronous stores into another

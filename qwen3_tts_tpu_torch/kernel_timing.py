@@ -1,7 +1,7 @@
 """A kernel's timings on the card, for comparing two checkouts.
 
-    python3 qwen3_tts_tpu_torch/kernel_timing.py --kernel int8_matmul|cp_frame|talker_step [--root DIR]
-        [--tag NAME] [--repeats R] [--sweep] [--sass] [--trace] [--forms F,...] [--kernels]
+    python3 qwen3_tts_tpu_torch/kernel_timing.py --kernel int8_matmul|cp_frame|talker_step|residual_unit
+        [--root DIR] [--tag NAME] [--repeats R] [--sweep] [--sass] [--trace] [--forms F,...] [--kernels]
 
 Times one kernel's wrapper of the checkout at ``--root`` (default: the one
 that holds this file), ``--repeats`` times at each shape, in two ways: its
@@ -39,6 +39,22 @@ not stay in L2). ``--trace`` adds each form's breakdown by phase kind
 ``--forms`` a process, since a process's later profiler sessions may
 record no device activity).
 
+``--kernel residual_unit`` (kernel 2, ``models.codec.fused_blocks.
+residual_unit``): the 9 units of a 128-frame decode bucket at their
+main-path shapes (C = 384 / 192 / 96 over 20480 / 81920 / 245760 rows,
+dilations 1, 3, 9; random unit weights from seed 3, as ``chip_smoke.py``
+draws them), each unit's device span (calls in a CUDA graph) and time per
+call from Python, then the device span of the 9 calls in one graph, the
+plain version per call, and the library yardstick the port never calls:
+``F.conv1d`` (cuDNN, TF32 off as the package sets it) for the dilated k7
+conv plus one ``torch.matmul`` for the 1x1, without the snakes, on inputs
+laid out channels-first (and left-padded) ahead of time; and the card's two
+bounds for the 9 units' flops (f32 FMA at 67 TFLOP/s; 3xTF32, three TF32
+products at 495 TFLOP/s). ``--sweep`` also times each unit at every chunk
+width and window of taps that fits (``fused_blocks.residual_unit_ring``,
+the deepest ring), through the kernel's C entry, where the checkout has
+that plan.
+
 ``--sweep`` (int8_matmul) also times the kernel at every K split count its plan could
 pick, at each m <= 16 shape, through the library's C entry directly (the
 checkout's entry must take the plan: rows, K rows per chunk, splits).
@@ -65,6 +81,13 @@ import torch
 # Weight bytes a timing cycles through: 2.4x an H100's 50 MB L2.
 COLD_BYTES = 120e6
 GRAPH_CALLS = 20
+# Kernel 2's main-path shapes: (C, rows) of the residual units of a 128-frame
+# bucket (x4 upsample, then the decoder blocks' rates 8, 5, 4 and 3), each at
+# dilations 1, 3, 9.
+RU_SHAPES = [(384, 128 * 4 * 8 * 5), (192, 128 * 4 * 8 * 5 * 4), (96, 128 * 4 * 8 * 5 * 4 * 3)]
+RU_DILATIONS = (1, 3, 9)
+# The card's published f32 FMA and TF32 tensor-core peaks (H100 SXM).
+F32_FLOPS, TF32_FLOPS = 67e12, 495e12
 # Kernel 3's cache sizes: the 125-frame main path's and the 2048-frame tier's.
 TALKER_ROWS = (160, 2080)
 CP_FORMS = (("float32", torch.float32), ("bfloat16", torch.bfloat16), ("int8", torch.bfloat16))
@@ -331,6 +354,80 @@ def talker_step_lines(tag: str, repeats: int, trace: bool, forms: tuple = (), ke
         torch.cuda.empty_cache()
 
 
+def unit_params(gen: torch.Generator, c: int) -> dict:
+    """A residual unit's random weights, as ``chip_smoke.py`` draws them."""
+    dev = gen.device
+
+    def rnd(shape, scale):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    return {
+        "act1_alpha": rnd((c,), 0.1), "act1_beta": rnd((c,), 0.1),
+        "conv1_w": rnd((7, c, c), 0.05), "conv1_b": rnd((c,), 0.1),
+        "act2_alpha": rnd((c,), 0.1), "act2_beta": rnd((c,), 0.1),
+        "conv2_w": rnd((1, c, c), 0.05), "conv2_b": rnd((c,), 0.1),
+    }
+
+
+def library_unit(x: torch.Tensor, p: dict, dilation: int):
+    """The library yardstick for one unit: cuDNN's dilated k7 conv and one
+    matmul for the 1x1 (no snakes, no residual), on x laid out channels-first
+    and left-padded here, outside the call."""
+    import torch.nn.functional as F
+
+    xc = F.pad(x.transpose(1, 2), (6 * dilation, 0)).contiguous()  # [B, C, 6d + T]
+    w1 = p["conv1_w"].permute(2, 1, 0).contiguous()  # [Cout, Cin, 7]
+    w2 = p["conv2_w"][0].t().contiguous()  # [Cout, Cin]
+    return lambda: torch.matmul(w2, F.conv1d(xc, w1, p["conv1_b"], dilation=dilation))
+
+
+def ring_plans(fused_blocks, c: int, dilation: int) -> list:
+    """Every (chunk width, taps a window) plan that fits, each with its
+    deepest ring."""
+    rings = (fused_blocks.residual_unit_ring(c, dilation, kc, taps)
+             for kc in fused_blocks.RU_KC for taps in range(fused_blocks.RU_TAPS, 0, -1))
+    return [plan for plan in rings if plan]
+
+
+def residual_unit_lines(tag: str, repeats: int, sweep: bool):
+    """One JSON line per unit of kernel 2 at its main-path shape, then one
+    for the 9 together."""
+    from qwen3_tts_tpu_torch import build
+    from qwen3_tts_tpu_torch.models.codec import fused_blocks
+
+    assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32
+    build.build()
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    calls, totals, flops = [], {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}, 0
+    for c, t in RU_SHAPES:
+        for dil in RU_DILATIONS:
+            p = unit_params(gen, c)
+            x = torch.randn((1, t, c), generator=gen, device=dev)
+            fn = lambda x=x, p=p, dil=dil: fused_blocks.residual_unit(x, p, dil)  # noqa: E731
+            lib = library_unit(x, p, dil)
+            runs = [{"device_ms": graph_ms([fn], 5), "ms": call_ms(fn, 5)} for _ in range(repeats)]
+            line = {"tag": tag, "c": c, "t": t, "dilation": dil, **{key: [r[key] for r in runs] for key in runs[0]},
+                    "plain_ms": call_ms(lambda: fused_blocks.residual_unit_plain(x, p, dil), 3),
+                    "library_ms": call_ms(lib, 5), "library_device_ms": graph_ms([lib], 5)}
+            if hasattr(fused_blocks, "residual_unit_ring"):
+                line["plan"] = fused_blocks.residual_unit_plan(c, dil)._asdict()
+                if sweep:
+                    line["sweep"] = [
+                        {**plan._asdict(), "device_ms": graph_ms(
+                            [lambda plan=plan: fused_blocks._launch(x, p, dil, plan)], 5)}
+                        for plan in ring_plans(fused_blocks, c, dil)]
+            yield line
+            calls.append(fn)
+            for key in totals:
+                totals[key] += min(line[key]) if isinstance(line[key], list) else line[key]
+            flops += 2 * t * c * c * 8
+    yield {"tag": tag, "units": len(calls), "device_ms_9": [graph_ms(calls, len(calls)) * len(calls)
+                                                           for _ in range(repeats)],
+           **{f"sum_{key}": v for key, v in totals.items()}, "gflop": flops / 1e9,
+           "bound_f32_ms": flops / F32_FLOPS * 1e3, "bound_3xtf32_ms": 3 * flops / TF32_FLOPS * 1e3}
+
+
 def int8_matmul_lines(tag: str, repeats: int, sweep: bool):
     """One JSON line per shape of kernel 4."""
     from qwen3_tts_tpu_torch.ops import quant
@@ -349,12 +446,13 @@ def int8_matmul_lines(tag: str, repeats: int, sweep: bool):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", required=True, choices=("int8_matmul", "cp_frame", "talker_step"))
+    ap.add_argument("--kernel", required=True, choices=("int8_matmul", "cp_frame", "talker_step", "residual_unit"))
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent.parent,
                     help="checkout whose qwen3_tts_tpu_torch is timed")
     ap.add_argument("--tag", default="", help="name printed on every line (default: --root)")
     ap.add_argument("--repeats", type=int, default=3)
-    ap.add_argument("--sweep", action="store_true", help="int8_matmul: also time every K split count at m <= 16")
+    ap.add_argument("--sweep", action="store_true",
+                    help="int8_matmul: also time every K split count at m <= 16; residual_unit: every chunk width and window of taps")
     ap.add_argument("--sass", action="store_true", help="int8_matmul: first count the kernel's SASS instructions")
     ap.add_argument("--trace", action="store_true", help="cp_frame, talker_step: add each form's per-phase breakdown")
     ap.add_argument("--forms", default="", help="talker_step: only these comma-separated forms (float32, bfloat16, int8)")
@@ -368,6 +466,10 @@ def main() -> None:
     tag = args.tag or str(args.root)
     if args.kernel == "cp_frame":
         for line in cp_frame_lines(tag, args.repeats, args.trace):
+            print(json.dumps(line), flush=True)
+        return
+    if args.kernel == "residual_unit":
+        for line in residual_unit_lines(tag, args.repeats, args.sweep):
             print(json.dumps(line), flush=True)
         return
     if args.kernel == "talker_step":

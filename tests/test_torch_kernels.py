@@ -457,6 +457,50 @@ def test_cuda_residual_unit_matches_plain(c, dilation):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize(
+    "c, t, b, dilation",
+    [(7, 5, 3, 9), (48, 300, 2, 3), (200, 17, 2, 20), (383, 1000, 2, 1), (500, 400, 1, 9), (500, 300, 2, 20)],
+)
+def test_cuda_residual_unit_odd_shapes(c, t, b, dilation):
+    """C not a multiple of 8 (padded with zeros inside the kernel), T below
+    one tile, B > 1, dilations past a tile's rows and a window of fewer than
+    7 taps (C 500 at dilation 20): within 1e-5 * max|x| of the plain
+    version, the same bits twice, and a prefix run bit-identical."""
+    dev = _cuda()
+    p = _unit_params(dev, c, seed=c + dilation)
+    x = torch.randn((b, t, c), generator=torch.Generator(device=dev).manual_seed(t), device=dev)
+    got = fused_blocks.residual_unit(x, p, dilation)
+    again = fused_blocks.residual_unit(x, p, dilation)
+    want = fused_blocks.residual_unit_plain(x, p, dilation)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * x.abs().max().item())
+    assert torch.equal(got, again)
+    short = fused_blocks.residual_unit(x[:, : t // 2 + 1].contiguous(), p, dilation)
+    assert torch.equal(short, got[:, : t // 2 + 1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c, dilation", [(96, 9), (384, 3), (48, 1), (500, 20)])
+def test_cuda_residual_unit_plans_agree(c, dilation):
+    """Every plan sums the same products in the same order (K in 8-row mma
+    steps, taps ascending, whatever the chunk, ring or window), so all give
+    the same bits, windows of fewer taps too; and the C side's shared-memory
+    bytes are the plan's."""
+    dev = _cuda()
+    p = _unit_params(dev, c, seed=1)
+    x = torch.randn((1, 700, c), generator=torch.Generator(device=dev).manual_seed(2), device=dev)
+    best = fused_blocks.residual_unit_plan(c, dilation)
+    plans = [fused_blocks.residual_unit_ring(c, dilation, kc, taps) for kc in fused_blocks.RU_KC for taps in (7, 3, 1)]
+    plans += [fused_blocks._layout(c, dilation, best.wm, 8, 2, taps) for taps in (1, 3)]
+    lib = fused_blocks._kernel_lib()
+    want = fused_blocks.residual_unit(x, p, dilation)
+    for plan in [plan for plan in plans if plan]:
+        assert lib.q3_residual_unit_smem_bytes(c, dilation, plan.wm, plan.kc, plan.stages, plan.taps) == plan.smem
+        assert torch.equal(fused_blocks._launch(x, p, dilation, plan), want), plan
+    assert lib.q3_residual_unit_smem_bytes(c, dilation, best.wm, best.kc, 9, best.taps) == 0
+    assert lib.q3_residual_unit_smem_bytes(c, dilation, 16, best.kc, best.stages, best.taps) == 0
+
+
+@pytest.mark.gpu
 def test_cuda_wrappers_check_their_inputs():
     dev = _cuda()
     params, hidden, semantic = _cp_inputs(dev, torch.float32)
