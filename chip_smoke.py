@@ -59,8 +59,16 @@ Phases, each printing a line (any failure exits nonzero before the last):
      cache rows, pos near the top, no residual): output and written row
      within STEP_TOL of the plain version's scale, every other row
      bit-unchanged (rows above pos hold NaN, which must not be read); timed;
-  8. kernel 7 (int8 code-predictor decode step) against its plain version on
-     the 1.7B int8 code predictor, bf16, with the same checks; timed;
+  8. kernel 7 (int8 code-predictor decode step, one persistent launch)
+     against its plain version on the 1.7B int8 code predictor, through the
+     tree's pack, bf16 and f32 (STEP_TRIALS random (x, pos)), with the same
+     checks, the f32 bar beside a bf16-residual step it must reject, each
+     step the same bits twice; timed per call from Python and by its device
+     span (20 steps in a CUDA graph), its device kernels per call
+     (torch.profiler, in a process of its own) must be 1, and its per-phase
+     trace printed; then the seeded 1.7B int8 code-predictor layers of
+     ``qwen3_tts_tpu_torch/cp_fixture.py`` in f32 must give the JAX
+     package's step outputs (the committed fixture) within STEP7_F32_TOL;
   9. the per-step path at full width: the 1.7B int8 code predictor on 32
      random frames through ``_predict_acoustic_codes_fused``, kernel 7 per
      step and kernels 5 + 6 per layer, each held to the same route on the
@@ -86,8 +94,9 @@ Phases, each printing a line (any failure exits nonzero before the last):
      kernels); then the same in int8 (``quantize_int8=True``
      on the same synthetic trees, as bench.py builds its int8 model), where
      all four int8-path kernels must launch; then two 1.7B int8 models whose
-     code predictor takes the per-step path (vocab 2047: kernel 7;
-     intermediate 2816: kernels 5 + 6), the same way;
+     code predictor takes the per-step path (vocab 2047: kernel 7, its
+     steps timed by CUDA events; intermediate 2816: kernels 5 + 6), the
+     same way;
  11. a JSON line of the kernels (each with its launches on its main path,
      its time, its plain version's, the card's bound for the same work and,
      where one PyTorch call computes the same function, that call's time),
@@ -585,10 +594,6 @@ def kernel3() -> None:
                 f"; eager layer path: argmax equal {r['eager_argmax']}/{TALKER_TRIALS}, normed hidden "
                 f"{r['eager_err']:.4e}, written rows {r['eager_row_err']:.4e}, {r['eager_ms']:.4f} ms")
             kernels = r["device_kernels"]
-            ph = r["phases"]
-            trace = ", ".join(f"{k} {ph[k]['work']:.1f} (stage {ph[k]['stage']:.1f}, tiles {ph[k]['tiles']:.1f}, "
-                              f"epilogue {ph[k]['epilogue']:.1f}, barrier {ph[k]['barrier']:.1f})"
-                              for k in ("qkv", "attention", "o", "gate_up", "down"))
             phase("kernel3", f"1.7B {form} talker step, {rows}-row cache, {TALKER_TRIALS} trials: logits argmax equal "
                   f"{r['argmax']}/{TALKER_TRIALS} (bar {argmax_min}), hidden max|err|/max|plain| {r['h_err']:.4e} "
                   f"(bar {h_tol}), written row {r['row_err']:.4e} (bar {row_tol}), other rows bit-unchanged "
@@ -597,7 +602,7 @@ def kernel3() -> None:
                   f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); device kernels per call "
                   + (f"{len(kernels)} {sorted(set(kernels))}" if kernels
                      else "not measured (the profiler recorded no device activity)")
-                  + f"; trace (us, one step, same bits {r['traced_same_bits']}): span {ph['span']:.1f}: {trace}"
+                  + f"; trace (us, one step, same bits {r['traced_same_bits']}): {trace_line(r['phases'])}"
                   + eager)
             what = f"kernel 3 {form} S={rows}"
             check(r["same_bits"] and r["traced_same_bits"], f"{what}: two calls on the same inputs differ")
@@ -860,10 +865,35 @@ def bf16_residual_step(layers: dict, x, stack, ck, cv, pos: int, cos_t, sin_t) -
     return h.reshape(1, 1, H)
 
 
+def trace_line(ph: dict) -> str:
+    """A step's per-phase trace (``talker_step_trace_phases``), in µs."""
+    return f"span {ph['span']:.1f}: " + ", ".join(
+        f"{k} {ph[k]['work']:.1f} (stage {ph[k]['stage']:.1f}, tiles {ph[k]['tiles']:.1f}, epilogue "
+        f"{ph[k]['epilogue']:.1f}, barrier {ph[k]['barrier']:.1f})" for k in ("qkv", "attention", "o", "gate_up", "down"))
+
+
+def cp_step_device_kernels(form: str) -> list | None:
+    """The device kernels one warm kernel-7 call launches with ``form``
+    activations, by name, as torch.profiler records them in a process of
+    its own (``kernel_timing.py --kernel cp_step --kernels``: in this
+    process the profiler's later sessions record no device activity); None
+    where it records none."""
+    script = Path(__file__).resolve().parent / "qwen3_tts_tpu_torch" / "kernel_timing.py"
+    out = subprocess.run([sys.executable, str(script), "--kernel", "cp_step", "--kernels", "--forms", form,
+                          "--repeats", "1"], capture_output=True, text=True, check=True, timeout=300).stdout
+    return json.loads(next(line for line in out.splitlines() if line.startswith("{")))["device_kernels"]
+
+
 def kernel7() -> None:
-    """Kernel 7 against its plain version on the 1.7B int8 code predictor
-    (5 layers, 17 rows): bf16 activations (the main path's), and f32 beside
-    a faulty step (``bf16_residual_step``) that its bar must reject."""
+    """Kernel 7 (one persistent launch a step, through the tree's
+    ``CpStepPack``) against its plain version on the 1.7B int8 code
+    predictor (5 layers, 17 rows): bf16 activations (the main path's), and
+    f32 beside a faulty step (``bf16_residual_step``) that its bar must
+    reject; every step twice (the same bits). At the last pos: timed per
+    call from Python and by its device span (20 steps in a CUDA graph), its
+    device kernels per call (torch.profiler, ``cp_step_device_kernels``)
+    and its per-phase trace. Then the f32 kernel against the JAX package's
+    outputs (``kernel7_fixture``)."""
     cfg = config_for_variant("1.7B", "custom_voice").code_predictor
     stack = cfg.layer_stack()
     rows, kvd, n_layers = fused_layer.CP_MAX_SEQ, stack.num_kv_heads * stack.head_dim, stack.num_layers
@@ -872,27 +902,37 @@ def kernel7() -> None:
     res = {}
     for dtype, tol in ((torch.bfloat16, STEP_TOL[torch.bfloat16]), (torch.float32, STEP7_F32_TOL)):
         layers = quant.quantize_code_predictor_params(cp_params(cfg, dtype, seed=2))["layers"]
+        pack = fused_layer.CpStepPack(layers, stack, dtype, DEV)
         gen = torch.Generator(device=DEV).manual_seed(8)
-        r = res[dtype] = {"err": 0.0, "abs": 0.0, "row_err": 0.0, "untouched": True, "faulty_err": math.inf}
+        r = res[dtype] = {"err": 0.0, "abs": 0.0, "row_err": 0.0, "untouched": True, "faulty_err": math.inf,
+                          "same_bits": True}
         for pos in positions:
             x = torch.randn((1, 1, stack.hidden_size), generator=gen, device=DEV).to(dtype)
             ck0 = live_cache(gen, (n_layers, rows, kvd), pos, dtype)
             cv0 = live_cache(gen, (n_layers, rows, kvd), pos, dtype)
             ck, cv, ckp, cvp = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
-            got = fused_layer.streamed_decode_step(layers, x, stack, ck, cv, pos, cos_t, sin_t)
+            got = fused_layer.streamed_decode_step(layers, x, stack, ck, cv, pos, cos_t, sin_t, pack)
+            again = fused_layer.streamed_decode_step(layers, x, stack, ck0.clone(), cv0.clone(), pos, cos_t, sin_t,
+                                                     pack)
             want = fused_layer.streamed_decode_step_plain(layers, x, stack, ckp, cvp, pos, cos_t, sin_t)
             if dtype == torch.float32:
                 faulty = bf16_residual_step(layers, x, stack, ck0.clone(), cv0.clone(), pos, cos_t, sin_t)
                 r["faulty_err"] = min(r["faulty_err"], rel_err(faulty, want))
             torch.cuda.synchronize()
+            r["same_bits"] &= same_bits(got, again)
             r["err"] = max(r["err"], rel_err(got, want))
             r["abs"] = max(r["abs"], (got.float() - want.float()).abs().max().item())
             for c, c0, cp_ in ((ck, ck0, ckp), (cv, cv0, cvp)):
                 r["row_err"] = max(r["row_err"], rel_err(c[:, pos], cp_[:, pos]))
                 others = torch.arange(rows, device=DEV) != pos
                 r["untouched"] &= same_bits(c[:, others], c0[:, others])
-        r["ms"] = time_ms(lambda: fused_layer.streamed_decode_step(layers, x, stack, ck, cv, pos, cos_t, sin_t),
-                          iters=50)
+        r.update(kt.time_cp_step(fused_layer, layers, stack, x, ck, cv, pos, cos_t, sin_t))
+        r["device_kernels"] = cp_step_device_kernels("bfloat16" if dtype == torch.bfloat16 else "float32")
+        traced, stamps = fused_layer.streamed_decode_step(layers, x, stack, ck0.clone(), cv0.clone(), pos, cos_t,
+                                                          sin_t, pack, trace=True)
+        r["traced_same_bits"] = same_bits(traced, fused_layer.streamed_decode_step(
+            layers, x, stack, ck0.clone(), cv0.clone(), pos, cos_t, sin_t, pack))
+        r["phases"] = fused_layer.talker_step_trace_phases(stamps, stack)
         r["plain_ms"] = time_ms(
             lambda: fused_layer.streamed_decode_step_plain(layers, x, stack, ckp, cvp, pos, cos_t, sin_t), iters=10)
         proj = sum(layers[p]["q8"].numel() for p in ("qkv_proj", "o_proj", "gateup_proj", "down_proj"))
@@ -903,29 +943,71 @@ def kernel7() -> None:
         name = "bf16" if dtype == torch.bfloat16 else "f32"
         faulty_msg = "" if dtype == torch.bfloat16 else (
             f", a step with a bf16 residual stream {r['faulty_err']:.4e} at the least (must exceed the bar)")
+        kernels = r["device_kernels"]
         phase("kernel7", f"1.7B int8 code-predictor step, {name}, {STEP_TRIALS} trials: output max|err|/max|plain| "
               f"{r['err']:.4e}, written rows {r['row_err']:.4e} (bar {tol}){faulty_msg}, other rows bit-unchanged "
-              f"{r['untouched']}, kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+              f"{r['untouched']}, same bits twice {r['same_bits']}; kernel {r['ms']:.4f} ms per call (host "
+              f"included), device span {r['device_ms']:.4f} ms (20 steps in a CUDA graph), plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}); device kernels per call "
+              + (f"{len(kernels)} {sorted(set(kernels))}" if kernels
+                 else "not measured (the profiler recorded no device activity)")
+              + f"; trace (us, one step, same bits {r['traced_same_bits']}): {trace_line(r['phases'])}")
+        check(r["same_bits"] and r["traced_same_bits"], f"kernel 7 {name}: two calls on the same inputs differ")
+        check(kernels is None or len(kernels) == 1, f"kernel 7 {name}: one call launched {kernels} on the device")
         check(r["err"] <= tol, f"kernel 7 {name}: output error {r['err']:.4e} > {tol}")
         check(r["row_err"] <= tol, f"kernel 7 {name}: written cache rows error {r['row_err']:.4e} > {tol}")
         check(r["untouched"], f"kernel 7 {name}: a cache row other than pos changed")
         check(r["faulty_err"] > tol, f"kernel 7 {name}: the bar {tol} does not reject a bf16 residual stream "
                                      f"({r['faulty_err']:.4e})")
-        del layers
+        del layers, pack
+    fixture_err = kernel7_fixture()
     r, f32 = res[torch.bfloat16], res[torch.float32]
     KERNEL_ROWS.append({
-        "name": "streamed_decode_step", "route": "cuda", "source": "qwen3_tts_tpu_torch/csrc/cp_step.cu",
+        "name": "streamed_decode_step", "route": "cuda", "source": "qwen3_tts_tpu_torch/csrc/talker_step.cu",
         "replaces": "qwen3_tts_tpu/ops/fused_layer.py:412", "launches": 0, "path": "int8_cp_vocab_2047",
         "dtype": "bfloat16", "max_abs_err": r["abs"], "rel_err": r["err"], "row_rel_err": r["row_err"],
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": None, "f32_rel_err": f32["err"], "f32_row_rel_err": f32["row_err"],
-        "f32_bf16_residual_rel_err": f32["faulty_err"], "ms_f32": f32["ms"], "plain_ms_f32": f32["plain_ms"],
+        "ms": r["ms"], "device_ms": r["device_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None, "f32_rel_err": f32["err"], "f32_row_rel_err": f32["row_err"],
+        "f32_bf16_residual_rel_err": f32["faulty_err"], "f32_fixture_rel_err": fixture_err, "ms_f32": f32["ms"],
+        "device_ms_f32": f32["device_ms"], "plain_ms_f32": f32["plain_ms"],
     })
 
 
+def kernel7_fixture() -> float:
+    """The seeded 1.7B int8 code-predictor layers of ``cp_fixture`` on the
+    card: kernel 7 in f32 at each of the fixture's positions must give the
+    JAX package's outputs (the committed fixture) within STEP7_F32_TOL of
+    their largest value, each in one launch. Returns the largest error."""
+    cfg = cp_fixture.config()
+    stack = cfg.layer_stack()
+    layers = _on(cp_fixture.step_layers(cfg), DEV)
+    cos_t, sin_t = fused_layer.rope_tables(stack.head_dim, stack.rope_theta, cp_fixture.STEP_ROWS, DEV)
+    pack = fused_layer.CpStepPack(layers, stack, torch.float32, DEV)
+    fixture = torch.from_numpy(cp_fixture.load_step()).to(DEV)
+    before = fused_layer.streamed_decode_step.launches
+    errs = []
+    for (pos, x, k, v), want in zip(cp_fixture.step_inputs(cfg), fixture):
+        ck, cv = torch.from_numpy(k).to(DEV), torch.from_numpy(v).to(DEV)
+        got = fused_layer.streamed_decode_step(layers, torch.from_numpy(x).to(DEV), stack, ck, cv, pos, cos_t, sin_t,
+                                               pack)
+        errs.append(rel_err(got.reshape(-1), want))
+    launched = fused_layer.streamed_decode_step.launches - before
+    phase("kernel7", f"seeded 1.7B int8 code predictor ({stack.num_layers} layers), f32, pos "
+          f"{list(cp_fixture.STEP_POSITIONS)}: max|err|/max|JAX| {', '.join(f'{e:.4e}' for e in errs)} against "
+          f"the JAX package's outputs (fixture {cp_fixture.STEP_FIXTURE.name}; bar {STEP7_F32_TOL}); "
+          f"{launched} launches")
+    check(max(errs) <= STEP7_F32_TOL and launched == len(errs),
+          f"kernel 7 f32 differs from the JAX package's outputs at 1.7B widths: {errs} > {STEP7_F32_TOL}")
+    return max(errs)
+
+
+def _plain_streamed_step(layers, x, cfg, ck, cv, pos, cos_t, sin_t, pack=None):
+    """Kernel 7's plain version with the kernel's signature (the pack unused)."""
+    return fused_layer.streamed_decode_step_plain(layers, x, cfg, ck, cv, pos, cos_t, sin_t)
+
+
 STEP_WRAPPERS = (
-    (fused_layer, "streamed_decode_step", fused_layer.streamed_decode_step_plain),
+    (fused_layer, "streamed_decode_step", _plain_streamed_step),
     (fused_layer, "fused_attention_step", fused_layer.fused_attention_step_plain),
     (fused_layer, "fused_mlp_step", fused_layer.fused_mlp_step_plain),
     (quant, "int8_matmul", quant.int8_matmul_plain),
@@ -961,17 +1043,21 @@ def per_step_path() -> None:
     pack = fused_layer.CpFramePack(params, cfg, torch.bfloat16, DEV)
     frame = torch.stack([fused_layer.cp_frame(params, cfg, h, s, pack) for h, s in xs])
     frame_ms = time_ms(lambda: fused_layer.cp_frame(params, cfg, h0, s0, pack), iters=20)
+    step_pack = fused_layer.CpStepPack(params["layers"], cfg.layer_stack(), torch.bfloat16, DEV)
     for streamed, name, kernels in ((True, "streamed_step", ("streamed_decode_step",)),
                                     (False, "layer_steps", ("fused_attention_step", "fused_mlp_step"))):
+        def run(h, s, streamed=streamed):
+            return cp._predict_acoustic_codes_fused(params, cfg, h, s, streamed, step_pack)
+
         for k in COUNTERS.values():
             k.launches = 0
-        got = torch.stack([cp._predict_acoustic_codes_fused(params, cfg, h, s, streamed) for h, s in xs])
+        got = torch.stack([run(h, s) for h, s in xs])
         torch.cuda.synchronize()
         launches = {k: COUNTERS[k].launches for k in ("cp_frame", *kernels)}
         with plain_kernels():
-            want = torch.stack([cp._predict_acoustic_codes_fused(params, cfg, h, s, streamed) for h, s in xs])
-            plain_ms = time_ms(lambda: cp._predict_acoustic_codes_fused(params, cfg, h0, s0, streamed), iters=3)
-        ms = time_ms(lambda: cp._predict_acoustic_codes_fused(params, cfg, h0, s0, streamed), iters=10)
+            want = torch.stack([run(h, s) for h, s in xs])
+            plain_ms = time_ms(lambda: run(h0, s0), iters=3)
+        ms = time_ms(lambda: run(h0, s0), iters=10)
         r = {"equal": (got == want).float().mean().item(), "first_equal": int((got[:, 0] == want[:, 0]).sum())}
         to_frame = (got == frame).float().mean().item()
         phase("per-step", f"1.7B int8 code predictor, route {name}: {CP_FRAMES} frames, share of codes equal to "
@@ -1147,29 +1233,39 @@ COUNTERS = {
 
 
 @contextlib.contextmanager
-def unit_events():
-    """CUDA events around every residual unit that takes kernel 2 (the
-    vocoder's blocks route each unit through ``blocks.residual_unit``), to
-    split decode into kernel 2's share and the rest. Yields the list of
-    (start, end) pairs."""
+def timed_calls(module, name: str, kernel_call):
+    """CUDA events around every call of ``module.name`` (which the path
+    calls by that name) for which ``kernel_call(*args, **kwargs)`` holds:
+    kernel 2's residual units (``blocks.residual_unit`` of a unit that takes
+    the kernel), kernel 7's steps (``fused_layer.run_fused_decode_step`` on
+    the streamed route), to give a kernel's share of a run. Yields the list
+    of (start, end) pairs."""
     spans = []
-    routed = blocks.residual_unit
+    routed = getattr(module, name)
 
-    def timed(x, p, dilation):
-        if not fused_blocks.residual_unit_should_fuse(x):
-            return routed(x, p, dilation)
+    def timed(*args, **kwargs):
+        if not kernel_call(*args, **kwargs):
+            return routed(*args, **kwargs)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        y = routed(x, p, dilation)
+        y = routed(*args, **kwargs)
         end.record()
         spans.append((start, end))
         return y
 
-    blocks.residual_unit = timed
+    setattr(module, name, timed)
     try:
         yield spans
     finally:
-        blocks.residual_unit = routed
+        setattr(module, name, routed)
+
+
+def _unit_takes_kernel(x, p, dilation) -> bool:
+    return fused_blocks.residual_unit_should_fuse(x)
+
+
+def _step_takes_kernel(*args, **kwargs) -> bool:
+    return args[8] if len(args) > 8 else kwargs["streamed"]
 
 
 def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = ()) -> dict:
@@ -1186,13 +1282,19 @@ def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = (
     torch.cuda.reset_peak_memory_stats()
     for k in COUNTERS.values():
         k.launches = 0
-    with unit_events() as spans:
+    with (timed_calls(blocks, "residual_unit", _unit_takes_kernel) as spans,
+          timed_calls(fused_layer, "run_fused_decode_step", _step_takes_kernel) as steps):
         t0 = time.perf_counter()
         audio, timing = model.synthesize_with_timing(text, "ryan", "english", opts)
         wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in COUNTERS.items()}
     torch.cuda.synchronize()
     k2_ms = sum(start.elapsed_time(end) for start, end in spans)
+    k7 = ""
+    if steps:
+        k7_ms = sum(start.elapsed_time(end) for start, end in steps)
+        k7 = (f", kernel 7's {len(steps)} steps {k7_ms:.2f} ms by CUDA events "
+              f"({k7_ms / timing.generation_frames:.3f} ms/frame)")
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
     samples = audio.samples
@@ -1211,7 +1313,7 @@ def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = (
     rtf = wall / (len(samples) / OUTPUT_SAMPLE_RATE)
     phase("e2e", f"{label} timed run: prefill {timing.prefill_ms:.2f} ms, "
           f"{timing.generation_ms / timing.generation_frames:.3f} ms/frame over {timing.generation_frames} frames "
-          f"(generation {timing.generation_ms:.1f} ms), decode {timing.decode_ms:.1f} ms (kernel 2's {len(spans)} "
+          f"(generation {timing.generation_ms:.1f} ms{k7}), decode {timing.decode_ms:.1f} ms (kernel 2's {len(spans)} "
           f"calls {k2_ms:.2f} ms, the rest {timing.decode_ms - k2_ms:.1f}), "
           f"wall {wall * 1e3:.1f} ms, RTF {rtf:.4f}, peak allocated {peak_mb:.0f} MiB, "
           f"launches {launches}, audio peak {float(abs(samples).max()):.3e}, "

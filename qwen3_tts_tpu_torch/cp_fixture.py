@@ -1,17 +1,26 @@
-"""Seeded weights and inputs at the 1.7B code predictor's widths, and the
-codes the JAX package gives them (a committed fixture).
+"""Seeded weights and inputs at the 1.7B code predictor's widths, and what
+the JAX package gives them (committed fixtures).
 
 ``tests/test_torch_cp_1p7b.py`` holds the JAX package's
 ``predict_acoustic_codes`` (its XLA path, f32, on the CPU) and the port's
-plain frame to the fixture; ``chip_smoke.py`` holds kernel 1 to it on the
-card, in f32. Both build the same weights here, from one seed, with numpy's
-legacy ``RandomState`` (whose stream does not change between numpy
+plain frame to the codes fixture; ``chip_smoke.py`` holds kernel 1 to it on
+the card, in f32. Both build the same weights here, from one seed, with
+numpy's legacy ``RandomState`` (whose stream does not change between numpy
 versions): uniform weights of standard deviation 0.02 (the scale of the
 packages' random init), norms of ones, a zero mtp bias. The tree has the JAX
 package's layout (unfused, with the mtp projection), which
 ``models.weights.from_numpy_tree`` takes.
 
-    JAX_PLATFORMS=cpu python tests/test_torch_cp_1p7b.py   # rewrites the fixture
+The same layers, fused and quantized to int8 (``step_layers``), are kernel
+7's fixture: one decode step at each of ``STEP_POSITIONS`` from seeded
+inputs (``step_inputs``), whose f32 outputs by the JAX package's
+``streamed_decode_step`` (interpret mode, with its stream pack) are
+committed (``STEP_FIXTURE``). ``tests/test_torch_cp_step_1p7b.py`` holds
+the JAX package and the port's plain step to them on the CPU;
+``chip_smoke.py`` holds kernel 7 in f32 to them on the card.
+
+    JAX_PLATFORMS=cpu python tests/test_torch_cp_1p7b.py        # rewrites the codes fixture
+    JAX_PLATFORMS=cpu python tests/test_torch_cp_step_1p7b.py   # rewrites the step fixture
 """
 
 from __future__ import annotations
@@ -26,6 +35,11 @@ from .models.config import CodePredictorConfig, config_for_variant
 SEED = 1717
 FRAMES = 4
 FIXTURE = Path(__file__).resolve().parent / "testdata" / "cp_1p7b_codes.json"
+# Kernel 7's fixture: the positions stepped (the first and the last decode
+# step of a 17-row cache) and their outputs [len(STEP_POSITIONS), H].
+STEP_POSITIONS = (2, 16)
+STEP_ROWS = 17
+STEP_FIXTURE = Path(__file__).resolve().parent / "testdata" / "cp_step_1p7b.npy"
 
 
 def config() -> CodePredictorConfig:
@@ -76,3 +90,38 @@ def load() -> dict:
     """The fixture: ``codes`` [FRAMES][15] and each code's ``top2_gap`` (its
     logit minus the runner-up's, by the JAX package's layer stack)."""
     return json.loads(FIXTURE.read_text())
+
+
+def step_layers(cfg: CodePredictorConfig, seed: int = SEED) -> dict:
+    """``numpy_params``' layer stack fused and quantized to int8 by the port
+    (bit for bit the JAX package's quantizer), f32 norms: a tree of CPU
+    tensors."""
+    import torch
+
+    from .models import weights as W
+    from .ops import quant
+
+    layers = numpy_params(cfg, seed)["layers"]
+    return quant.quantize_layer_stack(W.fuse_layer_params({k: torch.from_numpy(v) for k, v in layers.items()}))
+
+
+def step_inputs(cfg: CodePredictorConfig, seed: int = SEED) -> list:
+    """For each of ``STEP_POSITIONS``: (pos, x f32 [1, 1, H], the caches k
+    and v f32 [L, STEP_ROWS, KV*D] with the rows below pos seeded and the
+    rest zero)."""
+    rs = np.random.RandomState(seed + 2)
+    sc = cfg.layer_stack()
+    shape = (sc.num_layers, STEP_ROWS, sc.num_kv_heads * sc.head_dim)
+    out = []
+    for pos in STEP_POSITIONS:
+        k, v = np.zeros(shape, np.float32), np.zeros(shape, np.float32)
+        k[:, :pos] = rs.standard_normal(k[:, :pos].shape)
+        v[:, :pos] = rs.standard_normal(v[:, :pos].shape)
+        out.append((pos, rs.standard_normal((1, 1, sc.hidden_size)).astype(np.float32), k, v))
+    return out
+
+
+def load_step() -> np.ndarray:
+    """Kernel 7's fixture: the JAX package's f32 step outputs
+    [len(STEP_POSITIONS), H]."""
+    return np.load(STEP_FIXTURE)

@@ -2,8 +2,8 @@
 // points of the working dtype, deterministic block reductions, the split-K
 // GEMV (with RMSNorm / SiLU*up in its input staging), and one decode step's
 // qkv finish (QK-norm, RoPE, cache append) and attention scores, that the
-// talker step (talker_step.cu) and the code-predictor decode steps
-// (decode_layer.cuh) are built from; and the tensor-core and
+// per-layer decode steps (decode_layer.cuh: kernels 5 + 6) are built from;
+// and the tensor-core and
 // asynchronous-copy wrappers (cp.async, ldmatrix, the bf16 mma, the exact
 // int8 -> bf16 convert, mbarriers and st.async into another block of the
 // cluster) of the W8A16 matmul (int8_matmul.cu), which the code-predictor
@@ -242,37 +242,22 @@ template <typename W> constexpr int gemv_cols() { return 32 * WVec<W>::n; }
 
 static size_t split_size(int k, int n) { return (size_t)(k / kGemvRows) * n; }
 
-// The K splits of column `col`, added within each chunk of `per` splits and
-// then chunk after chunk, in ascending order (per >= nsplit: sum_parts).
-__device__ __forceinline__ float sum_parts_chunked(const float* part, int nsplit, int per, int n, int col) {
-  float acc = 0.f;
-  for (int c0 = 0; c0 < nsplit; c0 += per) {
-    const int c1 = min(c0 + per, nsplit);
-    float s = 0.f;
-    for (int i = c0; i < c1; ++i) s += part[(size_t)i * n + col];
-    acc = c0 ? acc + s : s;
-  }
-  return acc;
-}
-
-// The o / down residual: y <- round_T(x + o) (`residual`) or o, with o =
-// round_T(sum of the partials [* scale]) summed in `per`-split chunks. X is
-// the residual stream's storage: f32 scratch holding T-rounded values
-// (kernels 1 and 3) or T itself (the decode-layer steps). y may be x (each
-// thread reads and writes one element).
-template <typename T, typename X>
-static __global__ void residual_out(const float* __restrict__ part, int nsplit, int per, int H,
-                                    const float* __restrict__ scale, const X* x, int residual, X* y) {
+// The o / down residual of the decode-layer steps: y <- round_T(x + o)
+// (`residual`) or o, with o = round_T(the sum of the partials in split
+// order [* scale]). y may be x (each thread reads and writes one element).
+template <typename T>
+static __global__ void residual_out(const float* __restrict__ part, int nsplit, int H, const float* __restrict__ scale,
+                                    const T* x, int residual, T* y) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= H) return;
-  const float o = round_to<T>(scaled(sum_parts_chunked(part, nsplit, per, H, i), scale, i));
-  y[i] = from_float<X>(residual ? add_t<T>(to_float<X>(x[i]), o) : o);
+  const float o = round_to<T>(scaled(sum_parts(part, nsplit, H, i), scale, i));
+  y[i] = from_float<T>(residual ? add_t<T>(to_float<T>(x[i]), o) : o);
 }
 
 // RMSNorm over the block's head_dim values `v`, then split-half RoPE at
-// `pos` (cos_t/sin_t rows [pos, D/2], rounded to C), rounding as the plain
+// `pos` (cos_t/sin_t rows [pos, D/2], rounded to T), rounding as the plain
 // version. `vals`: blockDim floats of shared scratch; `buf`: block_sum's.
-template <typename T, typename C = T>
+template <typename T>
 __device__ float qk_norm_rope(float v, const T* __restrict__ w, const float* __restrict__ cos_t,
                               const float* __restrict__ sin_t, int pos, float eps, float* vals, float* buf) {
   const int D = blockDim.x, t = threadIdx.x, half = D / 2, f = t < half ? t : t - half;
@@ -280,7 +265,7 @@ __device__ float qk_norm_rope(float v, const T* __restrict__ w, const float* __r
   const float inv = rsqrtf(__fadd_rn(__fmul_rn(ss, 1.f / D), eps));
   vals[t] = round_to<T>(__fmul_rn(__fmul_rn(v, inv), to_float<T>(w[t])));
   __syncthreads();
-  const float c = round_to<C>(cos_t[(size_t)pos * half + f]), s = round_to<C>(sin_t[(size_t)pos * half + f]);
+  const float c = round_to<T>(cos_t[(size_t)pos * half + f]), s = round_to<T>(sin_t[(size_t)pos * half + f]);
   const float out = t < half ? sub_t<T>(mul_t<T>(vals[t], c), mul_t<T>(vals[t + half], s))
                              : add_t<T>(mul_t<T>(vals[t], c), mul_t<T>(vals[t - half], s));
   __syncthreads();  // vals is reused by the next call
@@ -288,9 +273,9 @@ __device__ float qk_norm_rope(float v, const T* __restrict__ w, const float* __r
 }
 
 // ---------------------------------------------------------------------------
-// One decode step's attention pieces over a [S, KV*D] cache plane, shared by
-// the talker step and the code-predictor steps. Attention splits the rows
-// <= pos into kAttnChunk-row chunks (a block per q head and chunk).
+// One decode step's attention pieces over a [S, KV*D] cache plane, for the
+// per-layer decode steps. Attention splits the rows <= pos into
+// kAttnChunk-row chunks (a block per q head and chunk).
 // ---------------------------------------------------------------------------
 
 constexpr int kAttnChunk = 64;   // cache rows per attention block
@@ -300,7 +285,7 @@ constexpr int kAttnWarps = 4;    // warps of a score block (one row per warp at 
 // partials (round_T(sum * scale)), QK-normed and rotated, into `q`. Blocks
 // Hq..Hq+KV-1: kv head j's k (normed, rotated) and v, written to cache row
 // `pos` of this layer. Every later pass reads row `pos` from the cache.
-template <typename T, typename C = T>
+template <typename T>
 static __global__ void qkv_finish(const float* __restrict__ part, int nsplit, const float* __restrict__ qkv_s,
                                   const T* __restrict__ qn, const T* __restrict__ kn, const float* __restrict__ cos_t,
                                   const float* __restrict__ sin_t, int pos, int Hq, int KV, float eps,
@@ -311,11 +296,11 @@ static __global__ void qkv_finish(const float* __restrict__ part, int nsplit, co
   const int qd = Hq * D, kvd = KV * D, N = qd + 2 * kvd;
   if (b < Hq) {
     const int c = b * D + t;
-    q[c] = qk_norm_rope<T, C>(round_to<T>(scaled(sum_parts(part, nsplit, N, c), qkv_s, c)), qn, cos_t, sin_t, pos,
+    q[c] = qk_norm_rope<T>(round_to<T>(scaled(sum_parts(part, nsplit, N, c), qkv_s, c)), qn, cos_t, sin_t, pos,
                               eps, vals, buf);
   } else {
     const int col = (b - Hq) * D + t, kc = qd + col, vc = qd + kvd + col;
-    const float k = qk_norm_rope<T, C>(round_to<T>(scaled(sum_parts(part, nsplit, N, kc), qkv_s, kc)), kn, cos_t,
+    const float k = qk_norm_rope<T>(round_to<T>(scaled(sum_parts(part, nsplit, N, kc), qkv_s, kc)), kn, cos_t,
                                        sin_t, pos, eps, vals, buf);
     const float v = round_to<T>(scaled(sum_parts(part, nsplit, N, vc), qkv_s, vc));
     ck[(size_t)pos * kvd + col] = from_float<T>(k);

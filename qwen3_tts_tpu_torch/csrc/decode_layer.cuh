@@ -1,21 +1,17 @@
-// One batch-1 decode step of one code-predictor layer on int8 weights, as
-// two sub-layer sequences shared by kernels 5 + 6 (fused_step.cu) and
-// kernel 7 (cp_step.cu):
+// One batch-1 decode step of one layer on int8 weights, as two sub-layer
+// sequences of simple launches: kernels 5 + 6 (fused_step.cu).
 //
 //   attention: RMSNorm -> int8 qkv -> QK-norm -> RoPE -> cache append at row
 //     `pos` -> GQA over the rows <= pos -> int8 o -> (+x);
 //   MLP: RMSNorm -> int8 gate|up -> SiLU*up -> int8 down -> (+x).
 //
 // Rounding points, those of the JAX package's _attention_step_kernel /
-// _mlp_step_kernel / _streamed_step_kernel: every int8 matmul's input is
-// rounded to bf16 and its f32 column sum times the column's scale is
-// rounded to the working type T; QK-norm in f32 rounded to T; RoPE in T with
-// cos/sin rounded to C (T for kernel 5, bf16 for kernel 7); scores and the
-// softmax in f32 over the rows <= pos, the NORMALISED weights rounded to T
-// before the value sum (kernel 3 rounds unnormalised ones: another
-// function); the attention output rounded to T. The o / down sums add
-// their K splits in `per`-split chunks in ascending order: one flat sum for
-// kernels 5 and 6 (per = all splits), H-wide chunks for kernel 7.
+// _mlp_step_kernel: every int8 matmul's input is rounded to bf16 and its
+// f32 column sum times the column's scale is rounded to the working type T
+// (o and down: one flat sum over K); QK-norm in f32 rounded to T; RoPE in T
+// with cos/sin rounded to T; scores and the softmax in f32 over the rows <=
+// pos, the NORMALISED weights rounded to T before the value sum; the
+// attention output rounded to T.
 //
 // The residual stream stays in T between the sub-layers (its values are
 // T-rounded anyway), so a sub-layer reads x and writes y = x + out (or out
@@ -132,11 +128,9 @@ struct AttnArgs {
   void* y;
 };
 
-// The attention sub-layer: 7 launches. C: the type cos/sin round to;
-// `o_per`: K splits per chunk of the o sum.
-template <typename T, typename C>
-static cudaError_t attention_sublayer(const LayerDims& d, const AttnArgs& a, int o_per, float* scratch,
-                                      cudaStream_t st) {
+// The attention sub-layer: 7 launches.
+template <typename T>
+static cudaError_t attention_sublayer(const LayerDims& d, const AttnArgs& a, float* scratch, cudaStream_t st) {
   const LayerLayout Lo = layer_layout(d);
   float *q = scratch + Lo.q, *attn = scratch + Lo.attn, *part = scratch + Lo.part;
   float *scores = scratch + Lo.scores, *cmax = scratch + Lo.cmax, *acc = scratch + Lo.acc;
@@ -151,9 +145,9 @@ static cudaError_t attention_sublayer(const LayerDims& d, const AttnArgs& a, int
 
   const GemvInput<T> x_in{nullptr, x, nullptr, 0, nullptr, 0, nullptr, static_cast<const T*>(a.ln), a.eps};
   if ((e = gemv<T, int8_t>(x_in, a.qkv_w, H, d.nqkv(), part, st))) return e;
-  qkv_finish<T, C><<<Hq + KV, D, 0, st>>>(part, H / kGemvRows, a.qkv_s, static_cast<const T*>(a.q_norm),
-                                          static_cast<const T*>(a.k_norm), a.cos_t, a.sin_t, a.pos, Hq, KV, a.eps,
-                                          q, ck, cv);
+  qkv_finish<T><<<Hq + KV, D, 0, st>>>(part, H / kGemvRows, a.qkv_s, static_cast<const T*>(a.q_norm),
+                                       static_cast<const T*>(a.k_norm), a.cos_t, a.sin_t, a.pos, Hq, KV, a.eps, q,
+                                       ck, cv);
   Q3_CHECK_LAUNCH();
   attn_scores<T><<<grid, kAttnWarps * 32, 0, st>>>(q, ck, a.pos, Hq, KV, D, S, scale, scores, cmax);
   Q3_CHECK_LAUNCH();
@@ -162,8 +156,8 @@ static cudaError_t attention_sublayer(const LayerDims& d, const AttnArgs& a, int
   attn_sum_chunks<T><<<Hq, D, 0, st>>>(acc, nlive, attn);
   Q3_CHECK_LAUNCH();
   if ((e = gemv<T, int8_t>(vec_input<T>(attn), a.o_w, qd, H, part, st))) return e;
-  residual_out<T, T><<<(H + ew - 1) / ew, ew, 0, st>>>(part, qd / kGemvRows, o_per, H, a.o_s, x, a.residual,
-                                                       static_cast<T*>(a.y));
+  residual_out<T><<<(H + ew - 1) / ew, ew, 0, st>>>(part, qd / kGemvRows, H, a.o_s, x, a.residual,
+                                                    static_cast<T*>(a.y));
   Q3_CHECK_LAUNCH();
   return cudaSuccess;
 }
@@ -180,9 +174,8 @@ struct MlpArgs {
 };
 
 // The MLP sub-layer: 3 launches (SiLU*up is the down GEMV's input staging).
-// `down_per`: K splits per chunk of the down sum.
 template <typename T>
-static cudaError_t mlp_sublayer(const LayerDims& d, const MlpArgs& a, int down_per, float* scratch, cudaStream_t st) {
+static cudaError_t mlp_sublayer(const LayerDims& d, const MlpArgs& a, float* scratch, cudaStream_t st) {
   const LayerLayout Lo = layer_layout(d);
   float *part = scratch + Lo.part, *gu_part = scratch + Lo.gu_part;
   const int H = d.hidden, I = d.inter, ew = 256;
@@ -193,8 +186,8 @@ static cudaError_t mlp_sublayer(const LayerDims& d, const MlpArgs& a, int down_p
   if ((e = gemv<T, int8_t>(x_in, a.gu_w, H, 2 * I, gu_part, st))) return e;
   const GemvInput<T> swiglu_in{nullptr, nullptr, nullptr, 0, gu_part, H / kGemvRows, a.gu_s, nullptr, 0.f};
   if ((e = gemv<T, int8_t>(swiglu_in, a.down_w, I, H, part, st))) return e;
-  residual_out<T, T><<<(H + ew - 1) / ew, ew, 0, st>>>(part, I / kGemvRows, down_per, H, a.down_s, x, a.residual,
-                                                       static_cast<T*>(a.y));
+  residual_out<T><<<(H + ew - 1) / ew, ew, 0, st>>>(part, I / kGemvRows, H, a.down_s, x, a.residual,
+                                                    static_cast<T*>(a.y));
   Q3_CHECK_LAUNCH();
   return cudaSuccess;
 }

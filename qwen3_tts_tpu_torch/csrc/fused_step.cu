@@ -32,7 +32,7 @@
 
 extern "C" {
 
-// Floats of f32 scratch a decode-layer kernel needs (kernels 5, 6 and 7):
+// Floats of f32 scratch a decode-layer kernel needs (kernels 5 and 6):
 // heads = 0 for the MLP step alone, inter = 0 for the attention step alone;
 // 0 when the shapes are unsupported (int8 GEMV tiling: N a multiple of 256,
 // K of 64; head_dim a multiple of 32, at most 256).
@@ -58,9 +58,8 @@ int q3_attention_step(int dtype, const void* x, const void* input_ln, const int8
   const q3::AttnArgs a{x, input_ln, qkv_w, qkv_s, q_norm, k_norm, cos_t, sin_t, o_w, o_s, ck, cv, pos, eps,
                        residual, y};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int per = d.qdim() / q3::kGemvRows;  // one flat sum: o is one whole dot
-  const cudaError_t e = dtype == 0 ? q3::attention_sublayer<float, float>(d, a, per, scratch, st)
-                                   : q3::attention_sublayer<__nv_bfloat16, __nv_bfloat16>(d, a, per, scratch, st);
+  const cudaError_t e = dtype == 0 ? q3::attention_sublayer<float>(d, a, scratch, st)
+                                   : q3::attention_sublayer<__nv_bfloat16>(d, a, scratch, st);
   return (int)e;
 }
 
@@ -73,9 +72,8 @@ int q3_mlp_step(int dtype, const void* x, const void* post_ln, const int8_t* gu_
   if (!(dtype == 0 || dtype == 1) || inter <= 0 || !q3::layer_dims_ok(d)) return (int)cudaErrorInvalidValue;
   const q3::MlpArgs a{x, post_ln, gu_w, gu_s, down_w, down_s, eps, residual, y};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int per = inter / q3::kGemvRows;  // one flat sum
-  const cudaError_t e = dtype == 0 ? q3::mlp_sublayer<float>(d, a, per, scratch, st)
-                                   : q3::mlp_sublayer<__nv_bfloat16>(d, a, per, scratch, st);
+  const cudaError_t e = dtype == 0 ? q3::mlp_sublayer<float>(d, a, scratch, st)
+                                   : q3::mlp_sublayer<__nv_bfloat16>(d, a, scratch, st);
   return (int)e;
 }
 

@@ -1,6 +1,6 @@
 // Device pieces of the port's persistent kernels, shared by the
-// code-predictor frame (cp_frame.cu, kernel 1) and the talker step
-// (talker_step.cu, kernel 3): one cooperative launch of one 256-thread
+// code-predictor frame (cp_frame.cu, kernel 1) and the decode steps
+// (talker_step.cu, kernels 3 and 7): one cooperative launch of one 256-thread
 // block per SM that walks its phases itself, separated by a grid-wide
 // counting barrier (with a timeout trap), and streams its weight slices
 // through a shared-memory ring filled by TMA; the ring's vector loads, the

@@ -1,24 +1,30 @@
-// Kernel 3 of the port: one batch-1 talker decode step in one persistent
-// launch, on int8 weights or on plain weights in the working type.
+// Kernels 3 and 7 of the port: one batch-1 decode step of a layer stack in
+// one persistent launch. Kernel 3 is the talker's step, on int8 weights or
+// on plain weights in the working type; kernel 7 the code predictor's step,
+// on int8 weights. One body serves both: they differ at two rounding points
+// only (the "normalised" form below).
 //
-// Replaces the TPU kernel qwen3_tts_tpu/ops/fused_layer.py:
+// Replaces the TPU kernels qwen3_tts_tpu/ops/fused_layer.py:
 // _streamed_talker_kernel (entry streamed_talker_step), in both its forms
-// (`quantized` True / False): the step's input embedding through every
-// talker layer (RMSNorm -> qkv -> QK-norm -> RoPE -> KV append at row `pos`
-// -> GQA over the cache rows <= pos -> o -> residual -> RMSNorm -> gate|up
-// -> SiLU*up -> down -> residual), returning the last layer's output (the
-// final norm and codec head stay outside, as in the JAX package).
+// (`quantized` True / False), and _streamed_step_kernel (entry
+// streamed_decode_step): the step's input through every layer (RMSNorm ->
+// qkv -> QK-norm -> RoPE -> KV append at row `pos` -> GQA over the cache
+// rows <= pos -> o -> residual -> RMSNorm -> gate|up -> SiLU*up -> down ->
+// residual), returning the last layer's output (the final norm and the
+// codec head or lm heads stay outside, as in the JAX package).
 //
-// What bounds it on an H100: at 1.7B a step streams 28 layers of weights,
-// 50.3 MB each in int8 (1.41 GB, ~0.42 ms at 3.35 TB/s), 100.7 MB in bf16
-// (2.82 GB, ~0.84 ms) or 201 MB in f32, each weight read once (they do not
-// fit the 50 MB L2), plus the live cache rows (2 x 28 x (pos+1) x 1024
-// bf16: 117 KB per row); one GEMV per projection at batch 1: bytes, not
-// flops. The layers are dependent and each is five dependent phases, so a
-// step also pays 140 grid-wide barriers and as many stagings and epilogues.
+// What bounds it on an H100: at 1.7B a talker step streams 28 layers of
+// weights, 50.3 MB each in int8 (1.41 GB, ~0.42 ms at 3.35 TB/s), 100.7 MB
+// in bf16 (2.82 GB, ~0.84 ms) or 201 MB in f32, each weight read once (they
+// do not fit the 50 MB L2), plus the live cache rows (2 x 28 x (pos+1) x
+// 1024 bf16: 117 KB per row); a code-predictor step 5 layers of 15.73 MB
+// int8 (78.6 MB, ~23.5 us) and at most 17 cache rows. One GEMV per
+// projection at batch 1: bytes, not flops. The layers are dependent and
+// each is five dependent phases, so a step also pays 5 grid-wide barriers a
+// layer and as many stagings and epilogues.
 //
 // Design: one cooperative launch of `grid` blocks (one per SM, all
-// co-resident), 256 threads each, that walks the 28 layers itself, five
+// co-resident), 256 threads each, that walks the layers itself, five
 // phases a layer separated by kernel 1's counting grid barrier
 // (persistent.cuh): RMSNorm -> qkv; QK-norm, RoPE, KV append and attention;
 // o + residual; RMSNorm -> gate|up -> SiLU*up; down + residual. Nothing in
@@ -55,18 +61,25 @@
 // checks them. With a trace buffer, every block stamps each phase's work
 // start and end and its barrier arrival and leave.
 //
-// Rounding points (those of the plain version, fused_layer.talker_step_plain,
-// which are the JAX kernel's): every matmul input is rounded to MatIn<T, W>
-// (T for plain weights, bf16 for int8, whose bf16 x int8 products are exact
-// in f32); int8 column sums are multiplied by their scale once, then
-// rounded to T (the JAX kernel's `acc * scale`); QK-norm and RoPE in T;
-// scores f32, the unnormalised weights exp(s - m) rounded to T before the
-// value sum, m the chunk's maximum (one chunk up to 256 rows: the plain
-// version's global maximum, as the JAX kernel's first 256-row block; it
-// rescales the later blocks the same way); SiLU in f32. The cache is written at row `pos` only, in place in
-// the [L, S, KV*D] planes.
+// Rounding points (those of the plain versions, fused_layer.talker_step_plain
+// and streamed_decode_step_plain, which are the JAX kernels'): every matmul
+// input is rounded to MatIn<T, W> (T for plain weights, bf16 for int8,
+// whose bf16 x int8 products are exact in f32); int8 column sums are
+// multiplied by their scale once, then rounded to T (the JAX kernel's `acc
+// * scale`); QK-norm and RoPE in T; scores f32; SiLU in f32. Kernel 3:
+// cos/sin rounded to T; the unnormalised weights exp(s - m) rounded to T
+// before the value sum, m the chunk's maximum (one chunk up to 256 rows:
+// the plain version's global maximum, as the JAX kernel's first 256-row
+// block; it rescales the later blocks the same way), divided by their f32
+// sum after it. Kernel 7, the normalised form (kNorm): cos/sin rounded to
+// bf16 even when T is f32; the softmax weights exp(s - m) / l normalised
+// before they are rounded to T (so a head's rows stay in one chunk: its
+// caches hold at most kStepChunkRows rows). The cache is written at row
+// `pos` only, in place in the [L, S, KV*D] planes.
 
 #include <string.h>
+
+#include <type_traits>
 
 #include "persistent.cuh"
 
@@ -334,18 +347,20 @@ __device__ void step_gemv(StepRing<W>& ring, int j, const float* xs, float* red,
 // Block (h, c) = (b / nch, b % nch): q head h and its kv head's k from the
 // qkv row (QK-norm, RoPE at pos), the chunk's rows of the causal window
 // [0, pos]: scores (f32), their maximum m, the weights exp(s - m) (their
-// f32 sum l, and rounded to T) and the weighted sum of V rows, into
-// att_acc[h][c] and att_ml[h][c] = (m, l). Row pos comes from registers;
+// f32 sum l, and rounded to T; kNorm: divided by l, then rounded, in one
+// chunk) and the weighted sum of V rows, into att_acc[h][c] and
+// att_ml[h][c] = (m, l). Row pos comes from registers;
 // the head's first q head, in the last chunk, writes it to the cache. The
 // head's last chunk block to finish combines its chunks into attn[h].
 // misc (floats): [0, 256) normed q | k, [256, 384) rotated q, [384, 512)
 // rotated k, [512, 640) v, [640, 672) block_sum's, [672, 704)
 // block_sums' and the last-block flag, [2048, 4096) the value sums' row
 // lanes, [4096, ...) the chunk's scores, then weights.
-template <typename T>
+template <typename T, bool kNorm>
 __device__ void step_attention(const StepArgs& a, int l, int nch, const float* qkvg, float* att_acc, float* att_ml,
                                unsigned* att_cnt, float* attn, float* misc) {
   constexpr int VT = Vec<T>::n;  // columns of a 16-byte vector
+  using C = std::conditional_t<kNorm, __nv_bfloat16, T>;  // the type cos/sin round to
   const int D = a.head_dim, half = D / 2, group = a.heads / a.kv_heads, kvd = a.kv_heads * D, qd = a.heads * D;
   const int b = blockIdx.x, h = b / nch, c = b % nch, kvh = h / group, t = threadIdx.x, pos = a.pos;
   float *vals = misc, *qrot = misc + 256, *kloc = misc + 384, *vloc = misc + 512, *buf = misc + 640;
@@ -372,7 +387,7 @@ __device__ void step_attention(const StepArgs& a, int l, int nch, const float* q
   __syncthreads();
   if (qk) {
     const int f = d < half ? d : d - half;
-    const float cs = round_to<T>(a.cos_t[(size_t)pos * half + f]), sn = round_to<T>(a.sin_t[(size_t)pos * half + f]);
+    const float cs = round_to<C>(a.cos_t[(size_t)pos * half + f]), sn = round_to<C>(a.sin_t[(size_t)pos * half + f]);
     const float* xv = vals + which * D;
     const float y = d < half ? sub_t<T>(mul_t<T>(xv[d], cs), mul_t<T>(xv[d + half], sn))
                              : add_t<T>(mul_t<T>(xv[d], cs), mul_t<T>(xv[d - half], sn));
@@ -423,9 +438,13 @@ __device__ void step_attention(const StepArgs& a, int l, int nch, const float* q
   for (int i = t; i < n; i += kFrameThreads) {
     const float p = expf(__fsub_rn(sc[i], m));
     lsum += p;
-    sc[i] = round_to<T>(p);
+    sc[i] = kNorm ? p : round_to<T>(p);
   }
   lsum = block_sum(lsum, buf);  // its barriers also publish the weights
+  if (kNorm) {  // one chunk (step_ok): m and l are the head's
+    for (int i = t; i < n; i += kFrameThreads) sc[i] = round_to<T>(__fdiv_rn(sc[i], lsum));
+    __syncthreads();
+  }
 
   // Values: D / VT lanes of a row (16 bytes each), 256 / (D / VT) row lanes,
   // rows in batches of 8 loads in flight, summed in row order.
@@ -466,7 +485,7 @@ __device__ void step_attention(const StepArgs& a, int l, int nch, const float* q
     float s = 0.f;
     for (int q = 0; q < nrl; ++q) s += vred[q * D + t];
     if (nch == 1) {  // the combine below of one chunk: f = exp(0) = 1
-      attn[h * D + t] = __fdiv_rn(s, lsum);
+      attn[h * D + t] = kNorm ? s : __fdiv_rn(s, lsum);
       return;
     }
     att_acc[at * D + t] = s;
@@ -502,7 +521,7 @@ __device__ void step_attention(const StepArgs& a, int l, int nch, const float* q
   }
 }
 
-template <typename T, typename W>
+template <typename T, typename W, bool kNorm>
 __global__ void __launch_bounds__(kFrameThreads, 1)
 talker_step_kernel(const StepArgs a, const __grid_constant__ StepMaps maps) {
   using M = typename MatIn<T, W>::type;
@@ -577,7 +596,7 @@ talker_step_kernel(const StepArgs a, const __grid_constant__ StepMaps maps) {
     // each head's last chunk block.
     if (b < a.heads * nch) {
       mark(0);
-      step_attention<T>(a, l, nch, qkvg, att_acc, att_ml, att_cnt, attn, misc);
+      step_attention<T, kNorm>(a, l, nch, qkvg, att_acc, att_ml, att_cnt, attn, misc);
       mark(1);
     }
     end_phase();
@@ -633,13 +652,15 @@ talker_step_kernel(const StepArgs a, const __grid_constant__ StepMaps maps) {
   }
 }
 
-template <typename T, typename W>
+template <typename T, typename W, bool kNorm>
 static cudaError_t launch_step(const StepArgs& a, const StepMaps& maps, cudaStream_t st) {
-  if (!step_ok(a, Vec<T>::n, Vec<W>::n)) return cudaErrorInvalidValue;
+  // The normalised form divides by the head's weight sum before the value
+  // sum: every live row in one chunk.
+  if (!step_ok(a, Vec<T>::n, Vec<W>::n) || (kNorm && a.max_seq > kStepChunkRows)) return cudaErrorInvalidValue;
   static int smem_set = 0;  // the attribute, once per instantiation (never during a graph capture)
   if (a.smem_bytes > smem_set) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(talker_step_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
+    const cudaError_t e = cudaFuncSetAttribute(talker_step_kernel<T, W, kNorm>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
     if (e != cudaSuccess) return e;
     smem_set = a.smem_bytes;
   }
@@ -653,7 +674,7 @@ static cudaError_t launch_step(const StepArgs& a, const StepMaps& maps, cudaStre
   attr[0].val.cooperative = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, talker_step_kernel<T, W>, a, maps);
+  return cudaLaunchKernelEx(&cfg, talker_step_kernel<T, W, kNorm>, a, maps);
 }
 
 // The TMA descriptor of each projection's weights, [L][K][N] of W (its
@@ -704,6 +725,35 @@ static StepArgs unpack_step(const int* n, const float* f, const void* const* p) 
   return a;
 }
 
+// The checks both entries share, then the launch of the form `norm`.
+static int step_entry(StepArgs& a, bool norm, int dtype, int int8, const void* maps, const void* x, void* y, void* ck,
+                      void* cv, int seq, int pos, unsigned long long* trace, void* stream) {
+  a.x = x;
+  a.y = y;
+  a.ck = ck;
+  a.cv = cv;
+  a.seq = seq;
+  a.pos = pos;
+  a.trace = trace;
+  if (seq < 1 || seq > a.max_seq || pos < 0 || pos >= seq || !a.cos_t || !a.sin_t) return (int)cudaErrorInvalidValue;
+  const bool scales = a.qkv_s && a.o_s && a.gu_s && a.down_s, no_scales = !a.qkv_s && !a.o_s && !a.gu_s && !a.down_s;
+  if (int8 ? !scales : !no_scales) return (int)cudaErrorInvalidValue;
+  StepMaps m;
+  memcpy(&m, maps, sizeof m);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (norm)  // kernel 7: int8 only
+    e = !int8 ? cudaErrorInvalidValue
+        : dtype == 0 ? launch_step<float, int8_t, true>(a, m, st)
+                     : launch_step<__nv_bfloat16, int8_t, true>(a, m, st);
+  else if (int8)
+    e = dtype == 0 ? launch_step<float, int8_t, false>(a, m, st) : launch_step<__nv_bfloat16, int8_t, false>(a, m, st);
+  else
+    e = dtype == 0 ? launch_step<float, float, false>(a, m, st)
+                   : launch_step<__nv_bfloat16, __nv_bfloat16, false>(a, m, st);
+  return (int)e;
+}
+
 }  // namespace q3
 
 extern "C" {
@@ -718,7 +768,7 @@ size_t q3_talker_step_scratch_floats(const int* ints) {
 
 // The TMA descriptors of a tree's weights (ints and ptrs as
 // q3_talker_step) into `maps` (q3_talker_step_maps_bytes of host memory),
-// built once per tree and handed to every q3_talker_step of it.
+// built once per tree and handed to every q3_talker_step or q3_cp_step of it.
 size_t q3_talker_step_maps_bytes() { return sizeof(q3::StepMaps); }
 
 int q3_talker_step_maps(int dtype, int int8, const int* ints, const void* const* ptrs, void* maps) {
@@ -734,10 +784,10 @@ int q3_talker_step_maps(int dtype, int int8, const int* ints, const void* const*
 // in the phase), phases in the order the step runs them (5 a layer).
 int q3_talker_step_trace_slots(const int* ints) { return q3::step_trace_slots(q3::unpack_step(ints, nullptr, nullptr)); }
 
-// One decode step in one cooperative launch on `stream`: y [H] <- the last
-// layer's output for input x [H], and row `pos` of every layer of ck, cv
-// [L, seq, KV*D] written in place (seq <= max_seq, pos < seq). dtype 0 =
-// f32, 1 = bf16 for x, y, the norms and the caches; int8 = 0: the
+// Kernel 3: one decode step in one cooperative launch on `stream`: y [H] <-
+// the last layer's output for input x [H], and row `pos` of every layer of
+// ck, cv [L, seq, KV*D] written in place (seq <= max_seq, pos < seq). dtype
+// 0 = f32, 1 = bf16 for x, y, the norms and the caches; int8 = 0: the
 // projections in that dtype, the four scale pointers null; int8 = 1: int8
 // with f32 per-column scales. ints: layers, hidden, heads, kv_heads,
 // head_dim, inter, max_seq, then the plan (fused_layer.talker_step_plan):
@@ -757,26 +807,21 @@ int q3_talker_step(int dtype, int int8, const int* ints, const float* floats, co
                    const void* maps, const void* x, void* y, void* ck, void* cv, int seq, int pos,
                    unsigned long long* trace, void* stream) {
   q3::StepArgs a = q3::unpack_step(ints, floats, ptrs);
-  a.x = x;
-  a.y = y;
-  a.ck = ck;
-  a.cv = cv;
-  a.seq = seq;
-  a.pos = pos;
-  a.trace = trace;
-  if (seq < 1 || seq > a.max_seq || pos < 0 || pos >= seq) return (int)cudaErrorInvalidValue;
-  const bool scales = a.qkv_s && a.o_s && a.gu_s && a.down_s, no_scales = !a.qkv_s && !a.o_s && !a.gu_s && !a.down_s;
-  if (int8 ? !scales : !no_scales) return (int)cudaErrorInvalidValue;
-  q3::StepMaps m;
-  memcpy(&m, maps, sizeof m);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (int8)
-    e = dtype == 0 ? q3::launch_step<float, int8_t>(a, m, st) : q3::launch_step<__nv_bfloat16, int8_t>(a, m, st);
-  else
-    e = dtype == 0 ? q3::launch_step<float, float>(a, m, st)
-                   : q3::launch_step<__nv_bfloat16, __nv_bfloat16>(a, m, st);
-  return (int)e;
+  return q3::step_entry(a, false, dtype, int8, maps, x, y, ck, cv, seq, pos, trace, stream);
+}
+
+// Kernel 7: one code-predictor decode step, the normalised form, in one
+// cooperative launch on `stream`. Arguments as q3_talker_step's, int8
+// weights only and max_seq <= 256 (a plan of talker_step_plan(...,
+// normalised=True)); cos_t / sin_t [>= pos+1, D/2] f32 are the caller's
+// RoPE tables (ptrs' two slots for them are not read).
+int q3_cp_step(int dtype, const int* ints, const float* floats, const void* const* ptrs, const void* maps,
+               const void* x, void* y, void* ck, void* cv, const float* cos_t, const float* sin_t, int seq, int pos,
+               unsigned long long* trace, void* stream) {
+  q3::StepArgs a = q3::unpack_step(ints, floats, ptrs);
+  a.cos_t = cos_t;
+  a.sin_t = sin_t;
+  return q3::step_entry(a, true, dtype, 1, maps, x, y, ck, cv, seq, pos, trace, stream);
 }
 
 }  // extern "C"

@@ -84,6 +84,7 @@ def generate_frames(
     frame_limit: int,
     cp_frame_pack=None,  # the code predictor's fused_layer.CpFramePack, on the card
     talker_step_pack=None,  # the talker's fused_layer.TalkerStepPack, on the card
+    cp_step_pack=None,  # the code predictor's fused_layer.CpStepPack, on the card
 ) -> GenState:
     """Advance the loop until EOS or ``frame_limit`` frames exist."""
     suppression = sampling.build_suppression_mask(
@@ -99,7 +100,8 @@ def generate_frames(
     while state.frame_idx < frame_limit and not bool(state.done):
         idx = state.frame_idx
         semantic_embed = talker.embed_codec(talker_params, state.token)[None, None, :]
-        codes = cp.predict_acoustic_codes(cp_params, cpcfg, state.last_hidden, semantic_embed, cp_frame_pack)
+        codes = cp.predict_acoustic_codes(cp_params, cpcfg, state.last_hidden, semantic_embed, cp_frame_pack,
+                                          cp_step_pack)
         state.frames[idx, 0] = state.token
         state.frames[idx, 1:] = codes
 

@@ -1,6 +1,6 @@
 """A kernel's timings on the card, for comparing two checkouts.
 
-    python3 qwen3_tts_tpu_torch/kernel_timing.py --kernel int8_matmul|cp_frame|talker_step|residual_unit
+    python3 qwen3_tts_tpu_torch/kernel_timing.py --kernel int8_matmul|cp_frame|talker_step|cp_step|residual_unit
         [--root DIR] [--tag NAME] [--repeats R] [--sweep] [--sass] [--trace] [--forms F,...] [--kernels]
 
 Times one kernel's wrapper of the checkout at ``--root`` (default: the one
@@ -38,6 +38,18 @@ not stay in L2). ``--trace`` adds each form's breakdown by phase kind
 ``--kernels`` the device kernels one call launches (torch.profiler; one
 ``--forms`` a process, since a process's later profiler sessions may
 record no device activity).
+
+``--kernel cp_step`` (kernel 7, ``ops.fused_layer.streamed_decode_step``):
+one decode step of the 1.7B code predictor's 5 int8 layers (random
+weights from seed 2) with bf16 and f32 activations (``--forms``), a
+17-row cache, at pos 2, 9 and 16 (``time_cp_step``; the 78.6 MB of
+int8 weights a step do not fit the 50 MB L2), beside its plain version per
+call (``chip_smoke.py`` gives its byte bound). A checkout without
+``CpStepPack`` (the 51-operation chain before it) is timed through its
+pack-free wrapper. ``--trace`` adds each form's
+breakdown by phase kind (``fused_layer.talker_step_trace_phases``), where
+the checkout has one; ``--kernels`` the device kernels one call launches
+(torch.profiler; one ``--forms`` a process).
 
 ``--kernel residual_unit`` (kernel 2, ``models.codec.fused_blocks.
 residual_unit``): the 9 units of a 128-frame decode bucket at their
@@ -90,6 +102,11 @@ RU_DILATIONS = (1, 3, 9)
 F32_FLOPS, TF32_FLOPS = 67e12, 495e12
 # Kernel 3's cache sizes: the 125-frame main path's and the 2048-frame tier's.
 TALKER_ROWS = (160, 2080)
+# Kernel 7's activations (int8 weights) and positions: the first, a middle
+# and the last decode step of the code predictor's 17-row cache.
+CP_STEP_FORMS = (("bfloat16", torch.bfloat16), ("float32", torch.float32))
+CP_STEP_POSITIONS = (2, 9, 16)
+CP_STEP_ROWS = 17
 CP_FORMS = (("float32", torch.float32), ("bfloat16", torch.bfloat16), ("int8", torch.bfloat16))
 # The code predictor's (K, N) on its per-step path (1.7B, intermediate 2816
 # on that path and the stock 3072): qkv, o, gate|up, down, lm heads.
@@ -354,6 +371,71 @@ def talker_step_lines(tag: str, repeats: int, trace: bool, forms: tuple = (), ke
         torch.cuda.empty_cache()
 
 
+def cp_step_call(fused_layer, layers: dict, stack, x, ck, cv, pos: int, cos_t, sin_t):
+    """One ``streamed_decode_step`` call as the checkout's main path makes it:
+    through a pack of its own where the checkout has packs (built here,
+    outside the call)."""
+    if not hasattr(fused_layer, "CpStepPack"):
+        return lambda: fused_layer.streamed_decode_step(layers, x, stack, ck, cv, pos, cos_t, sin_t)
+    pack = fused_layer.CpStepPack(layers, stack, x.dtype, x.device)
+    return lambda: fused_layer.streamed_decode_step(layers, x, stack, ck, cv, pos, cos_t, sin_t, pack)
+
+
+def time_cp_step(fused_layer, layers: dict, stack, x, ck, cv, pos: int, cos_t, sin_t) -> dict:
+    """Kernel 7 on one step: ``ms`` per call from Python and ``device_ms``
+    the device span (each through its own pack, where the checkout has
+    packs: a graph keeps its steps' scratch)."""
+    return {
+        "ms": call_ms(cp_step_call(fused_layer, layers, stack, x, ck, cv, pos, cos_t, sin_t)),
+        "device_ms": graph_ms([cp_step_call(fused_layer, layers, stack, x, ck, cv, pos, cos_t, sin_t)], GRAPH_CALLS),
+    }
+
+
+def cp_step_lines(tag: str, repeats: int, trace: bool, forms: tuple = (), kernels: bool = False):
+    """One JSON line per form of kernel 7 at the 1.7B code predictor (those
+    in ``forms``, or both) and pos; with ``kernels``, the first pos's line
+    also lists the device kernels one call launches."""
+    from qwen3_tts_tpu_torch import build
+    from qwen3_tts_tpu_torch.models import weights as W
+    from qwen3_tts_tpu_torch.models.config import config_for_variant
+    from qwen3_tts_tpu_torch.ops import fused_layer, quant
+
+    build.build()
+    dev = torch.device("cuda", 0)
+    stack = config_for_variant("1.7B", "custom_voice").code_predictor.layer_stack()
+    kvd = stack.num_kv_heads * stack.head_dim
+    cos_t, sin_t = fused_layer.rope_tables(stack.head_dim, stack.rope_theta, CP_STEP_ROWS, dev)
+    for form, dtype in CP_STEP_FORMS:
+        if forms and form not in forms:
+            continue
+        gen = torch.Generator(device=dev).manual_seed(2)
+        layers = quant.quantize_layer_stack(W.fuse_layer_params(W.init_layer_stack(
+            gen, stack.num_layers, stack.hidden_size, stack.intermediate_size, stack.num_heads,
+            stack.num_kv_heads, stack.head_dim, dtype)))
+        x = torch.randn((1, 1, stack.hidden_size), generator=gen, device=dev).to(dtype)
+        ck = torch.randn((stack.num_layers, CP_STEP_ROWS, kvd), generator=gen, device=dev).to(dtype)
+        cv = torch.randn((stack.num_layers, CP_STEP_ROWS, kvd), generator=gen, device=dev).to(dtype)
+        for pos in CP_STEP_POSITIONS:
+            runs = [time_cp_step(fused_layer, layers, stack, x, ck, cv, pos, cos_t, sin_t) for _ in range(repeats)]
+            y = fused_layer.streamed_decode_step(layers, x, stack, ck, cv, pos, cos_t, sin_t)
+            plain = lambda pos=pos: fused_layer.streamed_decode_step_plain(  # noqa: E731
+                layers, x, stack, ck, cv, pos, cos_t, sin_t)
+            line = {"tag": tag, "form": form, "pos": pos, "y_abs_sum": y.float().abs().sum().item(),
+                    **{key: [r[key] for r in runs] for key in runs[0]}, "plain_ms": call_ms(plain, 3)}
+            if kernels and pos == CP_STEP_POSITIONS[0]:
+                line["device_kernels"] = device_kernels(
+                    cp_step_call(fused_layer, layers, stack, x, ck, cv, pos, cos_t, sin_t))
+            if trace and hasattr(fused_layer, "CpStepPack"):
+                got, stamps = fused_layer.streamed_decode_step(layers, x, stack, ck, cv, pos, cos_t, sin_t,
+                                                               trace=True)
+                torch.cuda.synchronize()
+                line["traced_equal"] = torch.equal(got, y)
+                line["phases_us"] = fused_layer.talker_step_trace_phases(stamps, stack)
+            yield line
+        del layers, ck, cv
+        torch.cuda.empty_cache()
+
+
 def unit_params(gen: torch.Generator, c: int) -> dict:
     """A residual unit's random weights, as ``chip_smoke.py`` draws them."""
     dev = gen.device
@@ -446,7 +528,8 @@ def int8_matmul_lines(tag: str, repeats: int, sweep: bool):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel", required=True, choices=("int8_matmul", "cp_frame", "talker_step", "residual_unit"))
+    ap.add_argument("--kernel", required=True,
+                    choices=("int8_matmul", "cp_frame", "talker_step", "cp_step", "residual_unit"))
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent.parent,
                     help="checkout whose qwen3_tts_tpu_torch is timed")
     ap.add_argument("--tag", default="", help="name printed on every line (default: --root)")
@@ -454,10 +537,12 @@ def main() -> None:
     ap.add_argument("--sweep", action="store_true",
                     help="int8_matmul: also time every K split count at m <= 16; residual_unit: every chunk width and window of taps")
     ap.add_argument("--sass", action="store_true", help="int8_matmul: first count the kernel's SASS instructions")
-    ap.add_argument("--trace", action="store_true", help="cp_frame, talker_step: add each form's per-phase breakdown")
-    ap.add_argument("--forms", default="", help="talker_step: only these comma-separated forms (float32, bfloat16, int8)")
+    ap.add_argument("--trace", action="store_true",
+                    help="cp_frame, talker_step, cp_step: add each form's per-phase breakdown")
+    ap.add_argument("--forms", default="",
+                    help="talker_step, cp_step: only these comma-separated forms (float32, bfloat16, int8)")
     ap.add_argument("--kernels", action="store_true",
-                    help="talker_step: add the device kernels one call launches (torch.profiler)")
+                    help="talker_step, cp_step: add the device kernels one call launches (torch.profiler)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timing: no CUDA device")
@@ -472,9 +557,10 @@ def main() -> None:
         for line in residual_unit_lines(tag, args.repeats, args.sweep):
             print(json.dumps(line), flush=True)
         return
-    if args.kernel == "talker_step":
+    if args.kernel in ("talker_step", "cp_step"):
         forms = tuple(f for f in args.forms.split(",") if f)
-        for line in talker_step_lines(tag, args.repeats, args.trace, forms, args.kernels):
+        lines = talker_step_lines if args.kernel == "talker_step" else cp_step_lines
+        for line in lines(tag, args.repeats, args.trace, forms, args.kernels):
             print(json.dumps(line), flush=True)
         return
     if args.sass:

@@ -14,8 +14,9 @@ tree, chosen before any launch by the JAX package's gates:
     frame) when ``supports_cp_frame_kernel``;
   * else, for a fused int8 tree, the per-step path
     (``_predict_acoustic_codes_fused``): a 2-row prefill, then 14 decode
-    steps of kernel 7 (``streamed_decode_step``) when the layer dims tile by
-    the hidden size, or of kernels 5 + 6 per layer otherwise;
+    steps of kernel 7 (``streamed_decode_step``, one launch a step) when the
+    layer dims tile by the hidden size, or of kernels 5 + 6 per layer
+    otherwise;
   * else the plain layer path (plain PyTorch on every device).
 A route whose kernel does not take the shapes raises. On the CPU every
 kernel's plain version runs.
@@ -49,20 +50,22 @@ def predict_acoustic_codes(
     talker_hidden: torch.Tensor,
     semantic_embed: torch.Tensor,
     frame_pack: fused_layer.CpFramePack | None = None,
+    step_pack: fused_layer.CpStepPack | None = None,
 ) -> torch.Tensor:
     """All 15 acoustic codes for one frame.
 
     talker_hidden, semantic_embed: [1, 1, embed_dim] (talker hidden size).
     ``frame_pack``: the tree's ``fused_layer.CpFramePack`` for the frame
-    kernel (built per call when None). Returns int32 [num_acoustic] on the
-    inputs' device.
+    kernel; ``step_pack``: its ``fused_layer.CpStepPack`` for kernel 7 (each
+    built per call when None). Returns int32 [num_acoustic] on the inputs'
+    device.
     """
     route = cp_route(params, cfg)
     if route == "frame":
         return fused_layer.cp_frame(params, cfg, talker_hidden, semantic_embed, frame_pack)
     if route == "layers":
         return fused_layer.cp_frame_layers(params, cfg, talker_hidden, semantic_embed, quant.mm)
-    return _predict_acoustic_codes_fused(params, cfg, talker_hidden, semantic_embed)
+    return _predict_acoustic_codes_fused(params, cfg, talker_hidden, semantic_embed, step_pack=step_pack)
 
 
 def _predict_acoustic_codes_fused(
@@ -71,6 +74,7 @@ def _predict_acoustic_codes_fused(
     talker_hidden: torch.Tensor,
     semantic_embed: torch.Tensor,
     streamed: bool | None = None,
+    step_pack: fused_layer.CpStepPack | None = None,
 ) -> torch.Tensor:
     """The per-step int8 frame (the JAX package's fused variant).
 
@@ -78,9 +82,9 @@ def _predict_acoustic_codes_fused(
     ``quant.mm``: kernel 4 on the card); the cache is then viewed once as
     [L, S, KV*D] planes, and each of the 14 decode steps takes one route of
     ``fused_layer.run_fused_decode_step``, written in place in the planes.
-    ``streamed``: kernel 7 (True) or kernels 5 + 6 per layer (False); None
-    takes the JAX package's choice, kernel 7 exactly when it would hold a
-    stream pack (``has_stream_pack``).
+    ``streamed``: kernel 7 (True, through ``step_pack``) or kernels 5 + 6
+    per layer (False); None takes the JAX package's choice, kernel 7 exactly
+    when it would hold a stream pack (``has_stream_pack``).
     """
     stack = cfg.layer_stack()
     layers = params["layers"]
@@ -104,7 +108,7 @@ def _predict_acoustic_codes_fused(
     for g in range(1, cfg.num_acoustic):
         pos = g + 1
         x = fused_layer.mtp_project(params, params["codec_embeddings"][g - 1][code][None])
-        h = fused_layer.run_fused_decode_step(layers, x, stack, ck, cv, pos, cos_t, sin_t, streamed, views)
+        h = fused_layer.run_fused_decode_step(layers, x, stack, ck, cv, pos, cos_t, sin_t, streamed, views, step_pack)
         h = nn.rms_norm(h, params["norm"], cfg.rms_norm_eps)
         code = torch.argmax(quant.mm(h[:, 0], fused_layer.head(heads, g)), dim=-1)
         codes.append(code)

@@ -19,9 +19,11 @@ The per-step int8 code predictor, for trees the frame kernel does not take
 (``supports_cp_frame_kernel``): ``fused_attention_step`` and
 ``fused_mlp_step`` (``csrc/fused_step.cu``, the ports of the JAX package's
 functions of those names; ``residual=False`` gives the tensor-parallel
-partials) and ``streamed_decode_step`` (``csrc/cp_step.cu``, the port of
-``streamed_decode_step``, reading the canonical int8 tree instead of the
-stream pack), chosen per step by ``run_fused_decode_step``.
+partials) and ``streamed_decode_step`` (the port of ``streamed_decode_step``,
+reading the canonical int8 tree instead of the stream pack: kernel 3's
+body in its normalised form, ``csrc/talker_step.cu``, one persistent
+launch a step through the tree's ``CpStepPack``), chosen per step by
+``run_fused_decode_step``.
 
 Every wrapper runs its plain version on CPU tensors, launches its kernel on
 CUDA tensors (or raises), and raises on any other device.
@@ -175,6 +177,11 @@ def _kernel_lib():
         lib.q3_talker_step.argtypes = [
             i32, i32, ctypes.POINTER(i32), ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ptr), ptr, ptr, ptr, ptr,
             ptr, i32, i32, ptr, ptr,
+        ]
+        lib.q3_cp_step.restype = i32
+        lib.q3_cp_step.argtypes = [
+            i32, ctypes.POINTER(i32), ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ptr), ptr, ptr, ptr, ptr, ptr,
+            ptr, ptr, i32, i32, ptr, ptr,
         ]
         lib._q3_fused_bound = True
     return lib
@@ -645,10 +652,11 @@ def _layer_stack(cfg):
     return cfg.layer_stack() if hasattr(cfg, "layer_stack") else cfg
 
 
-# Kernel 3's constants (csrc/talker_step.cu): ring stages, the attention
-# chunks of a head (at most; rows each at least), the widest head, the most
-# q heads, the attention scratch's fixed floats. The plan lays out the
-# block's shared memory; the kernel takes the offsets and checks them.
+# Kernel 3's constants (csrc/talker_step.cu, kernel 7's too): ring stages,
+# the attention chunks of a head (at most; rows each at least: the most rows
+# the normalised form takes), the widest head, the most q heads, the
+# attention scratch's fixed floats. The plan lays out the block's shared
+# memory; the kernel takes the offsets and checks them.
 TALKER_STEP_STAGES = 4
 TALKER_STEP_MAX_CHUNKS = 8
 TALKER_STEP_CHUNK_ROWS = 256
@@ -719,13 +727,15 @@ def _reduce_groups(nvt: int) -> int:
 
 def talker_step_plan(
     cfg, weight_kind: str, dtype: torch.dtype | None = None, sms: int = 132,
-    max_seq: int = TALKER_STREAM_MAX_SEQ,
+    max_seq: int = TALKER_STREAM_MAX_SEQ, normalised: bool = False,
 ) -> TalkerStepPlan:
     """The talker step kernel's launch plan for talker ``cfg`` (a talker or
     layer-stack config) with ``weight_kind`` ("float32", "bfloat16" or
     "int8") projections, activations in ``dtype`` (default: the weights'
     type, bf16 for int8), caches of at most ``max_seq`` rows, on a card with
-    ``sms`` SMs.
+    ``sms`` SMs. ``normalised``: the plan of kernel 7 (the code predictor's
+    step, the same body in its normalised form), whose heads attend in one
+    chunk: at most ``TALKER_STEP_CHUNK_ROWS`` cache rows.
 
     Each projection's columns go to as many blocks as the card has SMs: a
     block owns ``nv`` vectors of 16 weight bytes (of each half), the fewest
@@ -757,7 +767,7 @@ def talker_step_plan(
     w_vec = {"float32": 4, "bfloat16": 8, "int8": 16}[weight_kind]
     if not (L >= 1 and 2 <= D <= TALKER_STEP_MAX_HEAD_DIM and D % t_vec == 0 and KV >= 1 and Hq % KV == 0
             and 1 <= Hq <= min(sms, TALKER_STEP_MAX_HEADS) and min(H, I) >= 1 and qd % H == 0 and I % H == 0
-            and max_seq >= 1):
+            and 1 <= max_seq <= (TALKER_STEP_CHUNK_ROWS if normalised else max_seq)):
         raise ValueError(f"talker_step_plan: the kernel does not take {sc} with {max_seq} cache rows")
     shapes = {"qkv": (H, nqkv, 1, H), "o": (qd, H, 1, H), "gate_up": (H, 2 * I, 2, H), "down": (I, H, 1, H)}
     chosen = {}
@@ -848,11 +858,15 @@ class TalkerStepPack:
     pack of their own.
     """
 
+    normalised = False  # kernel 3's form (CpStepPack: kernel 7's)
+
     def __init__(self, layers: dict, cfg, dtype: torch.dtype, dev: torch.device | str,
                  max_seq: int = TALKER_STREAM_MAX_SEQ):
+        op = "streamed_decode_step" if self.normalised else "talker_step"
         dev = torch.device(dev)
         if dev.type != "cuda" or dtype not in _DTYPES:
-            raise ValueError(f"TalkerStepPack: the kernel runs on CUDA in float32 or bfloat16, not {dtype} on {dev}")
+            raise ValueError(f"{type(self).__name__}: the kernel runs on CUDA in float32 or bfloat16, not {dtype} "
+                             f"on {dev}")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         leaves = _talker_leaves(layers)
@@ -861,20 +875,23 @@ class TalkerStepPack:
         qd, kvd = sc.num_heads * D, sc.num_kv_heads * D
         linears = {"qkv_proj": (L, H, qd + 2 * kvd), "o_proj": (L, qd, H), "gateup_proj": (L, H, 2 * I),
                    "down_proj": (L, I, H)}
-        quantized = _check_linears({n: (layers[n], shape) for n, shape in linears.items()}, dtype, dev, "talker_step")
+        quantized = _check_linears({n: (layers[n], shape) for n, shape in linears.items()}, dtype, dev, op)
+        if self.normalised and not quantized:
+            raise ValueError(f"{op}: the kernel takes int8 weights only")
         for name, shape in {"input_ln": (L, H), "post_ln": (L, H), "q_norm": (L, D), "k_norm": (L, D)}.items():
-            _check(layers[name], name, shape, dtype, dev, "talker_step")
+            _check(layers[name], name, shape, dtype, dev, op)
         if any(t is not None and t.data_ptr() % 16 for t in leaves):
-            raise ValueError("talker_step: every weight must be 16-byte aligned")
+            raise ValueError(f"{op}: every weight must be 16-byte aligned")
         kind = "int8" if quantized else {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
-        self.plan = talker_step_plan(sc, kind, dtype, min(quant._sm_count(dev), 132), max_seq)
+        self.plan = talker_step_plan(sc, kind, dtype, min(quant._sm_count(dev), 132), max_seq, self.normalised)
 
         lib = _kernel_lib()
         ints = self.plan.ints(sc, max_seq)
         self.ints = (ctypes.c_int * len(ints))(*ints)
         self.floats = (ctypes.c_float * 1)(sc.rms_norm_eps)
         self.scratch = torch.zeros(lib.q3_talker_step_scratch_floats(self.ints), dtype=torch.float32, device=dev)
-        self.rope = rope_tables(D, sc.rope_theta, max_seq, dev)
+        # Kernel 3 reads the pack's RoPE tables; kernel 7 the caller's.
+        self.rope = (None, None) if self.normalised else rope_tables(D, sc.rope_theta, max_seq, dev)
         qkv_w, qkv_s, o_w, o_s, gu_w, gu_s, down_w, down_s, in_ln, post_ln, q_norm, k_norm = leaves
         ptrs = [qkv_w, o_w, gu_w, down_w, qkv_s, o_s, gu_s, down_s, in_ln, post_ln, q_norm, k_norm, *self.rope,
                 self.scratch]
@@ -882,7 +899,7 @@ class TalkerStepPack:
         self.maps = ctypes.create_string_buffer(lib.q3_talker_step_maps_bytes())
         err = lib.q3_talker_step_maps(_DTYPES[dtype], int(quantized), self.ints, self.ptrs, self.maps)
         if err != 0:
-            raise RuntimeError(f"talker_step: the weights' TMA descriptors were refused: CUDA error {err}")
+            raise RuntimeError(f"{op}: the weights' TMA descriptors were refused: CUDA error {err}")
         self.leaves = leaves
         self.key = (sc, dtype, dev)
         self.quantized = quantized
@@ -895,6 +912,69 @@ class TalkerStepPack:
         this config, dtype and device."""
         return self.key == (_layer_stack(cfg), dtype, dev) and all(
             a is b for a, b in zip(self.leaves, _talker_leaves(layers)))
+
+
+class CpStepPack(TalkerStepPack):
+    """Kernel 7's ``TalkerStepPack``: one fused int8 code-predictor layer
+    stack, checked and gathered once, with caches of up to ``max_seq`` rows
+    (at most ``TALKER_STEP_CHUNK_ROWS``), for ``streamed_decode_step`` (the
+    same body in its normalised form; the RoPE tables are the caller's).
+    Kept and handed down like a ``TalkerStepPack`` (``pipeline.Qwen3TTS``
+    builds one on the card when the code predictor takes the
+    "streamed_step" route)."""
+
+    normalised = True
+
+    def __init__(self, layers: dict, cfg, dtype: torch.dtype, dev: torch.device | str, max_seq: int = CP_MAX_SEQ):
+        super().__init__(layers, cfg, dtype, dev, max_seq)
+
+
+def _launch_step(
+    pack: TalkerStepPack, op: str, x: torch.Tensor, cfg, ck: torch.Tensor, cv: torch.Tensor, pos: int,
+    trace: bool, tables: tuple = (),
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """One launch of kernel 3, or of kernel 7 (a ``CpStepPack``, with the
+    caller's RoPE ``tables``), through ``pack`` after the checks they share:
+    the caches, pos, the pack's rows and stream, x."""
+    dev, dtype = x.device, x.dtype
+    sc = _layer_stack(cfg)
+    H, kvd, L = sc.hidden_size, sc.num_kv_heads * sc.head_dim, sc.num_layers
+    S = ck.shape[1] if ck.dim() == 3 else 0
+    for name, c in (("cache k", ck), ("cache v", cv)):
+        _check(c, name, (L, S, kvd), dtype, dev, op)
+        if c.data_ptr() % 16:
+            raise ValueError(f"{op}: {name} must be 16-byte aligned")
+    if not 0 <= pos < S:
+        raise ValueError(f"{op}: pos {pos} outside the {S}-row cache")
+    if S > pack.max_seq:
+        raise ValueError(f"{op}: a {S}-row cache; the pack takes at most {pack.max_seq} rows")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if pack.stream is None:
+        pack.stream = stream
+    elif stream != pack.stream:
+        raise RuntimeError(
+            f"{op}: the pack's steps run on stream {pack.stream:#x}, not {stream:#x}; "
+            "give each stream a pack of its own"
+        )
+    if x.numel() != H or not x.is_contiguous():
+        raise ValueError(f"{op}: x must be a contiguous {dtype} tensor of {H} values on {dev}; "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    y = torch.empty(H, dtype=dtype, device=dev)
+    stamps = None
+    if trace:
+        slots = pack.lib.q3_talker_step_trace_slots(pack.ints)
+        stamps = torch.zeros((pack.plan.grid, slots), dtype=torch.int64, device=dev)
+    args = (x.data_ptr(), y.data_ptr(), ck.data_ptr(), cv.data_ptr())
+    if pack.normalised:
+        err = pack.lib.q3_cp_step(_DTYPES[dtype], pack.ints, pack.floats, pack.ptrs, pack.maps, *args,
+                                  *(t.data_ptr() for t in tables), S, pos, _ptr(stamps), stream)
+    else:
+        err = pack.lib.q3_talker_step(_DTYPES[dtype], int(pack.quantized), pack.ints, pack.floats, pack.ptrs,
+                                      pack.maps, *args, S, pos, _ptr(stamps), stream)
+    if err != 0:
+        raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
+    y = y.reshape(1, 1, H)
+    return (y, stamps) if trace else y
 
 
 def talker_step(
@@ -923,45 +1003,13 @@ def talker_step(
     if dtype not in _DTYPES:
         raise ValueError(f"talker_step: unsupported dtype {dtype}")
     sc = _layer_stack(cfg)
-    H, kvd, L = sc.hidden_size, sc.num_kv_heads * sc.head_dim, sc.num_layers
-    S = ck.shape[1] if ck.dim() == 3 else 0
-    for name, c in (("cache k", ck), ("cache v", cv)):
-        _check(c, name, (L, S, kvd), dtype, dev, "talker_step")
-        if c.data_ptr() % 16:
-            raise ValueError(f"talker_step: {name} must be 16-byte aligned")
-    if not 0 <= pos < S:
-        raise ValueError(f"talker_step: pos {pos} outside the {S}-row cache")
     if pack is None:
-        pack = TalkerStepPack(layers, sc, dtype, dev, max_seq=S)
-    elif not pack.holds(layers, sc, dtype, dev):
+        pack = TalkerStepPack(layers, sc, dtype, dev, max_seq=ck.shape[1] if ck.dim() == 3 else 0)
+    elif pack.normalised or not pack.holds(layers, sc, dtype, dev):
         raise ValueError("talker_step: the pack was built for another tree, config, dtype or device")
-    if S > pack.max_seq:
-        raise ValueError(f"talker_step: a {S}-row cache; the pack takes at most {pack.max_seq} rows")
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if pack.stream is None:
-        pack.stream = stream
-    elif stream != pack.stream:
-        raise RuntimeError(
-            f"talker_step: the pack's steps run on stream {pack.stream:#x}, not {stream:#x}; "
-            "give each stream a pack of its own"
-        )
-    if x.numel() != H or not x.is_contiguous():
-        raise ValueError(f"talker_step: x must be a contiguous {dtype} tensor of {H} values on {dev}; "
-                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
-    y = torch.empty(H, dtype=dtype, device=dev)
-    stamps = None
-    if trace:
-        slots = pack.lib.q3_talker_step_trace_slots(pack.ints)
-        stamps = torch.zeros((pack.plan.grid, slots), dtype=torch.int64, device=dev)
-    err = pack.lib.q3_talker_step(
-        _DTYPES[dtype], int(pack.quantized), pack.ints, pack.floats, pack.ptrs, pack.maps,
-        x.data_ptr(), y.data_ptr(), ck.data_ptr(), cv.data_ptr(), S, pos, _ptr(stamps), stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"talker_step kernel launch failed: CUDA error {err}")
+    out = _launch_step(pack, "talker_step", x, sc, ck, cv, pos, trace)
     talker_step.launches += 1
-    y = y.reshape(1, 1, H)
-    return (y, stamps) if trace else y
+    return out
 
 
 talker_step.launches = 0  # steps the kernel ran, either form (CPU-plain calls are not counted)
@@ -1124,8 +1172,6 @@ def _step_lib():
         lib.q3_attention_step.argtypes = [i32] + [ptr] * 13 + [i32] * 6 + [ctypes.c_float, i32, ptr, ptr]
         lib.q3_mlp_step.restype = i32
         lib.q3_mlp_step.argtypes = [i32] + [ptr] * 6 + [i32, i32, ctypes.c_float, i32, ptr, ptr, ptr]
-        lib.q3_cp_step.restype = i32
-        lib.q3_cp_step.argtypes = [i32] + [ptr] * 17 + [i32] * 8 + [ctypes.c_float, ptr, ptr, ptr]
         lib._q3_step_bound = True
     return lib
 
@@ -1230,68 +1276,57 @@ def fused_mlp_step(x, layer, intermediate: int, eps: float, residual: bool = Tru
 fused_mlp_step.launches = 0  # kernel launches (CPU-plain calls are not counted)
 
 
-def streamed_decode_step(layers: dict, x, cfg, ck, cv, pos: int, cos_t, sin_t) -> torch.Tensor:
-    """Kernel 7: the CUDA kernel (``csrc/cp_step.cu``) on a CUDA tensor, the
-    plain version on a CPU tensor (as ``streamed_decode_step_plain``). The
-    kernel takes the canonical fused int8 tree, norms and caches in x's
-    dtype."""
+def streamed_decode_step(
+    layers: dict, x, cfg, ck, cv, pos: int, cos_t, sin_t, pack: CpStepPack | None = None, trace: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 7: the CUDA kernel on a CUDA tensor (one persistent launch,
+    ``csrc/talker_step.cu`` in its normalised form), the plain version on a
+    CPU tensor (arguments and result as ``streamed_decode_step_plain``);
+    with ``trace`` (the card only) also the kernel's phase stamps
+    (``talker_step_trace_phases`` reads them). The kernel takes the
+    canonical fused int8 tree, norms and caches in x's dtype, caches of at
+    most 256 rows (one attention chunk). ``pack``: the tree's
+    ``CpStepPack``; without one, the call builds a pack for itself (for this
+    cache's rows)."""
     op = "streamed_decode_step"
     if not _on_card(x, op):
         return streamed_decode_step_plain(layers, x, cfg, ck, cv, pos, cos_t, sin_t)
     dev, dt = x.device, x.dtype
-    H, D, I = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
-    hq, kv = cfg.num_heads, cfg.num_kv_heads
-    qd, kvd = hq * D, kv * D
-    L, S = ck.shape[0], ck.shape[1]
-    linears = {"qkv_proj": (L, H, qd + 2 * kvd), "o_proj": (L, qd, H), "gateup_proj": (L, H, 2 * I), "down_proj": (L, I, H)}
-    for name, shape in linears.items():
-        if not _check_linear(layers[name], name, shape, dt, dev, op):
-            raise ValueError(f"{op}: the kernel takes int8 weights only ({name} is plain)")
-    for name, shape in {"input_ln": (L, H), "post_ln": (L, H), "q_norm": (L, D), "k_norm": (L, D)}.items():
-        _check(layers[name], name, shape, dt, dev, op)
-    _check(ck, "cache k", (L, S, kvd), dt, dev, op)
-    _check(cv, "cache v", (L, S, kvd), dt, dev, op)
+    sc = _layer_stack(cfg)
+    D = sc.head_dim
     for name, t in (("cos_t", cos_t), ("sin_t", sin_t)):
         _check(t, name, (t.shape[0], D // 2), torch.float32, dev, op)
-    if not 0 <= pos < min(S, cos_t.shape[0], sin_t.shape[0]):
-        raise ValueError(f"{op}: pos {pos} outside the {S}-row cache or the RoPE tables")
-    xin = x.reshape(H).contiguous()
-    lib = _step_lib()
-    scratch = _scratch(lib, xin, hq, kv, D, I, S, op)
-    y = torch.empty(H, dtype=dt, device=dev)
-    err = lib.q3_cp_step(
-        _DTYPES[dt], xin.data_ptr(),
-        *[t.data_ptr() for name in _PROJS for t in (layers[name]["q8"], layers[name]["scale"])],
-        layers["input_ln"].data_ptr(), layers["post_ln"].data_ptr(),
-        layers["q_norm"].data_ptr(), layers["k_norm"].data_ptr(),
-        cos_t.data_ptr(), sin_t.data_ptr(), ck.data_ptr(), cv.data_ptr(),
-        L, H, hq, kv, D, I, S, pos, cfg.rms_norm_eps,
-        scratch.data_ptr(), y.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
+    if not 0 <= pos < min(cos_t.shape[0], sin_t.shape[0]):
+        raise ValueError(f"{op}: pos {pos} outside the RoPE tables")
+    if pack is None:
+        pack = CpStepPack(layers, sc, dt, dev, max_seq=ck.shape[1] if ck.dim() == 3 else 0)
+    elif not pack.normalised or not pack.holds(layers, sc, dt, dev):
+        raise ValueError(f"{op}: the pack was built for another tree, config, dtype or device, or for kernel 3")
+    out = _launch_step(pack, op, x, sc, ck, cv, pos, trace, (cos_t, sin_t))
     streamed_decode_step.launches += 1
-    return y.reshape(1, 1, H)
+    return out
 
 
 streamed_decode_step.launches = 0  # steps the kernel ran (CPU-plain calls are not counted)
 
 
 def run_fused_decode_step(
-    layers: dict, x, cfg, ck, cv, pos: int, cos_t, sin_t, streamed: bool, layer_views: list | None = None
+    layers: dict, x, cfg, ck, cv, pos: int, cos_t, sin_t, streamed: bool, layer_views: list | None = None,
+    step_pack: CpStepPack | None = None,
 ) -> torch.Tensor:
     """One decode step over all layers with the fused int8 kernels (the JAX
     ``run_fused_decode_step``; its stream pack becomes ``streamed``).
 
-    ``streamed=True``: the whole step is kernel 7 on the stacked ``layers``;
-    False: kernels 5 + 6 per layer, on ``layer_views`` (the per-layer views
-    ``nn.layer_params_at`` gives, which a caller looping over steps takes
-    once; taken here when None). x: [1, 1, H]; ck, cv: [L, S, KV*D] planes,
-    row ``pos`` written in place; cos_t/sin_t: [>= pos+1, D/2] f32. Returns
-    [1, 1, H].
+    ``streamed=True``: the whole step is kernel 7 on the stacked ``layers``
+    (through ``step_pack``, the tree's ``CpStepPack`` on the card; built per
+    call when None); False: kernels 5 + 6 per layer, on ``layer_views`` (the
+    per-layer views ``nn.layer_params_at`` gives, which a caller looping
+    over steps takes once; taken here when None). x: [1, 1, H]; ck, cv: [L,
+    S, KV*D] planes, row ``pos`` written in place; cos_t/sin_t: [>= pos+1,
+    D/2] f32. Returns [1, 1, H].
     """
     if streamed:
-        return streamed_decode_step(layers, x, cfg, ck, cv, pos, cos_t, sin_t)
+        return streamed_decode_step(layers, x, cfg, ck, cv, pos, cos_t, sin_t, step_pack)
     if layer_views is None:
         layer_views = [nn.layer_params_at(layers, l) for l in range(ck.shape[0])]
     h = x.reshape(1, cfg.hidden_size)

@@ -104,7 +104,8 @@ class Qwen3TTS:
     ``models/code_predictor``), the prefill and codec head the W8A16 matmul.
 
     On the card, a code predictor that takes the frame kernel gets its
-    ``fused_layer.CpFramePack`` here, and the fused talker its
+    ``fused_layer.CpFramePack`` here (one that takes kernel 7 per step its
+    ``fused_layer.CpStepPack``), and the fused talker its
     ``fused_layer.TalkerStepPack`` (each checked, packed and given its
     scratch once); every frame of this model uses them, on the stream of
     the first.
@@ -136,10 +137,14 @@ class Qwen3TTS:
         self.cp_params = cp_params
         self.compute_dtype = talker_params["norm"].dtype
         self.device = talker_params["norm"].device
-        self.cp_frame_pack = None
-        if on_card and cp.cp_route(cp_params, config.code_predictor) == "frame":
+        self.cp_frame_pack = self.cp_step_pack = None
+        route = cp.cp_route(cp_params, config.code_predictor) if on_card else None
+        if route == "frame":
             self.cp_frame_pack = fused_layer.CpFramePack(cp_params, config.code_predictor, self.compute_dtype,
                                                          self.device)
+        elif route == "streamed_step":
+            self.cp_step_pack = fused_layer.CpStepPack(cp_params["layers"], config.code_predictor.layer_stack(),
+                                                       self.compute_dtype, self.device)
         self.talker_step_pack = None
         layers, stack = talker_params["layers"], config.talker.layer_stack()
         if (on_card and fused_layer.has_stream_pack(layers, stack.hidden_size)
@@ -295,6 +300,7 @@ class Qwen3TTS:
             options.max_length,
             self.cp_frame_pack,
             self.talker_step_pack,
+            self.cp_step_pack,
         )
         return state.frames[: state.frame_idx].cpu().numpy()
 

@@ -126,7 +126,7 @@ def test_kernel_library_name_tracks_the_sources():
     assert path == build.library_path()
     assert path.parent == build.BUILD_DIR and path.suffix == ".so"
     assert {p.name for p in build.CSRC.glob("*.cu")} == {
-        "cp_frame.cu", "cp_step.cu", "fused_step.cu", "int8_matmul.cu", "residual_unit.cu", "talker_step.cu",
+        "cp_frame.cu", "fused_step.cu", "int8_matmul.cu", "residual_unit.cu", "talker_step.cu",
     }
 
 
@@ -667,3 +667,104 @@ def test_cuda_streamed_step_matches_plain(pos, dtype):
     if dtype == torch.float32:
         faulty = _bf16_residual_step(layers, x, ck0.clone(), cv0.clone(), pos, cos_t, sin_t)
         assert (faulty - want).abs().max().item() > tol * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_streamed_step_same_bits_in_one_launch(dtype):
+    """Kernel 7 through one pack: two steps on the same inputs give the same
+    bits, each in one launch and, where torch.profiler records the card,
+    one device kernel; a pack-free call (which packs for itself) gives them
+    too, and the cache rows other than pos stay as they were."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _cuda()
+    layers, x, ck0, cv0, cos_t, sin_t = _cp_step_inputs(dev, dtype, CP_STACK.num_layers, seed=3)
+    x = x.reshape(1, 1, -1)
+    pos = 11
+    pack = fused_layer.CpStepPack(layers, CP_STACK, dtype, dev)
+    ck, cv = ck0.clone(), cv0.clone()
+    first = fused_layer.streamed_decode_step(layers, x, CP_STACK, ck, cv, pos, cos_t, sin_t, pack)
+    torch.cuda.synchronize()
+    before = fused_layer.streamed_decode_step.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = fused_layer.streamed_decode_step(layers, x, CP_STACK, ck, cv, pos, cos_t, sin_t, pack)
+        torch.cuda.synchronize()
+    assert fused_layer.streamed_decode_step.launches == before + 1
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert not kernels or len(kernels) == 1, kernels
+    assert torch.equal(first, again)
+    ck2, cv2 = ck0.clone(), cv0.clone()
+    assert torch.equal(fused_layer.streamed_decode_step(layers, x, CP_STACK, ck2, cv2, pos, cos_t, sin_t), first)
+    assert torch.equal(ck2, ck) and torch.equal(cv2, cv)
+    others = torch.arange(fused_layer.CP_MAX_SEQ, device=dev) != pos
+    assert torch.equal(ck[:, others], ck0[:, others]) and torch.equal(cv[:, others], cv0[:, others])
+
+
+@pytest.mark.gpu
+def test_cuda_streamed_step_pack_keeps_to_its_tree_and_stream():
+    """A CpStepPack serves its own int8 tree on the stream of its first
+    step: another tree, kernel 3's pack of the same tree, plain weights, a
+    cache wider than the pack's (or than 256 rows) or another stream raise
+    before any launch; a pack of that stream's own gives the same bits."""
+    dev = _cuda()
+    layers, x, ck, cv, cos_t, sin_t = _cp_step_inputs(dev, torch.bfloat16, 2, seed=4)
+    st = replace(CP_STACK, num_layers=2)
+    x = x.reshape(1, 1, -1)
+    pack = fused_layer.CpStepPack(layers, st, torch.bfloat16, dev)
+    want = fused_layer.streamed_decode_step(layers, x, st, ck.clone(), cv.clone(), 5, cos_t, sin_t, pack)
+    before = fused_layer.streamed_decode_step.launches
+    other = dict(layers, o_proj={k: v.clone() for k, v in layers["o_proj"].items()})
+    with pytest.raises(ValueError, match="another tree"):
+        fused_layer.streamed_decode_step(other, x, st, ck.clone(), cv.clone(), 5, cos_t, sin_t, pack)
+    talker_pack = fused_layer.TalkerStepPack(layers, st, torch.bfloat16, dev, max_seq=fused_layer.CP_MAX_SEQ)
+    with pytest.raises(ValueError, match="kernel 3"):
+        fused_layer.streamed_decode_step(layers, x, st, ck.clone(), cv.clone(), 5, cos_t, sin_t, talker_pack)
+    with pytest.raises(ValueError, match="another tree"):
+        fused_layer.talker_step(layers, x, st, ck.clone(), cv.clone(), 5, pack)
+    plain = W.fuse_layer_params(W.init_layer_stack(
+        torch.Generator(device=dev).manual_seed(5), 2, st.hidden_size, st.intermediate_size, st.num_heads,
+        st.num_kv_heads, st.head_dim, torch.bfloat16))
+    with pytest.raises(ValueError, match="int8 weights only"):
+        fused_layer.streamed_decode_step(plain, x, st, ck.clone(), cv.clone(), 5, cos_t, sin_t)
+    # A pack takes caches up to its rows; a pack-free call packs for its
+    # cache, up to the one attention chunk of 256 rows.
+    wide = torch.zeros((2, 32, ck.shape[2]), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="at most 17 rows"):
+        fused_layer.streamed_decode_step(layers, x, st, wide, wide.clone(), 5, cos_t, sin_t, pack)
+    huge = torch.zeros((2, 257, ck.shape[2]), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="talker_step_plan"):
+        fused_layer.streamed_decode_step(layers, x, st, huge, huge.clone(), 5, cos_t, sin_t)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        with pytest.raises(RuntimeError, match="stream"):
+            fused_layer.streamed_decode_step(layers, x, st, ck.clone(), cv.clone(), 5, cos_t, sin_t, pack)
+        assert fused_layer.streamed_decode_step.launches == before
+        own = fused_layer.CpStepPack(layers, st, torch.bfloat16, dev)
+        got = fused_layer.streamed_decode_step(layers, x, st, ck.clone(), cv.clone(), 5, cos_t, sin_t, own)
+    torch.cuda.synchronize(dev)
+    assert fused_layer.streamed_decode_step.launches == before + 1 and torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_cuda_streamed_step_trace():
+    """A traced kernel-7 step gives the same bits in one launch, with every
+    block's phase stamps in order (5 phases a layer)."""
+    dev = _cuda()
+    layers, x, ck, cv, cos_t, sin_t = _cp_step_inputs(dev, torch.bfloat16, CP_STACK.num_layers, seed=6)
+    x = x.reshape(1, 1, -1)
+    pack = fused_layer.CpStepPack(layers, CP_STACK, torch.bfloat16, dev)
+    want = fused_layer.streamed_decode_step(layers, x, CP_STACK, ck.clone(), cv.clone(), 16, cos_t, sin_t, pack)
+    before = fused_layer.streamed_decode_step.launches
+    got, stamps = fused_layer.streamed_decode_step(layers, x, CP_STACK, ck.clone(), cv.clone(), 16, cos_t, sin_t,
+                                                   pack, trace=True)
+    assert fused_layer.streamed_decode_step.launches == before + 1 and torch.equal(got, want)
+    st = stamps.cpu().reshape(stamps.shape[0], -1, 4)
+    assert st.shape[1] == 5 * CP_STACK.num_layers
+    start, end, arrive, leave = st.unbind(-1)
+    assert (arrive > 0).all() and (arrive <= leave).all()
+    owns = start > 0
+    assert ((start <= end) & (end <= arrive))[owns].all() and (end[~owns] == 0).all()
+    phases = fused_layer.talker_step_trace_phases(stamps, CP_STACK)
+    assert phases["span"] > 0 and phases["attention"]["tiles"] > 0

@@ -56,8 +56,16 @@ def _shapes(cfg):
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_plan_streams_every_weight_once(name, kind, dtype, rows):
     cfg = CONFIGS[name]
-    sc = cfg.layer_stack()
     plan = fused_layer.talker_step_plan(cfg, kind, dtype, 132, rows)
+    check_plan(cfg, plan, kind, dtype, rows)
+    if name == "1.7B":
+        assert all(p.groups >= 120 for p in plan.projs.values()), plan.projs
+
+
+def check_plan(cfg, plan, kind: str, dtype, rows: int, normalised: bool = False) -> None:
+    """The rules of a step plan (kernel 3's, or kernel 7's ``normalised``
+    one, whose heads attend in one chunk) that the kernel also checks."""
+    sc = cfg.layer_stack()
     assert list(plan.projs) == list(fused_layer.TALKER_STEP_PROJS)
     assert sc.num_heads <= plan.grid <= 132
     assert plan.smem_bytes <= fused_layer.CP_FRAME_SMEM_LIMIT
@@ -68,7 +76,7 @@ def test_plan_streams_every_weight_once(name, kind, dtype, rows):
     assert at == sorted(at) and all(a % 128 == 0 for a in at[:-1])
     room = {region: (b - a) // 4 for region, a, b in zip(plan.regions, at[1:], at[2:])}
     room["cs"] //= 2  # two rows: a chunk's sums and the running total
-    chunks = min(fused_layer.TALKER_STEP_MAX_CHUNKS, plan.grid // sc.num_heads)
+    chunks = 1 if normalised else min(fused_layer.TALKER_STEP_MAX_CHUNKS, plan.grid // sc.num_heads)
     assert room["misc"] >= fused_layer.TALKER_STEP_MISC_FIXED + max(fused_layer.TALKER_STEP_CHUNK_ROWS,
                                                                      -(-rows // chunks))
     assert room["xs"] >= max(p.k for p in plan.projs.values())
@@ -78,8 +86,6 @@ def test_plan_streams_every_weight_once(name, kind, dtype, rows):
         assert (p.k, p.n, p.halves, p.chunk) == (k, n, halves, sc.hidden_size), proj
         assert p.vec * item == 16 and p.nv * p.halves <= 256 and p.nv * p.vec <= 256
         assert 1 <= p.groups <= plan.grid
-        if name == "1.7B":
-            assert p.groups >= 120, (proj, p)
         # Each column in exactly one group, each group a run of whole vectors
         # (gate and up: the same columns of both halves).
         owned = [c for g in range(p.groups) for c in p.columns(g)]
