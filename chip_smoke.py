@@ -26,7 +26,13 @@ Phases, each printing a line (any failure exits nonzero before the last):
      bits twice, a prefix bit-identical; timed per call from Python and by
      its device span (CUDA graph), beside the plain version and the library
      yardstick (cuDNN's dilated conv plus one matmul, no snakes), and the 9
-     calls' device span in one graph; then the seeded full-width vocoder of
+     calls' device span in one graph; then its stream entry
+     (``residual_unit_stream``) over a streaming session's first chunks (4
+     and 10 frames) and ``synthesize_with_voice``'s (64 and 64): the chunks
+     bit-equal to one batch call (a difference is held to 1e-5 * max|x|),
+     each against the plain version within 1e-5 * max|x|, each chunk size
+     timed beside the plain version, the library yardstick and the 3xTF32
+     bound; then the seeded full-width vocoder of
      ``qwen3_tts_tpu_torch/vocoder_fixture.py`` through ``decode_bucketed``
      on the card (kernel 2 launched 9 times) must give the JAX package's
      audio (the committed fixture) within 1e-5 and 1e-4 of max|audio|;
@@ -69,6 +75,8 @@ Phases, each printing a line (any failure exits nonzero before the last):
      trace printed; then the seeded 1.7B int8 code-predictor layers of
      ``qwen3_tts_tpu_torch/cp_fixture.py`` in f32 must give the JAX
      package's step outputs (the committed fixture) within STEP7_F32_TOL;
+     then kernel 7 at head_dim 256 (8 q / 4 KV heads, int8) in bf16 and
+     f32 under the same bars, timed;
   9. the per-step path at full width: the 1.7B int8 code predictor on 32
      random frames through ``_predict_acoustic_codes_fused``, kernel 7 per
      step and kernels 5 + 6 per layer, each held to the same route on the
@@ -96,11 +104,21 @@ Phases, each printing a line (any failure exits nonzero before the last):
      all four int8-path kernels must launch; then two 1.7B int8 models whose
      code predictor takes the per-step path (vocab 2047: kernel 7, its
      steps timed by CUDA events; intermediate 2816: kernels 5 + 6), the
-     same way;
- 11. a JSON line of the kernels (each with its launches on its main path,
-     its time, its plain version's, the card's bound for the same work and,
-     where one PyTorch call computes the same function, that call's time),
-     then the JSON result as the last line.
+     same way. After each of the bf16 and int8 staged runs, the same
+     utterance streamed (``synthesize_streaming``: 4 frames, then 10 a
+     chunk; TTFA, chunk times, RTF) and through ``synthesize_with_voice``
+     (``run_to_audio``, 64-frame chunks; wall time, RTF), each with the
+     launch counts reset just before it: kernel 2's stream entry 9 times a
+     chunk and its batch entry never, kernels 1 and 3 once a frame, the
+     streamed frames those of a staged session, the audio within
+     STREAM_SPREAD_FACTOR times the staged decode's own spread between
+     buckets 64 and 256 (read in the run) of the staged decode; and in
+     bf16 a 300-frame session whose buffers grow once (288 -> 544 cache
+     rows) token for token against one that holds 544 rows from the start;
+ 11. the script's wall time, a JSON line of the kernels (each with its
+     launches on its main path, its time, its plain version's, the card's
+     bound for the same work and, where one PyTorch call computes the same
+     function, that call's time), then the JSON result as the last line.
 """
 
 from __future__ import annotations
@@ -140,7 +158,7 @@ from qwen3_tts_tpu_torch.models.config import (  # noqa: E402
 )
 from qwen3_tts_tpu_torch.models.tokens import OUTPUT_SAMPLE_RATE, SAMPLES_PER_FRAME  # noqa: E402
 from qwen3_tts_tpu_torch.ops import fused_layer, nn, quant  # noqa: E402
-from qwen3_tts_tpu_torch.pipeline import Qwen3TTS, SynthesisOptions  # noqa: E402
+from qwen3_tts_tpu_torch.pipeline import DECODE_BUCKET, Qwen3TTS, SynthesisOptions  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 FRAMES = 125
@@ -181,6 +199,24 @@ LAYER_STEPS_INTER = 2816
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "tf32": 495e12}
 KERNEL_ROWS = []
+# A streaming session's chunks (frames): its first, then its steady size
+# (SynthesisOptions' first_chunk_frames, chunk_frames).
+STREAM_CHUNKS = (4, 10)
+# ``synthesize_with_voice``'s chunks (``run_to_audio``: DECODE_BUCKET frames).
+VOICE_CHUNKS = (DECODE_BUCKET, DECODE_BUCKET)
+# The streamed audio against the staged decode of the same frames: at most
+# this multiple of the staged decode's own spread between two bucket sizes
+# (64 and 256 frames), read in the same run. Both differences come from the
+# same source, matmuls over another number of rows (cuBLAS picks another
+# tiling, so f32 sums run in another order), and the random vocoder's
+# signal, which exceeds 1 before its clamp, scales them.
+STREAM_SPREAD_FACTOR = 2.0
+# Rows of kernel 2's units a frame at C = 384 / 192 / 96 (the vocoder's
+# upsampling before each of its last three blocks).
+UNIT_ROWS_PER_FRAME = {384: 160, 192: 640, 96: 1920}
+TEXT = "The quick brown fox jumps over the lazy dog near the river bank today."
+# A session that grows its buffers once (256 -> 512 frames).
+GROWN_FRAMES = 300
 
 
 def phase(name: str, msg: str) -> None:
@@ -884,6 +920,40 @@ def cp_step_device_kernels(form: str) -> list | None:
     return json.loads(next(line for line in out.splitlines() if line.startswith("{")))["device_kernels"]
 
 
+def step7_trials(layers: dict, stack, pack, dtype: torch.dtype, cos_t, sin_t, faulty: bool = False) -> dict:
+    """Kernel 7 through ``pack`` against its plain version at STEP_TRIALS
+    random (x, pos) on 17-row caches, each step twice: the largest output
+    and written-row errors relative to the plain version's scale, whether
+    every other row stayed bit-unchanged and both calls gave the same bits;
+    with ``faulty``, the least error of a step whose residual stream is
+    rounded to bf16. ``last`` holds the last trial's inputs and caches."""
+    rows, kvd, n_layers = fused_layer.CP_MAX_SEQ, stack.num_kv_heads * stack.head_dim, stack.num_layers
+    positions = [int(p) for p in np.random.default_rng(9).integers(2, rows, size=STEP_TRIALS)]
+    gen = torch.Generator(device=DEV).manual_seed(8)
+    r = {"err": 0.0, "abs": 0.0, "row_err": 0.0, "untouched": True, "faulty_err": math.inf, "same_bits": True}
+    for pos in positions:
+        x = torch.randn((1, 1, stack.hidden_size), generator=gen, device=DEV).to(dtype)
+        ck0 = live_cache(gen, (n_layers, rows, kvd), pos, dtype)
+        cv0 = live_cache(gen, (n_layers, rows, kvd), pos, dtype)
+        ck, cv, ckp, cvp = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
+        got = fused_layer.streamed_decode_step(layers, x, stack, ck, cv, pos, cos_t, sin_t, pack)
+        again = fused_layer.streamed_decode_step(layers, x, stack, ck0.clone(), cv0.clone(), pos, cos_t, sin_t, pack)
+        want = fused_layer.streamed_decode_step_plain(layers, x, stack, ckp, cvp, pos, cos_t, sin_t)
+        if faulty:
+            bad = bf16_residual_step(layers, x, stack, ck0.clone(), cv0.clone(), pos, cos_t, sin_t)
+            r["faulty_err"] = min(r["faulty_err"], rel_err(bad, want))
+        torch.cuda.synchronize()
+        r["same_bits"] &= same_bits(got, again)
+        r["err"] = max(r["err"], rel_err(got, want))
+        r["abs"] = max(r["abs"], (got.float() - want.float()).abs().max().item())
+        for c, c0, cp_ in ((ck, ck0, ckp), (cv, cv0, cvp)):
+            r["row_err"] = max(r["row_err"], rel_err(c[:, pos], cp_[:, pos]))
+            others = torch.arange(rows, device=DEV) != pos
+            r["untouched"] &= same_bits(c[:, others], c0[:, others])
+    r["last"] = (x, ck, cv, ck0, cv0, ckp, cvp, pos)
+    return r
+
+
 def kernel7() -> None:
     """Kernel 7 (one persistent launch a step, through the tree's
     ``CpStepPack``) against its plain version on the 1.7B int8 code
@@ -896,36 +966,15 @@ def kernel7() -> None:
     outputs (``kernel7_fixture``)."""
     cfg = config_for_variant("1.7B", "custom_voice").code_predictor
     stack = cfg.layer_stack()
-    rows, kvd, n_layers = fused_layer.CP_MAX_SEQ, stack.num_kv_heads * stack.head_dim, stack.num_layers
+    rows, n_layers = fused_layer.CP_MAX_SEQ, stack.num_layers
     cos_t, sin_t = fused_layer.rope_tables(stack.head_dim, stack.rope_theta, rows, DEV)
-    positions = [int(p) for p in np.random.default_rng(9).integers(2, rows, size=STEP_TRIALS)]
     res = {}
     for dtype, tol in ((torch.bfloat16, STEP_TOL[torch.bfloat16]), (torch.float32, STEP7_F32_TOL)):
         layers = quant.quantize_code_predictor_params(cp_params(cfg, dtype, seed=2))["layers"]
         pack = fused_layer.CpStepPack(layers, stack, dtype, DEV)
-        gen = torch.Generator(device=DEV).manual_seed(8)
-        r = res[dtype] = {"err": 0.0, "abs": 0.0, "row_err": 0.0, "untouched": True, "faulty_err": math.inf,
-                          "same_bits": True}
-        for pos in positions:
-            x = torch.randn((1, 1, stack.hidden_size), generator=gen, device=DEV).to(dtype)
-            ck0 = live_cache(gen, (n_layers, rows, kvd), pos, dtype)
-            cv0 = live_cache(gen, (n_layers, rows, kvd), pos, dtype)
-            ck, cv, ckp, cvp = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
-            got = fused_layer.streamed_decode_step(layers, x, stack, ck, cv, pos, cos_t, sin_t, pack)
-            again = fused_layer.streamed_decode_step(layers, x, stack, ck0.clone(), cv0.clone(), pos, cos_t, sin_t,
-                                                     pack)
-            want = fused_layer.streamed_decode_step_plain(layers, x, stack, ckp, cvp, pos, cos_t, sin_t)
-            if dtype == torch.float32:
-                faulty = bf16_residual_step(layers, x, stack, ck0.clone(), cv0.clone(), pos, cos_t, sin_t)
-                r["faulty_err"] = min(r["faulty_err"], rel_err(faulty, want))
-            torch.cuda.synchronize()
-            r["same_bits"] &= same_bits(got, again)
-            r["err"] = max(r["err"], rel_err(got, want))
-            r["abs"] = max(r["abs"], (got.float() - want.float()).abs().max().item())
-            for c, c0, cp_ in ((ck, ck0, ckp), (cv, cv0, cvp)):
-                r["row_err"] = max(r["row_err"], rel_err(c[:, pos], cp_[:, pos]))
-                others = torch.arange(rows, device=DEV) != pos
-                r["untouched"] &= same_bits(c[:, others], c0[:, others])
+        r = res[dtype] = step7_trials(layers, stack, pack, dtype, cos_t, sin_t, faulty=dtype == torch.float32)
+        x, ck, cv, ck0, cv0, ckp, cvp, pos = r.pop("last")
+        kvd = ck.shape[-1]
         r.update(kt.time_cp_step(fused_layer, layers, stack, x, ck, cv, pos, cos_t, sin_t))
         r["device_kernels"] = cp_step_device_kernels("bfloat16" if dtype == torch.bfloat16 else "float32")
         traced, stamps = fused_layer.streamed_decode_step(layers, x, stack, ck0.clone(), cv0.clone(), pos, cos_t,
@@ -971,6 +1020,44 @@ def kernel7() -> None:
         "f32_bf16_residual_rel_err": f32["faulty_err"], "f32_fixture_rel_err": fixture_err, "ms_f32": f32["ms"],
         "device_ms_f32": f32["device_ms"], "plain_ms_f32": f32["plain_ms"],
     })
+
+
+def kernel7_wide_head() -> None:
+    """Kernel 7 at head_dim 256: the 1.7B int8 code predictor with 8 q heads
+    of 256 over 4 KV heads and vocab 2047 (the JAX gates send it to the
+    per-step route), through its ``CpStepPack``, against its plain version
+    (``step7_trials``) in bf16 and f32 under phase 8's bars, and timed by
+    its device span (20 steps in a CUDA graph) at the last trial's pos."""
+    base = config_for_variant("1.7B", "custom_voice").code_predictor
+    cfg = replace(base, vocab_size=2047, head_dim=256, num_attention_heads=8, num_key_value_heads=4)
+    stack = cfg.layer_stack()
+    cos_t, sin_t = fused_layer.rope_tables(stack.head_dim, stack.rope_theta, fused_layer.CP_MAX_SEQ, DEV)
+    for dtype, tol in ((torch.bfloat16, STEP_TOL[torch.bfloat16]), (torch.float32, STEP7_F32_TOL)):
+        full = quant.quantize_code_predictor_params(cp_params(cfg, dtype, seed=2))
+        layers, route = full["layers"], cp.cp_route(full, cfg)
+        pack = fused_layer.CpStepPack(layers, stack, dtype, DEV)
+        r = step7_trials(layers, stack, pack, dtype, cos_t, sin_t)
+        x, ck, cv, _, _, ckp, cvp, pos = r.pop("last")
+        r.update(kt.time_cp_step(fused_layer, layers, stack, x, ck, cv, pos, cos_t, sin_t))
+        r["plain_ms"] = time_ms(
+            lambda: fused_layer.streamed_decode_step_plain(layers, x, stack, ckp, cvp, pos, cos_t, sin_t), iters=10)
+        proj = sum(layers[p]["q8"].numel() for p in ("qkv_proj", "o_proj", "gateup_proj", "down_proj"))
+        kvd = stack.num_kv_heads * stack.head_dim
+        r.update(bound(nbytes(layers) + 2 * nbytes(x) + stack.head_dim * 4
+                       + stack.num_layers * (pos + 1) * 2 * kvd * x.element_size(),
+                       2 * proj + stack.num_layers * 4 * (pos + 1) * stack.num_heads * stack.head_dim))
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        phase("kernel7", f"head_dim 256 (8 q / 4 KV heads, route {route}), int8, {name}, {STEP_TRIALS} trials: "
+              f"output max|err|/max|plain| {r['err']:.4e}, written rows {r['row_err']:.4e} (bar {tol}), other rows "
+              f"bit-unchanged {r['untouched']}, same bits twice {r['same_bits']}; device span {r['device_ms']:.4f} "
+              f"ms (20 steps in a CUDA graph), per call {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+        check(route == "streamed_step", f"kernel 7 head 256: code-predictor route {route}, want streamed_step")
+        check(r["same_bits"], f"kernel 7 head 256 {name}: two calls on the same inputs differ")
+        check(r["err"] <= tol, f"kernel 7 head 256 {name}: output error {r['err']:.4e} > {tol}")
+        check(r["row_err"] <= tol, f"kernel 7 head 256 {name}: written cache rows error {r['row_err']:.4e} > {tol}")
+        check(r["untouched"], f"kernel 7 head 256 {name}: a cache row other than pos changed")
+        del full, layers, pack
 
 
 def kernel7_fixture() -> float:
@@ -1115,8 +1202,7 @@ def _small_runs(
         if factor is not None:
             _nudge_int8_scales(model.talker_params, factor)
             _nudge_int8_scales(model.cp_params, factor)
-        started, uniforms = model._prefill_custom_voice("x", "ryan", "english", opts)
-        codes = model._generate(started, uniforms, opts)
+        codes = model._custom_voice_session("x", "ryan", "english", opts).run_to_completion()
         runs[name] = (codes, model.decode_codes(codes).samples)
     return runs
 
@@ -1226,6 +1312,7 @@ COUNTERS = {
     "talker_step": fused_layer.talker_step,
     "int8_matmul": quant.int8_matmul,
     "residual_unit": fused_blocks.residual_unit,
+    "residual_unit_stream": fused_blocks.residual_unit_stream,
     "fused_attention_step": fused_layer.fused_attention_step,
     "fused_mlp_step": fused_layer.fused_mlp_step,
     "streamed_decode_step": fused_layer.streamed_decode_step,
@@ -1236,8 +1323,9 @@ COUNTERS = {
 def timed_calls(module, name: str, kernel_call):
     """CUDA events around every call of ``module.name`` (which the path
     calls by that name) for which ``kernel_call(*args, **kwargs)`` holds:
-    kernel 2's residual units (``blocks.residual_unit`` of a unit that takes
-    the kernel), kernel 7's steps (``fused_layer.run_fused_decode_step`` on
+    kernel 2's residual units (``blocks.residual_unit``, or a stream's
+    ``vocoder._residual_unit_stream``, of a unit that takes the kernel),
+    kernel 7's steps (``fused_layer.run_fused_decode_step`` on
     the streamed route), to give a kernel's share of a run. Yields the list
     of (start, end) pairs."""
     spans = []
@@ -1260,7 +1348,7 @@ def timed_calls(module, name: str, kernel_call):
         setattr(module, name, routed)
 
 
-def _unit_takes_kernel(x, p, dilation) -> bool:
+def _unit_takes_kernel(x, *args) -> bool:
     return fused_blocks.residual_unit_should_fuse(x)
 
 
@@ -1274,8 +1362,8 @@ def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = (
     ``kernels`` must launch in it, kernels 1 and 3 (the code-predictor frame,
     the talker step) once a frame where they are among them, and none of
     ``absent``."""
-    opts = SynthesisOptions(max_length=FRAMES, min_new_tokens=FRAMES, seed=42, temperature=0.9)
-    text = "The quick brown fox jumps over the lazy dog near the river bank today."
+    opts = main_options()
+    text = TEXT
 
     warm, _ = model.synthesize_with_timing(text, "ryan", "english", opts)
     torch.cuda.synchronize()
@@ -1318,19 +1406,258 @@ def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = (
           f"wall {wall * 1e3:.1f} ms, RTF {rtf:.4f}, peak allocated {peak_mb:.0f} MiB, "
           f"launches {launches}, audio peak {float(abs(samples).max()):.3e}, "
           f"audio equal to the warm run's {repeatable}")
-    return launches
+    return launches, samples
+
+
+def main_options(frames: int = FRAMES) -> SynthesisOptions:
+    """The cells' options: ``frames`` frames forced, seed 42."""
+    return SynthesisOptions(max_length=frames, min_new_tokens=frames, seed=42, temperature=0.9)
+
+
+def staged_reference(model: Qwen3TTS, staged: np.ndarray) -> tuple[np.ndarray, float, float]:
+    """The frames of a staged session (``run_to_completion``, as
+    ``synthesize_with_timing`` runs it), the staged decode's own spread
+    between buckets 64 and 256 on them (``staged``: its audio at bucket 64,
+    from the timed staged run), and the bar for a streamed decode of the
+    same frames: ``STREAM_SPREAD_FACTOR`` times that spread (at least 1e-5
+    of max|audio|, kernel 2's bar, should the spread be 0)."""
+    ref = model._custom_voice_session(TEXT, "ryan", "english", main_options()).run_to_completion()
+    codes = model.codes_to_tensor(ref)
+    at256 = vocoder.decode_bucketed(model.vocoder_params, model.vocoder_config, codes, bucket=256)[0]
+    spread = float(np.abs(at256 - staged).max()) if at256.shape == staged.shape else math.inf
+    return ref, spread, max(STREAM_SPREAD_FACTOR * spread, 1e-5 * float(np.abs(staged).max()))
+
+
+def _audio_line(err: float, spread: float, bar: float) -> str:
+    return (f"max|audio - staged decode| {err:.3e} (bar {bar:.3e}: {STREAM_SPREAD_FACTOR:g} x the staged decode's "
+            f"spread {spread:.3e} between buckets 64 and 256, at least 1e-5 of max|audio|; err/bar {err / bar:.3f})")
+
+
+def stream_session(model: Qwen3TTS, label: str, staged: np.ndarray, ref: np.ndarray, spread: float, bar: float,
+                   kernels: tuple) -> dict:
+    """The same utterance as ``run_main_path``'s streamed: one warm session,
+    then one timed session pulled chunk by chunk (``synthesize_streaming``,
+    4 frames, then 10 a chunk) with every launch count set to 0 just before
+    it, read just after. Kernel 2's stream entry must launch 9 times a chunk
+    (its batch entry never), kernels 1 and 3 (where among ``kernels``) once
+    a frame; the frames must be those of a staged session (``ref``), and
+    the chunks put together the staged decode's audio (``staged``) within
+    ``bar`` (``staged_reference``). TTFA: from the call until the first
+    chunk's samples are on the host."""
+    opts = main_options()
+    list(model.synthesize_streaming(TEXT, "ryan", "english", opts))
+    torch.cuda.synchronize()
+    for k in COUNTERS.values():
+        k.launches = 0
+    with timed_calls(vocoder, "_residual_unit_stream", _unit_takes_kernel) as spans:
+        t0 = time.perf_counter()
+        session = model.synthesize_streaming(TEXT, "ryan", "english", opts)
+        chunks, at = [], []
+        for chunk in session:
+            at.append(time.perf_counter())
+            chunks.append(chunk.samples)
+    launches = {name: k.launches for name, k in COUNTERS.items()}
+    torch.cuda.synchronize()
+    k2_ms = sum(start.elapsed_time(end) for start, end in spans)
+    wall = at[-1] - t0
+    ttfa_ms = (at[0] - t0) * 1e3
+    chunk_ms = [(b - a) * 1e3 for a, b in zip(at, at[1:])]
+    sizes = [len(c) // SAMPLES_PER_FRAME for c in chunks]
+    frames = session.state.frames[: session.frames_generated].cpu().numpy()
+    audio = np.concatenate(chunks)
+    err = float(np.abs(audio - staged).max()) if audio.shape == staged.shape else math.inf
+    rtf = wall / (len(audio) / OUTPUT_SAMPLE_RATE)
+    phase("stream", f"{label} streaming session, {len(chunks)} chunks of {sizes} frames: TTFA {ttfa_ms:.2f} ms, "
+          f"chunks after the first {', '.join(f'{t:.2f}' for t in chunk_ms)} ms, wall {wall * 1e3:.1f} ms, RTF "
+          f"{rtf:.4f}; kernel 2's stream entry {launches['residual_unit_stream']} launches "
+          f"({launches['residual_unit_stream'] / len(chunks):.1f} a chunk) {k2_ms:.2f} ms by CUDA events; launches "
+          f"{launches}; frames equal to the staged session's {np.array_equal(frames, ref)}; "
+          f"{_audio_line(err, spread, bar)}, audio peak {float(np.abs(audio).max()):.3e}")
+    check(sum(sizes) == FRAMES and sizes[0] == STREAM_CHUNKS[0] and all(n == STREAM_CHUNKS[1] for n in sizes[1:-1]),
+          f"{label} stream: chunk sizes {sizes}")
+    check(launches["residual_unit_stream"] == 9 * len(chunks) == len(spans),
+          f"{label} stream: kernel 2's stream entry launched {launches['residual_unit_stream']} times in "
+          f"{len(chunks)} chunks, want 9 a chunk")
+    check(launches["residual_unit"] == 0, f"{label} stream: kernel 2's batch entry launched")
+    for name in ("cp_frame", "talker_step"):
+        check(name not in kernels or launches[name] == FRAMES,
+              f"{label} stream: kernel {name} launched {launches[name]} times, not once a frame")
+    check(np.array_equal(frames, ref), f"{label} stream: frames differ from the staged session's")
+    check(err <= bar, f"{label} stream: audio {err:.3e} from the staged decode (bar {bar:.3e})")
+    return {"launches": launches, "ttfa_ms": ttfa_ms, "chunk_ms": chunk_ms, "rtf": rtf, "k2_ms": k2_ms}
+
+
+def voice_session(model: Qwen3TTS, label: str, staged: np.ndarray, spread: float, bar: float,
+                  kernels: tuple) -> dict:
+    """``synthesize_with_voice``, the port's default entry point
+    (``run_to_audio``: chunks of ``DECODE_BUCKET`` frames on the streaming
+    vocoder), on the same utterance: one warm call, then one timed call
+    with every launch count set to 0 just before it, read just after.
+    Kernel 2's stream entry must launch 9 times a chunk (its batch entry
+    never), kernels 1 and 3 (where among ``kernels``) once a frame; the
+    audio must equal the warm call's bit for bit and the staged decode's
+    (``staged``) within ``bar``. Wall time (the call, audio on the host) and
+    RTF."""
+    opts = main_options()
+    warm = model.synthesize_with_voice(TEXT, "ryan", "english", opts).samples
+    torch.cuda.synchronize()
+    for k in COUNTERS.values():
+        k.launches = 0
+    with timed_calls(vocoder, "_residual_unit_stream", _unit_takes_kernel) as spans:
+        t0 = time.perf_counter()
+        audio = model.synthesize_with_voice(TEXT, "ryan", "english", opts).samples
+        wall = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in COUNTERS.items()}
+    torch.cuda.synchronize()
+    k2_ms = sum(start.elapsed_time(end) for start, end in spans)
+    chunks = -(-FRAMES // DECODE_BUCKET)
+    err = float(np.abs(audio - staged).max()) if audio.shape == staged.shape else math.inf
+    repeatable = audio.shape == warm.shape and bool((audio == warm).all())
+    rtf = wall / (len(audio) / OUTPUT_SAMPLE_RATE)
+    phase("voice", f"{label} synthesize_with_voice, {chunks} chunks of up to {DECODE_BUCKET} frames: wall "
+          f"{wall * 1e3:.1f} ms, RTF {rtf:.4f}; kernel 2's stream entry {launches['residual_unit_stream']} launches "
+          f"{k2_ms:.2f} ms by CUDA events; launches {launches}; audio equal to the warm call's {repeatable}; "
+          f"{_audio_line(err, spread, bar)}")
+    check(audio.shape == (FRAMES * SAMPLES_PER_FRAME,), f"{label} voice: audio shape {audio.shape}")
+    check(launches["residual_unit_stream"] == 9 * chunks == len(spans),
+          f"{label} voice: kernel 2's stream entry launched {launches['residual_unit_stream']} times in "
+          f"{chunks} chunks, want 9 a chunk")
+    check(launches["residual_unit"] == 0, f"{label} voice: kernel 2's batch entry launched")
+    for name in ("cp_frame", "talker_step"):
+        check(name not in kernels or launches[name] == FRAMES,
+              f"{label} voice: kernel {name} launched {launches[name]} times, not once a frame")
+    check(repeatable, f"{label} voice: the timed call's audio differs from the warm call's (same seed)")
+    check(err <= bar, f"{label} voice: audio {err:.3e} from the staged decode (bar {bar:.3e})")
+    return {"launches": launches, "wall_ms": wall * 1e3, "rtf": rtf}
+
+
+def grown_session(model: Qwen3TTS) -> None:
+    """A 300-frame session whose buffers grow once (256 -> 512 frames: the
+    talker cache 288 -> 544 rows, kernel 3 on both) against a session that
+    holds 512 frames from the start: token for token."""
+    import qwen3_tts_tpu_torch.pipeline as pipeline
+
+    opts = main_options(GROWN_FRAMES)
+    grown = model._custom_voice_session(TEXT, "ryan", "english", opts)
+    rows = [grown.state.cache.max_seq]
+    t0 = time.perf_counter()
+    got = grown.run_to_completion()
+    t_grown = time.perf_counter() - t0
+    rows.append(grown.state.cache.max_seq)
+    initial = pipeline.GROWTH_INITIAL_FRAMES
+    pipeline.GROWTH_INITIAL_FRAMES = 4096
+    try:
+        full = model._custom_voice_session(TEXT, "ryan", "english", opts)
+    finally:
+        pipeline.GROWTH_INITIAL_FRAMES = initial
+    full_rows = full.state.cache.max_seq
+    t0 = time.perf_counter()
+    want = full.run_to_completion()
+    t_full = time.perf_counter() - t0
+    same = got.shape == want.shape == (GROWN_FRAMES, 16) and bool((got == want).all())
+    phase("grow", f"1.7B bf16, {GROWN_FRAMES} frames: cache {rows[0]} -> {rows[1]} rows grown ({t_grown * 1e3:.1f} ms) "
+          f"against {full_rows} rows from the start ({t_full * 1e3:.1f} ms): token-exact {same}")
+    check(rows == [288, 544] and full_rows == 544, f"grown session: cache rows {rows}, full {full_rows}")
+    check(same, "grown session: frames differ from the full-size session's")
+
+
+def kernel2_stream() -> dict:
+    """Kernel 2's stream entry (``fused_blocks.residual_unit_stream``) at
+    C = 384 / 192 / 96 and dilations 1 / 3 / 9 over a streaming session's
+    first two chunks (4, then 10 frames) and over ``synthesize_with_voice``'s
+    first two (64 frames each): the chunks put together against one batch
+    call of kernel 2 on all rows (the JAX package's bar: the same bits; a
+    difference is reported and held to 1e-5 * max|x|), and each chunk
+    against the plain version within 1e-5 * max|x|; each chunk size timed
+    once a unit by its device span (CUDA graph), per call from Python,
+    beside the plain version and the library yardstick (cuDNN's dilated
+    conv plus one matmul) on the same rows, with the card's 3xTF32 bound
+    for a chunk's 9 units: the carry's rows read, only the chunk's rows
+    computed and written. Returns its row of the kernels line."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(4)
+    keys = ("device_ms", "ms", "plain_ms", "library_ms")
+    per_chunk = {f: dict.fromkeys(keys + ("bytes", "ops"), 0.0) for f in STREAM_CHUNKS + VOICE_CHUNKS}
+    worst_plain = worst_batch = 0.0
+    all_equal = True
+    for c, per in UNIT_ROWS_PER_FRAME.items():
+        for dil in kt.RU_DILATIONS:
+            p = kt.unit_params(gen, c)
+            for seq in (STREAM_CHUNKS, VOICE_CHUNKS):
+                x = torch.randn((1, sum(seq) * per, c), generator=gen, device=DEV)
+                batch = fused_blocks.residual_unit(x, p, dil)
+                carry = plain_carry = torch.zeros((1, 6 * dil, c), device=DEV)
+                outs, at, err, spans = [], 0, 0.0, []
+                for i, f in enumerate(seq):
+                    xc = x[:, at:at + f * per]
+                    y, new = fused_blocks.residual_unit_stream(xc, carry, p, dil)
+                    want, plain_carry = fused_blocks.residual_unit_stream_plain(xc, plain_carry, p, dil)
+                    err = max(err, (y - want).abs().max().item())
+                    if f not in seq[:i]:
+                        fn = lambda: fused_blocks.residual_unit_stream(xc, carry, p, dil)  # noqa: E731
+                        r = per_chunk[f]
+                        spans.append(kt.graph_ms([fn], 5))
+                        r["device_ms"] += spans[-1]
+                        r["ms"] += time_ms(fn, iters=5)
+                        r["plain_ms"] += time_ms(
+                            lambda: fused_blocks.residual_unit_stream_plain(xc, carry, p, dil), iters=3)
+                        r["library_ms"] += time_ms(kt.library_unit(xc, p, dil), iters=5)
+                        # [carry | chunk] read, the chunk's rows written, the weights; the
+                        # MACs of both convs for the chunk's rows.
+                        r["bytes"] += 4 * (carry.shape[1] + 2 * xc.shape[1]) * c + nbytes(p)
+                        r["ops"] += 2 * xc.shape[1] * c * c * 8
+                    outs.append(y)
+                    carry, at = new, at + f * per
+                got = torch.cat(outs, dim=1)
+                torch.cuda.synchronize()
+                equal = torch.equal(got, batch)
+                diff = (got - batch).abs().max().item()
+                tol = 1e-5 * x.abs().max().item()
+                phase("kernel2-stream", f"C={c} dilation={dil}, chunks of {seq} frames ({per} rows a frame): "
+                      f"bit-equal to one batch call {equal} (max|diff| {diff:.3e}), max|err| against the plain "
+                      f"version {err:.3e} (atol {tol:.3e}); device span a chunk size "
+                      f"{', '.join(f'{t:.4f}' for t in spans)} ms")
+                check(err <= tol, f"kernel 2 stream C={c} dilation={dil} {seq}: max|err| {err:.3e} > {tol:.3e}")
+                check(equal or diff <= tol,
+                      f"kernel 2 stream C={c} dilation={dil} {seq}: {diff:.3e} from the batch call")
+                all_equal &= equal
+                worst_plain, worst_batch = max(worst_plain, err), max(worst_batch, diff)
+                del x, batch, got, outs
+    bounds = {f: bound(r["bytes"], 3 * r["ops"], "tf32") for f, r in per_chunk.items()}
+    for f, r in per_chunk.items():
+        phase("kernel2-stream", f"a {f}-frame chunk's 9 units: device spans {r['device_ms']:.4f} ms, per call "
+              f"{r['ms']:.4f}, plain {r['plain_ms']:.4f}, library (conv1d + matmul, no snakes) "
+              f"{r['library_ms']:.4f}; 3xTF32 bound {bounds[f]['bound_ms']:.4f} ms ({bounds[f]['bound_by']})")
+    steady, voice = per_chunk[STREAM_CHUNKS[1]], per_chunk[VOICE_CHUNKS[0]]
+    return {
+        "name": "residual_unit_stream", "route": "cuda", "source": "qwen3_tts_tpu_torch/csrc/residual_unit.cu",
+        "replaces": "qwen3_tts_tpu/models/codec/fused_blocks.py:177", "launches": 0, "path": "stream_bf16",
+        "max_abs_err": worst_plain, "batch_max_abs_diff": worst_batch, "batch_bit_equal": all_equal,
+        "ms": steady["ms"], "device_ms": steady["device_ms"], "plain_ms": steady["plain_ms"],
+        **bounds[STREAM_CHUNKS[1]], "library_ms": steady["library_ms"],
+        "first_chunk_device_ms": per_chunk[STREAM_CHUNKS[0]]["device_ms"],
+        "voice_chunk_device_ms": voice["device_ms"], "voice_chunk_plain_ms": voice["plain_ms"],
+        "voice_chunk_library_ms": voice["library_ms"], "voice_chunk_bound_ms": bounds[VOICE_CHUNKS[0]]["bound_ms"],
+    }
 
 
 def main_path() -> dict:
     """The 1.7B main path in bf16 (the talker fused on the card: kernel 3 on
-    plain weights), then in int8 on the same synthetic trees."""
+    plain weights), then in int8 on the same synthetic trees: each staged,
+    streamed and through ``synthesize_with_voice``; the grown session in
+    bf16."""
     t0 = time.perf_counter()
     model = Qwen3TTS.from_random(config_for_variant("1.7B", "custom_voice"), seed=0, device=DEV)
     model.tokenizer = BenchTokenizer()
     torch.cuda.synchronize()
     phase("e2e", f"1.7B CustomVoice synthetic weights built in {time.perf_counter() - t0:.1f} s")
-    bf16 = run_main_path(model, "1.7B bf16", ("cp_frame", "talker_step", "residual_unit"),
-                         absent=("int8_matmul", "fused_attention_step", "fused_mlp_step", "streamed_decode_step"))
+    bf16, staged = run_main_path(model, "1.7B bf16", ("cp_frame", "talker_step", "residual_unit"),
+                                 absent=("int8_matmul", "fused_attention_step", "fused_mlp_step",
+                                         "streamed_decode_step"))
+    ref = staged_reference(model, staged)
+    stream_bf16 = stream_session(model, "1.7B bf16", staged, *ref, ("cp_frame", "talker_step"))
+    voice_bf16 = voice_session(model, "1.7B bf16", staged, *ref[1:], ("cp_frame", "talker_step"))
+    grown_session(model)
 
     t0 = time.perf_counter()
     m8 = Qwen3TTS(model.config, model.talker_params, model.cp_params, model.vocoder_params, model.tokenizer,
@@ -1339,10 +1666,14 @@ def main_path() -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     phase("e2e", f"1.7B int8 model quantized from the same trees in {time.perf_counter() - t0:.1f} s")
-    int8 = run_main_path(m8, "1.7B int8", ("cp_frame", "talker_step", "int8_matmul", "residual_unit"),
-                         absent=("fused_attention_step", "fused_mlp_step", "streamed_decode_step"))
+    int8, staged = run_main_path(m8, "1.7B int8", ("cp_frame", "talker_step", "int8_matmul", "residual_unit"),
+                                 absent=("fused_attention_step", "fused_mlp_step", "streamed_decode_step"))
+    ref = staged_reference(m8, staged)
+    stream_int8 = stream_session(m8, "1.7B int8", staged, *ref, ("cp_frame", "talker_step"))
+    voice_int8 = voice_session(m8, "1.7B int8", staged, *ref[1:], ("cp_frame", "talker_step"))
     del m8
-    runs = {"bf16": bf16, "int8": int8, **per_step_main_paths()}
+    runs = {"bf16": bf16, "int8": int8, "stream_bf16": stream_bf16["launches"], "stream_int8": stream_int8["launches"],
+            "voice_bf16": voice_bf16["launches"], "voice_int8": voice_int8["launches"], **per_step_main_paths()}
     return runs
 
 
@@ -1368,13 +1699,14 @@ def per_step_main_paths() -> dict:
         check(got == route, f"1.7B int8 {change}: code-predictor route {got}, want {route}")
         others = tuple(k for k in ("cp_frame", "fused_attention_step", "fused_mlp_step", "streamed_decode_step")
                        if k not in kernels)
-        runs[path] = run_main_path(model, f"1.7B int8 ({path})",
-                                   ("talker_step", "int8_matmul", "residual_unit") + kernels, absent=others)
+        runs[path], _ = run_main_path(model, f"1.7B int8 ({path})",
+                                      ("talker_step", "int8_matmul", "residual_unit") + kernels, absent=others)
         del model
     return runs
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     phase("card", "name, power limit:")
     kind = torch.cuda.get_device_name(0)
     print_card()
@@ -1383,11 +1715,13 @@ def main() -> None:
     phase("build", f"{path.name} in {time.perf_counter() - t0:.1f} s")
     kernel1()
     kernel2()
+    KERNEL_ROWS.append(kernel2_stream())
     vocoder_fixture_check()
     kernel3()
     kernel4()
     kernels5_6()
     kernel7()
+    kernel7_wide_head()
     per_step_path()
     small_model_agrees()
     for case in SMALL_INT8:
@@ -1395,7 +1729,9 @@ def main() -> None:
     launches = main_path()
     for row in KERNEL_ROWS:
         row["launches"] = launches[row["path"]][row["name"].removesuffix("_int8")]
-    check(len({row["replaces"] for row in KERNEL_ROWS}) == 7, "the kernels line must list the seven TPU kernels")
+    check(len({row["replaces"] for row in KERNEL_ROWS}) == 8,
+          "the kernels line must list the seven TPU kernels and kernel 2's stream entry")
+    phase("done", f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": KERNEL_ROWS}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
 

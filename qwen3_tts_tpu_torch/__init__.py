@@ -1,7 +1,7 @@
 """qwen3_tts_tpu_torch — the PyTorch/CUDA port of qwen3_tts_tpu.
 
 The CustomVoice main path (prompt -> talker prefill -> frame loop with the
-code predictor -> vocoder) in PyTorch, with the JAX package's Pallas
+code predictor -> vocoder), staged or streamed chunk by chunk, in PyTorch, with the JAX package's Pallas
 kernels on that path rewritten by hand in CUDA for Hopper (``csrc/``).
 This package imports neither JAX nor ``qwen3_tts_tpu``; the tests hold it
 against the JAX package.
@@ -25,7 +25,7 @@ from .models.config import (  # noqa: E402
     config_for_variant,
     parse_config_json,
 )
-from .pipeline import Qwen3TTS, SynthesisOptions, SynthesisTiming  # noqa: E402
+from .pipeline import Qwen3TTS, StreamingSession, SynthesisOptions, SynthesisTiming  # noqa: E402
 
 __all__ = [
     "AudioBuffer",
@@ -33,6 +33,7 @@ __all__ = [
     "ModelConfig",
     "ModelType",
     "Qwen3TTS",
+    "StreamingSession",
     "SynthesisOptions",
     "SynthesisTiming",
     "TalkerConfig",

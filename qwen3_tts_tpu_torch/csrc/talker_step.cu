@@ -88,7 +88,8 @@ namespace q3 {
 constexpr int kStepStages = 4;         // fused_layer.TALKER_STEP_STAGES
 constexpr int kStepMaxChunks = 8;      // attention chunks of a head, at most
 constexpr int kStepChunkRows = 256;    // cache rows of an attention chunk, at least (unless fewer are live)
-constexpr int kStepMaxHeadDim = 128;   // q and k of a head on the block's 256 threads
+constexpr int kStepMaxHeadDim = 128;   // kernel 3: q and k of a head on the block's 256 threads
+constexpr int kStepMaxHeadDimNorm = 256;  // the normalised form: an element of q and one of k a thread
 constexpr int kStepMaxHeads = 128;     // q heads the plan takes
 constexpr int kStepMiscFixed = 4096;   // misc floats before the chunk's scores (see talker_step_kernel)
 
@@ -165,6 +166,13 @@ __host__ __device__ inline int step_chunk_cap(const StepArgs& a) {
   return rows > kStepChunkRows ? rows : kStepChunkRows;
 }
 
+// The attention scratch's floats for q | k, rotated q and k, and v of the
+// form's widest head (its first region; 640 in kernel 3).
+template <bool kNorm>
+__host__ __device__ constexpr int step_head_floats() {
+  return 5 * (kNorm ? kStepMaxHeadDimNorm : kStepMaxHeadDim);
+}
+
 __host__ __device__ inline int step_misc_floats(const StepArgs& a) {
   return kStepMiscFixed + (step_chunk_cap(a) + 31) / 32 * 32;
 }
@@ -195,13 +203,14 @@ __host__ __device__ inline StepLayout step_layout(const StepArgs& a) {
 static bool step_pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
 // The plan against the dims and this file's constants (vec_t / vec_w:
-// columns of a vector of T and of W): the groups cover every column once,
-// the TMA boxes and ring tiles are legal and never cross a chunk, and each
-// shared-memory region holds what the kernel puts there.
-static bool step_ok(const StepArgs& a, int vec_t, int vec_w) {
+// columns of a vector of T and of W; max_d: the form's widest head): the
+// groups cover every column once, the TMA boxes and ring tiles are legal
+// and never cross a chunk, and each shared-memory region holds what the
+// kernel puts there.
+static bool step_ok(const StepArgs& a, int vec_t, int vec_w, int max_d) {
   const int D = a.head_dim;
   if (a.layers < 1 || a.hidden < 1 || a.inter < 1 || a.max_seq < 1) return false;
-  if (D < 2 || D > kStepMaxHeadDim || D % 2 || D % vec_t || a.kv_heads < 1 || a.heads % a.kv_heads) return false;
+  if (D < 2 || D > max_d || D % 2 || D % vec_t || a.kv_heads < 1 || a.heads % a.kv_heads) return false;
   if (a.heads > kStepMaxHeads || a.heads > a.grid || a.stage_bytes < 16 || a.stage_bytes % 128) return false;
   const long ring = (long)kStepStages * a.stage_bytes;
   const long at[] = {ring, a.smem_xs, a.smem_red, a.smem_cs, a.smem_misc, a.smem_bytes};
@@ -352,49 +361,68 @@ __device__ void step_gemv(StepRing<W>& ring, int j, const float* xs, float* red,
 // att_ml[h][c] = (m, l). Row pos comes from registers;
 // the head's first q head, in the last chunk, writes it to the cache. The
 // head's last chunk block to finish combines its chunks into attn[h].
-// misc (floats): [0, 256) normed q | k, [256, 384) rotated q, [384, 512)
-// rotated k, [512, 640) v, [640, 672) block_sum's, [672, 704)
-// block_sums' and the last-block flag, [2048, 4096) the value sums' row
-// lanes, [4096, ...) the chunk's scores, then weights.
+// misc (floats), W the form's widest head (step_head_floats): [0, 2W)
+// normed q | k, [2W, 3W) rotated q, [3W, 4W) rotated k, [4W, 5W) v, [5W,
+// 5W + 32) block_sum's, [5W + 32, 5W + 64) block_sums' and the last-block
+// flag, [2048, 4096) the value sums' row lanes, [4096, ...) the chunk's
+// scores, then weights.
 template <typename T, bool kNorm>
 __device__ void step_attention(const StepArgs& a, int l, int nch, const float* qkvg, float* att_acc, float* att_ml,
                                unsigned* att_cnt, float* attn, float* misc) {
   constexpr int VT = Vec<T>::n;  // columns of a 16-byte vector
+  constexpr int kW = step_head_floats<kNorm>() / 5, kE = 2 * kW / kFrameThreads;  // elements of q | k a thread
   using C = std::conditional_t<kNorm, __nv_bfloat16, T>;  // the type cos/sin round to
   const int D = a.head_dim, half = D / 2, group = a.heads / a.kv_heads, kvd = a.kv_heads * D, qd = a.heads * D;
   const int b = blockIdx.x, h = b / nch, c = b % nch, kvh = h / group, t = threadIdx.x, pos = a.pos;
-  float *vals = misc, *qrot = misc + 256, *kloc = misc + 384, *vloc = misc + 512, *buf = misc + 640;
-  float *bsum = misc + 672, *vred = misc + 2048, *sc = misc + kStepMiscFixed;
-  int* last = reinterpret_cast<int*>(misc + 700);
+  float *vals = misc, *qrot = misc + 2 * kW, *kloc = misc + 3 * kW, *vloc = misc + 4 * kW, *buf = misc + 5 * kW;
+  float *bsum = buf + 32, *vred = misc + 2048, *sc = misc + kStepMiscFixed;
+  int* last = reinterpret_cast<int*>(buf + 60);
   const size_t plane = (size_t)l * a.seq * kvd + (size_t)kvh * D;
   T* ck = static_cast<T*>(a.ck) + plane;
   T* cv = static_cast<T*>(a.cv) + plane;
   const int rows = pos + 1, cr = (rows + nch - 1) / nch, r0 = c * cr, n = max(min(r0 + cr, rows) - r0, 0);
   const int nvr = D / VT;  // 16-byte vectors of a row
 
-  // QK-norm of q (threads [0, D)) and k (threads [D, 2D)), then split-half RoPE.
-  const int which = t / D, d = t - which * D;
-  const bool qk = t < 2 * D;
-  const float x = qk ? __ldcg(qkvg + (which ? qd + kvh * D + d : h * D + d)) : 0.f;
-  float ss[2] = {qk && which == 0 ? x * x : 0.f, qk && which == 1 ? x * x : 0.f};
+  // QK-norm of q (elements [0, D) of q | k) and k ([D, 2D)), then
+  // split-half RoPE: element e on thread e % 256 (kE a thread: one in
+  // kernel 3, two in the normalised form, for its heads of up to 256).
+  float x[kE], ss[2];
+#pragma unroll
+  for (int r = 0; r < kE; ++r) {
+    const int e = t + r * kFrameThreads, which = e / D, d = e - which * D;
+    const bool qk = e < 2 * D;
+    x[r] = qk ? __ldcg(qkvg + (which ? qd + kvh * D + d : h * D + d)) : 0.f;
+    const float s0 = qk && which == 0 ? x[r] * x[r] : 0.f, s1 = qk && which == 1 ? x[r] * x[r] : 0.f;
+    ss[0] = r ? ss[0] + s0 : s0;
+    ss[1] = r ? ss[1] + s1 : s1;
+  }
   block_sums<2>(ss, bsum, bsum + 16);
-  if (qk) {
-    const T* w = static_cast<const T*>(which ? a.k_norm : a.q_norm) + (size_t)l * D;
-    const float inv = rsqrtf(__fadd_rn(__fmul_rn(ss[which], 1.f / D), a.eps));
-    vals[t] = round_to<T>(__fmul_rn(__fmul_rn(x, inv), to_float<T>(w[d])));
+#pragma unroll
+  for (int r = 0; r < kE; ++r) {
+    const int e = t + r * kFrameThreads, which = e / D, d = e - which * D;
+    if (e < 2 * D) {
+      const T* w = static_cast<const T*>(which ? a.k_norm : a.q_norm) + (size_t)l * D;
+      const float inv = rsqrtf(__fadd_rn(__fmul_rn(ss[which], 1.f / D), a.eps));
+      vals[e] = round_to<T>(__fmul_rn(__fmul_rn(x[r], inv), to_float<T>(w[d])));
+    }
   }
   if (t < D) vloc[t] = __ldcg(qkvg + qd + kvd + kvh * D + t);
   __syncthreads();
-  if (qk) {
-    const int f = d < half ? d : d - half;
-    const float cs = round_to<C>(a.cos_t[(size_t)pos * half + f]), sn = round_to<C>(a.sin_t[(size_t)pos * half + f]);
-    const float* xv = vals + which * D;
-    const float y = d < half ? sub_t<T>(mul_t<T>(xv[d], cs), mul_t<T>(xv[d + half], sn))
-                             : add_t<T>(mul_t<T>(xv[d], cs), mul_t<T>(xv[d - half], sn));
-    (which ? kloc : qrot)[d] = y;
-    if (which && h % group == 0 && c == nch - 1) {
-      ck[(size_t)pos * kvd + d] = from_float<T>(y);
-      cv[(size_t)pos * kvd + d] = from_float<T>(vloc[d]);
+#pragma unroll
+  for (int r = 0; r < kE; ++r) {
+    const int e = t + r * kFrameThreads, which = e / D, d = e - which * D;
+    if (e < 2 * D) {
+      const int f = d < half ? d : d - half;
+      const float cs = round_to<C>(a.cos_t[(size_t)pos * half + f]);
+      const float sn = round_to<C>(a.sin_t[(size_t)pos * half + f]);
+      const float* xv = vals + which * D;
+      const float y = d < half ? sub_t<T>(mul_t<T>(xv[d], cs), mul_t<T>(xv[d + half], sn))
+                               : add_t<T>(mul_t<T>(xv[d], cs), mul_t<T>(xv[d - half], sn));
+      (which ? kloc : qrot)[d] = y;
+      if (which && h % group == 0 && c == nch - 1) {
+        ck[(size_t)pos * kvd + d] = from_float<T>(y);
+        cv[(size_t)pos * kvd + d] = from_float<T>(vloc[d]);
+      }
     }
   }
   __syncthreads();
@@ -532,11 +560,12 @@ talker_step_kernel(const StepArgs a, const __grid_constant__ StepMaps maps) {
   float* cs = reinterpret_cast<float*>(smem + a.smem_cs);
   float* tot = cs + (a.smem_misc - a.smem_cs) / 8;  // the second row of the column sums
   float* misc = reinterpret_cast<float*>(smem + a.smem_misc);
-  // misc (floats): [0, 704) attention (step_attention), also [640, 672)
-  // stage_rmsnorm's sum; [712, 720) the ring's mbarriers; [2048, ...)
-  // attention again.
-  uint64_t* full = reinterpret_cast<uint64_t*>(misc + 712);
-  float* buf = misc + 640;
+  // misc (floats), B = step_head_floats: [0, B + 64) attention
+  // (step_attention), also [B, B + 32) stage_rmsnorm's sum; [B + 72, B +
+  // 80) the ring's mbarriers; [2048, ...) attention again.
+  constexpr int B = step_head_floats<kNorm>();
+  uint64_t* full = reinterpret_cast<uint64_t*>(misc + B + 72);
+  float* buf = misc + B;
   const StepLayout Lo = step_layout(a);
   float* sc = a.scratch;
   unsigned long long* bar = reinterpret_cast<unsigned long long*>(sc + Lo.bar);
@@ -656,7 +685,8 @@ template <typename T, typename W, bool kNorm>
 static cudaError_t launch_step(const StepArgs& a, const StepMaps& maps, cudaStream_t st) {
   // The normalised form divides by the head's weight sum before the value
   // sum: every live row in one chunk.
-  if (!step_ok(a, Vec<T>::n, Vec<W>::n) || (kNorm && a.max_seq > kStepChunkRows)) return cudaErrorInvalidValue;
+  if (!step_ok(a, Vec<T>::n, Vec<W>::n, step_head_floats<kNorm>() / 5) || (kNorm && a.max_seq > kStepChunkRows))
+    return cudaErrorInvalidValue;
   static int smem_set = 0;  // the attribute, once per instantiation (never during a graph capture)
   if (a.smem_bytes > smem_set) {
     const cudaError_t e = cudaFuncSetAttribute(talker_step_kernel<T, W, kNorm>,

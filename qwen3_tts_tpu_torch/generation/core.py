@@ -12,6 +12,11 @@ PyTorch port of ``qwen3_tts_tpu/generation/core.py``. Per frame:
 The JAX loop is one ``while_loop`` with no host syncs. Here the frame index
 and cache position are host integers, all tensors stay on the device, and
 the loop reads ``done`` once per frame (the only device-to-host read).
+
+``generate_frames`` re-enters: a streaming session calls it chunk by chunk
+with a higher ``frame_limit``, on a frames buffer and a cache that may have
+grown (new tensors) between calls; the uniform drawn for frame i does not
+depend on the buffer's size.
 """
 
 from __future__ import annotations
@@ -86,7 +91,8 @@ def generate_frames(
     talker_step_pack=None,  # the talker's fused_layer.TalkerStepPack, on the card
     cp_step_pack=None,  # the code predictor's fused_layer.CpStepPack, on the card
 ) -> GenState:
-    """Advance the loop until EOS or ``frame_limit`` frames exist."""
+    """Advance the loop until EOS or ``frame_limit`` frames exist (at most
+    the frames buffer's rows); a state already done does not move."""
     suppression = sampling.build_suppression_mask(
         state.penalty_mask.shape[0], scfg.eos_token_id, state.penalty_mask.device
     )
@@ -94,7 +100,8 @@ def generate_frames(
     frame_limit = min(frame_limit, max_new)  # never run past the frames buffer
     tb = trailing.shape[0]
     # Whole-step kernel mode: take the cache's [L, S, KV*D] plane views once
-    # for the whole loop (views of the same memory, written in place).
+    # per call (views of the same memory, written in place; a grown cache
+    # is a new tensor).
     planes = talker.plane_views(state.cache) if talker.stream_plane_mode(talker_params, tcfg, state.cache) else None
 
     while state.frame_idx < frame_limit and not bool(state.done):

@@ -9,6 +9,12 @@ implicit GEMM on the tensor cores in 3xTF32) with the launch plan of
 taps form. Any other device raises. Rows do not depend on where the kernel
 tiles time, so a prefix of the input gives a bit-identical prefix of the
 output.
+
+``residual_unit_stream`` is the streaming entry (the port of the JAX
+package's ``residual_unit_stream``): the same kernel on the carried raw
+input rows in front of the chunk, the carried rows' outputs dropped; its
+plain version is ``residual_unit_stream_plain``. Each entry counts its own
+launches.
 """
 
 from __future__ import annotations
@@ -137,15 +143,12 @@ def _launch(x: torch.Tensor, p: dict, dilation: int, plan: ResidualUnitPlan) -> 
     return y
 
 
-def residual_unit(x: torch.Tensor, p: dict, dilation: int) -> torch.Tensor:
-    """The unit on x [B, T, C] f32: the CUDA kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
-    if x.device.type == "cpu":
-        return residual_unit_plain(x, p, dilation)
+def _check(x: torch.Tensor, p: dict, op: str) -> None:
+    """Raises unless x and the unit's weights are what the kernel takes."""
     if x.device.type != "cuda":
-        raise ValueError(f"residual_unit: no kernel for device {x.device}")
+        raise ValueError(f"{op}: no kernel for device {x.device}")
     if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
-        raise ValueError(f"residual_unit: x must be contiguous f32 [B, T, C]; got {x.dtype} {tuple(x.shape)}")
+        raise ValueError(f"{op}: x must be contiguous f32 [B, T, C]; got {x.dtype} {tuple(x.shape)}")
     c = x.shape[-1]
     shapes = {"conv1_w": (7, c, c), "conv2_w": (1, c, c)}
     for key in _PARAM_KEYS:
@@ -153,12 +156,53 @@ def residual_unit(x: torch.Tensor, p: dict, dilation: int) -> torch.Tensor:
         want = shapes.get(key, (c,))
         if w.device != x.device or w.dtype != torch.float32 or tuple(w.shape) != want or not w.is_contiguous():
             raise ValueError(
-                f"residual_unit: {key} must be contiguous f32 {want} on {x.device}; "
+                f"{op}: {key} must be contiguous f32 {want} on {x.device}; "
                 f"got {w.dtype} {tuple(w.shape)} on {w.device}"
             )
-    y = _launch(x, p, dilation, residual_unit_plan(c, dilation))
+
+
+def residual_unit(x: torch.Tensor, p: dict, dilation: int) -> torch.Tensor:
+    """The unit on x [B, T, C] f32: the CUDA kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    if x.device.type == "cpu":
+        return residual_unit_plain(x, p, dilation)
+    _check(x, p, "residual_unit")
+    y = _launch(x, p, dilation, residual_unit_plan(x.shape[-1], dilation))
     residual_unit.launches += 1
     return y
 
 
 residual_unit.launches = 0  # kernel launches (CPU-plain calls are not counted)
+
+
+def residual_unit_stream_plain(
+    x: torch.Tensor, ctx_rows: torch.Tensor, p: dict, dilation: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``residual_unit_stream``'s plain version: ``residual_unit_plain`` on
+    [carry | chunk], the carry's output rows dropped."""
+    ctx = ctx_rows.shape[1]
+    x_ext = torch.cat([ctx_rows, x], dim=1)
+    return residual_unit_plain(x_ext, p, dilation)[:, ctx:], x_ext[:, -ctx:]
+
+
+def residual_unit_stream(
+    x: torch.Tensor, ctx_rows: torch.Tensor, p: dict, dilation: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The streaming unit on a chunk x [B, T, C] f32 with ``ctx_rows`` [B,
+    6*dilation, C], the raw input rows of the chunks before it (zeros at
+    the start, as the batch unit's left padding): the kernel on [carry |
+    chunk] (its last tile cut short and masked), the first 6*dilation
+    output rows dropped. Returns (the chunk's output [B, T, C], the new
+    carry: the last 6*dilation rows of [carry | chunk]). The plain version
+    on a CPU tensor; a launch failure raises."""
+    if x.device.type == "cpu":
+        return residual_unit_stream_plain(x, ctx_rows, p, dilation)
+    _check(x, p, "residual_unit_stream")
+    x_ext = torch.cat([ctx_rows, x], dim=1)
+    ctx = ctx_rows.shape[1]
+    y = _launch(x_ext, p, dilation, residual_unit_plan(x.shape[-1], dilation))
+    residual_unit_stream.launches += 1
+    return y[:, ctx:], x_ext[:, -ctx:]
+
+
+residual_unit_stream.launches = 0  # kernel launches (CPU-plain calls are not counted)

@@ -1,8 +1,7 @@
 """Decoder12Hz vocoder: 16-codebook codec frames -> 24 kHz waveform.
 
-PyTorch port of the batch path of ``qwen3_tts_tpu/models/codec/vocoder.py``
-(the streaming decode comes later; the JAX package's streamed audio equals
-its batch decode sample for sample):
+PyTorch port of ``qwen3_tts_tpu/models/codec/vocoder.py``, the batch
+decode and the sample-exact streaming decode (``decode_stream_chunk``):
   1. RVQ de-embed: semantic codebook (codes mod 2048) and 15 summed acoustic
      codebooks, each projected 256 -> 512, then summed.
   2. Causal pre-conv k3 512 -> 1024, input_proj -> 512.
@@ -14,14 +13,17 @@ its batch decode sample for sample):
   6. Final SnakeBeta + conv k7 -> 1 channel, clamp to [-1, 1].
 
 2*2*8*5*4*3 = 1920 samples per 80 ms frame. Everything is causal, so
-right-padding the frame axis to a bucket and trimming is exact. f32
-throughout, at full matmul and conv precision (TF32 is off, see the
-package's ``__init__``).
+right-padding the frame axis to a bucket and trimming is exact, and a
+stream that carries each conv's left-context rows and the
+pre-transformer's KV cache across chunks gives the batch decode's samples
+(up to matmul-tiling ulps). f32 throughout, at full matmul and conv
+precision (TF32 is off, see the package's ``__init__``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -126,6 +128,215 @@ def decode_bucketed(params: dict, cfg: VocoderConfig, codes: np.ndarray, bucket:
     with torch.no_grad():
         wav = decode(params, cfg, torch.from_numpy(padded).to(dev))
     return wav[:, : t * cfg.total_upsample].cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Sample-exact streaming decode
+# ---------------------------------------------------------------------------
+#
+# Each conv carries the last ``ctx`` input rows it has seen (exactly its
+# causal pad width: zeros at the start, as the batch path's left padding),
+# and the pre-transformer a KV cache of every frame so far, so the chunks'
+# samples put together are the batch decode's, at the cost of a
+# chunk-local decode.
+
+
+def _conv_ctx_rows(k: int, dilation: int = 1) -> int:
+    return dilation * (k - 1)
+
+
+def _tconv_ctx_rows(k: int, stride: int) -> int:
+    # Polyphase taps m = 0..ceil(k/s)-1: output u consumes inputs u-m.
+    return -(-k // stride) - 1
+
+
+class VocoderStreamState(NamedTuple):
+    """Carried vocoder state of a chunked decode.
+
+    kv_k, kv_v: [L, B, maxT, H, D] pre-transformer KV cache (written in place).
+    conv:       nested dict of per-conv left-context rows (the last ``ctx``
+                input rows each conv has seen, at its own time resolution).
+    pos:        frames decoded so far.
+    """
+
+    kv_k: torch.Tensor
+    kv_v: torch.Tensor
+    conv: dict
+    pos: int
+
+
+def init_stream_state(
+    cfg: VocoderConfig, max_frames: int, batch: int = 1, *, device: torch.device | str
+) -> VocoderStreamState:
+    """A zeroed stream state on ``device`` for up to ``max_frames`` frames."""
+    kv_shape = (cfg.num_layers, batch, max_frames, cfg.num_heads, cfg.head_dim)
+
+    def rows(n, ch):
+        return torch.zeros((batch, n, ch), dtype=torch.float32, device=device)
+
+    conv: dict = {
+        "pre_conv": rows(_conv_ctx_rows(3), cfg.codebook_dim),
+        "upsample": [
+            {"up": rows(_tconv_ctx_rows(2 * r, r), cfg.latent_dim), "dw": rows(_conv_ctx_rows(7), cfg.latent_dim)}
+            for r in cfg.upsampling_ratios
+        ],
+        "init_conv": rows(_conv_ctx_rows(7), cfg.latent_dim),
+        "blocks": [],
+    }
+    ch = cfg.decoder_dim
+    for rate in cfg.upsample_rates:
+        out_ch = ch // 2
+        conv["blocks"].append({
+            "up": rows(_tconv_ctx_rows(2 * rate, rate), ch),
+            "res1": rows(_conv_ctx_rows(7, 1), out_ch),
+            "res2": rows(_conv_ctx_rows(7, 3), out_ch),
+            "res3": rows(_conv_ctx_rows(7, 9), out_ch),
+        })
+        ch = out_ch
+    conv["final"] = rows(_conv_ctx_rows(cfg.final_kernel), ch)
+    return VocoderStreamState(
+        kv_k=torch.zeros(kv_shape, dtype=torch.float32, device=device),
+        kv_v=torch.zeros(kv_shape, dtype=torch.float32, device=device),
+        conv=conv,
+        pos=0,
+    )
+
+
+def _conv_stream(x, state, kernel, bias, dilation: int = 1, groups: int = 1):
+    """Streaming causal conv: the carried ``ctx = d*(k-1)`` input rows in
+    front, convolve, drop their outputs; returns (this chunk's outputs, the
+    new carry)."""
+    ctx = state.shape[1]
+    if ctx == 0:
+        return blocks.causal_conv1d(x, kernel, bias, dilation, groups), state
+    x_ext = torch.cat([state, x], dim=1)
+    out = blocks.causal_conv1d(x_ext, kernel, bias, dilation, groups)[:, ctx:]
+    return out, x_ext[:, -ctx:]
+
+
+def _tconv_stream(x, state, kernel, bias, stride: int):
+    """Streaming causal transposed conv (polyphase): output row u*stride+r
+    consumes inputs u-m, m < ceil(k/s), so carrying those rows keeps the
+    chunk's outputs the batch computation's."""
+    ctx = state.shape[1]
+    if ctx == 0:
+        return blocks.causal_trans_conv1d(x, kernel, bias, stride), state
+    x_ext = torch.cat([state, x], dim=1)
+    out = blocks.causal_trans_conv1d(x_ext, kernel, bias, stride)[:, ctx * stride:]
+    return out, x_ext[:, -ctx:]
+
+
+def _convnext_stream(x, dw_state, p):
+    h, new_dw = _conv_stream(x, dw_state, p["dwconv_w"], p["dwconv_b"], groups=x.shape[-1])
+    h = blocks.layer_norm(h, p["norm_w"], p["norm_b"])
+    h = h @ p["pwconv1_w"] + p["pwconv1_b"]
+    h = F.gelu(h, approximate="none")
+    h = h @ p["pwconv2_w"] + p["pwconv2_b"]
+    return x + h * p["gamma"], new_dw
+
+
+def _residual_unit_stream(x, st, p, dilation: int):
+    """A residual unit of a chunk: units that take the fused kernel go to its
+    stream entry (the carry is the raw input tail: snake is pointwise and
+    snake(0) == 0, so it is equivalent to the post-snake carry below)."""
+    from . import fused_blocks
+
+    if fused_blocks.residual_unit_should_fuse(x):
+        return fused_blocks.residual_unit_stream(x, st, p, dilation)
+    h = blocks.snake_beta(x, p["act1_alpha"], p["act1_beta"])
+    h, new_st = _conv_stream(h, st, p["conv1_w"], p["conv1_b"], dilation=dilation)
+    h = blocks.snake_beta(h, p["act2_alpha"], p["act2_beta"])
+    h = blocks.causal_conv1d(h, p["conv2_w"], p["conv2_b"])  # k=1: no context
+    return x + h, new_st
+
+
+def _pre_transformer_cached(
+    params: dict,
+    cfg: VocoderConfig,
+    x: torch.Tensor,  # [B, S, hidden] new rows at absolute positions pos..pos+S
+    kv_k: torch.Tensor,  # [L, B, maxT, H, D], rows pos..pos+S written in place
+    kv_v: torch.Tensor,
+    pos: int,
+) -> torch.Tensor:
+    """``_pre_transformer`` with the K/V history read from (and appended to)
+    a cache: a query at position p scores every cache row, and rows past p
+    are masked to -1e30 (exact softmax zeros), so it sums the rows 0..p the
+    batch path sums."""
+    b, s, _ = x.shape
+    nh, d = cfg.num_heads, cfg.head_dim
+    max_t = kv_k.shape[2]
+    inv_freq = tnn.rope_inv_freq(d, cfg.rope_theta, device=x.device)
+    positions = pos + torch.arange(s, device=x.device)
+    cos, sin = tnn.rope_cos_sin(positions.float(), inv_freq)
+    mask = (torch.arange(max_t, device=x.device)[None, :] <= positions[:, None])[None, None, None]
+
+    h = x
+    for i in range(cfg.num_layers):
+        p = tnn.layer_params_at(params["layers"], i)
+        normed = tnn.rms_norm(h, p["input_ln"], cfg.rms_norm_eps)
+        q = tnn.apply_rope((normed @ p["q_proj"]).reshape(b, s, nh, d), cos, sin)
+        k = tnn.apply_rope((normed @ p["k_proj"]).reshape(b, s, nh, d), cos, sin)
+        v = (normed @ p["v_proj"]).reshape(b, s, nh, d)
+        kv_k[i, :, pos:pos + s] = k
+        kv_v[i, :, pos:pos + s] = v
+        attn = tnn.gqa_attention(q, kv_k[i], kv_v[i], mask, 1.0 / d**0.5)
+        h = h + (attn.reshape(b, s, nh * d) @ p["o_proj"]) * p["attn_scale"]
+        normed = tnn.rms_norm(h, p["post_ln"], cfg.rms_norm_eps)
+        mlp = (F.silu(normed @ p["gate_proj"]) * (normed @ p["up_proj"])) @ p["down_proj"]
+        h = h + mlp * p["mlp_scale"]
+    return h
+
+
+@torch.no_grad()
+def decode_stream_chunk(
+    params: dict,
+    cfg: VocoderConfig,
+    state: VocoderStreamState,
+    codes: torch.Tensor,  # [B, 16, S] the next S frames
+) -> tuple[torch.Tensor, VocoderStreamState]:
+    """Decode the next chunk of frames, carrying exact causal context.
+
+    Returns ([B, S * total_upsample] f32 audio, the updated state; its KV
+    cache is the given one, written in place). The audio equals the
+    matching slice of the batch ``decode`` of all frames fed so far (up to
+    matmul-tiling ulps), at the cost of a chunk-local decode.
+    """
+    s = codes.shape[-1]
+    if state.pos + s > state.kv_k.shape[2]:
+        # A chunk that runs past the KV cache (a stream's last chunk, padded
+        # with zero-code rows): room for it, so that its rows land at their
+        # own positions (the JAX package's in-place update clamps them back).
+        pad = state.kv_k.new_zeros(state.kv_k.shape[:2] + (state.pos + s - state.kv_k.shape[2],)
+                                   + state.kv_k.shape[3:])
+        state = state._replace(kv_k=torch.cat([state.kv_k, pad], 2), kv_v=torch.cat([state.kv_v, pad], 2))
+    cs = state.conv
+    new_cs: dict = {"upsample": [], "blocks": []}
+    q = rvq_deembed(params, cfg, codes).float()
+
+    h, new_cs["pre_conv"] = _conv_stream(q, cs["pre_conv"], params["pre_conv_w"], params["pre_conv_b"])
+    h = h @ params["input_proj_w"] + params["input_proj_b"]
+    h = _pre_transformer_cached(params, cfg, h, state.kv_k, state.kv_v, state.pos)
+    h = tnn.rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+    h = h @ params["output_proj_w"] + params["output_proj_b"]  # [B, S, latent]
+
+    for stage, st, ratio in zip(params["upsample"], cs["upsample"], cfg.upsampling_ratios):
+        h, new_up = _tconv_stream(h, st["up"], stage["up_w"], stage["up_b"], ratio)
+        h, new_dw = _convnext_stream(h, st["dw"], stage["convnext"])
+        new_cs["upsample"].append({"up": new_up, "dw": new_dw})
+
+    h, new_cs["init_conv"] = _conv_stream(h, cs["init_conv"], params["init_conv_w"], params["init_conv_b"])
+    for block, st, rate in zip(params["decoder_blocks"], cs["blocks"], cfg.upsample_rates):
+        hb = blocks.snake_beta(h, block["snake_alpha"], block["snake_beta"])
+        h, new_up = _tconv_stream(hb, st["up"], block["up_w"], block["up_b"], rate)
+        new_blk = {"up": new_up}
+        for key, dil in (("res1", 1), ("res2", 3), ("res3", 9)):
+            h, new_blk[key] = _residual_unit_stream(h, st[key], block[key], dil)
+        new_cs["blocks"].append(new_blk)
+
+    h = blocks.snake_beta(h, params["final_snake_alpha"], params["final_snake_beta"])
+    h, new_cs["final"] = _conv_stream(h, cs["final"], params["final_conv_w"], params["final_conv_b"])
+    wav = torch.clamp(h[..., 0], -1.0, 1.0)
+    return wav, VocoderStreamState(state.kv_k, state.kv_v, new_cs, state.pos + s)
 
 
 def init_vocoder_params(gen: torch.Generator, cfg: VocoderConfig = VocoderConfig()) -> dict:

@@ -654,13 +654,15 @@ def _layer_stack(cfg):
 
 # Kernel 3's constants (csrc/talker_step.cu, kernel 7's too): ring stages,
 # the attention chunks of a head (at most; rows each at least: the most rows
-# the normalised form takes), the widest head, the most q heads, the
-# attention scratch's fixed floats. The plan lays out the block's shared
-# memory; the kernel takes the offsets and checks them.
+# the normalised form takes), the widest head (kernel 3's; the normalised
+# form's), the most q heads, the attention scratch's fixed floats. The plan
+# lays out the block's shared memory; the kernel takes the offsets and
+# checks them.
 TALKER_STEP_STAGES = 4
 TALKER_STEP_MAX_CHUNKS = 8
 TALKER_STEP_CHUNK_ROWS = 256
 TALKER_STEP_MAX_HEAD_DIM = 128
+TALKER_STEP_NORM_MAX_HEAD_DIM = 256
 TALKER_STEP_MAX_HEADS = 128
 TALKER_STEP_MISC_FIXED = 4096
 # The projections in the order a layer runs them (the kernel's enum StepProj).
@@ -735,7 +737,8 @@ def talker_step_plan(
     type, bf16 for int8), caches of at most ``max_seq`` rows, on a card with
     ``sms`` SMs. ``normalised``: the plan of kernel 7 (the code predictor's
     step, the same body in its normalised form), whose heads attend in one
-    chunk: at most ``TALKER_STEP_CHUNK_ROWS`` cache rows.
+    chunk (at most ``TALKER_STEP_CHUNK_ROWS`` cache rows) and may be up to
+    256 wide (kernel 3's: 128).
 
     Each projection's columns go to as many blocks as the card has SMs: a
     block owns ``nv`` vectors of 16 weight bytes (of each half), the fewest
@@ -765,7 +768,8 @@ def talker_step_plan(
     qd, nqkv = Hq * D, (Hq + 2 * KV) * D
     t_vec = 4 if dtype == torch.float32 else 8
     w_vec = {"float32": 4, "bfloat16": 8, "int8": 16}[weight_kind]
-    if not (L >= 1 and 2 <= D <= TALKER_STEP_MAX_HEAD_DIM and D % t_vec == 0 and KV >= 1 and Hq % KV == 0
+    max_d = TALKER_STEP_NORM_MAX_HEAD_DIM if normalised else TALKER_STEP_MAX_HEAD_DIM
+    if not (L >= 1 and 2 <= D <= max_d and D % t_vec == 0 and KV >= 1 and Hq % KV == 0
             and 1 <= Hq <= min(sms, TALKER_STEP_MAX_HEADS) and min(H, I) >= 1 and qd % H == 0 and I % H == 0
             and 1 <= max_seq <= (TALKER_STEP_CHUNK_ROWS if normalised else max_seq)):
         raise ValueError(f"talker_step_plan: the kernel does not take {sc} with {max_seq} cache rows")

@@ -362,8 +362,7 @@ def test_tiny_int8_model_per_step_path_matches_jax():
     jopts, topts = JOptions(max_length=6, seed=42), SynthesisOptions(max_length=6, seed=42)
     want = jm._custom_voice_session(text, "ryan", "english", jopts).run_to_completion()
     jaudio = jm.decode_codes(want)
-    started, uniforms = tm._prefill_custom_voice(text, "ryan", "english", topts)
-    got = tm._generate(started, uniforms, topts)
+    got = tm._custom_voice_session(text, "ryan", "english", topts).run_to_completion()
     np.testing.assert_array_equal(got, want)
     taudio, timing = tm.synthesize_with_timing(text, "ryan", "english", topts)
     assert timing.generation_frames == len(want)

@@ -10,9 +10,8 @@ boxes dividing the H-wide chunks of o and down, shared memory within an
 H100 block's 232,448 bytes, the grid within 132 SMs; one attention chunk a
 head (at most 256 rows). Every code-predictor tree the JAX gates send to
 kernel 7 (the "streamed_step" route) at the published and the test widths
-gets a plan; the route table names the one limit the plan adds to the
-route's: a head wider than 128 (the earlier many-launch kernel took up
-to 256), with which no published or test configuration comes.
+gets a plan, a head of 256 too (the normalised form holds an element of
+q and one of k a thread; kernel 3 keeps its heads of at most 128).
 """
 
 from dataclasses import replace as dc_replace
@@ -80,27 +79,27 @@ def test_normalised_plan_holds_one_chunk():
 J_1P7B = j_config_for_variant("1.7B", "custom_voice").code_predictor
 J_0P6B = j_config_for_variant("0.6B", "custom_voice").code_predictor
 ROUTE_CASES = [
-    ("1.7B-odd-vocab", dc_replace(J_1P7B, vocab_size=2047), True),
-    ("1.7B-17-groups", dc_replace(J_1P7B, num_code_groups=17), True),
-    ("0.6B-odd-vocab", dc_replace(J_0P6B, vocab_size=2047), True),
-    ("0.6B-17-groups", dc_replace(J_0P6B, num_code_groups=17), True),
-    ("STREAM_CFG-odd-vocab", dc_replace(STREAM_CFG, vocab_size=127), True),
-    ("TINY_CP-odd-vocab", dc_replace(TINY_CP, vocab_size=127), True),
+    ("1.7B-odd-vocab", dc_replace(J_1P7B, vocab_size=2047)),
+    ("1.7B-17-groups", dc_replace(J_1P7B, num_code_groups=17)),
+    ("0.6B-odd-vocab", dc_replace(J_0P6B, vocab_size=2047)),
+    ("0.6B-17-groups", dc_replace(J_0P6B, num_code_groups=17)),
+    ("STREAM_CFG-odd-vocab", dc_replace(STREAM_CFG, vocab_size=127)),
+    ("TINY_CP-odd-vocab", dc_replace(TINY_CP, vocab_size=127)),
     ("small", dc_replace(STREAM_CFG, **{f: getattr(CP_SMALL, f) for f in (
         "hidden_size", "intermediate_size", "num_attention_heads", "num_key_value_heads", "head_dim",
-        "vocab_size")}), True),
-    # The limit: a head wider than 128 (more than half the block's threads).
+        "vocab_size")})),
+    # The widest head the normalised form takes (kernel 3's plan refuses it).
     ("head-dim-256", dc_replace(J_1P7B, vocab_size=2047, head_dim=256, num_attention_heads=8,
-                                num_key_value_heads=4), False),
+                                num_key_value_heads=4)),
 ]
 
 
-@pytest.mark.parametrize("name,jcfg,planned", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
-def test_every_streamed_step_tree_gets_a_plan(name, jcfg, planned):
+@pytest.mark.parametrize("name,jcfg", ROUTE_CASES, ids=[c[0] for c in ROUTE_CASES])
+def test_every_streamed_step_tree_gets_a_plan(name, jcfg):
     """The JAX gates send these int8 trees to kernel 7 (shapes only:
     ``jax.eval_shape``), and so does the port's ``cp_route``; the kernel's
-    plan takes each, in bf16 and f32, but the head of 256 (the port's
-    kernel 7 raises there on the card: no route changes)."""
+    plan takes each, in bf16 and f32, the head of 256 too, which kernel 3's
+    plan refuses."""
     import jax
 
     from qwen3_tts_tpu.ops import fused_layer as jfl
@@ -113,9 +112,8 @@ def test_every_streamed_step_tree_gets_a_plan(name, jcfg, planned):
     cfg = _port_cfg(jcfg)
     assert tcp.cp_route(_meta_tree(abstract), cfg) == "streamed_step"
     for dtype in DTYPES:
-        if planned:
-            plan = fused_layer.talker_step_plan(cfg.layer_stack(), "int8", dtype, 132, ROWS, normalised=True)
-            check_plan(cfg, plan, "int8", dtype, ROWS, normalised=True)
-        else:
+        plan = fused_layer.talker_step_plan(cfg.layer_stack(), "int8", dtype, 132, ROWS, normalised=True)
+        check_plan(cfg, plan, "int8", dtype, ROWS, normalised=True)
+        if stack.head_dim > fused_layer.TALKER_STEP_MAX_HEAD_DIM:
             with pytest.raises(ValueError, match="talker_step_plan: the kernel does not take"):
-                fused_layer.talker_step_plan(cfg.layer_stack(), "int8", dtype, 132, ROWS, normalised=True)
+                fused_layer.talker_step_plan(cfg.layer_stack(), "int8", dtype, 132, ROWS)

@@ -98,6 +98,8 @@ def test_wrappers_raise_on_devices_without_a_kernel():
     x = torch.zeros((1, 40, 16), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         fused_blocks.residual_unit(x, _unit_params("cpu", 16), 1)
+    with pytest.raises(ValueError, match="no kernel"):
+        fused_blocks.residual_unit_stream(x, torch.zeros((1, 6, 16), device="meta"), _unit_params("cpu", 16), 1)
     params8 = quant.quantize_code_predictor_params(params)
     with pytest.raises(ValueError, match="no kernel"):
         fused_layer.cp_frame(params8, CP_CFG, hidden.to("meta"), semantic.to("meta"))
@@ -454,6 +456,33 @@ def test_cuda_residual_unit_matches_plain(c, dilation):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * x.abs().max().item())
     short = fused_blocks.residual_unit(x[:, :613].contiguous(), p, dilation)
     assert torch.equal(short, got[:, :613])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dilation", [1, 3, 9])
+@pytest.mark.parametrize("c", [96, 384])
+def test_cuda_residual_unit_stream_matches_batch(c, dilation):
+    """Kernel 2's stream entry over chunks of 1, 4 and 10 frames' rows (and
+    one shorter than the carry), one launch a chunk: the chunks put together
+    bit-equal to one batch launch, each within 1e-5 * max|x| of the plain
+    version."""
+    dev = _cuda()
+    per = {96: 1920, 384: 160}[c]
+    p = _unit_params(dev, c, seed=dilation)
+    x = torch.randn((1, 15 * per + 5, c), generator=torch.Generator(device=dev).manual_seed(c), device=dev)
+    carry = plain_carry = torch.zeros((1, 6 * dilation, c), device=dev)
+    outs, at = [], 0
+    for rows in (per, 4 * per, 5, 10 * per):
+        xc = x[:, at:at + rows]
+        before = fused_blocks.residual_unit_stream.launches
+        y, carry = fused_blocks.residual_unit_stream(xc, carry, p, dilation)
+        assert fused_blocks.residual_unit_stream.launches == before + 1
+        want, plain_carry = fused_blocks.residual_unit_stream_plain(xc, plain_carry, p, dilation)
+        torch.testing.assert_close(y, want, rtol=0, atol=1e-5 * x.abs().max().item())
+        assert torch.equal(carry, plain_carry)
+        outs.append(y)
+        at += rows
+    assert torch.equal(torch.cat(outs, dim=1), fused_blocks.residual_unit(x, p, dilation))
 
 
 @pytest.mark.gpu

@@ -3,7 +3,8 @@
 ``tests/test_pipeline.tiny_model()`` goes to numpy and into the port
 (``Qwen3TTS.from_numpy``). With ``seed=42, temperature=0.9`` the frames must
 be token-exact and the audio within atol 1e-5; ``synthesize_with_voice``
-must give the same audio as ``synthesize_with_timing``. The one-frame step
+(the streaming vocoder) must give ``synthesize_with_timing``'s audio within
+atol 2e-6 and the JAX package's within 1e-5. The one-frame step
 that ``__graft_entry__.entry()`` builds is compared the same way at the
 tiny size. A model built on the CPU keeps its talker unfused (the layer
 path); handed a fused f32 talker, its decode steps take the whole-step
@@ -69,8 +70,7 @@ def test_synthesize_with_timing_matches_jax(models, max_length):
     topts = SynthesisOptions(max_length=max_length, seed=42, temperature=0.9)
 
     jframes = jm._custom_voice_session(TEXT, "ryan", "english", jopts).run_to_completion()
-    started, uniforms = tm._prefill_custom_voice(TEXT, "ryan", "english", topts)
-    tframes = tm._generate(started, uniforms, topts)
+    tframes = tm._custom_voice_session(TEXT, "ryan", "english", topts).run_to_completion()
     np.testing.assert_array_equal(tframes, jframes)
 
     jaudio, jtiming = jm.synthesize_with_timing(TEXT, "ryan", "english", jopts)
@@ -80,8 +80,14 @@ def test_synthesize_with_timing_matches_jax(models, max_length):
     np.testing.assert_allclose(taudio.samples, jaudio.samples, rtol=0, atol=1e-5)
     assert np.abs(taudio.samples - jaudio.samples).max() <= 1e-4 * np.abs(jaudio.samples).max()
 
+    # synthesize_with_voice decodes chunk by chunk on the streaming vocoder
+    # (run_to_audio): the staged decode's audio up to matmul-tiling ulps,
+    # the JAX package's bar for the same pair (tests/test_pipeline.py).
     voiced = tm.synthesize_with_voice(TEXT, "ryan", "english", topts)
-    np.testing.assert_array_equal(voiced.samples, taudio.samples)
+    assert voiced.samples.shape == taudio.samples.shape
+    np.testing.assert_allclose(voiced.samples, taudio.samples, rtol=0, atol=2e-6)
+    jvoiced = jm.synthesize_with_voice(TEXT, "ryan", "english", jopts)
+    np.testing.assert_allclose(voiced.samples, jvoiced.samples, rtol=0, atol=1e-5)
 
 
 def test_one_frame_step_matches_jax(models):
@@ -179,9 +185,9 @@ def test_fused_f32_talker_pipeline_matches_jax_plain_pack(monkeypatch):
     topts = SynthesisOptions(max_length=4, seed=42)
 
     want = jm._custom_voice_session(text, "ryan", "english", jopts).run_to_completion()
-    started, uniforms = tm._prefill_custom_voice(text, "ryan", "english", topts)
-    assert ttalker.stream_plane_mode(tm.talker_params, tm.config.talker, started[0].cache)
-    got = tm._generate(started, uniforms, topts)
+    session = tm._custom_voice_session(text, "ryan", "english", topts)
+    assert ttalker.stream_plane_mode(tm.talker_params, tm.config.talker, session.state.cache)
+    got = session.run_to_completion()
     assert got.shape == want.shape == (4, 16)
     np.testing.assert_array_equal(got, want)
 
@@ -221,9 +227,9 @@ def test_int8_pipeline_matches_jax(int8_models):
     topts = SynthesisOptions(max_length=6, seed=42)
 
     want = j_plain._custom_voice_session(text, "ryan", "english", jopts).run_to_completion()
-    started, uniforms = tm._prefill_custom_voice(text, "ryan", "english", topts)
-    assert ttalker.stream_plane_mode(tm.talker_params, tm.config.talker, started[0].cache)
-    got = tm._generate(started, uniforms, topts)
+    session = tm._custom_voice_session(text, "ryan", "english", topts)
+    assert ttalker.stream_plane_mode(tm.talker_params, tm.config.talker, session.state.cache)
+    got = session.run_to_completion()
     np.testing.assert_array_equal(got, want)
 
     jaudio, _ = j_plain.synthesize_with_timing(text, "ryan", "english", jopts)
