@@ -36,6 +36,12 @@ Phases, each printing a line (any failure exits nonzero before the last):
      ``qwen3_tts_tpu_torch/vocoder_fixture.py`` through ``decode_bucketed``
      on the card (kernel 2 launched 9 times) must give the JAX package's
      audio (the committed fixture) within 1e-5 and 1e-4 of max|audio|;
+     then the two encoders of voice cloning at full width (the speaker
+     encoder at enc_dim 2048, Mimi at its default config) on the seeded
+     weights and 3 s references of ``qwen3_tts_tpu_torch/encoder_fixture.py``
+     (24 kHz, and 16 kHz resampled on the host), in f32: x-vectors within
+     1e-5 of max|x| and codes equal to the JAX package's (the committed
+     fixture), each forward timed by CUDA events;
   5. kernel 3 (talker step, one persistent launch) against its plain
      version on the 1.7B talker in its three forms, each through the tree's
      pack, with caches of 160 and 2080 rows and 16 random (x, pos) each
@@ -115,6 +121,25 @@ Phases, each printing a line (any failure exits nonzero before the last):
      buckets 64 and 256 (read in the run) of the staged decode; and in
      bf16 a 300-frame session whose buffers grow once (288 -> 544 cache
      rows) token for token against one that holds 544 rows from the start;
+     then, after each of the bf16 and int8 models, the same trees as a Base
+     checkpoint with the phase-4 encoders and as a VoiceDesign checkpoint
+     (``clone_and_design``): ``create_voice_clone_prompt`` on the fixture's
+     24 kHz reference, an x-vector clone (10 prompt rows), an ICL clone
+     overlaid (73 rows) and sequential (105 rows), each whole and streamed,
+     and a voice-design synthesis (41 rows): prompt rows, prefill ms,
+     ms/frame, RTF; TTFA and chunk times streamed; launches with the counts
+     reset just before each (kernels 1 and 3 once a frame, kernel 2's stream
+     entry 9 times a vocoder call, the prefix's pieces included, kernel 4
+     in int8); the frames of the whole runs equal the staged sessions',
+     their audio and the streams' within ``STREAM_SPREAD_FACTOR`` x the
+     staged decode's spread; in bf16 one fused talker step past kernel 3's
+     gate (2656 cache rows) on the layer path against kernel 3 at 2624, and
+     kernel 2's stream entry on the ICL prefix's pieces (2, 4, 32 frames;
+     9 x 4 and 2), timed, then each unit against the plain version on the
+     same inputs within 1e-5 * max|x| and its carry equal, and each piece's
+     audio within 1e-5 of max|audio| of a stream on the plain units; in int8 kernel 4
+     at the clone and design prompts' rows (m = 41, 73, 105) beside
+     ``torch.matmul`` on the dequantized weight;
  11. the script's wall time, a JSON line of the kernels (each with its
      launches on its main path, its time, its plain version's, the card's
      bound for the same work and, where one PyTorch call computes the same
@@ -142,13 +167,17 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import qwen3_tts_tpu_torch  # noqa: E402,F401  (sets the TF32 switches)
-from qwen3_tts_tpu_torch import build, cp_fixture, talker_fixture, vocoder_fixture  # noqa: E402
+from qwen3_tts_tpu_torch import build, cp_fixture, encoder_fixture, talker_fixture, vocoder_fixture  # noqa: E402
+from qwen3_tts_tpu_torch.audio.io import AudioBuffer  # noqa: E402
+from qwen3_tts_tpu_torch.audio.resample import resample_to_24k  # noqa: E402
 from qwen3_tts_tpu_torch import kernel_timing as kt  # noqa: E402
 from qwen3_tts_tpu_torch.models import code_predictor as cp  # noqa: E402
-from qwen3_tts_tpu_torch.models import talker  # noqa: E402
+from qwen3_tts_tpu_torch.models import speaker, talker  # noqa: E402
 from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
 from qwen3_tts_tpu_torch.models.codec import blocks, fused_blocks  # noqa: E402
+from qwen3_tts_tpu_torch.models.codec import encoder as mimi_encoder  # noqa: E402
 from qwen3_tts_tpu_torch.models.codec import vocoder  # noqa: E402
+from qwen3_tts_tpu_torch.models.codec.encoder import Encoder12Hz  # noqa: E402
 from qwen3_tts_tpu_torch.models.config import (  # noqa: E402
     CodePredictorConfig,
     ModelConfig,
@@ -158,7 +187,10 @@ from qwen3_tts_tpu_torch.models.config import (  # noqa: E402
 )
 from qwen3_tts_tpu_torch.models.tokens import OUTPUT_SAMPLE_RATE, SAMPLES_PER_FRAME  # noqa: E402
 from qwen3_tts_tpu_torch.ops import fused_layer, nn, quant  # noqa: E402
-from qwen3_tts_tpu_torch.pipeline import DECODE_BUCKET, Qwen3TTS, SynthesisOptions  # noqa: E402
+from qwen3_tts_tpu_torch.models.speaker import SpeakerEncoder  # noqa: E402
+from qwen3_tts_tpu_torch.pipeline import (  # noqa: E402
+    DECODE_BUCKET, Qwen3TTS, SynthesisOptions, VoiceClonePrompt, prefix_piece_sizes)
+from qwen3_tts_tpu_torch.utils.bucketing import next_bucket  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 FRAMES = 125
@@ -1641,11 +1673,411 @@ def kernel2_stream() -> dict:
     }
 
 
-def main_path() -> dict:
+# Voice cloning and voice design (the encoders and the clone / design
+# sessions at 1.7B).
+CLONE_TEXT = "The reference speaker said these words."
+
+
+def encoders_check() -> tuple:
+    """The two encoders of voice cloning at full width (the speaker encoder
+    at the 1.7B Base checkpoint's enc_dim 2048, Mimi at its default
+    config), built on the card from ``encoder_fixture``'s seeded trees
+    through ``models.weights``' converters, in f32, on the fixture's two
+    references (24 kHz, and 16 kHz resampled on the host): the x-vectors
+    within 1e-5 of max|x| and the codes equal to the JAX package's (the
+    committed fixture; a differing code is reported with its distance
+    margin). Each encoder's device forward timed by CUDA events beside its
+    whole ``encode`` (the speaker encoder's mel is host numpy). Returns the
+    encoders."""
+    spk = SpeakerEncoder(W.speaker_encoder_from_numpy(encoder_fixture.speaker_numpy_params(
+        encoder_fixture.speaker_config()), DEV), encoder_fixture.speaker_config())
+    mimi = Encoder12Hz(W.mimi_encoder_from_numpy(encoder_fixture.mimi_numpy_params(encoder_fixture.mimi_config()),
+                                                 DEV), encoder_fixture.mimi_config())
+    want = encoder_fixture.load()
+    for rate in encoder_fixture.RATES:
+        audio = AudioBuffer(encoder_fixture.reference_audio(rate), rate)
+        if rate != OUTPUT_SAMPLE_RATE:
+            audio = resample_to_24k(audio)
+        xvec, codes = spk.encode(audio.samples), mimi.encode(audio.samples)
+        wx, wc = want[f"xvector_{rate}"], want[f"codes_{rate}"]
+        err = float(np.abs(xvec - wx).max())
+        tol = 1e-5 * float(np.abs(wx).max())
+        diff = np.argwhere(codes != wc) if codes.shape == wc.shape else np.zeros((0, 2), int)
+        margins = [float(want[f"margin_{rate}"][t, q]) for t, q in diff]
+        mel = torch.from_numpy(spk.mel.compute_for_speaker_encoder(audio.samples)).to(DEV)[None]
+        samples = torch.from_numpy(audio.samples).to(DEV)[None]
+        with torch.no_grad():
+            spk_ms = time_ms(lambda: speaker.forward(spk.params, spk.cfg, mel), iters=5)
+            mimi_ms = time_ms(lambda: mimi_encoder.forward(mimi.params, mimi.cfg, samples), iters=5)
+        t0 = time.perf_counter()
+        spk.encode(audio.samples)
+        spk_wall = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        mimi.encode(audio.samples)
+        mimi_wall = (time.perf_counter() - t0) * 1e3
+        phase("encoders", f"{rate} Hz reference ({len(audio.samples)} samples at 24 kHz): x-vector [{len(xvec)}] "
+              f"max|err| {err:.3e} (bar {tol:.3e}); codes {codes.shape}, {len(diff)} differ from the fixture "
+              f"(margins {margins}; least margin in the fixture {want[f'margin_{rate}'].min():.4f}); speaker "
+              f"encoder forward {spk_ms:.3f} ms on the card ({mel.shape[-1]} mel frames), encode {spk_wall:.1f} "
+              f"ms with the host mel; Mimi forward {mimi_ms:.3f} ms, encode {mimi_wall:.1f} ms")
+        check(xvec.shape == wx.shape and err <= tol, f"speaker encoder {rate} Hz: max|err| {err:.3e} > {tol:.3e}")
+        check(codes.shape == wc.shape and not len(diff),
+              f"Mimi encoder {rate} Hz: codes {codes.shape} differ at {diff.tolist()} (margins {margins})")
+    return spk, mimi
+
+
+def clone_options(**kw) -> SynthesisOptions:
+    """``main_options``, seed 42, every frame forced; ICL clamps its length
+    to max(75, 6 x text tokens) = 78 for the 13-token prompt."""
+    return replace(main_options(), **kw)
+
+
+def _decode_cut(model: Qwen3TTS, prefix: np.ndarray | None, frames: np.ndarray, bucket: int) -> np.ndarray:
+    """The batch decode of [prefix || frames] at ``bucket``, the prefix's
+    samples cut (the frames alone without a prefix)."""
+    codes = frames if prefix is None else np.concatenate([prefix, frames])
+    wav = vocoder.decode_bucketed(model.vocoder_params, model.vocoder_config, model.codes_to_tensor(codes),
+                                  bucket=bucket)[0]
+    return wav if prefix is None else wav[len(prefix) * SAMPLES_PER_FRAME:]
+
+
+def _reset_counts() -> None:
+    torch.cuda.synchronize()
+    for k in COUNTERS.values():
+        k.launches = 0
+
+
+def _counts() -> dict:
+    torch.cuda.synchronize()
+    return {name: k.launches for name, k in COUNTERS.items()}
+
+
+def _prefix_pieces(n: int, chunk: int) -> int:
+    """How many streaming-vocoder calls ``_feed_prefix`` makes for n frames."""
+    return n // chunk + bin(n % chunk).count("1")
+
+
+def clone_case(label: str, start, prefix: np.ndarray | None, prompt_rows: int, kernels: tuple) -> dict:
+    """One clone or design session kind, ``start(options)`` giving its
+    session (the prefix set where there is one): staged first (prefill ms,
+    ms/frame), then ``run_to_audio`` (what ``synthesize_voice_clone`` /
+    ``synthesize_voice_design`` run) with every launch count set to 0 just
+    before it, read just after: kernels 1 and 3 once a frame, kernel 2's
+    stream entry 9 times a vocoder call (the prefix's pieces and the
+    chunks), its batch entry never, kernel 4 (where among ``kernels``) in
+    the prefill and the codec head. The frames must be the staged ones, the
+    audio within ``STREAM_SPREAD_FACTOR`` x the staged decode's own spread
+    between buckets 64 and 256 of the staged decode of [prefix || frames]
+    with the prefix cut. Returns the frames, the audio and the bar."""
+    opts = clone_options()
+    t0 = time.perf_counter()
+    staged = start(opts)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    frames = staged.run_to_completion()
+    t2 = time.perf_counter()
+    n = len(frames)
+    ref64 = _decode_cut(staged.model, prefix, frames, 64)
+    ref256 = _decode_cut(staged.model, prefix, frames, 256)
+    spread = float(np.abs(ref64 - ref256).max())
+    bar = max(STREAM_SPREAD_FACTOR * spread, 1e-5 * float(np.abs(ref64).max()))
+    _reset_counts()
+    with timed_calls(vocoder, "_residual_unit_stream", _unit_takes_kernel) as spans:
+        t3 = time.perf_counter()
+        session = start(opts)
+        audio = session.run_to_audio().samples
+        wall = time.perf_counter() - t3
+    launches = _counts()
+    k2_ms = sum(a.elapsed_time(b) for a, b in spans)
+    got = session.state.frames[:session.frames_emitted].cpu().numpy()
+    calls = -(-n // DECODE_BUCKET) + (0 if prefix is None else _prefix_pieces(len(prefix), DECODE_BUCKET))
+    err = float(np.abs(audio - ref64).max()) if audio.shape == ref64.shape else math.inf
+    rtf = wall / (len(audio) / OUTPUT_SAMPLE_RATE)
+    phase("clone", f"{label}: {prompt_rows} prompt rows, prefill {(t1 - t0) * 1e3:.2f} ms, "
+          f"{(t2 - t1) * 1e3 / n:.3f} ms/frame over {n} frames; run_to_audio wall {wall * 1e3:.1f} ms, RTF "
+          f"{rtf:.4f}, kernel 2's stream entry {launches['residual_unit_stream']} launches in {calls} vocoder calls "
+          f"({k2_ms:.2f} ms by CUDA events); launches {launches}; frames equal to the staged session's "
+          f"{np.array_equal(got, frames)}; {_audio_line(err, spread, bar)}")
+    check(n > 0 and np.array_equal(got, frames), f"{label}: frames differ from the staged session's")
+    check(audio.shape == (n * SAMPLES_PER_FRAME,), f"{label}: audio shape {audio.shape}")
+    check(bool(np.isfinite(audio).all()), f"{label}: audio has non-finite samples")
+    for name in ("cp_frame", "talker_step"):
+        check(launches[name] == n, f"{label}: kernel {name} launched {launches[name]} times, not once a frame")
+    check(launches["residual_unit_stream"] == 9 * calls == len(spans) and launches["residual_unit"] == 0,
+          f"{label}: kernel 2's stream entry launched {launches['residual_unit_stream']} times, want 9 x {calls}")
+    check(("int8_matmul" in kernels) == (launches["int8_matmul"] > 0), f"{label}: kernel 4 launches {launches}")
+    check(err <= bar, f"{label}: audio {err:.3e} from the staged decode (bar {bar:.3e})")
+    return {"frames": frames, "audio": audio, "bar": bar, "spread": spread, "launches": launches,
+            "prefill_ms": (t1 - t0) * 1e3, "ms_per_frame": (t2 - t1) * 1e3 / n, "rtf": rtf}
+
+
+def clone_stream(label: str, start, prefix: np.ndarray, whole: dict) -> dict:
+    """The same ICL session streamed (``synthesize_voice_clone_streaming``:
+    the prefix fed in pieces of the first chunk's 4 frames, then 4, then 10
+    frames a chunk) with every launch count set to 0 just before it: TTFA
+    (the prefix feed included), chunk times, RTF; kernel 2's stream entry 9
+    times a vocoder call, kernels 1 and 3 once a frame; the frames those of
+    the whole synthesis and the chunks put together its audio within its
+    bar (``STREAM_SPREAD_FACTOR`` x the staged decode's spread)."""
+    opts = clone_options()
+    _reset_counts()
+    t0 = time.perf_counter()
+    session = start(opts)
+    chunks, at = [], []
+    for chunk in session:
+        at.append(time.perf_counter())
+        chunks.append(chunk.samples)
+    launches = _counts()
+    n = session.frames_generated
+    frames = session.state.frames[:n].cpu().numpy()
+    sizes = [len(c) // SAMPLES_PER_FRAME for c in chunks]
+    audio = np.concatenate(chunks)
+    calls = len(chunks) + _prefix_pieces(len(prefix), STREAM_CHUNKS[0])
+    err = float(np.abs(audio - whole["audio"]).max()) if audio.shape == whole["audio"].shape else math.inf
+    ttfa_ms = (at[0] - t0) * 1e3
+    chunk_ms = [(b - a) * 1e3 for a, b in zip(at, at[1:])]
+    rtf = (at[-1] - t0) / (len(audio) / OUTPUT_SAMPLE_RATE)
+    phase("clone-stream", f"{label} streamed, {len(chunks)} chunks of {sizes} frames after {len(prefix)} reference "
+          f"frames: TTFA {ttfa_ms:.2f} ms, chunks after the first {', '.join(f'{t:.2f}' for t in chunk_ms)} ms, "
+          f"RTF {rtf:.4f}; launches {launches} ({calls} vocoder calls); frames equal to the whole synthesis's "
+          f"{np.array_equal(frames, whole['frames'])}; max|stream - whole| {err:.3e} (bar {whole['bar']:.3e}, "
+          f"err/bar {err / whole['bar']:.3f})")
+    check(np.array_equal(frames, whole["frames"]), f"{label} stream: frames differ from the whole synthesis's")
+    check(sum(sizes) == n and sizes[0] == STREAM_CHUNKS[0], f"{label} stream: chunk sizes {sizes}")
+    for name in ("cp_frame", "talker_step"):
+        check(launches[name] == n, f"{label} stream: kernel {name} launched {launches[name]} times")
+    check(launches["residual_unit_stream"] == 9 * calls and launches["residual_unit"] == 0,
+          f"{label} stream: kernel 2's stream entry launched {launches['residual_unit_stream']} times, want 9 x {calls}")
+    check(err <= whole["bar"], f"{label} stream: audio {err:.3e} from the whole synthesis (bar {whole['bar']:.3e})")
+    return {"launches": launches, "ttfa_ms": ttfa_ms, "chunk_ms": chunk_ms, "rtf": rtf}
+
+
+def clone_and_design(model: Qwen3TTS, label: str, encoders: tuple, kernels: tuple) -> dict:
+    """The 1.7B trees of ``model`` as a Base checkpoint (with the fixture's
+    encoders) and as a VoiceDesign checkpoint: an x-vector clone, an ICL
+    clone (overlaid and sequential; whole and streamed) from the fixture's
+    3 s reference, and a voice-design synthesis, each by ``clone_case`` /
+    ``clone_stream``. Returns the kernel-4 rows of the prompts (m) seen."""
+    base = Qwen3TTS(replace(model.config, model_type=ModelType.BASE, speaker_encoder=encoders[0].cfg),
+                    model.talker_params, model.cp_params, model.vocoder_params, model.tokenizer, *encoders,
+                    vocoder_config=model.vocoder_config)
+    design = Qwen3TTS(replace(model.config, model_type=ModelType.VOICE_DESIGN), model.talker_params,
+                      model.cp_params, model.vocoder_params, model.tokenizer, vocoder_config=model.vocoder_config)
+    t0 = time.perf_counter()
+    icl = base.create_voice_clone_prompt(AudioBuffer(encoder_fixture.reference_audio(24000), 24000), CLONE_TEXT)
+    prompt_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(icl.ref_codes, encoder_fixture.load()["codes_24000"]),
+          f"{label}: create_voice_clone_prompt's codes differ from the fixture's")
+    xvec = VoiceClonePrompt(icl.speaker_embedding)
+    instruct = "A warm, low voice, speaking slowly."
+    ids, chatml = model.tokenizer.encode(TEXT), model.tokenizer.encode(f"<|im_start|>user\n{instruct}<|im_end|>\n")
+    t_ref, n_text = len(icl.ref_codes), len(icl.ref_text_ids) + len(ids) + 1
+    icl_rows = 9 + next_bucket(t_ref + 1, 32)
+    # The prompts' rows as the sessions pad them (the kernel-4 m of their prefill).
+    rows = {"x-vector": 10, "ICL": icl_rows, "ICL sequential": icl_rows + next_bucket(n_text, 32),
+            "voice design": next_bucket(len(chatml), 32) + 9}
+    phase("clone", f"{label}: create_voice_clone_prompt {prompt_ms:.1f} ms (3 s at 24 kHz: x-vector and "
+          f"{t_ref} frames of codes, equal to the fixture's)")
+    out = {"x-vector": clone_case(f"{label} x-vector clone", lambda o: base._voice_clone_session(TEXT, xvec, "english", o),
+                                  None, rows["x-vector"], kernels)}
+    for name, seq in (("ICL", False), ("ICL sequential", True)):
+        def start(o, seq=seq):
+            return base._voice_clone_session(TEXT, icl, "english", replace(o, icl_sequential=seq))
+        whole = clone_case(f"{label} {name} clone", start, icl.ref_codes, rows[name], kernels)
+        out[name] = whole
+        out[f"{name} streamed"] = clone_stream(f"{label} {name} clone", start, icl.ref_codes, whole)
+    out["voice design"] = clone_case(
+        f"{label} voice design",
+        lambda o: design._voice_design_session(TEXT, instruct, "english", o),
+        None, rows["voice design"], kernels)
+    del base, design
+    return {"rows": rows, "runs": out}
+
+
+@contextlib.contextmanager
+def _stream_units(route):
+    """The streaming vocoder's units that take kernel 2 through ``route(x,
+    carry, p, dilation)`` (the rest unchanged)."""
+    routed = vocoder._residual_unit_stream
+
+    def unit(x, st, p, dilation):
+        return route(x, st, p, dilation) if _unit_takes_kernel(x) else routed(x, st, p, dilation)
+
+    vocoder._residual_unit_stream = unit
+    try:
+        yield
+    finally:
+        vocoder._residual_unit_stream = routed
+
+
+def _feed_pieces(model: Qwen3TTS, prefix: torch.Tensor, sizes: list) -> list:
+    """The prefix fed to a fresh streaming-vocoder state in pieces of
+    ``sizes``; returns each piece's audio."""
+    state = vocoder.init_stream_state(model.vocoder_config, DECODE_BUCKET + len(prefix), device=DEV)
+    wavs, at = [], 0
+    for size in sizes:
+        wav, state = vocoder.decode_stream_chunk(model.vocoder_params, model.vocoder_config, state,
+                                                 prefix[at:at + size].T[None])
+        wavs.append(wav)
+        at += size
+    return wavs
+
+
+def prefix_pieces_timing(model: Qwen3TTS) -> dict:
+    """Kernel 2's stream entry on the ICL prefix's pieces: the fixture's
+    38 reference frames fed to a fresh streaming-vocoder state as
+    ``run_to_audio`` feeds them (2, 4, 32 frames) and as a stream with a
+    4-frame first chunk does (9 x 4, then 2; ``prefix_piece_sizes``), each
+    piece's decode and its 9 stream-entry units timed by CUDA events. Then
+    the same pieces again, each unit's kernel output held to the plain
+    version on the same inputs (within 1e-5 * max|x|, the carry equal) and
+    timed beside it, the library yardstick and the 3xTF32 bound, and each
+    piece's audio held to that of a stream on the plain units (within 1e-5
+    of max|audio|)."""
+    prefix = torch.from_numpy(encoder_fixture.load()["codes_24000"].astype(np.int64)).to(DEV)
+    out = {}
+    for chunk in (DECODE_BUCKET, STREAM_CHUNKS[0]):
+        sizes = prefix_piece_sizes(len(prefix), chunk)
+        state = vocoder.init_stream_state(model.vocoder_config, DECODE_BUCKET + len(prefix), device=DEV)
+        events, at = [], 0
+        with timed_calls(vocoder, "_residual_unit_stream", _unit_takes_kernel) as spans:
+            for size in sizes:
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                before = len(spans)
+                start.record()
+                _, state = vocoder.decode_stream_chunk(model.vocoder_params, model.vocoder_config, state,
+                                                       prefix[at:at + size].T[None])
+                end.record()
+                events.append((start, end, before))
+                at += size
+            torch.cuda.synchronize()
+            timed = [(s.elapsed_time(e), sum(a.elapsed_time(b) for a, b in spans[i:i + 9])) for s, e, i in events]
+        units = []  # every unit that takes kernel 2, in launch order
+
+        def held(x, st, p, dilation):
+            y, carry = fused_blocks.residual_unit_stream(x, st, p, dilation)
+            want, want_carry = fused_blocks.residual_unit_stream_plain(x, st, p, dilation)
+            c = x.shape[-1]
+            units.append({
+                "rows": x.shape[1], "err": (y - want).abs().max().item(), "tol": 1e-5 * x.abs().max().item(),
+                "carry_equal": torch.equal(carry, want_carry),
+                "plain_ms": time_ms(lambda: fused_blocks.residual_unit_stream_plain(x, st, p, dilation), iters=3),
+                "library_ms": time_ms(kt.library_unit(x, p, dilation), iters=3),
+                # [carry | piece] read, the piece's rows written, the weights;
+                # the MACs of both convs for the piece's rows.
+                "bytes": 4 * (st.shape[1] + 2 * x.shape[1]) * c + nbytes(p), "ops": 2 * x.shape[1] * c * c * 8})
+            return y, carry
+
+        with _stream_units(held):
+            got = _feed_pieces(model, prefix, sizes)
+        with _stream_units(fused_blocks.residual_unit_stream_plain):
+            want = _feed_pieces(model, prefix, sizes)
+        audio = [((g - w).abs().max().item(), 1e-5 * w.abs().max().item()) for g, w in zip(got, want)]
+        check(len(units) == 9 * len(sizes), f"prefix pieces of {chunk}: {len(units)} units took kernel 2")
+        rows = []
+        for i, (size, (call_ms, k2_ms)) in enumerate(zip(sizes, timed)):
+            group = units[9 * i:9 * i + 9]
+            rows.append({"frames": size, "call_ms": call_ms, "ms": k2_ms,
+                         "plain_ms": sum(u["plain_ms"] for u in group),
+                         "library_ms": sum(u["library_ms"] for u in group),
+                         **bound(sum(u["bytes"] for u in group), 3 * sum(u["ops"] for u in group), "tf32")})
+        worst = max(units, key=lambda u: u["err"] / u["tol"])
+        out[chunk] = {"pieces": rows, "max_abs_err": max(u["err"] for u in units),
+                      "audio_max_abs_err": max(e for e, _ in audio)}
+        phase("clone-prefix", f"the 38-frame prefix in pieces of up to {chunk}: " + "; ".join(
+            f"{r['frames']} frames {r['call_ms']:.2f} ms (kernel 2's 9 units {r['ms']:.2f}, plain "
+            f"{r['plain_ms']:.2f}, library {r['library_ms']:.2f}, 3xTF32 bound {r['bound_ms']:.4f})" for r in rows)
+            + f"; {len(units)} units against the plain version on the same inputs: worst max|err| "
+            f"{worst['err']:.3e} (bar {worst['tol']:.3e}, {worst['rows']} rows), carries equal "
+            f"{all(u['carry_equal'] for u in units)}; each piece's audio against a stream on the plain units: "
+            + ", ".join(f"{e:.3e} (bar {b:.3e})" for e, b in audio))
+        for u in units:
+            check(u["err"] <= u["tol"] and u["carry_equal"], f"prefix pieces of {chunk}: kernel 2's stream entry "
+                  f"on {u['rows']} rows: max|err| {u['err']:.3e} (bar {u['tol']:.3e}), carry equal {u['carry_equal']}")
+        for size, (err, tol) in zip(sizes, audio):
+            check(err <= tol, f"prefix pieces of {chunk}: a {size}-frame piece's audio {err:.3e} from the "
+                  f"plain units' (bar {tol:.3e})")
+    return out
+
+
+def kernel4_prompt_rows(ms: list) -> list:
+    """Kernel 4 at the prompts' rows (m) of the clone and design prefills,
+    at the 1.7B talker's four projection shapes: against its plain version
+    (one bf16 ulp of the output's scale), timed by ``kt.time_shape`` beside
+    ``torch.matmul`` on the dequantized weight, with the bound."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(12)
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    shapes = []
+    for m in ms:
+        for k, n in ((2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048)):
+            x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
+            w = quant.quantize_linear(torch.randn((k, n), generator=gen, device=DEV) * 0.02)
+            got = quant.int8_matmul(x, w["q8"], w["scale"])
+            want = quant.int8_matmul_plain(x, w["q8"], w["scale"])
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = want.float().abs().max().item() * 2.0**-7
+            times = kt.time_shape(quant, x, w)
+            b = bound(nbytes(x, w) + m * n * x.element_size(), 2 * m * k * n)
+            plan = quant.int8_matmul_plan(m, k, n, sms)
+            phase("kernel4-prompt", f"m={m} K={k} N={n} (tier {plan.tier}, {plan.splits} K splits): max|err| "
+                  f"{err:.4e} (bar {tol:.4e}); device span: kernel {times['device_ms']:.4f} ms, torch.matmul on the "
+                  f"dequantized weight {times['library_device_ms']:.4f} ms; per call: kernel {times['ms']:.4f}, "
+                  f"library {times['library_ms']:.4f}; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+            check(err <= tol, f"kernel 4 m={m} K={k} N={n}: max|err| {err:.4e} > {tol:.4e}")
+            shapes.append({"m": m, "k": k, "n": n, "tier": plan.tier, "max_abs_err": err, **times, **b})
+    return shapes
+
+
+def layer_path_past_gate(model: Qwen3TTS) -> None:
+    """Past kernel 3's gate (``TALKER_STREAM_MAX_SEQ`` rows: a long prompt
+    at 2048 frames) the fused tree's steps take the layer path: one bf16
+    step at a 2656-row cache, which must launch no kernel 3, against kernel
+    3 at a 2624-row cache of the same rows: hidden within HIDDEN_TOL of the
+    scale (the argmax reported: bf16 sums in another order can flip a
+    near-tie)."""
+    params, cfg = model.talker_params, model.config.talker
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(13)
+    pos = fused_layer.TALKER_STREAM_MAX_SEQ - 40
+    x = torch.randn((1, 1, cfg.hidden_size), generator=gen, device=DEV).to(model.compute_dtype)
+    big = nn.init_kv_cache(cfg.layer_stack(), 1, fused_layer.TALKER_STREAM_MAX_SEQ + 32, model.compute_dtype, DEV)
+    big.k[:, :, :pos] = torch.randn(big.k[:, :, :pos].shape, generator=gen, device=DEV).to(big.k.dtype)
+    big.v[:, :, :pos] = torch.randn(big.v[:, :, :pos].shape, generator=gen, device=DEV).to(big.v.dtype)
+    small = nn.KVCache(big.k[:, :, :fused_layer.TALKER_STREAM_MAX_SEQ].clone(),
+                       big.v[:, :, :fused_layer.TALKER_STREAM_MAX_SEQ].clone())
+    check(not talker.stream_plane_mode(params, cfg, big) and talker.stream_plane_mode(params, cfg, small),
+          "the gate: a 2656-row cache must take the layer path and a 2624-row one the kernel")
+    _reset_counts()
+    with torch.no_grad():
+        h_layer, logits_layer = talker.decode_step(params, cfg, x, pos, big)
+    layer_launches = _counts()["talker_step"]
+    with torch.no_grad():
+        h_kernel, logits_kernel = talker.decode_step_planes(params, cfg, x, pos, *talker.plane_views(small),
+                                                            model.talker_step_pack)
+    torch.cuda.synchronize()
+    err = rel_err(h_layer, h_kernel)
+    same = int(logits_layer.argmax()) == int(logits_kernel.argmax())
+    phase("gate", f"fused bf16 talker step at pos {pos}: layer path on {big.max_seq} rows (kernel 3 launched "
+          f"{layer_launches} times) against kernel 3 on {small.max_seq}: hidden {err:.3e} of the scale (bar "
+          f"{HIDDEN_TOL}), same argmax {same}")
+    check(layer_launches == 0, "the layer path past the gate launched kernel 3")
+    check(err <= HIDDEN_TOL, f"the layer path past the gate: hidden {err:.3e} of the scale > {HIDDEN_TOL}")
+
+
+def _row(name: str) -> dict:
+    return next(row for row in KERNEL_ROWS if row["name"] == name)
+
+
+def main_path(encoders: tuple) -> dict:
     """The 1.7B main path in bf16 (the talker fused on the card: kernel 3 on
     plain weights), then in int8 on the same synthetic trees: each staged,
     streamed and through ``synthesize_with_voice``; the grown session in
-    bf16."""
+    bf16. After each, the same trees cloning (with ``encoders``) and
+    designing a voice (``clone_and_design``); in bf16 the layer path past
+    kernel 3's gate and the ICL prefix's pieces on kernel 2's stream entry,
+    in int8 kernel 4 at the clone and design prompts' rows."""
     t0 = time.perf_counter()
     model = Qwen3TTS.from_random(config_for_variant("1.7B", "custom_voice"), seed=0, device=DEV)
     model.tokenizer = BenchTokenizer()
@@ -1658,6 +2090,9 @@ def main_path() -> dict:
     stream_bf16 = stream_session(model, "1.7B bf16", staged, *ref, ("cp_frame", "talker_step"))
     voice_bf16 = voice_session(model, "1.7B bf16", staged, *ref[1:], ("cp_frame", "talker_step"))
     grown_session(model)
+    clone_bf16 = clone_and_design(model, "1.7B bf16", encoders, ("cp_frame", "talker_step"))
+    layer_path_past_gate(model)
+    _row("residual_unit_stream")["prefix_pieces"] = prefix_pieces_timing(model)
 
     t0 = time.perf_counter()
     m8 = Qwen3TTS(model.config, model.talker_params, model.cp_params, model.vocoder_params, model.tokenizer,
@@ -1671,9 +2106,15 @@ def main_path() -> dict:
     ref = staged_reference(m8, staged)
     stream_int8 = stream_session(m8, "1.7B int8", staged, *ref, ("cp_frame", "talker_step"))
     voice_int8 = voice_session(m8, "1.7B int8", staged, *ref[1:], ("cp_frame", "talker_step"))
+    clone_int8 = clone_and_design(m8, "1.7B int8", encoders, ("cp_frame", "talker_step", "int8_matmul"))
     del m8
+    prompt_rows = sorted({m for m in clone_int8["rows"].values() if m > 16})
+    _row("int8_matmul")["prompt_shapes"] = kernel4_prompt_rows(prompt_rows)
     runs = {"bf16": bf16, "int8": int8, "stream_bf16": stream_bf16["launches"], "stream_int8": stream_int8["launches"],
-            "voice_bf16": voice_bf16["launches"], "voice_int8": voice_int8["launches"], **per_step_main_paths()}
+            "voice_bf16": voice_bf16["launches"], "voice_int8": voice_int8["launches"],
+            **{f"clone_{dtype} {kind}": run["launches"] for dtype, clone in (("bf16", clone_bf16), ("int8", clone_int8))
+               for kind, run in clone["runs"].items()},
+            **per_step_main_paths()}
     return runs
 
 
@@ -1717,6 +2158,7 @@ def main() -> None:
     kernel2()
     KERNEL_ROWS.append(kernel2_stream())
     vocoder_fixture_check()
+    encoders = encoders_check()
     kernel3()
     kernel4()
     kernels5_6()
@@ -1726,7 +2168,7 @@ def main() -> None:
     small_model_agrees()
     for case in SMALL_INT8:
         small_int8_agrees(*case)
-    launches = main_path()
+    launches = main_path(encoders)
     for row in KERNEL_ROWS:
         row["launches"] = launches[row["path"]][row["name"].removesuffix("_int8")]
     check(len({row["replaces"] for row in KERNEL_ROWS}) == 8,

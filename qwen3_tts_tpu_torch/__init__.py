@@ -1,8 +1,10 @@
 """qwen3_tts_tpu_torch — the PyTorch/CUDA port of qwen3_tts_tpu.
 
 The CustomVoice main path (prompt -> talker prefill -> frame loop with the
-code predictor -> vocoder), staged or streamed chunk by chunk, in PyTorch, with the JAX package's Pallas
-kernels on that path rewritten by hand in CUDA for Hopper (``csrc/``).
+code predictor -> vocoder), staged or streamed chunk by chunk, voice cloning
+(the speaker and Mimi encoders, x-vector and ICL prompts) and voice design,
+in PyTorch, with the JAX package's Pallas kernels on those paths rewritten
+by hand in CUDA for Hopper (``csrc/``).
 This package imports neither JAX nor ``qwen3_tts_tpu``; the tests hold it
 against the JAX package.
 """
@@ -25,7 +27,13 @@ from .models.config import (  # noqa: E402
     config_for_variant,
     parse_config_json,
 )
-from .pipeline import Qwen3TTS, StreamingSession, SynthesisOptions, SynthesisTiming  # noqa: E402
+from .pipeline import (  # noqa: E402
+    Qwen3TTS,
+    StreamingSession,
+    SynthesisOptions,
+    SynthesisTiming,
+    VoiceClonePrompt,
+)
 
 __all__ = [
     "AudioBuffer",
@@ -37,6 +45,7 @@ __all__ = [
     "SynthesisOptions",
     "SynthesisTiming",
     "TalkerConfig",
+    "VoiceClonePrompt",
     "config_for_variant",
     "load_wav",
     "parse_config_json",

@@ -1,9 +1,12 @@
 """Prompt assembly + prefill + first-token sampling.
 
-PyTorch port of the CustomVoice path of
-``qwen3_tts_tpu/generation/prefill.py``: build the prompt embedding on the
-device, run the talker prefill, sample the first semantic token, and return
-the generation state with the trailing-text schedule.
+PyTorch port of ``qwen3_tts_tpu/generation/prefill.py``, one entry per
+prompt layout (CustomVoice, VoiceDesign, x-vector clone, ICL clone): build
+the prompt embedding on the device, run the talker prefill, sample the
+first semantic token, and return the generation state with the
+trailing-text schedule. Lengths are host ints; prompts are right-padded to
+their buckets (the prefill is causal, so the padding rows change nothing
+before ``prefill_len``, and decode steps overwrite their cache rows).
 """
 
 from __future__ import annotations
@@ -53,3 +56,83 @@ def custom_voice_impl(
         talker_params, tcfg, scfg, prompt, prompt.shape[1], cache, uniforms,
         max_new_tokens, trailing, text_len,
     )
+
+
+def voice_design_impl(
+    talker_params: dict,
+    tcfg: TalkerConfig,
+    scfg: sampling.SamplingConfig,
+    text_ids: torch.Tensor,  # [Tb] right-padded
+    text_len: int,
+    instruct_ids: torch.Tensor,  # [Ib] right-padded ChatML instruct tokens
+    instruct_len: int,
+    lang_id: int,
+    cache: nn.KVCache,
+    uniforms: torch.Tensor,
+    max_new_tokens: int,
+):
+    """The instruct rows, then the 9 suffix rows at ``instruct_len``; the
+    prompt is [1, Ib + 9, hidden]."""
+    instruct_emb = talker.embed_text(talker_params, instruct_ids)  # [Ib, H]
+    suffix = talker.build_voice_design_suffix(talker_params, text_ids[0], lang_id)
+    prompt = suffix.new_zeros((1, instruct_ids.shape[0] + 9, suffix.shape[-1]))
+    prompt[0, :instruct_emb.shape[0]] = instruct_emb
+    prompt[0, instruct_len:instruct_len + 9] = suffix
+    trailing = talker.build_trailing_text(talker_params, text_ids, text_len)
+    return _finish(
+        talker_params, tcfg, scfg, prompt, instruct_len + 9, cache, uniforms,
+        max_new_tokens, trailing, text_len,
+    )
+
+
+def voice_clone_xvector_impl(
+    talker_params: dict,
+    tcfg: TalkerConfig,
+    scfg: sampling.SamplingConfig,
+    text_ids: torch.Tensor,
+    text_len: int,
+    speaker_embed: torch.Tensor,  # [hidden]
+    lang_id: int,
+    cache: nn.KVCache,
+    uniforms: torch.Tensor,
+    max_new_tokens: int,
+):
+    prompt = talker.build_voice_clone_prompt(talker_params, text_ids[0], speaker_embed, lang_id, icl_mode=False)
+    trailing = talker.build_trailing_text(talker_params, text_ids, text_len)
+    return _finish(
+        talker_params, tcfg, scfg, prompt, prompt.shape[1], cache, uniforms,
+        max_new_tokens, trailing, text_len,
+    )
+
+
+def voice_clone_icl_impl(
+    talker_params: dict,
+    tcfg: TalkerConfig,
+    scfg: sampling.SamplingConfig,
+    all_text_ids: torch.Tensor,  # [Tb] ref + target + tts_eos
+    n_text: int,
+    speaker_embed: torch.Tensor,  # [hidden]
+    codec_rows: torch.Tensor,  # [Cb, hidden] codec_bos + ref codec sums, padded
+    n_codec: int,
+    lang_id: int,
+    cache: nn.KVCache,
+    uniforms: torch.Tensor,
+    max_new_tokens: int,
+    sequential: bool = False,
+):
+    """The 9 x-vector rows (no first-text row), then the ICL rows: overlaid
+    (``n_codec`` true rows) or sequential (``n_text + n_codec``)."""
+    base = talker.build_voice_clone_prompt(talker_params, all_text_ids[0], speaker_embed, lang_id, icl_mode=True)
+    build = talker.build_icl_rows_sequential if sequential else talker.build_icl_rows
+    icl_rows, trailing, trailing_len = build(talker_params, all_text_ids, n_text, codec_rows, n_codec)
+    icl_len = n_text + n_codec if sequential else n_codec
+    return _finish(
+        talker_params, tcfg, scfg, torch.cat([base, icl_rows], dim=1), base.shape[1] + icl_len, cache,
+        uniforms, max_new_tokens, trailing, trailing_len,
+    )
+
+
+# The JAX package's names for its jitted programs; here the functions themselves.
+prefill_voice_design = voice_design_impl
+prefill_voice_clone_xvector = voice_clone_xvector_impl
+prefill_voice_clone_icl = voice_clone_icl_impl

@@ -1,0 +1,129 @@
+"""ECAPA-TDNN speaker encoder: reference audio -> x-vector.
+
+PyTorch port of ``qwen3_tts_tpu/models/speaker.py``, in float32 on every
+device (the JAX package runs it f32 at HIGHEST precision; the package turns
+TF32 off at import). Activations are channels-first ``[B, C, T]`` so the
+convolutions are ``F.conv1d`` (kernels ``[Cout, Cin, K]``, converted from
+the JAX package's ``[K, Cin, Cout]`` by ``models.weights.
+speaker_encoder_from_numpy``); the 1x1 layers of the SE blocks, the
+attention head and the final projection are dense ``[Cin, Cout]`` matmuls.
+
+  blocks[0]   TDNN(mel 128 -> ch0, k5)                      + ReLU
+  blocks[1-3] SE-Res2Net(ch, k3, dilation 2/3/4, scale 8, SE 128)
+  MFA         cat(block outputs) -> TDNN(k1) -> 1536
+  ASP         attentive statistics pooling -> [2C]
+  FC          1x1 conv -> enc_dim (1024 / 2048), unnormalized
+
+The JAX package pads the mel to a frame bucket and masks reflection and
+pooling to the true length, which gives the unpadded result; the port runs
+at the true length, so there is nothing to mask.
+"""
+
+from __future__ import annotations
+
+from dataclasses import replace
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..audio.mel import MelSpectrogram, speaker_encoder_config
+from .config import SpeakerEncoderConfig
+
+
+def _reflect_index(n: int, left: int, right: int, device) -> torch.Tensor:
+    """Rows of a [.., n] axis reflect-padded by (left, right), edge excluded
+    (PyTorch's "reflect"): -i for i < 0, 2n-2-i for i >= n, clipped into
+    the axis as the JAX package's gather clips (which only matters for n
+    below the pad)."""
+    idx = torch.arange(-left, n + right, device=device)
+    idx = torch.where(idx < 0, -idx, idx)
+    idx = torch.where(idx >= n, 2 * n - 2 - idx, idx)
+    return idx.clamp(0, n - 1)
+
+
+def _reflect_same_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, dilation: int = 1) -> torch.Tensor:
+    """Conv1d with PyTorch padding="same", padding_mode="reflect".
+
+    x: [B, Cin, T]; w: [Cout, Cin, K]. total_pad = dilation*(K-1), split
+    left = total//2, right = the rest.
+    """
+    total = dilation * (w.shape[-1] - 1)
+    if total > 0:
+        left = total // 2
+        x = x.index_select(2, _reflect_index(x.shape[2], left, total - left, x.device))
+    return F.conv1d(x, w, b, dilation=dilation)
+
+
+def _tdnn(x: torch.Tensor, p: dict, dilation: int = 1) -> torch.Tensor:
+    """TimeDelayNetBlock: reflect-same conv + ReLU."""
+    return F.relu(_reflect_same_conv(x, p["w"], p["b"], dilation))
+
+
+def _res2net(x: torch.Tensor, blocks: list, scale: int, dilation: int) -> torch.Tensor:
+    """Scale-split cascade: chunk 0 passes; chunk i adds the previous output."""
+    chunk = x.shape[1] // scale
+    outs = [x[:, :chunk]]
+    for i, p in enumerate(blocks):
+        piece = x[:, (i + 1) * chunk:(i + 2) * chunk]
+        outs.append(_tdnn(piece if i == 0 else piece + outs[-1], p, dilation))
+    return torch.cat(outs, dim=1)
+
+
+def _se_block(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """Squeeze-excitation: mean over T -> 1x1 convs -> sigmoid gate."""
+    s = x.mean(dim=2)  # [B, C]
+    s = F.relu(s @ p["conv1_w"] + p["conv1_b"])
+    s = torch.sigmoid(s @ p["conv2_w"] + p["conv2_b"])
+    return x * s[:, :, None]
+
+
+def _se_res2net(x: torch.Tensor, p: dict, dilation: int, scale: int) -> torch.Tensor:
+    h = _tdnn(x, p["tdnn1"])
+    h = _res2net(h, p["res2net"], scale, dilation)
+    h = _tdnn(h, p["tdnn2"])
+    return _se_block(h, p["se"]) + x
+
+
+def _asp(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """Attentive statistics pooling over time: [B, C, T] -> [B, 2C]."""
+    mean = x.mean(dim=2, keepdim=True)
+    std = torch.sqrt(((x - mean) ** 2).mean(dim=2, keepdim=True) + 1e-5)
+    attn_in = torch.cat([x, mean.expand_as(x), std.expand_as(x)], dim=1)
+    a = torch.tanh(_tdnn(attn_in, p["tdnn"]))  # [B, A, T]
+    a = a.transpose(1, 2) @ p["conv_w"] + p["conv_b"]  # [B, T, C]
+    a = torch.softmax(a, dim=1)  # over time
+    xt = x.transpose(1, 2)  # [B, T, C]
+    w_mean = (xt * a).sum(dim=1)
+    w_std = torch.sqrt((((xt - w_mean[:, None, :]) ** 2) * a).sum(dim=1) + 1e-5)
+    return torch.cat([w_mean, w_std], dim=-1)
+
+
+def forward(params: dict, cfg: SpeakerEncoderConfig, mel: torch.Tensor) -> torch.Tensor:
+    """Batched mel [B, n_mels, T] -> embeddings [B, enc_dim] (unnormalized)."""
+    h = _tdnn(mel.float(), params["initial"], cfg.enc_dilations[0])
+    outs = []
+    for i, block in enumerate(params["se_res2net"]):
+        h = _se_res2net(h, block, cfg.enc_dilations[i + 1], cfg.enc_res2net_scale)
+        outs.append(h)
+    h = _tdnn(torch.cat(outs, dim=1), params["mfa"], cfg.enc_dilations[4])
+    return _asp(h, params["asp"]) @ params["fc_w"] + params["fc_b"]
+
+
+class SpeakerEncoder:
+    """Audio samples -> x-vector: the mel on the host (numpy, as the JAX
+    package computes it), the network on the device that holds ``params``
+    (the port's layout: ``models.weights.speaker_encoder_from_numpy``)."""
+
+    def __init__(self, params: dict, cfg: SpeakerEncoderConfig):
+        self.params = params
+        self.cfg = cfg
+        self.device = params["fc_w"].device
+        self.mel = MelSpectrogram(replace(speaker_encoder_config(), n_mels=cfg.mel_dim))
+
+    @torch.no_grad()
+    def encode(self, samples: np.ndarray) -> np.ndarray:
+        """24 kHz mono samples -> [enc_dim] float32 x-vector."""
+        mel = self.mel.compute_for_speaker_encoder(np.asarray(samples))  # [n_mels, T]
+        out = forward(self.params, self.cfg, torch.from_numpy(mel).to(self.device)[None])
+        return out[0].cpu().numpy()

@@ -1,19 +1,33 @@
 """Talker model: 28-layer GQA decoder generating semantic codec tokens.
 
-PyTorch port of the CustomVoice path of ``qwen3_tts_tpu/models/talker.py``
-(dual text/codec embeddings, SiLU text projection, final norm + codec head).
-The prefill runs on the layer path (``ops/nn.py``, plain or int8 weights,
-fused or not). A decode step on a fused tree (all int8, or all plain: what
-the JAX package would stream-pack) runs the whole-step kernel on the
-cache's [L, S, KV*D] plane view (``stream_plane_mode``,
-``decode_step_planes``); on an unfused tree, the layer path. The
-tensor-parallel and ICL variants of the JAX module are not ported yet.
+PyTorch port of ``qwen3_tts_tpu/models/talker.py`` (dual text/codec
+embeddings, SiLU text projection, the prompt layouts of the three variants,
+final norm + codec head). The prefill runs on the layer path
+(``ops/nn.py``, plain or int8 weights, fused or not). A decode step on a
+fused tree (all int8, or all plain: what the JAX package would stream-pack)
+runs the whole-step kernel on the cache's [L, S, KV*D] plane view
+(``stream_plane_mode``, ``decode_step_planes``) while the cache holds at
+most ``TALKER_STREAM_MAX_SEQ`` rows; otherwise, and on an unfused tree, the
+layer path. The tensor-parallel variants of the JAX module are not ported
+yet.
 
-CustomVoice prompt layout, 10 positions:
+Prompt layouts (each row of the prompt embedding is one position):
+
+CustomVoice, 10 positions:
     [0..3)  text_proj(text_emb([im_start, assistant, newline]))
     [3..9)  text_proj(text_emb([pad x5, bos])) + codec_emb([think, think_bos,
             lang, think_eos, speaker, codec_pad])
     [9]     text_proj(text_emb(first_text)) + codec_emb(codec_bos)
+
+VoiceClone: as CustomVoice, but the speaker slot holds the continuous
+x-vector instead of codec_emb(speaker); in ICL mode the final (first_text +
+codec_bos) position is left out (9 positions) and the ICL rows follow
+(``build_icl_rows``: text and reference codec rows overlaid;
+``build_icl_rows_sequential``: a text block, then a codec block).
+
+VoiceDesign: the ChatML instruct rows first; no speaker slot (the overlay is
+pad x4 + bos over [think, think_bos, lang, think_eos, codec_pad]); 9
+positions after the instruct (``build_voice_design_suffix``).
 """
 
 from __future__ import annotations
@@ -50,21 +64,57 @@ def embed_codec(params: dict, ids: torch.Tensor) -> torch.Tensor:
     return params["codec_embedding"][ids]
 
 
+def _role_prefix(params: dict) -> torch.Tensor:
+    """[3, hidden] projected embeddings of <|im_start|>assistant\\n."""
+    return embed_text(params, _ids(params, [T.IM_START, T.ASSISTANT, T.NEWLINE]))
+
+
+def _first_row(params: dict, first_text_id: torch.Tensor) -> torch.Tensor:
+    """[1, hidden]: the first text token over codec_bos."""
+    return embed_text(params, first_text_id.reshape(1)) + embed_codec(params, _ids(params, [T.CODEC_BOS]))
+
+
 def build_custom_voice_prompt(
     params: dict, first_text_id: torch.Tensor, speaker_id, lang_id
 ) -> torch.Tensor:
     """CustomVoice prompt embedding [1, 10, hidden]."""
-    role = embed_text(params, _ids(params, [T.IM_START, T.ASSISTANT, T.NEWLINE]))
+    role = _role_prefix(params)
     codec_ids = _ids(
         params,
         [T.CODEC_THINK, T.CODEC_THINK_BOS, lang_id, T.CODEC_THINK_EOS, speaker_id, T.CODEC_PAD],
     )
     overlay_text = embed_text(params, _ids(params, [T.TTS_PAD] * 5 + [T.TTS_BOS]))
     overlay = overlay_text + embed_codec(params, codec_ids)
-    first = embed_text(params, first_text_id.reshape(1)) + embed_codec(
-        params, _ids(params, [T.CODEC_BOS])
-    )
-    return torch.cat([role, overlay, first], dim=0)[None]
+    return torch.cat([role, overlay, _first_row(params, first_text_id)], dim=0)[None]
+
+
+def build_voice_clone_prompt(
+    params: dict,
+    first_text_id: torch.Tensor,
+    speaker_embed: torch.Tensor,
+    lang_id: int,
+    icl_mode: bool,
+) -> torch.Tensor:
+    """VoiceClone prompt embedding [1, 10, hidden] (or [1, 9, hidden] in ICL).
+
+    ``speaker_embed``: [hidden] continuous x-vector replacing the discrete
+    speaker token embedding.
+    """
+    prefix = embed_codec(params, _ids(params, [T.CODEC_THINK, T.CODEC_THINK_BOS, lang_id, T.CODEC_THINK_EOS]))
+    pad = embed_codec(params, _ids(params, [T.CODEC_PAD]))
+    codec_rows = torch.cat([prefix, speaker_embed.to(prefix.dtype)[None], pad], dim=0)
+    overlay = embed_text(params, _ids(params, [T.TTS_PAD] * 5 + [T.TTS_BOS])) + codec_rows
+    rows = [_role_prefix(params), overlay]
+    if not icl_mode:
+        rows.append(_first_row(params, first_text_id))
+    return torch.cat(rows, dim=0)[None]
+
+
+def build_voice_design_suffix(params: dict, first_text_id: torch.Tensor, lang_id) -> torch.Tensor:
+    """VoiceDesign post-instruct rows [9, hidden]: role(3) + overlay(5) + first(1)."""
+    codec_ids = _ids(params, [T.CODEC_THINK, T.CODEC_THINK_BOS, lang_id, T.CODEC_THINK_EOS, T.CODEC_PAD])
+    overlay = embed_text(params, _ids(params, [T.TTS_PAD] * 4 + [T.TTS_BOS])) + embed_codec(params, codec_ids)
+    return torch.cat([_role_prefix(params), overlay, _first_row(params, first_text_id)], dim=0)
 
 
 def build_trailing_text(params: dict, text_ids: torch.Tensor, text_len: int) -> torch.Tensor:
@@ -80,6 +130,56 @@ def build_trailing_text(params: dict, text_ids: torch.Tensor, text_len: int) -> 
     pad = embed_text(params, _ids(params, [T.TTS_PAD]))
     idx = torch.arange(tb, device=emb.device)[:, None]
     return torch.where(idx < text_len - 1, shifted, torch.where(idx == text_len - 1, eos, pad))
+
+
+def build_icl_rows(
+    params: dict,
+    all_text_ids: torch.Tensor,  # [Tb] ref_text + target_text + tts_eos, padded
+    n_text: int,  # true text length (incl. tts_eos)
+    codec_rows: torch.Tensor,  # [Cb, hidden] codec_bos + summed ref codec embeds
+    n_codec: int,  # true codec row count
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """ICL prompt rows (the streaming element-wise overlay).
+
+    The ICL block has ``n_codec`` true rows: row i = codec_rows[i] +
+    (text_emb[i] if i < n_text else tts_pad). Text tokens beyond n_codec
+    become per-frame trailing context. Returns (icl_rows [1, Cb, hidden]
+    right-padded, trailing [Tb, hidden], trailing_len).
+    """
+    tb, cb = all_text_ids.shape[0], codec_rows.shape[0]
+    text_emb = embed_text(params, all_text_ids)  # [Tb, hidden]
+    pad = tts_pad_embed(params)[0]
+    dev = text_emb.device
+    ci = torch.arange(cb, device=dev)
+    text_part = torch.where((ci < min(n_text, tb))[:, None], text_emb[ci.clamp(max=tb - 1)], pad)
+    # trailing[i] = text_emb[n_codec + i] for i < n_text - n_codec, else pad
+    ti = torch.arange(tb, device=dev)
+    trailing = torch.where((ti < n_text - n_codec)[:, None], text_emb[(ti + n_codec).clamp(0, tb - 1)], pad)
+    return (codec_rows + text_part)[None], trailing, max(n_text - n_codec, 0)
+
+
+def build_icl_rows_sequential(
+    params: dict,
+    all_text_ids: torch.Tensor,  # [Tb] ref_text + target_text + tts_eos, padded
+    n_text: int,
+    codec_rows: torch.Tensor,  # [Cb, hidden] codec_bos + summed ref codec embeds
+    n_codec: int,
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """The non-streaming ICL layout: two blocks instead of an overlay,
+    ``[text + codec_pad (n_text rows) || codec + tts_pad (n_codec rows)]``;
+    all text is consumed in the prompt, so the trailing rows are tts_pad.
+    Returns (icl_rows [1, Tb+Cb, hidden] right-padded, true length n_text +
+    n_codec; trailing [1, hidden]; trailing_len 0).
+    """
+    tb, cb = all_text_ids.shape[0], codec_rows.shape[0]
+    text_block = embed_text(params, all_text_ids) + embed_codec(params, _ids(params, [T.CODEC_PAD]))[0]
+    pad = tts_pad_embed(params)[0]
+    rows = text_block.new_zeros((tb + cb, text_block.shape[-1]))
+    rows[:tb] = text_block
+    # The codec block starts right after the true text length, over any
+    # padded text rows; the padding stays strictly to the right.
+    rows[n_text:n_text + cb] = codec_rows + pad
+    return rows[None], pad[None], 0
 
 
 def tts_pad_embed(params: dict) -> torch.Tensor:

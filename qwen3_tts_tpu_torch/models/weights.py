@@ -4,7 +4,10 @@ The trees have the JAX package's layout (``qwen3_tts_tpu/models/weights.py``):
 plain dicts of tensors, linear weights stored ``[in, out]`` so the hot path is
 ``x @ w``, embeddings ``[vocab, dim]``, per-layer tensors stacked along a
 leading layer axis. ``from_numpy_tree`` takes a JAX model's trees (converted
-to numpy) so both packages compute the same thing in the tests.
+to numpy) so both packages compute the same thing in the tests;
+``speaker_encoder_from_numpy`` and ``mimi_encoder_from_numpy`` do the same
+for the two encoders, whose convolution kernels they turn into
+``F.conv1d``'s layout.
 
 Random init uses an explicit ``torch.Generator``; it does not reproduce the
 JAX package's ``jax.random`` draws. The HF safetensors key maps come later.
@@ -70,6 +73,57 @@ def from_numpy_tree(tree, device: torch.device | str, dtype: torch.dtype | None 
     if isinstance(tree, (list, tuple)):
         return type(tree)(from_numpy_tree(v, device, dtype) for v in tree)
     return _to_tensor(tree, device, dtype)
+
+
+def _conv_from_numpy(w, device) -> torch.Tensor:
+    """A JAX conv kernel [K, Cin, Cout] -> ``F.conv1d``'s [Cout, Cin, K], f32."""
+    return _to_tensor(w, device, torch.float32).permute(2, 1, 0).contiguous()
+
+
+def speaker_encoder_from_numpy(tree: dict, device: torch.device | str) -> dict:
+    """The JAX package's ECAPA tree (``SpeakerEncoder.params`` as numpy) ->
+    the port's (``models/speaker.py``): f32, every TDNN kernel in
+    ``F.conv1d``'s layout, the dense 1x1 layers as they are."""
+
+    def tdnn(p):
+        return {"w": _conv_from_numpy(p["w"], device), "b": _to_tensor(p["b"], device, torch.float32)}
+
+    out = from_numpy_tree(tree, device, torch.float32)
+    out["initial"], out["mfa"] = tdnn(tree["initial"]), tdnn(tree["mfa"])
+    out["asp"]["tdnn"] = tdnn(tree["asp"]["tdnn"])
+    for block, src in zip(out["se_res2net"], tree["se_res2net"]):
+        block["tdnn1"], block["tdnn2"] = tdnn(src["tdnn1"]), tdnn(src["tdnn2"])
+        block["res2net"] = [tdnn(p) for p in src["res2net"]]
+    return out
+
+
+def mimi_encoder_from_numpy(tree: dict, device: torch.device | str) -> dict:
+    """The JAX package's Mimi encoder tree (``init_encoder_params`` /
+    ``Encoder12Hz.params`` as numpy) -> the port's (``models/codec/
+    encoder.py``): f32, the SEANet and downsample kernels in ``F.conv1d``'s
+    layout (strides come from the config, so the stages' ``ratio`` goes)."""
+    sn = tree["seanet"]
+
+    def bias(b):
+        return None if b is None else _to_tensor(b, device, torch.float32)
+
+    stages = [{
+        "resnet": {k: (_conv_from_numpy(v, device) if k.endswith("_w") else bias(v))
+                   for k, v in st["resnet"].items()},
+        "down_w": _conv_from_numpy(st["down_w"], device),
+        "down_b": bias(st["down_b"]),
+    } for st in sn["stages"]]
+    return {
+        "seanet": {
+            "init_w": _conv_from_numpy(sn["init_w"], device), "init_b": bias(sn["init_b"]),
+            "stages": stages,
+            "final_w": _conv_from_numpy(sn["final_w"], device), "final_b": bias(sn["final_b"]),
+        },
+        "transformer": from_numpy_tree(tree["transformer"], device, torch.float32),
+        "downsample_w": _conv_from_numpy(tree["downsample_w"], device),
+        **{k: _to_tensor(tree[k], device, torch.float32)
+           for k in ("semantic_proj", "semantic_codebooks", "acoustic_proj", "acoustic_codebooks")},
+    }
 
 
 # ---------------------------------------------------------------------------

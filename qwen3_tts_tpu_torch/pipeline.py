@@ -1,18 +1,25 @@
 """Qwen3TTS facade: prompt -> prefill -> frame loop -> vocoder decode.
 
-PyTorch port of the CustomVoice batch-1 path of ``qwen3_tts_tpu/pipeline.py``
-(``synthesize``, ``synthesize_with_voice``, ``synthesize_with_timing``,
-``synthesize_streaming``, ``decode_codes``, ``SynthesisOptions``,
-``SynthesisTiming``, ``StreamingSession``). Every synthesis runs through a
-``StreamingSession``: its buffers start at ``GROWTH_INITIAL_FRAMES`` frames
-and grow one ``FRAME_BUCKETS`` tier at a time between re-entries of the
-frame loop. ``synthesize_with_voice`` decodes chunk by chunk on the
+PyTorch port of the batch-1 paths of ``qwen3_tts_tpu/pipeline.py``:
+preset speakers (``synthesize``, ``synthesize_with_voice``,
+``synthesize_with_timing``, ``synthesize_streaming``), voice design
+(``synthesize_voice_design(_streaming)``: a ChatML-framed voice
+description), and voice cloning of Base checkpoints
+(``create_voice_clone_prompt``: the x-vector of the speaker encoder and,
+given the reference text, the Mimi codes of the reference audio;
+``synthesize_voice_clone(_streaming)``: an x-vector or ICL prompt), with
+``decode_codes``, ``SynthesisOptions``, ``SynthesisTiming``,
+``VoiceClonePrompt`` and ``StreamingSession``. Every synthesis runs through
+a ``StreamingSession``: its buffers start at ``GROWTH_INITIAL_FRAMES``
+frames and grow one ``FRAME_BUCKETS`` tier at a time between re-entries of
+the frame loop. ``synthesize_with_voice`` decodes chunk by chunk on the
 sample-exact streaming vocoder (``run_to_audio``),
 ``synthesize_with_timing`` runs the loop to its end, then one bucketed
-decode, and ``synthesize_streaming`` hands the session to the caller
-(``next_chunk`` / iteration). Weight-only int8 (``quantize_int8=True``) is
-ported. Voice cloning (and with it the ICL reference prefix of a stream),
-voice design and batching are not ported yet.
+decode, and the ``*_streaming`` entries hand the session to the caller
+(``next_chunk`` / iteration). An ICL clone's reference codes advance the
+streaming vocoder ahead of its first chunk and are cut from the audio.
+Weight-only int8 (``quantize_int8=True``) is ported. Batching and the
+staged clone (``synthesize_voice_clone_debug``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,12 +32,16 @@ import numpy as np
 import torch
 
 from .audio.io import AudioBuffer
+from .audio.resample import resample_to_24k
 from .generation import core, prefill
 from .models import code_predictor as cp
+from .models import talker
 from .models import tokens as T
 from .models import weights as W
 from .models.codec import vocoder
+from .models.codec.encoder import Encoder12Hz, MimiEncoderConfig
 from .models.config import ModelConfig, ModelType
+from .models.speaker import SpeakerEncoder
 from .ops import fused_layer, nn, quant, rng, sampling
 from .utils.bucketing import next_bucket
 
@@ -58,8 +69,7 @@ def _device_or_card(device: torch.device | str | None) -> torch.device:
 
 @dataclass(frozen=True)
 class SynthesisOptions:
-    """Generation options; the defaults match the JAX package's (its ICL
-    layout option waits for voice cloning)."""
+    """Generation options; the defaults match the JAX package's."""
 
     max_length: int = 2048
     temperature: float = 0.9
@@ -73,6 +83,9 @@ class SynthesisOptions:
     first_chunk_frames: int | None = 4
     min_new_tokens: int = 2
     seed: int | None = None
+    # ICL prompt layout: False = element-wise overlay of the text and the
+    # reference codec rows, True = sequential [text || codec] blocks.
+    icl_sequential: bool = False
     # Sample-exact streaming: the vocoder carries its causal state across
     # chunks, so the streamed audio is the batch decode's. False = each
     # chunk decoded with chunk-local context only.
@@ -103,8 +116,25 @@ class SynthesisTiming:
     decode_ms: float = 0.0
 
 
+@dataclass
+class VoiceClonePrompt:
+    """Reference-audio conditioning (x-vector, plus ICL codes and text if given)."""
+
+    speaker_embedding: np.ndarray  # [enc_dim] float32
+    ref_codes: np.ndarray | None = None  # [T, 16] int32 (ICL mode)
+    ref_text_ids: list[int] | None = None  # tokenized reference text (ICL mode)
+
+
+# ICL-mode generation overrides: the repetition penalty at least this, and
+# max_length at most max(ICL_MIN_FRAMES, ICL_FRAMES_PER_TOKEN * text tokens).
+ICL_MIN_FRAMES = 75
+ICL_FRAMES_PER_TOKEN = 6
+ICL_MIN_REPETITION_PENALTY = 1.5
+
+
 class Qwen3TTS:
-    """End-to-end CustomVoice TTS on one device (a CUDA card, or the CPU).
+    """End-to-end TTS on one device (a CUDA card, or the CPU): preset
+    speakers, voice cloning and voice design.
 
     The code predictor's layer weights are kept fused (q|k|v, gate|up): the
     frame kernel takes that layout. On a CUDA card the talker is fused too,
@@ -130,6 +160,11 @@ class Qwen3TTS:
     scratch once); every frame of this model uses them, on the stream of
     the first.
 
+    ``speaker_encoder`` (``models.speaker.SpeakerEncoder``) and
+    ``speech_encoder`` (``models.codec.encoder.Encoder12Hz``) are a Base
+    checkpoint's: voice cloning needs the first, ICL cloning both. They run
+    in f32 on the device that holds their weights.
+
     ``from_random`` and ``from_numpy`` build on the CUDA card unless given
     ``device="cpu"``.
     """
@@ -141,6 +176,8 @@ class Qwen3TTS:
         cp_params: dict,
         vocoder_params: dict,
         tokenizer=None,
+        speaker_encoder: SpeakerEncoder | None = None,
+        speech_encoder: Encoder12Hz | None = None,
         vocoder_config: vocoder.VocoderConfig = vocoder.VocoderConfig(),
         quantize_int8: bool = False,
     ):
@@ -173,6 +210,8 @@ class Qwen3TTS:
         self.vocoder_params = vocoder_params
         self.vocoder_config = vocoder_config
         self.tokenizer = tokenizer
+        self.speaker_encoder = speaker_encoder
+        self.speech_encoder = speech_encoder
 
     @classmethod
     def from_random(
@@ -185,7 +224,8 @@ class Qwen3TTS:
     ) -> "Qwen3TTS":
         """Synthetic weights at real dimensions, drawn from ``seed`` on
         ``device`` (bf16 talker and code predictor, f32 vocoder). The
-        default device is the CUDA card; ``device="cpu"`` builds on the CPU."""
+        default device is the CUDA card; ``device="cpu"`` builds on the CPU.
+        No encoders, as in the JAX package."""
         device = _device_or_card(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
@@ -209,20 +249,51 @@ class Qwen3TTS:
         vocoder_config: vocoder.VocoderConfig = vocoder.VocoderConfig(),
         device: torch.device | str | None = None,
         quantize_int8: bool = False,
+        speaker_tree: dict | None = None,
+        mimi_tree: dict | None = None,
+        mimi_config: MimiEncoderConfig = MimiEncoderConfig(),
     ) -> "Qwen3TTS":
         """A model from a JAX model's parameter trees converted to numpy
         (``jax.tree.map(np.asarray, model.talker_params)`` etc.), on
-        ``device``: the CUDA card by default, or ``device="cpu"``."""
+        ``device``: the CUDA card by default, or ``device="cpu"``.
+        ``speaker_tree`` / ``mimi_tree``: the JAX package's speaker-encoder
+        and Mimi-encoder trees (``SpeakerEncoder.params``,
+        ``Encoder12Hz.params``) as numpy, for a model that clones."""
         device = _device_or_card(device)
+        speaker = speech = None
+        if speaker_tree is not None:
+            speaker = SpeakerEncoder(W.speaker_encoder_from_numpy(speaker_tree, device), config.speaker_encoder)
+        if mimi_tree is not None:
+            speech = Encoder12Hz(W.mimi_encoder_from_numpy(mimi_tree, device), mimi_config)
         return cls(
             config,
             W.from_numpy_tree(talker_tree, device),
             W.from_numpy_tree(cp_tree, device),
             W.from_numpy_tree(vocoder_tree, device),
             tokenizer,
+            speaker,
+            speech,
             vocoder_config=vocoder_config,
             quantize_int8=quantize_int8,
         )
+
+    # -- capability probes --
+
+    @property
+    def model_type(self) -> ModelType:
+        return self.config.model_type
+
+    def supports_voice_cloning(self) -> bool:
+        return self.speaker_encoder is not None
+
+    def supports_preset_speakers(self) -> bool:
+        return self.config.model_type == ModelType.CUSTOM_VOICE
+
+    def supports_voice_design(self) -> bool:
+        return self.config.model_type == ModelType.VOICE_DESIGN
+
+    def has_speech_encoder(self) -> bool:
+        return self.speech_encoder is not None
 
     # ------------------------------------------------------------------
     # Internal helpers
@@ -312,6 +383,81 @@ class Qwen3TTS:
         )
         return self._make_session(started, options, uniforms)
 
+    @torch.no_grad()
+    def _voice_design_session(
+        self, text: str, instruct: str, language: str, options: SynthesisOptions
+    ) -> "StreamingSession":
+        options = self._normalize_options(options)
+        text_ids, text_len = self._pad_ids(self._encode_text(text))
+        # The voice description in a ChatML user turn.
+        instruct_ids, instruct_len = self._pad_ids(self._encode_text(f"<|im_start|>user\n{instruct}<|im_end|>\n"))
+        initial, cache, uniforms = self._session_inputs(options, instruct_ids.shape[0] + 9)
+        started = prefill.voice_design_impl(
+            self.talker_params, self.config.talker, options.sampling_config(), text_ids, text_len,
+            instruct_ids, instruct_len, T.language_token_id(language), cache, uniforms, initial,
+        )
+        return self._make_session(started, options, uniforms)
+
+    @torch.no_grad()
+    def _voice_clone_session(
+        self, text: str, prompt_data: VoiceClonePrompt, language: str, options: SynthesisOptions
+    ) -> "StreamingSession":
+        """A cloning session; in ICL mode its ``prefix_codes`` are the
+        reference codes, and the overrides apply before the uniforms are
+        drawn: repetition penalty at least ``ICL_MIN_REPETITION_PENALTY``,
+        ``max_length`` at most max(``ICL_MIN_FRAMES``,
+        ``ICL_FRAMES_PER_TOKEN`` x text tokens)."""
+        options = self._normalize_options(options)
+        ids = self._encode_text(text)
+        is_icl = prompt_data.ref_codes is not None and prompt_data.ref_text_ids is not None
+        if is_icl:
+            options = replace(
+                options,
+                repetition_penalty=max(options.repetition_penalty, ICL_MIN_REPETITION_PENALTY),
+                max_length=min(options.max_length, max(ICL_MIN_FRAMES, len(ids) * ICL_FRAMES_PER_TOKEN)),
+            )
+        # The x-vector in the compute dtype (bf16 on the bf16 path).
+        speaker_vec = torch.as_tensor(np.asarray(prompt_data.speaker_embedding), device=self.device).to(
+            self.compute_dtype)
+        lang_id = T.language_token_id(language)
+
+        if not is_icl:
+            text_ids, text_len = self._pad_ids(ids)
+            initial, cache, uniforms = self._session_inputs(options, CUSTOM_VOICE_PROMPT_LEN)
+            started = prefill.voice_clone_xvector_impl(
+                self.talker_params, self.config.talker, options.sampling_config(), text_ids, text_len,
+                speaker_vec, lang_id, cache, uniforms, initial,
+            )
+            return self._make_session(started, options, uniforms)
+
+        # ICL: prompt = [voice clone (9 rows) || ICL rows].
+        ref_codes = np.asarray(prompt_data.ref_codes, np.int32)  # [Tr, 16]
+        t_ref = ref_codes.shape[0]
+        all_text, n_text = self._pad_ids(list(prompt_data.ref_text_ids) + list(ids) + [T.TTS_EOS])
+        codec_rows = self._sum_ref_codec_embeddings(ref_codes)  # [Tr, hidden]
+        cb = next_bucket(t_ref + 1, TEXT_BUCKET)
+        codec_padded = codec_rows.new_zeros((cb, codec_rows.shape[-1]))
+        codec_padded[:1] = talker.embed_codec(self.talker_params, torch.tensor([T.CODEC_BOS], device=self.device))
+        codec_padded[1:t_ref + 1] = codec_rows
+        prefill_bucket = 9 + cb + (all_text.shape[0] if options.icl_sequential else 0)
+        initial, cache, uniforms = self._session_inputs(options, prefill_bucket)
+        started = prefill.voice_clone_icl_impl(
+            self.talker_params, self.config.talker, options.sampling_config(), all_text, n_text, speaker_vec,
+            codec_padded, t_ref + 1, lang_id, cache, uniforms, initial, sequential=options.icl_sequential,
+        )
+        session = self._make_session(started, options, uniforms)
+        session.prefix_codes = ref_codes
+        return session
+
+    def _sum_ref_codec_embeddings(self, ref_codes: np.ndarray) -> torch.Tensor:
+        """[T, 16] codes -> [T, hidden]: the talker's codec embedding of
+        group 0 plus the code predictor's 15 group embeddings."""
+        codes = torch.from_numpy(np.asarray(ref_codes, np.int64)).to(self.device)
+        semantic = talker.embed_codec(self.talker_params, codes[:, 0])
+        tables = self.cp_params["codec_embeddings"]  # [15, V, dim]
+        groups = torch.arange(tables.shape[0], device=self.device)[:, None]
+        return semantic + tables[groups, codes[:, 1:].T].sum(dim=0)
+
     def _make_session(self, started, options: SynthesisOptions, uniforms: torch.Tensor) -> "StreamingSession":
         state, trailing, trailing_len, pad = started
         return StreamingSession(self, state, options.sampling_config(), options, trailing, trailing_len, pad,
@@ -377,6 +523,81 @@ class Qwen3TTS:
         iterate it): 4 frames first, then ``chunk_frames`` a chunk."""
         return self._custom_voice_session(text, speaker, language, options or SynthesisOptions())
 
+    def synthesize_voice_design(
+        self,
+        text: str,
+        instruct: str,
+        language: str = "english",
+        options: SynthesisOptions | None = None,
+    ) -> AudioBuffer:
+        """Synthesis with a voice described in words (``instruct``), as
+        ``synthesize_with_voice`` runs it (``run_to_audio``)."""
+        if self.config.model_type != ModelType.VOICE_DESIGN:
+            logger.warning("VoiceDesign synthesis on a %s model; the output may be unpredictable.",
+                           self.config.label)
+        session = self._voice_design_session(text, instruct, language, options or SynthesisOptions())
+        return session.run_to_audio()
+
+    def synthesize_voice_design_streaming(
+        self,
+        text: str,
+        instruct: str,
+        language: str = "english",
+        options: SynthesisOptions | None = None,
+    ) -> "StreamingSession":
+        return self._voice_design_session(text, instruct, language, options or SynthesisOptions())
+
+    def create_voice_clone_prompt(
+        self,
+        ref_audio: AudioBuffer,
+        ref_text: str | None = None,
+    ) -> VoiceClonePrompt:
+        """X-vector (and, given ``ref_text``, ICL) conditioning from reference
+        audio, resampled to 24 kHz first if it is at another rate."""
+        if self.speaker_encoder is None:
+            hint = {
+                ModelType.CUSTOM_VOICE: " CustomVoice models use preset speakers; use a Base model for cloning.",
+                ModelType.VOICE_DESIGN: " VoiceDesign models use text-described voices; use a Base model for cloning.",
+            }.get(self.config.model_type, " Only Base checkpoints include a speaker encoder.")
+            raise RuntimeError("Speaker encoder not available." + hint)
+        if ref_audio.sample_rate != T.OUTPUT_SAMPLE_RATE:
+            ref_audio = resample_to_24k(ref_audio)
+        speaker_embedding = self.speaker_encoder.encode(ref_audio.samples)
+        ref_codes = ref_text_ids = None
+        if ref_text is not None:
+            if self.speech_encoder is None:
+                raise RuntimeError(
+                    "ICL voice cloning requires the speech encoder; pass ref_text=None for x-vector-only cloning."
+                )
+            ref_codes = self.speech_encoder.encode(ref_audio.samples)
+            ref_text_ids = self._encode_text(ref_text)
+        return VoiceClonePrompt(np.asarray(speaker_embedding), ref_codes, ref_text_ids)
+
+    def synthesize_voice_clone(
+        self,
+        text: str,
+        prompt: VoiceClonePrompt,
+        language: str = "english",
+        options: SynthesisOptions | None = None,
+    ) -> AudioBuffer:
+        """Cloning as ``synthesize_with_voice`` runs it (``run_to_audio``). In
+        ICL mode the reference codes advance the streaming vocoder as
+        context that is not emitted: the batch decode of [reference ||
+        frames] with the reference's samples (1920 a frame) cut."""
+        return self._voice_clone_session(text, prompt, language, options or SynthesisOptions()).run_to_audio()
+
+    def synthesize_voice_clone_streaming(
+        self,
+        text: str,
+        prompt: VoiceClonePrompt,
+        language: str = "english",
+        options: SynthesisOptions | None = None,
+    ) -> "StreamingSession":
+        """A cloning session to pull audio from chunk by chunk; in ICL mode
+        the reference codes are decoded as vocoder context ahead of the
+        first chunk and cut from the output."""
+        return self._voice_clone_session(text, prompt, language, options or SynthesisOptions())
+
     # ------------------------------------------------------------------
     # Decode helpers
     # ------------------------------------------------------------------
@@ -396,6 +617,14 @@ class Qwen3TTS:
         return AudioBuffer(wav[0], T.OUTPUT_SAMPLE_RATE)
 
 
+def prefix_piece_sizes(n: int, chunk: int) -> list[int]:
+    """The pieces in which ``StreamingSession._feed_prefix`` feeds n
+    reference frames: ``chunk`` frames while they last, then a binary split
+    of the remainder, smallest first."""
+    r = n % chunk
+    return [chunk] * (n // chunk) + [1 << b for b in range(r.bit_length()) if r >> b & 1]
+
+
 def _pad_rows(t: torch.Tensor, delta: int) -> torch.Tensor:
     """``t`` [L, B, S, ...] with ``delta`` zero rows appended along S."""
     return torch.cat([t, t.new_zeros(t.shape[:2] + (delta,) + t.shape[3:])], dim=2)
@@ -409,7 +638,11 @@ class StreamingSession:
     The frames buffer and the talker cache start at ``GROWTH_INITIAL_FRAMES``
     frames and grow one ``FRAME_BUCKETS`` tier at a time (the streaming
     vocoder's KV cache with them); the uniform stream covers the whole
-    requested length, so growth never changes a token.
+    requested length, so growth never changes a token. An ICL clone's
+    reference codes (``prefix_codes``) are vocoder context: the streaming
+    vocoder takes them ahead of the first chunk (``_feed_prefix``), the
+    chunk-local modes decode them in front of the frames, and their
+    samples are never emitted.
     """
 
     def __init__(self, model: Qwen3TTS, state: core.GenState, scfg: sampling.SamplingConfig,
@@ -425,8 +658,8 @@ class StreamingSession:
         self.uniforms = uniforms
         self.frames_emitted = 0
         self._exhausted = False
-        # Voice cloning's reference codes, decoded as vocoder context ahead
-        # of the first chunk: not ported yet, so always None.
+        # ICL voice cloning's reference codes [Tr, 16], decoded as vocoder
+        # context ahead of the first chunk and cut from the output.
         self.prefix_codes: np.ndarray | None = None
         # The sample-exact streaming vocoder's carry (options.streaming_exact).
         self.vstate: vocoder.VocoderStreamState | None = None
@@ -474,7 +707,7 @@ class StreamingSession:
         loop runs once (a second run would feed the stateful vocoder twice).
         Returns (wav [1, chunk * 1920] on the device, frames made, done)."""
         self._grow_for(frame_limit)
-        self._ensure_vstate()
+        self._start_vstate(chunk)
         self._advance(frame_limit)
         s, m = self.state, self.model
         frames_ext = torch.cat([s.frames, s.frames.new_zeros((chunk, s.frames.shape[1]))])
@@ -509,10 +742,45 @@ class StreamingSession:
                 return
             self._grow(new_cap)
 
-    def _ensure_vstate(self) -> None:
+    def _prefix(self) -> np.ndarray | None:
+        """The reference codes, if there are any."""
+        if self.prefix_codes is None or not len(self.prefix_codes):
+            return None
+        return np.asarray(self.prefix_codes, np.int32)
+
+    def _ensure_vstate(self, prefix_frames: int = 0) -> None:
+        """A streaming vocoder state for the frames buffer, with
+        ``next_bucket(prefix_frames, DECODE_BUCKET)`` more KV rows for a
+        reference prefix."""
         if self.vstate is None:
-            self.vstate = vocoder.init_stream_state(self.model.vocoder_config, self.state.frames.shape[0],
-                                                    device=self.model.device)
+            max_t = self.state.frames.shape[0]
+            if prefix_frames:
+                max_t += next_bucket(prefix_frames, DECODE_BUCKET)
+            self.vstate = vocoder.init_stream_state(self.model.vocoder_config, max_t, device=self.model.device)
+
+    def _start_vstate(self, chunk: int) -> None:
+        """Before the first chunk on the streaming vocoder: its state, with
+        the reference prefix (if any) fed in pieces of at most ``chunk``."""
+        if self.vstate is None:
+            prefix = self._prefix()
+            self._ensure_vstate(0 if prefix is None else len(prefix))
+            if prefix is not None:
+                self._feed_prefix(prefix, chunk)
+
+    @torch.no_grad()
+    def _feed_prefix(self, prefix: np.ndarray, chunk: int) -> None:
+        """Advance the streaming vocoder through the ICL reference codes
+        without emitting audio: the sample-exact form of decoding [reference
+        || frames] and cutting the reference's samples. The pieces are
+        ``chunk`` frames, then a binary split of the remainder (the JAX
+        package's pieces, so that each shape compiles once there: see
+        ``prefix_piece_sizes``)."""
+        m, at = self.model, 0
+        codes = torch.from_numpy(prefix).to(m.device)
+        for size in prefix_piece_sizes(len(prefix), chunk):
+            _, self.vstate = vocoder.decode_stream_chunk(m.vocoder_params, m.vocoder_config, self.vstate,
+                                                         codes[at:at + size].T[None])
+            at += size
 
     def _advance_managed(self, target: int) -> tuple[int, bool]:
         """Advance to ``target`` total frames, growing the buffers a tier at a
@@ -537,12 +805,23 @@ class StreamingSession:
 
     def run_to_audio(self) -> AudioBuffer:
         """Non-streaming synthesis as chunks of ``DECODE_BUCKET`` frames on
-        the sample-exact streaming vocoder: the audio of
+        the sample-exact streaming vocoder (an ICL prefix fed first, in
+        pieces of up to ``DECODE_BUCKET``): the audio of
         ``decode_codes(frames)`` up to matmul-tiling ulps. With
         ``streaming_exact=False``, or once the session is exhausted: every
-        frame, then one bucketed decode."""
+        frame, then one bucketed decode (with a prefix: of [prefix ||
+        frames], the prefix's share of the samples cut from the front)."""
         if not self.options.streaming_exact or self._exhausted:
-            return self.model.decode_codes(self.run_to_completion())
+            frames = self.run_to_completion()
+            prefix = self._prefix()
+            if prefix is None or not len(frames):
+                return self.model.decode_codes(frames)
+            combined = np.concatenate([prefix, frames], axis=0)
+            audio = self.model.decode_codes(combined)
+            cut = len(prefix) * len(audio) // len(combined)
+            return AudioBuffer(audio.samples[min(cut, len(audio)):], audio.sample_rate)
+        if self.frames_emitted == 0:
+            self._start_vstate(DECODE_BUCKET)
         chunk, max_len = DECODE_BUCKET, self.options.max_length
         parts: list[np.ndarray] = []
         spec = self.frames_emitted
@@ -601,6 +880,9 @@ class StreamingSession:
 
     def _next_chunk_legacy(self, chunk: int) -> AudioBuffer | None:
         target = min(self.frames_emitted + chunk, self.options.max_length)
+        prefix = self._prefix() if self.frames_emitted == 0 else None
+        if prefix is not None:
+            return self._first_chunk_legacy_prefixed(prefix, target, chunk)
         wav, n, done = self._advance_and_decode_chunk(target, self.frames_emitted, chunk)
         done = done or n >= self.options.max_length
         if n <= self.frames_emitted:
@@ -617,6 +899,26 @@ class StreamingSession:
                                            self.model.codes_to_tensor(new), bucket=chunk)
             return AudioBuffer(wavb[0], T.OUTPUT_SAMPLE_RATE)
         return AudioBuffer(wav[0, :(n - emitted_before) * T.SAMPLES_PER_FRAME].cpu().numpy(), T.OUTPUT_SAMPLE_RATE)
+
+    @torch.no_grad()
+    def _first_chunk_legacy_prefixed(self, prefix: np.ndarray, target: int, chunk: int) -> AudioBuffer | None:
+        """The first chunk of a chunk-local stream of an ICL clone: decode
+        [reference || the chunk's frames] and emit only the chunk's samples
+        (the vocoder is causal, 1920 samples a frame)."""
+        self._grow_for(target)
+        self._advance(target)
+        n, done = self.state.frame_idx, bool(self.state.done) or self.state.frame_idx >= self.options.max_length
+        if n == 0:
+            self._exhausted = True
+            return None
+        self.frames_emitted = n
+        if done:
+            self._exhausted = True
+        new = self.state.frames[:n].cpu().numpy()
+        m = self.model
+        wav = vocoder.decode_bucketed(m.vocoder_params, m.vocoder_config,
+                                      m.codes_to_tensor(np.concatenate([prefix, new])), bucket=chunk)
+        return AudioBuffer(wav[0][len(prefix) * T.SAMPLES_PER_FRAME:], T.OUTPUT_SAMPLE_RATE)
 
     def __iter__(self):
         return self

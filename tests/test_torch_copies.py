@@ -1,8 +1,9 @@
 """The PyTorch port's framework-free copies equal their JAX-package originals.
 
-Token tables, model configs, the PCG uniform stream, bucketing and WAV I/O
-are copied into ``qwen3_tts_tpu_torch``; each copy must give the same values
-(or bytes) as the module it was copied from. Also checks that the port never
+Token tables, model configs, the PCG uniform stream, bucketing, WAV I/O,
+mel spectrograms, resampling and the native-library bindings are copied
+into ``qwen3_tts_tpu_torch``; each copy must give the same values (or
+bytes) as the module it was copied from. Also checks that the port never
 loads JAX.
 """
 
@@ -20,12 +21,18 @@ import numpy as np
 import pytest
 import torch
 
+from qwen3_tts_tpu import native as jnative
 from qwen3_tts_tpu.audio import io as jio
+from qwen3_tts_tpu.audio import mel as jmel
+from qwen3_tts_tpu.audio import resample as jresample
 from qwen3_tts_tpu.models import config as jconfig
 from qwen3_tts_tpu.models import tokens as jtokens
 from qwen3_tts_tpu.ops import rng as jrng
 from qwen3_tts_tpu.utils import bucketing as jbucketing
+from qwen3_tts_tpu_torch import native as tnative
 from qwen3_tts_tpu_torch.audio import io as tio
+from qwen3_tts_tpu_torch.audio import mel as tmel
+from qwen3_tts_tpu_torch.audio import resample as tresample
 from qwen3_tts_tpu_torch.models import config as tconfig
 from qwen3_tts_tpu_torch.models import tokens as ttokens
 from qwen3_tts_tpu_torch.ops import rng as trng
@@ -118,6 +125,82 @@ def test_wav_bytes_equal(tmp_path):
     ja.normalize_db(-3.0)
     np.testing.assert_array_equal(ta.samples, ja.samples)
     assert ta.duration == ja.duration
+
+
+MEL_CONFIGS = {
+    "default": {},
+    "speaker-encoder": dataclasses.asdict(jmel.speaker_encoder_config()),
+    "windowed": dict(n_mels=80, fmin=20.0, fmax=8000.0, win_length=300),
+}
+
+
+@pytest.mark.parametrize("n", [1, 300, 24000, 37123])
+@pytest.mark.parametrize("config", sorted(MEL_CONFIGS))
+def test_mel_equal(n, config):
+    """Filterbank, STFT and the three spectrogram forms, bit for bit."""
+    samples = (0.3 * np.random.RandomState(n).randn(n)).astype(np.float32)
+    jm = jmel.MelSpectrogram(jmel.MelConfig(**MEL_CONFIGS[config]))
+    tm = tmel.MelSpectrogram(tmel.MelConfig(**MEL_CONFIGS[config]))
+    np.testing.assert_array_equal(tm.fb, jm.fb)
+    np.testing.assert_array_equal(tmel.stft(samples, tm.cfg), jmel.stft(samples, jm.cfg))
+    for form in ("compute", "compute_log", "compute_for_speaker_encoder"):
+        np.testing.assert_array_equal(getattr(tm, form)(samples), getattr(jm, form)(samples))
+    f = np.linspace(0, 12000, 97)
+    np.testing.assert_array_equal(tmel.hz_to_mel(f), jmel.hz_to_mel(f))
+    np.testing.assert_array_equal(tmel.mel_to_hz(f / 100), jmel.mel_to_hz(f / 100))
+    np.testing.assert_array_equal(tmel.hann_window(400), jmel.hann_window(400))
+
+
+def _reload_native(monkeypatch) -> None:
+    """Both bindings load the library afresh, the JAX package's first (it
+    builds the library if it is missing): a process whose first attempt met
+    another worker's build in progress then sees the finished file."""
+    for mod in (jnative, tnative):
+        monkeypatch.setattr(mod, "_lib", None)
+        monkeypatch.setattr(mod, "_load_attempted", False)
+        mod._load()
+
+
+@pytest.mark.parametrize("path", ["native", "numpy"])
+@pytest.mark.parametrize("rate", [16000, 22050, 24000, 44100, 48000])
+def test_resample_equal(rate, path, monkeypatch):
+    """``resample_to_24k`` through the native library where it is built,
+    and through the numpy fallback (the library switched off in both)."""
+    if path == "numpy":
+        monkeypatch.setattr(tnative, "_load", lambda: None)
+        monkeypatch.setattr(jnative, "_load", lambda: None)
+    else:
+        _reload_native(monkeypatch)
+    samples = np.sin(np.arange(rate // 3) * 0.05).astype(np.float32) * 0.7
+    got = tresample.resample_to_24k(tio.AudioBuffer(samples, rate))
+    want = jresample.resample_to_24k(jio.AudioBuffer(samples, rate))
+    assert got.sample_rate == want.sample_rate == 24000
+    np.testing.assert_array_equal(got.samples, want.samples)
+    np.testing.assert_array_equal(tresample.resample_array(samples, rate, 16000, 64),
+                                  jresample.resample_array(samples, rate, 16000, 64))
+
+
+def test_native_bindings_equal(tmp_path, monkeypatch):
+    """Both packages load the same library (or, without a C++ toolchain,
+    neither does) and their entry points give the same values and bytes."""
+    assert tnative._LIB_PATH == jnative._LIB_PATH
+    _reload_native(monkeypatch)
+    assert tnative.available() == jnative.available()
+    samples = (np.random.RandomState(2).rand(5000).astype(np.float32) - 0.5) * 1.5
+    for seed in (0, 42, 2**63 + 5):
+        a, b = tnative.pcg_uniforms(seed, 300), jnative.pcg_uniforms(seed, 300)
+        assert (a is None) == (b is None) == (not jnative.available())
+        if a is not None:
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, trng.pcg_uniform_sequence(seed, 300))
+    a, b = tnative.resample_sinc(samples, 48000, 24000), jnative.resample_sinc(samples, 48000, 24000)
+    assert (a is None) == (b is None)
+    if a is not None:
+        np.testing.assert_array_equal(a, b)
+    wrote = tnative.wav_write_pcm16(str(tmp_path / "t.wav"), samples, 24000)
+    assert wrote == jnative.wav_write_pcm16(str(tmp_path / "j.wav"), samples, 24000)
+    if wrote:
+        assert (tmp_path / "t.wav").read_bytes() == (tmp_path / "j.wav").read_bytes()
 
 
 def test_port_imports_no_jax():
