@@ -140,7 +140,34 @@ Phases, each printing a line (any failure exits nonzero before the last):
      audio within 1e-5 of max|audio| of a stream on the plain units; in int8 kernel 4
      at the clone and design prompts' rows (m = 41, 73, 105) beside
      ``torch.matmul`` on the dequantized weight;
- 11. the script's wall time, a JSON line of the kernels (each with its
+ 11. loading and the command line (phase ``ckpt``): a seeded 1.7B
+     CustomVoice checkpoint in the HF layout (all 28 talker layers, bf16,
+     the full-width vocoder f32; ``qwen3_tts_tpu_torch/ckpt_fixture.py``,
+     drawn on the card by a ``torch.Generator``) with a byte-level
+     ``vocab.json`` / ``merges.txt``, written to a temporary directory and
+     timed; the safetensors reader on the card bit-equal to the tensors
+     written (read time and rate, the file warm in the page cache);
+     ``Qwen3TTS.from_pretrained`` timed, and every tree of the model it
+     builds bit-equal to the port's key maps applied to the tensors in
+     memory; then the CLI (``qwen3_tts_tpu_torch.cli.main``, in process)
+     three times on it, 125 frames forced, seed 42: the default mode, then
+     ``--streaming``, then ``--int8``, each with ``--dump-codes`` and the
+     launch counts set to 0 as ``from_pretrained`` returns: the codes (the
+     dumped file; under ``--streaming``, which dumps none, the session's
+     frames) equal to the same model's ``synthesize_streaming(...).
+     run_to_completion()``, kernels 1 and 3 once a frame, kernel 2's batch
+     entry 9 times (its stream entry 9 times a chunk under
+     ``--streaming``), kernel 4 under ``--int8`` only, kernels 5, 6 and 7
+     never; the CLI's RTF printed; the directory deleted;
+ 12. the 1.7B-width utterance (phase ``utterance``): the seeded checkpoint
+     of ``ckpt_fixture.write_utterance_checkpoint`` (2 talker layers, drawn
+     from numpy) loaded by ``from_pretrained`` in f32 on the card (kernels
+     1 and 3 in their f32 forms, kernel 2 in 3xTF32), 24 frames forced,
+     greedy and under seeded PCG sampling: frames token-exact and the audio
+     within 1e-5 of max|audio| of the JAX package's (the committed fixture
+     ``testdata/utterance_1p7b.npz``), the fixture's least top-2 margins
+     printed beside the result;
+ 13. the script's wall time, a JSON line of the kernels (each with its
      launches on its main path, its time, its plain version's, the card's
      bound for the same work and, where one PyTorch call computes the same
      function, that call's time), then the JSON result as the last line.
@@ -149,10 +176,13 @@ Phases, each printing a line (any failure exits nonzero before the last):
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -167,7 +197,8 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import qwen3_tts_tpu_torch  # noqa: E402,F401  (sets the TF32 switches)
-from qwen3_tts_tpu_torch import build, cp_fixture, encoder_fixture, talker_fixture, vocoder_fixture  # noqa: E402
+from qwen3_tts_tpu_torch import build, ckpt_fixture, cli, cp_fixture, encoder_fixture, talker_fixture  # noqa: E402
+from qwen3_tts_tpu_torch import vocoder_fixture  # noqa: E402
 from qwen3_tts_tpu_torch.audio.io import AudioBuffer  # noqa: E402
 from qwen3_tts_tpu_torch.audio.resample import resample_to_24k  # noqa: E402
 from qwen3_tts_tpu_torch import kernel_timing as kt  # noqa: E402
@@ -2146,6 +2177,183 @@ def per_step_main_paths() -> dict:
     return runs
 
 
+def _assert_trees_equal(got, want, what: str) -> None:
+    """Same structure, dtypes and bits, leaf by leaf."""
+    if isinstance(want, dict):
+        if got.keys() != want.keys():
+            return check(False, f"{what}: keys {sorted(got)} != {sorted(want)}")
+        for k in want:
+            _assert_trees_equal(got[k], want[k], f"{what}/{k}")
+    elif isinstance(want, (list, tuple)):
+        check(len(got) == len(want), f"{what}: {len(got)} items, want {len(want)}")
+        for i, (g, w) in enumerate(zip(got, want)):
+            _assert_trees_equal(g, w, f"{what}[{i}]")
+    elif want is None:
+        check(got is None, f"{what}: not None")
+    else:
+        check(got.dtype == want.dtype and got.shape == want.shape and torch.equal(got, want),
+              f"{what}: not bit-equal ({got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)})")
+
+
+def cli_run(argv: list, seen: dict) -> tuple:
+    """``cli.main(argv)`` in process. ``from_pretrained`` is wrapped to keep
+    the model it builds (``seen["model"]``, its load time ``seen["load_s"]``)
+    and to set every launch count to 0 as it returns, just before the CLI
+    drives the path; ``synthesize_streaming`` to keep the session
+    (``seen["session"]``). Returns (launches, the CLI's stderr)."""
+    loader = Qwen3TTS.__dict__["from_pretrained"].__func__
+    streaming = Qwen3TTS.synthesize_streaming
+
+    def load(cls, *a, **k):
+        t0 = time.perf_counter()
+        seen["model"] = loader(cls, *a, **k)
+        torch.cuda.synchronize()
+        seen["load_s"] = time.perf_counter() - t0
+        _reset_counts()
+        return seen["model"]
+
+    def keep_session(self, *a, **k):
+        seen["session"] = streaming(self, *a, **k)
+        return seen["session"]
+
+    err = io.StringIO()
+    Qwen3TTS.from_pretrained, Qwen3TTS.synthesize_streaming = classmethod(load), keep_session
+    try:
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+    finally:
+        Qwen3TTS.from_pretrained, Qwen3TTS.synthesize_streaming = classmethod(loader), streaming
+    launches = _counts()
+    check(rc == 0, f"cli.main({argv}) returned {rc}")
+    return launches, err.getvalue()
+
+
+def ckpt_phase() -> None:
+    """Phase ``ckpt`` (see the module docstring, item 11)."""
+    t_phase = time.perf_counter()
+    cfg = config_for_variant("1.7B", "custom_voice")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(13)
+    hf = ckpt_fixture.generated_weights(ckpt_fixture.model_specs(cfg), gen, torch.bfloat16)
+    speech = ckpt_fixture.generated_weights(ckpt_fixture.speech_specs(), gen, torch.float32)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(prefix="qwen3_tts_ckpt_") as d:
+        t0 = time.perf_counter()
+        n_bytes = ckpt_fixture.write_checkpoint(d, cfg, hf, speech)
+        t_write = time.perf_counter() - t0
+        model_file = Path(d) / "model.safetensors"
+        model_bytes = model_file.stat().st_size
+        t0 = time.perf_counter()
+        raw = W.load_safetensors(model_file, DEV)
+        torch.cuda.synchronize()
+        t_read = time.perf_counter() - t0
+        _assert_trees_equal(raw, hf, "safetensors reader")
+        del raw
+        t0 = time.perf_counter()
+        model = Qwen3TTS.from_pretrained(d, device=DEV)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        phase("ckpt", f"1.7B CustomVoice checkpoint (28 talker layers, bf16; vocoder f32): {n_bytes / 1e9:.3f} GB "
+              f"written in {t_write:.2f} s ({n_bytes / 1e9 / t_write:.2f} GB/s, the card's tensors "
+              f"copied to the host included); model.safetensors ({model_bytes / 1e9:.3f} GB, just written: read "
+              f"from the page cache) read onto the card in {t_read:.2f} s "
+              f"({model_bytes / 1e9 / t_read:.2f} GB/s), bit-equal to the tensors written; from_pretrained "
+              f"{t_load:.2f} s (both files, tokenizer, key maps, fusion, kernel packs)")
+        _assert_trees_equal(model.talker_params, W.fuse_model_params(W.load_talker_params(hf, cfg.talker)),
+                            "talker tree")
+        _assert_trees_equal(model.cp_params, W.fuse_model_params(W.load_code_predictor_params(hf, cfg.code_predictor)),
+                            "code-predictor tree")
+        _assert_trees_equal(model.vocoder_params, vocoder.load_vocoder_params(speech, model.vocoder_config),
+                            "vocoder tree")
+        check(model.cp_frame_pack is not None and model.talker_step_pack is not None,
+              "from_pretrained's model holds no kernel 1 / kernel 3 pack")
+        phase("ckpt", "every tree of from_pretrained's model bit-equal to the key maps of the tensors in memory; "
+              f"kernel 1 and kernel 3 packs built; tokenizer ids of the text {model.tokenizer.encode(TEXT)}")
+        del model, hf, speech
+        torch.cuda.empty_cache()
+
+        opts = SynthesisOptions(max_length=FRAMES, min_new_tokens=FRAMES, seed=42)
+        chunks = 1 + math.ceil((FRAMES - opts.first_chunk_frames) / opts.chunk_frames)
+        base = ["-m", d, "-t", TEXT, "-f", str(FRAMES), "--min-new-tokens", str(FRAMES), "--seed", "42",
+                "--output", str(Path(d) / "out.wav"), "--dump-codes"]
+        never = ("fused_attention_step", "fused_mlp_step", "streamed_decode_step")
+        for label, extra, want in (
+            ("default", [], {"cp_frame": FRAMES, "talker_step": FRAMES, "residual_unit": 9,
+                             "residual_unit_stream": 0, "int8_matmul": 0}),
+            ("--streaming", ["--streaming"], {"cp_frame": FRAMES, "talker_step": FRAMES, "residual_unit": 0,
+                                              "residual_unit_stream": 9 * chunks, "int8_matmul": 0}),
+            ("--int8", ["--int8"], {"cp_frame": FRAMES, "talker_step": FRAMES, "residual_unit": 9,
+                                    "residual_unit_stream": 0}),
+        ):
+            seen = {}
+            t0 = time.perf_counter()
+            launches, err = cli_run(base + extra, seen)
+            wall = time.perf_counter() - t0
+            model = seen["model"]
+            if label == "--streaming":
+                session = seen["session"]
+                codes = session.state.frames[:session.frames_generated].cpu().numpy()
+            else:
+                codes = np.fromfile(Path(d) / "out.codes.bin", np.int32).reshape(-1, 16)
+            api = model.synthesize_streaming(TEXT, "ryan", "english", opts).run_to_completion()
+            rtf = re.search(r"RTF ([0-9.]+)\)", err)
+            phase("ckpt", f"cli.main {label}: from_pretrained {seen['load_s']:.2f} s; the CLI's RTF "
+                  f"{rtf.group(1) if rtf else None} over {len(codes)} frames (wall of main {wall:.2f} s, load "
+                  "included); "
+                  f"codes equal to the API's on the same model {codes.shape == api.shape and (codes == api).all()}; "
+                  f"launches {launches}")
+            check(codes.shape == api.shape == (FRAMES, 16) and bool((codes == api).all()),
+                  f"ckpt {label}: the CLI's codes differ from the API's on the same model")
+            for k, n in want.items():
+                check(launches[k] == n, f"ckpt {label}: {k} launched {launches[k]} times, want {n}")
+            check(label != "--int8" or launches["int8_matmul"] > 0, "ckpt --int8: kernel 4 never launched")
+            check(all(launches[k] == 0 for k in never), f"ckpt {label}: kernel 5, 6 or 7 launched: {launches}")
+            del model, seen
+            torch.cuda.empty_cache()
+    phase("ckpt", f"phase wall time {time.perf_counter() - t_phase:.1f} s; the checkpoint directory deleted")
+
+
+def utterance_phase() -> None:
+    """Phase ``utterance`` (see the module docstring, item 12)."""
+    t_phase = time.perf_counter()
+    fixture = ckpt_fixture.load_utterance()
+    with tempfile.TemporaryDirectory(prefix="qwen3_tts_utterance_") as d:
+        t0 = time.perf_counter()
+        ckpt_fixture.write_utterance_checkpoint(d)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model = Qwen3TTS.from_pretrained(d, dtype=torch.float32, device=DEV)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    check(model.cp_frame_pack is not None and model.talker_step_pack is not None,
+          "utterance: the f32 model holds no kernel 1 / kernel 3 pack")
+    n = ckpt_fixture.UTTERANCE_FRAMES
+    for kind, temperature in (("greedy", 0.0), ("pcg", 0.9)):
+        opts = SynthesisOptions(max_length=n, min_new_tokens=n, seed=42, temperature=temperature)
+        _reset_counts()
+        frames = model._custom_voice_session(ckpt_fixture.UTTERANCE_TEXT, "ryan", "english", opts).run_to_completion()
+        audio = model.decode_codes(frames).samples
+        launches = _counts()
+        want, want_audio = fixture[f"frames_{kind}"], fixture[f"audio_{kind}"]
+        equal = frames.shape == want.shape and bool((frames == want).all())
+        share = float((frames == want).mean()) if frames.shape == want.shape else 0.0
+        scale = float(np.abs(want_audio).max())
+        err = float(np.abs(audio - want_audio).max()) if audio.shape == want_audio.shape else float("inf")
+        phase("utterance", f"seeded 1.7B-width checkpoint (2 talker layers) from disk in f32 (written "
+              f"{t_write:.1f} s, from_pretrained {t_load:.1f} s), {kind}, {n} frames: token-exact to the JAX "
+              f"fixture {equal} (share of codes equal {share:.4f}); least top-2 margins of the fixture: talker "
+              f"{float(fixture['talker_margin']):.3e}, code predictor {float(fixture['cp_margin']):.3e}; "
+              f"max|audio - JAX| {err:.3e} = {err / scale:.3e} of max|audio| {scale:.4f} (bar 1e-5); launches "
+              f"{launches}")
+        check(equal, f"utterance {kind}: frames differ from the JAX fixture")
+        check(err <= 1e-5 * scale, f"utterance {kind}: audio {err / scale:.3e} of max|audio| from the JAX fixture")
+        check(launches["cp_frame"] == launches["talker_step"] == n and launches["residual_unit"] == 9,
+              f"utterance {kind}: launches {launches}")
+    del model
+    torch.cuda.empty_cache()
+    phase("utterance", f"phase wall time {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase("card", "name, power limit:")
@@ -2169,6 +2377,8 @@ def main() -> None:
     for case in SMALL_INT8:
         small_int8_agrees(*case)
     launches = main_path(encoders)
+    ckpt_phase()
+    utterance_phase()
     for row in KERNEL_ROWS:
         row["launches"] = launches[row["path"]][row["name"].removesuffix("_int8")]
     check(len({row["replaces"] for row in KERNEL_ROWS}) == 8,

@@ -4,7 +4,9 @@ The CustomVoice main path (prompt -> talker prefill -> frame loop with the
 code predictor -> vocoder), staged or streamed chunk by chunk, voice cloning
 (the speaker and Mimi encoders, x-vector and ICL prompts) and voice design,
 in PyTorch, with the JAX package's Pallas kernels on those paths rewritten
-by hand in CUDA for Hopper (``csrc/``).
+by hand in CUDA for Hopper (``csrc/``); HF checkpoints load with
+``Qwen3TTS.from_pretrained`` (the package's own safetensors reader and Qwen2
+tokenizer), and ``python -m qwen3_tts_tpu_torch`` is the command line.
 This package imports neither JAX nor ``qwen3_tts_tpu``; the tests hold it
 against the JAX package.
 """

@@ -90,9 +90,15 @@ def generate_frames(
     cp_frame_pack=None,  # the code predictor's fused_layer.CpFramePack, on the card
     talker_step_pack=None,  # the talker's fused_layer.TalkerStepPack, on the card
     cp_step_pack=None,  # the code predictor's fused_layer.CpStepPack, on the card
+    on_frame=None,
 ) -> GenState:
     """Advance the loop until EOS or ``frame_limit`` frames exist (at most
-    the frames buffer's rows); a state already done does not move."""
+    the frames buffer's rows); a state already done does not move.
+
+    ``on_frame(idx, token, codes, logits)``, when given, is called once a
+    frame with the frame's index, its semantic token, its 15 acoustic codes
+    and the post-penalty logits the next token is sampled from (device
+    tensors; ``generation/debug.py`` reads them)."""
     suppression = sampling.build_suppression_mask(
         state.penalty_mask.shape[0], scfg.eos_token_id, state.penalty_mask.device
     )
@@ -128,6 +134,8 @@ def generate_frames(
         )
         next_token = sampling.sample(logits, scfg, uniforms[min(token_count, max_new)])[0]
         state.penalty_mask[next_token] = 1.0
+        if on_frame is not None:
+            on_frame(idx, state.token, codes, logits)
 
         state.last_hidden = hidden
         state.token = next_token

@@ -19,7 +19,8 @@ Every conv uses Mimi's causal padding: left pad = effective kernel -
 stride, plus right "extra" padding so the last frame is complete. The
 SEANet runs channels-first on ``F.conv1d`` (kernels ``[Cout, Cin, K]``,
 converted from the JAX package's ``[K, Cin, Cout]`` by ``models.weights.
-mimi_encoder_from_numpy``). The JAX package pads the audio to a sample
+mimi_encoder_from_numpy``, or taken from an HF speech tokenizer by
+``Encoder12Hz.from_weights``). The JAX package pads the audio to a sample
 bucket and masks; the port runs at the true length, whose codes the
 bucketed ones equal.
 """
@@ -218,3 +219,74 @@ class Encoder12Hz:
         _, _, t12 = stage_lengths(self.cfg, len(samples))
         codes = forward(self.params, self.cfg, torch.from_numpy(samples).to(self.device)[None])
         return codes[0, :t12].to(torch.int32).cpu().numpy()
+
+    @classmethod
+    def from_weights(cls, weights: dict, cfg: MimiEncoderConfig = MimiEncoderConfig()) -> "Encoder12Hz":
+        """An encoder from a speech tokenizer's HF ``encoder.*`` tensors, on the
+        device that holds them: conv kernels kept in ``F.conv1d``'s
+        ``[Cout, Cin, K]`` (a missing bias is None), linear weights
+        ``[in, out]``, each codebook its embedding sum over its usage (at
+        least 1e-5). Raises ``KeyError`` on a missing tensor."""
+        p = "encoder"
+
+        def f32(key):
+            return weights[key].float().contiguous()
+
+        def conv(key):
+            bias = f"{key}.bias"
+            return f32(f"{key}.weight"), (f32(bias) if bias in weights else None)
+
+        def lin(key):
+            return weights[f"{key}.weight"].float().t().contiguous()
+
+        # SEANet layer indices: 0 init; stage i: resnet 3i+1, strided conv 3i+3;
+        # the final conv after the last stage (modeling_mimi.MimiEncoder).
+        init_w, init_b = conv(f"{p}.encoder.layers.0.conv")
+        stages = []
+        for i in range(len(cfg.ratios)):
+            rb = f"{p}.encoder.layers.{3 * i + 1}.block"
+            c1w, c1b = conv(f"{rb}.1.conv")
+            c2w, c2b = conv(f"{rb}.3.conv")
+            dw, db = conv(f"{p}.encoder.layers.{3 * i + 3}.conv")
+            stages.append({"resnet": {"conv1_w": c1w, "conv1_b": c1b, "conv2_w": c2w, "conv2_b": c2b},
+                           "down_w": dw, "down_b": db})
+        final_w, final_b = conv(f"{p}.encoder.layers.{3 * len(cfg.ratios) + 2}.conv")
+
+        layers = []
+        for i in range(cfg.num_layers):
+            lp = f"{p}.encoder_transformer.layers.{i}"
+            layers.append({
+                "ln1_w": f32(f"{lp}.input_layernorm.weight"),
+                "ln1_b": f32(f"{lp}.input_layernorm.bias"),
+                "q_proj": lin(f"{lp}.self_attn.q_proj"),
+                "k_proj": lin(f"{lp}.self_attn.k_proj"),
+                "v_proj": lin(f"{lp}.self_attn.v_proj"),
+                "o_proj": lin(f"{lp}.self_attn.o_proj"),
+                "attn_scale": f32(f"{lp}.self_attn_layer_scale.scale"),
+                "ln2_w": f32(f"{lp}.post_attention_layernorm.weight"),
+                "ln2_b": f32(f"{lp}.post_attention_layernorm.bias"),
+                "fc1": lin(f"{lp}.mlp.fc1"),
+                "fc2": lin(f"{lp}.mlp.fc2"),
+                "mlp_scale": f32(f"{lp}.mlp_layer_scale.scale"),
+            })
+
+        def codebook(key):
+            usage = weights[f"{key}.cluster_usage"].float().clamp(min=1e-5)
+            return weights[f"{key}.embed_sum"].float() / usage[:, None]
+
+        def proj(key):  # a 1x1 conv [out, in, 1] as dense [in, out]
+            return weights[f"{key}.input_proj.weight"].float()[:, :, 0].t().contiguous()
+
+        sq = f"{p}.quantizer.semantic_residual_vector_quantizer"
+        aq = f"{p}.quantizer.acoustic_residual_vector_quantizer"
+        params = {
+            "seanet": {"init_w": init_w, "init_b": init_b, "stages": stages, "final_w": final_w, "final_b": final_b},
+            "transformer": {"layers": layers},
+            "downsample_w": f32(f"{p}.downsample.conv.weight"),
+            "semantic_proj": proj(sq),
+            "semantic_codebooks": torch.stack([codebook(f"{sq}.layers.0.codebook")]),
+            "acoustic_proj": proj(aq),
+            "acoustic_codebooks": torch.stack(
+                [codebook(f"{aq}.layers.{i}.codebook") for i in range(cfg.num_quantizers - 1)]),
+        }
+        return cls(params, cfg)

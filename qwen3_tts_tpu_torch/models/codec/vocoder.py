@@ -17,7 +17,9 @@ right-padding the frame axis to a bucket and trimming is exact, and a
 stream that carries each conv's left-context rows and the
 pre-transformer's KV cache across chunks gives the batch decode's samples
 (up to matmul-tiling ulps). f32 throughout, at full matmul and conv
-precision (TF32 is off, see the package's ``__init__``).
+precision (TF32 is off, see the package's ``__init__``). ``load_vocoder_params``
+maps a speech tokenizer's HF ``decoder.*`` tensors to the tree (the JAX
+package's layout: conv kernels ``[K, Cin, Cout]``, linear ``[in, out]``).
 """
 
 from __future__ import annotations
@@ -337,6 +339,127 @@ def decode_stream_chunk(
     h, new_cs["final"] = _conv_stream(h, cs["final"], params["final_conv_w"], params["final_conv_b"])
     wav = torch.clamp(h[..., 0], -1.0, 1.0)
     return wav, VocoderStreamState(state.kv_k, state.kv_v, new_cs, state.pos + s)
+
+
+def _conv_w(w: torch.Tensor) -> torch.Tensor:
+    """HF conv / transposed-conv weight [A, B, K] -> [K, B, A], f32 (the JAX
+    package's layout, which this vocoder takes)."""
+    return w.float().permute(2, 1, 0).contiguous()
+
+
+def _lin(w: torch.Tensor) -> torch.Tensor:
+    """HF linear weight [out, in] -> [in, out], f32."""
+    return w.float().t().contiguous()
+
+
+def _f32(w: torch.Tensor) -> torch.Tensor:
+    return w.float()
+
+
+def _normalized_codebook(embedding_sum: torch.Tensor, cluster_usage: torch.Tensor) -> torch.Tensor:
+    """The codebook: each row's embedding sum over its usage (at least 1e-7), f32."""
+    return embedding_sum.float() / cluster_usage.float().clamp(min=1e-7)[:, None]
+
+
+def _convnext_params(w: dict, p: str) -> dict:
+    return {
+        "dwconv_w": _conv_w(w[f"{p}.dwconv.conv.weight"]),
+        "dwconv_b": _f32(w[f"{p}.dwconv.conv.bias"]),
+        "norm_w": _f32(w[f"{p}.norm.weight"]),
+        "norm_b": _f32(w[f"{p}.norm.bias"]),
+        "pwconv1_w": _lin(w[f"{p}.pwconv1.weight"]),
+        "pwconv1_b": _f32(w[f"{p}.pwconv1.bias"]),
+        "pwconv2_w": _lin(w[f"{p}.pwconv2.weight"]),
+        "pwconv2_b": _f32(w[f"{p}.pwconv2.bias"]),
+        "gamma": _f32(w[f"{p}.gamma"]),
+    }
+
+
+def _residual_unit_params(w: dict, p: str) -> dict:
+    return {
+        "act1_alpha": _f32(w[f"{p}.act1.alpha"]),
+        "act1_beta": _f32(w[f"{p}.act1.beta"]),
+        "conv1_w": _conv_w(w[f"{p}.conv1.conv.weight"]),
+        "conv1_b": _f32(w[f"{p}.conv1.conv.bias"]),
+        "act2_alpha": _f32(w[f"{p}.act2.alpha"]),
+        "act2_beta": _f32(w[f"{p}.act2.beta"]),
+        "conv2_w": _conv_w(w[f"{p}.conv2.conv.weight"]),
+        "conv2_b": _f32(w[f"{p}.conv2.conv.bias"]),
+    }
+
+
+def load_vocoder_params(w: dict, cfg: VocoderConfig = VocoderConfig()) -> dict:
+    """The vocoder's tree from a speech tokenizer's HF ``decoder.*`` tensors,
+    f32 whatever their dtype, on the device that holds them."""
+    layers = []
+    for i in range(cfg.num_layers):
+        p = f"decoder.pre_transformer.layers.{i}"
+        layers.append({
+            "input_ln": _f32(w[f"{p}.input_layernorm.weight"]),
+            "q_proj": _lin(w[f"{p}.self_attn.q_proj.weight"]),
+            "k_proj": _lin(w[f"{p}.self_attn.k_proj.weight"]),
+            "v_proj": _lin(w[f"{p}.self_attn.v_proj.weight"]),
+            "o_proj": _lin(w[f"{p}.self_attn.o_proj.weight"]),
+            "attn_scale": _f32(w[f"{p}.self_attn_layer_scale.scale"]),
+            "post_ln": _f32(w[f"{p}.post_attention_layernorm.weight"]),
+            "gate_proj": _lin(w[f"{p}.mlp.gate_proj.weight"]),
+            "up_proj": _lin(w[f"{p}.mlp.up_proj.weight"]),
+            "down_proj": _lin(w[f"{p}.mlp.down_proj.weight"]),
+            "mlp_scale": _f32(w[f"{p}.mlp_layer_scale.scale"]),
+        })
+    stacked_layers = {k: torch.stack([layer[k] for layer in layers]) for k in layers[0]}
+
+    upsample = []
+    for i, _ in enumerate(cfg.upsampling_ratios):
+        p = f"decoder.upsample.{i}"
+        upsample.append({
+            "up_w": _conv_w(w[f"{p}.0.conv.weight"]),
+            "up_b": _f32(w[f"{p}.0.conv.bias"]),
+            "convnext": _convnext_params(w, f"{p}.1"),
+        })
+
+    decoder_blocks = []
+    for i, _ in enumerate(cfg.upsample_rates):
+        bp = f"decoder.decoder.{i + 1}.block"
+        decoder_blocks.append({
+            "snake_alpha": _f32(w[f"{bp}.0.alpha"]),
+            "snake_beta": _f32(w[f"{bp}.0.beta"]),
+            "up_w": _conv_w(w[f"{bp}.1.conv.weight"]),
+            "up_b": _f32(w[f"{bp}.1.conv.bias"]),
+            "res1": _residual_unit_params(w, f"{bp}.2"),
+            "res2": _residual_unit_params(w, f"{bp}.3"),
+            "res3": _residual_unit_params(w, f"{bp}.4"),
+        })
+
+    q = "decoder.quantizer"
+    return {
+        "first_codebook": _normalized_codebook(w[f"{q}.rvq_first.vq.layers.0._codebook.embedding_sum"],
+                                               w[f"{q}.rvq_first.vq.layers.0._codebook.cluster_usage"]),
+        "rest_codebooks": torch.stack([
+            _normalized_codebook(w[f"{q}.rvq_rest.vq.layers.{i}._codebook.embedding_sum"],
+                                 w[f"{q}.rvq_rest.vq.layers.{i}._codebook.cluster_usage"])
+            for i in range(cfg.num_quantizers - 1)
+        ]),
+        # 1x1 conv weights [out, in, 1] -> dense [in, out]
+        "first_output_proj": _lin(w[f"{q}.rvq_first.output_proj.weight"][:, :, 0]),
+        "rest_output_proj": _lin(w[f"{q}.rvq_rest.output_proj.weight"][:, :, 0]),
+        "pre_conv_w": _conv_w(w["decoder.pre_conv.conv.weight"]),
+        "pre_conv_b": _f32(w["decoder.pre_conv.conv.bias"]),
+        "input_proj_w": _lin(w["decoder.pre_transformer.input_proj.weight"]),
+        "input_proj_b": _f32(w["decoder.pre_transformer.input_proj.bias"]),
+        "layers": stacked_layers,
+        "final_norm": _f32(w["decoder.pre_transformer.norm.weight"]),
+        "output_proj_w": _lin(w["decoder.pre_transformer.output_proj.weight"]),
+        "output_proj_b": _f32(w["decoder.pre_transformer.output_proj.bias"]),
+        "upsample": upsample,
+        "init_conv_w": _conv_w(w["decoder.decoder.0.conv.weight"]),
+        "init_conv_b": _f32(w["decoder.decoder.0.conv.bias"]),
+        "decoder_blocks": decoder_blocks,
+        "final_snake_alpha": _f32(w["decoder.decoder.5.alpha"]),
+        "final_snake_beta": _f32(w["decoder.decoder.5.beta"]),
+        "final_conv_w": _conv_w(w["decoder.decoder.6.conv.weight"]),
+        "final_conv_b": _f32(w["decoder.decoder.6.conv.bias"]),
+    }
 
 
 def init_vocoder_params(gen: torch.Generator, cfg: VocoderConfig = VocoderConfig()) -> dict:

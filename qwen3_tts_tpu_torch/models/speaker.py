@@ -5,7 +5,8 @@ device (the JAX package runs it f32 at HIGHEST precision; the package turns
 TF32 off at import). Activations are channels-first ``[B, C, T]`` so the
 convolutions are ``F.conv1d`` (kernels ``[Cout, Cin, K]``, converted from
 the JAX package's ``[K, Cin, Cout]`` by ``models.weights.
-speaker_encoder_from_numpy``); the 1x1 layers of the SE blocks, the
+speaker_encoder_from_numpy``, or taken as they are from an HF checkpoint by
+``SpeakerEncoder.from_weights``); the 1x1 layers of the SE blocks, the
 attention head and the final projection are dense ``[Cin, Cout]`` matmuls.
 
   blocks[0]   TDNN(mel 128 -> ch0, k5)                      + ReLU
@@ -127,3 +128,44 @@ class SpeakerEncoder:
         mel = self.mel.compute_for_speaker_encoder(np.asarray(samples))  # [n_mels, T]
         out = forward(self.params, self.cfg, torch.from_numpy(mel).to(self.device)[None])
         return out[0].cpu().numpy()
+
+    @classmethod
+    def from_weights(cls, weights: dict, cfg: SpeakerEncoderConfig | None = None) -> "SpeakerEncoder":
+        """An encoder from an HF checkpoint's ``speaker_encoder.*`` tensors, on
+        the device that holds them. HF conv kernels are already ``F.conv1d``'s
+        ``[Cout, Cin, K]``; the 1x1 layers of the SE blocks, the attention
+        head and the final projection become dense ``[Cin, Cout]``."""
+        cfg = cfg or SpeakerEncoderConfig()
+        p = "speaker_encoder"
+
+        def f32(key):
+            return weights[key].float().contiguous()
+
+        def tdnn(key):
+            return {"w": f32(f"{key}.conv.weight"), "b": f32(f"{key}.conv.bias")}
+
+        def conv1x1(key):
+            return weights[f"{key}.weight"].float()[:, :, 0].t().contiguous(), f32(f"{key}.bias")
+
+        se_blocks = []
+        for i in range(1, 4):
+            bp = f"{p}.blocks.{i}"
+            c1w, c1b = conv1x1(f"{bp}.se_block.conv1")
+            c2w, c2b = conv1x1(f"{bp}.se_block.conv2")
+            se_blocks.append({
+                "tdnn1": tdnn(f"{bp}.tdnn1"),
+                "res2net": [tdnn(f"{bp}.res2net_block.blocks.{j}") for j in range(cfg.enc_res2net_scale - 1)],
+                "tdnn2": tdnn(f"{bp}.tdnn2"),
+                "se": {"conv1_w": c1w, "conv1_b": c1b, "conv2_w": c2w, "conv2_b": c2b},
+            })
+        asp_w, asp_b = conv1x1(f"{p}.asp.conv")
+        fc_w, fc_b = conv1x1(f"{p}.fc")
+        params = {
+            "initial": tdnn(f"{p}.blocks.0"),
+            "se_res2net": se_blocks,
+            "mfa": tdnn(f"{p}.mfa"),
+            "asp": {"tdnn": tdnn(f"{p}.asp.tdnn"), "conv_w": asp_w, "conv_b": asp_b},
+            "fc_w": fc_w,
+            "fc_b": fc_b,
+        }
+        return cls(params, cfg)

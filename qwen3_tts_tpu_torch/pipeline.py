@@ -18,15 +18,21 @@ sample-exact streaming vocoder (``run_to_audio``),
 decode, and the ``*_streaming`` entries hand the session to the caller
 (``next_chunk`` / iteration). An ICL clone's reference codes advance the
 streaming vocoder ahead of its first chunk and are cut from the audio.
-Weight-only int8 (``quantize_int8=True``) is ported. Batching and the
-staged clone (``synthesize_voice_clone_debug``) are not ported yet.
+Weight-only int8 (``quantize_int8=True``) is ported. ``from_pretrained``
+loads a Qwen3-TTS HF checkpoint directory with the port's own safetensors
+reader and tokenizer (no ``safetensors`` or ``tokenizers`` package).
+``synthesize_voice_clone_debug`` is the staged clone (every frame, then one
+bucketed decode of [reference || frames] with the reference's share of the
+samples cut). Batching is not ported yet.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import time
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -40,10 +46,12 @@ from .models import tokens as T
 from .models import weights as W
 from .models.codec import vocoder
 from .models.codec.encoder import Encoder12Hz, MimiEncoderConfig
-from .models.config import ModelConfig, ModelType
+from .models.config import ModelConfig, ModelType, config_for_variant, parse_config_json
 from .models.speaker import SpeakerEncoder
 from .ops import fused_layer, nn, quant, rng, sampling
+from .tokenizer import TextTokenizer
 from .utils.bucketing import next_bucket
+from .utils.device import device_or_card
 
 logger = logging.getLogger("qwen3_tts_tpu_torch")
 
@@ -55,16 +63,6 @@ CUSTOM_VOICE_PROMPT_LEN = 10
 # between re-entries of the frame loop, so decode attention reads the live
 # tier's cache rows rather than the largest bucket's.
 GROWTH_INITIAL_FRAMES = 256
-
-
-def _device_or_card(device: torch.device | str | None) -> torch.device:
-    """``device``, or the CUDA card when it is None; raises when there is no
-    card rather than building the model on the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("Qwen3TTS: no CUDA device; pass device='cpu' to build the model on the CPU")
-    return torch.device("cuda")
 
 
 @dataclass(frozen=True)
@@ -132,6 +130,22 @@ ICL_FRAMES_PER_TOKEN = 6
 ICL_MIN_REPETITION_PENALTY = 1.5
 
 
+def _sidecar_config(path: Path, cls):
+    """A dataclass config from a JSON sidecar file, or None if it is absent.
+
+    Unknown keys are rejected (typo safety); JSON lists become tuples (e.g.
+    the Mimi ratios).
+    """
+    if not path.exists():
+        return None
+    data = json.loads(path.read_text())
+    unknown = set(data) - {f.name for f in fields(cls)}
+    if unknown:
+        raise ValueError(f"{path}: unknown {cls.__name__} fields {sorted(unknown)}")
+    logger.info("Loaded %s override from %s", cls.__name__, path)
+    return cls(**{k: tuple(v) if isinstance(v, list) else v for k, v in data.items()})
+
+
 class Qwen3TTS:
     """End-to-end TTS on one device (a CUDA card, or the CPU): preset
     speakers, voice cloning and voice design.
@@ -165,8 +179,8 @@ class Qwen3TTS:
     checkpoint's: voice cloning needs the first, ICL cloning both. They run
     in f32 on the device that holds their weights.
 
-    ``from_random`` and ``from_numpy`` build on the CUDA card unless given
-    ``device="cpu"``.
+    ``from_pretrained``, ``from_random`` and ``from_numpy`` build on the CUDA
+    card unless given ``device="cpu"``.
     """
 
     def __init__(
@@ -214,6 +228,83 @@ class Qwen3TTS:
         self.speech_encoder = speech_encoder
 
     @classmethod
+    def from_pretrained(
+        cls,
+        model_dir: str | Path,
+        tokenizer_id: str | Path | None = None,
+        vocoder_config: vocoder.VocoderConfig | None = None,
+        mimi_config: MimiEncoderConfig | None = None,
+        dtype: torch.dtype = torch.bfloat16,
+        quantize_int8: bool = False,
+        device: torch.device | str | None = None,
+    ) -> "Qwen3TTS":
+        """Load a local HF checkpoint directory (config.json +
+        model.safetensors + speech_tokenizer/model.safetensors, and the text
+        tokenizer's files) onto ``device``: the CUDA card by default, or
+        ``device="cpu"``.
+
+        ``vocoder_config`` / ``mimi_config`` default to the production 12 Hz
+        speech tokenizer's dimensions, or to ``vocoder_config.json`` /
+        ``mimi_config.json`` sidecars in ``model_dir`` (unknown keys
+        rejected). Without config.json the variant is sniffed from the
+        weights (talker hidden 2048 -> 1.7B, else 0.6B; Base). The speech
+        tokenizer is looked for in ``model_dir/speech_tokenizer/``, then in
+        ``model_dir.parent/speech_tokenizer/``; the text tokenizer in
+        ``tokenizer_id`` or ``model_dir``. ``dtype`` is the talker and code
+        predictor's compute dtype (bf16; f32 for numerics against the JAX
+        package on the CPU); the vocoder and the encoders stay f32. The
+        speaker encoder is built when the checkpoint has ``speaker_encoder.*``
+        tensors, the Mimi encoder when the speech tokenizer has ``encoder.*``
+        tensors; an incomplete or malformed ``encoder.*`` set (``KeyError``,
+        ``ValueError``) leaves it None (no ICL cloning), any other error
+        raises. The JAX package's ``mesh`` (tensor-parallel serving) and
+        ``int8_activations`` (w8a8 batching) are not ported yet: they wait
+        for multi-GPU serving and batching.
+        """
+        device = device_or_card(device)
+        model_dir = Path(model_dir)
+        if vocoder_config is None:
+            vocoder_config = _sidecar_config(model_dir / "vocoder_config.json", vocoder.VocoderConfig)
+        if mimi_config is None:
+            mimi_config = _sidecar_config(model_dir / "mimi_config.json", MimiEncoderConfig)
+        vocoder_config = vocoder_config or vocoder.VocoderConfig()
+        raw = W.load_safetensors(model_dir / "model.safetensors", device)
+
+        config_path = model_dir / "config.json"
+        if config_path.exists():
+            config = parse_config_json(config_path)
+        else:
+            hidden = raw["talker.model.norm.weight"].shape[0]
+            config = config_for_variant("1.7B" if hidden == 2048 else "0.6B", "base")
+
+        st_path = model_dir / "speech_tokenizer" / "model.safetensors"
+        if not st_path.exists():
+            alt = model_dir.parent / "speech_tokenizer" / "model.safetensors"
+            if not alt.exists():
+                raise FileNotFoundError("Speech tokenizer weights not found")
+            st_path = alt
+        st_raw = W.load_safetensors(st_path, device)
+
+        tokenizer = TextTokenizer.from_pretrained(tokenizer_id or model_dir)
+        talker_params = W.load_talker_params(raw, config.talker, dtype)
+        cp_params = W.load_code_predictor_params(raw, config.code_predictor, dtype)
+        vocoder_params = vocoder.load_vocoder_params(st_raw, vocoder_config)
+
+        speaker = None
+        if any(k.startswith("speaker_encoder.") for k in raw):
+            speaker = SpeakerEncoder.from_weights(raw, config.speaker_encoder)
+        speech = None
+        if any(k.startswith("encoder.") for k in st_raw):
+            try:
+                speech = Encoder12Hz.from_weights(st_raw, mimi_config or MimiEncoderConfig())
+            except (KeyError, ValueError) as e:
+                logger.warning("Speech encoder not built (%s: %s); ICL voice cloning is unavailable.",
+                               type(e).__name__, e)
+        del raw, st_raw
+        return cls(config, talker_params, cp_params, vocoder_params, tokenizer, speaker, speech,
+                   vocoder_config=vocoder_config, quantize_int8=quantize_int8)
+
+    @classmethod
     def from_random(
         cls,
         config: ModelConfig,
@@ -226,7 +317,7 @@ class Qwen3TTS:
         ``device`` (bf16 talker and code predictor, f32 vocoder). The
         default device is the CUDA card; ``device="cpu"`` builds on the CPU.
         No encoders, as in the JAX package."""
-        device = _device_or_card(device)
+        device = device_or_card(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
         return cls(
@@ -259,7 +350,7 @@ class Qwen3TTS:
         ``speaker_tree`` / ``mimi_tree``: the JAX package's speaker-encoder
         and Mimi-encoder trees (``SpeakerEncoder.params``,
         ``Encoder12Hz.params``) as numpy, for a model that clones."""
-        device = _device_or_card(device)
+        device = device_or_card(device)
         speaker = speech = None
         if speaker_tree is not None:
             speaker = SpeakerEncoder(W.speaker_encoder_from_numpy(speaker_tree, device), config.speaker_encoder)
@@ -598,6 +689,21 @@ class Qwen3TTS:
         first chunk and cut from the output."""
         return self._voice_clone_session(text, prompt, language, options or SynthesisOptions())
 
+    def synthesize_voice_clone_debug(
+        self,
+        text: str,
+        prompt: VoiceClonePrompt,
+        language: str = "english",
+        options: SynthesisOptions | None = None,
+    ) -> tuple[AudioBuffer, np.ndarray]:
+        """Staged cloning: every frame, then one bucketed decode; returns
+        (audio, frames [T, 16]). In ICL mode the decode is of [reference
+        codes || frames], and the reference's share of the samples
+        (proportional to its frames) is cut from the front."""
+        session = self._voice_clone_session(text, prompt, language, options or SynthesisOptions())
+        frames = session.run_to_completion()
+        return self._decode_behind(session._prefix(), frames), frames
+
     # ------------------------------------------------------------------
     # Decode helpers
     # ------------------------------------------------------------------
@@ -605,6 +711,17 @@ class Qwen3TTS:
     def codes_to_tensor(self, frames: np.ndarray) -> np.ndarray:
         """[T, 16] frame-major codes -> [1, 16, T] codebook-major."""
         return np.asarray(frames, np.int32).T[None]
+
+    def _decode_behind(self, prefix: np.ndarray | None, frames: np.ndarray) -> AudioBuffer:
+        """Decode ``frames``; behind a reference ``prefix`` (ICL), decode
+        [prefix || frames] in one bucketed call and cut the prefix's share
+        of the samples (proportional to its frames) from the front."""
+        if prefix is None:
+            return self.decode_codes(frames)
+        combined = np.concatenate([prefix, frames], axis=0)
+        audio = self.decode_codes(combined)
+        cut = len(prefix) * len(audio) // max(len(combined), 1)
+        return AudioBuffer(audio.samples[min(cut, len(audio)):], audio.sample_rate)
 
     def decode_codes(self, frames: np.ndarray) -> AudioBuffer:
         """Decode [T, 16] frames to 24 kHz audio (bucketed, exact)."""
@@ -663,6 +780,9 @@ class StreamingSession:
         self.prefix_codes: np.ndarray | None = None
         # The sample-exact streaming vocoder's carry (options.streaming_exact).
         self.vstate: vocoder.VocoderStreamState | None = None
+        # Called once a frame by the frame loop (``core.generate_frames``'s
+        # ``on_frame``); ``generation.debug.debug_generate`` sets it.
+        self.on_frame = None
 
     @property
     def frames_generated(self) -> int:
@@ -677,7 +797,7 @@ class StreamingSession:
         self.state = core.generate_frames(
             m.talker_params, m.cp_params, m.config.talker, m.config.code_predictor, self.scfg, self.state,
             self.trailing, self.trailing_len, self.pad_embed, self.uniforms, frame_limit,
-            m.cp_frame_pack, m.talker_step_pack, m.cp_step_pack,
+            m.cp_frame_pack, m.talker_step_pack, m.cp_step_pack, self.on_frame,
         )
 
     @torch.no_grad()
@@ -813,13 +933,7 @@ class StreamingSession:
         frames], the prefix's share of the samples cut from the front)."""
         if not self.options.streaming_exact or self._exhausted:
             frames = self.run_to_completion()
-            prefix = self._prefix()
-            if prefix is None or not len(frames):
-                return self.model.decode_codes(frames)
-            combined = np.concatenate([prefix, frames], axis=0)
-            audio = self.model.decode_codes(combined)
-            cut = len(prefix) * len(audio) // len(combined)
-            return AudioBuffer(audio.samples[min(cut, len(audio)):], audio.sample_rate)
+            return self.model._decode_behind(self._prefix() if len(frames) else None, frames)
         if self.frames_emitted == 0:
             self._start_vstate(DECODE_BUCKET)
         chunk, max_len = DECODE_BUCKET, self.options.max_length
