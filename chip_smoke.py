@@ -64,13 +64,22 @@ Phases, each printing a line (any failure exits nonzero before the last):
      output's scale, the same bits twice; its device span (CUDA graph,
      weights cold in L2) and its time per call (host included), beside a
      bf16 matmul on the dequantized weight timed both ways;
-  7. kernels 5 and 6 (int8 attention and MLP sub-layer steps) against their
-     plain versions at the 1.7B code predictor's widths (17 cache rows, 16
-     random (x, pos), bf16 and f32, residual) and at the 1.7B talker's
-     4-chip tensor-parallel shard (4 / 2 heads, intermediate 1536, 2080
-     cache rows, pos near the top, no residual): output and written row
-     within STEP_TOL of the plain version's scale, every other row
-     bit-unchanged (rows above pos hold NaN, which must not be read); timed;
+  7. kernels 5 and 6 (int8 attention and MLP sub-layer steps, one
+     persistent launch a call) against their plain versions through a
+     ``FusedStepPack`` of 5 layers (each trial the next layer) at the 1.7B
+     code predictor's widths (17 cache rows, 16 random (x, pos),
+     intermediate 2816 in bf16 and f32, the stock 3072 in bf16, residual)
+     and at the 1.7B talker's 4-chip tensor-parallel shard (4 / 2 heads,
+     intermediate 1536, 2080 cache rows, pos near the top, no residual):
+     output and written row within STEP_TOL of the plain version's scale,
+     every other row bit-unchanged (rows above pos hold NaN, which must not
+     be read), every call the same bits twice; timed per call from Python
+     and by the device span (20 calls in a CUDA graph, cycling through the 5
+     layers); the device kernels one call of each launches (torch.profiler,
+     in a process of its own) must be 1; then the seeded 1.7B code
+     predictor at intermediate 2816 of ``qwen3_tts_tpu_torch/cp_fixture.py``
+     in f32, kernels 5 + 6 per layer, must give the JAX package's outputs
+     (the committed fixture) within STEP7_F32_TOL;
   8. kernel 7 (int8 code-predictor decode step, one persistent launch)
      against its plain version on the 1.7B int8 code predictor, through the
      tree's pack, bf16 and f32 (STEP_TRIALS random (x, pos)), with the same
@@ -108,11 +117,13 @@ Phases, each printing a line (any failure exits nonzero before the last):
      kernels); then the same in int8 (``quantize_int8=True``
      on the same synthetic trees, as bench.py builds its int8 model), where
      all four int8-path kernels must launch; then two 1.7B int8 models whose
-     code predictor takes the per-step path (vocab 2047: kernel 7, its
-     steps timed by CUDA events; intermediate 2816: kernels 5 + 6), the
-     same way. After each of the bf16 and int8 staged runs, the same
-     utterance streamed (``synthesize_streaming``: 4 frames, then 10 a
-     chunk; TTFA, chunk times, RTF) and through ``synthesize_with_voice``
+     code predictor takes the per-step path (vocab 2047: kernel 7;
+     intermediate 2816: kernels 5 + 6 through the ``FusedStepPack`` the
+     model holds, 70 launches of each a frame; each route's per-step calls
+     timed by CUDA events), the same way. After each of the bf16 and
+     int8 staged runs, the same utterance streamed
+     (``synthesize_streaming``: 4 frames, then 10 a chunk; TTFA, chunk
+     times, RTF) and through ``synthesize_with_voice``
      (``run_to_audio``, 64-frame chunks; wall time, RTF), each with the
      launch counts reset just before it: kernel 2's stream entry 9 times a
      chunk and its batch entry never, kernels 1 and 3 once a frame, the
@@ -815,16 +826,22 @@ def kernel4() -> None:
     KERNEL_ROWS.append(row)
 
 
-def step_layer(gen: torch.Generator, dims: dict, dtype: torch.dtype) -> dict:
-    """One int8 decoder layer (weights fused and quantized; norms off 1, in
-    ``dtype``) at ``dims``."""
+def step_layers(gen: torch.Generator, dims: dict, dtype: torch.dtype, n_layers: int = 1) -> dict:
+    """``n_layers`` int8 decoder layers (weights fused and quantized; norms
+    off 1, in ``dtype``) at ``dims``, stacked."""
     stacked = W.init_layer_stack(
-        gen, 1, dims["hidden"], dims["inter"], dims["heads"], dims["kv_heads"], dims["head_dim"], dtype
+        gen, n_layers, dims["hidden"], dims["inter"], dims["heads"], dims["kv_heads"], dims["head_dim"], dtype
     )
-    layer = nn.layer_params_at(quant.quantize_layer_stack(W.fuse_layer_params(stacked)), 0)
+    layers = quant.quantize_layer_stack(W.fuse_layer_params(stacked))
     for name in ("input_ln", "post_ln", "q_norm", "k_norm"):
-        layer[name] = (1 + 0.1 * torch.randn(layer[name].shape, generator=gen, device=DEV)).to(dtype)
-    return layer
+        layers[name] = (1 + 0.1 * torch.randn(layers[name].shape, generator=gen, device=DEV)).to(dtype)
+    return layers
+
+
+def dims_stack(dims: dict, n_layers: int) -> nn.LayerStackConfig:
+    """The layer-stack config of ``dims`` (eps 1e-6, as the checks pass it)."""
+    return nn.LayerStackConfig(hidden_size=dims["hidden"], intermediate_size=dims["inter"], num_layers=n_layers,
+                               num_heads=dims["heads"], num_kv_heads=dims["kv_heads"], head_dim=dims["head_dim"])
 
 
 def live_cache(gen: torch.Generator, shape: tuple, pos: int, dtype: torch.dtype) -> torch.Tensor:
@@ -851,25 +868,44 @@ def mlp_bound(layer: dict, dims: dict, item: int) -> dict:
     return bound(n_bytes, 2 * (layer["gateup_proj"]["q8"].numel() + layer["down_proj"]["q8"].numel()))
 
 
+# Layers of a kernel-5/6 check: each trial steps the next one (every layer
+# index of the pack), and the timings cycle through them so that each
+# call's weights arrive cold, as on the route (kernel_timing.FUSED_STEP_LAYERS).
+STEP_LAYERS = kt.FUSED_STEP_LAYERS
+
+
 def step_case(dims: dict, dtype: torch.dtype, residual: bool, positions: list, seed: int) -> dict:
-    """Kernels 5 and 6 against their plain versions at ``dims`` on one
-    random layer, for each pos (a fresh x and cache each); both timed at the
-    last pos. Returns errors, times and bounds."""
+    """Kernels 5 and 6 through one ``FusedStepPack`` of STEP_LAYERS random
+    layers against their plain versions at ``dims``, for each pos (a fresh x
+    and cache each, the layers in turn), each call twice (the same bits);
+    timed at the last pos: per call from Python and by the device span (20
+    calls in a CUDA graph cycling through the layers, ``kt.fused_step_times``).
+    Returns errors, times and bounds."""
     gen = torch.Generator(device=DEV).manual_seed(seed)
-    layer = step_layer(gen, dims, dtype)
+    layers = step_layers(gen, dims, dtype, STEP_LAYERS)
+    stack = dims_stack(dims, STEP_LAYERS)
     rows, kvd = dims["rows"], dims["kv_heads"] * dims["head_dim"]
     cos_t, sin_t = fused_layer.rope_tables(dims["head_dim"], 1e6, rows, DEV)
+    pack = fused_layer.FusedStepPack(layers, stack, dtype, DEV, max_seq=rows)
     attn = (dims["heads"], dims["kv_heads"], dims["head_dim"], 1e-6, residual)
-    r = {"attn_err": 0.0, "row_err": 0.0, "mlp_err": 0.0, "attn_abs": 0.0, "mlp_abs": 0.0, "untouched": True}
-    for pos in positions:
+    r = {"attn_err": 0.0, "row_err": 0.0, "mlp_err": 0.0, "attn_abs": 0.0, "mlp_abs": 0.0, "untouched": True,
+         "same_bits": True, "mlp_same_bits": True}
+    for i, pos in enumerate(positions):
+        l = i % STEP_LAYERS
+        layer = nn.layer_params_at(layers, l)
         x = torch.randn((1, dims["hidden"]), generator=gen, device=DEV).to(dtype)
         ck0, cv0 = live_cache(gen, (rows, kvd), pos, dtype), live_cache(gen, (rows, kvd), pos, dtype)
         ck, cv, ckp, cvp = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
-        got = fused_layer.fused_attention_step(x, layer, cos_t, sin_t, ck, cv, pos, *attn)
+        got = fused_layer.fused_attention_step(x, layer, cos_t, sin_t, ck, cv, pos, *attn, pack=pack, layer_index=l)
+        again = fused_layer.fused_attention_step(x, layer, cos_t, sin_t, ck0.clone(), cv0.clone(), pos, *attn,
+                                                 pack=pack, layer_index=l)
         want = fused_layer.fused_attention_step_plain(x, layer, cos_t, sin_t, ckp, cvp, pos, *attn)
-        got6 = fused_layer.fused_mlp_step(x, layer, dims["inter"], 1e-6, residual)
+        got6 = fused_layer.fused_mlp_step(x, layer, dims["inter"], 1e-6, residual, pack=pack, layer_index=l)
+        again6 = fused_layer.fused_mlp_step(x, layer, dims["inter"], 1e-6, residual, pack=pack, layer_index=l)
         want6 = fused_layer.fused_mlp_step_plain(x, layer, dims["inter"], 1e-6, residual)
         torch.cuda.synchronize()
+        r["same_bits"] &= same_bits(got, again)
+        r["mlp_same_bits"] &= same_bits(got6, again6)
         r["attn_err"] = max(r["attn_err"], rel_err(got, want))
         r["attn_abs"] = max(r["attn_abs"], (got.float() - want.float()).abs().max().item())
         r["mlp_err"] = max(r["mlp_err"], rel_err(got6, want6))
@@ -879,14 +915,62 @@ def step_case(dims: dict, dtype: torch.dtype, residual: bool, positions: list, s
             others = torch.arange(rows, device=DEV) != pos
             r["untouched"] &= same_bits(c[others], c0[others])
     item = x.element_size()
-    r["ms"] = time_ms(lambda: fused_layer.fused_attention_step(x, layer, cos_t, sin_t, ck, cv, pos, *attn), iters=50)
+    ck5 = torch.randn((STEP_LAYERS, rows, kvd), generator=gen, device=DEV).to(dtype)
+    cv5 = torch.randn((STEP_LAYERS, rows, kvd), generator=gen, device=DEV).to(dtype)
+    times = kt.fused_step_times(fused_layer, nn, layers, stack, x, ck5, cv5, pos, cos_t, sin_t, residual)
+    r["ms"], r["device_ms"] = times["attention_ms"], times["attention_device_ms"]
+    r["mlp_ms"], r["mlp_device_ms"] = times["mlp_ms"], times["mlp_device_ms"]
     r["plain_ms"] = time_ms(
         lambda: fused_layer.fused_attention_step_plain(x, layer, cos_t, sin_t, ckp, cvp, pos, *attn), iters=10)
-    r["mlp_ms"] = time_ms(lambda: fused_layer.fused_mlp_step(x, layer, dims["inter"], 1e-6, residual), iters=50)
     r["mlp_plain_ms"] = time_ms(
         lambda: fused_layer.fused_mlp_step_plain(x, layer, dims["inter"], 1e-6, residual), iters=10)
     r["bound"], r["mlp_bound"] = attention_bound(layer, dims, pos, item), mlp_bound(layer, dims, item)
     return r
+
+
+def fused_step_device_kernels(sublayer: str) -> list | None:
+    """The device kernels one warm bf16 call of kernel 5 (``sublayer``
+    "attention") or 6 ("mlp") launches at the 1.7B code predictor's widths,
+    by name, as torch.profiler records them in a process of its own
+    (``kernel_timing.py --kernel fused_step --kernels``); None where it
+    records none."""
+    script = Path(__file__).resolve().parent / "qwen3_tts_tpu_torch" / "kernel_timing.py"
+    out = subprocess.run([sys.executable, str(script), "--kernel", "fused_step", "--kernels", "--sublayer", sublayer,
+                          "--forms", "bfloat16", "--repeats", "1"], capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    return json.loads(next(line for line in out.splitlines() if line.startswith("{")))["device_kernels"]
+
+
+def kernels5_6_fixture() -> float:
+    """The seeded 1.7B int8 code-predictor layers at intermediate 2816 of
+    ``cp_fixture`` on the card: kernels 5 + 6 in f32 through a
+    ``FusedStepPack`` (``run_fused_decode_step``'s per-layer route) at each
+    of the fixture's positions must give the JAX package's outputs (the
+    committed fixture) within STEP7_F32_TOL of their largest value, one
+    launch of each kernel a layer. Returns the largest error."""
+    cfg = cp_fixture.fused_step_config()
+    stack = cfg.layer_stack()
+    layers = _on(cp_fixture.step_layers(cfg), DEV)
+    cos_t, sin_t = fused_layer.rope_tables(stack.head_dim, stack.rope_theta, cp_fixture.STEP_ROWS, DEV)
+    pack = fused_layer.FusedStepPack(layers, stack, torch.float32, DEV)
+    fixture = torch.from_numpy(cp_fixture.load_fused_step()).to(DEV)
+    counters = (fused_layer.fused_attention_step, fused_layer.fused_mlp_step)
+    before = [k.launches for k in counters]
+    errs = []
+    for (pos, x, k, v), want in zip(cp_fixture.step_inputs(cfg), fixture):
+        ck, cv = torch.from_numpy(k).to(DEV), torch.from_numpy(v).to(DEV)
+        got = fused_layer.run_fused_decode_step(layers, torch.from_numpy(x).to(DEV), stack, ck, cv, pos, cos_t, sin_t,
+                                                False, step_pack=pack)
+        errs.append(rel_err(got.reshape(-1), want))
+    launched = [k.launches - b for k, b in zip(counters, before)]
+    phase("kernel5", f"seeded 1.7B int8 code predictor, intermediate {cfg.intermediate_size} ({stack.num_layers} "
+          f"layers), f32, kernels 5 + 6 through a FusedStepPack, pos {list(cp_fixture.STEP_POSITIONS)}: "
+          f"max|err|/max|JAX| {', '.join(f'{e:.4e}' for e in errs)} against the JAX package's outputs (fixture "
+          f"{cp_fixture.FUSED_STEP_FIXTURE.name}; bar {STEP7_F32_TOL}); launches {launched}")
+    check(max(errs) <= STEP7_F32_TOL and launched == [len(errs) * stack.num_layers] * 2,
+          f"kernels 5 + 6 in f32 differ from the JAX package's outputs at 1.7B widths: {errs} > {STEP7_F32_TOL} "
+          f"(launches {launched})")
+    return max(errs)
 
 
 def kernels5_6() -> None:
@@ -894,7 +978,11 @@ def kernels5_6() -> None:
     path launches them (``per_step_main_paths``: intermediate 2816; 17
     rows, residual; bf16 as there, and f32), at the stock intermediate 3072
     (``per_step_path``), and at the 4-chip talker shard (2080 rows, pos near
-    the top, no residual)."""
+    the top, no residual), each through a ``FusedStepPack``: the bars, the
+    same bits twice, the device span and the time per call; the device
+    kernels one call of each launches (torch.profiler, in a process of its
+    own); then the f32 kernels against the JAX package's outputs
+    (``kernels5_6_fixture``)."""
     cpd = replace(config_for_variant("1.7B", "custom_voice").code_predictor, intermediate_size=LAYER_STEPS_INTER)
     cp_dims = dict(hidden=cpd.hidden_size, heads=cpd.num_attention_heads, kv_heads=cpd.num_key_value_heads,
                    head_dim=cpd.head_dim, inter=cpd.intermediate_size, rows=fused_layer.CP_MAX_SEQ)
@@ -908,43 +996,58 @@ def kernels5_6() -> None:
         ("cp-stock-bf16", stock_dims, torch.bfloat16, True, cp_pos),
         ("tp4-bf16", TP4, torch.bfloat16, False, tp_pos),
     ]
+    kernels = {sub: fused_step_device_kernels(sub) for sub in ("attention", "mlp")}
     res = {}
     for i, (name, dims, dtype, residual, positions) in enumerate(cases):
         r = res[name] = step_case(dims, dtype, residual, positions, seed=10 + i)
         tol = STEP_TOL[dtype]
         phase("kernel5", f"{name} (H {dims['hidden']}, {dims['heads']}/{dims['kv_heads']} heads, {dims['rows']} "
-              f"rows, residual {residual}), {len(positions)} trials: output max|err|/max|plain| "
-              f"{r['attn_err']:.4e}, written row {r['row_err']:.4e} (bar {tol}), other rows bit-unchanged "
-              f"{r['untouched']}, kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-              f"{r['bound']['bound_ms']:.4f} ms ({r['bound']['bound_by']})")
+              f"rows, residual {residual}), {len(positions)} trials through a FusedStepPack of {STEP_LAYERS} "
+              f"layers: output max|err|/max|plain| {r['attn_err']:.4e}, written row {r['row_err']:.4e} (bar {tol}), "
+              f"other rows bit-unchanged {r['untouched']}, same bits twice {r['same_bits']}; device span "
+              f"{r['device_ms']:.4f} ms (20 calls in a CUDA graph), per call {r['ms']:.4f} ms (host included), "
+              f"plain {r['plain_ms']:.4f} ms, bound {r['bound']['bound_ms']:.4f} ms ({r['bound']['bound_by']})")
         phase("kernel6", f"{name} (I {dims['inter']}): output max|err|/max|plain| {r['mlp_err']:.4e} (bar {tol}), "
-              f"kernel {r['mlp_ms']:.4f} ms, plain {r['mlp_plain_ms']:.4f} ms, bound "
-              f"{r['mlp_bound']['bound_ms']:.4f} ms ({r['mlp_bound']['bound_by']})")
+              f"same bits twice {r['mlp_same_bits']}; device span {r['mlp_device_ms']:.4f} ms, per call "
+              f"{r['mlp_ms']:.4f} ms, plain {r['mlp_plain_ms']:.4f} ms, bound {r['mlp_bound']['bound_ms']:.4f} ms "
+              f"({r['mlp_bound']['bound_by']})")
         check(r["attn_err"] <= tol, f"kernel 5 {name}: output error {r['attn_err']:.4e} > {tol}")
         check(r["row_err"] <= tol, f"kernel 5 {name}: written cache row error {r['row_err']:.4e} > {tol}")
         check(r["untouched"], f"kernel 5 {name}: a cache row other than pos changed")
+        check(r["same_bits"], f"kernel 5 {name}: two calls on the same inputs differ")
         check(r["mlp_err"] <= tol, f"kernel 6 {name}: output error {r['mlp_err']:.4e} > {tol}")
+        check(r["mlp_same_bits"], f"kernel 6 {name}: two calls on the same inputs differ")
+    for sub, names in kernels.items():
+        phase("kernel5" if sub == "attention" else "kernel6", f"device kernels per call ({sub}, bf16, torch.profiler "
+              "in a process of its own): " + (f"{len(names)} {sorted(set(names))}" if names
+                                              else "not measured (the profiler recorded no device activity)"))
+        check(names is None or len(names) == 1, f"kernels 5/6 {sub}: one call launched {names} on the device")
+    fixture_err = kernels5_6_fixture()
     main, f32, stock, tp = res["cp-bf16"], res["cp-f32"], res["cp-stock-bf16"], res["tp4-bf16"]
     common = {"route": "cuda", "source": "qwen3_tts_tpu_torch/csrc/fused_step.cu", "launches": 0,
               "path": f"int8_cp_inter_{LAYER_STEPS_INTER}", "dtype": "bfloat16", "library_ms": None,
-              "intermediate": LAYER_STEPS_INTER}
+              "intermediate": LAYER_STEPS_INTER, "f32_fixture_rel_err": fixture_err}
     KERNEL_ROWS.append({
         "name": "fused_attention_step", "replaces": "qwen3_tts_tpu/ops/fused_layer.py:56", **common,
         "max_abs_err": main["attn_abs"], "rel_err": main["attn_err"], "row_rel_err": main["row_err"],
-        "ms": main["ms"], "plain_ms": main["plain_ms"], **main["bound"],
-        "f32_rel_err": f32["attn_err"], "ms_f32": f32["ms"], "plain_ms_f32": f32["plain_ms"],
-        "tp4_rel_err": tp["attn_err"], "ms_tp4": tp["ms"], "plain_ms_tp4": tp["plain_ms"],
-        "bound_ms_tp4": tp["bound"]["bound_ms"],
+        "ms": main["ms"], "device_ms": main["device_ms"], "plain_ms": main["plain_ms"], **main["bound"],
+        "device_kernels": kernels["attention"],
+        "f32_rel_err": f32["attn_err"], "ms_f32": f32["ms"], "device_ms_f32": f32["device_ms"],
+        "plain_ms_f32": f32["plain_ms"],
+        "tp4_rel_err": tp["attn_err"], "ms_tp4": tp["ms"], "device_ms_tp4": tp["device_ms"],
+        "plain_ms_tp4": tp["plain_ms"], "bound_ms_tp4": tp["bound"]["bound_ms"],
     })
     KERNEL_ROWS.append({
         "name": "fused_mlp_step", "replaces": "qwen3_tts_tpu/ops/fused_layer.py:151", **common,
         "max_abs_err": main["mlp_abs"], "rel_err": main["mlp_err"],
-        "ms": main["mlp_ms"], "plain_ms": main["mlp_plain_ms"], **main["mlp_bound"],
-        "f32_rel_err": f32["mlp_err"], "ms_f32": f32["mlp_ms"], "plain_ms_f32": f32["mlp_plain_ms"],
-        "i3072_rel_err": stock["mlp_err"], "ms_i3072": stock["mlp_ms"], "plain_ms_i3072": stock["mlp_plain_ms"],
-        "bound_ms_i3072": stock["mlp_bound"]["bound_ms"],
-        "tp4_rel_err": tp["mlp_err"], "ms_tp4": tp["mlp_ms"], "plain_ms_tp4": tp["mlp_plain_ms"],
-        "bound_ms_tp4": tp["mlp_bound"]["bound_ms"],
+        "ms": main["mlp_ms"], "device_ms": main["mlp_device_ms"], "plain_ms": main["mlp_plain_ms"],
+        **main["mlp_bound"], "device_kernels": kernels["mlp"],
+        "f32_rel_err": f32["mlp_err"], "ms_f32": f32["mlp_ms"], "device_ms_f32": f32["mlp_device_ms"],
+        "plain_ms_f32": f32["mlp_plain_ms"],
+        "i3072_rel_err": stock["mlp_err"], "ms_i3072": stock["mlp_ms"], "device_ms_i3072": stock["mlp_device_ms"],
+        "plain_ms_i3072": stock["mlp_plain_ms"], "bound_ms_i3072": stock["mlp_bound"]["bound_ms"],
+        "tp4_rel_err": tp["mlp_err"], "ms_tp4": tp["mlp_ms"], "device_ms_tp4": tp["mlp_device_ms"],
+        "plain_ms_tp4": tp["mlp_plain_ms"], "bound_ms_tp4": tp["mlp_bound"]["bound_ms"],
     })
 
 
@@ -1156,10 +1259,20 @@ def _plain_streamed_step(layers, x, cfg, ck, cv, pos, cos_t, sin_t, pack=None):
     return fused_layer.streamed_decode_step_plain(layers, x, cfg, ck, cv, pos, cos_t, sin_t)
 
 
+def _plain_attention_step(*args, pack=None, layer_index=0):
+    """Kernel 5's plain version with the kernel's signature (the pack unused)."""
+    return fused_layer.fused_attention_step_plain(*args)
+
+
+def _plain_mlp_step(*args, pack=None, layer_index=0):
+    """Kernel 6's plain version with the kernel's signature (the pack unused)."""
+    return fused_layer.fused_mlp_step_plain(*args)
+
+
 STEP_WRAPPERS = (
     (fused_layer, "streamed_decode_step", _plain_streamed_step),
-    (fused_layer, "fused_attention_step", fused_layer.fused_attention_step_plain),
-    (fused_layer, "fused_mlp_step", fused_layer.fused_mlp_step_plain),
+    (fused_layer, "fused_attention_step", _plain_attention_step),
+    (fused_layer, "fused_mlp_step", _plain_mlp_step),
     (quant, "int8_matmul", quant.int8_matmul_plain),
 )
 
@@ -1180,9 +1293,9 @@ def plain_kernels():
 
 def per_step_path() -> None:
     """The per-step int8 code predictor at full width (1.7B), 32 random
-    frames, on each route: kernel 7, and kernels 5 + 6; each against the
-    same route on the plain versions by kernel 1's int8 bars, beside kernel
-    1's codes and time."""
+    frames, on each route (through its pack): kernel 7, and kernels 5 + 6;
+    each against the same route on the plain versions by kernel 1's int8
+    bars, beside kernel 1's codes and time."""
     cfg = config_for_variant("1.7B", "custom_voice").code_predictor
     params = quant.quantize_code_predictor_params(cp_params(cfg, torch.bfloat16, seed=2))
     gen = torch.Generator(device=DEV).manual_seed(1)
@@ -1193,11 +1306,12 @@ def per_step_path() -> None:
     pack = fused_layer.CpFramePack(params, cfg, torch.bfloat16, DEV)
     frame = torch.stack([fused_layer.cp_frame(params, cfg, h, s, pack) for h, s in xs])
     frame_ms = time_ms(lambda: fused_layer.cp_frame(params, cfg, h0, s0, pack), iters=20)
-    step_pack = fused_layer.CpStepPack(params["layers"], cfg.layer_stack(), torch.bfloat16, DEV)
+    packs = {True: fused_layer.CpStepPack(params["layers"], cfg.layer_stack(), torch.bfloat16, DEV),
+             False: fused_layer.FusedStepPack(params["layers"], cfg.layer_stack(), torch.bfloat16, DEV)}
     for streamed, name, kernels in ((True, "streamed_step", ("streamed_decode_step",)),
                                     (False, "layer_steps", ("fused_attention_step", "fused_mlp_step"))):
         def run(h, s, streamed=streamed):
-            return cp._predict_acoustic_codes_fused(params, cfg, h, s, streamed, step_pack)
+            return cp._predict_acoustic_codes_fused(params, cfg, h, s, streamed, packs[streamed])
 
         for k in COUNTERS.values():
             k.launches = 0
@@ -1388,9 +1502,9 @@ def timed_calls(module, name: str, kernel_call):
     calls by that name) for which ``kernel_call(*args, **kwargs)`` holds:
     kernel 2's residual units (``blocks.residual_unit``, or a stream's
     ``vocoder._residual_unit_stream``, of a unit that takes the kernel),
-    kernel 7's steps (``fused_layer.run_fused_decode_step`` on
-    the streamed route), to give a kernel's share of a run. Yields the list
-    of (start, end) pairs."""
+    the per-step code predictor's steps (``fused_layer.run_fused_decode_step``:
+    kernel 7, or kernels 5 + 6 per layer), to give a kernel's share of a
+    run. Yields the list of (start, end) pairs."""
     spans = []
     routed = getattr(module, name)
 
@@ -1415,8 +1529,8 @@ def _unit_takes_kernel(x, *args) -> bool:
     return fused_blocks.residual_unit_should_fuse(x)
 
 
-def _step_takes_kernel(*args, **kwargs) -> bool:
-    return args[8] if len(args) > 8 else kwargs["streamed"]
+def _every_call(*args, **kwargs) -> bool:
+    return True
 
 
 def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = ()) -> dict:
@@ -1434,18 +1548,18 @@ def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = (
     for k in COUNTERS.values():
         k.launches = 0
     with (timed_calls(blocks, "residual_unit", _unit_takes_kernel) as spans,
-          timed_calls(fused_layer, "run_fused_decode_step", _step_takes_kernel) as steps):
+          timed_calls(fused_layer, "run_fused_decode_step", _every_call) as steps):
         t0 = time.perf_counter()
         audio, timing = model.synthesize_with_timing(text, "ryan", "english", opts)
         wall = time.perf_counter() - t0
     launches = {name: k.launches for name, k in COUNTERS.items()}
     torch.cuda.synchronize()
     k2_ms = sum(start.elapsed_time(end) for start, end in spans)
-    k7 = ""
+    per_step = ""
     if steps:
-        k7_ms = sum(start.elapsed_time(end) for start, end in steps)
-        k7 = (f", kernel 7's {len(steps)} steps {k7_ms:.2f} ms by CUDA events "
-              f"({k7_ms / timing.generation_frames:.3f} ms/frame)")
+        step_ms = sum(start.elapsed_time(end) for start, end in steps)
+        per_step = (f", the code predictor's {len(steps)} per-step calls {step_ms:.2f} ms by CUDA events "
+                    f"({step_ms / timing.generation_frames:.3f} ms/frame)")
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
     samples = audio.samples
@@ -1464,7 +1578,7 @@ def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = (
     rtf = wall / (len(samples) / OUTPUT_SAMPLE_RATE)
     phase("e2e", f"{label} timed run: prefill {timing.prefill_ms:.2f} ms, "
           f"{timing.generation_ms / timing.generation_frames:.3f} ms/frame over {timing.generation_frames} frames "
-          f"(generation {timing.generation_ms:.1f} ms{k7}), decode {timing.decode_ms:.1f} ms (kernel 2's {len(spans)} "
+          f"(generation {timing.generation_ms:.1f} ms{per_step}), decode {timing.decode_ms:.1f} ms (kernel 2's {len(spans)} "
           f"calls {k2_ms:.2f} ms, the rest {timing.decode_ms - k2_ms:.1f}), "
           f"wall {wall * 1e3:.1f} ms, RTF {rtf:.4f}, peak allocated {peak_mb:.0f} MiB, "
           f"launches {launches}, audio peak {float(abs(samples).max()):.3e}, "
@@ -2151,8 +2265,10 @@ def main_path(encoders: tuple) -> dict:
 
 def per_step_main_paths() -> dict:
     """The 1.7B int8 main path with a code predictor that the JAX gates send
-    to the per-step path: vocab 2047 (odd; kernel 7 per step) and
-    intermediate 2816 (not a multiple of 1024; kernels 5 + 6 per layer)."""
+    to the per-step path: vocab 2047 (odd; kernel 7 per step, through the
+    ``CpStepPack`` the model holds) and intermediate 2816 (not a multiple of
+    1024; kernels 5 + 6 per layer through its ``FusedStepPack``, 70 launches
+    of each a frame: 14 steps of 5 layers)."""
     base = config_for_variant("1.7B", "custom_voice")
     runs = {}
     for path, change, route, kernels in (
@@ -2169,10 +2285,19 @@ def per_step_main_paths() -> dict:
         got = cp.cp_route(model.cp_params, cfg.code_predictor)
         phase("e2e", f"1.7B int8, code predictor {change}: built in {time.perf_counter() - t0:.1f} s, route {got}")
         check(got == route, f"1.7B int8 {change}: code-predictor route {got}, want {route}")
+        pack_kind = fused_layer.CpStepPack if route == "streamed_step" else fused_layer.FusedStepPack
+        check(isinstance(model.cp_step_pack, pack_kind), f"1.7B int8 {change}: the model holds "
+                                                         f"{type(model.cp_step_pack).__name__}, want {pack_kind.__name__}")
         others = tuple(k for k in ("cp_frame", "fused_attention_step", "fused_mlp_step", "streamed_decode_step")
                        if k not in kernels)
         runs[path], _ = run_main_path(model, f"1.7B int8 ({path})",
                                       ("talker_step", "int8_matmul", "residual_unit") + kernels, absent=others)
+        steps = (cfg.code_predictor.num_acoustic - 1) * (1 if route == "streamed_step" else
+                                                         cfg.code_predictor.num_hidden_layers)
+        per_frame = {k: runs[path][k] / FRAMES for k in kernels}
+        phase("e2e", f"1.7B int8 ({path}): launches a frame {per_frame} (want {steps} of each)")
+        check(all(runs[path][k] == steps * FRAMES for k in kernels),
+              f"1.7B int8 ({path}): launches {per_frame} a frame, want {steps} of each")
         del model
     return runs
 

@@ -19,13 +19,25 @@ committed (``STEP_FIXTURE``). ``tests/test_torch_cp_step_1p7b.py`` holds
 the JAX package and the port's plain step to them on the CPU;
 ``chip_smoke.py`` holds kernel 7 in f32 to them on the card.
 
-    JAX_PLATFORMS=cpu python tests/test_torch_cp_1p7b.py        # rewrites the codes fixture
-    JAX_PLATFORMS=cpu python tests/test_torch_cp_step_1p7b.py   # rewrites the step fixture
+The same draw at intermediate 2816 (``fused_step_config``: not a multiple of
+the hidden 1024, so the JAX gates send the code predictor to kernels 5 + 6
+per layer), fused and quantized, stepped from the same inputs by the JAX
+package's ``run_fused_decode_step`` without a stream pack (its
+``fused_attention_step`` and ``fused_mlp_step`` per layer, interpret mode,
+f32), is kernels 5 and 6's fixture (``FUSED_STEP_FIXTURE``):
+``tests/test_torch_fused_step_1p7b.py`` holds the JAX package and the
+port's plain step to it on the CPU, ``chip_smoke.py`` the f32 kernels
+through a ``FusedStepPack`` on the card.
+
+    JAX_PLATFORMS=cpu python tests/test_torch_cp_1p7b.py          # rewrites the codes fixture
+    JAX_PLATFORMS=cpu python tests/test_torch_cp_step_1p7b.py     # rewrites the step fixture
+    JAX_PLATFORMS=cpu python tests/test_torch_fused_step_1p7b.py  # rewrites kernels 5 and 6's fixture
 """
 
 from __future__ import annotations
 
 import json
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -40,10 +52,19 @@ FIXTURE = Path(__file__).resolve().parent / "testdata" / "cp_1p7b_codes.json"
 STEP_POSITIONS = (2, 16)
 STEP_ROWS = 17
 STEP_FIXTURE = Path(__file__).resolve().parent / "testdata" / "cp_step_1p7b.npy"
+# Kernels 5 and 6's fixture: the same positions' outputs through the
+# per-layer route at intermediate 2816.
+FUSED_STEP_INTERMEDIATE = 2816
+FUSED_STEP_FIXTURE = Path(__file__).resolve().parent / "testdata" / "fused_step_1p7b.npy"
 
 
 def config() -> CodePredictorConfig:
     return config_for_variant("1.7B", "custom_voice").code_predictor
+
+
+def fused_step_config() -> CodePredictorConfig:
+    """``config()`` at intermediate ``FUSED_STEP_INTERMEDIATE``."""
+    return replace(config(), intermediate_size=FUSED_STEP_INTERMEDIATE)
 
 
 def _uniform(rs: np.random.RandomState, shape: tuple, std: float = 0.02) -> np.ndarray:
@@ -125,3 +146,9 @@ def load_step() -> np.ndarray:
     """Kernel 7's fixture: the JAX package's f32 step outputs
     [len(STEP_POSITIONS), H]."""
     return np.load(STEP_FIXTURE)
+
+
+def load_fused_step() -> np.ndarray:
+    """Kernels 5 and 6's fixture: the JAX package's f32 outputs of the
+    per-layer route [len(STEP_POSITIONS), H]."""
+    return np.load(FUSED_STEP_FIXTURE)

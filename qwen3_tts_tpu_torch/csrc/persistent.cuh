@@ -86,6 +86,16 @@ __device__ __forceinline__ void tma_load_3d(void* smem, const CUtensorMap* map, 
       : "memory");
 }
 
+// The same for a 4-D map: one box of `map` at (c0, c1, c2, c3).
+__device__ __forceinline__ void tma_load_4d(void* smem, const CUtensorMap* map, int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], "
+      "[%6];\n" ::"r"(smem_addr(smem)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // One weight vector from the ring as floats (int8: exact).
 template <typename X> __device__ __forceinline__ void lds_w(const unsigned char* p, float* out);
 template <> __device__ __forceinline__ void lds_w<float>(const unsigned char* p, float* out) {

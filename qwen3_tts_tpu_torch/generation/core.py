@@ -89,7 +89,7 @@ def generate_frames(
     frame_limit: int,
     cp_frame_pack=None,  # the code predictor's fused_layer.CpFramePack, on the card
     talker_step_pack=None,  # the talker's fused_layer.TalkerStepPack, on the card
-    cp_step_pack=None,  # the code predictor's fused_layer.CpStepPack, on the card
+    cp_step_pack=None,  # the code predictor's fused_layer.CpStepPack or FusedStepPack, on the card
     on_frame=None,
 ) -> GenState:
     """Advance the loop until EOS or ``frame_limit`` frames exist (at most

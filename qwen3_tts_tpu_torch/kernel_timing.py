@@ -1,7 +1,9 @@
 """A kernel's timings on the card, for comparing two checkouts.
 
-    python3 qwen3_tts_tpu_torch/kernel_timing.py --kernel int8_matmul|cp_frame|talker_step|cp_step|residual_unit
+    python3 qwen3_tts_tpu_torch/kernel_timing.py
+        --kernel int8_matmul|cp_frame|talker_step|cp_step|fused_step|residual_unit
         [--root DIR] [--tag NAME] [--repeats R] [--sweep] [--sass] [--trace] [--forms F,...] [--kernels]
+        [--sublayer attention|mlp]
 
 Times one kernel's wrapper of the checkout at ``--root`` (default: the one
 that holds this file), ``--repeats`` times at each shape, in two ways: its
@@ -50,6 +52,25 @@ pack-free wrapper. ``--trace`` adds each form's
 breakdown by phase kind (``fused_layer.talker_step_trace_phases``), where
 the checkout has one; ``--kernels`` the device kernels one call launches
 (torch.profiler; one ``--forms`` a process).
+
+``--kernel fused_step`` (kernels 5 and 6, ``ops.fused_layer.
+fused_attention_step`` and ``fused_mlp_step``): each sub-layer of 5 int8
+layers (random weights from seed 5) at ``FUSED_STEP_CASES``, the 1.7B code
+predictor's widths (intermediate 2816 and 3072, 17 cache rows, pos 2, 9
+and 16, residual) in bf16 and f32 (``--forms``), and the 1.7B talker's
+4-chip shard (4 / 2 heads, intermediate 1536, 2080 rows, pos 2079, no
+residual) in bf16: the device span (20 calls in a CUDA graph, cycling
+through the 5 layers as the route does, so that each call's weights
+arrive cold: 5 layers hold 74.7 MB of int8 weights at intermediate 2816,
+above the 50 MB L2), the time per call from Python (the same cycle) and
+the plain version per call (``fused_step_times``). The calls are the
+checkout's public wrappers, through a ``FusedStepPack`` (built outside
+the call, one for the graph and one for the calls) where the checkout has
+one, and pack-free where it has none. ``--trace`` adds each sub-layer's
+phase stamps (``fused_layer.fused_step_trace_phases``) where the checkout
+has them; ``--kernels`` the device kernels one call of ``--sublayer``
+launches at the first case, and stops there (torch.profiler; one
+sub-layer a process).
 
 ``--kernel residual_unit`` (kernel 2, ``models.codec.fused_blocks.
 residual_unit``): the 9 units of a 128-frame decode bucket at their
@@ -110,6 +131,17 @@ CP_STEP_ROWS = 17
 CP_FORMS = (("float32", torch.float32), ("bfloat16", torch.bfloat16), ("int8", torch.bfloat16))
 # The code predictor's (K, N) on its per-step path (1.7B, intermediate 2816
 # on that path and the stock 3072): qkv, o, gate|up, down, lm heads.
+# Kernels 5 and 6: (case, dims, positions, residual, forms) -- the 1.7B code
+# predictor at the intermediate of the route's cell (2816) and the stock
+# 3072, and the 1.7B talker's per-chip shard on 4 chips.
+_CP_DIMS = dict(hidden=1024, heads=16, kv_heads=8, head_dim=128, rows=17)
+FUSED_STEP_CASES = (
+    ("cp-i2816", dict(_CP_DIMS, inter=2816), (2, 9, 16), True, ("bfloat16", "float32")),
+    ("cp-i3072", dict(_CP_DIMS, inter=3072), (2, 9, 16), True, ("bfloat16", "float32")),
+    ("tp4", dict(hidden=2048, heads=4, kv_heads=2, head_dim=128, inter=1536, rows=2080), (2079,), False,
+     ("bfloat16",)),
+)
+FUSED_STEP_LAYERS = 5
 CP_KN = [(1024, 4096), (2048, 1024), (1024, 5632), (2816, 1024), (1024, 6144), (3072, 1024), (1024, 2048)]
 # (m, K, N): the int8 talker prefill's projections (10 rows), the codec head
 # (1 row, every frame), a longer prompt's prefill (32, 64 rows), the GEMM
@@ -436,6 +468,142 @@ def cp_step_lines(tag: str, repeats: int, trace: bool, forms: tuple = (), kernel
         torch.cuda.empty_cache()
 
 
+def fused_step_fns(fused_layer, nn, layers: dict, stack, x, ck, cv, pos: int, cos_t, sin_t, residual: bool):
+    """The checkout's kernel-5 and kernel-6 calls on each layer, as its
+    route makes them: two lists of callables, layer by layer, through one
+    ``FusedStepPack`` (built here, outside the calls) where the checkout
+    has one, else pack-free."""
+    views = [nn.layer_params_at(layers, l) for l in range(stack.num_layers)]
+    args = (stack.num_heads, stack.num_kv_heads, stack.head_dim, stack.rms_norm_eps, residual)
+    pack = None
+    if hasattr(fused_layer, "FusedStepPack"):
+        pack = fused_layer.FusedStepPack(layers, stack, x.dtype, x.device, max_seq=ck.shape[1])
+
+    def kw(l):
+        return {} if pack is None else {"pack": pack, "layer_index": l}
+
+    attn = [lambda l=l: fused_layer.fused_attention_step(x, views[l], cos_t, sin_t, ck[l], cv[l], pos, *args, **kw(l))
+            for l in range(stack.num_layers)]
+    mlp = [lambda l=l: fused_layer.fused_mlp_step(x, views[l], stack.intermediate_size, stack.rms_norm_eps, residual,
+                                                  **kw(l)) for l in range(stack.num_layers)]
+    return attn, mlp
+
+
+def cycled(fns: list):
+    """One callable that calls ``fns`` in turn, one a call."""
+    state = {"i": 0}
+
+    def call():
+        fn = fns[state["i"] % len(fns)]
+        state["i"] += 1
+        return fn()
+
+    return call
+
+
+def fused_step_times(fused_layer, nn, layers: dict, stack, x, ck, cv, pos: int, cos_t, sin_t,
+                     residual: bool) -> dict:
+    """Kernels 5 and 6, each cycling through the layers: ``device_ms`` the
+    device span (GRAPH_CALLS calls in a CUDA graph) and ``ms`` per call from
+    Python (each through a pack of its own, where the checkout has packs: a
+    graph keeps its calls' scratch and stream)."""
+    graph = fused_step_fns(fused_layer, nn, layers, stack, x, ck, cv, pos, cos_t, sin_t, residual)
+    calls = fused_step_fns(fused_layer, nn, layers, stack, x, ck, cv, pos, cos_t, sin_t, residual)
+    return {
+        "attention_device_ms": graph_ms(graph[0], GRAPH_CALLS),
+        "attention_ms": call_ms(cycled(calls[0])),
+        "mlp_device_ms": graph_ms(graph[1], GRAPH_CALLS),
+        "mlp_ms": call_ms(cycled(calls[1])),
+    }
+
+
+def fused_step_lines(tag: str, repeats: int, trace: bool, forms: tuple = (), kernels: bool = False,
+                     sublayer: str = "attention"):
+    """One JSON line per case of ``FUSED_STEP_CASES``, form (those in
+    ``forms``, or all) and pos: kernels 5 and 6 by ``fused_step_times``
+    (``repeats`` times), their plain versions per call, the outputs' sums;
+    with ``kernels``, the first line also lists the device kernels one call
+    of ``sublayer`` launches, and is the last."""
+    from qwen3_tts_tpu_torch import build
+    from qwen3_tts_tpu_torch.models import weights as W
+    from qwen3_tts_tpu_torch.ops import fused_layer, nn, quant
+
+    build.build()
+    dev = torch.device("cuda", 0)
+    first = True
+    for case, dims, positions, residual, case_forms in FUSED_STEP_CASES:
+        stack = nn.LayerStackConfig(
+            hidden_size=dims["hidden"], intermediate_size=dims["inter"], num_layers=FUSED_STEP_LAYERS,
+            num_heads=dims["heads"], num_kv_heads=dims["kv_heads"], head_dim=dims["head_dim"])
+        rows, kvd = dims["rows"], dims["kv_heads"] * dims["head_dim"]
+        cos_t, sin_t = fused_layer.rope_tables(stack.head_dim, stack.rope_theta, rows, dev)
+        for form in case_forms:
+            if forms and form not in forms:
+                continue
+            dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[form]
+            gen = torch.Generator(device=dev).manual_seed(5)
+            layers = quant.quantize_layer_stack(W.fuse_layer_params(W.init_layer_stack(
+                gen, FUSED_STEP_LAYERS, stack.hidden_size, stack.intermediate_size, stack.num_heads,
+                stack.num_kv_heads, stack.head_dim, dtype)))
+            x = torch.randn((1, stack.hidden_size), generator=gen, device=dev).to(dtype)
+            ck = torch.randn((FUSED_STEP_LAYERS, rows, kvd), generator=gen, device=dev).to(dtype)
+            cv = torch.randn((FUSED_STEP_LAYERS, rows, kvd), generator=gen, device=dev).to(dtype)
+            layer0 = nn.layer_params_at(layers, 0)
+            for pos in positions:
+                runs = [fused_step_times(fused_layer, nn, layers, stack, x, ck, cv, pos, cos_t, sin_t, residual)
+                        for _ in range(repeats)]
+                attn, mlp = fused_step_fns(fused_layer, nn, layers, stack, x, ck, cv, pos, cos_t, sin_t, residual)
+                args = (pos, stack.num_heads, stack.num_kv_heads, stack.head_dim, stack.rms_norm_eps, residual)
+                plain_ck, plain_cv = ck[0].clone(), cv[0].clone()
+                line = {
+                    "tag": tag, "case": case, "form": form, "pos": pos, "rows": rows, "residual": residual,
+                    "attention_y_abs_sum": attn[0]().float().abs().sum().item(),
+                    "mlp_y_abs_sum": mlp[0]().float().abs().sum().item(),
+                    **{key: [r[key] for r in runs] for key in runs[0]},
+                    "attention_plain_ms": call_ms(lambda: fused_layer.fused_attention_step_plain(
+                        x, layer0, cos_t, sin_t, plain_ck, plain_cv, *args), 3),
+                    "mlp_plain_ms": call_ms(lambda: fused_layer.fused_mlp_step_plain(
+                        x, layer0, stack.intermediate_size, stack.rms_norm_eps, residual), 3),
+                }
+                if kernels and first:
+                    fn = {"attention": attn, "mlp": mlp}[sublayer][0]
+                    line["device_kernels_sublayer"] = sublayer
+                    line["device_kernels"] = device_kernels(fn)
+                if trace and hasattr(fused_layer, "fused_step_trace_phases"):
+                    line["phases_us"] = fused_step_phases(fused_layer, nn, layers, stack, x, ck, cv, pos, cos_t,
+                                                          sin_t, residual)
+                first = False
+                yield line
+                if kernels:  # the profiled line only: the rest are timed by a run without --kernels
+                    return
+            del layers, ck, cv
+            torch.cuda.empty_cache()
+
+
+def fused_step_phases(fused_layer, nn, layers: dict, stack, x, ck, cv, pos: int, cos_t, sin_t,
+                      residual: bool) -> dict:
+    """Each sub-layer's phases on layer 0, from the kernels' own stamps
+    (``fused_step_trace_phases``), and whether the traced call gave the
+    untraced call's bits."""
+    pack = fused_layer.FusedStepPack(layers, stack, x.dtype, x.device, max_seq=ck.shape[1])
+    layer = nn.layer_params_at(layers, 0)
+    args = (stack.num_heads, stack.num_kv_heads, stack.head_dim, stack.rms_norm_eps, residual)
+    out = {}
+    for name in ("attention", "mlp"):
+        def call(trace, name=name):
+            if name == "attention":
+                return fused_layer.fused_attention_step(x, layer, cos_t, sin_t, ck[0], cv[0], pos, *args, pack=pack,
+                                                        layer_index=0, trace=trace)
+            return fused_layer.fused_mlp_step(x, layer, stack.intermediate_size, stack.rms_norm_eps, residual,
+                                              pack=pack, layer_index=0, trace=trace)
+
+        want = call(False)
+        got, stamps = call(True)
+        torch.cuda.synchronize()
+        out[name] = {"traced_equal": torch.equal(got, want), **fused_layer.fused_step_trace_phases(stamps, name)}
+    return out
+
+
 def unit_params(gen: torch.Generator, c: int) -> dict:
     """A residual unit's random weights, as ``chip_smoke.py`` draws them."""
     dev = gen.device
@@ -529,7 +697,7 @@ def int8_matmul_lines(tag: str, repeats: int, sweep: bool):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", required=True,
-                    choices=("int8_matmul", "cp_frame", "talker_step", "cp_step", "residual_unit"))
+                    choices=("int8_matmul", "cp_frame", "talker_step", "cp_step", "fused_step", "residual_unit"))
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent.parent,
                     help="checkout whose qwen3_tts_tpu_torch is timed")
     ap.add_argument("--tag", default="", help="name printed on every line (default: --root)")
@@ -538,11 +706,14 @@ def main() -> None:
                     help="int8_matmul: also time every K split count at m <= 16; residual_unit: every chunk width and window of taps")
     ap.add_argument("--sass", action="store_true", help="int8_matmul: first count the kernel's SASS instructions")
     ap.add_argument("--trace", action="store_true",
-                    help="cp_frame, talker_step, cp_step: add each form's per-phase breakdown")
+                    help="cp_frame, talker_step, cp_step, fused_step: add each form's per-phase breakdown")
     ap.add_argument("--forms", default="",
-                    help="talker_step, cp_step: only these comma-separated forms (float32, bfloat16, int8)")
+                    help="talker_step, cp_step, fused_step: only these comma-separated forms "
+                         "(float32, bfloat16, int8)")
     ap.add_argument("--kernels", action="store_true",
-                    help="talker_step, cp_step: add the device kernels one call launches (torch.profiler)")
+                    help="talker_step, cp_step, fused_step: add the device kernels one call launches (torch.profiler)")
+    ap.add_argument("--sublayer", choices=("attention", "mlp"), default="attention",
+                    help="fused_step --kernels: the sub-layer whose device kernels are counted")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_timing: no CUDA device")
@@ -557,8 +728,12 @@ def main() -> None:
         for line in residual_unit_lines(tag, args.repeats, args.sweep):
             print(json.dumps(line), flush=True)
         return
+    forms = tuple(f for f in args.forms.split(",") if f)
+    if args.kernel == "fused_step":
+        for line in fused_step_lines(tag, args.repeats, args.trace, forms, args.kernels, args.sublayer):
+            print(json.dumps(line), flush=True)
+        return
     if args.kernel in ("talker_step", "cp_step"):
-        forms = tuple(f for f in args.forms.split(",") if f)
         lines = talker_step_lines if args.kernel == "talker_step" else cp_step_lines
         for line in lines(tag, args.repeats, args.trace, forms, args.kernels):
             print(json.dumps(line), flush=True)

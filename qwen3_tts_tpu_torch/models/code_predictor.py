@@ -16,7 +16,7 @@ tree, chosen before any launch by the JAX package's gates:
     (``_predict_acoustic_codes_fused``): a 2-row prefill, then 14 decode
     steps of kernel 7 (``streamed_decode_step``, one launch a step) when the
     layer dims tile by the hidden size, or of kernels 5 + 6 per layer
-    otherwise;
+    otherwise (one launch a sub-layer);
   * else the plain layer path (plain PyTorch on every device).
 A route whose kernel does not take the shapes raises. On the CPU every
 kernel's plain version runs.
@@ -50,15 +50,15 @@ def predict_acoustic_codes(
     talker_hidden: torch.Tensor,
     semantic_embed: torch.Tensor,
     frame_pack: fused_layer.CpFramePack | None = None,
-    step_pack: fused_layer.CpStepPack | None = None,
+    step_pack: fused_layer.CpStepPack | fused_layer.FusedStepPack | None = None,
 ) -> torch.Tensor:
     """All 15 acoustic codes for one frame.
 
     talker_hidden, semantic_embed: [1, 1, embed_dim] (talker hidden size).
     ``frame_pack``: the tree's ``fused_layer.CpFramePack`` for the frame
-    kernel; ``step_pack``: its ``fused_layer.CpStepPack`` for kernel 7 (each
-    built per call when None). Returns int32 [num_acoustic] on the inputs'
-    device.
+    kernel; ``step_pack``: its ``fused_layer.CpStepPack`` for kernel 7, or
+    its ``fused_layer.FusedStepPack`` for kernels 5 + 6 (each built per
+    call when None). Returns int32 [num_acoustic] on the inputs' device.
     """
     route = cp_route(params, cfg)
     if route == "frame":
@@ -74,7 +74,7 @@ def _predict_acoustic_codes_fused(
     talker_hidden: torch.Tensor,
     semantic_embed: torch.Tensor,
     streamed: bool | None = None,
-    step_pack: fused_layer.CpStepPack | None = None,
+    step_pack: fused_layer.CpStepPack | fused_layer.FusedStepPack | None = None,
 ) -> torch.Tensor:
     """The per-step int8 frame (the JAX package's fused variant).
 
@@ -82,8 +82,9 @@ def _predict_acoustic_codes_fused(
     ``quant.mm``: kernel 4 on the card); the cache is then viewed once as
     [L, S, KV*D] planes, and each of the 14 decode steps takes one route of
     ``fused_layer.run_fused_decode_step``, written in place in the planes.
-    ``streamed``: kernel 7 (True, through ``step_pack``) or kernels 5 + 6
-    per layer (False); None takes the JAX package's choice, kernel 7 exactly
+    ``streamed``: kernel 7 (True, through ``step_pack``, a ``CpStepPack``)
+    or kernels 5 + 6 per layer (False, through ``step_pack``, a
+    ``FusedStepPack``); None takes the JAX package's choice, kernel 7 exactly
     when it would hold a stream pack (``has_stream_pack``).
     """
     stack = cfg.layer_stack()

@@ -18,8 +18,10 @@ plain version is ``talker_step_plain``.
 The per-step int8 code predictor, for trees the frame kernel does not take
 (``supports_cp_frame_kernel``): ``fused_attention_step`` and
 ``fused_mlp_step`` (``csrc/fused_step.cu``, the ports of the JAX package's
-functions of those names; ``residual=False`` gives the tensor-parallel
-partials) and ``streamed_decode_step`` (the port of ``streamed_decode_step``,
+functions of those names, one persistent launch a call through the layer
+stack's ``FusedStepPack``, plan ``fused_step_plan``; ``residual=False``
+gives the tensor-parallel partials) and ``streamed_decode_step`` (the port
+of ``streamed_decode_step``,
 reading the canonical int8 tree instead of the stream pack: kernel 3's
 body in its normalised form, ``csrc/talker_step.cu``, one persistent
 launch a step through the tree's ``CpStepPack``), chosen per step by
@@ -178,6 +180,18 @@ def _kernel_lib():
             i32, i32, ctypes.POINTER(i32), ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ptr), ptr, ptr, ptr, ptr,
             ptr, i32, i32, ptr, ptr,
         ]
+        lib.q3_fused_step_scratch_floats.restype = ctypes.c_size_t
+        lib.q3_fused_step_scratch_floats.argtypes = [ctypes.POINTER(i32)]
+        lib.q3_fused_step_maps_bytes.restype = ctypes.c_size_t
+        lib.q3_fused_step_maps_bytes.argtypes = []
+        lib.q3_fused_step_maps.restype = i32
+        lib.q3_fused_step_maps.argtypes = [ctypes.POINTER(i32), ctypes.POINTER(ptr), ptr]
+        lib.q3_fused_step_trace_slots.restype = i32
+        lib.q3_fused_step_trace_slots.argtypes = []
+        lib.q3_fused_step_call_slots.restype = ctypes.c_size_t
+        lib.q3_fused_step_call_slots.argtypes = []
+        lib.q3_fused_step_call.restype = i32
+        lib.q3_fused_step_call.argtypes = [ptr]
         lib.q3_cp_step.restype = i32
         lib.q3_cp_step.argtypes = [
             i32, ctypes.POINTER(i32), ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ptr), ptr, ptr, ptr, ptr, ptr,
@@ -827,6 +841,25 @@ def _talker_leaves(layers: dict) -> tuple:
             layers["input_ln"], layers["post_ln"], layers["q_norm"], layers["k_norm"])
 
 
+def _checked_stack(layers: dict, sc, dtype: torch.dtype, dev: torch.device, op: str) -> tuple:
+    """The tensors a whole-stack kernel reads of the fused tree ``layers``
+    (``_talker_leaves``), each checked against the layer-stack config
+    ``sc``: [L, K, N] projections all int8 (f32 [L, N] scales) or all plain
+    in ``dtype``, the four norms in ``dtype``, on ``dev``, contiguous and
+    16-byte aligned. Returns (leaves, whether the projections are int8)."""
+    leaves = _talker_leaves(layers)
+    L, H, D, I = sc.num_layers, sc.hidden_size, sc.head_dim, sc.intermediate_size
+    qd, kvd = sc.num_heads * D, sc.num_kv_heads * D
+    linears = {"qkv_proj": (L, H, qd + 2 * kvd), "o_proj": (L, qd, H), "gateup_proj": (L, H, 2 * I),
+               "down_proj": (L, I, H)}
+    quantized = _check_linears({n: (layers[n], shape) for n, shape in linears.items()}, dtype, dev, op)
+    for name, shape in {"input_ln": (L, H), "post_ln": (L, H), "q_norm": (L, D), "k_norm": (L, D)}.items():
+        _check(layers[name], name, shape, dtype, dev, op)
+    if any(t is not None and t.data_ptr() % 16 for t in leaves):
+        raise ValueError(f"{op}: every weight must be 16-byte aligned")
+    return leaves, quantized
+
+
 def supports_talker_step_kernel(layers: dict, cfg, max_seq: int) -> bool:
     """Whether the talker step kernel takes this fused tree (all int8 or all
     plain) with caches of up to ``max_seq`` rows: ``talker_step_plan`` on
@@ -873,19 +906,10 @@ class TalkerStepPack:
                              f"on {dev}")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
-        leaves = _talker_leaves(layers)
         sc = _layer_stack(cfg)
-        L, H, D, I = sc.num_layers, sc.hidden_size, sc.head_dim, sc.intermediate_size
-        qd, kvd = sc.num_heads * D, sc.num_kv_heads * D
-        linears = {"qkv_proj": (L, H, qd + 2 * kvd), "o_proj": (L, qd, H), "gateup_proj": (L, H, 2 * I),
-                   "down_proj": (L, I, H)}
-        quantized = _check_linears({n: (layers[n], shape) for n, shape in linears.items()}, dtype, dev, op)
+        leaves, quantized = _checked_stack(layers, sc, dtype, dev, op)
         if self.normalised and not quantized:
             raise ValueError(f"{op}: the kernel takes int8 weights only")
-        for name, shape in {"input_ln": (L, H), "post_ln": (L, H), "q_norm": (L, D), "k_norm": (L, D)}.items():
-            _check(layers[name], name, shape, dtype, dev, op)
-        if any(t is not None and t.data_ptr() % 16 for t in leaves):
-            raise ValueError(f"{op}: every weight must be 16-byte aligned")
         kind = "int8" if quantized else {torch.float32: "float32", torch.bfloat16: "bfloat16"}[dtype]
         self.plan = talker_step_plan(sc, kind, dtype, min(quant._sm_count(dev), 132), max_seq, self.normalised)
 
@@ -895,7 +919,7 @@ class TalkerStepPack:
         self.floats = (ctypes.c_float * 1)(sc.rms_norm_eps)
         self.scratch = torch.zeros(lib.q3_talker_step_scratch_floats(self.ints), dtype=torch.float32, device=dev)
         # Kernel 3 reads the pack's RoPE tables; kernel 7 the caller's.
-        self.rope = (None, None) if self.normalised else rope_tables(D, sc.rope_theta, max_seq, dev)
+        self.rope = (None, None) if self.normalised else rope_tables(sc.head_dim, sc.rope_theta, max_seq, dev)
         qkv_w, qkv_s, o_w, o_s, gu_w, gu_s, down_w, down_s, in_ln, post_ln, q_norm, k_norm = leaves
         ptrs = [qkv_w, o_w, gu_w, down_w, qkv_s, o_s, gu_s, down_s, in_ln, post_ln, q_norm, k_norm, *self.rope,
                 self.scratch]
@@ -1166,23 +1190,11 @@ def streamed_decode_step_plain(layers: dict, x, cfg, ck, cv, pos: int, cos_t, si
     return h.reshape(1, 1, H)
 
 
-def _step_lib():
-    lib = _kernel_lib()
-    if not getattr(lib, "_q3_step_bound", False):
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.q3_decode_layer_scratch_floats.restype = ctypes.c_size_t
-        lib.q3_decode_layer_scratch_floats.argtypes = [i32] * 7
-        lib.q3_attention_step.restype = i32
-        lib.q3_attention_step.argtypes = [i32] + [ptr] * 13 + [i32] * 6 + [ctypes.c_float, i32, ptr, ptr]
-        lib.q3_mlp_step.restype = i32
-        lib.q3_mlp_step.argtypes = [i32] + [ptr] * 6 + [i32, i32, ctypes.c_float, i32, ptr, ptr, ptr]
-        lib._q3_step_bound = True
-    return lib
-
-
 def _on_card(x: torch.Tensor, op: str) -> bool:
     """False for a CPU tensor (the plain version runs); True for a CUDA tensor
     of a dtype the kernels take; raises for anything else."""
+    if x.is_cuda and x.dtype in _DTYPES:
+        return True
     if x.device.type == "cpu":
         return False
     if x.device.type != "cuda":
@@ -1192,92 +1204,352 @@ def _on_card(x: torch.Tensor, op: str) -> bool:
     return True
 
 
-def _scratch(lib, x, heads, kv_heads, D, inter, S, op) -> torch.Tensor:
-    """f32 scratch of the decode-layer kernels for x's dtype and width;
-    ``heads`` 0: the MLP only, ``inter`` 0: the attention only."""
-    H = x.shape[-1]
-    n = lib.q3_decode_layer_scratch_floats(_DTYPES[x.dtype], H, heads, kv_heads, D, inter, S)
-    if n == 0:
-        raise ValueError(f"{op}: the kernel does not take these shapes (H={H}, heads={heads}/{kv_heads}, "
-                         f"head_dim={D}, intermediate={inter}, S={S})")
-    return torch.empty(n, dtype=torch.float32, device=x.device)
+# Kernels 5 and 6's constants (csrc/fused_step.cu): ring stages, the
+# attention chunks of a head (at most) and the rows a chunk holds (at
+# least, unless fewer are live), the widest head, the attention scratch's
+# fixed floats, the phases a call stamps. The plan lays out the block's
+# shared memory; the kernels take the offsets and check them.
+FUSED_STEP_STAGES = 4
+FUSED_STEP_MAX_CHUNKS = 32
+FUSED_STEP_CHUNK_ROWS = 64
+FUSED_STEP_MAX_HEAD_DIM = 256
+FUSED_STEP_MISC_FIXED = 4096
+# The projections (the kernels' enum FsProj) and each sub-layer's phases.
+FUSED_STEP_PROJS = ("qkv", "o", "gate_up", "down")
+FUSED_STEP_PHASES = {"attention": ("qkv", "scores", "values", "o"), "mlp": ("gate_up", "down")}
+# The int64 argument slots of a call (q3_fused_step_call): a pack fills the
+# first five once, a call the rest with one slice.
+FUSED_STEP_CALL_SLOTS = ("dtype", "ints", "floats", "ptrs", "maps", "kernel", "layer", "x", "y", "ck", "cv", "cos_t",
+                         "sin_t", "seq", "pos", "residual", "trace", "stream")
+_CALL_FIRST = FUSED_STEP_CALL_SLOTS.index("kernel")
+_INT8_VEC = 16  # int8 columns of a 16-byte vector
+
+
+class FusedStepPlan(NamedTuple):
+    """The launch plan of kernels 5 and 6 (one for both): ``grid``
+    co-resident blocks of 256 threads, each with ``smem_bytes`` of dynamic
+    shared memory: a ring of ``FUSED_STEP_STAGES`` tiles of ``stage_bytes``,
+    then the regions at the byte offsets ``regions`` (the staged matmul
+    input, the column reduction, the column sums, the attention scratch);
+    each projection's column groups (``projs``, ``chunk`` = K: one flat sum);
+    and the attention chunks: at most ``max_chunks`` a head (a block each),
+    each of at most ``chunk_rows`` rows."""
+
+    grid: int
+    stage_bytes: int
+    max_chunks: int
+    chunk_rows: int
+    regions: dict
+    smem_bytes: int
+    projs: dict
+
+    def ints(self, cfg, max_seq: int) -> list[int]:
+        """The dims and the plan as the kernels' C entries take them."""
+        sc = _layer_stack(cfg)
+        dims = [sc.num_layers, sc.hidden_size, sc.num_heads, sc.num_kv_heads, sc.head_dim, sc.intermediate_size,
+                max_seq]
+        per = [v for name in FUSED_STEP_PROJS for v in (
+            self.projs[name].nv, self.projs[name].groups, self.projs[name].tile_rows, self.projs[name].box_rows)]
+        return dims + [self.grid, self.stage_bytes, self.max_chunks, *self.regions.values(), self.smem_bytes] + per
+
+
+def fused_step_plan(cfg, dtype: torch.dtype = torch.bfloat16, sms: int = 132,
+                    max_seq: int = CP_MAX_SEQ) -> FusedStepPlan:
+    """The launch plan of kernels 5 and 6 for the int8 layer stack ``cfg``
+    (a layer-stack config, or a config with ``layer_stack()``), activations
+    in ``dtype``, caches of at most ``max_seq`` rows, on a card with ``sms``
+    SMs.
+
+    Each projection's columns go to as many blocks as the card has SMs, as
+    in kernel 3 (``talker_step_plan``): a block owns ``nv`` vectors of 16
+    int8 columns (of each half: gate|up's block owns the same columns of
+    both), the fewest that leave at most ``sms`` groups and whose TMA box
+    rows land 128-byte aligned, over the whole K. The grid is the most any
+    projection uses (at least one block per q head); a head's rows <= pos
+    are cut into one chunk per ``FUSED_STEP_CHUNK_ROWS`` rows, at most
+    ``max_chunks`` = min(``FUSED_STEP_MAX_CHUNKS``, grid / heads), so that
+    heads x chunks fit the grid. The staged input (the widest K), the column
+    reduction and sums, and the attention scratch (the most rows a chunk
+    holds below ``max_seq``) are fixed by the shapes; the ring takes what is
+    left of an H100 block's 232,448 bytes. The weights are read as 4-D maps
+    [L][K / box_rows][box_rows][N]: ``box_rows`` is the largest power of two
+    of rows, at most 256, that divides K, lands 128-byte aligned and fits a
+    tile; a tile is the most such row groups (at most 256) that fit and
+    divide K, one TMA copy a half. Raises on shapes the kernels do not
+    take, with the reason.
+    """
+    if dtype not in _DTYPES:
+        raise ValueError(f"fused_step_plan: activations in {dtype}; the kernels take float32 or bfloat16")
+    sc = _layer_stack(cfg)
+    H, I, D, Hq, KV, L = (sc.hidden_size, sc.intermediate_size, sc.head_dim, sc.num_heads, sc.num_kv_heads,
+                          sc.num_layers)
+    qd, nqkv = Hq * D, (Hq + 2 * KV) * D
+    t_vec = 4 if dtype == torch.float32 else 8
+    if not (L >= 1 and min(H, I) >= 1 and max_seq >= 1):
+        raise ValueError(f"fused_step_plan: no layers, widths or cache rows in {sc} with {max_seq} rows")
+    if not (2 <= D <= FUSED_STEP_MAX_HEAD_DIM and D % 2 == 0 and D % t_vec == 0):
+        raise ValueError(f"fused_step_plan: head_dim {D} is not an even multiple of {t_vec} up to "
+                         f"{FUSED_STEP_MAX_HEAD_DIM} (16-byte cache row vectors of {dtype})")
+    if not (KV >= 1 and Hq >= 1 and Hq % KV == 0 and Hq <= sms):
+        raise ValueError(f"fused_step_plan: {Hq} q heads over {KV} kv heads: a whole multiple, at most one "
+                         f"block per head on {sms} SMs")
+    shapes = {"qkv": (H, nqkv, 1), "o": (qd, H, 1), "gate_up": (H, 2 * I, 2), "down": (I, H, 1)}
+    chosen = {}
+    for name, (k, n, halves) in shapes.items():
+        if (n // halves) % _INT8_VEC:
+            raise ValueError(f"fused_step_plan: {name} has {n // halves} columns, not a multiple of {_INT8_VEC}")
+        nvec = n // halves // _INT8_VEC
+        nv = -(-nvec // sms)
+        while nv * halves <= CP_FRAME_THREADS and nv * _INT8_VEC <= CP_FRAME_BOX_COLUMNS and k % (8 // math.gcd(nv, 8)):
+            nv += 1
+        if nv * halves > CP_FRAME_THREADS or nv * _INT8_VEC > CP_FRAME_BOX_COLUMNS:
+            raise ValueError(f"fused_step_plan: {name} ({k} x {n}) takes no column groups on {sms} SMs")
+        chosen[name] = (k, n, halves, nv, -(-nvec // nv))
+    grid = max([Hq] + [c[4] for c in chosen.values()])
+    max_chunks = min(FUSED_STEP_MAX_CHUNKS, grid // Hq)
+    chunk_rows = max(FUSED_STEP_CHUNK_ROWS, -(-max_seq // max_chunks))
+    floats = {
+        "xs": max(c[0] for c in chosen.values()),
+        "red": max(_reduce_groups(c[3] * c[2]) * c[3] * c[2] * _INT8_VEC for c in chosen.values()),
+        "cs": max(c[3] * c[2] * _INT8_VEC for c in chosen.values()),
+        "misc": FUSED_STEP_MISC_FIXED + -(-chunk_rows // 32) * 32,
+    }
+    nbytes = {name: -(-4 * f // 128) * 128 for name, f in floats.items()}
+    stage_bytes = (CP_FRAME_SMEM_LIMIT - sum(nbytes.values())) // FUSED_STEP_STAGES // 128 * 128
+    regions, at = {}, FUSED_STEP_STAGES * stage_bytes
+    for name, size in nbytes.items():
+        regions[name], at = at, at + size
+    projs = {}
+    for name, (k, n, halves, nv, groups) in chosen.items():
+        row_bytes = nv * halves * 16
+        box = 256
+        while box > 1 and (k % box or box * row_bytes > stage_bytes):
+            box //= 2
+        if stage_bytes < 128 or k % box or box * row_bytes > stage_bytes or box * nv * 16 % 128:
+            raise ValueError(f"fused_step_plan: {name}'s K {k} takes no TMA box of 128-byte-aligned rows in a "
+                             f"{max(stage_bytes, 0)}-byte ring tile (shared memory left by the staged input, "
+                             f"{floats['xs']} floats, and {chunk_rows} attention rows)")
+        tile_rows = min(k, stage_bytes // row_bytes // box * box, 256 * box)
+        while k % tile_rows:
+            tile_rows -= box
+        projs[name] = TalkerProjPlan(k, n, halves, k, _INT8_VEC, nv, groups, tile_rows, box)
+    return FusedStepPlan(grid, stage_bytes, max_chunks, chunk_rows, regions, at, projs)
+
+
+def _raw_stream(dev: torch.device) -> int:
+    """The current CUDA stream of ``dev`` as a pointer (without a Stream object
+    where the build offers that)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(dev.index) if raw is not None else torch.cuda.current_stream(dev).cuda_stream
+
+
+class FusedStepPack:
+    """What kernels 5 and 6 need of one fused int8 layer stack, checked and
+    gathered once: the plan, the C entries' argument arrays, the weights'
+    TMA descriptors, and a scratch that is zeroed once (its barrier count
+    and counters carry over from call to call) and serves one call at a
+    time.
+
+    ``layers``: the canonical fused int8 tree ([L, K, N] int8 with [L, N]
+    f32 scales; norms in ``dtype``), ``cfg`` its layer-stack config; caches
+    of at most ``max_seq`` rows. Its owner keeps it beside the tree
+    (``pipeline.Qwen3TTS`` builds one on the card when the code predictor
+    takes the "layer_steps" route) and hands it, with a layer index, to
+    every ``fused_attention_step`` and ``fused_mlp_step`` of that tree. The
+    pack holds the tree's tensors, so the pointers in its descriptors stay
+    valid while it lives. Its calls run on the stream of its first call; a
+    call on another stream raises, since two calls must not share the
+    scratch at once. A CUDA graph that captures calls replays on the pack's
+    scratch, so calls outside the graph take a pack of their own.
+    """
+
+    def __init__(self, layers: dict, cfg, dtype: torch.dtype, dev: torch.device | str, max_seq: int = CP_MAX_SEQ):
+        op = "fused_step"
+        dev = torch.device(dev)
+        if dev.type != "cuda" or dtype not in _DTYPES:
+            raise ValueError(f"FusedStepPack: the kernels run on CUDA in float32 or bfloat16, not {dtype} on {dev}")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        sc = _layer_stack(cfg)
+        leaves, quantized = _checked_stack(layers, sc, dtype, dev, op)
+        if not quantized:
+            raise ValueError(f"{op}: the kernel takes int8 weights only")
+        self.plan = fused_step_plan(sc, dtype, min(quant._sm_count(dev), 132), max_seq)
+
+        lib = _kernel_lib()
+        ints = self.plan.ints(sc, max_seq)
+        self.ints = (ctypes.c_int * len(ints))(*ints)
+        self.floats = (ctypes.c_float * 1)(sc.rms_norm_eps)
+        self.scratch = torch.zeros(lib.q3_fused_step_scratch_floats(self.ints), dtype=torch.float32, device=dev)
+        qkv_w, qkv_s, o_w, o_s, gu_w, gu_s, down_w, down_s, in_ln, post_ln, q_norm, k_norm = leaves
+        ptrs = [qkv_w, o_w, gu_w, down_w, qkv_s, o_s, gu_s, down_s, in_ln, post_ln, q_norm, k_norm, self.scratch]
+        self.ptrs = (ctypes.c_void_p * len(ptrs))(*[_ptr(t) for t in ptrs])
+        self.maps = ctypes.create_string_buffer(lib.q3_fused_step_maps_bytes())
+        err = lib.q3_fused_step_maps(self.ints, self.ptrs, self.maps)
+        if err != 0:
+            raise RuntimeError(f"{op}: the weights' TMA descriptors were refused: CUDA error {err}")
+        if lib.q3_fused_step_call_slots() != len(FUSED_STEP_CALL_SLOTS):
+            raise RuntimeError(f"{op}: the kernel library takes {lib.q3_fused_step_call_slots()} call slots, not "
+                               f"{len(FUSED_STEP_CALL_SLOTS)}")
+        self.call = (ctypes.c_int64 * len(FUSED_STEP_CALL_SLOTS))(
+            _DTYPES[dtype], *(ctypes.addressof(a) for a in (self.ints, self.floats, self.ptrs, self.maps)))
+        self.call_addr = ctypes.addressof(self.call)
+        self.leaves = leaves  # the tensors the descriptors point into, kept alive with the pack
+        self.dtype, self.dev, self.index = dtype, dev, dev.index
+        self.layers, self.hidden, self.inter = sc.num_layers, sc.hidden_size, sc.intermediate_size
+        self.attn_dims = (sc.num_heads, sc.num_kv_heads, sc.head_dim)
+        self.kvd = sc.num_kv_heads * sc.head_dim
+        self.eps = sc.rms_norm_eps
+        self.max_seq = max_seq
+        self.lib = lib
+        self.stream = None  # the stream of the first call
+        self.tables = (None, None, 0)  # the RoPE tables last checked, and their rows
+
+    def check_tables(self, cos_t: torch.Tensor, sin_t: torch.Tensor, op: str) -> int:
+        """The rows of the RoPE tables ``cos_t`` / ``sin_t``, checked once
+        for each pair of tensors (a route passes the same pair every call)."""
+        if cos_t is not self.tables[0] or sin_t is not self.tables[1]:
+            half = self.attn_dims[2] // 2
+            for name, t in (("cos_t", cos_t), ("sin_t", sin_t)):
+                if (t.dtype != torch.float32 or t.get_device() != self.index or t.dim() != 2 or t.shape[1] != half
+                        or not t.is_contiguous()):
+                    raise ValueError(f"{op}: {name} must be a contiguous float32 [rows, {half}] table on {self.dev}")
+            self.tables = (cos_t, sin_t, min(cos_t.shape[0], sin_t.shape[0]))
+        return self.tables[2]
+
+    @classmethod
+    def of_layer(cls, layer: dict, dtype: torch.dtype, dev: torch.device, eps: float, max_seq: int, op: str):
+        """The pack of one layer (``nn.layer_params_at``'s views, or any one
+        fused int8 layer), as a stack of one, for a call given no pack; its
+        dims are read from the weights."""
+        try:
+            D, H = layer["q_norm"].shape[-1], layer["input_ln"].shape[-1]
+            qd, nqkv = layer["o_proj"]["q8"].shape[0], layer["qkv_proj"]["q8"].shape[-1]
+            inter = layer["down_proj"]["q8"].shape[0]
+            stacked = {name: layer[name] for name in (*_PROJS, "input_ln", "post_ln", "q_norm", "k_norm")}
+        except (KeyError, TypeError, IndexError) as e:
+            raise ValueError(f"{op}: the kernel takes one fused int8 layer (qkv_proj, o_proj, gateup_proj, "
+                             f"down_proj, the four norms): {e!r}") from None
+        if not all(quant.is_quantized(stacked[name]) for name in _PROJS):
+            raise ValueError(f"{op}: the kernel takes int8 weights only")
+        stacked = {name: {k: t.unsqueeze(0) for k, t in w.items()} if isinstance(w, dict) else w.unsqueeze(0)
+                   for name, w in stacked.items()}
+        stack = nn.LayerStackConfig(hidden_size=H, intermediate_size=inter, num_layers=1, num_heads=qd // D,
+                                    num_kv_heads=(nqkv - qd) // (2 * D), head_dim=D, rms_norm_eps=eps)
+        return cls(stacked, stack, dtype, dev, max_seq)
+
+
+def _fused_call(pack, op: str, x: torch.Tensor, eps: float, layer_index: int, trace: bool) -> tuple:
+    """The checks both kernels make with a pack (x, the layer, eps, the
+    stream), then the output, the stream and the stamps (or None)."""
+    if not isinstance(pack, FusedStepPack):
+        raise ValueError(f"{op}: the pack is a {type(pack).__name__}, not a FusedStepPack")
+    if x.dtype != pack.dtype or x.get_device() != pack.index or x.numel() != pack.hidden or not x.is_contiguous():
+        raise ValueError(f"{op}: x must be a contiguous {pack.dtype} tensor of {pack.hidden} values on {pack.dev}; "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if not 0 <= layer_index < pack.layers or eps != pack.eps:
+        raise ValueError(f"{op}: layer {layer_index} with eps {eps}; the pack holds {pack.layers} layers, eps "
+                         f"{pack.eps}")
+    stream = _raw_stream(pack.dev)
+    if pack.stream is None:
+        pack.stream = stream
+    elif stream != pack.stream:
+        raise RuntimeError(f"{op}: the pack's calls run on stream {pack.stream:#x}, not {stream:#x}; "
+                           "give each stream a pack of its own")
+    stamps = None
+    if trace:
+        stamps = torch.zeros((pack.plan.grid, pack.lib.q3_fused_step_trace_slots()), dtype=torch.int64,
+                             device=pack.dev)
+    return torch.empty_like(x), stream, stamps
 
 
 def fused_attention_step(
     x, layer, cos_t, sin_t, ck, cv, pos: int, heads: int, kv_heads: int, head_dim: int, eps: float,
-    residual: bool = True,
-) -> torch.Tensor:
-    """Kernel 5: the CUDA kernel (``csrc/fused_step.cu``) on a CUDA tensor,
-    the plain version on a CPU tensor (arguments and result as
-    ``fused_attention_step_plain``)."""
+    residual: bool = True, pack: FusedStepPack | None = None, layer_index: int = 0, trace: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 5: the CUDA kernel (``csrc/fused_step.cu``, one persistent
+    launch) on a CUDA tensor, the plain version on a CPU tensor (arguments
+    and result as ``fused_attention_step_plain``); with ``trace`` (the card
+    only) also the kernel's int64 [grid, slots] phase stamps in ns
+    (``fused_step_trace_phases`` reads them).
+
+    ``pack``: the layer stack's ``FusedStepPack``, which spares each call
+    the checks and the set-up; the call then runs layer ``layer_index`` of
+    the pack's stack (``layer`` is not read) and checks only x, the caches,
+    pos and the stream. Without one, the call builds a pack of ``layer``
+    for itself."""
     op = "fused_attention_step"
     if not _on_card(x, op):
         return fused_attention_step_plain(x, layer, cos_t, sin_t, ck, cv, pos, heads, kv_heads, head_dim, eps, residual)
-    dev, dt = x.device, x.dtype
-    H, D = x.shape[-1], head_dim
-    qd, kvd = heads * D, kv_heads * D
-    S = ck.shape[0]
-    _check(x, "x", (1, H), dt, dev, op)
-    for name, shape in {"qkv_proj": (H, qd + 2 * kvd), "o_proj": (qd, H)}.items():
-        if not _check_linear(layer[name], name, shape, dt, dev, op):
-            raise ValueError(f"{op}: the kernel takes int8 weights only ({name} is plain)")
-    for name, shape in {"input_ln": (H,), "q_norm": (D,), "k_norm": (D,)}.items():
-        _check(layer[name], name, shape, dt, dev, op)
-    _check(ck, "cache k", (S, kvd), dt, dev, op)
-    _check(cv, "cache v", (S, kvd), dt, dev, op)
-    for name, t in (("cos_t", cos_t), ("sin_t", sin_t)):
-        _check(t, name, (t.shape[0], D // 2), torch.float32, dev, op)
-    if not 0 <= pos < min(S, cos_t.shape[0], sin_t.shape[0]):
-        raise ValueError(f"{op}: pos {pos} outside the {S}-row cache or the RoPE tables")
-    lib = _step_lib()
-    scratch = _scratch(lib, x, heads, kv_heads, D, 0, S, op)
-    y = torch.empty_like(x)
-    err = lib.q3_attention_step(
-        _DTYPES[dt], x.data_ptr(), layer["input_ln"].data_ptr(),
-        layer["qkv_proj"]["q8"].data_ptr(), layer["qkv_proj"]["scale"].data_ptr(),
-        layer["q_norm"].data_ptr(), layer["k_norm"].data_ptr(), cos_t.data_ptr(), sin_t.data_ptr(),
-        layer["o_proj"]["q8"].data_ptr(), layer["o_proj"]["scale"].data_ptr(), ck.data_ptr(), cv.data_ptr(),
-        y.data_ptr(), H, heads, kv_heads, D, S, pos, eps, int(residual), scratch.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    S = ck.shape[0] if ck.dim() == 2 else 0
+    if pack is None:
+        pack, layer_index = FusedStepPack.of_layer(layer, x.dtype, x.device, eps, S, op), 0
+    y, stream, stamps = _fused_call(pack, op, x, eps, layer_index, trace)
+    if (heads, kv_heads, head_dim) != pack.attn_dims:
+        raise ValueError(f"{op}: {heads} / {kv_heads} heads of {head_dim}; the pack's are {pack.attn_dims}")
+    caches = []
+    for name, c in (("cache k", ck), ("cache v", cv)):
+        ptr = c.data_ptr()
+        if (c.dtype != pack.dtype or c.get_device() != pack.index or c.shape != (S, pack.kvd) or ptr % 16
+                or not c.is_contiguous()):
+            raise ValueError(f"{op}: {name} must be a contiguous, 16-byte aligned {pack.dtype} tensor of shape "
+                             f"({S}, {pack.kvd}) on {pack.dev}; got {c.dtype} {tuple(c.shape)} on {c.device}")
+        caches.append(ptr)
+    if not 0 <= pos < S or pos >= pack.check_tables(cos_t, sin_t, op) or S > pack.max_seq:
+        raise ValueError(f"{op}: pos {pos} outside the {S}-row cache or the RoPE tables, or a cache wider than the "
+                         f"pack's {pack.max_seq} rows")
+    pack.call[_CALL_FIRST:] = (0, layer_index, x.data_ptr(), y.data_ptr(), *caches, cos_t.data_ptr(), sin_t.data_ptr(),
+                               S, pos, int(residual), stamps.data_ptr() if trace else 0, stream)
+    err = pack.lib.q3_fused_step_call(pack.call_addr)
     if err != 0:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
     fused_attention_step.launches += 1
-    return y
+    return (y, stamps) if trace else y
 
 
 fused_attention_step.launches = 0  # kernel launches (CPU-plain calls are not counted)
 
 
-def fused_mlp_step(x, layer, intermediate: int, eps: float, residual: bool = True) -> torch.Tensor:
-    """Kernel 6: the CUDA kernel (``csrc/fused_step.cu``) on a CUDA tensor,
-    the plain version on a CPU tensor (as ``fused_mlp_step_plain``)."""
+def fused_mlp_step(
+    x, layer, intermediate: int, eps: float, residual: bool = True, pack: FusedStepPack | None = None,
+    layer_index: int = 0, trace: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 6: the CUDA kernel (``csrc/fused_step.cu``, one persistent
+    launch) on a CUDA tensor, the plain version on a CPU tensor (as
+    ``fused_mlp_step_plain``); ``pack``, ``layer_index`` and ``trace`` as
+    ``fused_attention_step``'s."""
     op = "fused_mlp_step"
     if not _on_card(x, op):
         return fused_mlp_step_plain(x, layer, intermediate, eps, residual)
-    dev, dt = x.device, x.dtype
-    H, I = x.shape[-1], intermediate
-    _check(x, "x", (1, H), dt, dev, op)
-    for name, shape in {"gateup_proj": (H, 2 * I), "down_proj": (I, H)}.items():
-        if not _check_linear(layer[name], name, shape, dt, dev, op):
-            raise ValueError(f"{op}: the kernel takes int8 weights only ({name} is plain)")
-    _check(layer["post_ln"], "post_ln", (H,), dt, dev, op)
-    lib = _step_lib()
-    scratch = _scratch(lib, x, 0, 0, 0, I, 0, op)
-    y = torch.empty_like(x)
-    err = lib.q3_mlp_step(
-        _DTYPES[dt], x.data_ptr(), layer["post_ln"].data_ptr(),
-        layer["gateup_proj"]["q8"].data_ptr(), layer["gateup_proj"]["scale"].data_ptr(),
-        layer["down_proj"]["q8"].data_ptr(), layer["down_proj"]["scale"].data_ptr(),
-        H, I, eps, int(residual), scratch.data_ptr(), y.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    if pack is None:
+        pack, layer_index = FusedStepPack.of_layer(layer, x.dtype, x.device, eps, 1, op), 0
+    y, stream, stamps = _fused_call(pack, op, x, eps, layer_index, trace)
+    if intermediate != pack.inter:
+        raise ValueError(f"{op}: intermediate {intermediate}; the pack's is {pack.inter}")
+    pack.call[_CALL_FIRST:] = (1, layer_index, x.data_ptr(), y.data_ptr(), 0, 0, 0, 0, 0, 0, int(residual),
+                               stamps.data_ptr() if trace else 0, stream)
+    err = pack.lib.q3_fused_step_call(pack.call_addr)
     if err != 0:
         raise RuntimeError(f"{op} kernel launch failed: CUDA error {err}")
     fused_mlp_step.launches += 1
-    return y
+    return (y, stamps) if trace else y
 
 
 fused_mlp_step.launches = 0  # kernel launches (CPU-plain calls are not counted)
+
+
+def fused_step_trace_phases(stamps: torch.Tensor, sublayer: str) -> dict:
+    """Where a traced call of kernel 5 (``sublayer`` "attention") or 6
+    ("mlp") went, from its stamps, in µs by phase (attention: qkv, scores,
+    values, o; mlp: gate_up, down; see ``_phase_sums``: ``tiles`` is a
+    GEMV's tile loop, or the attention itself), with each phase's
+    ``epilogue``: its work after staging and the longest work."""
+    kinds = FUSED_STEP_PHASES[sublayer]
+    out = _phase_sums(stamps[:, : 4 * len(kinds)], list(kinds))
+    for kind in kinds:
+        k = out[kind]
+        k["epilogue"] = k["work"] - k["stage"] - k["tiles"]
+    return out
 
 
 def streamed_decode_step(
@@ -1304,7 +1576,7 @@ def streamed_decode_step(
         raise ValueError(f"{op}: pos {pos} outside the RoPE tables")
     if pack is None:
         pack = CpStepPack(layers, sc, dt, dev, max_seq=ck.shape[1] if ck.dim() == 3 else 0)
-    elif not pack.normalised or not pack.holds(layers, sc, dt, dev):
+    elif not isinstance(pack, CpStepPack) or not pack.holds(layers, sc, dt, dev):
         raise ValueError(f"{op}: the pack was built for another tree, config, dtype or device, or for kernel 3")
     out = _launch_step(pack, op, x, sc, ck, cv, pos, trace, (cos_t, sin_t))
     streamed_decode_step.launches += 1
@@ -1316,14 +1588,16 @@ streamed_decode_step.launches = 0  # steps the kernel ran (CPU-plain calls are n
 
 def run_fused_decode_step(
     layers: dict, x, cfg, ck, cv, pos: int, cos_t, sin_t, streamed: bool, layer_views: list | None = None,
-    step_pack: CpStepPack | None = None,
+    step_pack: CpStepPack | FusedStepPack | None = None,
 ) -> torch.Tensor:
     """One decode step over all layers with the fused int8 kernels (the JAX
     ``run_fused_decode_step``; its stream pack becomes ``streamed``).
 
     ``streamed=True``: the whole step is kernel 7 on the stacked ``layers``
     (through ``step_pack``, the tree's ``CpStepPack`` on the card; built per
-    call when None); False: kernels 5 + 6 per layer, on ``layer_views`` (the
+    call when None); False: kernels 5 + 6 per layer (through ``step_pack``,
+    the tree's ``FusedStepPack`` on the card, with each layer's index; each
+    call packs its layer for itself when None), on ``layer_views`` (the
     per-layer views ``nn.layer_params_at`` gives, which a caller looping
     over steps takes once; taken here when None). x: [1, 1, H]; ck, cv: [L,
     S, KV*D] planes, row ``pos`` written in place; cos_t/sin_t: [>= pos+1,
@@ -1336,7 +1610,8 @@ def run_fused_decode_step(
     h = x.reshape(1, cfg.hidden_size)
     for l, layer in enumerate(layer_views):
         h = fused_attention_step(
-            h, layer, cos_t, sin_t, ck[l], cv[l], pos, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.rms_norm_eps
+            h, layer, cos_t, sin_t, ck[l], cv[l], pos, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            cfg.rms_norm_eps, pack=step_pack, layer_index=l,
         )
-        h = fused_mlp_step(h, layer, cfg.intermediate_size, cfg.rms_norm_eps)
+        h = fused_mlp_step(h, layer, cfg.intermediate_size, cfg.rms_norm_eps, pack=step_pack, layer_index=l)
     return h.reshape(1, 1, cfg.hidden_size)

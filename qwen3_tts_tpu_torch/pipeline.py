@@ -169,7 +169,9 @@ class Qwen3TTS:
 
     On the card, a code predictor that takes the frame kernel gets its
     ``fused_layer.CpFramePack`` here (one that takes kernel 7 per step its
-    ``fused_layer.CpStepPack``), and the fused talker its
+    ``fused_layer.CpStepPack``, one that takes kernels 5 + 6 its
+    ``fused_layer.FusedStepPack``, both as ``cp_step_pack``), and the fused
+    talker its
     ``fused_layer.TalkerStepPack`` (each checked, packed and given its
     scratch once); every frame of this model uses them, on the stream of
     the first.
@@ -213,9 +215,10 @@ class Qwen3TTS:
         if route == "frame":
             self.cp_frame_pack = fused_layer.CpFramePack(cp_params, config.code_predictor, self.compute_dtype,
                                                          self.device)
-        elif route == "streamed_step":
-            self.cp_step_pack = fused_layer.CpStepPack(cp_params["layers"], config.code_predictor.layer_stack(),
-                                                       self.compute_dtype, self.device)
+        elif route in ("streamed_step", "layer_steps"):
+            step_pack = fused_layer.CpStepPack if route == "streamed_step" else fused_layer.FusedStepPack
+            self.cp_step_pack = step_pack(cp_params["layers"], config.code_predictor.layer_stack(),
+                                          self.compute_dtype, self.device)
         self.talker_step_pack = None
         layers, stack = talker_params["layers"], config.talker.layer_stack()
         if (on_card and fused_layer.has_stream_pack(layers, stack.hidden_size)

@@ -675,6 +675,137 @@ def test_cuda_mlp_step_matches_plain(residual, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pos", [2, 16])
+def test_cuda_fused_step_pack_matches_plain(pos, dtype):
+    """Kernels 5 and 6 through one ``FusedStepPack`` of a 3-layer stack,
+    each layer by its index (the route's calls): every call one launch,
+    within the bars of the pack-free tests, the same bits twice, the cache
+    rows other than pos bit-unchanged (those above pos hold NaN)."""
+    dev = _cuda()
+    st = replace(CP_STACK, num_layers=3)
+    layers, x, ck0, cv0, cos_t, sin_t = _cp_step_inputs(dev, dtype, st.num_layers, seed=7)
+    ck0[:, pos + 1 :], cv0[:, pos + 1 :] = float("nan"), float("nan")
+    pack = fused_layer.FusedStepPack(layers, st, dtype, dev)
+    args = (pos, st.num_heads, st.num_kv_heads, st.head_dim, st.rms_norm_eps)
+    tol = _step_tol(dtype)
+    ck, cv, ckp, cvp = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
+    for l in range(st.num_layers):
+        layer = nn.layer_params_at(layers, l)
+        before = (fused_layer.fused_attention_step.launches, fused_layer.fused_mlp_step.launches)
+        got = fused_layer.fused_attention_step(x, layer, cos_t, sin_t, ck[l], cv[l], *args, pack=pack, layer_index=l)
+        again = fused_layer.fused_attention_step(x, layer, cos_t, sin_t, ck0[l].clone(), cv0[l].clone(), *args,
+                                                 pack=pack, layer_index=l)
+        got6 = fused_layer.fused_mlp_step(x, layer, st.intermediate_size, st.rms_norm_eps, pack=pack, layer_index=l)
+        again6 = fused_layer.fused_mlp_step(x, layer, st.intermediate_size, st.rms_norm_eps, pack=pack,
+                                            layer_index=l)
+        assert (fused_layer.fused_attention_step.launches, fused_layer.fused_mlp_step.launches) == (
+            before[0] + 2, before[1] + 2)
+        want = fused_layer.fused_attention_step_plain(x, layer, cos_t, sin_t, ckp[l], cvp[l], *args)
+        want6 = fused_layer.fused_mlp_step_plain(x, layer, st.intermediate_size, st.rms_norm_eps)
+        assert torch.equal(got, again) and torch.equal(got6, again6)
+        for g, w in ((got, want), (got6, want6)):
+            assert g.dtype == dtype and g.shape == x.shape and bool(torch.isfinite(g).all())
+            torch.testing.assert_close(g.float(), w.float(), rtol=0, atol=tol * w.float().abs().max().item())
+        _assert_rows(ck[l], ck0[l], ckp[l], pos, tol)
+        _assert_rows(cv[l], cv0[l], cvp[l], pos, tol)
+
+
+@pytest.mark.gpu
+def test_cuda_attention_step_takes_the_tp4_shard():
+    """Kernel 5 at the 1.7B talker's 4-chip shard (4 / 2 heads of 128, 2080
+    rows, 32 chunks a head at pos 2079 and 2 at pos 64, no residual) through
+    a pack: within the bf16 bar, the same bits twice."""
+    dev = _cuda()
+    st = nn.LayerStackConfig(hidden_size=2048, intermediate_size=1536, num_layers=1, num_heads=4, num_kv_heads=2,
+                             head_dim=128)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    layers = quant.quantize_layer_stack(W.fuse_layer_params(W.init_layer_stack(
+        gen, 1, st.hidden_size, st.intermediate_size, st.num_heads, st.num_kv_heads, st.head_dim, torch.bfloat16)))
+    layer = nn.layer_params_at(layers, 0)
+    rows, kvd = 2080, st.num_kv_heads * st.head_dim
+    cos_t, sin_t = fused_layer.rope_tables(st.head_dim, st.rope_theta, rows, dev)
+    pack = fused_layer.FusedStepPack(layers, st, torch.bfloat16, dev, max_seq=rows)
+    for pos in (2079, 64):
+        x = torch.randn((1, st.hidden_size), generator=gen, device=dev).to(torch.bfloat16)
+        ck0 = torch.randn((rows, kvd), generator=gen, device=dev).to(torch.bfloat16)
+        cv0 = torch.randn((rows, kvd), generator=gen, device=dev).to(torch.bfloat16)
+        ck0[pos + 1 :], cv0[pos + 1 :] = float("nan"), float("nan")
+        args = (pos, st.num_heads, st.num_kv_heads, st.head_dim, st.rms_norm_eps, False)
+        ck, cv, ckp, cvp = ck0.clone(), cv0.clone(), ck0.clone(), cv0.clone()
+        got = fused_layer.fused_attention_step(x, layer, cos_t, sin_t, ck, cv, *args, pack=pack)
+        again = fused_layer.fused_attention_step(x, layer, cos_t, sin_t, ck0.clone(), cv0.clone(), *args, pack=pack)
+        want = fused_layer.fused_attention_step_plain(x, layer, cos_t, sin_t, ckp, cvp, *args)
+        tol = _step_tol(torch.bfloat16)
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol * want.float().abs().max().item())
+        _assert_rows(ck, ck0, ckp, pos, tol)
+        _assert_rows(cv, cv0, cvp, pos, tol)
+
+
+@pytest.mark.gpu
+def test_cuda_fused_step_pack_keeps_to_its_stream_and_shapes():
+    """A FusedStepPack serves its own stack on the stream of its first call:
+    another stream, a layer index or dims outside the pack, a cache wider
+    than its rows, RoPE tables of another dtype, or a pack of another kind
+    raise before any launch; a
+    pack-free call (which packs its layer for itself) gives the same bits;
+    a traced call gives them too, with every block's phase stamps in order
+    (4 phases of kernel 5, 2 of kernel 6)."""
+    dev = _cuda()
+    st = replace(CP_STACK, num_layers=2)
+    layers, x, ck, cv, cos_t, sin_t = _cp_step_inputs(dev, torch.bfloat16, 2, seed=9)
+    pack = fused_layer.FusedStepPack(layers, st, torch.bfloat16, dev)
+    layer = nn.layer_params_at(layers, 1)
+    args = (5, st.num_heads, st.num_kv_heads, st.head_dim, st.rms_norm_eps)
+    want = fused_layer.fused_attention_step(x, layer, cos_t, sin_t, ck[1].clone(), cv[1].clone(), *args, pack=pack,
+                                            layer_index=1)
+    want6 = fused_layer.fused_mlp_step(x, layer, st.intermediate_size, st.rms_norm_eps, pack=pack, layer_index=1)
+    before = fused_layer.fused_attention_step.launches + fused_layer.fused_mlp_step.launches
+    with pytest.raises(ValueError, match="layer 2"):
+        fused_layer.fused_mlp_step(x, layer, st.intermediate_size, st.rms_norm_eps, pack=pack, layer_index=2)
+    with pytest.raises(ValueError, match="the pack's"):
+        fused_layer.fused_mlp_step(x, layer, 2816, st.rms_norm_eps, pack=pack, layer_index=1)
+    with pytest.raises(ValueError, match="the pack's"):
+        fused_layer.fused_attention_step(x, layer, cos_t, sin_t, ck[1], cv[1], 5, 8, 8, st.head_dim,
+                                         st.rms_norm_eps, pack=pack, layer_index=1)
+    wide = torch.zeros((32, ck.shape[2]), dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError, match="17 rows"):
+        fused_layer.fused_attention_step(x, layer, cos_t, sin_t, wide, wide.clone(), *args, pack=pack, layer_index=1)
+    with pytest.raises(ValueError, match="cos_t must be"):
+        fused_layer.fused_attention_step(x, layer, cos_t.double(), sin_t, ck[1], cv[1], *args, pack=pack,
+                                         layer_index=1)
+    with pytest.raises(ValueError, match="not a FusedStepPack"):
+        fused_layer.fused_mlp_step(x, layer, st.intermediate_size, st.rms_norm_eps,
+                                   pack=fused_layer.CpStepPack(layers, st, torch.bfloat16, dev), layer_index=1)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        with pytest.raises(RuntimeError, match="stream"):
+            fused_layer.fused_mlp_step(x, layer, st.intermediate_size, st.rms_norm_eps, pack=pack, layer_index=1)
+    torch.cuda.synchronize(dev)
+    assert fused_layer.fused_attention_step.launches + fused_layer.fused_mlp_step.launches == before
+    assert torch.equal(fused_layer.fused_attention_step(x, layer, cos_t, sin_t, ck[1].clone(), cv[1].clone(), *args),
+                       want)
+    assert torch.equal(fused_layer.fused_mlp_step(x, layer, st.intermediate_size, st.rms_norm_eps), want6)
+    for sublayer, call in (
+        ("attention", lambda: fused_layer.fused_attention_step(x, layer, cos_t, sin_t, ck[1].clone(), cv[1].clone(),
+                                                               *args, pack=pack, layer_index=1, trace=True)),
+        ("mlp", lambda: fused_layer.fused_mlp_step(x, layer, st.intermediate_size, st.rms_norm_eps, pack=pack,
+                                                   layer_index=1, trace=True)),
+    ):
+        got, stamps = call()
+        assert torch.equal(got, want if sublayer == "attention" else want6)
+        phases = len(fused_layer.FUSED_STEP_PHASES[sublayer])
+        stamp = stamps.cpu().reshape(pack.plan.grid, -1, 4)[:, :phases]
+        start, end, arrive, leave = stamp.unbind(-1)
+        assert (arrive > 0).all() and (arrive <= leave).all()
+        owns = start > 0
+        assert ((start <= end) & (end <= arrive))[owns].all() and (end[~owns] == 0).all()
+        assert fused_layer.fused_step_trace_phases(stamps, sublayer)["span"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos", [2, 16])
 def test_cuda_streamed_step_matches_plain(pos, dtype):
     """Kernel 7 through the 1.7B code predictor's 5 layers, S = 17. In f32
     the bar must also reject a step whose residual stream is bf16."""
