@@ -151,6 +151,40 @@ Phases, each printing a line (any failure exits nonzero before the last):
      audio within 1e-5 of max|audio| of a stream on the plain units; in int8 kernel 4
      at the clone and design prompts' rows (m = 41, 73, 105) beside
      ``torch.matmul`` on the dequantized weight;
+     then, after each of the bf16 and int8 models, phase ``batch``
+     (``batch_main``): ``synthesize_batch`` of ``synthesis_timing.BATCH_TEXTS``
+     (8 texts of different lengths, 125 frames forced, stream i seed 42 + i)
+     at B = 1, 4 and 8, one warm call, then each timed with the launch counts
+     reset just before it: prefill, the batched loop's ms/frame beside the
+     staged batch-1 cell's, decode, aggregate and per-stream RTF, frames a
+     second, peak memory; kernels 1 and 3 never launched (the batched loop
+     is the layer path), kernel 2's batch entry 9 times (one decode for all
+     streams), and in int8 kernel 4 at exactly the rows of
+     ``kernel4_batch_rows`` (B in the loop, 2·B in the code predictor's
+     prefill, 10·B in the talker's), none sent to the plain form by its
+     gate; in bf16 also the B = 8 codes against each stream's solo run
+     (kernels 1 and 3; the share equal printed, not a gate), a bf16
+     witness at full depth (``bf16_witness``: greedy CustomVoice and
+     voice-design batches against each stream's B = 1 run through the same
+     batched loop; the talker's hidden states within ``HIDDEN_TOL`` of
+     their scale until the first differing code, and there both runs' top-2
+     margins beside their logits' difference), 8 frames of the B = 8 loop
+     under torch.profiler in a process of its own (``batch_profile``:
+     device kernels a frame, the device's busy share, the costliest host
+     ops), ``synthesize_streaming_batch`` at B = 8 (4 frames, then 10: each
+     stream's TTFA and each round's time; kernel 2's stream entry 9 times a
+     round; each stream's chunks within ``STREAM_SPREAD_FACTOR`` x the
+     staged decode's bucket spread of its ``synthesize_batch`` audio), and
+     kernel 2 across streams (``kernel2_batch``: the 9 units of the B = 8
+     decode against their plain versions at [8, T, C], each stream alone
+     bit-equal to its rows, timed with the bound; stream 0's own decode
+     against its rows within the streaming batch's bar, 2 x the staged
+     decode's bucket spread: the convolutions around the units run at
+     another batch, which moves them as another bucket does); then kernel 4
+     (phase ``kernel4-batch``) at every shape the B = 8 int8 batch gave it
+     (the talker's and the code predictor's projections and heads at m = 8,
+     the code predictor's prefill at 16, the talker's at 80), on the
+     batch's own first input and weight of each shape;
  11. loading and the command line (phase ``ckpt``): a seeded 1.7B
      CustomVoice checkpoint in the HF layout (all 28 talker layers, bf16,
      the full-width vocoder f32; ``qwen3_tts_tpu_torch/ckpt_fixture.py``,
@@ -177,7 +211,15 @@ Phases, each printing a line (any failure exits nonzero before the last):
      greedy and under seeded PCG sampling: frames token-exact and the audio
      within 1e-5 of max|audio| of the JAX package's (the committed fixture
      ``testdata/utterance_1p7b.npz``), the fixture's least top-2 margins
-     printed beside the result;
+     printed beside the result; then, on the same model, phase ``batch``'s
+     f32 checks: ``synthesize_batch`` of ``ckpt_fixture.BATCH_TEXTS``
+     (greedy and PCG, 16 frames) against the JAX package's (the committed
+     ``testdata/batch_1p7b.npz``: frames token-exact, each stream's audio
+     within 1e-5 of its max|audio|; kernels 1 and 3 never, kernel 2 9
+     times), and per-stream positions (a voice-design batch of 3 whose
+     instructs differ in length, an ICL batch of 2 whose references differ,
+     with the phase-4 encoders: each stream token-exact to its own B = 1
+     run through the batched path, the least top-2 margins printed);
  13. the script's wall time, a JSON line of the kernels (each with its
      launches on its main path, its time, its plain version's, the card's
      bound for the same work and, where one PyTorch call computes the same
@@ -213,6 +255,7 @@ from qwen3_tts_tpu_torch import vocoder_fixture  # noqa: E402
 from qwen3_tts_tpu_torch.audio.io import AudioBuffer  # noqa: E402
 from qwen3_tts_tpu_torch.audio.resample import resample_to_24k  # noqa: E402
 from qwen3_tts_tpu_torch import kernel_timing as kt  # noqa: E402
+from qwen3_tts_tpu_torch import synthesis_timing as st  # noqa: E402
 from qwen3_tts_tpu_torch.models import code_predictor as cp  # noqa: E402
 from qwen3_tts_tpu_torch.models import speaker, talker  # noqa: E402
 from qwen3_tts_tpu_torch.models import weights as W  # noqa: E402
@@ -228,7 +271,7 @@ from qwen3_tts_tpu_torch.models.config import (  # noqa: E402
     config_for_variant,
 )
 from qwen3_tts_tpu_torch.models.tokens import OUTPUT_SAMPLE_RATE, SAMPLES_PER_FRAME  # noqa: E402
-from qwen3_tts_tpu_torch.ops import fused_layer, nn, quant  # noqa: E402
+from qwen3_tts_tpu_torch.ops import fused_layer, nn, quant, sampling  # noqa: E402
 from qwen3_tts_tpu_torch.models.speaker import SpeakerEncoder  # noqa: E402
 from qwen3_tts_tpu_torch.pipeline import (  # noqa: E402
     DECODE_BUCKET, Qwen3TTS, SynthesisOptions, VoiceClonePrompt, prefix_piece_sizes)
@@ -1484,6 +1527,7 @@ def small_int8_agrees(route: str, cpc: CodePredictorConfig, seed: int, kernels: 
     check(share >= 0.9, f"{label}: share of equal codes {share:.4f} < 0.9")
 
 
+STAGED_MS_PER_FRAME: dict = {}  # run_main_path's ms a frame, by label
 COUNTERS = {
     "cp_frame": fused_layer.cp_frame,
     "talker_step": fused_layer.talker_step,
@@ -1563,6 +1607,7 @@ def run_main_path(model: Qwen3TTS, label: str, kernels: tuple, absent: tuple = (
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
 
     samples = audio.samples
+    STAGED_MS_PER_FRAME[label] = timing.generation_ms / timing.generation_frames
     check(timing.generation_frames == FRAMES, f"{label}: expected {FRAMES} frames, got {timing.generation_frames}")
     check(samples.shape == (FRAMES * SAMPLES_PER_FRAME,), f"{label}: audio shape {samples.shape}")
     check(bool(torch.isfinite(torch.from_numpy(samples)).all()), f"{label}: audio has non-finite samples")
@@ -2146,8 +2191,9 @@ def prefix_pieces_timing(model: Qwen3TTS) -> dict:
 
 
 def kernel4_prompt_rows(ms: list) -> list:
-    """Kernel 4 at the prompts' rows (m) of the clone and design prefills,
-    at the 1.7B talker's four projection shapes: against its plain version
+    """Kernel 4 at rows ``ms`` (the clone and design prefills' prompts), at
+    the 1.7B talker's four projection shapes, printed as phase
+    ``kernel4-prompt``: against its plain version
     (one bf16 ulp of the output's scale), timed by ``kt.time_shape`` beside
     ``torch.matmul`` on the dequantized weight, with the bound."""
     gen = torch.Generator(device=DEV)
@@ -2211,6 +2257,515 @@ def layer_path_past_gate(model: Qwen3TTS) -> None:
     check(err <= HIDDEN_TOL, f"the layer path past the gate: hidden {err:.3e} of the scale > {HIDDEN_TOL}")
 
 
+BATCH = 8
+BATCH_FIXTURE_SEEDS = [42, 43, 44]
+DESIGN_INSTRUCTS = ("A calm voice.", "A bright, cheerful young woman, speaking quickly and clearly.", "Deep.")
+
+
+@contextlib.contextmanager
+def kernel4_launches():
+    """Kernel 4's launches while entered (``int8_matmul`` reaches its core
+    by module lookup; a launch is a card call that its gate lets through):
+    yields (rows, inputs), ``rows`` m -> launches and ``inputs`` the first
+    (x [m, K] copy, q8, scale) of every distinct (m, K, N)."""
+    rows: dict = {}
+    inputs: dict = {}
+    core = quant._int8_mm_core
+
+    def recording(x2, q8, scale):
+        if x2.is_cuda and quant.int8_matmul_route(x2, q8) == "kernel":
+            m = x2.shape[0]
+            rows[m] = rows.get(m, 0) + 1
+            inputs.setdefault((m, x2.shape[1], q8.shape[1]), (x2.clone(), q8, scale))
+        return core(x2, q8, scale)
+
+    quant._int8_mm_core = recording
+    try:
+        yield rows, inputs
+    finally:
+        quant._int8_mm_core = core
+
+
+def kernel4_batch_shapes(inputs: dict) -> list:
+    """Kernel 4 at every shape the B = 8 int8 batch gave it (``inputs``, from
+    ``kernel4_launches``: the talker's projections and codec head, the code
+    predictor's projections, heads and its 2-row prefill, the prompt's
+    prefill), on those inputs and weights, printed as phase
+    ``kernel4-batch``: against its plain version (one bf16 ulp of the
+    output's scale), timed by ``kt.time_shape`` beside ``torch.matmul`` on
+    the dequantized weight, with the bound."""
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    shapes = []
+    for (m, k, n), (x, q8, scale) in sorted(inputs.items()):
+        got = quant.int8_matmul(x, q8, scale)
+        want = quant.int8_matmul_plain(x, q8, scale)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = want.float().abs().max().item() * 2.0**-7
+        times = kt.time_shape(quant, x, {"q8": q8, "scale": scale})
+        b = bound(nbytes(x, q8, scale) + m * n * x.element_size(), 2 * m * k * n)
+        plan = quant.int8_matmul_plan(m, k, n, sms)
+        phase("kernel4-batch", f"m={m} K={k} N={n} (tier {plan.tier}, {plan.splits} K splits), the batch's own "
+              f"input and weight: max|err| {err:.4e} (bar {tol:.4e}); device span: kernel {times['device_ms']:.4f} "
+              f"ms, torch.matmul on the dequantized weight {times['library_device_ms']:.4f} ms; per call: kernel "
+              f"{times['ms']:.4f}, library {times['library_ms']:.4f}; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+        check(err <= tol, f"kernel 4 at the batch's m={m} K={k} N={n}: max|err| {err:.4e} > {tol:.4e}")
+        shapes.append({"m": m, "k": k, "n": n, "tier": plan.tier, "max_abs_err": err, **times, **b})
+    return shapes
+
+
+def kernel4_batch_rows(cfg: ModelConfig, b: int, frames: int) -> dict:
+    """The kernel-4 launches of one ``synthesize_batch`` of b CustomVoice
+    streams on the int8 tree, by rows: the prefill's 4 projections a talker
+    layer at 10·b rows and its codec head at b; a frame's talker step (4 a
+    layer and the head) at b, the code predictor's 2-row prefill (4 a layer)
+    at 2·b, its 14 steps (4 a layer) and 15 heads at b."""
+    t, c = cfg.talker.num_hidden_layers, cfg.code_predictor.num_hidden_layers
+    steps = cfg.code_predictor.num_acoustic - 1
+    per_b = 1 + frames * (4 * t + 1 + 4 * c * steps + cfg.code_predictor.num_acoustic)
+    want = {10 * b: 4 * t, b: per_b}
+    want[2 * b] = want.get(2 * b, 0) + frames * 4 * c
+    return want
+
+
+def batch_cells(model: Qwen3TTS, label: str, staged_ms_per_frame: float, int8: bool) -> dict:
+    """``synthesize_batch`` of ``st.BATCH_TEXTS`` (125 frames forced, stream
+    i seed 42 + i) at B = 1, 4 and 8 on the 1.7B ``model`` (no warm call:
+    the loop is host-bound, ~20 s a call), one timed call at each B with
+    every launch count set to 0 just before it, read just after. Kernels 1 and 3 never launch (the
+    batched loop takes the layer path), kernel 2's batch entry 9 times (one
+    decode for all B streams), its stream entry never; on the int8 tree
+    kernel 4 at the rows of ``kernel4_batch_rows`` (B in the loop, 10·B in
+    the prefill), none sent to the plain form. Prints prefill, the loop's
+    ms a frame beside the staged batch-1 cell's, decode, aggregate and
+    per-stream RTF, frames a second and peak memory. Returns each run's
+    audio, frames (read from its loop), numbers and launches."""
+    model.tokenizer = st.WordTokenizer()
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+          "TF32 is on for the batched layer path")
+    out = {}
+    for b in st.BATCH_SIZES:
+        loops = []
+
+        def recording(group, generate=model._generate_batch_group):
+            loops.append(generate(group))
+            return loops[-1]
+
+        model._generate_batch_group = recording
+        _reset_counts()
+        quant.int8_matmul.gated = 0
+        try:
+            with kernel4_launches() as (rows, inputs):
+                audio, r = st.time_batch(model, b)
+        finally:
+            del model._generate_batch_group
+        launches = _counts()
+        gated = quant.int8_matmul.gated
+        want_rows = kernel4_batch_rows(model.config, b, FRAMES) if int8 else {}
+        phase("batch", f"{label} synthesize_batch B={b}: prefill {r['prefill_ms']:.2f} ms, loop "
+              f"{r['ms_per_frame']:.3f} ms/frame over {r['frames']} frames (the staged batch-1 cell "
+              f"{staged_ms_per_frame:.3f}), decode {r['decode_ms']:.1f} ms, wall {r['wall_ms']:.1f} ms, RTF per "
+              f"stream {r['rtf_per_stream']:.4f}, aggregate {r['rtf_aggregate']:.4f}, {r['frames_per_s']:.1f} "
+              f"frames/s (batch-1 staged {1e3 / staged_ms_per_frame:.1f}), peak allocated {r['peak_mib']:.0f} MiB; "
+              f"launches {launches}; kernel 4 launches by rows {dict(sorted(rows.items()))} (want "
+              f"{dict(sorted(want_rows.items()))}), calls the gate sent to the plain form {gated}")
+        check(all(len(a.samples) == FRAMES * SAMPLES_PER_FRAME for a in audio), f"{label} B={b}: audio lengths")
+        check(all(bool(np.isfinite(a.samples).all()) for a in audio), f"{label} B={b}: non-finite audio")
+        check(launches["cp_frame"] == launches["talker_step"] == 0,
+              f"{label} B={b}: kernel 1 or 3 launched in the batched loop: {launches}")
+        check(launches["residual_unit"] == 9 and launches["residual_unit_stream"] == 0,
+              f"{label} B={b}: kernel 2 launched {launches['residual_unit']} times (want 9 for one decode)")
+        check(rows == want_rows and gated == 0, f"{label} B={b}: kernel 4 rows {rows} (want {want_rows}), gated {gated}")
+        check(launches["int8_matmul"] == sum(want_rows.values()), f"{label} B={b}: kernel 4 launches {launches}")
+        check(len(loops) == 1, f"{label} B={b}: {len(loops)} layout groups, want 1")
+        frames = [f[:n] for f, n in zip(*loops[0])]
+        out[b] = {"audio": [a.samples for a in audio], "codes": frames, **r, "launches": launches,
+                  "kernel4_rows": rows, "kernel4_inputs": inputs}
+    return out
+
+
+def batch_frames(model: Qwen3TTS, texts: list, options: SynthesisOptions, seeds: list, speakers=None,
+                 instructs=None) -> list:
+    """Each stream's frames from one batched loop of one layout."""
+    b = len(texts)
+    speakers = speakers or ["ryan"] * b
+    instructs = instructs or [None] * b
+    kind = model._split_batch_groups(speakers, instructs)
+    check(len(kind) == 1, f"batch_frames takes one layout, got {kind}")
+    group = model._prepare_batch_group(kind[0][0], texts, speakers, ["english"] * b, instructs, options, seeds)
+    frames, counts = model._generate_batch_group(group)
+    return [f[:n] for f, n in zip(frames, counts)]
+
+
+def batch_against_solo(model: Qwen3TTS, label: str, frames: list) -> float:
+    """The bf16 batch's codes (``frames``) against each stream's solo bf16
+    run (kernels 1 and 3) with the same seed: the share equal, printed (not
+    a gate: bf16 kernels sum in another order, ROADMAP Queue 3)."""
+    opts = st.batch_options()
+    shares, first = [], []
+    for i, text in enumerate(st.BATCH_TEXTS):
+        solo = model._custom_voice_session(text, "ryan", "english", replace(opts, seed=42 + i)).run_to_completion()
+        same = (frames[i] == solo).all(axis=1) if frames[i].shape == solo.shape else np.zeros(1, bool)
+        shares.append(float((frames[i] == solo).mean()) if frames[i].shape == solo.shape else 0.0)
+        first.append(int(np.argmin(same)) if not same.all() else len(same))
+    phase("batch", f"{label} B={BATCH} against each stream's solo run (kernels 1 and 3): share of codes equal "
+          f"{np.mean(shares):.4f} (per stream {[round(x, 4) for x in shares]}), first differing frame per stream "
+          f"{first}; not a gate")
+    return float(np.mean(shares))
+
+
+@contextlib.contextmanager
+def batch_records(cpcfg: CodePredictorConfig):
+    """What the batched path computes while entered, in call order, as f32
+    [B, ...] rows: ``hidden`` the talker's (the prefill's last, then each
+    decode step's), ``talker`` its logits as sampled (after the penalties:
+    frame f's first code), ``cp`` the code predictor's head outputs (15 a
+    frame: frame f's code j from call 15·f + j - 1). Yields the dict."""
+    out = {"hidden": [], "talker": [], "cp": []}
+    routed = talker.prefill_batch, talker.decode_step_batch, sampling.sample, quant.mm
+
+    def prefill_batch(*args, **kwargs):
+        last, logits = routed[0](*args, **kwargs)
+        out["hidden"].append(last[:, 0].float())
+        return last, logits
+
+    def decode_step_batch(*args, **kwargs):
+        h, logits = routed[1](*args, **kwargs)
+        out["hidden"].append(h[:, 0].float())
+        return h, logits
+
+    def sample(logits, cfg, uniform):
+        out["talker"].append(logits.float())
+        return routed[2](logits, cfg, uniform)
+
+    def mm(x, w):
+        y = routed[3](x, w)
+        if is_cp_head(cpcfg, x, y):
+            out["cp"].append(y.reshape(-1, y.shape[-1]).float())
+        return y
+
+    talker.prefill_batch, talker.decode_step_batch, sampling.sample, quant.mm = (
+        prefill_batch, decode_step_batch, sample, mm)
+    try:
+        yield out
+    finally:
+        talker.prefill_batch, talker.decode_step_batch, sampling.sample, quant.mm = routed
+
+
+WITNESS_FRAMES = 16
+
+
+def bf16_witness(model: Qwen3TTS, label: str) -> dict:
+    """A bf16 witness of the batched path at full depth: greedy batches
+    (``WITNESS_FRAMES`` frames) against each stream's B = 1 run through the
+    same batched loop, a CustomVoice batch of the 8 texts (one position for
+    every stream) and a voice-design batch of 3 whose instructs differ in
+    length (a position each). Each stream is followed to its first
+    differing code (frame f, code j); until there both runs saw the same
+    codes, so the talker's hidden states h_0 .. h_f (the prefill's last and
+    each step's) must agree within ``HIDDEN_TOL`` of their scale (phase
+    ``gate``'s bar for bf16 sums in another order; a fault in the per-stream
+    positions, mask or cache rows moves them by the whole scale). At (f, j)
+    both runs' top-2 margins and the largest difference of their logits are
+    printed: a margin under that difference is a near-tie that bf16
+    rounding decides."""
+    opts = SynthesisOptions(max_length=WITNESS_FRAMES, min_new_tokens=WITNESS_FRAMES, seed=42, temperature=0.0)
+    cpcfg = model.config.code_predictor
+    cases = {"CustomVoice": (list(st.BATCH_TEXTS), None),
+             "voice design": (list(st.BATCH_TEXTS[:len(DESIGN_INSTRUCTS)]), list(DESIGN_INSTRUCTS))}
+    out = {}
+    for name, (texts, instructs) in cases.items():
+        b = len(texts)
+        seeds = [42 + i for i in range(b)]
+        with batch_records(cpcfg) as rec:
+            frames = batch_frames(model, texts, opts, seeds, instructs=instructs)
+        equal, firsts, worst, ties = [], [], 0.0, 0
+        for i in range(b):
+            with batch_records(cpcfg) as one:
+                solo = batch_frames(model, texts[i:i + 1], opts, seeds[i:i + 1],
+                                    instructs=instructs[i:i + 1] if instructs else None)[0]
+            check(solo.shape == frames[i].shape, f"{label} witness {name}: stream {i} frame counts differ")
+            differ = (solo != frames[i]).reshape(-1)
+            equal.append(float(1.0 - differ.mean()))
+            f, j = divmod(int(np.argmax(differ)), solo.shape[1]) if differ.any() else (len(solo), None)
+            hidden = [rel_err(rec["hidden"][k][i], one["hidden"][k][0]) for k in range(min(f, len(solo) - 1) + 1)]
+            worst = max(worst, max(hidden))
+            entry = {"frame": f, "code": j, "hidden": max(hidden)}
+            if j is not None:
+                got, want = (rec["talker"][f], one["talker"][f]) if j == 0 else (rec["cp"][15 * f + j - 1],
+                                                                                one["cp"][15 * f + j - 1])
+                live = torch.isfinite(want[0])  # the penalties set some logits to -inf
+                same_live = bool((torch.isfinite(got[i]) == live).all())
+                entry.update(margin=float(top2_gap(got[i])), solo_margin=float(top2_gap(want[0])),
+                             logits_diff=float((got[i] - want[0])[live].abs().max()) if same_live else math.inf)
+                ties += entry["margin"] <= entry["logits_diff"]
+            firsts.append(entry)
+        phase("batch", f"{label} witness, {name} batch of {b} (greedy, {WITNESS_FRAMES} frames) against each stream's "
+              f"B=1 run through the same batched loop: share of codes equal {np.mean(equal):.4f}; first differing "
+              f"(frame, code) per stream {[(e['frame'], e['code']) for e in firsts]}; there the batch's top-2 margin / "
+              f"the solo run's / max|logits difference| "
+              + ", ".join(f"{e['margin']:.3e}/{e['solo_margin']:.3e}/{e['logits_diff']:.3e}" for e in firsts
+                          if e['code'] is not None)
+              + f" ({ties} of {sum(e['code'] is not None for e in firsts)} a margin under the difference); talker "
+              f"hidden up to there {worst:.3e} of its scale at most (bar {HIDDEN_TOL})")
+        check(worst <= HIDDEN_TOL, f"{label} witness {name}: talker hidden {worst:.3e} of its scale from the B=1 run "
+                                   f"before any code differs (bar {HIDDEN_TOL})")
+        out[name] = {"equal": float(np.mean(equal)), "first": firsts, "hidden": worst, "ties": ties}
+    return out
+
+
+def stream_batch(model: Qwen3TTS, label: str, whole: list, frames: list) -> dict:
+    """``synthesize_streaming_batch`` of the 8 texts (4 frames, then 10 a
+    chunk), with every launch count set to 0 just before it, read just
+    after: kernel 2's stream entry 9 times a round, its
+    batch entry and kernels 1 and 3 never; each stream's TTFA and each
+    round's time; each stream's chunks put together held to its
+    ``synthesize_batch`` audio (``whole``) within ``STREAM_SPREAD_FACTOR``
+    times the staged decode's spread between buckets 64 and 256 on the
+    batch's ``frames``, read here."""
+    _reset_counts()
+    chunks, r = st.time_stream_batch(model, BATCH)
+    launches = _counts()
+    codes = np.stack([f.T for f in frames])
+    at256 = vocoder.decode_bucketed(model.vocoder_params, model.vocoder_config, codes, bucket=256)
+    spread = float(max(np.abs(at256[i] - whole[i]).max() for i in range(BATCH)))
+    scale = float(max(np.abs(w).max() for w in whole))
+    bar = max(STREAM_SPREAD_FACTOR * spread, 1e-5 * scale)
+    streamed = [np.concatenate(c) for c in chunks]
+    errs = [float(np.abs(a - w).max()) if a.shape == w.shape else math.inf for a, w in zip(streamed, whole)]
+    rounds = len(r["round_ms"])
+    phase("stream-batch", f"{label} synthesize_streaming_batch B={BATCH}, {rounds} rounds of 4 then 10 frames: "
+          f"TTFA per stream {', '.join(f'{t:.2f}' for t in r['ttfa_ms'])} ms; rounds {', '.join(f'{t:.2f}' for t in r['round_ms'])} "
+          f"ms; wall {r['wall_ms']:.1f} ms, aggregate RTF {r['rtf_aggregate']:.4f}; launches {launches}; max|chunks "
+          f"- synthesize_batch| per stream {max(errs):.3e} (bar {bar:.3e}: {STREAM_SPREAD_FACTOR:g} x the staged "
+          f"decode's spread {spread:.3e} between buckets 64 and 256, at least 1e-5 of max|audio|)")
+    check(launches["residual_unit_stream"] == 9 * rounds and launches["residual_unit"] == 0,
+          f"{label} stream batch: kernel 2 launches {launches} over {rounds} rounds, want 9 a round")
+    check(launches["cp_frame"] == launches["talker_step"] == 0, f"{label} stream batch: kernel 1 or 3 launched")
+    check(max(errs) <= bar, f"{label} stream batch: audio {max(errs):.3e} from synthesize_batch (bar {bar:.3e})")
+    return {**r, "launches": launches, "err": max(errs), "bar": bar}
+
+
+def kernel2_batch(model: Qwen3TTS, frames: list, decode_bar: float) -> dict:
+    """Kernel 2 across streams: the 9 units of the B = 8 decode of
+    ``frames`` (their inputs recorded) against their plain versions at the
+    same [B, T, C] within 1e-5 * max|x| (phase ``kernel2``'s bar); each unit
+    on stream 0's and the last stream's rows alone bit-equal to their rows
+    of the batch launch (its causal window does not reach across streams);
+    timed per call, by device span, plain and against cuDNN's yardstick,
+    with the bound. Then stream 0's own decode (B = 1) against its row of
+    the batch decode: the audio within ``decode_bar`` (``stream_batch``'s:
+    the upstream convolutions and matmuls run at another batch, as at
+    another bucket), each unit's drift from its batch row printed in units
+    of phase ``kernel2``'s bar."""
+    codes = np.stack([f.T for f in frames])
+
+    def record(codes):
+        units, routed = [], blocks.residual_unit
+
+        def recording(x, p, dilation):
+            y = routed(x, p, dilation)
+            if fused_blocks.residual_unit_should_fuse(x):
+                units.append((x, p, dilation, y))
+            return y
+
+        blocks.residual_unit = recording
+        try:
+            wav = vocoder.decode_bucketed(model.vocoder_params, model.vocoder_config, codes, bucket=DECODE_BUCKET)
+        finally:
+            blocks.residual_unit = routed
+        return units, wav
+
+    units, wav = record(codes)
+    check(len(units) == 9, f"kernel 2 batch: {len(units)} units took the kernel, want 9")
+    worst = worst_rel = 0.0
+    totals = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    work_bytes = work_ops = 0
+    for x, p, dil, y in units:
+        want = fused_blocks.residual_unit_plain(x, p, dil)
+        err = (y - want).abs().max().item()
+        tol = 1e-5 * x.abs().max().item()
+        alone = [same_bits(fused_blocks.residual_unit(x[i:i + 1].contiguous(), p, dil), y[i:i + 1])
+                 for i in (0, x.shape[0] - 1)]
+        fn = lambda x=x, p=p, dil=dil: fused_blocks.residual_unit(x, p, dil)  # noqa: E731
+        r = {"ms": time_ms(fn, iters=3), "device_ms": kt.graph_ms([fn], 3),
+             "plain_ms": time_ms(lambda: fused_blocks.residual_unit_plain(x, p, dil), iters=2),
+             "library_ms": time_ms(kt.library_unit(x, p, dil), iters=3)}
+        phase("kernel2-batch", f"[{x.shape[0]}, {x.shape[1]}, {x.shape[2]}] dilation {dil}: max|err| {err:.3e} (atol "
+              f"{tol:.3e}); stream 0 and {x.shape[0] - 1} alone bit-equal to their rows {alone}; kernel "
+              f"{r['ms']:.4f} ms per call / {r['device_ms']:.4f} device span, plain {r['plain_ms']:.4f}, library "
+              f"{r['library_ms']:.4f}")
+        check(err <= tol, f"kernel 2 batch C={x.shape[2]} d={dil}: max|err| {err:.3e} > {tol:.3e}")
+        check(all(alone), f"kernel 2 batch C={x.shape[2]} d={dil}: a stream alone differs from its batch rows")
+        worst, worst_rel = max(worst, err), max(worst_rel, err / tol)
+        for key in totals:
+            totals[key] += r[key]
+        work_bytes += 2 * nbytes(x) + nbytes(p)
+        work_ops += 2 * x.shape[0] * x.shape[1] * x.shape[2] ** 2 * 8
+    tc_bound = bound(work_bytes, 3 * work_ops, "tf32")
+
+    solo_units, solo_wav = record(codes[:1])
+    drift = [(ys[0] - y[0]).abs().max().item() / (1e-5 * xs.abs().max().item())
+             for (x, p, dil, y), (xs, _, _, ys) in zip(units, solo_units)]
+    audio_err = float(np.abs(solo_wav[0] - wav[0]).max())
+    phase("kernel2-batch", f"the 9 units of the B={codes.shape[0]} decode: per call {totals['ms']:.4f} ms, device "
+          f"spans {totals['device_ms']:.4f}, plain {totals['plain_ms']:.4f}, library {totals['library_ms']:.4f}; "
+          f"3xTF32 bound {tc_bound['bound_ms']:.4f} ms; worst err/bar {worst_rel:.3f}; stream 0's own decode: audio "
+          f"{audio_err:.3e} from its batch row (bar {decode_bar:.3e}), its units' drift from their batch rows in "
+          f"units of 1e-5 * max|x| {', '.join(f'{d:.2f}' for d in drift)}")
+    check(audio_err <= decode_bar, f"kernel 2: stream 0's own decode {audio_err:.3e} from its batch row "
+                                   f"(bar {decode_bar:.3e})")
+    return {"b": int(codes.shape[0]), "max_abs_err": worst, **{f"b8_{k}": v for k, v in totals.items()},
+            "b8_bound_ms": tc_bound["bound_ms"], "solo_decode_err": audio_err}
+
+
+def is_cp_head(cpcfg: CodePredictorConfig, x: torch.Tensor, y: torch.Tensor) -> bool:
+    """Whether ``quant.mm(x, w) -> y`` is a code-predictor head: its hidden
+    width in and its vocab out (no other product of the 1.7B model has both:
+    the talker's o_proj also gives 2048 columns, from 2048)."""
+    return x.shape[-1] == cpcfg.hidden_size and y.shape[-1] == cpcfg.vocab_size
+
+
+def top2_gap(y: torch.Tensor) -> torch.Tensor:
+    top2 = torch.topk(y.float(), 2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+@contextlib.contextmanager
+def top2_margins(cpcfg: CodePredictorConfig):
+    """The least top-2 margins while entered: of the talker's post-penalty
+    logits (the sampler's input) and of the code predictor's heads
+    (``is_cp_head``). Yields a dict."""
+    out = {"talker": math.inf, "cp": math.inf}
+    routed_mm, routed_sample = quant.mm, sampling.sample
+
+    def gap(y):
+        return float(top2_gap(y).min())
+
+    def mm(x, w):
+        y = routed_mm(x, w)
+        if is_cp_head(cpcfg, x, y):
+            out["cp"] = min(out["cp"], gap(y))
+        return y
+
+    def sample(logits, cfg, uniform):
+        out["talker"] = min(out["talker"], gap(logits))
+        return routed_sample(logits, cfg, uniform)
+
+    quant.mm, sampling.sample = mm, sample
+    try:
+        yield out
+    finally:
+        quant.mm, sampling.sample = routed_mm, routed_sample
+
+
+def batch_fixture(model: Qwen3TTS) -> None:
+    """The seeded 1.7B-width f32 model (phase ``utterance``'s) through
+    ``synthesize_batch`` of ``ckpt_fixture.BATCH_TEXTS``, greedy and PCG,
+    with every launch count set to 0 just before, read just after: every
+    stream's frames token-exact and its audio within 1e-5 of its max|audio|
+    of the JAX package's (the committed fixture); kernels 1 and 3 never,
+    kernel 2 9 times."""
+    fixture = ckpt_fixture.load_batch()
+    texts, n = list(ckpt_fixture.BATCH_TEXTS), ckpt_fixture.BATCH_FRAMES
+    for kind, temperature in (("greedy", 0.0), ("pcg", 0.9)):
+        opts = SynthesisOptions(max_length=n, min_new_tokens=n, seed=BATCH_FIXTURE_SEEDS[0], temperature=temperature)
+        frames = batch_frames(model, texts, opts, BATCH_FIXTURE_SEEDS)
+        _reset_counts()
+        audio = model.synthesize_batch(texts, options=opts)
+        launches = _counts()
+        want, want_audio = fixture[f"frames_{kind}"], fixture[f"audio_{kind}"]
+        equal = [f.shape == w.shape and bool((f == w).all()) for f, w in zip(frames, want)]
+        errs = [float(np.abs(a.samples - w).max() / np.abs(w).max()) if a.samples.shape == w.shape else math.inf
+                for a, w in zip(audio, want_audio)]
+        phase("batch", f"seeded 1.7B-width f32 checkpoint (2 talker layers), synthesize_batch of {len(texts)} texts, "
+              f"{kind}, {n} frames: token-exact to the JAX fixture per stream {equal}; max|audio - JAX| / max|audio| "
+              f"per stream {', '.join(f'{e:.3e}' for e in errs)} (bar 1e-5); least top-2 margins of the fixture: "
+              f"talker {float(fixture['talker_margin']):.3e}, code predictor {float(fixture['cp_margin']):.3e}; "
+              f"launches {launches}")
+        check(all(equal), f"batch fixture {kind}: frames differ from the JAX fixture")
+        check(max(errs) <= 1e-5, f"batch fixture {kind}: audio {max(errs):.3e} of max|audio| from the JAX fixture")
+        check(launches["cp_frame"] == launches["talker_step"] == 0 and launches["residual_unit"] == 9,
+              f"batch fixture {kind}: launches {launches}")
+
+
+def per_stream_positions(model: Qwen3TTS, encoders: tuple) -> None:
+    """Per-stream positions at full width (the f32 1.7B-width model, 16
+    frames, greedy): a voice-design batch of 3 streams whose instructs
+    differ in length, and an ICL batch of 2 whose references differ (the
+    fixture's 3 s reference, and its first 20 frames with another text; the
+    phase-4 encoders): each stream token-exact to its own B = 1 run through
+    the same batched path; the least top-2 margins printed."""
+    n = 16
+    opts = SynthesisOptions(max_length=n, min_new_tokens=n, seed=42, temperature=0.0)
+    texts = list(ckpt_fixture.BATCH_TEXTS)
+    model.speaker_encoder, model.speech_encoder = encoders
+    try:
+        icl = model.create_voice_clone_prompt(AudioBuffer(encoder_fixture.reference_audio(24000), 24000), CLONE_TEXT)
+    finally:
+        model.speaker_encoder = model.speech_encoder = None
+    short = VoiceClonePrompt(icl.speaker_embedding, icl.ref_codes[:20], model.tokenizer.encode("Fewer words here."))
+    cases = {
+        "voice design": dict(texts=texts, seeds=[42, 43, 44], instructs=list(DESIGN_INSTRUCTS)),
+        "ICL": dict(texts=texts[:2], seeds=[42, 43], speakers=[icl, short]),
+    }
+    for name, case in cases.items():
+        b = len(case["texts"])
+        with top2_margins(model.config.code_predictor) as margins:
+            frames = batch_frames(model, case["texts"], opts, case["seeds"], case.get("speakers"), case.get("instructs"))
+        equal = []
+        for i in range(b):
+            one = {k: v[i:i + 1] for k, v in case.items()}
+            solo = batch_frames(model, one["texts"], opts, one["seeds"], one.get("speakers"), one.get("instructs"))[0]
+            equal.append(solo.shape == frames[i].shape and bool((solo == frames[i]).all()))
+        phase("batch", f"per-stream positions, 1.7B-width f32, {name} batch of {b} ({n} frames, greedy): each stream "
+              f"token-exact to its own B=1 run {equal}; least top-2 margins: talker {margins['talker']:.3e}, code "
+              f"predictor {margins['cp']:.3e}")
+        check(all(equal), f"per-stream positions, {name}: a stream differs from its own B=1 run")
+
+
+def batch_profile() -> dict:
+    """``synthesis_timing.py --cells profile-batch8-bf16`` in a process of its
+    own (the profiler's later sessions in this one record no device
+    activity): ``st.PROFILE_FRAMES`` frames of the bf16 B = 8 batched loop
+    under torch.profiler, printed: device kernels a frame, the device's busy
+    share of the loop's wall time, and the host ops that cost the most."""
+    script = Path(__file__).resolve().parent / "qwen3_tts_tpu_torch" / "synthesis_timing.py"
+    out = subprocess.run([sys.executable, str(script), "--cells", "profile-batch8-bf16", "--repeats", "1"],
+                         capture_output=True, text=True, check=True, timeout=600).stdout
+    r = json.loads(next(line for line in out.splitlines() if line.startswith("{")))
+    device = ("not measured (the profiler recorded no device activity)" if r["kernels_per_frame"] is None else
+              f"{r['kernels_per_frame']:.1f} device kernels and {r['copies_per_frame']:.1f} copies or fills a frame, "
+              f"the device busy {r['device_busy_ms_per_frame']:.3f} ms a frame ({r['busy_share']:.4f} of the "
+              f"profiled loop's wall time)")
+    phase("batch", f"1.7B bf16 B={r['b']} batched loop, {r['frames']} frames under torch.profiler (another process): "
+          f"{device}; {r['ms_per_frame']:.3f} ms a frame unprofiled, {r['profiled_ms_per_frame']:.3f} profiled; "
+          f"host ops with the most CPU time of their own (calls a frame, ms a frame): "
+          + "; ".join(f"{name} {calls:.0f} {ms:.3f}" for name, calls, ms in r["host_top"]))
+    return r
+
+
+def batch_main(model: Qwen3TTS, label: str, int8: bool) -> dict:
+    """Phase ``batch`` on the 1.7B main-path ``model``: ``batch_cells``;
+    in bf16 also the batch against solo runs, the bf16 witness
+    (``bf16_witness``), the loop's profile (``batch_profile``), the
+    streaming batch and kernel 2 across streams (``kernel2_batch``). The
+    model's tokenizer is ``st.WordTokenizer`` meanwhile."""
+    tokenizer = model.tokenizer
+    try:
+        out = {"cells": batch_cells(model, label, STAGED_MS_PER_FRAME[label], int8)}
+        if not int8:
+            frames = out["cells"][BATCH]["codes"]
+            out["solo_share"] = batch_against_solo(model, label, frames)
+            out["witness"] = bf16_witness(model, label)
+            out["profile"] = batch_profile()
+            out["stream"] = stream_batch(model, label, out["cells"][BATCH]["audio"], frames)
+            out["kernel2"] = kernel2_batch(model, frames, out["stream"]["bar"])
+    finally:
+        model.tokenizer = tokenizer
+    return out
+
+
 def _row(name: str) -> dict:
     return next(row for row in KERNEL_ROWS if row["name"] == name)
 
@@ -2238,6 +2793,7 @@ def main_path(encoders: tuple) -> dict:
     clone_bf16 = clone_and_design(model, "1.7B bf16", encoders, ("cp_frame", "talker_step"))
     layer_path_past_gate(model)
     _row("residual_unit_stream")["prefix_pieces"] = prefix_pieces_timing(model)
+    batch_bf16 = batch_main(model, "1.7B bf16", int8=False)
 
     t0 = time.perf_counter()
     m8 = Qwen3TTS(model.config, model.talker_params, model.cp_params, model.vocoder_params, model.tokenizer,
@@ -2252,11 +2808,20 @@ def main_path(encoders: tuple) -> dict:
     stream_int8 = stream_session(m8, "1.7B int8", staged, *ref, ("cp_frame", "talker_step"))
     voice_int8 = voice_session(m8, "1.7B int8", staged, *ref[1:], ("cp_frame", "talker_step"))
     clone_int8 = clone_and_design(m8, "1.7B int8", encoders, ("cp_frame", "talker_step", "int8_matmul"))
+    batch_int8 = batch_main(m8, "1.7B int8", int8=True)
     del m8
     prompt_rows = sorted({m for m in clone_int8["rows"].values() if m > 16})
     _row("int8_matmul")["prompt_shapes"] = kernel4_prompt_rows(prompt_rows)
+    _row("int8_matmul")["batch_shapes"] = kernel4_batch_shapes(batch_int8["cells"][BATCH].pop("kernel4_inputs"))
+    _row("int8_matmul")["batch_launches_by_rows"] = batch_int8["cells"][BATCH]["kernel4_rows"]
+    _row("residual_unit")["batch"] = {**batch_bf16["kernel2"],
+                                      "launches": batch_bf16["cells"][BATCH]["launches"]["residual_unit"]}
     runs = {"bf16": bf16, "int8": int8, "stream_bf16": stream_bf16["launches"], "stream_int8": stream_int8["launches"],
             "voice_bf16": voice_bf16["launches"], "voice_int8": voice_int8["launches"],
+            **{f"batch{b}_{dtype}": run["cells"][b]["launches"] for dtype, run in (("bf16", batch_bf16),
+                                                                                   ("int8", batch_int8))
+               for b in st.BATCH_SIZES},
+            "stream_batch8_bf16": batch_bf16["stream"]["launches"],
             **{f"clone_{dtype} {kind}": run["launches"] for dtype, clone in (("bf16", clone_bf16), ("int8", clone_int8))
                for kind, run in clone["runs"].items()},
             **per_step_main_paths()}
@@ -2438,7 +3003,7 @@ def ckpt_phase() -> None:
     phase("ckpt", f"phase wall time {time.perf_counter() - t_phase:.1f} s; the checkpoint directory deleted")
 
 
-def utterance_phase() -> None:
+def utterance_phase(encoders: tuple) -> None:
     """Phase ``utterance`` (see the module docstring, item 12)."""
     t_phase = time.perf_counter()
     fixture = ckpt_fixture.load_utterance()
@@ -2474,6 +3039,8 @@ def utterance_phase() -> None:
         check(err <= 1e-5 * scale, f"utterance {kind}: audio {err / scale:.3e} of max|audio| from the JAX fixture")
         check(launches["cp_frame"] == launches["talker_step"] == n and launches["residual_unit"] == 9,
               f"utterance {kind}: launches {launches}")
+    batch_fixture(model)
+    per_stream_positions(model, encoders)
     del model
     torch.cuda.empty_cache()
     phase("utterance", f"phase wall time {time.perf_counter() - t_phase:.1f} s")
@@ -2503,7 +3070,7 @@ def main() -> None:
         small_int8_agrees(*case)
     launches = main_path(encoders)
     ckpt_phase()
-    utterance_phase()
+    utterance_phase(encoders)
     for row in KERNEL_ROWS:
         row["launches"] = launches[row["path"]][row["name"].removesuffix("_int8")]
     check(len({row["replaces"] for row in KERNEL_ROWS}) == 8,

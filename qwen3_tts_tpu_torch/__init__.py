@@ -2,7 +2,8 @@
 
 The CustomVoice main path (prompt -> talker prefill -> frame loop with the
 code predictor -> vocoder), staged or streamed chunk by chunk, voice cloning
-(the speaker and Mimi encoders, x-vector and ICL prompts) and voice design,
+(the speaker and Mimi encoders, x-vector and ICL prompts), voice design
+and batched synthesis (``synthesize_batch``, ``synthesize_streaming_batch``),
 in PyTorch, with the JAX package's Pallas kernels on those paths rewritten
 by hand in CUDA for Hopper (``csrc/``); HF checkpoints load with
 ``Qwen3TTS.from_pretrained`` (the package's own safetensors reader and Qwen2
@@ -31,6 +32,7 @@ from .models.config import (  # noqa: E402
 )
 from .pipeline import (  # noqa: E402
     Qwen3TTS,
+    StreamingBatchSession,
     StreamingSession,
     SynthesisOptions,
     SynthesisTiming,
@@ -43,6 +45,7 @@ __all__ = [
     "ModelConfig",
     "ModelType",
     "Qwen3TTS",
+    "StreamingBatchSession",
     "StreamingSession",
     "SynthesisOptions",
     "SynthesisTiming",

@@ -42,6 +42,11 @@ cut in two ways: talker depth 28 -> ``UTTERANCE_LAYERS`` (2), and
 ``UTTERANCE_SEED``, stored bf16 (the vocoder f32).
 
     JAX_PLATFORMS=cpu python tests/test_torch_utterance_1p7b.py   # rewrites the utterance fixture
+
+The batch on the same checkpoint (``BATCH_TEXTS``, ``BATCH_FRAMES`` forced,
+the JAX package's ``synthesize_batch``): the committed ``BATCH_FIXTURE``.
+
+    JAX_PLATFORMS=cpu python tests/test_torch_batch_1p7b.py   # rewrites the batch fixture
 """
 
 from __future__ import annotations
@@ -64,6 +69,10 @@ UTTERANCE_LAYERS = 2
 UTTERANCE_FRAMES = 24
 UTTERANCE_TEXT = "The quick brown fox jumps over the lazy dog."
 UTTERANCE_FIXTURE = Path(__file__).resolve().parent / "testdata" / "utterance_1p7b.npz"
+# The batch on the same checkpoint: three texts of different lengths.
+BATCH_TEXTS = ("The quick brown fox.", "A lazy dog sleeps near the river bank.", "Hello there.")
+BATCH_FRAMES = 16
+BATCH_FIXTURE = Path(__file__).resolve().parent / "testdata" / "batch_1p7b.npz"
 
 # A few byte-level merges, so that the checkpoint's tokenizer runs BPE and
 # not only the byte map ("Ġ" is the byte map's space).
@@ -358,4 +367,15 @@ def load_utterance() -> dict:
     talker's and the code predictor's argmaxes in the greedy run
     (``talker_margin``, ``cp_margin``)."""
     with np.load(UTTERANCE_FIXTURE) as z:
+        return {k: z[k] for k in z.files}
+
+
+def load_batch() -> dict:
+    """The committed batch fixture: ``frames_greedy`` / ``frames_pcg`` [B,
+    BATCH_FRAMES, 16] int32 and ``audio_greedy`` / ``audio_pcg`` [B,
+    BATCH_FRAMES * 1920] f32 (the JAX package's ``synthesize_batch`` of
+    ``BATCH_TEXTS``, seeds 42, 43, 44), and the least top-2 margins of the
+    talker's and the code predictor's argmaxes in the greedy run
+    (``talker_margin``, ``cp_margin``)."""
+    with np.load(BATCH_FIXTURE) as z:
         return {k: z[k] for k in z.files}

@@ -17,6 +17,11 @@ the loop reads ``done`` once per frame (the only device-to-host read).
 with a higher ``frame_limit``, on a frames buffer and a cache that may have
 grown (new tensors) between calls; the uniform drawn for frame i does not
 depend on the buffer's size.
+
+``generate_frames_batch`` is the loop of B streams (the JAX package's
+vmapped loop in its ``generation/batch.py``), each with its own cache position,
+frame count and frame limit, re-entered the same way by a
+``StreamingBatchSession``.
 """
 
 from __future__ import annotations
@@ -143,3 +148,130 @@ def generate_frames(
         state.pos += 1
         state.done = next_token == scfg.eos_token_id
     return state
+
+
+# ---------------------------------------------------------------------------
+# Batched frame loop (throughput mode)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class BatchGenState:
+    """The frame loop's state for B streams (the JAX package's ``GenState``
+    with a leading batch axis; tensors updated in place). Each stream has
+    its own cache position and frame count, kept on the host: every
+    prefill length is known there."""
+
+    cache: nn.KVCache  # [L, B, S, KV, D]
+    last_hidden: torch.Tensor  # [B, 1, hidden]
+    token: torch.Tensor  # [B] int64
+    penalty_mask: torch.Tensor  # [B, codec_vocab] float32
+    frames: torch.Tensor  # [B, max_new, 16] int32
+    frame_idx: list[int]  # frames generated so far, a stream
+    pos: list[int]  # next talker cache write position, a stream
+    done: torch.Tensor  # [B] bool
+
+    @property
+    def batch(self) -> int:
+        return self.frames.shape[0]
+
+
+def init_state_batch(
+    scfg: sampling.SamplingConfig,
+    prefill_logits: torch.Tensor,  # [B, vocab]
+    last_hidden: torch.Tensor,  # [B, 1, hidden]
+    prefill_lens: list[int],
+    cache: nn.KVCache,
+    uniforms: torch.Tensor,  # [B, max_new + 1]
+    max_new_tokens: int,
+) -> BatchGenState:
+    """``init_state`` of B streams: each samples its first token with its
+    own uniform ``uniforms[b, 0]``."""
+    b, vocab = prefill_logits.shape
+    dev = prefill_logits.device
+    penalty_mask = torch.zeros((b, vocab), dtype=torch.float32, device=dev)
+    suppression = sampling.build_suppression_mask(vocab, scfg.eos_token_id, dev)
+    logits = sampling.apply_generation_penalties(prefill_logits, penalty_mask, suppression, scfg, 0)
+    token = sampling.sample(logits, scfg, uniforms[:, 0])
+    penalty_mask[torch.arange(b, device=dev), token] = 1.0
+    return BatchGenState(
+        cache=cache,
+        last_hidden=last_hidden,
+        token=token,
+        penalty_mask=penalty_mask,
+        frames=torch.zeros((b, max_new_tokens, T.NUM_CODE_GROUPS), dtype=torch.int32, device=dev),
+        frame_idx=[0] * b,
+        pos=list(prefill_lens),
+        done=token == scfg.eos_token_id,
+    )
+
+
+def generate_frames_batch(
+    talker_params: dict,
+    cp_params: dict,
+    tcfg: TalkerConfig,
+    cpcfg: CodePredictorConfig,
+    scfg: sampling.SamplingConfig,
+    state: BatchGenState,
+    trailing: torch.Tensor,  # [B, Tb, hidden]
+    trailing_lens: list[int],
+    pad_embed: torch.Tensor,  # [hidden]
+    uniforms: torch.Tensor,  # [B, max_new + 1]
+    frame_limits: list[int],  # per-stream frame budgets
+) -> BatchGenState:
+    """Advance B streams together until each is done or at its frame limit
+    (the semantics of the JAX package's vmapped ``_generate_frames``).
+
+    The body runs while any stream is live, for all B streams at once, on
+    the layer path (``talker.decode_step_batch``,
+    ``cp.predict_acoustic_codes_batch``): every projection multiplies the B
+    rows with one weight read. A stream that is done or at its limit keeps
+    its token, penalty mask, frames, frame count and last hidden state; its
+    cache position goes on advancing (the rows it writes lie past its live
+    frontier and are never read). ``done`` is read on the host once a frame.
+    """
+    b = state.batch
+    dev = state.frames.device
+    max_new = state.frames.shape[1]
+    limits = [min(limit, max_new) for limit in frame_limits]  # never run past the frames buffer
+    tb = trailing.shape[1]
+    rows = torch.arange(b, device=dev)
+    suppression = sampling.build_suppression_mask(state.penalty_mask.shape[1], scfg.eos_token_id, dev)
+    done = state.done.tolist()
+    while True:
+        live = [not d and i < limit for d, i, limit in zip(done, state.frame_idx, limits)]
+        if not any(live):
+            return state
+        idx = state.frame_idx
+        # The frame's per-stream indices in one host-to-device copy.
+        meta = torch.tensor(
+            [state.pos, [min(i, max_new - 1) for i in idx], [min(i, tb - 1) for i in idx],
+             [int(i < n) for i, n in zip(idx, trailing_lens)], [min(i + 1, max_new) for i in idx],
+             [int(v) for v in live]], dtype=torch.int64,
+        ).to(dev)
+        pos, frame_row, text_row, in_text, uniform_idx, live_t = meta
+        live_t = live_t.bool()
+
+        semantic_embed = talker.embed_codec(talker_params, state.token)[:, None, :]  # [B, 1, H]
+        codes = cp.predict_acoustic_codes_batch(cp_params, cpcfg, state.last_hidden, semantic_embed)  # [B, 15]
+        frame = torch.cat([state.token[:, None].to(torch.int32), codes], dim=1)
+        state.frames[rows, frame_row] = torch.where(live_t[:, None], frame, state.frames[rows, frame_row])
+
+        acoustic_sum = cp.acoustic_embedding_sum(cp_params, codes).to(semantic_embed.dtype)
+        text_add = torch.where(in_text.bool()[:, None], trailing[rows, text_row], pad_embed)
+        step_input = semantic_embed + acoustic_sum + text_add.to(semantic_embed.dtype)[:, None, :]
+        hidden, logits = talker.decode_step_batch(talker_params, tcfg, step_input, pos, state.cache)
+
+        # Every live stream has made the same number of frames.
+        token_count = min(i for i, v in zip(idx, live) if v) + 1
+        logits = sampling.apply_generation_penalties(logits, state.penalty_mask, suppression, scfg, token_count)
+        next_token = sampling.sample(logits, scfg, uniforms[rows, uniform_idx])
+        seen = state.penalty_mask[rows, next_token]
+        state.penalty_mask[rows, next_token] = torch.where(live_t, torch.ones_like(seen), seen)
+
+        state.last_hidden = torch.where(live_t[:, None, None], hidden, state.last_hidden)
+        state.token = torch.where(live_t, next_token, state.token)
+        state.done = state.done | (live_t & (next_token == scfg.eos_token_id))
+        state.frame_idx = [i + v for i, v in zip(idx, live)]
+        state.pos = [p + 1 for p in state.pos]
+        done = state.done.tolist()

@@ -116,12 +116,31 @@ def _predict_acoustic_codes_fused(
     return torch.cat(codes).to(torch.int32)
 
 
+def predict_acoustic_codes_batch(
+    params: dict,
+    cfg: CodePredictorConfig,
+    talker_hidden: torch.Tensor,
+    semantic_embed: torch.Tensor,
+) -> torch.Tensor:
+    """The acoustic codes of B frames at once (talker_hidden,
+    semantic_embed: [B, 1, embed_dim]) -> int32 [B, num_acoustic].
+
+    Always the layer path (``fused_layer.cp_frame_layers_batch``, every
+    projection and head through ``quant.mm``: kernel 4 at B rows on an int8
+    tree on the card), whatever ``cp_route`` says: kernels 1, 5, 6 and 7 are
+    batch-1, and the JAX package's batched programs take its generic stack
+    for the same reason (their stream pack stripped, its Pallas dequant off).
+    """
+    return fused_layer.cp_frame_layers_batch(params, cfg, talker_hidden, semantic_embed, quant.mm)
+
+
 def acoustic_embedding_sum(params: dict, codes: torch.Tensor) -> torch.Tensor:
     """Sum of per-group embeddings of a frame's acoustic codes.
 
-    codes: int [num_acoustic]. Returns [1, 1, embed_dim] (one batched gather
-    over the stacked [G, vocab, dim] tables, summed in f32 accumulation).
+    codes: int [num_acoustic] (or [B, num_acoustic], B frames). Returns [1,
+    1, embed_dim] ([B, 1, embed_dim]): one batched gather over the stacked
+    [G, vocab, dim] tables, summed in f32 accumulation.
     """
     tables = params["codec_embeddings"]  # [G, vocab, dim]
     groups = torch.arange(tables.shape[0], device=tables.device)
-    return tables[groups, codes.long()].sum(dim=0)[None, None]
+    return tables[groups, codes.reshape(-1, tables.shape[0]).long()].sum(dim=1)[:, None]

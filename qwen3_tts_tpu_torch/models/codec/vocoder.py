@@ -240,11 +240,13 @@ def _convnext_stream(x, dw_state, p):
 def _residual_unit_stream(x, st, p, dilation: int):
     """A residual unit of a chunk: units that take the fused kernel go to its
     stream entry (the carry is the raw input tail: snake is pointwise and
-    snake(0) == 0, so it is equivalent to the post-snake carry below)."""
+    snake(0) == 0, so it is equivalent to the post-snake carry below). A
+    chunk of B > 1 streams arrives as a time slice of a wider tensor, which
+    the entry takes contiguous."""
     from . import fused_blocks
 
     if fused_blocks.residual_unit_should_fuse(x):
-        return fused_blocks.residual_unit_stream(x, st, p, dilation)
+        return fused_blocks.residual_unit_stream(x.contiguous(), st, p, dilation)
     h = blocks.snake_beta(x, p["act1_alpha"], p["act1_beta"])
     h, new_st = _conv_stream(h, st, p["conv1_w"], p["conv1_b"], dilation=dilation)
     h = blocks.snake_beta(h, p["act2_alpha"], p["act2_beta"])

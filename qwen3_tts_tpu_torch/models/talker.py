@@ -8,8 +8,9 @@ fused tree (all int8, or all plain: what the JAX package would stream-pack)
 runs the whole-step kernel on the cache's [L, S, KV*D] plane view
 (``stream_plane_mode``, ``decode_step_planes``) while the cache holds at
 most ``TALKER_STREAM_MAX_SEQ`` rows; otherwise, and on an unfused tree, the
-layer path. The tensor-parallel variants of the JAX module are not ported
-yet.
+layer path. Batched synthesis (``prefill_batch``, ``decode_step_batch``:
+B streams, each at its own position) always takes the layer path. The
+tensor-parallel variants of the JAX module are not ported yet.
 
 Prompt layouts (each row of the prompt embedding is one position):
 
@@ -193,10 +194,11 @@ def forward(
     x: torch.Tensor,
     cache: nn.KVCache,
     positions: torch.Tensor,
-    write_pos: int,
+    write_pos: int | torch.Tensor,
     self_attn_prefill: bool = False,
 ) -> torch.Tensor:
-    """Run the layer stack on embeddings x [1, S, hidden]; returns normed hidden."""
+    """Run the layer stack on embeddings x [B, S, hidden] (``positions`` and
+    ``write_pos`` as ``nn.run_layer_stack`` takes them); returns normed hidden."""
     h = nn.run_layer_stack(
         params["layers"], x, cfg.layer_stack(), cache, positions, write_pos,
         self_attn_prefill=self_attn_prefill,
@@ -222,10 +224,41 @@ def prefill(
     place. Returns (last_hidden [1,1,hidden] normed, logits [1, codec_vocab]
     at the last valid position).
     """
+    return prefill_batch(params, cfg, prompt, [prefill_len], cache)
+
+
+def prefill_batch(
+    params: dict,
+    cfg: TalkerConfig,
+    prompt: torch.Tensor,
+    prefill_lens: list[int],
+    cache: nn.KVCache,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``prefill`` of B prompts right-padded to one bucket [B, Pb, hidden]
+    (the causal S x S prefill is exact for each stream; ``cache`` holds B
+    streams). Stream b's last hidden is read at ``prefill_lens[b] - 1``.
+    Returns (last_hidden [B,1,hidden] normed, logits [B, codec_vocab])."""
     positions = torch.arange(prompt.shape[1], device=prompt.device)
     h = forward(params, cfg, prompt, cache, positions, 0, self_attn_prefill=True)
-    last = h[:, prefill_len - 1 : prefill_len]
+    rows = torch.tensor([n - 1 for n in prefill_lens], device=prompt.device)
+    last = h[torch.arange(h.shape[0], device=prompt.device), rows][:, None]
     return last, codec_logits(params, last)[:, 0, :]
+
+
+def decode_step_batch(
+    params: dict,
+    cfg: TalkerConfig,
+    step_embed: torch.Tensor,
+    pos: torch.Tensor,
+    cache: nn.KVCache,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One generation step of B streams [B, 1, hidden], stream b at its own
+    position ``pos[b]`` (LongTensor [B]; its cache row written in place), on
+    the layer path: the whole-step kernel is batch-1, as the JAX package's
+    stream pack is (its batched programs strip it). Returns (normed hidden
+    [B,1,hidden], logits [B, codec_vocab])."""
+    h = forward(params, cfg, step_embed, cache, pos[:, None], pos)
+    return h, codec_logits(params, h)[:, 0, :]
 
 
 def stream_plane_mode(params: dict, cfg: TalkerConfig, cache: nn.KVCache) -> bool:

@@ -78,9 +78,19 @@ def cp_frame_layers(
     talker_hidden, semantic_embed: [1, 1, embed_dim]. Returns int32 [G].
     Group g embeds code g-1 with table g-1 and predicts with head g.
     """
+    return cp_frame_layers_batch(params, cfg, talker_hidden, semantic_embed, matmul)[0]
+
+
+def cp_frame_layers_batch(
+    params: dict, cfg, talker_hidden: torch.Tensor, semantic_embed: torch.Tensor, matmul
+) -> torch.Tensor:
+    """``cp_frame_layers`` for B frames at once (talker_hidden,
+    semantic_embed: [B, 1, embed_dim]; a cache of B streams, every
+    projection of the B rows in one ``matmul``). The positions are the same
+    for every stream: 2 prefill rows, then 14 steps. Returns int32 [B, G]."""
     stack_cfg = cfg.layer_stack()
     dev = talker_hidden.device
-    cache = nn.init_kv_cache(stack_cfg, 1, CP_MAX_SEQ, talker_hidden.dtype, dev)
+    cache = nn.init_kv_cache(stack_cfg, talker_hidden.shape[0], CP_MAX_SEQ, talker_hidden.dtype, dev)
     heads = params["lm_heads"]
 
     x = mtp_project(params, torch.cat([talker_hidden, semantic_embed], dim=1))
@@ -88,18 +98,18 @@ def cp_frame_layers(
         params["layers"], x, stack_cfg, cache, torch.arange(2, device=dev), 0, self_attn_prefill=True, matmul=matmul
     )
     h = nn.rms_norm(h, params["norm"], cfg.rms_norm_eps)
-    code = torch.argmax(matmul(h[:, 1], head(heads, 0)), dim=-1)  # [1]
+    code = torch.argmax(matmul(h[:, 1], head(heads, 0)), dim=-1)  # [B]
     codes = [code]
     for g in range(1, cfg.num_acoustic):
         pos = g + 1
-        x = mtp_project(params, params["codec_embeddings"][g - 1][code][None])
+        x = mtp_project(params, params["codec_embeddings"][g - 1][code][:, None])
         h = nn.run_layer_stack(
             params["layers"], x, stack_cfg, cache, torch.full((1,), pos, device=dev), pos, matmul=matmul
         )
         h = nn.rms_norm(h, params["norm"], cfg.rms_norm_eps)
         code = torch.argmax(matmul(h[:, 0], head(heads, g)), dim=-1)
         codes.append(code)
-    return torch.cat(codes).to(torch.int32)
+    return torch.stack(codes, dim=1).to(torch.int32)
 
 
 def cp_frame_plain(params: dict, cfg, talker_hidden: torch.Tensor, semantic_embed: torch.Tensor) -> torch.Tensor:

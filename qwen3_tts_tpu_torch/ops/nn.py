@@ -97,7 +97,8 @@ def rope_cos_sin(
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     """Split-half rotary embedding on [..., seq, heads, head_dim].
 
-    cos/sin: [seq, head_dim/2] (broadcast over batch and heads).
+    cos/sin: [seq, head_dim/2] (broadcast over batch and heads), or
+    [batch, seq, head_dim/2] (per-stream positions).
     """
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half], x[..., half:]
@@ -165,7 +166,8 @@ def _attention_block(
     """QKV projection + QK-norm + RoPE + in-place cache write + GQA attention.
 
     x: [B, S, hidden]. cache_k/v: [B, max_seq, KV, D] views of one layer of
-    the cache; the S new K/V rows are written at ``write_pos``.
+    the cache; the S new K/V rows are written at ``write_pos``, or, for a
+    ``write_pos`` LongTensor [B] (S = 1), stream b's row at ``write_pos[b]``.
     ``self_only=True`` (fresh-cache prefill): attention reads only the S new
     rows (S x S), and ``mask`` must be [..., Sq, S].
     """
@@ -191,8 +193,13 @@ def _attention_block(
 
     k = k.to(cache_k.dtype)
     v = v.to(cache_v.dtype)
-    cache_k[:, write_pos : write_pos + s] = k
-    cache_v[:, write_pos : write_pos + s] = v
+    if isinstance(write_pos, torch.Tensor):  # one row a stream, each at its own position
+        rows = torch.arange(b, device=x.device)
+        cache_k[rows, write_pos] = k[:, 0]
+        cache_v[rows, write_pos] = v[:, 0]
+    else:
+        cache_k[:, write_pos : write_pos + s] = k
+        cache_v[:, write_pos : write_pos + s] = v
 
     scale = 1.0 / (cfg.head_dim**0.5)
     if self_only:
@@ -253,7 +260,7 @@ def run_layer_stack(
     cfg: LayerStackConfig,
     cache: KVCache,
     positions: torch.Tensor,
-    write_pos: int,
+    write_pos: int | torch.Tensor,
     self_attn_prefill: bool = False,
     matmul=mm,
 ) -> torch.Tensor:
@@ -264,18 +271,26 @@ def run_layer_stack(
     Prompts are right-padded, so the pure causal mask ``key_row <=
     query_position`` is exact (see the JAX package's docstring).
 
+    A decode step of B streams each at its own position (what ``jax.vmap``
+    makes of the JAX package's step): ``positions`` [B, 1] and
+    ``write_pos`` the same positions as a LongTensor [B]; RoPE at each
+    stream's position, its row written at ``(b, write_pos[b])``, its mask
+    [B, 1, 1, 1, Sk] its own.
+
     ``self_attn_prefill=True``: fresh-cache prefill (write_pos == 0, no
     earlier live rows); attention runs over the S new rows only.
     ``matmul``: as ``decoder_layer``'s.
     """
     inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, device=x.device)
     cos, sin = rope_cos_sin(positions.float(), inv_freq)
-    if self_attn_prefill:
-        mask = positions[None, :] <= positions[:, None]
+    if positions.ndim == 2:  # per-stream positions [B, 1]
+        key_pos = torch.arange(cache.max_seq, device=x.device)
+        mask = (key_pos <= positions[..., None])[:, None, None]  # [B, KV=1, G=1, 1, Sk]
+    elif self_attn_prefill:
+        mask = (positions[None, :] <= positions[:, None])[None, None, None]
     else:
         key_pos = torch.arange(cache.max_seq, device=x.device)
-        mask = key_pos[None, :] <= positions[:, None]
-    mask = mask[None, None, None]  # [B=1, KV=1, G=1, Sq, Sk]
+        mask = (key_pos[None, :] <= positions[:, None])[None, None, None]  # [B=1, KV=1, G=1, Sq, Sk]
 
     h = x
     for i in range(cfg.num_layers):

@@ -15,8 +15,15 @@ other shapes take the plain form, as the JAX package takes XLA's
 dequant-then-dot. On a CPU tensor it is always the plain form; any other
 device raises.
 
-The w8a8 scope (dynamic activation quantization) serves batched programs
-only and comes with batching.
+Batched synthesis multiplies ``[B, m, K]`` activations: the leading dims
+fold into B·m rows, so one launch reads the weight once for all streams
+(the JAX package's batch rule ``_int8_mm_core_vmap``), and the gate above
+sends B·m > 1024 to the plain form (``int8_matmul_route``). Per-example
+weights (a batch axis on ``q8``) are not a shape the model makes, and
+raise.
+
+The w8a8 scope (dynamic activation quantization, ``int8_activations``)
+is opt-in in the JAX package and is not ported; it waits for the server.
 """
 
 from __future__ import annotations
@@ -134,13 +141,35 @@ def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
+def _weight_dims(q8: torch.Tensor) -> tuple[int, int]:
+    """(K, N) of a shared weight; per-example weights (a batch axis) raise."""
+    if q8.ndim != 2:
+        raise ValueError(f"int8_matmul: per-example weights are not supported; want q8 [K, N], got "
+                         f"{tuple(q8.shape)}")
+    return q8.shape
+
+
+def int8_matmul_route(x: torch.Tensor, q8: torch.Tensor) -> str:
+    """Where ``int8_matmul(x, q8, ...)`` goes on the card, from the shapes
+    alone (meta tensors will do): "kernel" when the folded rows, K and N pass
+    the JAX package's Pallas gate (m <= 1024, K and N multiples of 128), else
+    "plain". A ``[B, m, K]`` batch is B·m rows."""
+    k, n = _weight_dims(q8)
+    m = x.numel() // max(x.shape[-1], 1)
+    ok = 1 <= m <= KERNEL_MAX_ROWS and k % KERNEL_ALIGN == 0 and n % KERNEL_ALIGN == 0
+    return "kernel" if ok else "plain"
+
+
 def _int8_mm_core(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     dev = x2.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"int8_matmul: no kernel for device {dev}")
     m, k = x2.shape
     n = q8.shape[1]
-    if dev.type == "cpu" or not (1 <= m <= KERNEL_MAX_ROWS and k % KERNEL_ALIGN == 0 and n % KERNEL_ALIGN == 0):
+    if dev.type == "cpu":
+        return int8_matmul_plain(x2, q8, scale)
+    if int8_matmul_route(x2, q8) == "plain":
+        int8_matmul.gated += 1
         return int8_matmul_plain(x2, q8, scale)
     if x2.dtype not in _DTYPES:
         raise ValueError(f"int8_matmul: unsupported activation dtype {x2.dtype}")
@@ -169,13 +198,15 @@ def _int8_mm_core(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> to
 
 
 def int8_matmul(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """x [.., K] @ dequant(q8 [K, N]) -> [.., N]; leading dims fold into rows."""
+    """x [.., K] @ dequant(q8 [K, N]) -> [.., N]; leading dims fold into rows
+    (a batch of streams is one launch). Per-example weights raise."""
     lead = x.shape[:-1]
-    k, n = q8.shape
+    k, n = _weight_dims(q8)
     return _int8_mm_core(x.reshape(-1, k), q8, scale).reshape(*lead, n)
 
 
 int8_matmul.launches = 0  # kernel launches (plain calls are not counted)
+int8_matmul.gated = 0  # calls on the card that the gate sent to the plain form
 
 
 def mm(x: torch.Tensor, w) -> torch.Tensor:

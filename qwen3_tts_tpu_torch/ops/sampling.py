@@ -12,6 +12,10 @@ uniform both packages select the same token:
 
 Penalty order: repetition penalty, then control-token suppression, then
 min-new-tokens EOS blocking. Everything stays on the logits' device.
+
+Every form works row by row on ``[batch, vocab]``: a batch of streams
+passes its penalty masks as ``[B, vocab]`` and one uniform a stream
+(``[B]``), and each row's token is the one its stream alone would draw.
 """
 
 from __future__ import annotations

@@ -23,7 +23,10 @@ loads a Qwen3-TTS HF checkpoint directory with the port's own safetensors
 reader and tokenizer (no ``safetensors`` or ``tokenizers`` package).
 ``synthesize_voice_clone_debug`` is the staged clone (every frame, then one
 bucketed decode of [reference || frames] with the reference's share of the
-samples cut). Batching is not ported yet.
+samples cut). Throughput mode: ``synthesize_batch`` (B utterances, one
+batched frame loop a prompt layout, one vocoder pass) and
+``synthesize_streaming_batch`` (a ``StreamingBatchSession`` of one
+layout, every stream a chunk at a time).
 """
 
 from __future__ import annotations
@@ -260,9 +263,10 @@ class Qwen3TTS:
         tensors, the Mimi encoder when the speech tokenizer has ``encoder.*``
         tensors; an incomplete or malformed ``encoder.*`` set (``KeyError``,
         ``ValueError``) leaves it None (no ICL cloning), any other error
-        raises. The JAX package's ``mesh`` (tensor-parallel serving) and
-        ``int8_activations`` (w8a8 batching) are not ported yet: they wait
-        for multi-GPU serving and batching.
+        raises. The JAX package's ``mesh`` (tensor-parallel serving) is not
+        ported yet: it waits for multi-GPU serving; nor is its opt-in
+        ``int8_activations`` (w8a8 in batched programs), which waits for the
+        HTTP server's port.
         """
         device = device_or_card(device)
         model_dir = Path(model_dir)
@@ -708,6 +712,273 @@ class Qwen3TTS:
         return self._decode_behind(session._prefix(), frames), frames
 
     # ------------------------------------------------------------------
+    # Batched synthesis (throughput mode)
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _split_batch_groups(voices: list, instructs: list[str | None]) -> list[tuple[str, list[int]]]:
+        """Partition batch indices by prompt layout: ``basic`` (the 10-row
+        prompt: preset speakers and x-vector ``VoiceClonePrompt``s, whose
+        speaker row is a vector either way), ``icl`` (prompts with reference
+        codes and text: 9 rows + the reference rows, and the ICL overrides)
+        and ``design`` (an instruct given: instruct rows + 9). Each group runs
+        as one batched loop; the order is that of first appearance."""
+        groups: dict[str, list[int]] = {}
+        for i, (v, ins) in enumerate(zip(voices, instructs)):
+            if ins is not None:
+                kind = "design"
+            elif isinstance(v, VoiceClonePrompt) and v.ref_codes is not None and v.ref_text_ids is not None:
+                kind = "icl"
+            else:
+                kind = "basic"
+            groups.setdefault(kind, []).append(i)
+        return list(groups.items())
+
+    def _batch_args(self, texts: list[str], speakers, languages, options: SynthesisOptions | None,
+                    seeds: list[int] | None, instructs: list[str | None] | None):
+        """The batched entries' arguments, one of each a stream; seeds
+        default to ``options.seed + i`` (``options.seed`` None counts as 0)."""
+        options = self._normalize_options(options or SynthesisOptions())
+        b = len(texts)
+        if isinstance(speakers, (str, VoiceClonePrompt)):
+            speakers = [speakers] * b
+        if isinstance(languages, str):
+            languages = [languages] * b
+        if instructs is None:
+            instructs = [None] * b
+        if seeds is None:
+            base_seed = options.seed if options.seed is not None else 0
+            seeds = [base_seed + i for i in range(b)]
+        return options, list(speakers), list(languages), list(instructs), list(seeds)
+
+    def synthesize_batch(
+        self,
+        texts: list[str],
+        speakers: list | str = "ryan",
+        languages: list[str] | str = "english",
+        options: SynthesisOptions | None = None,
+        seeds: list[int] | None = None,
+        instructs: list[str | None] | None = None,
+    ) -> list[AudioBuffer]:
+        """Throughput mode: B utterances through one batched frame loop a
+        prompt layout, then one vocoder pass for all of them.
+
+        Every frame reads the talker's and the code predictor's weights once
+        for all B streams. Stream i uses ``seeds[i]`` (default
+        ``options.seed + i``) and gives its batch-1 output's frames.
+        ``speakers`` entries are preset-speaker names or
+        ``VoiceClonePrompt``s (x-vector or ICL cloning); ``instructs[i]``
+        makes stream i a voice design. Streams are grouped by prompt layout
+        (``_split_batch_groups``); a homogeneous batch is one loop. The
+        batched loop runs the layer path (never kernels 1 and 3, which are
+        batch-1); the vocoder decodes all streams in one bucketed pass, ICL
+        streams behind their reference codes (cut at ``ref_len * 1920``
+        samples).
+
+        On an H100 this is slower today than calling the batch-1 entry
+        points once a text, at B = 8 too: the batched loop is the eager
+        layer path, whose ~8,400 kernel launches a frame keep the host busy
+        while the device idles (``synthesis_timing.py --cells
+        profile-batch8-bf16``). Capturing its frame body in a CUDA graph is
+        the remedy still to come."""
+        return self.synthesize_batch_with_timing(texts, speakers, languages, options, seeds, instructs)[0]
+
+    @torch.no_grad()
+    def synthesize_batch_with_timing(
+        self,
+        texts: list[str],
+        speakers: list | str = "ryan",
+        languages: list[str] | str = "english",
+        options: SynthesisOptions | None = None,
+        seeds: list[int] | None = None,
+        instructs: list[str | None] | None = None,
+    ) -> tuple[list[AudioBuffer], SynthesisTiming]:
+        """``synthesize_batch`` with host-clock stage times (each stage ends
+        in a device synchronise): prefill and the frame loop summed over the
+        layout groups, ``generation_frames`` the most frames of any stream,
+        and the one vocoder pass."""
+        options, speakers, languages, instructs, seeds = self._batch_args(
+            texts, speakers, languages, options, seeds, instructs)
+        b = len(texts)
+        frames_all: list[np.ndarray | None] = [None] * b
+        counts = np.zeros(b, np.int64)
+        refs_all: list[np.ndarray | None] = [None] * b
+        timing = SynthesisTiming()
+        for kind, idx in self._split_batch_groups(speakers, instructs):
+            t0 = time.perf_counter()
+            group = self._prepare_batch_group(kind, [texts[i] for i in idx], [speakers[i] for i in idx],
+                                              [languages[i] for i in idx], [instructs[i] for i in idx], options,
+                                              [seeds[i] for i in idx])
+            self._sync()
+            t1 = time.perf_counter()
+            frames_g, counts_g = self._generate_batch_group(group)
+            t2 = time.perf_counter()
+            timing.prefill_ms += (t1 - t0) * 1e3
+            timing.generation_ms += (t2 - t1) * 1e3
+            for j, i in enumerate(idx):
+                frames_all[i], counts[i], refs_all[i] = frames_g[j], counts_g[j], group.refs[j]
+        timing.generation_frames = int(counts.max()) if b else 0
+        t0 = time.perf_counter()
+        audio = self._decode_batch(frames_all, counts, refs_all)
+        timing.decode_ms = (time.perf_counter() - t0) * 1e3
+        return audio, timing
+
+    def _decode_batch(self, frames_all: list, counts: np.ndarray, refs_all: list) -> list[AudioBuffer]:
+        """One bucketed vocoder pass over every stream at the most combined
+        frames; ICL streams prepend their reference codes and are cut at
+        exactly ``ref_len * 1920`` samples. The vocoder is causal and the
+        padded frames are zeros, so each stream's trim is exact."""
+        b = len(frames_all)
+        ref_lens = np.array([0 if r is None else len(r) for r in refs_all], np.int64)
+        totals = ref_lens + counts
+        t_max = int(totals.max()) if b else 0
+        if t_max == 0:
+            return [AudioBuffer(np.zeros(0, np.float32), T.OUTPUT_SAMPLE_RATE) for _ in range(b)]
+        codes = np.zeros((b, t_max, T.NUM_CODE_GROUPS), np.int32)
+        for i in range(b):
+            if ref_lens[i]:
+                codes[i, :ref_lens[i]] = refs_all[i]
+            if counts[i]:
+                codes[i, ref_lens[i]:totals[i]] = frames_all[i][:counts[i]]
+        wav = vocoder.decode_bucketed(self.vocoder_params, self.vocoder_config, np.swapaxes(codes, 1, 2),
+                                      bucket=DECODE_BUCKET)
+        spf = T.SAMPLES_PER_FRAME
+        return [AudioBuffer(wav[i, int(ref_lens[i]) * spf:int(totals[i]) * spf], T.OUTPUT_SAMPLE_RATE)
+                for i in range(b)]
+
+    def _generate_batch_group(self, group: "BatchGroup") -> tuple[list[np.ndarray], np.ndarray]:
+        """Run a prepared group's batched frame loop to its end; returns
+        (per-stream frames [max_new, 16], frame counts)."""
+        core.generate_frames_batch(
+            self.talker_params, self.cp_params, self.config.talker, self.config.code_predictor, group.scfg,
+            group.state, group.trailing, group.trailing_lens, group.pad_embed, group.uniforms, group.frame_limits,
+        )
+        frames = group.state.frames.cpu().numpy()
+        return [frames[j] for j in range(frames.shape[0])], np.asarray(group.state.frame_idx, np.int64)
+
+    @torch.no_grad()
+    def _prepare_batch_group(
+        self,
+        kind: str,
+        texts: list[str],
+        voices: list,
+        languages: list[str],
+        instructs: list[str | None],
+        options: SynthesisOptions,
+        seeds: list[int],
+    ) -> "BatchGroup":
+        """Encode and prefill one layout group of a batch (``synthesize_batch``
+        and ``synthesize_streaming_batch`` share it). ICL streams cap their
+        frames at max(``ICL_MIN_FRAMES``, ``ICL_FRAMES_PER_TOKEN`` x text
+        tokens) and take a repetition penalty of at least
+        ``ICL_MIN_REPETITION_PENALTY``; other layouts share
+        ``options.max_length``. The group's KV cache holds its prompt bucket
+        + the frames' bucket + 8 rows for every stream (no growth tiers). A
+        ``basic`` group of preset speakers only runs the CustomVoice layout;
+        one with an x-vector clone runs the clone layout for all its streams,
+        a preset speaker's vector being its codec speaker-token embedding."""
+        b = len(texts)
+        dev = self.device
+        encoded = [self._encode_text(t) for t in texts]
+        refs: list[np.ndarray | None] = [None] * b
+        if kind == "icl":
+            per_max = [min(options.max_length, max(ICL_MIN_FRAMES, len(e) * ICL_FRAMES_PER_TOKEN)) for e in encoded]
+            scfg = replace(options, repetition_penalty=max(options.repetition_penalty,
+                                                           ICL_MIN_REPETITION_PENALTY)).sampling_config()
+        else:
+            per_max = [options.max_length] * b
+            scfg = options.sampling_config()
+        max_new_bucket = next_bucket(max(per_max), buckets=FRAME_BUCKETS)
+        uniforms = torch.from_numpy(np.stack([rng.pcg_uniform_sequence(s, max_new_bucket + 1) for s in seeds])).to(dev)
+        lang_ids = [T.language_token_id(lang) for lang in languages]
+        stack = self.config.talker.layer_stack()
+
+        def new_caches(prefill_rows: int) -> nn.KVCache:
+            return nn.init_kv_cache(stack, b, prefill_rows + max_new_bucket + 8, self.compute_dtype, dev)
+
+        def padded(seqs: list[list[int]]) -> tuple[torch.Tensor, list[int]]:
+            arr = np.zeros((b, next_bucket(max(max(len(q) for q in seqs), 1), TEXT_BUCKET)), np.int64)
+            for i, q in enumerate(seqs):
+                arr[i, :len(q)] = q
+            return torch.from_numpy(arr).to(dev), [len(q) for q in seqs]
+
+        def speaker_vecs() -> torch.Tensor:
+            return torch.stack([
+                torch.as_tensor(np.asarray(v.speaker_embedding), device=dev).to(self.compute_dtype)
+                if isinstance(v, VoiceClonePrompt)
+                else talker.embed_codec(self.talker_params, torch.tensor(T.speaker_info(v).token_id, device=dev))
+                for v in voices
+            ])
+
+        tp = self.talker_params
+        if kind == "icl":
+            all_text_ids, n_texts = padded([list(v.ref_text_ids) + list(e) + [T.TTS_EOS]
+                                            for v, e in zip(voices, encoded)])
+            refs = [np.asarray(v.ref_codes, np.int32) for v in voices]
+            cb = next_bucket(max(r.shape[0] for r in refs) + 1, TEXT_BUCKET)
+            bos = talker.embed_codec(tp, torch.tensor([T.CODEC_BOS], device=dev))
+            codec_rows = bos.new_zeros((b, cb, bos.shape[-1]))
+            for i, r in enumerate(refs):
+                codec_rows[i, :1] = bos
+                codec_rows[i, 1:r.shape[0] + 1] = self._sum_ref_codec_embeddings(r)
+            vecs = speaker_vecs()
+            rows = [prefill.voice_clone_icl_rows(tp, all_text_ids[i], n_texts[i], vecs[i], codec_rows[i],
+                                                 r.shape[0] + 1, lang_ids[i], options.icl_sequential)
+                    for i, r in enumerate(refs)]
+            prefill_rows = 9 + cb + (all_text_ids.shape[1] if options.icl_sequential else 0)
+        else:
+            text_ids, text_lens = padded(encoded)
+            if kind == "design":
+                instruct_ids, instruct_lens = padded(
+                    [self._encode_text(f"<|im_start|>user\n{ins}<|im_end|>\n") for ins in instructs])
+                rows = [prefill.voice_design_rows(tp, text_ids[i], n, instruct_ids[i], instruct_lens[i], lang_ids[i])
+                        for i, n in enumerate(text_lens)]
+                prefill_rows = instruct_ids.shape[1] + 9
+            elif any(isinstance(v, VoiceClonePrompt) for v in voices):
+                vecs = speaker_vecs()
+                rows = [prefill.voice_clone_xvector_rows(tp, text_ids[i], n, vecs[i], lang_ids[i])
+                        for i, n in enumerate(text_lens)]
+                prefill_rows = CUSTOM_VOICE_PROMPT_LEN
+            else:
+                rows = [prefill.custom_voice_rows(tp, text_ids[i], n, T.speaker_info(v).token_id, lang_ids[i])
+                        for i, (n, v) in enumerate(zip(text_lens, voices))]
+                prefill_rows = CUSTOM_VOICE_PROMPT_LEN
+        started = prefill.finish_batch(tp, self.config.talker, scfg, rows, new_caches(prefill_rows), uniforms,
+                                       max_new_bucket)
+        state, trailing, trailing_lens, pad = started
+        return BatchGroup(state, scfg, trailing, trailing_lens, pad, uniforms, per_max, refs)
+
+    def synthesize_streaming_batch(
+        self,
+        texts: list[str],
+        speakers: list | str = "ryan",
+        languages: list[str] | str = "english",
+        options: SynthesisOptions | None = None,
+        seeds: list[int] | None = None,
+        instructs: list[str | None] | None = None,
+    ) -> "StreamingBatchSession":
+        """Batched streaming: B streams advanced together a chunk at a time
+        (``StreamingBatchSession.next_chunks``), each chunk's new frames of
+        all streams decoded in one pass of the sample-exact streaming
+        vocoder. Each stream's chunks put together are its
+        ``synthesize_batch`` audio (up to matmul-tiling ulps). Arguments as
+        ``synthesize_batch``'s, but one session runs one prompt layout
+        (preset speakers and x-vector clones mix; ICL clones and designs each
+        need a session of their own); another mix raises. An ICL stream's
+        reference codes go through the streaming vocoder ahead of its
+        frames, so its first chunks may be empty."""
+        options, speakers, languages, instructs, seeds = self._batch_args(
+            texts, speakers, languages, options, seeds, instructs)
+        groups = self._split_batch_groups(speakers, instructs)
+        if len(groups) > 1:
+            raise ValueError(
+                "synthesize_streaming_batch runs one prompt layout per session; got "
+                f"{[k for k, _ in groups]}. Split the request by layout (preset speakers and x-vector clones may mix)."
+            )
+        group = self._prepare_batch_group(groups[0][0], texts, speakers, languages, instructs, options, seeds)
+        return StreamingBatchSession(self, group, options)
+
+    # ------------------------------------------------------------------
     # Decode helpers
     # ------------------------------------------------------------------
 
@@ -748,6 +1019,22 @@ def prefix_piece_sizes(n: int, chunk: int) -> list[int]:
 def _pad_rows(t: torch.Tensor, delta: int) -> torch.Tensor:
     """``t`` [L, B, S, ...] with ``delta`` zero rows appended along S."""
     return torch.cat([t, t.new_zeros(t.shape[:2] + (delta,) + t.shape[3:])], dim=2)
+
+
+@dataclass
+class BatchGroup:
+    """One prompt-layout group of a batch, prefilled: the batched loop's
+    state and inputs, each stream's frame budget, and each stream's ICL
+    reference codes (None outside ICL)."""
+
+    state: core.BatchGenState
+    scfg: sampling.SamplingConfig
+    trailing: torch.Tensor  # [B, Tb, hidden]
+    trailing_lens: list[int]
+    pad_embed: torch.Tensor  # [hidden]
+    uniforms: torch.Tensor  # [B, max_new + 1]
+    frame_limits: list[int]
+    refs: list[np.ndarray | None]
 
 
 class StreamingSession:
@@ -1045,3 +1332,124 @@ class StreamingSession:
         if chunk is None:
             raise StopIteration
         return chunk
+
+
+class StreamingBatchSession:
+    """Pull-based streaming for a batch of utterances of one prompt layout.
+
+    ``next_chunks()`` returns ``[AudioBuffer | None] * B``: each live
+    stream's next chunk of samples, ``None`` once that stream is done (and
+    ever after). All streams advance together through the batched frame
+    loop (``core.generate_frames_batch``), then the batch-native
+    sample-exact streaming vocoder decodes the chunk's rows of every stream
+    in one pass, so each stream's chunks put together are its
+    ``synthesize_batch`` audio. The first chunk holds ``first_chunk_frames``
+    frames, then ``chunk_frames``. ICL streams run on their own combined
+    timeline: vocoder grid row t of stream i is reference code t while t is
+    inside its reference, then generated frame ``t - ref_len``; chunks
+    inside a reference prefix are empty (its samples are never emitted).
+
+    Buffers hold the max_length bucket from the start (no growth tiers);
+    the vocoder's KV cache gets room for the longest reference and a chunk
+    of headroom. ``options.streaming_lookahead`` is accepted and changes
+    nothing: each chunk runs when it is asked for, as in the port's
+    ``StreamingSession``.
+    """
+
+    def __init__(self, model: Qwen3TTS, group: BatchGroup, options: SynthesisOptions):
+        self.model = model
+        self.group = group
+        self.options = options
+        self.batch = group.state.batch
+        self.frames_emitted = 0
+        self._exhausted = False
+        self._stream_done = [False] * self.batch
+        refs = group.refs
+        self._ref_lens = [0 if r is None else len(r) for r in refs]
+        cmax = max(self._ref_lens)
+        self.ref_codes = None
+        if cmax > 0:
+            arr = np.zeros((self.batch, cmax, T.NUM_CODE_GROUPS), np.int32)
+            for i, r in enumerate(refs):
+                if r is not None:
+                    arr[i, :len(r)] = r
+            self.ref_codes = torch.from_numpy(arr).to(model.device)
+        # The grid's end: every stream's reference prefix and its own budget.
+        self._grid_max = max(n + m for n, m in zip(self._ref_lens, group.frame_limits))
+        headroom = max(options.chunk_frames, options.first_chunk_frames or 1, 1)
+        self.vstate = vocoder.init_stream_state(model.vocoder_config, group.state.frames.shape[1] + cmax + headroom,
+                                                batch=self.batch, device=model.device)
+
+    def is_done(self) -> bool:
+        return self._exhausted
+
+    @torch.no_grad()
+    def _advance_and_decode_chunk_batch(self, target: int, emitted: int, chunk: int):
+        """Advance every live stream to at most ``target`` frames (each within
+        its own budget), then decode grid rows ``emitted .. emitted + chunk``
+        of all streams on the streaming vocoder. Rows past a stream's frames
+        are zero codes (the stack is causal: trimming is exact). Returns (wav
+        [B, chunk * 1920] on the device, frames made a stream, done a
+        stream)."""
+        m, g = self.model, self.group
+        s = g.state
+        core.generate_frames_batch(
+            m.talker_params, m.cp_params, m.config.talker, m.config.code_predictor, g.scfg, s, g.trailing,
+            g.trailing_lens, g.pad_embed, g.uniforms, [min(limit, target) for limit in g.frame_limits],
+        )
+        b, _, n_codes = s.frames.shape
+        frames_ext = torch.cat([s.frames, s.frames.new_zeros((b, chunk, n_codes))], dim=1)
+        if self.ref_codes is None:
+            start = min(emitted, frames_ext.shape[1] - chunk)
+            rows = frames_ext[:, start:start + chunk]  # [B, chunk, 16]
+        else:
+            # The grid gather: each stream's reference prefix, then its frames.
+            dev = frames_ext.device
+            t_idx = emitted + torch.arange(chunk, device=dev)
+            ref_lens = torch.tensor(self._ref_lens, device=dev)
+            gen_idx = (t_idx[None, :] - ref_lens[:, None]).clamp(0, frames_ext.shape[1] - 1)  # [B, chunk]
+            gen_rows = torch.gather(frames_ext, 1, gen_idx[..., None].expand(-1, -1, n_codes))
+            ref_rows = self.ref_codes[:, t_idx.clamp(0, self.ref_codes.shape[1] - 1)]
+            rows = torch.where((t_idx[None, :] < ref_lens[:, None])[..., None], ref_rows, gen_rows)
+        wav, self.vstate = vocoder.decode_stream_chunk(m.vocoder_params, m.vocoder_config, self.vstate,
+                                                       rows.transpose(1, 2))
+        return wav, list(s.frame_idx), s.done.tolist()
+
+    def next_chunks(self) -> list[AudioBuffer | None] | None:
+        """Advance all live streams one chunk; None when every stream is done."""
+        if self._exhausted:
+            return None
+        chunk = max(self.options.chunk_frames, 1)
+        if self.frames_emitted == 0 and self.options.first_chunk_frames:
+            chunk = max(min(self.options.first_chunk_frames, chunk), 1)
+        e0 = self.frames_emitted
+        target = min(e0 + chunk, self._grid_max)
+        wav, ns, dones = self._advance_and_decode_chunk_batch(target, e0, chunk)
+        wav = wav.cpu().numpy()
+        spf = T.SAMPLES_PER_FRAME
+        out: list[AudioBuffer | None] = []
+        for i in range(self.batch):
+            n_grid = self._ref_lens[i] + ns[i]
+            if self._stream_done[i] or n_grid <= e0:
+                self._stream_done[i] = True
+                out.append(None)
+                continue
+            # The audible window: grid rows past this stream's reference prefix.
+            lo, hi = max(e0, self._ref_lens[i]), min(e0 + chunk, n_grid)
+            samples = wav[i, (lo - e0) * spf:(hi - e0) * spf] if hi > lo else np.zeros(0, np.float32)
+            out.append(AudioBuffer(samples, T.OUTPUT_SAMPLE_RATE))
+            if (dones[i] or ns[i] >= self.group.frame_limits[i]) and n_grid <= e0 + chunk:
+                self._stream_done[i] = True
+        self.frames_emitted = e0 + chunk
+        if all(self._stream_done) or target >= self._grid_max:
+            self._exhausted = True
+        return out
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> list[AudioBuffer | None]:
+        chunks = self.next_chunks()
+        if chunks is None:
+            raise StopIteration
+        return chunks

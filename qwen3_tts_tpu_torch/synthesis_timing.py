@@ -18,15 +18,28 @@ intermediate 2816 (not a multiple of its hidden 1024, so the JAX gates send
 it to the "layer_steps" route: kernels 5 + 6, 70 calls each a frame), whose
 staged calls also give the route's per-step calls' time by CUDA events
 (``step_ms_per_frame``: every ``run_fused_decode_step`` of the call, summed,
-over the frames). Needs a CUDA device.
+over the frames). The batch cells (``chip_smoke.py`` phase ``batch``'s
+runs): ``batch8-bf16`` and ``batch8-int8`` time ``synthesize_batch`` of
+``BATCH_TEXTS`` (8 texts of different lengths, one token a word) at B = 1,
+4 and 8 (prefill, the batched loop's ms a frame, decode, aggregate and
+per-stream RTF, frames a second, peak memory); ``stream-batch8-bf16``
+times ``synthesize_streaming_batch`` of the 8 texts (4 frames, then 10 a
+chunk: each stream's TTFA, each round's time). ``profile-batch8-bf16``
+runs ``PROFILE_FRAMES`` frames of the B = 8 bf16 batched loop under
+``torch.profiler`` (``profile_batch``: device kernels a frame, the device's
+busy share of the loop's wall time, the host ops that cost the most); run
+it in a process of its own, as the profiler's later sessions in one
+process may record no device activity. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import torch
@@ -40,6 +53,132 @@ class BenchTokenizer:
 
     def encode(self, text):
         return [200 + (i * 37) % 1000 for i in range(13)]
+
+
+# Eight texts of different lengths (5 to 19 words: tokens, under WordTokenizer).
+BATCH_TEXTS = (
+    "Good morning, and welcome aboard.",
+    "Please keep your seat belt fastened while seated.",
+    "The library closes at nine tonight.",
+    "Our next stop is the central station, change here for the airport line.",
+    "Thank you for calling; every one of our agents is busy right now, please hold.",
+    "It will rain later.",
+    "Turn left at the second light, then follow the river for about two miles.",
+    "Your order has shipped and should arrive on Thursday.",
+)
+BATCH_SIZES = (1, 4, 8)
+PROFILE_FRAMES = 8
+
+
+class WordTokenizer:
+    """One token a word, so that the batch's texts differ in length."""
+
+    def encode(self, text):
+        return [200 + (sum(map(ord, w)) * 37) % 1000 for w in text.split()]
+
+
+def batch_options():
+    """The batch cells' options: ``FRAMES`` frames forced, seed 42 (stream i
+    seed 42 + i), temperature 0.9."""
+    from qwen3_tts_tpu_torch.pipeline import SynthesisOptions
+
+    return SynthesisOptions(max_length=FRAMES, min_new_tokens=FRAMES, seed=42, temperature=0.9)
+
+
+def time_batch(model, b: int) -> tuple[list, dict]:
+    """One timed ``synthesize_batch_with_timing`` of the first ``b`` of
+    ``BATCH_TEXTS`` (peak memory reset just before it); returns (audio, the
+    numbers): wall, prefill, the batched loop's ms a frame, decode, RTF per
+    stream (wall / one stream's seconds of audio) and aggregate (wall / all
+    B streams' seconds), frames a second over the loop, peak allocated."""
+    from qwen3_tts_tpu_torch.models.tokens import OUTPUT_SAMPLE_RATE
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    audio, timing = model.synthesize_batch_with_timing(list(BATCH_TEXTS[:b]), options=batch_options())
+    wall = time.perf_counter() - t0
+    seconds = [len(a.samples) / OUTPUT_SAMPLE_RATE for a in audio]
+    return audio, {
+        "b": b, "wall_ms": wall * 1e3, "prefill_ms": timing.prefill_ms,
+        "ms_per_frame": timing.generation_ms / timing.generation_frames, "frames": timing.generation_frames,
+        "decode_ms": timing.decode_ms, "rtf_per_stream": wall / max(seconds), "rtf_aggregate": wall / sum(seconds),
+        "frames_per_s": b * timing.generation_frames / (timing.generation_ms / 1e3),
+        "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+    }
+
+
+def time_stream_batch(model, b: int) -> tuple[list, dict]:
+    """One timed ``synthesize_streaming_batch`` of the first ``b`` texts
+    (4 frames, then 10 a chunk), pulled round by round; returns (each
+    stream's chunks, the numbers): each stream's TTFA (the call until its
+    first samples are on the host), each round's time, wall, aggregate RTF."""
+    from qwen3_tts_tpu_torch.models.tokens import OUTPUT_SAMPLE_RATE
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    session = model.synthesize_streaming_batch(list(BATCH_TEXTS[:b]), options=batch_options())
+    chunks, at, ttfa = [[] for _ in range(b)], [], [None] * b
+    for rnd in session:
+        now = time.perf_counter()
+        at.append(now)
+        for i, c in enumerate(rnd):
+            if c is not None and len(c.samples):
+                chunks[i].append(c.samples)
+                if ttfa[i] is None:
+                    ttfa[i] = (now - t0) * 1e3
+    wall = at[-1] - t0
+    seconds = sum(sum(len(c) for c in cs) for cs in chunks) / OUTPUT_SAMPLE_RATE
+    return chunks, {"b": b, "ttfa_ms": ttfa, "round_ms": [(y - x) * 1e3 for x, y in zip([t0] + at, at)],
+                    "wall_ms": wall * 1e3, "rtf_aggregate": wall / seconds}
+
+
+def profile_batch(model, b: int, frames: int = PROFILE_FRAMES) -> dict:
+    """``frames`` frames of the batched loop of the first ``b`` texts (one
+    warm run, one unprofiled run, then one under ``torch.profiler``). Returns
+    ms a frame unprofiled and profiled; device kernels and copies a frame;
+    the device's busy time a frame (the union of its activity's spans) and
+    its share of the profiled loop's wall time (None where the profiler
+    records no device activity); and the 10 host ops with the most CPU time
+    of their own, with their calls and ms a frame."""
+    from torch.profiler import ProfilerActivity, profile
+
+    opts = replace(batch_options(), max_length=frames, min_new_tokens=frames)
+    texts, speakers, instructs = list(BATCH_TEXTS[:b]), ["ryan"] * b, [None] * b
+
+    def group():
+        kind = model._split_batch_groups(speakers, instructs)[0][0]
+        g = model._prepare_batch_group(kind, texts, speakers, ["english"] * b, instructs, opts, [42 + i for i in range(b)])
+        torch.cuda.synchronize()
+        return g
+
+    def loop(g) -> float:
+        t0 = time.perf_counter()
+        model._generate_batch_group(g)  # ends in a device-to-host copy of the frames
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    loop(group())
+    plain_ms = loop(group())
+    g = group()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_ms = loop(g)
+    device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in device)
+    busy_us, end = 0.0, -math.inf
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in device):
+        if stop > end:
+            busy_us += stop - max(start, end)
+            end = stop
+    host = sorted(prof.key_averages(), key=lambda a: a.self_cpu_time_total, reverse=True)[:10]
+    return {
+        "b": b, "frames": frames, "ms_per_frame": plain_ms / frames, "profiled_ms_per_frame": wall_ms / frames,
+        "kernels_per_frame": (len(device) - copies) / frames if device else None,
+        "copies_per_frame": copies / frames if device else None,
+        "device_busy_ms_per_frame": busy_us / 1e3 / frames if device else None,
+        "busy_share": busy_us / 1e3 / wall_ms if device else None,
+        "host_top": [[a.key, a.count / frames, a.self_cpu_time_total / 1e3 / frames] for a in host],
+    }
 
 
 class StepSpans:
@@ -103,20 +242,36 @@ def timed_calls(model, form: str, tag: str, repeats: int, calls_of: tuple = ("sy
             yield line
 
 
+def batch_lines(model, form: str, tag: str, repeats: int, batch: bool, stream: bool):
+    """The batch cells of ``model`` (a ``WordTokenizer`` set): one warm call,
+    then ``repeats`` rounds of ``synthesize_batch`` at each of
+    ``BATCH_SIZES`` (``batch``) and of the B = 8 streaming session
+    (``stream``); one JSON object a timed call."""
+    if batch:
+        time_batch(model, BATCH_SIZES[-1])
+        for i in range(repeats):
+            for b in BATCH_SIZES:
+                yield {"tag": tag, "form": form, "call": "synthesize_batch", "round": i, **time_batch(model, b)[1]}
+    if stream:
+        time_stream_batch(model, BATCH_SIZES[-1])
+        for i in range(repeats):
+            yield {"tag": tag, "form": form, "call": "synthesize_streaming_batch", "round": i,
+                   **time_stream_batch(model, BATCH_SIZES[-1])[1]}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent.parent,
                     help="checkout whose qwen3_tts_tpu_torch is timed")
     ap.add_argument("--tag", default="", help="name printed on every line (default: --root)")
     ap.add_argument("--repeats", type=int, default=2)
-    ap.add_argument("--cells", default="bf16,int8", help="comma-separated: bf16, int8, int8-cp-i2816")
+    ap.add_argument("--cells", default="bf16,int8", help="comma-separated: bf16, int8, int8-cp-i2816, batch8-bf16, "
+                                                         "batch8-int8, stream-batch8-bf16, profile-batch8-bf16")
     args = ap.parse_args()
     cells = args.cells.split(",")
     if not torch.cuda.is_available():
         raise SystemExit("synthesis_timing: no CUDA device")
     sys.path[0] = str(args.root.resolve())  # in place of this file's directory
-    from dataclasses import replace
-
     from qwen3_tts_tpu_torch import build
     from qwen3_tts_tpu_torch.models.config import config_for_variant
     from qwen3_tts_tpu_torch.pipeline import Qwen3TTS
@@ -125,19 +280,31 @@ def main() -> None:
     build.build()
     dev = torch.device("cuda", 0)
     base = config_for_variant("1.7B", "custom_voice")
-    if "bf16" in cells or "int8" in cells:
+    bf16_cells = {"bf16", "batch8-bf16", "stream-batch8-bf16", "profile-batch8-bf16"}
+    int8_cells = {"int8", "batch8-int8"}
+    if set(cells) & (bf16_cells | int8_cells):
         model = Qwen3TTS.from_random(base, seed=0, device=dev)
         model.tokenizer = BenchTokenizer()
         if "bf16" in cells:
             for line in timed_calls(model, "bf16", tag, args.repeats):
                 print(json.dumps(line), flush=True)
-        m8 = Qwen3TTS(model.config, model.talker_params, model.cp_params, model.vocoder_params, model.tokenizer,
+        model.tokenizer = WordTokenizer()
+        if "profile-batch8-bf16" in cells:
+            line = {"tag": tag, "form": "bf16", "call": "profile_batch", **profile_batch(model, BATCH_SIZES[-1])}
+            print(json.dumps(line), flush=True)
+        for line in batch_lines(model, "bf16", tag, args.repeats, "batch8-bf16" in cells,
+                                "stream-batch8-bf16" in cells):
+            print(json.dumps(line), flush=True)
+        m8 = Qwen3TTS(model.config, model.talker_params, model.cp_params, model.vocoder_params, BenchTokenizer(),
                       quantize_int8=True)
         del model
         torch.cuda.empty_cache()
         if "int8" in cells:
             for line in timed_calls(m8, "int8", tag, args.repeats):
                 print(json.dumps(line), flush=True)
+        m8.tokenizer = WordTokenizer()
+        for line in batch_lines(m8, "int8", tag, args.repeats, "batch8-int8" in cells, False):
+            print(json.dumps(line), flush=True)
         del m8
         torch.cuda.empty_cache()
     if "int8-cp-i2816" in cells:

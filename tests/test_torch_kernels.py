@@ -508,6 +508,40 @@ def test_cuda_residual_unit_odd_shapes(c, t, b, dilation):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 3])
+def test_cuda_stream_chunks_of_a_batch(batch):
+    """The streaming vocoder on B streams (a batched session's chunks:
+    each reaches kernel 2's stream entry as a time slice, not contiguous
+    once B > 1): chunks of 4 and 6 frames on the card, every fused unit one
+    stream-entry launch a chunk, the audio within 1e-5 * max|audio| of the
+    same chunks on the CPU (the plain units)."""
+    from qwen3_tts_tpu_torch.models.codec import vocoder
+
+    dev = _cuda()
+    cfg = vocoder.VocoderConfig(codebook_dim=32, latent_dim=48, hidden_size=32, num_layers=1, num_heads=2,
+                                head_dim=16, intermediate_size=64, codebook_embed_dim=16, decoder_dim=64)
+    params = vocoder.init_vocoder_params(torch.Generator().manual_seed(batch), cfg)
+    codes = torch.randint(0, cfg.codebook_size, (batch, 16, 10), generator=torch.Generator().manual_seed(7))
+    units = 3 * len(cfg.upsample_rates)  # every unit's C is at most 512: all take the kernel
+
+    def stream(device):
+        p = W.from_numpy_tree(params, device)
+        state = vocoder.init_stream_state(cfg, 16, batch=batch, device=device)
+        out = []
+        for lo, hi in ((0, 4), (4, 10)):
+            wav, state = vocoder.decode_stream_chunk(p, cfg, state, codes[..., lo:hi].to(device))
+            out.append(wav.cpu())
+        return torch.cat(out, dim=-1)
+
+    before = fused_blocks.residual_unit_stream.launches
+    got = stream(dev)
+    assert fused_blocks.residual_unit_stream.launches == before + 2 * units
+    want = stream(torch.device("cpu"))
+    assert got.shape == want.shape == (batch, 10 * cfg.total_upsample)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("c, dilation", [(96, 9), (384, 3), (48, 1), (500, 20)])
 def test_cuda_residual_unit_plans_agree(c, dilation):
     """Every plan sums the same products in the same order (K in 8-row mma
