@@ -184,7 +184,34 @@ Phases, each printing a line (any failure exits nonzero before the last):
      (phase ``kernel4-batch``) at every shape the B = 8 int8 batch gave it
      (the talker's and the code predictor's projections and heads at m = 8,
      the code predictor's prefill at 16, the talker's at 80), on the
-     batch's own first input and weight of each shape;
+     batch's own first input and weight of each shape; then phase
+     ``server`` (``server_phase``, after the bf16 batch): the bf16 model
+     (``st.WordTokenizer``, requests of ``st.SERVER_FRAMES`` frames) behind
+     ``server.serve`` on 127.0.0.1 in threads, one server with the default
+     windows and one with ``SERVER_WIDE_MS`` windows for the coalescing
+     steps, each line with the card's name and power limit: (1) one solo
+     request, its float result through the engine bit-equal to
+     ``synthesize_with_voice`` of the same options, kernels 1 and 3 once a
+     frame, kernel 2's stream entry 9 times a 64-frame chunk; HTTP latency
+     beside the library call's; (2) 8 requests at once: one
+     ``synthesize_batch`` of 8, each float result bit-equal to its row of
+     the same call run directly; latencies, p50 / p95 and aggregate
+     frames/s against the same 8 one after another; (3) 8 streaming
+     requests at once: one ``StreamingBatchSession``, each stream's chunks
+     within ``STREAM_SPREAD_FACTOR`` x the decode's bucket spread of its
+     ``synthesize_batch`` audio; TTFA and HTTP chunk gaps; (4) mixed load
+     (``st.mixed_load``): a long solo stream with 8 short requests posted
+     at its first audio, every response complete, the stream time-sliced
+     around them; p50 / p95 and the stream's TTFA and gaps; (6)
+     ``TransferAudit`` over a staged batch-1 run and a B = 8 batch (the
+     host reads, a record); and after the int8 batch (``server_w8a8``),
+     step (5) on the int8 tree built with ``int8_activations=True``: a solo
+     request launches kernel 4 and takes no w8a8 call; a coalesced batch of
+     8 launches kernel 4 never and takes the w8a8 route, its audio finite
+     and of its frames' length; the same batch run directly on it and on
+     the weight-only int8 model (ms/frame, share of codes equal, not a
+     gate), and ``w8a8_matmul`` on the card bit-equal to the CPU at every
+     shape the batch gives it, on its own first input of each;
  11. loading and the command line (phase ``ckpt``): a seeded 1.7B
      CustomVoice checkpoint in the HF layout (all 28 talker layers, bf16,
      the full-width vocoder f32; ``qwen3_tts_tpu_torch/ckpt_fixture.py``,
@@ -236,6 +263,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -251,7 +279,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import qwen3_tts_tpu_torch  # noqa: E402,F401  (sets the TF32 switches)
 from qwen3_tts_tpu_torch import build, ckpt_fixture, cli, cp_fixture, encoder_fixture, talker_fixture  # noqa: E402
-from qwen3_tts_tpu_torch import vocoder_fixture  # noqa: E402
+from qwen3_tts_tpu_torch import server, vocoder_fixture  # noqa: E402
 from qwen3_tts_tpu_torch.audio.io import AudioBuffer  # noqa: E402
 from qwen3_tts_tpu_torch.audio.resample import resample_to_24k  # noqa: E402
 from qwen3_tts_tpu_torch import kernel_timing as kt  # noqa: E402
@@ -275,6 +303,7 @@ from qwen3_tts_tpu_torch.ops import fused_layer, nn, quant, sampling  # noqa: E4
 from qwen3_tts_tpu_torch.models.speaker import SpeakerEncoder  # noqa: E402
 from qwen3_tts_tpu_torch.pipeline import (  # noqa: E402
     DECODE_BUCKET, Qwen3TTS, SynthesisOptions, VoiceClonePrompt, prefix_piece_sizes)
+from qwen3_tts_tpu_torch.profiling import count_host_transfers  # noqa: E402
 from qwen3_tts_tpu_torch.utils.bucketing import next_bucket  # noqa: E402
 
 DEV = torch.device("cuda", 0)
@@ -390,13 +419,14 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a.view(bits), b.view(bits))
 
 
-def print_card() -> None:
+def card_line() -> str:
     """The card's name and power limit, as nvidia-smi gives them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()
-    print(out[0].strip(), flush=True)
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0].strip()
+
+
+def print_card() -> None:
+    print(card_line(), flush=True)
 
 
 def cp_params(cfg: CodePredictorConfig, dtype: torch.dtype, seed: int) -> dict:
@@ -2766,6 +2796,306 @@ def batch_main(model: Qwen3TTS, label: str, int8: bool) -> dict:
     return out
 
 
+# The coalescing steps' windows: wide enough that 8 requests posted at once
+# always form one group, which closes as soon as the 8th arrives.
+SERVER_WIDE_MS = 5000.0
+
+
+@contextlib.contextmanager
+def serving(model: Qwen3TTS, **kw):
+    """``server.serve(model, "127.0.0.1", 0, **kw)`` in a thread while
+    entered; yields its (host, port)."""
+    http = server.serve(model, "127.0.0.1", 0, **kw)
+    th = threading.Thread(target=http.serve_forever, daemon=True)
+    th.start()
+    try:
+        yield http.server_address
+    finally:
+        http.shutdown()
+        http.server_close()
+        th.join(60)
+
+
+@contextlib.contextmanager
+def recording(model: Qwen3TTS, name: str):
+    """Every call of ``model.<name>`` while entered (the engine calls the
+    model's methods by name): yields a list of (args, kwargs, result). A
+    ``synthesize_streaming_batch`` call's result is the list of the rounds
+    its session returned."""
+    calls = []
+    routed = getattr(model, name)
+
+    def rec(*args, **kwargs):
+        y = routed(*args, **kwargs)
+        if name != "synthesize_streaming_batch":
+            calls.append((args, kwargs, y))
+            return y
+        rounds, pull = [], y.next_chunks
+
+        def next_chunks():
+            out = pull()
+            if out is not None:
+                rounds.append(out)
+            return out
+
+        y.next_chunks = next_chunks
+        calls.append((args, kwargs, rounds))
+        return y
+
+    setattr(model, name, rec)
+    try:
+        yield calls
+    finally:
+        delattr(model, name)
+
+
+def _pct(ms: list) -> str:
+    p50, p95 = st.p50_p95(ms)
+    return f"p50 {p50:.1f} ms, p95 {p95:.1f} ms"
+
+
+def _frames_of(n_bytes: int) -> int:
+    return (n_bytes - st.WAV_HEADER_BYTES) // 2 // SAMPLES_PER_FRAME
+
+
+def server_solo(model: Qwen3TTS, base: tuple, card: str) -> dict:
+    """Step 1: one request; its float result through the engine bit-equal to
+    ``synthesize_with_voice`` of the same options; kernels 1 and 3 once a
+    frame, kernel 2's stream entry 9 times a 64-frame chunk, its batch entry
+    never."""
+    _reset_counts()
+    with recording(model, "synthesize_with_voice") as calls:
+        r = st.http_post(base, st.server_payload(0))
+    launches = _counts()
+    check(r["status"] == 200 and len(calls) == 1, f"server solo: status {r['status']}, {len(calls)} library calls")
+    args, kwargs, audio = calls[0]
+    frames = len(audio.samples) // SAMPLES_PER_FRAME
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lib = model.synthesize_with_voice(*args, **kwargs)
+    lib_ms = (time.perf_counter() - t0) * 1e3
+    same = np.array_equal(audio.samples, lib.samples)
+    want = {"cp_frame": frames, "talker_step": frames, "residual_unit_stream": 9 * -(-frames // DECODE_BUCKET),
+            "residual_unit": 0}
+    phase("server", f"{card}: solo request ({frames} frames): HTTP latency {r['ms']:.1f} ms, the library call "
+          f"{lib_ms:.1f} ms; float result bit-equal to synthesize_with_voice {same}; launches {launches}")
+    check(r["bytes"] == st.WAV_HEADER_BYTES + 2 * len(audio.samples), "server solo: WAV length")
+    check(frames > 0 and same, "server solo: the engine's audio differs from synthesize_with_voice's")
+    check(all(launches[k] == v for k, v in want.items()), f"server solo: launches {launches}, want {want}")
+    return {"ms": r["ms"], "library_ms": lib_ms, "frames": frames, "launches": launches}
+
+
+def server_coalesced(model: Qwen3TTS, base: tuple, wide: tuple, card: str) -> dict:
+    """Step 2: 8 requests posted at once: one ``synthesize_batch`` call of 8,
+    each float result bit-equal to that call's row run again directly;
+    latencies and aggregate frames/s against the same 8 requests one after
+    another through the server with the default window."""
+    payloads = [st.server_payload(i) for i in range(BATCH)]
+    _reset_counts()
+    with recording(model, "synthesize_batch") as calls:
+        t0 = time.perf_counter()
+        rs = st.concurrently(lambda p: st.http_post(wide, p), payloads)
+        wall = time.perf_counter() - t0
+    launches = _counts()
+    check(all(r["status"] == 200 for r in rs), f"server batch: statuses {[r['status'] for r in rs]}")
+    check(len(calls) == 1 and len(calls[0][0][0]) == BATCH, f"server batch: {len(calls)} synthesize_batch calls")
+    args, kwargs, audio = calls[0]
+    direct = model.synthesize_batch(*args, **kwargs)
+    same = [np.array_equal(a.samples, d.samples) for a, d in zip(audio, direct)]
+    frames = sum(_frames_of(r["bytes"]) for r in rs)
+    t0 = time.perf_counter()
+    serial = [st.http_post(base, p) for p in payloads]
+    serial_wall = time.perf_counter() - t0
+    serial_frames = sum(_frames_of(r["bytes"]) for r in serial)
+    phase("server", f"{card}: {BATCH} requests at once, one synthesize_batch of {BATCH}: latencies "
+          f"{', '.join(f'{r['ms']:.0f}' for r in rs)} ms ({_pct([r['ms'] for r in rs])}), {frames} frames in "
+          f"{wall * 1e3:.0f} ms = {frames / wall:.1f} frames/s; the same {BATCH} one after another: "
+          f"{_pct([r['ms'] for r in serial])}, {serial_frames} frames in {serial_wall * 1e3:.0f} ms = "
+          f"{serial_frames / serial_wall:.1f} frames/s; rows bit-equal to a direct synthesize_batch {same}; "
+          f"launches {launches}")
+    check(all(same), "server batch: a result differs from its row of the direct synthesize_batch")
+    check(all(r["status"] == 200 for r in serial), "server serial: a request failed")
+    check(launches["cp_frame"] == launches["talker_step"] == 0 and launches["residual_unit"] == 9,
+          f"server batch: launches {launches} (want kernels 1 and 3 never, kernel 2 9 times)")
+    return {"ms": [r["ms"] for r in rs], "frames_per_s": frames / wall, "serial_ms": [r["ms"] for r in serial],
+            "serial_frames_per_s": serial_frames / serial_wall, "launches": launches}
+
+
+def server_streams(model: Qwen3TTS, wide: tuple, card: str) -> dict:
+    """Step 3: 8 streaming requests at once: one ``StreamingBatchSession``;
+    each stream's chunks put together within ``STREAM_SPREAD_FACTOR`` x the
+    staged decode's bucket spread of its ``synthesize_batch`` audio (the
+    same texts, seeds and options run directly); TTFA and chunk gaps over
+    HTTP."""
+    payloads = [st.server_payload(i) for i in range(BATCH)]
+    _reset_counts()
+    with recording(model, "synthesize_streaming_batch") as calls:
+        rs = st.concurrently(lambda p: st.http_stream(wide, p), payloads)
+    launches = _counts()
+    check(all(r["status"] == 200 for r in rs), f"server streams: statuses {[r['status'] for r in rs]}")
+    check(len(calls) == 1 and len(calls[0][0][0]) == BATCH, f"server streams: {len(calls)} sessions, want 1")
+    args, kwargs, rounds = calls[0]
+    streamed = [np.concatenate([rnd[i].samples for rnd in rounds if rnd[i] is not None] or [np.zeros(0, np.float32)])
+                for i in range(BATCH)]
+    with recording(model, "_generate_batch_group") as loops:
+        whole = [a.samples for a in model.synthesize_batch(*args, **kwargs)]
+    frames = [f[:n] for f, n in zip(*loops[0][2])]
+    codes = np.zeros((BATCH, max(len(f) for f in frames), frames[0].shape[1]), np.int32)
+    for i, f in enumerate(frames):
+        codes[i, :len(f)] = f  # zero codes past a stream's end: the vocoder is causal, the trim exact
+    at256 = vocoder.decode_bucketed(model.vocoder_params, model.vocoder_config, np.swapaxes(codes, 1, 2), bucket=256)
+    spread = float(max(np.abs(at256[i, :len(w)] - w).max() for i, w in enumerate(whole)))
+    bar = max(STREAM_SPREAD_FACTOR * spread, 1e-5 * float(max(np.abs(w).max() for w in whole)))
+    errs = [float(np.abs(a - w).max()) if a.shape == w.shape else math.inf for a, w in zip(streamed, whole)]
+    by_text = {t: i for i, t in enumerate(args[0])}
+    ttfa = [r["ttfa_ms"] for r in rs]
+    gaps = [g for r in rs for g in r["gaps_ms"]]
+    phase("server", f"{card}: {BATCH} streaming requests at once, one StreamingBatchSession of {len(rounds)} rounds: "
+          f"TTFA {', '.join(f'{t:.0f}' for t in ttfa)} ms ({_pct(ttfa)}); HTTP chunk gaps {_pct(gaps)}, max "
+          f"{max(gaps):.0f} ms; latencies {_pct([r['ms'] for r in rs])}; max|chunks - synthesize_batch| "
+          f"{max(errs):.3e} (bar {bar:.3e}: {STREAM_SPREAD_FACTOR:g} x the decode's spread {spread:.3e} between "
+          f"buckets 64 and 256); launches {launches}")
+    check(sorted(by_text) == sorted(p["text"] for p in payloads), "server streams: the session's texts")
+    check(max(errs) <= bar, f"server streams: audio {max(errs):.3e} from synthesize_batch (bar {bar:.3e})")
+    check(launches["residual_unit_stream"] == 9 * len(rounds) and launches["cp_frame"] == 0,
+          f"server streams: launches {launches} over {len(rounds)} rounds")
+    return {"ttfa_ms": ttfa, "gaps_ms": gaps, "ms": [r["ms"] for r in rs], "err": max(errs), "bar": bar,
+            "launches": launches}
+
+
+def server_mixed(base: tuple, card: str) -> dict:
+    """Step 4: ``st.mixed_load``: a long solo stream with 8 short requests
+    posted during it. Every response completes, and the stream is
+    time-sliced, not starved: it has chunks before the short requests end
+    and after them (unless it ended first)."""
+    r = st.mixed_load(base)
+    statuses = [x["status"] for x in r["short"]] + [r["stream"]["status"]]
+    s = r["stream"]
+    phase("server", f"{card}: mixed load, a {st.SERVER_STREAM_FRAMES}-frame stream with {st.SERVER_REQUESTS} "
+          f"{st.SERVER_FRAMES}-frame requests posted at its first audio: requests {_pct(r['ms'])}; the stream's "
+          f"TTFA {s['ttfa_ms']:.1f} ms, {len(s['arrivals'])} chunks ({r['stream_chunks_before']} before the first "
+          f"request ended, {r['stream_chunks_after']} after the last), gaps {_pct(s['gaps_ms'])}, max "
+          f"{max(s['gaps_ms'] or [0]):.0f} ms, whole stream {s['ms']:.0f} ms; statuses {statuses}")
+    check(all(x == 200 for x in statuses), f"server mixed: statuses {statuses}")
+    ended_first = s["end"] < min(x["end"] for x in r["short"])
+    check(r["stream_chunks_before"] >= 1 and (r["stream_chunks_after"] >= 1 or ended_first),
+          "server mixed: the stream was not time-sliced around the requests")
+    return {k: v for k, v in r.items() if k not in ("short", "stream")} | {"stream_ms": s["ms"]}
+
+
+def transfer_audit(model: Qwen3TTS, card: str) -> dict:
+    """Step 6: ``TransferAudit`` on the card over one staged batch-1 run and
+    one B = 8 batch (``SERVER_FRAMES`` frames forced each): the host reads,
+    printed as a record."""
+    opts = replace(st.batch_options(), max_length=st.SERVER_FRAMES, min_new_tokens=st.SERVER_FRAMES)
+    (_, timing), solo = count_host_transfers(model.synthesize_with_timing, st.BATCH_TEXTS[0], "ryan", "english",
+                                             opts)
+    with recording(model, "_generate_batch_group") as loops:
+        _, batch = count_host_transfers(model.synthesize_batch, list(st.BATCH_TEXTS[:BATCH]), options=opts)
+    frames = int(max(loops[0][2][1]))
+    phase("server", f"{card}: TransferAudit: staged batch-1 run of {timing.generation_frames} frames "
+          f"{solo} host reads; B={BATCH} synthesize_batch of {frames} frames {batch} host reads")
+    return {"batch1": solo, "batch1_frames": timing.generation_frames, "batch8": batch, "batch8_frames": frames}
+
+
+def server_phase(model: Qwen3TTS, label: str) -> dict:
+    """Phase ``server`` on the 1.7B bf16 main-path ``model`` (its tokenizer
+    ``st.WordTokenizer`` meanwhile): two servers in threads of this process,
+    one with the default windows (solo, serial and mixed traffic), one with
+    windows of ``SERVER_WIDE_MS`` (the coalescing steps), steps 1-4 and 6."""
+    card = card_line()
+    tokenizer = model.tokenizer
+    model.tokenizer = st.WordTokenizer()
+    try:
+        with serving(model, max_batch=BATCH) as base, \
+                serving(model, max_batch=BATCH, batch_window_ms=SERVER_WIDE_MS, stream_window_ms=SERVER_WIDE_MS) as wide:
+            out = {"solo": server_solo(model, base, card), "batch": server_coalesced(model, base, wide, card),
+                   "streams": server_streams(model, wide, card), "mixed": server_mixed(base, card)}
+        out["audit"] = transfer_audit(model, card)
+    finally:
+        model.tokenizer = tokenizer
+    return out
+
+
+@contextlib.contextmanager
+def w8a8_inputs():
+    """The first (x [m, K] copy, q8, scale) of every distinct (m, K, N) that
+    takes the w8a8 route while entered (``int8_matmul`` reaches its core by
+    module lookup)."""
+    inputs: dict = {}
+    core = quant._int8_mm_core
+
+    def recording(x2, q8, scale):
+        if quant._w8a8_allowed():
+            inputs.setdefault((x2.shape[0], x2.shape[1], q8.shape[1]), (x2.clone(), q8, scale))
+        return core(x2, q8, scale)
+
+    quant._int8_mm_core = recording
+    try:
+        yield inputs
+    finally:
+        quant._int8_mm_core = core
+
+
+def server_w8a8(m8: Qwen3TTS, m8w: Qwen3TTS, card: str) -> dict:
+    """Step 5, on the int8 tree with ``int8_activations=True`` (``m8w``)
+    beside the weight-only int8 model (``m8``): a solo request launches
+    kernel 4 and takes no w8a8 call; a coalesced batch of 8 launches kernel 4
+    never and takes the w8a8 route instead, its audio finite and of its
+    frames' length. The same batch run directly on both models: ms/frame,
+    and the share of codes equal (not a gate: w8a8 is lossy by design).
+    ``w8a8_matmul`` on the card bit-equal to the same function on the CPU at
+    every shape the batch gives it, on the batch's own first input of each."""
+    for m in (m8, m8w):
+        m.tokenizer = st.WordTokenizer()
+    with serving(m8w, max_batch=BATCH) as base, \
+            serving(m8w, max_batch=BATCH, batch_window_ms=SERVER_WIDE_MS, stream_window_ms=SERVER_WIDE_MS) as wide:
+        _reset_counts()
+        quant.w8a8_matmul.calls = 0
+        solo = st.http_post(base, st.server_payload(0))
+        solo_launches, solo_w8 = _counts(), quant.w8a8_matmul.calls
+        _reset_counts()
+        quant.w8a8_matmul.calls = 0
+        with recording(m8w, "synthesize_batch") as calls:
+            rs = st.concurrently(lambda p: st.http_post(wide, p), [st.server_payload(i) for i in range(BATCH)])
+        launches, w8 = _counts(), quant.w8a8_matmul.calls
+    check(solo["status"] == 200 and all(r["status"] == 200 for r in rs), "server w8a8: a request failed")
+    check(len(calls) == 1 and len(calls[0][0][0]) == BATCH, f"server w8a8: {len(calls)} synthesize_batch calls")
+    check(solo_launches["int8_matmul"] > 0 and solo_w8 == 0,
+          f"server w8a8 solo: kernel 4 launches {solo_launches['int8_matmul']}, w8a8 calls {solo_w8}")
+    check(launches["int8_matmul"] == 0 and w8 > 0,
+          f"server w8a8 batch: kernel 4 launches {launches['int8_matmul']} (want 0), w8a8 calls {w8}")
+    args, kwargs, audio = calls[0]
+    codes = {}
+    for name, m in (("w8a8", m8w), ("int8", m8)):
+        with w8a8_inputs() as inputs, recording(m, "_generate_batch_group") as loops:
+            out, timing = m.synthesize_batch_with_timing(*args, **kwargs)
+        codes[name] = ([f[:n] for f, n in zip(*loops[0][2])], timing.generation_ms / timing.generation_frames,
+                       inputs, out)
+    frames = codes["w8a8"][0]
+    check(all(len(a.samples) == len(f) * SAMPLES_PER_FRAME and len(f) > 0 for a, f in zip(audio, frames)),
+          "server w8a8: audio lengths")
+    check(all(bool(np.isfinite(a.samples).all()) for a in audio), "server w8a8: non-finite audio")
+    equal = [float((a == b).mean()) if a.shape == b.shape else 0.0 for a, b in zip(frames, codes["int8"][0])]
+    check(not codes["int8"][2], "server w8a8: the weight-only model took the w8a8 route")
+    shapes = []
+    for (m, k, n), (x, q8, scale) in sorted(codes["w8a8"][2].items()):
+        got = quant.w8a8_matmul(x, q8, scale).cpu()
+        want = quant.w8a8_matmul(x.cpu(), q8.cpu(), scale.cpu())
+        shapes.append((m, k, n, same_bits(got, want)))
+    phase("server", f"{card}: int8 with int8_activations: solo request kernel 4 launches "
+          f"{solo_launches['int8_matmul']}, w8a8 calls {solo_w8}; coalesced batch of {BATCH} (latencies "
+          f"{_pct([r['ms'] for r in rs])}): kernel 4 launches {launches['int8_matmul']}, w8a8 calls {w8}; the same "
+          f"batch directly: w8a8 {codes['w8a8'][1]:.3f} ms/frame, weight-only int8 {codes['int8'][1]:.3f} "
+          f"ms/frame; share of codes equal to the weight-only batch {np.mean(equal):.4f} (per stream "
+          f"{[round(e, 4) for e in equal]}; not a gate); w8a8_matmul on the card bit-equal to the CPU at "
+          + ", ".join(f"m={m} K={k} N={n}: {ok}" for m, k, n, ok in shapes))
+    check(shapes and all(ok for *_, ok in shapes), "server w8a8: w8a8_matmul on the card differs from the CPU")
+    return {"ms": [r["ms"] for r in rs], "w8a8_ms_per_frame": codes["w8a8"][1],
+            "int8_ms_per_frame": codes["int8"][1], "equal": float(np.mean(equal)), "shapes": len(shapes),
+            "launches": launches, "w8a8_calls": w8}
+
+
 def _row(name: str) -> dict:
     return next(row for row in KERNEL_ROWS if row["name"] == name)
 
@@ -2794,10 +3124,13 @@ def main_path(encoders: tuple) -> dict:
     layer_path_past_gate(model)
     _row("residual_unit_stream")["prefix_pieces"] = prefix_pieces_timing(model)
     batch_bf16 = batch_main(model, "1.7B bf16", int8=False)
+    served = server_phase(model, "1.7B bf16")
 
     t0 = time.perf_counter()
     m8 = Qwen3TTS(model.config, model.talker_params, model.cp_params, model.vocoder_params, model.tokenizer,
                   quantize_int8=True)
+    m8w = Qwen3TTS(model.config, model.talker_params, model.cp_params, model.vocoder_params, model.tokenizer,
+                   quantize_int8=True, int8_activations=True)
     del model
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -2809,7 +3142,8 @@ def main_path(encoders: tuple) -> dict:
     voice_int8 = voice_session(m8, "1.7B int8", staged, *ref[1:], ("cp_frame", "talker_step"))
     clone_int8 = clone_and_design(m8, "1.7B int8", encoders, ("cp_frame", "talker_step", "int8_matmul"))
     batch_int8 = batch_main(m8, "1.7B int8", int8=True)
-    del m8
+    served["w8a8"] = server_w8a8(m8, m8w, card_line())
+    del m8, m8w
     prompt_rows = sorted({m for m in clone_int8["rows"].values() if m > 16})
     _row("int8_matmul")["prompt_shapes"] = kernel4_prompt_rows(prompt_rows)
     _row("int8_matmul")["batch_shapes"] = kernel4_batch_shapes(batch_int8["cells"][BATCH].pop("kernel4_inputs"))
@@ -2822,6 +3156,8 @@ def main_path(encoders: tuple) -> dict:
                                                                                    ("int8", batch_int8))
                for b in st.BATCH_SIZES},
             "stream_batch8_bf16": batch_bf16["stream"]["launches"],
+            "server_solo_bf16": served["solo"]["launches"], "server_batch8_bf16": served["batch"]["launches"],
+            "server_streams8_bf16": served["streams"]["launches"],
             **{f"clone_{dtype} {kind}": run["launches"] for dtype, clone in (("bf16", clone_bf16), ("int8", clone_int8))
                for kind, run in clone["runs"].items()},
             **per_step_main_paths()}

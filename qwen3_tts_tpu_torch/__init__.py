@@ -7,7 +7,9 @@ and batched synthesis (``synthesize_batch``, ``synthesize_streaming_batch``),
 in PyTorch, with the JAX package's Pallas kernels on those paths rewritten
 by hand in CUDA for Hopper (``csrc/``); HF checkpoints load with
 ``Qwen3TTS.from_pretrained`` (the package's own safetensors reader and Qwen2
-tokenizer), and ``python -m qwen3_tts_tpu_torch`` is the command line.
+tokenizer), ``python -m qwen3_tts_tpu_torch`` is the command line and
+``python -m qwen3_tts_tpu_torch.server`` the HTTP server (micro-batching,
+stream coalescing, time-slicing, voice registration).
 This package imports neither JAX nor ``qwen3_tts_tpu``; the tests hold it
 against the JAX package.
 """

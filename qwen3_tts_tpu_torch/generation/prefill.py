@@ -175,6 +175,7 @@ def voice_clone_icl_impl(
 
 
 # The JAX package's names for its jitted programs; here the functions themselves.
+prefill_custom_voice = custom_voice_impl
 prefill_voice_design = voice_design_impl
 prefill_voice_clone_xvector = voice_clone_xvector_impl
 prefill_voice_clone_icl = voice_clone_icl_impl

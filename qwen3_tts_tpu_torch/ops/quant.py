@@ -22,14 +22,22 @@ sends B·m > 1024 to the plain form (``int8_matmul_route``). Per-example
 weights (a batch axis on ``q8``) are not a shape the model makes, and
 raise.
 
-The w8a8 scope (dynamic activation quantization, ``int8_activations``)
-is opt-in in the JAX package and is not ported; it waits for the server.
+Inside ``w8a8_scope(True)`` (``Qwen3TTS(int8_activations=True)``: the
+batched programs only, as in the JAX package) ``int8_matmul`` takes
+``w8a8_matmul`` before kernel 4: the activations quantized per row and
+an exact int8 x int8 -> int32 product (``torch._int_mm``, the counterpart
+of the JAX package's XLA dot; not a Pallas kernel there), lossy by
+design. On the card ``torch._int_mm`` wants more than 16 rows and K and N
+multiples of 8: the rows are padded with zeros, and a K or N it cannot
+take raises (nothing falls back to the weight-only path).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -52,6 +60,13 @@ KERNEL_ALIGN = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _absmax_scale(amax: torch.Tensor) -> torch.Tensor:
+    """``max(amax, 1e-8) / 127`` as a true division on every device (on a
+    CUDA tensor PyTorch divides by a Python scalar through its reciprocal,
+    which can be one ulp off the JAX package's quotient)."""
+    return torch.clamp(amax, min=1e-8) / amax.new_full((), 127.0)
+
+
 def quantize_linear(w: torch.Tensor) -> dict:
     """[..., K, N] float weights -> {"q8": int8 [..., K, N], "scale": f32 [..., N]}.
 
@@ -59,7 +74,7 @@ def quantize_linear(w: torch.Tensor) -> dict:
     (f32 division, round half to even, clip to +-127).
     """
     wf = w.float()
-    scale = torch.clamp(wf.abs().amax(dim=-2), min=1e-8) / 127.0
+    scale = _absmax_scale(wf.abs().amax(dim=-2))
     q8 = torch.clamp(torch.round(wf / scale.unsqueeze(-2)), -127, 127).to(torch.int8)
     return {"q8": q8, "scale": scale}
 
@@ -160,12 +175,76 @@ def int8_matmul_route(x: torch.Tensor, q8: torch.Tensor) -> str:
     return "kernel" if ok else "plain"
 
 
+_w8a8_state = threading.local()
+
+
+@contextlib.contextmanager
+def w8a8_scope(enabled: bool):
+    """Dynamic activation quantization (w8a8) for the ``int8_matmul`` calls
+    made inside the scope on this thread: activations quantized per row,
+    an int8 x int8 -> int32 product, both scales applied to the output.
+    Outputs are not bit-identical to the weight-only path. Off by default;
+    the state is thread-local (a server's worker enters it inside the call
+    it makes), and disable is sticky under nesting: an inner
+    ``w8a8_scope(True)`` does not re-enable it inside an outer
+    ``w8a8_scope(False)``."""
+    prev = getattr(_w8a8_state, "enabled", None)
+    _w8a8_state.enabled = (prev if prev is not None else True) and bool(enabled)
+    try:
+        yield
+    finally:
+        _w8a8_state.enabled = prev
+
+
+def _w8a8_allowed() -> bool:
+    return bool(getattr(_w8a8_state, "enabled", False))
+
+
+# torch._int_mm on a CUDA tensor wants more than this many rows, and K and N
+# multiples of W8A8_ALIGN.
+W8A8_MIN_ROWS = 16
+W8A8_ALIGN = 8
+
+
+def w8a8_matmul(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """[m, K] @ [K, N] with both operands int8, the JAX package's
+    ``_w8a8_matmul`` step for step: x quantized per row (dynamic symmetric
+    absmax: ``max(amax, 1e-8) / 127``, round half to even, clip to +-127),
+    an exact int32 product, then ``acc.float() * x_scale * scale`` in that
+    order, cast to x's dtype. On the card the rows are padded with zeros
+    to the next multiple of 8 above 16 for ``torch._int_mm`` (zero rows
+    add nothing to the others) and cut again; a K or N that is not a
+    multiple of 8 raises. Calls on the card count in ``w8a8_matmul.calls``."""
+    m, k = x2.shape
+    n = q8.shape[1]
+    xf = x2.float()
+    x_scale = _absmax_scale(xf.abs().amax(dim=-1, keepdim=True))
+    xq = torch.clamp(torch.round(xf / x_scale), -127, 127).to(torch.int8)
+    if x2.device.type == "cuda":
+        if k % W8A8_ALIGN or n % W8A8_ALIGN:
+            raise ValueError(f"w8a8_matmul: torch._int_mm on the card wants K and N multiples of {W8A8_ALIGN}; "
+                             f"got K={k} N={n}")
+        rows = max(-(-m // W8A8_ALIGN) * W8A8_ALIGN, W8A8_MIN_ROWS + W8A8_ALIGN)
+        if rows != m:
+            xq = torch.cat([xq, xq.new_zeros((rows - m, k))])
+        acc = torch._int_mm(xq, q8.contiguous())[:m]
+        w8a8_matmul.calls += 1
+    else:
+        acc = torch._int_mm(xq, q8)
+    return (acc.float() * x_scale * scale.float()).to(x2.dtype)
+
+
+w8a8_matmul.calls = 0  # calls on the card
+
+
 def _int8_mm_core(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     dev = x2.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"int8_matmul: no kernel for device {dev}")
     m, k = x2.shape
     n = q8.shape[1]
+    if _w8a8_allowed():
+        return w8a8_matmul(x2, q8, scale)
     if dev.type == "cpu":
         return int8_matmul_plain(x2, q8, scale)
     if int8_matmul_route(x2, q8) == "plain":

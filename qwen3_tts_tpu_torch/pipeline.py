@@ -18,9 +18,11 @@ sample-exact streaming vocoder (``run_to_audio``),
 decode, and the ``*_streaming`` entries hand the session to the caller
 (``next_chunk`` / iteration). An ICL clone's reference codes advance the
 streaming vocoder ahead of its first chunk and are cut from the audio.
-Weight-only int8 (``quantize_int8=True``) is ported. ``from_pretrained``
-loads a Qwen3-TTS HF checkpoint directory with the port's own safetensors
-reader and tokenizer (no ``safetensors`` or ``tokenizers`` package).
+Weight-only int8 (``quantize_int8=True``) is ported, and with it the
+opt-in w8a8 of the batched programs (``int8_activations=True``).
+``from_pretrained`` loads a Qwen3-TTS HF checkpoint directory with the
+port's own safetensors reader and tokenizer (no ``safetensors`` or
+``tokenizers`` package).
 ``synthesize_voice_clone_debug`` is the staged clone (every frame, then one
 bucketed decode of [reference || frames] with the reference's share of the
 samples cut). Throughput mode: ``synthesize_batch`` (B utterances, one
@@ -179,6 +181,14 @@ class Qwen3TTS:
     scratch once); every frame of this model uses them, on the stream of
     the first.
 
+    ``int8_activations=True`` (with ``quantize_int8`` only, else it raises):
+    w8a8 in the batched programs (``synthesize_batch``,
+    ``synthesize_streaming_batch``: their prefills and frame loops run
+    under ``quant.w8a8_scope``), activations quantized per row and an exact
+    int8 x int8 product; lossy by design, so coalesced output is not
+    bit-identical to solo decode. The batch-1 entry points never take it:
+    they stay weight-only int8, bit for bit.
+
     ``speaker_encoder`` (``models.speaker.SpeakerEncoder``) and
     ``speech_encoder`` (``models.codec.encoder.Encoder12Hz``) are a Base
     checkpoint's: voice cloning needs the first, ICL cloning both. They run
@@ -199,8 +209,12 @@ class Qwen3TTS:
         speech_encoder: Encoder12Hz | None = None,
         vocoder_config: vocoder.VocoderConfig = vocoder.VocoderConfig(),
         quantize_int8: bool = False,
+        int8_activations: bool = False,
     ):
+        if int8_activations and not quantize_int8:
+            raise ValueError("int8_activations requires quantize_int8=True")
         self.config = config
+        self.w8a8 = bool(int8_activations)
         if "qkv_proj" not in cp_params["layers"]:
             cp_params = W.fuse_model_params(cp_params)
         on_card = talker_params["norm"].device.type == "cuda"
@@ -243,6 +257,7 @@ class Qwen3TTS:
         dtype: torch.dtype = torch.bfloat16,
         quantize_int8: bool = False,
         device: torch.device | str | None = None,
+        int8_activations: bool = False,
     ) -> "Qwen3TTS":
         """Load a local HF checkpoint directory (config.json +
         model.safetensors + speech_tokenizer/model.safetensors, and the text
@@ -263,10 +278,10 @@ class Qwen3TTS:
         tensors, the Mimi encoder when the speech tokenizer has ``encoder.*``
         tensors; an incomplete or malformed ``encoder.*`` set (``KeyError``,
         ``ValueError``) leaves it None (no ICL cloning), any other error
-        raises. The JAX package's ``mesh`` (tensor-parallel serving) is not
-        ported yet: it waits for multi-GPU serving; nor is its opt-in
-        ``int8_activations`` (w8a8 in batched programs), which waits for the
-        HTTP server's port.
+        raises. ``int8_activations`` (with ``quantize_int8``): w8a8 in the
+        batched programs, as in ``Qwen3TTS``. The JAX package's ``mesh``
+        (tensor-parallel serving) is not ported yet: it waits for multi-GPU
+        serving.
         """
         device = device_or_card(device)
         model_dir = Path(model_dir)
@@ -309,7 +324,7 @@ class Qwen3TTS:
                                type(e).__name__, e)
         del raw, st_raw
         return cls(config, talker_params, cp_params, vocoder_params, tokenizer, speaker, speech,
-                   vocoder_config=vocoder_config, quantize_int8=quantize_int8)
+                   vocoder_config=vocoder_config, quantize_int8=quantize_int8, int8_activations=int8_activations)
 
     @classmethod
     def from_random(
@@ -649,9 +664,15 @@ class Qwen3TTS:
         self,
         ref_audio: AudioBuffer,
         ref_text: str | None = None,
+        pad_to_seconds: float | None = None,
     ) -> VoiceClonePrompt:
         """X-vector (and, given ``ref_text``, ICL) conditioning from reference
-        audio, resampled to 24 kHz first if it is at another rate."""
+        audio, resampled to 24 kHz first if it is at another rate.
+
+        ``pad_to_seconds``: the JAX package's legacy knob; the audio is
+        zero-padded to a whole number of ``pad_to_seconds`` units (at least
+        one) before both encoders. It dilutes the pooled x-vector a little;
+        the default None encodes the audio as it is."""
         if self.speaker_encoder is None:
             hint = {
                 ModelType.CUSTOM_VOICE: " CustomVoice models use preset speakers; use a Base model for cloning.",
@@ -660,6 +681,11 @@ class Qwen3TTS:
             raise RuntimeError("Speaker encoder not available." + hint)
         if ref_audio.sample_rate != T.OUTPUT_SAMPLE_RATE:
             ref_audio = resample_to_24k(ref_audio)
+        if pad_to_seconds:
+            unit = int(pad_to_seconds * T.OUTPUT_SAMPLE_RATE)
+            padded = np.zeros(max(-(-len(ref_audio.samples) // unit) * unit, unit), np.float32)
+            padded[:len(ref_audio.samples)] = ref_audio.samples
+            ref_audio = AudioBuffer(padded, T.OUTPUT_SAMPLE_RATE)
         speaker_embedding = self.speaker_encoder.encode(ref_audio.samples)
         ref_codes = ref_text_ids = None
         if ref_text is not None:
@@ -779,8 +805,12 @@ class Qwen3TTS:
         points once a text, at B = 8 too: the batched loop is the eager
         layer path, whose ~8,400 kernel launches a frame keep the host busy
         while the device idles (``synthesis_timing.py --cells
-        profile-batch8-bf16``). Capturing its frame body in a CUDA graph is
-        the remedy still to come."""
+        profile-batch8-bf16``). Behind the HTTP server (``chip_smoke.py``
+        phase ``server``, NVIDIA H100 80GB HBM3 at 700 W), 8 coalesced
+        32-frame bf16 requests took 4.1-6.9 s each, 37-62 frames/s in all,
+        where the same 8 sent one after another took 0.27-0.31 s each,
+        110-120 frames/s. Capturing its frame body in a CUDA graph is the
+        remedy still to come."""
         return self.synthesize_batch_with_timing(texts, speakers, languages, options, seeds, instructs)[0]
 
     @torch.no_grad()
@@ -847,12 +877,15 @@ class Qwen3TTS:
                 for i in range(b)]
 
     def _generate_batch_group(self, group: "BatchGroup") -> tuple[list[np.ndarray], np.ndarray]:
-        """Run a prepared group's batched frame loop to its end; returns
-        (per-stream frames [max_new, 16], frame counts)."""
-        core.generate_frames_batch(
-            self.talker_params, self.cp_params, self.config.talker, self.config.code_predictor, group.scfg,
-            group.state, group.trailing, group.trailing_lens, group.pad_embed, group.uniforms, group.frame_limits,
-        )
+        """Run a prepared group's batched frame loop to its end (w8a8 when
+        ``self.w8a8``); returns (per-stream frames [max_new, 16], frame
+        counts)."""
+        with quant.w8a8_scope(self.w8a8):
+            core.generate_frames_batch(
+                self.talker_params, self.cp_params, self.config.talker, self.config.code_predictor, group.scfg,
+                group.state, group.trailing, group.trailing_lens, group.pad_embed, group.uniforms,
+                group.frame_limits,
+            )
         frames = group.state.frames.cpu().numpy()
         return [frames[j] for j in range(frames.shape[0])], np.asarray(group.state.frame_idx, np.int64)
 
@@ -943,8 +976,9 @@ class Qwen3TTS:
                 rows = [prefill.custom_voice_rows(tp, text_ids[i], n, T.speaker_info(v).token_id, lang_ids[i])
                         for i, (n, v) in enumerate(zip(text_lens, voices))]
                 prefill_rows = CUSTOM_VOICE_PROMPT_LEN
-        started = prefill.finish_batch(tp, self.config.talker, scfg, rows, new_caches(prefill_rows), uniforms,
-                                       max_new_bucket)
+        with quant.w8a8_scope(self.w8a8):
+            started = prefill.finish_batch(tp, self.config.talker, scfg, rows, new_caches(prefill_rows), uniforms,
+                                           max_new_bucket)
         state, trailing, trailing_lens, pad = started
         return BatchGroup(state, scfg, trailing, trailing_lens, pad, uniforms, per_max, refs)
 
@@ -1393,10 +1427,11 @@ class StreamingBatchSession:
         stream)."""
         m, g = self.model, self.group
         s = g.state
-        core.generate_frames_batch(
-            m.talker_params, m.cp_params, m.config.talker, m.config.code_predictor, g.scfg, s, g.trailing,
-            g.trailing_lens, g.pad_embed, g.uniforms, [min(limit, target) for limit in g.frame_limits],
-        )
+        with quant.w8a8_scope(m.w8a8):
+            core.generate_frames_batch(
+                m.talker_params, m.cp_params, m.config.talker, m.config.code_predictor, g.scfg, s, g.trailing,
+                g.trailing_lens, g.pad_embed, g.uniforms, [min(limit, target) for limit in g.frame_limits],
+            )
         b, _, n_codes = s.frames.shape
         frames_ext = torch.cat([s.frames, s.frames.new_zeros((b, chunk, n_codes))], dim=1)
         if self.ref_codes is None:

@@ -29,15 +29,23 @@ runs ``PROFILE_FRAMES`` frames of the B = 8 bf16 batched loop under
 ``torch.profiler`` (``profile_batch``: device kernels a frame, the device's
 busy share of the loop's wall time, the host ops that cost the most); run
 it in a process of its own, as the profiler's later sessions in one
-process may record no device activity. Needs a CUDA device.
+process may record no device activity. ``server-mixed-bf16`` serves the
+bf16 model over HTTP (``server.serve`` on 127.0.0.1, a free port, in a
+thread of this process) and times ``mixed_load`` (``chip_smoke.py`` phase
+``server``'s step 4): one long solo stream, and ``SERVER_REQUESTS`` short
+requests posted at once after its first audio; each request's latency,
+p50 / p95, the stream's TTFA and its gaps between chunks. Needs a CUDA
+device.
 """
 
 from __future__ import annotations
 
 import argparse
+import http.client
 import json
 import math
 import sys
+import threading
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -68,6 +76,12 @@ BATCH_TEXTS = (
 )
 BATCH_SIZES = (1, 4, 8)
 PROFILE_FRAMES = 8
+# The server's requests: SERVER_FRAMES frames (max_frames) each, and a
+# SERVER_STREAM_FRAMES-frame stream under the mixed load.
+SERVER_FRAMES = 32
+SERVER_REQUESTS = 8
+SERVER_STREAM_FRAMES = 96
+WAV_HEADER_BYTES = 44
 
 
 class WordTokenizer:
@@ -181,6 +195,131 @@ def profile_batch(model, b: int, frames: int = PROFILE_FRAMES) -> dict:
     }
 
 
+def server_payload(i: int, frames: int = SERVER_FRAMES, **extra) -> dict:
+    """Request i: the i-th of ``BATCH_TEXTS`` (cycled), seed 42 + i,
+    ``frames`` frames at most."""
+    return {"text": BATCH_TEXTS[i % len(BATCH_TEXTS)], "seed": 42 + i, "max_frames": frames, **extra}
+
+
+def http_post(base: tuple, payload: dict, path: str = "/v1/synthesize") -> dict:
+    """POST ``payload`` to the server at ``base`` (host, port); returns the
+    status, the body's length and the latency (the request until the whole
+    body is read), with its start and end on ``time.perf_counter``."""
+    conn = http.client.HTTPConnection(*base, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=json.dumps(payload), headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        body = resp.read()
+        t1 = time.perf_counter()
+    finally:
+        conn.close()
+    return {"status": resp.status, "bytes": len(body), "ms": (t1 - t0) * 1e3, "start": t0, "end": t1}
+
+
+def http_stream(base: tuple, payload: dict, first_audio: threading.Event | None = None) -> dict:
+    """POST ``payload`` to ``/v1/synthesize_streaming`` and read the chunked
+    body as it arrives: TTFA (the request until the first PCM bytes past the
+    WAV header), the arrival time of each read that brought audio (on
+    ``time.perf_counter``), the body's length and the whole latency.
+    ``first_audio`` is set when the first audio arrives."""
+    conn = http.client.HTTPConnection(*base, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/synthesize_streaming", body=json.dumps(payload),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        got, arrivals = 0, []
+        while data := resp.read1(1 << 20):
+            got += len(data)
+            if got > WAV_HEADER_BYTES:
+                arrivals.append(time.perf_counter())
+                if first_audio is not None:
+                    first_audio.set()
+        t1 = time.perf_counter()
+    finally:
+        conn.close()
+    ttfa = (arrivals[0] - t0) * 1e3 if arrivals else None
+    return {"status": resp.status, "bytes": got, "ms": (t1 - t0) * 1e3, "ttfa_ms": ttfa, "arrivals": arrivals,
+            "gaps_ms": [(b - a) * 1e3 for a, b in zip(arrivals, arrivals[1:])], "start": t0, "end": t1}
+
+
+def concurrently(fn, items: list) -> list:
+    """``fn(item)`` for every item, each in a thread of its own, all started
+    together; the results in the items' order."""
+    out = [None] * len(items)
+
+    def run(i):
+        out[i] = fn(items[i])
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(len(items))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    if any(t.is_alive() for t in threads) or any(r is None for r in out):
+        raise RuntimeError("a request did not complete")
+    return out
+
+
+def p50_p95(ms: list) -> tuple[float, float]:
+    import numpy as np
+
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 95))
+
+
+def mixed_load(base: tuple, n: int = SERVER_REQUESTS, frames: int = SERVER_FRAMES,
+               stream_frames: int = SERVER_STREAM_FRAMES) -> dict:
+    """One long solo stream (``stream_frames`` frames, 4 then 10 a chunk),
+    and ``n`` short requests (``frames`` frames each) posted at once as soon
+    as the stream's first audio arrives. Returns every response, the short
+    requests' latencies with p50 / p95, the stream's TTFA and chunk gaps,
+    and how many of its chunks arrived before the first short response and
+    after the last one."""
+    first = threading.Event()
+    stream: dict = {}
+
+    def run_stream():
+        stream.update(http_stream(base, server_payload(n, stream_frames), first))
+
+    th = threading.Thread(target=run_stream)
+    th.start()
+    if not first.wait(600):
+        raise RuntimeError("the stream's first audio did not arrive")
+    short = concurrently(lambda i: http_post(base, server_payload(i, frames)), list(range(n)))
+    th.join(900)
+    if th.is_alive() or not stream:
+        raise RuntimeError("the stream did not complete")
+    ms = [r["ms"] for r in short]
+    p50, p95 = p50_p95(ms)
+    first_done, last_done = min(r["end"] for r in short), max(r["end"] for r in short)
+    return {"short": short, "stream": stream, "ms": ms, "p50_ms": p50, "p95_ms": p95,
+            "stream_ttfa_ms": stream["ttfa_ms"], "stream_gaps_ms": stream["gaps_ms"],
+            "stream_chunks_before": sum(t < first_done for t in stream["arrivals"]),
+            "stream_chunks_after": sum(t > last_done for t in stream["arrivals"])}
+
+
+def server_mixed_lines(model, tag: str, repeats: int):
+    """``mixed_load`` on ``model`` behind ``server.serve`` (default windows,
+    max batch ``SERVER_REQUESTS``): one warm run, then ``repeats``; one JSON
+    object a run."""
+    from qwen3_tts_tpu_torch import server
+
+    http = server.serve(model, "127.0.0.1", 0, max_batch=SERVER_REQUESTS)
+    th = threading.Thread(target=http.serve_forever, daemon=True)
+    th.start()
+    try:
+        mixed_load(http.server_address)
+        for i in range(repeats):
+            r = mixed_load(http.server_address)
+            yield {"tag": tag, "form": "bf16", "call": "server_mixed", "round": i,
+                   **{k: v for k, v in r.items() if k not in ("short", "stream")},
+                   "statuses": [x["status"] for x in r["short"]] + [r["stream"]["status"]]}
+    finally:
+        http.shutdown()
+        http.server_close()
+
+
 class StepSpans:
     """CUDA events around every ``fused_layer.run_fused_decode_step`` call
     while it is entered (the code predictor calls it through the module)."""
@@ -266,7 +405,8 @@ def main() -> None:
     ap.add_argument("--tag", default="", help="name printed on every line (default: --root)")
     ap.add_argument("--repeats", type=int, default=2)
     ap.add_argument("--cells", default="bf16,int8", help="comma-separated: bf16, int8, int8-cp-i2816, batch8-bf16, "
-                                                         "batch8-int8, stream-batch8-bf16, profile-batch8-bf16")
+                                                         "batch8-int8, stream-batch8-bf16, profile-batch8-bf16, "
+                                                         "server-mixed-bf16")
     args = ap.parse_args()
     cells = args.cells.split(",")
     if not torch.cuda.is_available():
@@ -280,7 +420,7 @@ def main() -> None:
     build.build()
     dev = torch.device("cuda", 0)
     base = config_for_variant("1.7B", "custom_voice")
-    bf16_cells = {"bf16", "batch8-bf16", "stream-batch8-bf16", "profile-batch8-bf16"}
+    bf16_cells = {"bf16", "batch8-bf16", "stream-batch8-bf16", "profile-batch8-bf16", "server-mixed-bf16"}
     int8_cells = {"int8", "batch8-int8"}
     if set(cells) & (bf16_cells | int8_cells):
         model = Qwen3TTS.from_random(base, seed=0, device=dev)
@@ -295,6 +435,9 @@ def main() -> None:
         for line in batch_lines(model, "bf16", tag, args.repeats, "batch8-bf16" in cells,
                                 "stream-batch8-bf16" in cells):
             print(json.dumps(line), flush=True)
+        if "server-mixed-bf16" in cells:
+            for line in server_mixed_lines(model, tag, args.repeats):
+                print(json.dumps(line), flush=True)
         m8 = Qwen3TTS(model.config, model.talker_params, model.cp_params, model.vocoder_params, BenchTokenizer(),
                       quantize_int8=True)
         del model

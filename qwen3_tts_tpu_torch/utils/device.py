@@ -17,6 +17,12 @@ def device_or_card(device: torch.device | str | None) -> torch.device:
     return torch.device("cuda")
 
 
+def auto_device() -> torch.device:
+    """The best device: CUDA card 0. Raises when there is no card; it never
+    falls back to the CPU (which is used only when asked for by name)."""
+    return parse_device("cuda")
+
+
 def parse_device(spec: str) -> torch.device:
     """Resolve "auto" | "cuda" | "cuda:N" | "cpu" to a torch device; "auto"
     and "cuda" mean card 0. A card that is not there raises."""
@@ -24,7 +30,7 @@ def parse_device(spec: str) -> torch.device:
     if spec == "cpu":
         return torch.device("cpu")
     if spec == "auto":
-        spec = "cuda"
+        return auto_device()
     if spec == "cuda" or spec.startswith("cuda:"):
         idx = 0
         if ":" in spec:

@@ -408,6 +408,34 @@ def test_cuda_model_fuses_its_plain_talker():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(8, 1024, 2048), (16, 1024, 4096), (8, 2048, 12288), (80, 6144, 2048), (17, 1024, 3072)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_w8a8_matmul_bit_equal_to_cpu(m, k, n, dtype):
+    """The w8a8 route on the card (its scales, rounding and the padded
+    ``torch._int_mm``) gives the CPU's bits at the batch's shapes."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=g) * (0.1 + 3.9 * torch.rand(m, 1, generator=g))
+    w = quant.quantize_linear(torch.randn(k, n, generator=g) * 0.05)
+    before = quant.w8a8_matmul.calls
+    got = quant.w8a8_matmul(x.to(dev, dtype), w["q8"].to(dev), w["scale"].to(dev))
+    assert quant.w8a8_matmul.calls == before + 1
+    want = quant.w8a8_matmul(x.to(dtype), w["q8"], w["scale"])
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", [(1024, 2048), (2048, 12288), (6144, 2048)])
+def test_cuda_quantize_linear_bit_equal_to_cpu(k, n):
+    """Weights quantized on the card have the CPU's scales and codes (the
+    JAX package's, by ``tests/test_torch_quant.py``)."""
+    dev = _cuda()
+    w = torch.randn(k, n, generator=torch.Generator().manual_seed(k + n)) * 0.05
+    card, cpu = quant.quantize_linear(w.to(dev)), quant.quantize_linear(w)
+    assert torch.equal(card["scale"].cpu(), cpu["scale"]) and torch.equal(card["q8"].cpu(), cpu["q8"])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k,n", [(128, 128), (256, 384), (2048, 3072), (6144, 2048), (4096, 256)])
 @pytest.mark.parametrize("m", [1, 2, 10, 16, 17, 64, 65, 1000, 1024])

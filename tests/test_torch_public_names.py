@@ -1,0 +1,108 @@
+"""Public names of the JAX package that the port lacked, against the JAX package (CPU).
+
+* ``Qwen3TTS.create_voice_clone_prompt(..., pad_to_seconds=)``: the audio,
+  resampled to 24 kHz first, is zero-padded to a whole number of
+  ``pad_to_seconds`` units (at least one) before both encoders. A 2.6 s
+  reference at 24 kHz and at 16 kHz with ``pad_to_seconds=1.0`` (3 s
+  after padding; a 3 s reference would be a whole number of units, and
+  the padding a no-op) gives the JAX package's x-vector within 1e-5 of
+  max|x| and its ICL codes equal; ``pad_to_seconds=None`` is the unpadded
+  prompt.
+* ``generation.prefill.prefill_custom_voice``: the JAX alias's state on
+  the tiny model.
+* ``utils.device.auto_device()``: raises without a card (no CPU fallback);
+  with ``torch.cuda`` reporting one card, it is ``cuda:0``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from qwen3_tts_tpu.audio.io import AudioBuffer as JAudio
+from qwen3_tts_tpu.generation import prefill as jprefill
+from qwen3_tts_tpu.ops import nn as jnn
+from qwen3_tts_tpu.ops import rng as jrng
+from qwen3_tts_tpu.ops import sampling as jsampling
+from qwen3_tts_tpu_torch import encoder_fixture
+from qwen3_tts_tpu_torch.audio.io import AudioBuffer as TAudio
+from qwen3_tts_tpu_torch.audio.resample import resample_to_24k
+from qwen3_tts_tpu_torch.generation import prefill as tprefill
+from qwen3_tts_tpu_torch.ops import nn as tnn
+from qwen3_tts_tpu_torch.ops import sampling as tsampling
+from qwen3_tts_tpu_torch.utils import device as tdevice
+from test_pipeline import TINY_TALKER
+from test_torch_voice_clone import REF_TEXT, build_models
+
+torch.set_num_threads(1)
+
+SECONDS = 2.6
+
+
+@pytest.fixture(scope="module")
+def models():
+    return build_models()
+
+
+@pytest.mark.parametrize("rate", [24000, 16000])
+def test_pad_to_seconds_matches_jax(models, rate):
+    jm, tm = models
+    audio = encoder_fixture.reference_audio(rate, seed=5, seconds=SECONDS)
+    jp = jm.create_voice_clone_prompt(JAudio(audio, rate), REF_TEXT, pad_to_seconds=1.0)
+    tp = tm.create_voice_clone_prompt(TAudio(audio, rate), REF_TEXT, pad_to_seconds=1.0)
+    scale = np.abs(jp.speaker_embedding).max()
+    np.testing.assert_allclose(tp.speaker_embedding, jp.speaker_embedding, rtol=0, atol=1e-5 * scale)
+    assert tp.ref_codes.shape == jp.ref_codes.shape
+    np.testing.assert_array_equal(tp.ref_codes, jp.ref_codes)
+    assert tp.ref_text_ids == jp.ref_text_ids
+
+    plain = tm.create_voice_clone_prompt(TAudio(audio, rate), REF_TEXT)
+    unpadded = tm.create_voice_clone_prompt(TAudio(audio, rate), REF_TEXT, pad_to_seconds=None)
+    np.testing.assert_array_equal(unpadded.speaker_embedding, plain.speaker_embedding)
+    np.testing.assert_array_equal(unpadded.ref_codes, plain.ref_codes)
+    # The padded prompt is that of the 24 kHz audio zero-padded to 3 s by hand.
+    at24 = resample_to_24k(TAudio(audio, rate)).samples if rate != 24000 else audio
+    by_hand = np.zeros(3 * 24000, np.float32)
+    by_hand[:len(at24)] = at24
+    want = tm.create_voice_clone_prompt(TAudio(by_hand, 24000), REF_TEXT)
+    np.testing.assert_array_equal(tp.speaker_embedding, want.speaker_embedding)
+    np.testing.assert_array_equal(tp.ref_codes, want.ref_codes)
+    assert plain.ref_codes.shape[0] < tp.ref_codes.shape[0]
+    assert np.abs(plain.speaker_embedding - tp.speaker_embedding).max() > 0
+
+
+def test_prefill_custom_voice_matches_jax(models):
+    jm, tm = models
+    max_new, rows = 8, 32
+    ids = np.array([5, 9, 3, 7, 0, 0, 0, 0], np.int64)
+    uniforms = jrng.pcg_uniform_sequence(42, max_new + 1)
+    stack = tm.config.talker.layer_stack()
+    jstate, jtrail, jlen, jpad = jprefill.prefill_custom_voice(
+        jm.talker_params, jm.config.talker, jsampling.SamplingConfig(), jnp.asarray(ids, jnp.int32), jnp.int32(4),
+        jnp.int32(3061), jnp.int32(2050), jnn.init_kv_cache(jm.config.talker.layer_stack(), 1, rows, jnp.float32),
+        jnp.asarray(uniforms), max_new)
+    tstate, ttrail, tlen, tpad = tprefill.prefill_custom_voice(
+        tm.talker_params, tm.config.talker, tsampling.SamplingConfig(), torch.from_numpy(ids), 4, 3061, 2050,
+        tnn.init_kv_cache(stack, 1, rows, torch.float32, torch.device("cpu")), torch.from_numpy(uniforms), max_new)
+    assert int(tstate.token) == int(jstate.token)
+    assert tstate.pos == int(jstate.pos) and tstate.frame_idx == int(jstate.frame_idx) == 0
+    assert tlen == int(jlen)
+    for got, want in ((tstate.last_hidden, jstate.last_hidden), (tstate.cache.k, jstate.cache.k),
+                      (tstate.cache.v, jstate.cache.v), (tstate.penalty_mask, jstate.penalty_mask),
+                      (ttrail, jtrail), (tpad, jpad)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+    assert tstate.last_hidden.shape == (1, 1, TINY_TALKER.hidden_size)
+
+
+def test_auto_device_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tdevice.auto_device()
+    assert tdevice.parse_device("cpu") == torch.device("cpu")
+
+
+def test_auto_device_is_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert tdevice.auto_device() == torch.device("cuda", 0)
+    assert tdevice.parse_device("auto") == torch.device("cuda", 0)
