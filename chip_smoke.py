@@ -96,7 +96,21 @@ Phases, each printing a line (any failure exits nonzero before the last):
      random frames through ``_predict_acoustic_codes_fused``, kernel 7 per
      step and kernels 5 + 6 per layer, each held to the same route on the
      plain versions by kernel 1's int8 bars, beside kernel 1's codes and
-     time;
+     time; then phase ``jacobi`` (``jacobi_phase``): the seeded 1.7B f32
+     code predictor with ``decode_mode="jacobi"``, frame by frame and as
+     one batch of 4, must give the JAX fixture's codes with kernel 1 never
+     launched; the 1.7B bf16 and int8 and the 0.6B bf16 code predictors'
+     Jacobi against kernel 1 on 32 random frames under kernel 1's bf16
+     bars, the first 8 frames the same bits twice, the passes per frame,
+     one pass's time per call and device span (a CUDA graph) and the
+     break-even pass count (kernel 1's frame time over one pass's); kernel 4 at the no-cache
+     stack's four shapes at 16 and 128 rows against its plain version (one
+     bf16 ulp), timed beside ``torch.matmul``; then phase ``tiers``: the
+     unfused 1.7B talker's layer-path ``decode_step`` on a 2624-row cache,
+     ``decode_tiering`` on against off at 16 positions over every window
+     (f32: argmax 16 of 16, hidden within F32_STEP_TOL; bf16 phase 5's
+     bars), each window's step timed both ways, and three equal MRoPE
+     streams bit-equal to plain positions on the card;
  10. end to end: a small f32 model on the card (kernel 3 on plain f32
      weights and kernel 1, each once a frame) against the same weights on
      the CPU's layer path (identical frames, close audio); a small model in
@@ -114,7 +128,12 @@ Phases, each printing a line (any failure exits nonzero before the last):
      which split decode into kernel 2's share and the rest), and the
      int8-path kernels must not; the timed run's audio
      must equal the warm run's bit for bit (same seed, deterministic
-     kernels); then the same in int8 (``quantize_int8=True``
+     kernels); then a 32-frame utterance with ``decode_mode="jacobi"`` on
+     the same trees beside the sequential one (``jacobi_utterance``:
+     ms/frame, RTF, passes per frame; kernel 1 never, kernel 3 once a
+     frame, kernel 2 9 times, in int8 kernel 4 at 16 rows 20 times a pass)
+     and, in bf16, the B = 8 batch loop with Jacobi beside the sequential
+     batch (aggregate frames/s, each stream against its B = 1 run); then the same in int8 (``quantize_int8=True``
      on the same synthetic trees, as bench.py builds its int8 model), where
      all four int8-path kernels must launch; then two 1.7B int8 models whose
      code predictor takes the per-step path (vocab 2047: kernel 7;
@@ -1408,6 +1427,381 @@ def per_step_path() -> None:
               f"per-step route {name}: launches {launches}, want {want_launches} of {kernels} and no cp_frame")
 
 
+# Jacobi code prediction (phase ``jacobi``): the passes timed in a row, and
+# the B = 8 batch's frames.
+JACOBI_TIMED_PASSES = 20
+JACOBI_BATCH_FRAMES = 16
+JACOBI_REPEATED_FRAMES = 8  # frames run a second time for the same bits
+JACOBI_WITNESS_B = 8  # frames at once in ``batch_rows_witness``: the B of ``jacobi_batch``
+# The code predictor's four projections (K, N) at 1.7B: qkv, o, gate|up, down.
+CP_PROJ_SHAPES = ((1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024))
+TALKER_PROJ_SHAPES = ((2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048))
+
+
+def jacobi_cfg(cfg: CodePredictorConfig) -> CodePredictorConfig:
+    return replace(cfg, decode_mode="jacobi")
+
+
+def jacobi_model(model: Qwen3TTS) -> Qwen3TTS:
+    """``model``'s trees (already fused, or quantized) under a code-predictor
+    config with ``decode_mode="jacobi"``: no kernel-1 or step pack."""
+    cfg = replace(model.config, code_predictor=jacobi_cfg(model.config.code_predictor))
+    m = Qwen3TTS(cfg, model.talker_params, model.cp_params, model.vocoder_params, model.tokenizer,
+                 vocoder_config=model.vocoder_config)
+    check(m.cp_frame_pack is None and m.cp_step_pack is None, "a Jacobi model holds a code-predictor kernel pack")
+    return m
+
+
+def jacobi_frames(params: dict, cfg: CodePredictorConfig, xs: list) -> tuple[torch.Tensor, list]:
+    """Each frame's Jacobi codes and passes (the counter read around it)."""
+    codes, passes = [], []
+    for h, s in xs:
+        before = cp.predict_acoustic_codes_jacobi.iterations
+        codes.append(cp.predict_acoustic_codes(params, cfg, h, s))
+        passes.append(cp.predict_acoustic_codes_jacobi.iterations - before)
+    return torch.stack(codes), passes
+
+
+def jacobi_pass_times(params: dict, cfg: CodePredictorConfig, h: torch.Tensor, s: torch.Tensor) -> dict:
+    """One Jacobi pass (``cp.jacobi_logits`` and its argmax, on the frame's
+    own codes): per call from Python (CUDA events around
+    ``JACOBI_TIMED_PASSES`` passes, host included) and its device span (the
+    same passes captured in a CUDA graph)."""
+    prefix = fused_layer.mtp_project(params, torch.cat([h, s], dim=1))
+    codes = cp.predict_acoustic_codes(params, cfg, h, s).long()[None]
+
+    def one_pass():
+        return torch.argmax(cp.jacobi_logits(params, cfg, prefix, codes), dim=-1)
+
+    return {"pass_ms": kt.call_ms(one_pass, JACOBI_TIMED_PASSES),
+            "pass_device_ms": kt.graph_ms([one_pass], JACOBI_TIMED_PASSES)}
+
+
+def batch_rows_witness(params: dict, cfg: CodePredictorConfig, dtype: torch.dtype, label: str) -> dict:
+    """Whether ``JACOBI_WITNESS_B`` frames at once compute what each frame
+    computes alone: the Jacobi codes of random frames batched against one at
+    a time, one no-cache pass's hidden state (B·16 rows against 16 a frame),
+    and each of its first layer's products alone on random inputs (the four
+    projections by ``torch.matmul``, the attention by ``nn.gqa_attention``)
+    and the 15 heads' product, as frames with the same bits. In f32 the codes must be equal; in bf16 it
+    is a report: it shows which product rounds a batch's rows otherwise."""
+    b, rows = JACOBI_WITNESS_B, cfg.num_acoustic + 1
+    gen = torch.Generator(device=DEV).manual_seed(3)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+
+    def frames_same_bits(fn, *args) -> int:
+        whole = fn(*args)
+        return sum(torch.equal(whole[i:i + 1], fn(*(t[i:i + 1] for t in args))) for i in range(b))
+
+    h, s = rand(b, 1, cfg.embed_dim), rand(b, 1, cfg.embed_dim) * 0.02
+    batch = cp.predict_acoustic_codes_jacobi_batch(params, cfg, h, s)
+    alone = torch.stack([cp.predict_acoustic_codes_jacobi(params, cfg, h[i:i + 1], s[i:i + 1]) for i in range(b)])
+    stack = cfg.layer_stack()
+    x = rand(b, rows, cfg.hidden_size)
+    hb = nn.run_layer_stack_nocache(params["layers"], x, stack)
+    h1 = torch.cat([nn.run_layer_stack_nocache(params["layers"], x[i:i + 1], stack) for i in range(b)])
+    layer = nn.layer_params_at(params["layers"], 0)
+    ops = {key: frames_same_bits(lambda t, w=layer[key]: torch.matmul(t, w), rand(b, rows, layer[key].shape[0]))
+           for key in ("qkv_proj", "o_proj", "gateup_proj", "down_proj")}
+    mask = torch.tril(torch.ones((rows, rows), dtype=torch.bool, device=DEV))[None, None, None]
+    ops["attention"] = frames_same_bits(lambda q, k, v: nn.gqa_attention(q, k, v, mask, stack.head_dim**-0.5),
+                                        rand(b, rows, stack.num_heads, stack.head_dim),
+                                        rand(b, rows, stack.num_kv_heads, stack.head_dim),
+                                        rand(b, rows, stack.num_kv_heads, stack.head_dim))
+    ops["heads"] = frames_same_bits(lambda t: torch.einsum("bgh,ghv->bgv", t, params["lm_heads"]),
+                                    rand(b, cfg.num_acoustic, cfg.hidden_size))
+    r = {"codes_equal": float((batch == alone).float().mean()),
+         "hidden_frames_same_bits": sum(torch.equal(hb[i], h1[i]) for i in range(b)),
+         "hidden_rel_err": rel_err(hb, h1), "ops_frames_same_bits": ops}
+    phase("jacobi", f"{label} code predictor, B={b} against each frame alone: Jacobi codes equal {r['codes_equal']:.4f}"
+          f"{' (bar 1)' if dtype == torch.float32 else ' (a report)'}; one no-cache pass at {b * rows} rows "
+          f"against {rows}: frames with the same bits {r['hidden_frames_same_bits']}/{b}, max|err|/max "
+          f"{r['hidden_rel_err']:.4e}; layer 0's products and the heads alone, frames with the same bits: "
+          + ", ".join(f"{k} {n}/{b}" for k, n in ops.items()))
+    if dtype == torch.float32:
+        check(r["codes_equal"] == 1.0, f"{label} Jacobi at B={b} differs from its frames alone: "
+              f"{batch.tolist()} against {alone.tolist()}")
+    return r
+
+
+def jacobi_fixture() -> dict:
+    """The seeded 1.7B f32 code predictor (``cp_fixture``) with
+    ``decode_mode="jacobi"`` on the card: its 4 frames one at a time, then as
+    one batch of 4, must give the JAX package's codes (its sequential frames:
+    a greedy fixed point equals them), and kernel 1 must not launch."""
+    cfg = jacobi_cfg(cp_fixture.config())
+    params = W.fuse_model_params(W.from_numpy_tree(cp_fixture.numpy_params(cfg), DEV))
+    fixture = cp_fixture.load()
+    xs = [(torch.from_numpy(h).to(DEV), torch.from_numpy(s).to(DEV)) for h, s in cp_fixture.numpy_inputs(cfg)]
+    before = fused_layer.cp_frame.launches
+    got, passes = jacobi_frames(params, cfg, xs)
+    batch = cp.predict_acoustic_codes_batch(params, cfg, torch.cat([h for h, _ in xs]), torch.cat([s for _, s in xs]))
+    launched = fused_layer.cp_frame.launches - before
+    phase("jacobi", f"seeded 1.7B f32 code predictor, decode_mode jacobi, {len(xs)} frames: codes equal to the JAX "
+          f"package's (fixture {cp_fixture.FIXTURE.name}) {got.tolist() == fixture['codes']}, passes per frame "
+          f"{passes}; as one batch of {len(xs)}: equal {batch.tolist() == fixture['codes']}; kernel 1 launched "
+          f"{launched} times")
+    check(got.tolist() == fixture["codes"], f"Jacobi f32 differs from the JAX package's codes: {got.tolist()}")
+    check(batch.tolist() == fixture["codes"], f"batched Jacobi f32 differs from the JAX codes: {batch.tolist()}")
+    check(launched == 0, f"kernel 1 launched {launched} times under decode_mode jacobi")
+    return {"passes": passes, "batch_witness": batch_rows_witness(params, cfg, torch.float32, "seeded 1.7B f32")}
+
+
+def jacobi_code_predictors() -> dict:
+    """Jacobi against the sequential route (kernel 1) on 32 random frames, at
+    1.7B in bf16 and int8 and at 0.6B in bf16: phase 3's bf16 bars, the same
+    bits twice (the first ``JACOBI_REPEATED_FRAMES``), the passes per frame, one pass's time and the break-even pass
+    count (kernel 1's frame time over one pass's, both measured here)."""
+    out = {}
+    for label, variant, form in (("1.7B bf16", "1.7B", "bf16"), ("1.7B int8", "1.7B", "int8"),
+                                 ("0.6B bf16", "0.6B", "bf16")):
+        cfg = config_for_variant(variant, "custom_voice").code_predictor
+        params = cp_params(cfg, torch.bfloat16, seed=2)
+        if form == "int8":
+            params = quant.quantize_code_predictor_params(params)
+        gen = torch.Generator(device=DEV).manual_seed(1)
+        e = cfg.embed_dim
+        xs = [(torch.randn((1, 1, e), generator=gen, device=DEV).to(torch.bfloat16),
+               (torch.randn((1, 1, e), generator=gen, device=DEV) * 0.02).to(torch.bfloat16))
+              for _ in range(CP_FRAMES)]
+        h0, s0 = xs[0]
+        pack = fused_layer.CpFramePack(params, cfg, torch.bfloat16, DEV)
+        frame = torch.stack([fused_layer.cp_frame(params, cfg, h, s, pack) for h, s in xs])
+        k1 = kt.time_frame(fused_layer, params, cfg, h0, s0)
+        jcfg = jacobi_cfg(cfg)
+        launches = fused_layer.cp_frame.launches
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        got, passes = jacobi_frames(params, jcfg, xs)
+        end.record()
+        torch.cuda.synchronize()
+        frame_ms = start.elapsed_time(end) / CP_FRAMES
+        again, _ = jacobi_frames(params, jcfg, xs[:JACOBI_REPEATED_FRAMES])
+        check(fused_layer.cp_frame.launches == launches, f"{label}: kernel 1 launched under decode_mode jacobi")
+        r = {"equal": (got == frame).float().mean().item(), "first_equal": int((got[:, 0] == frame[:, 0]).sum()),
+             "same_bits": torch.equal(got[:JACOBI_REPEATED_FRAMES], again), "passes_mean": float(np.mean(passes)),
+             "passes_max": int(max(passes)), "jacobi_ms_per_frame": frame_ms,
+             "kernel1_ms": k1["ms"], "kernel1_device_ms": k1["device_ms"],
+             **jacobi_pass_times(params, jcfg, h0, s0)}
+        r["break_even"] = k1["ms"] / r["pass_ms"]
+        r["break_even_device"] = k1["device_ms"] / r["pass_device_ms"]
+        phase("jacobi", f"{label} code predictor, {CP_FRAMES} frames: Jacobi against kernel 1 share of codes equal "
+              f"{r['equal']:.4f}, first codes equal {r['first_equal']}/{CP_FRAMES}, the first "
+              f"{JACOBI_REPEATED_FRAMES} frames the same bits twice {r['same_bits']}; "
+              f"passes per frame mean {r['passes_mean']:.2f}, max {r['passes_max']}; one pass {r['pass_ms']:.4f} ms "
+              f"per call (host included), device span {r['pass_device_ms']:.4f} ms; Jacobi {frame_ms:.4f} ms/frame "
+              f"against kernel 1 {k1['ms']:.4f} ms/frame per call, device span {k1['device_ms']:.4f}; break-even "
+              f"passes {r['break_even']:.3f} per call, {r['break_even_device']:.3f} by device span")
+        check(r["same_bits"], f"{label} Jacobi: two runs of the same frames differ")
+        check_bf16_bars(r, f"{label} Jacobi against kernel 1")
+        if label == "1.7B bf16":
+            r["batch_witness"] = batch_rows_witness(params, jcfg, torch.bfloat16, label)
+        out[label] = r
+        del params, pack
+        torch.cuda.empty_cache()
+    return out
+
+
+def jacobi_phase() -> dict:
+    """Phase ``jacobi`` before the main path: the f32 fixture, the code
+    predictors at 1.7B and 0.6B, kernel 4 at the no-cache stack's shapes
+    (m = 16 a frame, 128 for B = 8), and the talker's tiered decode
+    attention and MRoPE streams (``decode_tiers``)."""
+    t0 = time.perf_counter()
+    out = {"fixture": jacobi_fixture(), "code_predictors": jacobi_code_predictors(),
+           "kernel4": kernel4_prompt_rows([16, 128], CP_PROJ_SHAPES, "jacobi", "the Jacobi stack's")}
+    out["tiers"] = decode_tiers()
+    phase("jacobi", f"phase wall time {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def jacobi_utterance(model: Qwen3TTS, label: str, int8: bool) -> dict:
+    """A staged ``synthesize_with_timing`` of ``CP_FRAMES`` frames on
+    ``model``'s trees with ``decode_mode="jacobi"`` beside ``model`` itself
+    (sequential), with every launch count set to 0 just before each (no
+    warm run: ``run_main_path`` warmed ``model``, phase ``jacobi`` the
+    Jacobi shapes): under Jacobi kernel 1 never launches, kernel 3 once a
+    frame, kernel 2 9 times, and on int8 kernel 4 at 16 rows 4 times a code
+    predictor layer and pass. In bf16 also ``jacobi_batch``."""
+    mj = jacobi_model(model)
+    opts = main_options(CP_FRAMES)
+    layers = model.config.code_predictor.num_hidden_layers
+    out = {}
+    for name, m in (("sequential", model), ("jacobi", mj)):
+        torch.cuda.synchronize()
+        for k in COUNTERS.values():
+            k.launches = 0
+        passes0 = cp.predict_acoustic_codes_jacobi.iterations
+        with kernel4_launches() as (rows, _):
+            t0 = time.perf_counter()
+            audio, timing = m.synthesize_with_timing(TEXT, "ryan", "english", opts)
+            wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in COUNTERS.items()}
+        passes = cp.predict_acoustic_codes_jacobi.iterations - passes0
+        r = out[name] = {"ms_per_frame": timing.generation_ms / timing.generation_frames,
+                         "rtf": wall / (len(audio.samples) / OUTPUT_SAMPLE_RATE), "wall_ms": wall * 1e3,
+                         "passes_per_frame": passes / CP_FRAMES, "launches": launches,
+                         "kernel4_rows": dict(sorted(rows.items()))}
+        phase("jacobi", f"{label} {name} synthesize_with_timing, {timing.generation_frames} frames: "
+              f"{r['ms_per_frame']:.3f} ms/frame, wall {r['wall_ms']:.1f} ms, RTF {r['rtf']:.4f}"
+              + (f", Jacobi passes per frame {r['passes_per_frame']:.2f}" if name == "jacobi" else "")
+              + f"; launches {launches}" + (f", kernel 4 by rows {r['kernel4_rows']}" if int8 else ""))
+        check(timing.generation_frames == CP_FRAMES and bool(np.isfinite(audio.samples).all()),
+              f"{label} {name}: {timing.generation_frames} frames, finite audio {np.isfinite(audio.samples).all()}")
+        check(launches["talker_step"] == CP_FRAMES and launches["residual_unit"] == 9,
+              f"{label} {name}: kernel 3 {launches['talker_step']} (want {CP_FRAMES}), kernel 2 "
+              f"{launches['residual_unit']} (want 9)")
+        if name == "jacobi":
+            check(launches["cp_frame"] == 0 and passes >= 2 * CP_FRAMES,
+                  f"{label} Jacobi: kernel 1 launched {launches['cp_frame']} times, {passes} passes")
+            check(not int8 or r["kernel4_rows"].get(16) == 4 * layers * passes,
+                  f"{label} Jacobi: kernel 4 at 16 rows {r['kernel4_rows'].get(16)}, want {4 * layers * passes}")
+        else:
+            check(launches["cp_frame"] == CP_FRAMES, f"{label}: kernel 1 launched {launches['cp_frame']} times")
+    if not int8:
+        out["batch"] = jacobi_batch(model, mj, label)
+    return out
+
+
+def jacobi_batch(model: Qwen3TTS, mj: Qwen3TTS, label: str) -> dict:
+    """``synthesize_batch``'s loop at B = 8 (``st.BATCH_TEXTS``, stream i seed
+    42 + i, ``JACOBI_BATCH_FRAMES`` frames forced) with Jacobi beside the
+    sequential batch: aggregate frames/s of the loop; then each Jacobi
+    stream against its B = 1 run through the same loop (share of codes
+    equal, first differing (frame, code)): a report, not a gate. Phase
+    ``jacobi``'s ``batch_rows_witness`` holds the batched codes equal to the
+    frames alone in f32 and shows, in bf16, whether a pass's 128 rows round
+    otherwise than 16: a sampled stream departs from its first differing code."""
+    opts = SynthesisOptions(max_length=JACOBI_BATCH_FRAMES, min_new_tokens=JACOBI_BATCH_FRAMES, seed=42,
+                            temperature=0.9)
+    texts, seeds = list(st.BATCH_TEXTS), [42 + i for i in range(len(st.BATCH_TEXTS))]
+    b = len(texts)
+    out, frames = {}, {}
+    for name, m in (("sequential", model), ("jacobi", mj)):
+        group = m._prepare_batch_group("basic", texts, ["ryan"] * b, ["english"] * b, [None] * b, opts, seeds)
+        passes0 = cp.predict_acoustic_codes_jacobi.iterations
+        launches0 = fused_layer.cp_frame.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got, counts = m._generate_batch_group(group)
+        loop_s = time.perf_counter() - t0
+        frames[name] = [f[:n] for f, n in zip(got, counts)]
+        out[name] = {"frames_per_s": float(counts.sum()) / loop_s, "ms_per_frame": loop_s * 1e3 / int(counts.max()),
+                     "passes_per_frame": (cp.predict_acoustic_codes_jacobi.iterations - passes0) / int(counts.max())}
+        check(fused_layer.cp_frame.launches == launches0, f"{label} B={b} {name}: kernel 1 launched in the batch")
+    shares, firsts = [], []
+    for i in range(b):
+        solo = batch_frames(mj, texts[i:i + 1], opts, seeds[i:i + 1])[0]
+        mine = frames["jacobi"][i]
+        check(solo.shape == mine.shape, f"{label} Jacobi B={b}: stream {i} frame counts differ from its B=1 run")
+        differ = (solo != mine).reshape(-1)
+        shares.append(float(1.0 - differ.mean()))
+        firsts.append(divmod(int(np.argmax(differ)), solo.shape[1]) if differ.any() else None)
+    out["share_equal_to_b1"], out["first_divergence"] = float(np.mean(shares)), firsts
+    phase("jacobi", f"{label} synthesize_batch loop B={b}, {JACOBI_BATCH_FRAMES} frames: Jacobi "
+          f"{out['jacobi']['frames_per_s']:.1f} aggregate frames/s ({out['jacobi']['ms_per_frame']:.2f} ms/frame, "
+          f"{out['jacobi']['passes_per_frame']:.2f} passes per frame) against the sequential batch "
+          f"{out['sequential']['frames_per_s']:.1f} ({out['sequential']['ms_per_frame']:.2f} ms/frame); each Jacobi "
+          f"stream against its B=1 run through the same loop: share of codes equal {out['share_equal_to_b1']:.4f} "
+          f"(per stream {[round(x, 4) for x in shares]}), first differing (frame, code) {firsts}; not a gate")
+    return out
+
+
+# A pos in each window of a 2624-row cache (256, 512, 1024, 2048, 2624).
+TIER_POSITIONS = (3, 100, 255, 256, 400, 511, 512, 800, 1023, 1024, 1500, 2047, 2048, 2200, 2500, 2623)
+
+
+def decode_tiers() -> dict:
+    """The unfused 1.7B talker's ``talker.decode_step`` (the layer path) on a
+    2624-row cache, ``decode_tiering`` on against off, at ``TIER_POSITIONS``:
+    f32 codec-head argmax equal 16 of 16, hidden within F32_STEP_TOL; bf16
+    phase 5's bars (argmax, HIDDEN_TOL); a step's and one layer's attention's
+    device span per window. Then three equal MRoPE streams through the stack
+    must give the bits of plain positions."""
+    base = config_for_variant("1.7B", "custom_voice").talker
+    rows = fused_layer.TALKER_STREAM_MAX_SEQ
+    tiers = nn.decode_attention_tiers(rows)
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    out = {}
+    for form, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        unfused = W.init_talker_params(gen, base, dtype)
+        stack = base.layer_stack()
+        shape = (stack.num_layers, 1, rows, stack.num_kv_heads, stack.head_dim)
+        ck0 = torch.randn(shape, generator=gen, device=DEV).to(dtype)
+        cv0 = torch.randn(shape, generator=gen, device=DEV).to(dtype)
+        on, off = replace(base, decode_tiering=True), replace(base, decode_tiering=False)
+        argmax, h_err, times = 0, 0.0, {}
+        for pos in TIER_POSITIONS:
+            x = torch.randn((1, 1, stack.hidden_size), generator=gen, device=DEV).to(dtype)
+            h_on, l_on = talker.decode_step(unfused, on, x, pos, nn.KVCache(ck0.clone(), cv0.clone()))
+            h_off, l_off = talker.decode_step(unfused, off, x, pos, nn.KVCache(ck0.clone(), cv0.clone()))
+            argmax += int(torch.argmax(l_on)) == int(torch.argmax(l_off))
+            h_err = max(h_err, rel_err(h_on, h_off))
+            window = next(t for t in tiers if pos + 1 <= t)
+            if window not in times:
+                times[window] = tier_times(unfused, on, off, x, pos, nn.KVCache(ck0.clone(), cv0.clone()))
+        bar_argmax, bar_h = (len(TIER_POSITIONS), F32_STEP_TOL) if form == "f32" else (TALKER_MIN_ARGMAX_EQUAL,
+                                                                                       HIDDEN_TOL)
+        phase("tiers", f"1.7B {form} talker, layer path, {rows}-row cache, {len(TIER_POSITIONS)} steps: tiered "
+              f"against dense codec-head argmax equal {argmax}/{len(TIER_POSITIONS)} (bar {bar_argmax}), hidden "
+              f"max|err|/max {h_err:.4e} (bar {bar_h}); by window, tiered / dense: a step's device span (a CUDA "
+              f"graph of {TIER_GRAPH_STEPS} steps), one layer's attention device span (a CUDA graph), ms: "
+              + ", ".join(f"{w} (pos {t['pos']}) {t['on_ms']:.3f} / {t['off_ms']:.3f}, {t['attn_on_ms']:.4f} / "
+                          f"{t['attn_off_ms']:.4f}" for w, t in times.items()))
+        check(argmax >= bar_argmax, f"tiered decode attention {form}: argmax equal {argmax}/{len(TIER_POSITIONS)}")
+        check(h_err <= bar_h, f"tiered decode attention {form}: hidden error {h_err:.4e} > {bar_h}")
+        out[form] = {"argmax_equal": argmax, "hidden_rel_err": h_err, "ms_by_window": times}
+        if form == "bf16":
+            out["mrope_equal_streams_same_bits"] = mrope_on_card(unfused, stack, gen)
+        del unfused, ck0, cv0
+        torch.cuda.empty_cache()
+    return out
+
+
+TIER_GRAPH_STEPS = 5
+
+
+def tier_times(unfused: dict, on: TalkerConfig, off: TalkerConfig, x: torch.Tensor, pos: int,
+               cache: nn.KVCache) -> dict:
+    """One decode step at ``pos`` tiered and dense, each by its device span
+    (``TIER_GRAPH_STEPS`` steps of the layer path captured in a CUDA graph:
+    the eager step's host time, some 20-60 ms, would hide a difference of
+    under a millisecond); and one layer's attention alone
+    (``nn.tiered_decode_attention`` against ``nn.gqa_attention`` on the
+    cache's first layer), device span."""
+    stack = on.layer_stack()
+    q = torch.randn((1, 1, stack.num_heads, stack.head_dim), device=DEV).to(x.dtype)
+    ck, cv = cache.k[0], cache.v[0]
+    mask = (torch.arange(cache.max_seq, device=DEV) <= pos)[None, None, None, None]
+    scale = 1.0 / stack.head_dim**0.5
+    return {"pos": pos,
+            "on_ms": kt.graph_ms([lambda: talker.decode_step(unfused, on, x, pos, cache)], TIER_GRAPH_STEPS),
+            "off_ms": kt.graph_ms([lambda: talker.decode_step(unfused, off, x, pos, cache)], TIER_GRAPH_STEPS),
+            "attn_on_ms": kt.graph_ms([lambda: nn.tiered_decode_attention(q, ck, cv, mask, scale, pos)],
+                                      kt.GRAPH_CALLS),
+            "attn_off_ms": kt.graph_ms([lambda: nn.gqa_attention(q, ck, cv, mask, scale)], kt.GRAPH_CALLS)}
+
+
+def mrope_on_card(unfused: dict, stack: nn.LayerStackConfig, gen: torch.Generator) -> bool:
+    """A 10-row prefill of the 1.7B talker's stack (its MRoPE section) with
+    three equal [3, S] streams against plain positions: the same bits."""
+    x = torch.randn((1, 10, stack.hidden_size), generator=gen, device=DEV).to(unfused["norm"].dtype)
+    pos = torch.arange(10, device=DEV)
+
+    def run(**kw):
+        cache = nn.init_kv_cache(stack, 1, 10, x.dtype, DEV)
+        return nn.run_layer_stack(unfused["layers"], x, stack, cache, write_pos=0, self_attn_prefill=True, **kw)
+
+    same = same_bits(run(positions=pos), run(positions=None, positions_thw=torch.stack([pos, pos, pos])))
+    phase("tiers", f"MRoPE, 1.7B bf16 talker stack (section {stack.mrope_section}), 10-row prefill: three equal "
+          f"streams give the bits of plain positions {same}")
+    check(same, "MRoPE with three equal streams differs from plain positions on the card")
+    return same
+
+
 class BenchTokenizer:
     """Fixed 13-token prompt (bench.py's short-corpus length class)."""
 
@@ -2220,18 +2614,20 @@ def prefix_pieces_timing(model: Qwen3TTS) -> dict:
     return out
 
 
-def kernel4_prompt_rows(ms: list) -> list:
+def kernel4_prompt_rows(ms: list, shapes=TALKER_PROJ_SHAPES, name: str = "kernel4-prompt",
+                        whose: str = "the talker's") -> list:
     """Kernel 4 at rows ``ms`` (the clone and design prefills' prompts), at
-    the 1.7B talker's four projection shapes, printed as phase
-    ``kernel4-prompt``: against its plain version
+    ``shapes`` (the 1.7B talker's four projection shapes), printed as phase
+    ``name``: against its plain version
     (one bf16 ulp of the output's scale), timed by ``kt.time_shape`` beside
-    ``torch.matmul`` on the dequantized weight, with the bound."""
+    ``torch.matmul`` on the dequantized weight and the plain version, with
+    the bound."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(12)
     sms = torch.cuda.get_device_properties(DEV).multi_processor_count
-    shapes = []
+    out = []
     for m in ms:
-        for k, n in ((2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048)):
+        for k, n in shapes:
             x = torch.randn((m, k), generator=gen, device=DEV).to(torch.bfloat16)
             w = quant.quantize_linear(torch.randn((k, n), generator=gen, device=DEV) * 0.02)
             got = quant.int8_matmul(x, w["q8"], w["scale"])
@@ -2239,16 +2635,18 @@ def kernel4_prompt_rows(ms: list) -> list:
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             tol = want.float().abs().max().item() * 2.0**-7
-            times = kt.time_shape(quant, x, w)
+            times = {**kt.time_shape(quant, x, w),
+                     "plain_ms": time_ms(lambda: quant.int8_matmul_plain(x, w["q8"], w["scale"]), iters=20)}
             b = bound(nbytes(x, w) + m * n * x.element_size(), 2 * m * k * n)
             plan = quant.int8_matmul_plan(m, k, n, sms)
-            phase("kernel4-prompt", f"m={m} K={k} N={n} (tier {plan.tier}, {plan.splits} K splits): max|err| "
+            phase(name, f"kernel 4 at {whose} m={m} K={k} N={n} (tier {plan.tier}, {plan.splits} K splits): max|err| "
                   f"{err:.4e} (bar {tol:.4e}); device span: kernel {times['device_ms']:.4f} ms, torch.matmul on the "
                   f"dequantized weight {times['library_device_ms']:.4f} ms; per call: kernel {times['ms']:.4f}, "
-                  f"library {times['library_ms']:.4f}; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+                  f"library {times['library_ms']:.4f}, plain {times['plain_ms']:.4f}; bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']})")
             check(err <= tol, f"kernel 4 m={m} K={k} N={n}: max|err| {err:.4e} > {tol:.4e}")
-            shapes.append({"m": m, "k": k, "n": n, "tier": plan.tier, "max_abs_err": err, **times, **b})
-    return shapes
+            out.append({"m": m, "k": k, "n": n, "tier": plan.tier, "max_abs_err": err, **times, **b})
+    return out
 
 
 def layer_path_past_gate(model: Qwen3TTS) -> None:
@@ -3116,6 +3514,7 @@ def main_path(encoders: tuple) -> dict:
     bf16, staged = run_main_path(model, "1.7B bf16", ("cp_frame", "talker_step", "residual_unit"),
                                  absent=("int8_matmul", "fused_attention_step", "fused_mlp_step",
                                          "streamed_decode_step"))
+    jacobi_bf16 = jacobi_utterance(model, "1.7B bf16", int8=False)
     ref = staged_reference(model, staged)
     stream_bf16 = stream_session(model, "1.7B bf16", staged, *ref, ("cp_frame", "talker_step"))
     voice_bf16 = voice_session(model, "1.7B bf16", staged, *ref[1:], ("cp_frame", "talker_step"))
@@ -3137,6 +3536,7 @@ def main_path(encoders: tuple) -> dict:
     phase("e2e", f"1.7B int8 model quantized from the same trees in {time.perf_counter() - t0:.1f} s")
     int8, staged = run_main_path(m8, "1.7B int8", ("cp_frame", "talker_step", "int8_matmul", "residual_unit"),
                                  absent=("fused_attention_step", "fused_mlp_step", "streamed_decode_step"))
+    jacobi_int8 = jacobi_utterance(m8, "1.7B int8", int8=True)
     ref = staged_reference(m8, staged)
     stream_int8 = stream_session(m8, "1.7B int8", staged, *ref, ("cp_frame", "talker_step"))
     voice_int8 = voice_session(m8, "1.7B int8", staged, *ref[1:], ("cp_frame", "talker_step"))
@@ -3148,6 +3548,7 @@ def main_path(encoders: tuple) -> dict:
     _row("int8_matmul")["prompt_shapes"] = kernel4_prompt_rows(prompt_rows)
     _row("int8_matmul")["batch_shapes"] = kernel4_batch_shapes(batch_int8["cells"][BATCH].pop("kernel4_inputs"))
     _row("int8_matmul")["batch_launches_by_rows"] = batch_int8["cells"][BATCH]["kernel4_rows"]
+    _row("int8_matmul")["jacobi_launches_by_rows"] = jacobi_int8["jacobi"]["kernel4_rows"]
     _row("residual_unit")["batch"] = {**batch_bf16["kernel2"],
                                       "launches": batch_bf16["cells"][BATCH]["launches"]["residual_unit"]}
     runs = {"bf16": bf16, "int8": int8, "stream_bf16": stream_bf16["launches"], "stream_int8": stream_int8["launches"],
@@ -3156,6 +3557,7 @@ def main_path(encoders: tuple) -> dict:
                                                                                    ("int8", batch_int8))
                for b in st.BATCH_SIZES},
             "stream_batch8_bf16": batch_bf16["stream"]["launches"],
+            "jacobi_bf16": jacobi_bf16["jacobi"]["launches"], "jacobi_int8": jacobi_int8["jacobi"]["launches"],
             "server_solo_bf16": served["solo"]["launches"], "server_batch8_bf16": served["batch"]["launches"],
             "server_streams8_bf16": served["streams"]["launches"],
             **{f"clone_{dtype} {kind}": run["launches"] for dtype, clone in (("bf16", clone_bf16), ("int8", clone_int8))
@@ -3401,6 +3803,7 @@ def main() -> None:
     kernel7()
     kernel7_wide_head()
     per_step_path()
+    _row("int8_matmul")["jacobi_shapes"] = jacobi_phase()["kernel4"]
     small_model_agrees()
     for case in SMALL_INT8:
         small_int8_agrees(*case)

@@ -2,7 +2,8 @@
 
 PyTorch port of ``qwen3_tts_tpu/generation/core.py``. Per frame:
   1. embed the current semantic token,
-  2. code predictor: 15 acoustic codes (argmax, on the card one kernel call),
+  2. code predictor: 15 acoustic codes (argmax; the route ``cp.cp_route``
+     names: on the card one kernel call, or Jacobi iterations),
   3. store frame [semantic, acoustic x15],
   4. residual-VQ fuse: semantic embed + sum(acoustic embeds) + trailing text,
   5. talker decode step -> logits,
@@ -26,7 +27,7 @@ frame count and frame limit, re-entered the same way by a
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
@@ -229,7 +230,11 @@ def generate_frames_batch(
     its token, penalty mask, frames, frame count and last hidden state; its
     cache position goes on advancing (the rows it writes lie past its live
     frontier and are never read). ``done`` is read on the host once a frame.
+    Tiered decode attention is off here, as in the JAX package's batched
+    programs (its window is picked per stream position, on the host at
+    batch 1).
     """
+    tcfg = replace(tcfg, decode_tiering=False)
     b = state.batch
     dev = state.frames.device
     max_new = state.frames.shape[1]

@@ -39,10 +39,11 @@ class TalkerConfig:
     max_position_embeddings: int = 32768
     codec_vocab_size: int = 3072
     # MRoPE section [24, 20, 20]: for TTS all three position streams are
-    # equal, so it reduces to standard RoPE (the only form the port runs).
+    # equal, so it reduces to standard RoPE; [3, S] position streams take
+    # interleaved MRoPE (``nn.run_layer_stack(..., positions_thw=)``).
     mrope_section: tuple[int, int, int] | None = (24, 20, 20)
-    # Kept so configs equal the JAX package's; the port has no tiered
-    # decode attention (it is off by default there too).
+    # Tiered decode attention on the batch-1 layer path (see
+    # LayerStackConfig.decode_tiering; off by default, as in the JAX package).
     decode_tiering: bool = False
 
     def layer_stack(self) -> LayerStackConfig:
@@ -55,6 +56,8 @@ class TalkerConfig:
             head_dim=self.head_dim,
             rms_norm_eps=self.rms_norm_eps,
             rope_theta=self.rope_theta,
+            mrope_section=tuple(self.mrope_section) if self.mrope_section else None,
+            decode_tiering=self.decode_tiering,
         )
 
 

@@ -14,9 +14,8 @@ PyTorch port of ``qwen3_tts_tpu/ops/nn.py``, in the JAX package's layout:
   the compute dtype at the same points as the JAX package (a bf16 matmul
   returns bf16, elementwise ops round per op).
 
-Left out: ``tiered_decode_attention``, ``decode_attention_flash`` and the
-MRoPE tables (all off by default in the JAX package; for TTS MRoPE equals
-standard RoPE).
+Left out: ``decode_attention_flash`` (nothing in the JAX package calls it,
+and it measured slower than dense attention there).
 """
 
 from __future__ import annotations
@@ -42,6 +41,15 @@ class LayerStackConfig:
     head_dim: int
     rms_norm_eps: float = 1e-6
     rope_theta: float = 1e6
+    # When set, ``run_layer_stack(..., positions_thw=)`` takes [3, S]
+    # position streams through interleaved MRoPE (``mrope_cos_sin``); plain
+    # positions always use standard RoPE (the two coincide for TTS).
+    mrope_section: tuple[int, int, int] | None = None
+    # Tiered decode attention (``tiered_decode_attention``) on the batch-1
+    # layer path; off by default, as in the JAX package, which measured it
+    # slower on its TPU. The whole-step kernels and the batched loops never
+    # take it.
+    decode_tiering: bool = False
 
 
 class KVCache(NamedTuple):
@@ -83,7 +91,9 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
 def rope_inv_freq(head_dim: int, theta: float, device=None) -> torch.Tensor:
     """[head_dim/2] inverse frequencies: theta^(-2i/D), float32."""
     exponents = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
-    return 1.0 / (torch.tensor(theta, dtype=torch.float32, device=device) ** exponents)
+    # torch.full, not torch.tensor: no host-to-device copy (a CUDA graph can
+    # capture it), the same f32 value.
+    return 1.0 / (torch.full((), theta, dtype=torch.float32, device=device) ** exponents)
 
 
 def rope_cos_sin(
@@ -92,6 +102,26 @@ def rope_cos_sin(
     """cos/sin tables [..., head_dim/2] for float32 positions."""
     freqs = positions[..., None].float() * inv_freq
     return torch.cos(freqs), torch.sin(freqs)
+
+
+def mrope_cos_sin(
+    positions_thw: torch.Tensor, inv_freq: torch.Tensor, mrope_section: tuple[int, int, int]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Interleaved multimodal RoPE tables [S, head_dim/2] for temporal /
+    height / width position streams ``positions_thw`` [3, S].
+
+    The HF Qwen3-Omni interleaved layout: the temporal stream everywhere,
+    then the height stream at indices ``1::3`` below ``3*section[1]`` and the
+    width stream at ``2::3`` below ``3*section[2]``. Equal streams give
+    ``rope_cos_sin``'s tables bit for bit.
+    """
+    freqs = positions_thw[:, :, None].float() * inv_freq  # [3, S, D/2]
+    idx = torch.arange(inv_freq.shape[0], device=inv_freq.device)
+    h_mask = (idx % 3 == 1) & (idx < 3 * mrope_section[1])
+    w_mask = (idx % 3 == 2) & (idx < 3 * mrope_section[2])
+    out = torch.where(h_mask, freqs[1], freqs[0])
+    out = torch.where(w_mask, freqs[2], out)
+    return torch.cos(out), torch.sin(out)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -150,6 +180,56 @@ def gqa_attention(
     return out.reshape(b, sq, h, d)
 
 
+def decode_attention_tiers(max_seq: int, base: int = 256) -> tuple[int, ...]:
+    """Static cache-window tiers (256, 512, 1024, ..., max_seq)."""
+    tiers: list[int] = []
+    w = base
+    while w < max_seq:
+        tiers.append(w)
+        w *= 2
+    tiers.append(max_seq)
+    return tuple(tiers)
+
+
+def tiered_decode_attention(
+    q: torch.Tensor,
+    cache_k: torch.Tensor,
+    cache_v: torch.Tensor,
+    mask: torch.Tensor,
+    scale: float,
+    pos: int,
+) -> torch.Tensor:
+    """Decode attention over the smallest ``decode_attention_tiers`` window
+    that covers row ``pos`` (the row just written, the highest live one).
+
+    q: [B, 1, H, D]; cache_k/v: [B, max_seq, KV, D]; mask broadcastable to
+    [B, KV, G, 1, max_seq]. ``pos`` is a host integer, so the window is
+    picked on the host (the JAX package's ``lax.switch`` picks it on the
+    device). Exact: every window covers all unmasked rows.
+    """
+    w = next(t for t in decode_attention_tiers(cache_k.shape[1]) if pos + 1 <= t)
+    return gqa_attention(q, cache_k[:, :w], cache_v[:, :w], mask[..., :w], scale)
+
+
+def _qkv(layer_params: dict, x: torch.Tensor, cfg: LayerStackConfig, cos, sin, matmul) -> tuple:
+    """q, k, v [B, S, heads, D] of normed x [B, S, hidden]: the projection
+    (fused ``qkv_proj`` or separate), per-head QK-norm, RoPE on q and k."""
+    b, s, _ = x.shape
+    q_dim = cfg.num_heads * cfg.head_dim
+    kv_dim = cfg.num_kv_heads * cfg.head_dim
+    if "qkv_proj" in layer_params:
+        qkv = matmul(x, layer_params["qkv_proj"])
+        q, k, v = qkv[..., :q_dim], qkv[..., q_dim : q_dim + kv_dim], qkv[..., q_dim + kv_dim :]
+    else:
+        q = matmul(x, layer_params["q_proj"])
+        k = matmul(x, layer_params["k_proj"])
+        v = matmul(x, layer_params["v_proj"])
+    q = rms_norm(q.reshape(b, s, cfg.num_heads, cfg.head_dim), layer_params["q_norm"], cfg.rms_norm_eps)
+    k = rms_norm(k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim), layer_params["k_norm"], cfg.rms_norm_eps)
+    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
 def _attention_block(
     layer_params: dict,
     x: torch.Tensor,
@@ -170,26 +250,13 @@ def _attention_block(
     ``write_pos`` LongTensor [B] (S = 1), stream b's row at ``write_pos[b]``.
     ``self_only=True`` (fresh-cache prefill): attention reads only the S new
     rows (S x S), and ``mask`` must be [..., Sq, S].
+    A decode step (S = 1) with ``cfg.decode_tiering`` on a cache of more than
+    512 rows takes ``tiered_decode_attention`` (the JAX package's condition);
+    it needs ``write_pos`` as a host integer, so a LongTensor raises there
+    (the batched loops switch tiering off).
     """
     b, s, _ = x.shape
-    q_dim = cfg.num_heads * cfg.head_dim
-    kv_dim = cfg.num_kv_heads * cfg.head_dim
-    if "qkv_proj" in layer_params:
-        qkv = matmul(x, layer_params["qkv_proj"])
-        q, k, v = qkv[..., :q_dim], qkv[..., q_dim : q_dim + kv_dim], qkv[..., q_dim + kv_dim :]
-    else:
-        q = matmul(x, layer_params["q_proj"])
-        k = matmul(x, layer_params["k_proj"])
-        v = matmul(x, layer_params["v_proj"])
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-
-    # Per-head RMSNorm on Q and K (Qwen3 QK-norm).
-    q = rms_norm(q, layer_params["q_norm"], cfg.rms_norm_eps)
-    k = rms_norm(k, layer_params["k_norm"], cfg.rms_norm_eps)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+    q, k, v = _qkv(layer_params, x, cfg, cos, sin, matmul)
 
     k = k.to(cache_k.dtype)
     v = v.to(cache_v.dtype)
@@ -204,9 +271,14 @@ def _attention_block(
     scale = 1.0 / (cfg.head_dim**0.5)
     if self_only:
         attn = gqa_attention(q, k, v, mask, scale)
+    elif s == 1 and cfg.decode_tiering and cache_k.shape[1] > 512 and mask is not None:
+        if isinstance(write_pos, torch.Tensor):
+            raise ValueError("tiered decode attention needs write_pos as a host integer (batch 1); "
+                             "the batched loops run with decode_tiering=False")
+        attn = tiered_decode_attention(q, cache_k, cache_v, mask, scale, write_pos)
     else:
         attn = gqa_attention(q, cache_k, cache_v, mask, scale)
-    return matmul(attn.reshape(b, s, q_dim), layer_params["o_proj"])
+    return matmul(attn.reshape(b, s, cfg.num_heads * cfg.head_dim), layer_params["o_proj"])
 
 
 def decoder_layer(
@@ -254,15 +326,42 @@ def layer_params_at(stacked_params: dict, i: int) -> dict:
     }
 
 
+def run_layer_stack_nocache(stacked_params: dict, x: torch.Tensor, cfg: LayerStackConfig) -> torch.Tensor:
+    """Causal self-attention over a short full sequence with no KV cache
+    (the code predictor's Jacobi iteration recomputes its whole 16-row frame).
+
+    x: [B, S, hidden] at positions 0..S-1, a ``tril`` mask; every projection
+    through ``quant.mm`` (on an int8 tree on the card, kernel 4 at B·S rows),
+    attention the plain ``gqa_attention`` over the S rows. It keeps its own
+    loop, as the JAX function does, rather than ``run_layer_stack(...,
+    self_attn_prefill=True)``, which computes the same attention but writes
+    every pass's K/V rows into a cache that a Jacobi pass has no use for.
+    """
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
+    cos, sin = rope_cos_sin(positions.float(), rope_inv_freq(cfg.head_dim, cfg.rope_theta, device=x.device))
+    mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=x.device))[None, None, None]
+    scale = 1.0 / (cfg.head_dim**0.5)
+    h = x
+    for i in range(cfg.num_layers):
+        layer = layer_params_at(stacked_params, i)
+        q, k, v = _qkv(layer, rms_norm(h, layer["input_ln"], cfg.rms_norm_eps), cfg, cos, sin, mm)
+        attn = gqa_attention(q, k, v, mask, scale)
+        h = h + mm(attn.reshape(h.shape[0], s, cfg.num_heads * cfg.head_dim), layer["o_proj"])
+        h = h + swiglu_layer(layer, rms_norm(h, layer["post_ln"], cfg.rms_norm_eps))
+    return h
+
+
 def run_layer_stack(
     stacked_params: dict,
     x: torch.Tensor,
     cfg: LayerStackConfig,
     cache: KVCache,
-    positions: torch.Tensor,
+    positions: torch.Tensor | None,
     write_pos: int | torch.Tensor,
     self_attn_prefill: bool = False,
     matmul=mm,
+    positions_thw: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Run all layers against the full pre-allocated cache (updated in place).
 
@@ -277,12 +376,26 @@ def run_layer_stack(
     stream's position, its row written at ``(b, write_pos[b])``, its mask
     [B, 1, 1, 1, Sk] its own.
 
+    ``positions_thw`` [3, S] (with ``positions`` None): temporal / height /
+    width streams through interleaved MRoPE (``mrope_cos_sin``, needs
+    ``cfg.mrope_section``); the temporal stream orders the causal mask.
+    The JAX package takes these as a 2-D ``positions``, which here means
+    per-stream positions.
+
     ``self_attn_prefill=True``: fresh-cache prefill (write_pos == 0, no
     earlier live rows); attention runs over the S new rows only.
     ``matmul``: as ``decoder_layer``'s.
     """
     inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, device=x.device)
-    cos, sin = rope_cos_sin(positions.float(), inv_freq)
+    if positions_thw is not None:
+        if positions is not None:
+            raise ValueError("run_layer_stack: give positions or positions_thw, not both")
+        if cfg.mrope_section is None:
+            raise ValueError("run_layer_stack: [3, S] position streams need cfg.mrope_section")
+        cos, sin = mrope_cos_sin(positions_thw, inv_freq, cfg.mrope_section)
+        positions = positions_thw[0]
+    else:
+        cos, sin = rope_cos_sin(positions.float(), inv_freq)
     if positions.ndim == 2:  # per-stream positions [B, 1]
         key_pos = torch.arange(cache.max_seq, device=x.device)
         mask = (key_pos <= positions[..., None])[:, None, None]  # [B, KV=1, G=1, 1, Sk]

@@ -179,7 +179,9 @@ class Qwen3TTS:
     talker its
     ``fused_layer.TalkerStepPack`` (each checked, packed and given its
     scratch once); every frame of this model uses them, on the stream of
-    the first.
+    the first. A code predictor built with ``decode_mode="jacobi"`` gets no
+    pack: every frame loop runs its Jacobi iterations (kernel 4 on an int8
+    tree), never kernel 1 or a per-step kernel.
 
     ``int8_activations=True`` (with ``quantize_int8`` only, else it raises):
     w8a8 in the batched programs (``synthesize_batch``,
@@ -228,11 +230,11 @@ class Qwen3TTS:
         self.compute_dtype = talker_params["norm"].dtype
         self.device = talker_params["norm"].device
         self.cp_frame_pack = self.cp_step_pack = None
-        route = cp.cp_route(cp_params, config.code_predictor) if on_card else None
-        if route == "frame":
+        route = cp.cp_route(cp_params, config.code_predictor)  # raises on an unknown decode_mode
+        if on_card and route == "frame":
             self.cp_frame_pack = fused_layer.CpFramePack(cp_params, config.code_predictor, self.compute_dtype,
                                                          self.device)
-        elif route in ("streamed_step", "layer_steps"):
+        elif on_card and route in ("streamed_step", "layer_steps"):
             step_pack = fused_layer.CpStepPack if route == "streamed_step" else fused_layer.FusedStepPack
             self.cp_step_pack = step_pack(cp_params["layers"], config.code_predictor.layer_stack(),
                                           self.compute_dtype, self.device)
@@ -1387,7 +1389,9 @@ class StreamingBatchSession:
     the vocoder's KV cache gets room for the longest reference and a chunk
     of headroom. ``options.streaming_lookahead`` is accepted and changes
     nothing: each chunk runs when it is asked for, as in the port's
-    ``StreamingSession``.
+    ``StreamingSession``. Its loop runs with ``decode_tiering=False``, as the
+    JAX package's batched session forces it (``core.generate_frames_batch``
+    switches it off for every batched loop).
     """
 
     def __init__(self, model: Qwen3TTS, group: BatchGroup, options: SynthesisOptions):

@@ -468,6 +468,57 @@ def test_cuda_int8_matmul_matches_plain(m, k, n, dtype):
     assert torch.equal(out, quant.int8_matmul_plain(x, w_odd["q8"], w_odd["scale"]))
 
 
+# The 1.7B code predictor's four projections (K, N): qkv, o, gate|up, down.
+CP_PROJ_SHAPES = [(1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,n", CP_PROJ_SHAPES)
+@pytest.mark.parametrize("b", [1, 8])
+def test_cuda_int8_matmul_at_jacobi_rows(b, k, n):
+    """Kernel 4 at the Jacobi no-cache stack's rows: a 16-row frame of B
+    streams [B, 16, K] folds into B·16 rows (16 and 128), one launch, within
+    one bf16 ulp of the output's scale of the plain form."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(b * 31 + k + n)
+    x = torch.randn((b, 16, k), generator=gen, device=dev).to(torch.bfloat16)
+    w = quant.quantize_linear(torch.randn((k, n), generator=gen, device=dev) * 0.05)
+    assert quant.int8_matmul_route(x, w["q8"]) == "kernel"
+    before = quant.int8_matmul.launches
+    got = quant.mm(x, w)
+    assert quant.int8_matmul.launches == before + 1 and got.shape == (b, 16, n)
+    want = quant.int8_matmul_plain(x, w["q8"], w["scale"])
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2.0**-7 * want.float().abs().max().item())
+
+
+@pytest.mark.gpu
+def test_cuda_jacobi_matches_cpu():
+    """Jacobi code prediction on the card against the same f32 tree on the
+    CPU: the same codes for single frames and for a batch of 3."""
+    from qwen3_tts_tpu_torch.models import code_predictor as cp
+
+    dev = _cuda()
+    cfg = replace(CP_CFG, decode_mode="jacobi")
+    params, _, _ = _cp_inputs(dev, torch.float32, seed=4, cfg=cfg)
+    host = _on_cpu(params)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    h = torch.randn((3, 1, 512), generator=gen, device=dev)
+    s = torch.randn((3, 1, 512), generator=gen, device=dev)
+    launches = fused_layer.cp_frame.launches
+    got = cp.predict_acoustic_codes_batch(params, cfg, h, s)
+    want = cp.predict_acoustic_codes_batch(host, cfg, h.cpu(), s.cpu())
+    assert torch.equal(got.cpu(), want)
+    for i in range(3):
+        assert torch.equal(cp.predict_acoustic_codes(params, cfg, h[i:i + 1], s[i:i + 1]).cpu(), want[i])
+    assert fused_layer.cp_frame.launches == launches
+
+
+def _on_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _on_cpu(v) for k, v in tree.items()}
+    return None if tree is None else tree.cpu()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dilation", [1, 3, 9])
 @pytest.mark.parametrize("c", [96, 200])
