@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one card: build, check, time, run.
 
 Usage (from the repository root, on a machine with an NVIDIA Hopper card and
-the CUDA toolkit):
+the CUDA toolkit; phase ``tp`` spreads its meshes over every card there is):
 
     python3 chip_smoke.py
 
@@ -266,7 +266,30 @@ Phases, each printing a line (any failure exits nonzero before the last):
      instructs differ in length, an ICL batch of 2 whose references differ,
      with the phase-4 encoders: each stream token-exact to its own B = 1
      run through the batched path, the least top-2 margins printed);
- 13. the script's wall time, a JSON line of the kernels (each with its
+ 13. multi-GPU serving (phase ``tp``), printing the card count, each mesh's
+     devices and the collective it takes (NCCL between distinct cards, a
+     local sum where the ranks share ``cuda:0``, as on a one-card machine):
+     (a) phase ``utterance``'s checkpoint through ``from_pretrained(dtype=
+     f32, mesh=make_mesh(devices, tp=4))``, greedy and PCG, token-exact to
+     ``testdata/utterance_1p7b.npz`` with audio within 1e-5 of max|audio|
+     (the talker on the tensor-parallel layer path, kernel 3 never); (c)
+     the same f32 model sharded at dp = 3 x tp = 2 (``shard``),
+     ``synthesize_batch`` of ``ckpt_fixture.BATCH_TEXTS`` (a stream a
+     replica) held to ``testdata/batch_1p7b.npz`` as phase ``batch``'s; (b)
+     the full-depth 1.7B int8 model at tp = 4 and 2, bf16 and f32, 32
+     staged frames with the counts set to 0 just before: kernels 5 and 6 28
+     x tp times a step each (``tp_decode_step``), kernel 3 never, kernel 1
+     once a frame; 16 tp steps at random (x, pos) near the top of a
+     2080-row cache, each kernel-5 / 6 call in them against its plain
+     version (STEP_TOL, gated in bf16), the bf16 step within HIDDEN_TOL /
+     ROW_TOL of the same route on the plain versions, the f32 step against
+     the unsharded kernel-3 step by that step's own spread under a 2^-22
+     change of the int8 scales (``tp_step_trials``); the frames' share of codes equal to the
+     unsharded model's and the first differing frame's top-2 margin
+     (reported); ms/frame beside the unsharded model's, the step's time by
+     host clock and by CUDA events, one all-reduce's time, peak memory per
+     device;
+ 14. the script's wall time, a JSON line of the kernels (each with its
      launches on its main path, its time, its plain version's, the card's
      bound for the same work and, where one PyTorch call computes the same
      function, that call's time), then the JSON result as the last line.
@@ -319,6 +342,7 @@ from qwen3_tts_tpu_torch.models.config import (  # noqa: E402
 )
 from qwen3_tts_tpu_torch.models.tokens import OUTPUT_SAMPLE_RATE, SAMPLES_PER_FRAME  # noqa: E402
 from qwen3_tts_tpu_torch.ops import fused_layer, nn, quant, sampling  # noqa: E402
+from qwen3_tts_tpu_torch.parallel import collectives, sharding  # noqa: E402
 from qwen3_tts_tpu_torch.models.speaker import SpeakerEncoder  # noqa: E402
 from qwen3_tts_tpu_torch.pipeline import (  # noqa: E402
     DECODE_BUCKET, Qwen3TTS, SynthesisOptions, VoiceClonePrompt, prefix_piece_sizes)
@@ -1351,14 +1375,14 @@ def _plain_streamed_step(layers, x, cfg, ck, cv, pos, cos_t, sin_t, pack=None):
     return fused_layer.streamed_decode_step_plain(layers, x, cfg, ck, cv, pos, cos_t, sin_t)
 
 
-def _plain_attention_step(*args, pack=None, layer_index=0):
+def _plain_attention_step(*args, residual=True, pack=None, layer_index=0):
     """Kernel 5's plain version with the kernel's signature (the pack unused)."""
-    return fused_layer.fused_attention_step_plain(*args)
+    return fused_layer.fused_attention_step_plain(*args, residual=residual)
 
 
-def _plain_mlp_step(*args, pack=None, layer_index=0):
+def _plain_mlp_step(*args, residual=True, pack=None, layer_index=0):
     """Kernel 6's plain version with the kernel's signature (the pack unused)."""
-    return fused_layer.fused_mlp_step_plain(*args)
+    return fused_layer.fused_mlp_step_plain(*args, residual=residual)
 
 
 STEP_WRAPPERS = (
@@ -3087,7 +3111,7 @@ def top2_margins(cpcfg: CodePredictorConfig):
         quant.mm, sampling.sample = routed_mm, routed_sample
 
 
-def batch_fixture(model: Qwen3TTS) -> None:
+def batch_fixture(model: Qwen3TTS, label: str = "batch") -> None:
     """The seeded 1.7B-width f32 model (phase ``utterance``'s) through
     ``synthesize_batch`` of ``ckpt_fixture.BATCH_TEXTS``, greedy and PCG,
     with every launch count set to 0 just before, read just after: every
@@ -3106,7 +3130,7 @@ def batch_fixture(model: Qwen3TTS) -> None:
         equal = [f.shape == w.shape and bool((f == w).all()) for f, w in zip(frames, want)]
         errs = [float(np.abs(a.samples - w).max() / np.abs(w).max()) if a.samples.shape == w.shape else math.inf
                 for a, w in zip(audio, want_audio)]
-        phase("batch", f"seeded 1.7B-width f32 checkpoint (2 talker layers), synthesize_batch of {len(texts)} texts, "
+        phase(label, f"seeded 1.7B-width f32 checkpoint (2 talker layers), synthesize_batch of {len(texts)} texts, "
               f"{kind}, {n} frames: token-exact to the JAX fixture per stream {equal}; max|audio - JAX| / max|audio| "
               f"per stream {', '.join(f'{e:.3e}' for e in errs)} (bar 1e-5); least top-2 margins of the fixture: "
               f"talker {float(fixture['talker_margin']):.3e}, code predictor {float(fixture['cp_margin']):.3e}; "
@@ -3741,18 +3765,365 @@ def ckpt_phase() -> None:
     phase("ckpt", f"phase wall time {time.perf_counter() - t_phase:.1f} s; the checkpoint directory deleted")
 
 
+# ---------------------------------------------------------------------------
+# Phase tp: multi-GPU serving (the (dp, tp) mesh, Qwen3TTS.shard)
+# ---------------------------------------------------------------------------
+
+TP_FRAMES = 32
+# The full-depth step trials' cache rows (phase 7's shard case: pos near the top).
+TP_ROWS = TP4["rows"]
+# The f32 int8 tp step against the unsharded kernel-3 step: int8 products
+# round their inputs to bf16 in f32 programs too, so partial sums in another
+# order flip an input's rounding here and there, and 28 layers compound the
+# flips (far past F32_STEP_TOL, which holds plain f32 weights). The bar is
+# this multiple of the unsharded step's own spread when every int8 scale
+# moves by 2^-22, read in the run on the same trials (as
+# STREAM_SPREAD_FACTOR reads the decode's), and at least F32_STEP_TOL.
+TP_F32_SPREAD_FACTOR = 2.0
+
+
+def tp_devices(dp: int, tp: int) -> list[torch.device]:
+    """The ranks' devices of a dp x tp mesh, in mesh order: with two cards or
+    more, every card (replica r's ranks the cards r * tp + t, wrapping
+    around), a tp group wider than the cards on cuda:0; with one card, every
+    rank on it (ranks sharing a device add locally)."""
+    n = torch.cuda.device_count()
+    if n < 2 or n < tp:
+        return [DEV] * (dp * tp)
+    return [torch.device("cuda", (r * tp + t) % n) for r in range(dp) for t in range(tp)]
+
+
+def _mesh(dp: int, tp: int) -> sharding.Mesh:
+    mesh = sharding.make_mesh(tp_devices(dp, tp), tp=tp, dp=dp)
+    phase("tp", f"torch.cuda.device_count() {torch.cuda.device_count()}; {mesh}; collectives "
+          f"{collectives.route(mesh.replica(0))}")
+    return mesh
+
+
+def _collective_counts() -> dict:
+    return {f"{op}.{route}": n for (op, route), n in sorted(collectives.counts.items())}
+
+
+def tp_utterance(d: str, fixture: dict) -> None:
+    """(a) Phase ``utterance``'s checkpoint loaded through
+    ``from_pretrained(dtype=f32, mesh=)`` at tp = 4: greedy and PCG frames
+    token-exact to the JAX fixture, audio within 1e-5 of max|audio|; the
+    talker on the tensor-parallel layer path (a plain tree has no tp
+    pack), kernel 1 once a frame, kernel 2 9 times, kernel 3 never."""
+    mesh = _mesh(1, 4)
+    t0 = time.perf_counter()
+    model = Qwen3TTS.from_pretrained(d, dtype=torch.float32, mesh=mesh)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    check(model.mesh is mesh and model.talker_step_pack is None and model.tp_step_packs is None
+          and model.cp_frame_pack is not None, "tp utterance: the sharded f32 model's packs")
+    n = ckpt_fixture.UTTERANCE_FRAMES
+    for kind, temperature in (("greedy", 0.0), ("pcg", 0.9)):
+        opts = SynthesisOptions(max_length=n, min_new_tokens=n, seed=42, temperature=temperature)
+        _reset_counts()
+        collectives.counts.clear()
+        frames = model._custom_voice_session(ckpt_fixture.UTTERANCE_TEXT, "ryan", "english", opts).run_to_completion()
+        audio = model.decode_codes(frames).samples
+        launches = _counts()
+        want, want_audio = fixture[f"frames_{kind}"], fixture[f"audio_{kind}"]
+        equal = frames.shape == want.shape and bool((frames == want).all())
+        share = float((frames == want).mean()) if frames.shape == want.shape else 0.0
+        scale = float(np.abs(want_audio).max())
+        err = float(np.abs(audio - want_audio).max()) if audio.shape == want_audio.shape else float("inf")
+        phase("tp", f"(a) utterance checkpoint from_pretrained(f32, mesh tp=4) in {t_load:.1f} s, {kind}, {n} frames: "
+              f"token-exact to the JAX fixture {equal} (share {share:.4f}); fixture margins: talker "
+              f"{float(fixture['talker_margin']):.3e}, code predictor {float(fixture['cp_margin']):.3e}; "
+              f"max|audio - JAX| {err / scale:.3e} of max|audio| (bar 1e-5); launches {launches}; collectives "
+              f"{_collective_counts()}")
+        check(equal, f"tp utterance {kind}: frames differ from the JAX fixture")
+        check(err <= 1e-5 * scale, f"tp utterance {kind}: audio {err / scale:.3e} of max|audio| from the JAX fixture")
+        check(launches["cp_frame"] == n and launches["talker_step"] == 0 and launches["residual_unit"] == 9
+              and launches["fused_attention_step"] == 0, f"tp utterance {kind}: launches {launches}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def tp_batch(model: Qwen3TTS) -> None:
+    """(c) The same f32 model (phase ``utterance``'s) sharded at dp = 3 x tp
+    = 2: ``synthesize_batch`` of ``ckpt_fixture.BATCH_TEXTS`` (one stream a
+    replica), greedy and PCG, held to the JAX fixture as phase ``batch``'s."""
+    model.shard(_mesh(3, 2))
+    group = model._prepare_batch_group("basic", list(ckpt_fixture.BATCH_TEXTS), ["ryan"] * 3, ["english"] * 3,
+                                       [None] * 3, SynthesisOptions(max_length=4, seed=42), BATCH_FIXTURE_SEEDS)
+    check([g.replica for g in group.shards] == [0, 1, 2], f"tp batch: streams on replicas "
+          f"{[g.replica for g in group.shards]}")
+    collectives.counts.clear()
+    batch_fixture(model, "tp")
+    phase("tp", f"(c) dp=3 x tp=2 batch collectives {_collective_counts()}")
+
+
+def _f32_trees(model: Qwen3TTS) -> tuple:
+    def cast(t):
+        if isinstance(t, dict):
+            return {k: cast(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(cast(v) for v in t)
+        return t.float() if isinstance(t, torch.Tensor) and t.is_floating_point() else t
+    return cast(model.talker_params), cast(model.cp_params)
+
+
+def _top2_margin(logits: torch.Tensor) -> float:
+    top = torch.topk(logits.float().reshape(-1), 2).values
+    return float(top[0] - top[1])
+
+
+def _staged_frames(model: Qwen3TTS) -> tuple:
+    """TP_FRAMES staged frames (one warm run, then one timed with the launch
+    counts set to 0 just before it): (frames, ms/frame, launches, the
+    post-penalty logits of each frame)."""
+    opts = main_options(TP_FRAMES)
+    model._custom_voice_session(TEXT, "ryan", "english", opts).run_to_completion()
+    logits = []
+    session = model._custom_voice_session(TEXT, "ryan", "english", opts)
+    session.on_frame = lambda idx, token, codes, lg: logits.append(lg)
+    for d in {torch.device("cuda", i) for i in range(torch.cuda.device_count())}:
+        torch.cuda.synchronize(d)
+    _reset_counts()
+    collectives.counts.clear()
+    t0 = time.perf_counter()
+    frames = session.run_to_completion()
+    for d in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(d)
+    ms = (time.perf_counter() - t0) * 1e3 / max(len(frames), 1)
+    return frames, ms, _counts(), logits
+
+
+def _tp_caches(mesh: sharding.Mesh, ck: torch.Tensor, cv: torch.Tensor) -> tuple[list, list]:
+    plane = sharding.P(None, None, "tp")
+    return sharding.shard_leaf(ck, plane, mesh)[0], sharding.shard_leaf(cv, plane, mesh)[0]
+
+
+@contextlib.contextmanager
+def sublayer_bars(trees: dict, errs: dict):
+    """Every kernel-5 / 6 call made inside, against its plain version on the
+    same inputs (a copy of the caches): the largest output / written-row
+    error relative to max|plain|, by sub-layer, into ``errs``. ``trees``:
+    each pack's rank tree (by the pack's id), whose layer the call runs."""
+    attn_k, mlp_k = fused_layer.fused_attention_step, fused_layer.fused_mlp_step
+
+    def attention(x, layer, cos_t, sin_t, ck, cv, pos, *dims, residual=True, pack=None, layer_index=0):
+        view = nn.layer_params_at(trees[id(pack)], layer_index)
+        ckp, cvp = ck.clone(), cv.clone()
+        want = fused_layer.fused_attention_step_plain(x, view, cos_t, sin_t, ckp, cvp, pos, *dims, residual=residual)
+        got = attn_k(x, layer, cos_t, sin_t, ck, cv, pos, *dims, residual=residual, pack=pack, layer_index=layer_index)
+        errs["attention"] = max(errs["attention"], rel_err(got, want), rel_err(ck[pos], ckp[pos]),
+                                rel_err(cv[pos], cvp[pos]))
+        return got
+
+    def mlp(x, layer, inter, eps, residual=True, pack=None, layer_index=0):
+        want = fused_layer.fused_mlp_step_plain(x, nn.layer_params_at(trees[id(pack)], layer_index), inter, eps,
+                                                residual=residual)
+        got = mlp_k(x, layer, inter, eps, residual=residual, pack=pack, layer_index=layer_index)
+        errs["mlp"] = max(errs["mlp"], rel_err(got, want))
+        return got
+
+    # The kernels count their launches on the module's names, these wrappers.
+    attention.launches, mlp.launches = attn_k.launches, mlp_k.launches
+    fused_layer.fused_attention_step, fused_layer.fused_mlp_step = attention, mlp
+    try:
+        yield
+    finally:
+        fused_layer.fused_attention_step, fused_layer.fused_mlp_step = attn_k, mlp_k
+        attn_k.launches, mlp_k.launches = attention.launches, mlp.launches
+
+
+def tp_step_trials(sh: Qwen3TTS, ref: Qwen3TTS, dtype: torch.dtype, gen: torch.Generator) -> dict:
+    """STEP_TRIALS tp decode steps at random (x, pos), pos near the top of a
+    TP_ROWS-row cache, each kernel-5 / 6 call in them against its plain
+    version on the same inputs (``sublayer_bars``, phase 7's STEP_TOL);
+    bf16: the step against the same route on the plain versions (phase 5's
+    28-layer bars, HIDDEN_TOL and ROW_TOL); f32: against the unsharded
+    model's kernel-3 step, whose own sensitivity is read on the same trials
+    (the step again with every int8 scale moved by 2^-22): the normed hidden
+    and the written rows within TP_F32_SPREAD_FACTOR times that spread, and
+    the codec-head argmax equal wherever the unsharded step's top-2 margin
+    exceeds TP_F32_SPREAD_FACTOR times its logits' move (a flip only at such
+    a near-tie)."""
+    tcfg = sh.config.talker
+    stack = tcfg.layer_stack()
+    mesh, tree = sh.mesh, sh.talker_params
+    layers, packs = [r["layers"] for r in tree.ranks], [r["tp_pack"] for r in tree.ranks]
+    kvd = stack.num_kv_heads * stack.head_dim
+    ck0 = torch.randn((stack.num_layers, TP_ROWS, kvd), generator=gen, device=DEV).to(dtype)
+    cv0 = torch.randn((stack.num_layers, TP_ROWS, kvd), generator=gen, device=DEV).to(dtype)
+    r = {"h_err": 0.0, "row_err": 0.0, "argmax": 0, "trials": STEP_TRIALS, "spread": 0.0, "flips": [],
+         "unexplained": 0}
+    sub = r["sublayer"] = {"attention": 0.0, "mlp": 0.0}
+    if dtype == torch.float32:
+        ref_layers = ref.talker_params["layers"]
+        nudged = {k: {"q8": w["q8"], "scale": w["scale"].clone()} if quant.is_quantized(w) else w
+                  for k, w in ref_layers.items()}
+        _nudge_int8_scales(nudged, 1 + 2.0**-22)
+        nudged_pack = fused_layer.TalkerStepPack(nudged, stack, dtype, DEV)
+    trees = {id(p): dict(lyr, qkv_proj=tpk["qkv"], gateup_proj=tpk["gu"])
+             for p, lyr, tpk in zip(sh.tp_step_packs, layers, packs)}
+    for trial in range(STEP_TRIALS):
+        pos = TP_ROWS - 1 - 3 * trial
+        x = torch.randn((1, 1, stack.hidden_size), generator=gen, device=DEV).to(dtype)
+        cks, cvs = _tp_caches(mesh, ck0, cv0)
+        with sublayer_bars(trees, sub):
+            fused_layer.tp_decode_step(layers, packs, x, stack, cks, cvs, pos, tree.devices, sh.tp_step_packs)
+        cks, cvs = _tp_caches(mesh, ck0, cv0)
+        if dtype == torch.bfloat16:
+            got = fused_layer.tp_decode_step(layers, packs, x, stack, cks, cvs, pos, tree.devices, sh.tp_step_packs)
+            pks, pvs = _tp_caches(mesh, ck0, cv0)
+            with plain_kernels():
+                want = fused_layer.tp_decode_step(layers, packs, x, stack, pks, pvs, pos, tree.devices)
+            r["h_err"] = max(r["h_err"], rel_err(got, want))
+            for a, b in zip(cks + cvs, pks + pvs):
+                r["row_err"] = max(r["row_err"], rel_err(a[:, pos], b[:, pos]))
+        else:
+            h, logits = talker.decode_step_planes_tp(tree, tcfg, x, pos, cks, cvs, sh.tp_step_packs)
+            ck, cv = ck0.clone(), cv0.clone()
+            h_ref, logits_ref = talker.decode_step_planes(ref.talker_params, tcfg, x, pos, ck, cv,
+                                                          ref.talker_step_pack)
+            r["argmax"] += int(torch.argmax(logits)) == int(torch.argmax(logits_ref))
+            r["h_err"] = max(r["h_err"], rel_err(h, h_ref))
+            ckn, cvn = ck0.clone(), cv0.clone()
+            h_nudged = fused_layer.talker_step(nudged, x, stack, ckn, cvn, pos, nudged_pack)
+            h_nudged = nn.rms_norm(h_nudged, ref.talker_params["norm"], tcfg.rms_norm_eps)
+            r["spread"] = max(r["spread"], rel_err(h_nudged, h_ref), rel_err(ckn[:, pos], ck[:, pos]),
+                              rel_err(cvn[:, pos], cv[:, pos]))
+            if int(torch.argmax(logits)) != int(torch.argmax(logits_ref)):
+                # A flip is a near-tie when the unsharded step's top-2 margin is within
+                # TP_F32_SPREAD_FACTOR times its logits' own move under the nudge.
+                moved = float((talker.codec_logits(ref.talker_params, h_nudged)[:, 0] - logits_ref).abs().max())
+                margin = _top2_margin(logits_ref)
+                r["flips"].append((pos, margin, moved))
+                r["unexplained"] += margin > TP_F32_SPREAD_FACTOR * moved
+            r["row_err"] = max(r["row_err"], rel_err(torch.cat([c[:, pos] for c in cks], -1), ck[:, pos]),
+                               rel_err(torch.cat([c[:, pos] for c in cvs], -1), cv[:, pos]))
+    # Times at the last pos: the step (host clock, every card synchronised, and the
+    # first card's span by CUDA events) over 20 steps; one all-reduce of the step's parts.
+    steps = 20
+    for dev in set(tree.devices):
+        torch.cuda.synchronize(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        fused_layer.tp_decode_step(layers, packs, x, stack, cks, cvs, pos, tree.devices, sh.tp_step_packs)
+    end.record()
+    for dev in set(tree.devices):
+        torch.cuda.synchronize(dev)
+    r["step_ms"] = (time.perf_counter() - t0) * 1e3 / steps
+    r["step_device_ms"] = start.elapsed_time(end) / steps
+    parts = [torch.randn((1, stack.hidden_size), generator=gen, device=DEV).to(dtype).to(d) for d in tree.devices]
+    r["all_reduce_ms"] = time_ms(lambda: collectives.all_reduce([p.clone() for p in parts]), iters=100)
+    r["clone_ms"] = time_ms(lambda: [p.clone() for p in parts], iters=100)
+    return r
+
+
+def tp_full_depth() -> dict:
+    """(b) The full-depth 1.7B int8 model at tp = 4 and tp = 2, in bf16 and
+    in f32, against the same trees unsharded: kernels 5 and 6 launched 28 x
+    tp times a step each, kernel 3 never, kernel 1 once a frame; the step
+    bars (``tp_step_trials``); the TP_FRAMES staged frames' share of codes
+    equal to the unsharded model's, the first differing frame and its top-2
+    margin (reported, not gated); ms/frame beside the unsharded model's,
+    the step's time, one all-reduce's, peak memory per device."""
+    cfg = config_for_variant("1.7B", "custom_voice")
+    base = Qwen3TTS.from_random(cfg, seed=0, device=DEV)
+    voc, card = base.vocoder_params, card_line()
+    trees = {torch.bfloat16: (base.talker_params, base.cp_params)}
+    trees[torch.float32] = _f32_trees(base)
+    del base
+    layers_n = cfg.talker.num_hidden_layers
+    out = {}
+    for dtype, (tparams, cparams) in trees.items():
+        name = {torch.bfloat16: "bf16", torch.float32: "f32"}[dtype]
+        ref = Qwen3TTS(cfg, tparams, cparams, voc, BenchTokenizer(), quantize_int8=True)
+        ref_frames, ref_ms, ref_launches, ref_logits = _staged_frames(ref)
+        for tp in (4, 2):
+            torch.cuda.empty_cache()
+            base_mb = {}
+            for i in range(torch.cuda.device_count()):
+                torch.cuda.reset_peak_memory_stats(i)
+                base_mb[torch.device("cuda", i)] = torch.cuda.memory_allocated(i) / 2**20
+            sh = Qwen3TTS(cfg, tparams, cparams, voc, BenchTokenizer(), quantize_int8=True).shard(_mesh(1, tp))
+            check(sh.talker_step_pack is None and sh.tp_step_packs is not None and len(sh.tp_step_packs) == tp,
+                  f"tp full depth {name} tp={tp}: packs")
+            frames, ms, launches, _ = _staged_frames(sh)
+            counts = _collective_counts()
+            steps = len(frames)
+            peaks = {str(d): round(torch.cuda.max_memory_allocated(d) / 2**20 - base_mb[d])
+                     for d in sorted(set(sh.mesh.replica(0)), key=str)}
+            equal = frames.shape == ref_frames.shape
+            share = float((frames == ref_frames).mean()) if equal else 0.0
+            differ = np.flatnonzero(~(frames == ref_frames).all(axis=1)) if equal else np.array([0])
+            first = f"frame {int(differ[0])} (top-2 margin of the unsharded run's logits " \
+                    f"{_top2_margin(ref_logits[int(differ[0])]):.4e})" if len(differ) else "none"
+            r = tp_step_trials(sh, ref, dtype, torch.Generator(device=DEV).manual_seed(70 + tp))
+            f32_bar = max(F32_STEP_TOL, TP_F32_SPREAD_FACTOR * r["spread"])
+            bars = (HIDDEN_TOL, ROW_TOL) if dtype == torch.bfloat16 else (f32_bar, f32_bar)
+            phase("tp", f"(b) {card}: full-depth 1.7B int8 {name} tp={tp}, {steps} staged frames: {ms:.3f} ms/frame "
+                  f"against {ref_ms:.3f} unsharded; share of codes equal to the unsharded model's {share:.4f}, first "
+                  f"differing {first} (reported, not gated); launches {launches} (kernels 5 and 6 want "
+                  f"{layers_n * tp * steps} each); collectives {counts}; peak allocated MiB by device above what was "
+                  f"allocated before the model was built (its int8 quantization and shards included) {peaks}")
+            target = "the same route on the plain versions" if dtype == torch.bfloat16 else \
+                f"the unsharded kernel-3 step (codec-head argmax {r['argmax']}/{r['trials']}, flips at (pos, top-2 " \
+                f"margin, the logits' move under the nudge) {[(p, f'{m:.3e}', f'{d:.3e}') for p, m, d in r['flips']]}; " \
+                f"its own spread under a 2^-22 change of the int8 scales {r['spread']:.4e})"
+            phase("tp", f"(b) {name} tp={tp}: {r['trials']} steps at pos near {TP_ROWS} rows, each kernel-5 / 6 "
+                  f"call against its plain version: attention {r['sublayer']['attention']:.4e}, mlp "
+                  f"{r['sublayer']['mlp']:.4e} ({'bar' if dtype == torch.bfloat16 else 'reported; phase 7 bar'} "
+                  f"{STEP_TOL[dtype]}); the step against {target}: hidden "
+                  f"max|err|/max {r['h_err']:.4e} (bar {bars[0]}), written rows {r['row_err']:.4e} (bar {bars[1]}); "
+                  f"the step {r['step_ms']:.4f} ms by host clock ({r['step_device_ms']:.4f} ms on the first card by "
+                  f"CUDA events) "
+                  f"over 20 steps, one all-reduce of the parts {r['all_reduce_ms']:.4f} ms ({r['clone_ms']:.4f} "
+                  f"of it the parts' copies)")
+            check(launches["fused_attention_step"] == launches["fused_mlp_step"] == layers_n * tp * steps,
+                  f"tp {name} tp={tp}: kernels 5 / 6 launched {launches}, want {layers_n * tp * steps} each")
+            check(launches["talker_step"] == 0 and launches["cp_frame"] == steps, f"tp {name} tp={tp}: {launches}")
+            # In f32 a call's own bf16 input flips reach past phase 7's bar at these widths (reported).
+            check(dtype == torch.float32 or max(r["sublayer"].values()) <= STEP_TOL[dtype],
+                  f"tp {name} tp={tp}: a kernel-5 / 6 call {r['sublayer']} from its plain version "
+                  f"(bar {STEP_TOL[dtype]})")
+            check(r["h_err"] <= bars[0] and r["row_err"] <= bars[1], f"tp {name} tp={tp}: step error "
+                  f"{r['h_err']:.4e} / {r['row_err']:.4e} > {bars}")
+            check(dtype == torch.bfloat16 or r["unexplained"] == 0,
+                  f"tp f32 tp={tp}: codec-head argmax {r['argmax']}/{r['trials']}, {r['unexplained']} flips past the "
+                  f"unsharded step's own sensitivity: {r['flips']}")
+            out[f"{name}_tp{tp}"] = {"ms_per_frame": ms, "unsharded_ms_per_frame": ref_ms, "share_equal": share,
+                                     "launches": launches["fused_attention_step"], **{k: r[k] for k in (
+                                         "step_ms", "step_device_ms", "all_reduce_ms")}}
+            del sh
+        del ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase() -> None:
+    """Phase ``tp`` (see the module docstring, item 13): the full-depth int8
+    runs; the fixtures ran in phase ``utterance``'s checkpoint."""
+    t0 = time.perf_counter()
+    runs = tp_full_depth()
+    for name in ("fused_attention_step", "fused_mlp_step"):
+        _row(name)["tp_main_path"] = runs
+    phase("tp", f"full-depth wall time {time.perf_counter() - t0:.1f} s")
+
+
+
 def utterance_phase(encoders: tuple) -> None:
     """Phase ``utterance`` (see the module docstring, item 12)."""
     t_phase = time.perf_counter()
     fixture = ckpt_fixture.load_utterance()
-    with tempfile.TemporaryDirectory(prefix="qwen3_tts_utterance_") as d:
-        t0 = time.perf_counter()
-        ckpt_fixture.write_utterance_checkpoint(d)
-        t_write = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        model = Qwen3TTS.from_pretrained(d, dtype=torch.float32, device=DEV)
-        torch.cuda.synchronize()
-        t_load = time.perf_counter() - t0
+    workdir = tempfile.TemporaryDirectory(prefix="qwen3_tts_utterance_")
+    d = workdir.name
+    t0 = time.perf_counter()
+    ckpt_fixture.write_utterance_checkpoint(d)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model = Qwen3TTS.from_pretrained(d, dtype=torch.float32, device=DEV)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
     check(model.cp_frame_pack is not None and model.talker_step_pack is not None,
           "utterance: the f32 model holds no kernel 1 / kernel 3 pack")
     n = ckpt_fixture.UTTERANCE_FRAMES
@@ -3779,9 +4150,14 @@ def utterance_phase(encoders: tuple) -> None:
               f"utterance {kind}: launches {launches}")
     batch_fixture(model)
     per_stream_positions(model, encoders)
+    phase("utterance", f"phase wall time {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    with workdir:
+        tp_utterance(d, fixture)
+    tp_batch(model)
     del model
     torch.cuda.empty_cache()
-    phase("utterance", f"phase wall time {time.perf_counter() - t_phase:.1f} s")
+    phase("tp", f"fixtures' wall time {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -3810,6 +4186,7 @@ def main() -> None:
     launches = main_path(encoders)
     ckpt_phase()
     utterance_phase(encoders)
+    tp_phase()
     for row in KERNEL_ROWS:
         row["launches"] = launches[row["path"]][row["name"].removesuffix("_int8")]
     check(len({row["replaces"] for row in KERNEL_ROWS}) == 8,

@@ -9,7 +9,9 @@ by hand in CUDA for Hopper (``csrc/``); HF checkpoints load with
 ``Qwen3TTS.from_pretrained`` (the package's own safetensors reader and Qwen2
 tokenizer), ``python -m qwen3_tts_tpu_torch`` is the command line and
 ``python -m qwen3_tts_tpu_torch.server`` the HTTP server (micro-batching,
-stream coalescing, time-slicing, voice registration).
+stream coalescing, time-slicing, voice registration), and
+``Qwen3TTS.shard`` spreads a model over a (dp, tp) mesh of cards
+(``parallel.sharding.make_mesh``).
 This package imports neither JAX nor ``qwen3_tts_tpu``; the tests hold it
 against the JAX package.
 """

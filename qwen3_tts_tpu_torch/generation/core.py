@@ -23,6 +23,10 @@ depend on the buffer's size.
 vmapped loop in its ``generation/batch.py``), each with its own cache position,
 frame count and frame limit, re-entered the same way by a
 ``StreamingBatchSession``.
+
+Both take the ``mesh`` of a sharded model (``Qwen3TTS.shard``): the talker
+is then one replica's ``parallel.sharding.ShardedTree`` and the cache an
+``nn.TPCache``; the rest of the frame stays on the replica's first device.
 """
 
 from __future__ import annotations
@@ -36,13 +40,15 @@ from ..models import talker
 from ..models import tokens as T
 from ..models.config import CodePredictorConfig, TalkerConfig
 from ..ops import nn, sampling
+from ..parallel import collectives
+from ..parallel.sharding import ShardedTree
 
 
 @dataclass
 class GenState:
     """Carried state of the frame loop (tensors updated in place)."""
 
-    cache: nn.KVCache  # talker KV cache
+    cache: nn.KVCache | nn.TPCache  # talker KV cache (split over tp ranks under a mesh)
     last_hidden: torch.Tensor  # [1, 1, hidden] normed talker hidden
     token: torch.Tensor  # [] int64 current semantic token
     penalty_mask: torch.Tensor  # [codec_vocab] float32
@@ -97,6 +103,8 @@ def generate_frames(
     talker_step_pack=None,  # the talker's fused_layer.TalkerStepPack, on the card
     cp_step_pack=None,  # the code predictor's fused_layer.CpStepPack or FusedStepPack, on the card
     on_frame=None,
+    mesh=None,  # parallel.sharding.Mesh of a sharded model (talker_params one replica's ShardedTree)
+    tp_step_packs=None,  # the ranks' fused_layer.tp_step_packs, on the cards
 ) -> GenState:
     """Advance the loop until EOS or ``frame_limit`` frames exist (at most
     the frames buffer's rows); a state already done does not move.
@@ -104,7 +112,15 @@ def generate_frames(
     ``on_frame(idx, token, codes, logits)``, when given, is called once a
     frame with the frame's index, its semantic token, its 15 acoustic codes
     and the post-penalty logits the next token is sampled from (device
-    tensors; ``generation/debug.py`` reads them)."""
+    tensors; ``generation/debug.py`` reads them).
+
+    Under a ``mesh`` the talker is a replica's ``ShardedTree`` and the cache
+    an ``nn.TPCache``: decode steps run kernels 5 and 6 on every rank
+    (``talker.tp_plane_mode``, the ranks' planes taken once per call) or
+    the tensor-parallel layer path, never the whole-step kernel; the code
+    predictor, the sampling and the step input stay on the replica's first
+    device, whose kernels launch there."""
+    _check_mesh(talker_params, mesh)
     suppression = sampling.build_suppression_mask(
         state.penalty_mask.shape[0], scfg.eos_token_id, state.penalty_mask.device
     )
@@ -113,42 +129,54 @@ def generate_frames(
     tb = trailing.shape[0]
     # Whole-step kernel mode: take the cache's [L, S, KV*D] plane views once
     # per call (views of the same memory, written in place; a grown cache
-    # is a new tensor).
-    planes = talker.plane_views(state.cache) if talker.stream_plane_mode(talker_params, tcfg, state.cache) else None
+    # is a new tensor). Under a mesh: every rank's planes, for kernels 5 + 6.
+    tp_planes = talker.tp_plane_views(state.cache) if talker.tp_plane_mode(talker_params, tcfg, state.cache,
+                                                                           mesh) else None
+    planes = None
+    if mesh is None and talker.stream_plane_mode(talker_params, tcfg, state.cache):
+        planes = talker.plane_views(state.cache)
+    with collectives.device_scope(state.frames.device):
+        while state.frame_idx < frame_limit and not bool(state.done):
+            idx = state.frame_idx
+            semantic_embed = talker.embed_codec(talker_params, state.token)[None, None, :]
+            codes = cp.predict_acoustic_codes(cp_params, cpcfg, state.last_hidden, semantic_embed, cp_frame_pack,
+                                              cp_step_pack)
+            state.frames[idx, 0] = state.token
+            state.frames[idx, 1:] = codes
 
-    while state.frame_idx < frame_limit and not bool(state.done):
-        idx = state.frame_idx
-        semantic_embed = talker.embed_codec(talker_params, state.token)[None, None, :]
-        codes = cp.predict_acoustic_codes(cp_params, cpcfg, state.last_hidden, semantic_embed, cp_frame_pack,
-                                          cp_step_pack)
-        state.frames[idx, 0] = state.token
-        state.frames[idx, 1:] = codes
+            acoustic_sum = cp.acoustic_embedding_sum(cp_params, codes).to(semantic_embed.dtype)
+            text_add = trailing[min(idx, tb - 1)] if idx < trailing_len else pad_embed
+            step_input = semantic_embed + acoustic_sum + text_add.to(semantic_embed.dtype)[None, None, :]
 
-        acoustic_sum = cp.acoustic_embedding_sum(cp_params, codes).to(semantic_embed.dtype)
-        text_add = trailing[min(idx, tb - 1)] if idx < trailing_len else pad_embed
-        step_input = semantic_embed + acoustic_sum + text_add.to(semantic_embed.dtype)[None, None, :]
+            if tp_planes is not None:
+                hidden, logits = talker.decode_step_planes_tp(talker_params, tcfg, step_input, state.pos,
+                                                              *tp_planes, tp_step_packs)
+            elif planes is not None:
+                hidden, logits = talker.decode_step_planes(talker_params, tcfg, step_input, state.pos, *planes,
+                                                           talker_step_pack)
+            else:
+                hidden, logits = talker.decode_step(talker_params, tcfg, step_input, state.pos, state.cache)
 
-        if planes is not None:
-            hidden, logits = talker.decode_step_planes(talker_params, tcfg, step_input, state.pos, *planes,
-                                                       talker_step_pack)
-        else:
-            hidden, logits = talker.decode_step(talker_params, tcfg, step_input, state.pos, state.cache)
+            token_count = idx + 1
+            logits = sampling.apply_generation_penalties(
+                logits, state.penalty_mask, suppression, scfg, token_count
+            )
+            next_token = sampling.sample(logits, scfg, uniforms[min(token_count, max_new)])[0]
+            state.penalty_mask[next_token] = 1.0
+            if on_frame is not None:
+                on_frame(idx, state.token, codes, logits)
 
-        token_count = idx + 1
-        logits = sampling.apply_generation_penalties(
-            logits, state.penalty_mask, suppression, scfg, token_count
-        )
-        next_token = sampling.sample(logits, scfg, uniforms[min(token_count, max_new)])[0]
-        state.penalty_mask[next_token] = 1.0
-        if on_frame is not None:
-            on_frame(idx, state.token, codes, logits)
-
-        state.last_hidden = hidden
-        state.token = next_token
-        state.frame_idx = token_count
-        state.pos += 1
-        state.done = next_token == scfg.eos_token_id
+            state.last_hidden = hidden
+            state.token = next_token
+            state.frame_idx = token_count
+            state.pos += 1
+            state.done = next_token == scfg.eos_token_id
     return state
+
+
+def _check_mesh(talker_params, mesh) -> None:
+    if (mesh is not None) != isinstance(talker_params, ShardedTree):
+        raise ValueError("a sharded talker tree runs with its model's mesh, and a mesh with a sharded tree")
 
 
 # ---------------------------------------------------------------------------
@@ -163,7 +191,7 @@ class BatchGenState:
     its own cache position and frame count, kept on the host: every
     prefill length is known there."""
 
-    cache: nn.KVCache  # [L, B, S, KV, D]
+    cache: nn.KVCache | nn.TPCache  # [L, B, S, KV, D] (KV heads over tp ranks under a mesh)
     last_hidden: torch.Tensor  # [B, 1, hidden]
     token: torch.Tensor  # [B] int64
     penalty_mask: torch.Tensor  # [B, codec_vocab] float32
@@ -219,6 +247,7 @@ def generate_frames_batch(
     pad_embed: torch.Tensor,  # [hidden]
     uniforms: torch.Tensor,  # [B, max_new + 1]
     frame_limits: list[int],  # per-stream frame budgets
+    mesh=None,  # parallel.sharding.Mesh of a sharded model (talker_params one replica's ShardedTree)
 ) -> BatchGenState:
     """Advance B streams together until each is done or at its frame limit
     (the semantics of the JAX package's vmapped ``_generate_frames``).
@@ -232,51 +261,55 @@ def generate_frames_batch(
     frontier and are never read). ``done`` is read on the host once a frame.
     Tiered decode attention is off here, as in the JAX package's batched
     programs (its window is picked per stream position, on the host at
-    batch 1).
+    batch 1). Under a ``mesh`` the talker is one replica's ``ShardedTree``
+    (the tensor-parallel layer path) holding this state's streams, the
+    code predictor that replica's, on its first device.
     """
+    _check_mesh(talker_params, mesh)
     tcfg = replace(tcfg, decode_tiering=False)
-    b = state.batch
-    dev = state.frames.device
-    max_new = state.frames.shape[1]
-    limits = [min(limit, max_new) for limit in frame_limits]  # never run past the frames buffer
-    tb = trailing.shape[1]
-    rows = torch.arange(b, device=dev)
-    suppression = sampling.build_suppression_mask(state.penalty_mask.shape[1], scfg.eos_token_id, dev)
-    done = state.done.tolist()
-    while True:
-        live = [not d and i < limit for d, i, limit in zip(done, state.frame_idx, limits)]
-        if not any(live):
-            return state
-        idx = state.frame_idx
-        # The frame's per-stream indices in one host-to-device copy.
-        meta = torch.tensor(
-            [state.pos, [min(i, max_new - 1) for i in idx], [min(i, tb - 1) for i in idx],
-             [int(i < n) for i, n in zip(idx, trailing_lens)], [min(i + 1, max_new) for i in idx],
-             [int(v) for v in live]], dtype=torch.int64,
-        ).to(dev)
-        pos, frame_row, text_row, in_text, uniform_idx, live_t = meta
-        live_t = live_t.bool()
-
-        semantic_embed = talker.embed_codec(talker_params, state.token)[:, None, :]  # [B, 1, H]
-        codes = cp.predict_acoustic_codes_batch(cp_params, cpcfg, state.last_hidden, semantic_embed)  # [B, 15]
-        frame = torch.cat([state.token[:, None].to(torch.int32), codes], dim=1)
-        state.frames[rows, frame_row] = torch.where(live_t[:, None], frame, state.frames[rows, frame_row])
-
-        acoustic_sum = cp.acoustic_embedding_sum(cp_params, codes).to(semantic_embed.dtype)
-        text_add = torch.where(in_text.bool()[:, None], trailing[rows, text_row], pad_embed)
-        step_input = semantic_embed + acoustic_sum + text_add.to(semantic_embed.dtype)[:, None, :]
-        hidden, logits = talker.decode_step_batch(talker_params, tcfg, step_input, pos, state.cache)
-
-        # Every live stream has made the same number of frames.
-        token_count = min(i for i, v in zip(idx, live) if v) + 1
-        logits = sampling.apply_generation_penalties(logits, state.penalty_mask, suppression, scfg, token_count)
-        next_token = sampling.sample(logits, scfg, uniforms[rows, uniform_idx])
-        seen = state.penalty_mask[rows, next_token]
-        state.penalty_mask[rows, next_token] = torch.where(live_t, torch.ones_like(seen), seen)
-
-        state.last_hidden = torch.where(live_t[:, None, None], hidden, state.last_hidden)
-        state.token = torch.where(live_t, next_token, state.token)
-        state.done = state.done | (live_t & (next_token == scfg.eos_token_id))
-        state.frame_idx = [i + v for i, v in zip(idx, live)]
-        state.pos = [p + 1 for p in state.pos]
+    with collectives.device_scope(state.frames.device):
+        b = state.batch
+        dev = state.frames.device
+        max_new = state.frames.shape[1]
+        limits = [min(limit, max_new) for limit in frame_limits]  # never run past the frames buffer
+        tb = trailing.shape[1]
+        rows = torch.arange(b, device=dev)
+        suppression = sampling.build_suppression_mask(state.penalty_mask.shape[1], scfg.eos_token_id, dev)
         done = state.done.tolist()
+        while True:
+            live = [not d and i < limit for d, i, limit in zip(done, state.frame_idx, limits)]
+            if not any(live):
+                return state
+            idx = state.frame_idx
+            # The frame's per-stream indices in one host-to-device copy.
+            meta = torch.tensor(
+                [state.pos, [min(i, max_new - 1) for i in idx], [min(i, tb - 1) for i in idx],
+                 [int(i < n) for i, n in zip(idx, trailing_lens)], [min(i + 1, max_new) for i in idx],
+                 [int(v) for v in live]], dtype=torch.int64,
+            ).to(dev)
+            pos, frame_row, text_row, in_text, uniform_idx, live_t = meta
+            live_t = live_t.bool()
+
+            semantic_embed = talker.embed_codec(talker_params, state.token)[:, None, :]  # [B, 1, H]
+            codes = cp.predict_acoustic_codes_batch(cp_params, cpcfg, state.last_hidden, semantic_embed)  # [B, 15]
+            frame = torch.cat([state.token[:, None].to(torch.int32), codes], dim=1)
+            state.frames[rows, frame_row] = torch.where(live_t[:, None], frame, state.frames[rows, frame_row])
+
+            acoustic_sum = cp.acoustic_embedding_sum(cp_params, codes).to(semantic_embed.dtype)
+            text_add = torch.where(in_text.bool()[:, None], trailing[rows, text_row], pad_embed)
+            step_input = semantic_embed + acoustic_sum + text_add.to(semantic_embed.dtype)[:, None, :]
+            hidden, logits = talker.decode_step_batch(talker_params, tcfg, step_input, pos, state.cache)
+
+            # Every live stream has made the same number of frames.
+            token_count = min(i for i, v in zip(idx, live) if v) + 1
+            logits = sampling.apply_generation_penalties(logits, state.penalty_mask, suppression, scfg, token_count)
+            next_token = sampling.sample(logits, scfg, uniforms[rows, uniform_idx])
+            seen = state.penalty_mask[rows, next_token]
+            state.penalty_mask[rows, next_token] = torch.where(live_t, torch.ones_like(seen), seen)
+
+            state.last_hidden = torch.where(live_t[:, None, None], hidden, state.last_hidden)
+            state.token = torch.where(live_t, next_token, state.token)
+            state.done = state.done | (live_t & (next_token == scfg.eos_token_id))
+            state.frame_idx = [i + v for i, v in zip(idx, live)]
+            state.pos = [p + 1 for p in state.pos]
+            done = state.done.tolist()

@@ -9,8 +9,18 @@ runs the whole-step kernel on the cache's [L, S, KV*D] plane view
 (``stream_plane_mode``, ``decode_step_planes``) while the cache holds at
 most ``TALKER_STREAM_MAX_SEQ`` rows; otherwise, and on an unfused tree, the
 layer path. Batched synthesis (``prefill_batch``, ``decode_step_batch``:
-B streams, each at its own position) always takes the layer path. The
-tensor-parallel variants of the JAX module are not ported yet.
+B streams, each at its own position) always takes the layer path.
+
+On a tensor-parallel tree (``parallel.sharding.ShardedTree``: one replica's
+ranks, made by ``Qwen3TTS.shard``) every function here splits its work over
+the ranks as GSPMD does under ``sharding.talker_specs``: the text
+projection's fc1 column-split and fc2 row-split (an all-reduce before the
+bias), the layer stack on ``nn.run_layer_stack_tp``, the codec head split by
+vocabulary with its logits gathered on the replica's first device, where the
+embeddings and the final norm are read whole. A batch-1 decode step of an
+int8 tree with the tp re-layout runs kernels 5 and 6 on every rank
+(``tp_plane_mode``, ``decode_step_planes_tp``); the whole-step kernel is
+never taken under a mesh.
 
 Prompt layouts (each row of the prompt embedding is one position):
 
@@ -38,6 +48,8 @@ import torch.nn.functional as F
 
 from ..ops import fused_layer, nn
 from ..ops.quant import mm
+from ..parallel import collectives
+from ..parallel.sharding import ShardedTree
 from . import tokens as T
 from .config import TalkerConfig
 
@@ -50,6 +62,14 @@ def _ids(params: dict, vals) -> torch.Tensor:
 
 def text_project(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Text projection: fc1 -> SiLU -> fc2 (both with bias)."""
+    if isinstance(params, ShardedTree):
+        xs = collectives.broadcast(x, params.devices)
+        hidden = []
+        for r, xr, dev in zip(params.ranks, xs, params.devices):
+            with collectives.device_scope(dev):
+                hidden.append(F.silu(xr @ r["text_projection"]["fc1_w"] + r["text_projection"]["fc1_b"]))
+        fc2 = [r["text_projection"]["fc2_w"] for r in params.ranks]
+        return nn.row_parallel(hidden, fc2, params.devices)[0] + params["text_projection"]["fc2_b"]
     tp = params["text_projection"]
     h = F.silu(x @ tp["fc1_w"] + tp["fc1_b"])
     return h @ tp["fc2_w"] + tp["fc2_b"]
@@ -198,16 +218,28 @@ def forward(
     self_attn_prefill: bool = False,
 ) -> torch.Tensor:
     """Run the layer stack on embeddings x [B, S, hidden] (``positions`` and
-    ``write_pos`` as ``nn.run_layer_stack`` takes them); returns normed hidden."""
-    h = nn.run_layer_stack(
-        params["layers"], x, cfg.layer_stack(), cache, positions, write_pos,
-        self_attn_prefill=self_attn_prefill,
-    )
+    ``write_pos`` as ``nn.run_layer_stack`` takes them); returns normed
+    hidden. A sharded tree takes ``nn.run_layer_stack_tp`` on its ranks'
+    layers and an ``nn.TPCache``."""
+    if isinstance(params, ShardedTree):
+        h = nn.run_layer_stack_tp([r["layers"] for r in params.ranks], params.devices, x, cfg.layer_stack(),
+                                  list(cache.parts), positions, write_pos, self_attn_prefill=self_attn_prefill)
+    else:
+        h = nn.run_layer_stack(params["layers"], x, cfg.layer_stack(), cache, positions, write_pos,
+                               self_attn_prefill=self_attn_prefill)
     return nn.rms_norm(h, params["norm"], cfg.rms_norm_eps)
 
 
 def codec_logits(params: dict, hidden: torch.Tensor) -> torch.Tensor:
-    """Codec head on (already normed) hidden states: [..., codec_vocab]."""
+    """Codec head on (already normed) hidden states: [..., codec_vocab]; on a
+    sharded tree each rank's vocabulary slice, gathered on the first device."""
+    if isinstance(params, ShardedTree):
+        hs = collectives.broadcast(hidden, params.devices)
+        parts = []
+        for r, h, dev in zip(params.ranks, hs, params.devices):
+            with collectives.device_scope(dev):
+                parts.append(mm(h, r["codec_head"]))
+        return collectives.gather(parts, params.devices[0])
     return mm(hidden, params["codec_head"])
 
 
@@ -272,9 +304,11 @@ def stream_plane_mode(params: dict, cfg: TalkerConfig, cache: nn.KVCache) -> boo
 
     Callers that loop decode steps (``generation/core.py``) take the plane
     views once per loop; the cache is contiguous, so the views are free.
+    Never on a sharded tree (kernel 3 cannot span ranks).
     """
     return (
-        fused_layer.has_stream_pack(params["layers"], cfg.hidden_size)
+        not isinstance(params, ShardedTree)
+        and fused_layer.has_stream_pack(params["layers"], cfg.hidden_size)
         and cache.k.ndim == 5
         and cache.k.shape[1] == 1
         and cache.max_seq <= fused_layer.TALKER_STREAM_MAX_SEQ
@@ -306,6 +340,49 @@ def decode_step_planes(
     return h, codec_logits(params, h)[:, 0, :]
 
 
+def tp_plane_mode(params: dict, cfg: TalkerConfig, cache, mesh) -> bool:
+    """True when decode steps run kernels 5 and 6 on every rank
+    (``fused_layer.tp_decode_step``): a mesh, a sharded tree with the tp
+    re-layout (``Qwen3TTS.shard`` builds it for an int8 talker when tp > 1),
+    a batch-1 ``nn.TPCache`` of at most ``TALKER_STREAM_MAX_SEQ`` rows (the
+    rows the ranks' packs take; a larger cache takes the layer path). The
+    cache is then carried as each rank's [L, S, KV/tp * D] planes."""
+    return (
+        mesh is not None
+        and isinstance(params, ShardedTree)
+        and "tp_pack" in params
+        and isinstance(cache, nn.TPCache)
+        and cache.parts[0].k.shape[1] == 1
+        and cache.max_seq <= fused_layer.TALKER_STREAM_MAX_SEQ
+    )
+
+
+def tp_plane_views(cache: nn.TPCache) -> tuple[list, list]:
+    """Every rank's [L, S, KV/tp * D] plane views of a batch-1 ``nn.TPCache``."""
+    views = [plane_views(part) for part in cache.parts]
+    return [k for k, _ in views], [v for _, v in views]
+
+
+def decode_step_planes_tp(
+    params: ShardedTree,
+    cfg: TalkerConfig,
+    step_embed: torch.Tensor,
+    pos: int,
+    cks: list,
+    cvs: list,
+    packs: list | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """One tensor-parallel generation step on the ranks' plane views (row
+    ``pos`` written in place): kernels 5 and 6 on every rank through their
+    ``packs`` (``fused_layer.tp_step_packs``) on the cards, the plain
+    versions on the CPU. Returns (normed hidden [1,1,hidden], logits [1,
+    codec_vocab]) on the first device."""
+    h = fused_layer.tp_decode_step([r["layers"] for r in params.ranks], [r["tp_pack"] for r in params.ranks],
+                                   step_embed, cfg.layer_stack(), cks, cvs, pos, params.devices, packs)
+    h = nn.rms_norm(h, params["norm"], cfg.rms_norm_eps)
+    return h, codec_logits(params, h)[:, 0, :]
+
+
 def decode_step(
     params: dict,
     cfg: TalkerConfig,
@@ -318,7 +395,8 @@ def decode_step(
     Writes cache row ``pos`` in place. With a fused tree and a cache the
     kernel takes (``stream_plane_mode``) the whole step is one
     ``fused_layer.talker_step`` (int8 or plain weights); otherwise the layer
-    path. Returns (normed hidden [1,1,hidden], logits [1, codec_vocab]).
+    path (on a sharded tree, ``nn.run_layer_stack_tp``). Returns (normed
+    hidden [1,1,hidden], logits [1, codec_vocab]).
     """
     if stream_plane_mode(params, cfg, cache):
         return decode_step_planes(params, cfg, step_embed, pos, *plane_views(cache))

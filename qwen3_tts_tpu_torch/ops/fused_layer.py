@@ -27,6 +27,11 @@ body in its normalised form, ``csrc/talker_step.cu``, one persistent
 launch a step through the tree's ``CpStepPack``), chosen per step by
 ``run_fused_decode_step``.
 
+``tp_decode_step`` is the tensor-parallel talker step (kernels 5 and 6 on
+every rank with ``residual=False``, an all-reduce between them) on the
+head-aligned re-layout of ``make_tp_pack``, each rank through its own
+``FusedStepPack`` (``tp_step_packs``).
+
 Every wrapper runs its plain version on CPU tensors, launches its kernel on
 CUDA tensors (or raises), and raises on any other device.
 """
@@ -37,9 +42,11 @@ import ctypes
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel import collectives
 from . import nn, quant
 
 # 2 prefill positions + 15 decode tokens; the last is never attended, as in
@@ -1625,3 +1632,126 @@ def run_fused_decode_step(
         )
         h = fused_mlp_step(h, layer, cfg.intermediate_size, cfg.rms_norm_eps, pack=step_pack, layer_index=l)
     return h.reshape(1, 1, cfg.hidden_size)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel decode step: kernels 5 and 6 on every rank (residual=False)
+# with an all-reduce between the sub-layers, Megatron style (the JAX
+# package's shard_map around its sub-layer kernels). The whole-step kernel
+# cannot be used here: its residual chain would need a collective between
+# sub-layers of one launch.
+#
+# A fused [q|k|v] / [gate|up] is not head-aligned under plain column chunks
+# (chunk i of the concatenation is not (q_i|k_i|v_i)), so Qwen3TTS.shard
+# builds a column-permuted copy (make_tp_pack) whose contiguous chunk i is
+# exactly rank i's (q_i|k_i|v_i) / (gate_i|up_i). The o / down row chunks are
+# head- and intermediate-aligned as they are.
+# ---------------------------------------------------------------------------
+
+
+def _tp_block_perm(widths: tuple[int, ...], tp: int) -> np.ndarray:
+    """Column permutation making each rank's slice of every block contiguous:
+    new columns = concat over ranks i of [block_0's i-th 1/tp, block_1's, ...]."""
+    offs = np.cumsum([0] + list(widths))
+    idx = []
+    for i in range(tp):
+        for b, w in enumerate(widths):
+            wl = w // tp
+            start = offs[b] + i * wl
+            idx.extend(range(start, start + wl))
+    return np.asarray(idx, np.int64)
+
+
+def make_tp_pack(stacked_layers: dict, cfg, tp: int) -> dict | None:
+    """Head- / intermediate-aligned column re-layouts of qkv and gate|up for
+    tp ranks: ``{"qkv": {"q8" [L, H, Nq], "scale" [L, Nq]}, "gu": {...}}``
+    (split by ``parallel.sharding.tp_pack_specs``), the JAX package's bit for
+    bit; None where the JAX package's is: the tree is not fused int8, or tp
+    does not divide the heads, the KV heads or the intermediate."""
+    if not supports_fused_step(stacked_layers):
+        return None
+    sc = _layer_stack(cfg)
+    if sc.num_heads % tp or sc.num_kv_heads % tp or sc.intermediate_size % tp:
+        return None
+    q_dim, kv_dim = sc.num_heads * sc.head_dim, sc.num_kv_heads * sc.head_dim
+
+    def permute(proj: dict, widths: tuple) -> dict:
+        perm = torch.from_numpy(_tp_block_perm(widths, tp)).to(proj["q8"].device)
+        return {"q8": proj["q8"][:, :, perm], "scale": proj["scale"][:, perm].float()}
+
+    return {
+        "qkv": permute(stacked_layers["qkv_proj"], (q_dim, kv_dim, kv_dim)),
+        "gu": permute(stacked_layers["gateup_proj"], (sc.intermediate_size, sc.intermediate_size)),
+    }
+
+
+def tp_step_packs(rank_layers: list[dict], tp_pack: list[dict], cfg, dtype: torch.dtype,
+                  devices: list[torch.device]) -> list[FusedStepPack]:
+    """Each rank's ``FusedStepPack`` on its card, built once (``Qwen3TTS.shard``):
+    rank t's tp-pack columns of qkv and gate|up, its o and down rows and the
+    norms, on a rank-local config, for caches of up to
+    ``TALKER_STREAM_MAX_SEQ`` rows (every generation tier, so a cache that
+    grows keeps its packs). Ranks that share a card each get their own (a
+    pack's scratch serves one call at a time)."""
+    sc = nn.tp_local_config(_layer_stack(cfg), len(devices))
+    packs = []
+    for layers, pack, dev in zip(rank_layers, tp_pack, devices):
+        with collectives.device_scope(dev):
+            packs.append(FusedStepPack(dict(layers, qkv_proj=pack["qkv"], gateup_proj=pack["gu"]), sc, dtype, dev,
+                                       TALKER_STREAM_MAX_SEQ))
+    return packs
+
+
+def tp_decode_step(
+    rank_layers: list[dict],
+    tp_pack: list[dict],
+    x: torch.Tensor,
+    cfg,
+    cache_k: list[torch.Tensor],
+    cache_v: list[torch.Tensor],
+    pos: int,
+    devices: list[torch.device],
+    packs: list[FusedStepPack] | None = None,
+) -> torch.Tensor:
+    """One tensor-parallel decode step through every layer, kernels 5 and 6
+    on every rank (the JAX ``tp_decode_step``).
+
+    ``rank_layers[t]`` / ``tp_pack[t]``: rank t's slice of the canonical
+    fused int8 tree (its o and down rows, the norms) and its chunk of the
+    tp pack (``make_tp_pack``), on ``devices[t]``; ``cache_k[t]`` /
+    ``cache_v[t]``: its KV heads' planes [L, S, KV/tp * D], row ``pos``
+    written in place. x [1, 1, H] lies on the first device; every rank gets
+    it (``collectives.broadcast``). For each layer and rank: kernel 5
+    (``residual=False``) on the rank's qkv columns, o rows and cache plane,
+    then the all-reduce and the residual add; kernel 6 likewise. ``packs``:
+    the ranks' ``tp_step_packs`` on the cards (each rank's calls launched on
+    its device, on the stream of its pack's first call); without them, a
+    call on a card packs its layer for itself, and on the CPU the plain
+    versions run. RoPE tables of ``TALKER_STREAM_MAX_SEQ`` rows, one pair a
+    device. Returns [1, 1, H] on the first device.
+    """
+    tp = len(devices)
+    sc = nn.tp_local_config(_layer_stack(cfg), tp)
+    heads, kv, d, inter, eps = sc.num_heads, sc.num_kv_heads, sc.head_dim, sc.intermediate_size, sc.rms_norm_eps
+    h_size = sc.hidden_size
+    tables = [rope_tables(d, sc.rope_theta, TALKER_STREAM_MAX_SEQ, dev) for dev in devices]
+    packs = packs or [None] * tp
+    # With packs the kernels read the packs' weights, not the layer views.
+    trees = [None if p else dict(lyr, qkv_proj=tpk["qkv"], gateup_proj=tpk["gu"])
+             for p, lyr, tpk in zip(packs, rank_layers, tp_pack)]
+    hs = collectives.broadcast(x.reshape(1, h_size), devices)
+    for i in range(sc.num_layers):
+        views = [None if tree is None else nn.layer_params_at(tree, i) for tree in trees]
+        parts = []
+        for t, dev in enumerate(devices):
+            with collectives.device_scope(dev):
+                parts.append(fused_attention_step(hs[t], views[t], *tables[t], cache_k[t][i], cache_v[t][i], pos,
+                                                  heads, kv, d, eps, residual=False, pack=packs[t], layer_index=i))
+        hs = nn.add_per_rank(hs, collectives.all_reduce(parts))
+        parts = []
+        for t, dev in enumerate(devices):
+            with collectives.device_scope(dev):
+                parts.append(fused_mlp_step(hs[t], views[t], inter, eps, residual=False, pack=packs[t],
+                                            layer_index=i))
+        hs = nn.add_per_rank(hs, collectives.all_reduce(parts))
+    return hs[0].reshape(1, 1, h_size)

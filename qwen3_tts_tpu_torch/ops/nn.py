@@ -14,18 +14,24 @@ PyTorch port of ``qwen3_tts_tpu/ops/nn.py``, in the JAX package's layout:
   the compute dtype at the same points as the JAX package (a bf16 matmul
   returns bf16, elementwise ops round per op).
 
+``run_layer_stack_tp`` is what GSPMD makes of ``run_layer_stack`` on a
+tensor-parallel tree: each rank's slice on its device, an all-reduce after
+each row-parallel product (``parallel/collectives``).
+
 Left out: ``decode_attention_flash`` (nothing in the JAX package calls it,
 and it measured slower than dense attention there).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import all_reduce, broadcast, device_scope
+from . import quant
 from .quant import mm
 
 
@@ -64,6 +70,18 @@ class KVCache(NamedTuple):
     @property
     def max_seq(self) -> int:
         return self.k.shape[2]
+
+
+class TPCache(NamedTuple):
+    """A KV cache split over tp ranks by KV heads
+    (``parallel.sharding.serving_cache_spec``, ``batch_cache_spec``):
+    ``parts[t]`` is rank t's ``KVCache`` [L, B, S, KV/tp, D] on its device."""
+
+    parts: tuple
+
+    @property
+    def max_seq(self) -> int:
+        return self.parts[0].max_seq
 
 
 def init_kv_cache(
@@ -145,12 +163,16 @@ def swiglu(x: torch.Tensor, gate_w: torch.Tensor, up_w: torch.Tensor, down_w: to
 def swiglu_layer(layer_params: dict, x: torch.Tensor, matmul=mm) -> torch.Tensor:
     """SwiGLU using either fused [gate|up] or separate projections, plain
     or int8 (``matmul``: ``quant.mm``, or ``quant.mm_plain``)."""
+    return matmul(_swiglu_hidden(layer_params, x, matmul), layer_params["down_proj"])
+
+
+def _swiglu_hidden(layer_params: dict, x: torch.Tensor, matmul) -> torch.Tensor:
+    """SiLU(gate) * up, the input of the down projection."""
     if "gateup_proj" in layer_params:
         gu = matmul(x, layer_params["gateup_proj"])
         inter = gu.shape[-1] // 2
-        return matmul(F.silu(gu[..., :inter]) * gu[..., inter:], layer_params["down_proj"])
-    gate = F.silu(matmul(x, layer_params["gate_proj"]))
-    return matmul(gate * matmul(x, layer_params["up_proj"]), layer_params["down_proj"])
+        return F.silu(gu[..., :inter]) * gu[..., inter:]
+    return F.silu(matmul(x, layer_params["gate_proj"])) * matmul(x, layer_params["up_proj"])
 
 
 def gqa_attention(
@@ -255,6 +277,14 @@ def _attention_block(
     it needs ``write_pos`` as a host integer, so a LongTensor raises there
     (the batched loops switch tiering off).
     """
+    attn = _attention(layer_params, x, cfg, cos, sin, cache_k, cache_v, write_pos, mask, self_only, matmul)
+    return matmul(attn, layer_params["o_proj"])
+
+
+def _attention(layer_params: dict, x: torch.Tensor, cfg: LayerStackConfig, cos, sin, cache_k, cache_v, write_pos,
+               mask, self_only: bool, matmul) -> torch.Tensor:
+    """``_attention_block`` up to the o projection: the heads' outputs
+    [B, S, heads * D]."""
     b, s, _ = x.shape
     q, k, v = _qkv(layer_params, x, cfg, cos, sin, matmul)
 
@@ -278,7 +308,7 @@ def _attention_block(
         attn = tiered_decode_attention(q, cache_k, cache_v, mask, scale, write_pos)
     else:
         attn = gqa_attention(q, cache_k, cache_v, mask, scale)
-    return matmul(attn.reshape(b, s, cfg.num_heads * cfg.head_dim), layer_params["o_proj"])
+    return attn.reshape(b, s, cfg.num_heads * cfg.head_dim)
 
 
 def decoder_layer(
@@ -352,6 +382,33 @@ def run_layer_stack_nocache(stacked_params: dict, x: torch.Tensor, cfg: LayerSta
     return h
 
 
+def _rope_and_mask(cfg: LayerStackConfig, max_seq: int, dev: torch.device, positions, positions_thw,
+                   self_attn_prefill: bool) -> tuple:
+    """The RoPE tables and the causal mask ``run_layer_stack`` takes from
+    its positions (see there), on ``dev``."""
+    inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, device=dev)
+    if positions_thw is not None:
+        if positions is not None:
+            raise ValueError("run_layer_stack: give positions or positions_thw, not both")
+        if cfg.mrope_section is None:
+            raise ValueError("run_layer_stack: [3, S] position streams need cfg.mrope_section")
+        positions_thw = positions_thw.to(dev)
+        cos, sin = mrope_cos_sin(positions_thw, inv_freq, cfg.mrope_section)
+        positions = positions_thw[0]
+    else:
+        positions = positions.to(dev)
+        cos, sin = rope_cos_sin(positions.float(), inv_freq)
+    if positions.ndim == 2:  # per-stream positions [B, 1]
+        key_pos = torch.arange(max_seq, device=dev)
+        mask = (key_pos <= positions[..., None])[:, None, None]  # [B, KV=1, G=1, 1, Sk]
+    elif self_attn_prefill:
+        mask = (positions[None, :] <= positions[:, None])[None, None, None]
+    else:
+        key_pos = torch.arange(max_seq, device=dev)
+        mask = (key_pos[None, :] <= positions[:, None])[None, None, None]  # [B=1, KV=1, G=1, Sq, Sk]
+    return cos, sin, mask
+
+
 def run_layer_stack(
     stacked_params: dict,
     x: torch.Tensor,
@@ -386,25 +443,7 @@ def run_layer_stack(
     earlier live rows); attention runs over the S new rows only.
     ``matmul``: as ``decoder_layer``'s.
     """
-    inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, device=x.device)
-    if positions_thw is not None:
-        if positions is not None:
-            raise ValueError("run_layer_stack: give positions or positions_thw, not both")
-        if cfg.mrope_section is None:
-            raise ValueError("run_layer_stack: [3, S] position streams need cfg.mrope_section")
-        cos, sin = mrope_cos_sin(positions_thw, inv_freq, cfg.mrope_section)
-        positions = positions_thw[0]
-    else:
-        cos, sin = rope_cos_sin(positions.float(), inv_freq)
-    if positions.ndim == 2:  # per-stream positions [B, 1]
-        key_pos = torch.arange(cache.max_seq, device=x.device)
-        mask = (key_pos <= positions[..., None])[:, None, None]  # [B, KV=1, G=1, 1, Sk]
-    elif self_attn_prefill:
-        mask = (positions[None, :] <= positions[:, None])[None, None, None]
-    else:
-        key_pos = torch.arange(cache.max_seq, device=x.device)
-        mask = (key_pos[None, :] <= positions[:, None])[None, None, None]  # [B=1, KV=1, G=1, Sq, Sk]
-
+    cos, sin, mask = _rope_and_mask(cfg, cache.max_seq, x.device, positions, positions_thw, self_attn_prefill)
     h = x
     for i in range(cfg.num_layers):
         h = decoder_layer(
@@ -421,3 +460,112 @@ def run_layer_stack(
             matmul=matmul,
         )
     return h
+
+
+# ---------------------------------------------------------------------------
+# The tensor-parallel layer path
+# ---------------------------------------------------------------------------
+
+
+def tp_local_config(cfg: LayerStackConfig, tp: int) -> LayerStackConfig:
+    """A tp rank's layer-stack config: heads, KV heads and intermediate over
+    tp (each must divide)."""
+    if cfg.num_heads % tp or cfg.num_kv_heads % tp or cfg.intermediate_size % tp:
+        raise ValueError(f"tp={tp} does not divide {cfg.num_heads} heads, {cfg.num_kv_heads} KV heads and "
+                         f"intermediate {cfg.intermediate_size}")
+    return replace(cfg, num_heads=cfg.num_heads // tp, num_kv_heads=cfg.num_kv_heads // tp,
+                   intermediate_size=cfg.intermediate_size // tp)
+
+
+def add_per_rank(hs: list, parts: list) -> list:
+    """``hs[t] + parts[t]`` for every rank, each distinct pair added once
+    (ranks that share a device share both tensors)."""
+    made: dict = {}
+    out = []
+    for h, p in zip(hs, parts):
+        key = (id(h), id(p))
+        if key not in made:
+            made[key] = h + p
+        out.append(made[key])
+    return out
+
+
+def row_parallel(xs: list, ws: list, devices: list, matmul=mm) -> list:
+    """The row-parallel product: sum over the ranks of ``xs[t] @ ws[t]`` (x's
+    K split over the ranks, ws[t] the matching rows), on every rank.
+
+    Each rank's product rounds to x's dtype and the parts are all-reduced in
+    it, as the JAX package's psum. An int8 weight under ``quant.w8a8_scope``
+    is the JAX package's w8a8 under GSPMD: every rank quantizes its rows by
+    the maximum of the ranks' row amax (a max all-reduce), the int32
+    products are all-reduced, and then the scales applied once: bit for bit
+    the one-device product."""
+    if matmul is mm and quant._w8a8_allowed() and quant.is_quantized(ws[0]):
+        lead, dtype = xs[0].shape[:-1], xs[0].dtype
+        x2 = [x.reshape(-1, x.shape[-1]) for x in xs]
+        amax = all_reduce([quant.w8a8_row_amax(x) for x in x2], "max")
+        q = [quant.w8a8_quantize(x, a) for x, a in zip(x2, amax)]
+        accs = []
+        for (xq, _), w, dev in zip(q, ws, devices):
+            with device_scope(dev):
+                accs.append(quant.w8a8_int_mm(xq, w["q8"]))
+        accs = all_reduce(accs)
+        out = [(acc.float() * x_scale * w["scale"].float()).to(dtype) for acc, (_, x_scale), w in zip(accs, q, ws)]
+        return [o.reshape(*lead, o.shape[-1]) for o in out]
+    parts = []
+    for x, w, dev in zip(xs, ws, devices):
+        with device_scope(dev):
+            parts.append(matmul(x, w))
+    return all_reduce(parts)
+
+
+def run_layer_stack_tp(
+    rank_layers: list[dict],
+    devices: list[torch.device],
+    x: torch.Tensor,
+    cfg: LayerStackConfig,
+    caches: list[KVCache],
+    positions: torch.Tensor | None,
+    write_pos: int | torch.Tensor,
+    self_attn_prefill: bool = False,
+    matmul=mm,
+    positions_thw: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``run_layer_stack`` over tp ranks: what GSPMD makes of it under
+    ``parallel.sharding.layer_stack_specs``.
+
+    ``rank_layers[t]``: rank t's slice of the stacked tree (its heads' q /
+    k / v columns, its o rows, its intermediate's gate / up columns and down
+    rows) on ``devices[t]``; ``caches[t]``: its KV heads' cache [L, B, S,
+    KV/tp, D]. x [B, S, hidden] lies on the first device and the result
+    comes back there. Every form of ``run_layer_stack`` (prefill, a step,
+    per-stream positions, MRoPE streams, tiered decode attention) runs per
+    rank on a rank-local config (``tp_local_config``); after each sub-layer
+    the row-parallel product (``row_parallel``) all-reduces the partial
+    sums, then the residual is added. Each rank's work is launched on its
+    device (``collectives.device_scope``).
+    """
+    tp = len(rank_layers)
+    local = tp_local_config(cfg, tp)
+    eps = cfg.rms_norm_eps
+    tables: dict = {}
+    for dev in devices:
+        if dev not in tables:
+            tables[dev] = _rope_and_mask(cfg, caches[0].max_seq, dev, positions, positions_thw, self_attn_prefill)
+    wps = [write_pos.to(dev) if isinstance(write_pos, torch.Tensor) else write_pos for dev in devices]
+    hs = broadcast(x, devices)
+    for i in range(cfg.num_layers):
+        layers = [layer_params_at(rl, i) for rl in rank_layers]
+        attn = []
+        for t, dev in enumerate(devices):
+            with device_scope(dev):
+                lyr, (cos, sin, mask) = layers[t], tables[dev]
+                attn.append(_attention(lyr, rms_norm(hs[t], lyr["input_ln"], eps), local, cos, sin, caches[t].k[i],
+                                       caches[t].v[i], wps[t], mask, self_attn_prefill, matmul))
+        hs = add_per_rank(hs, row_parallel(attn, [lyr["o_proj"] for lyr in layers], devices, matmul))
+        act = []
+        for t, dev in enumerate(devices):
+            with device_scope(dev):
+                act.append(_swiglu_hidden(layers[t], rms_norm(hs[t], layers[t]["post_ln"], eps), matmul))
+        hs = add_per_rank(hs, row_parallel(act, [lyr["down_proj"] for lyr in layers], devices, matmul))
+    return hs[0]

@@ -215,23 +215,38 @@ def w8a8_matmul(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torc
     to the next multiple of 8 above 16 for ``torch._int_mm`` (zero rows
     add nothing to the others) and cut again; a K or N that is not a
     multiple of 8 raises. Calls on the card count in ``w8a8_matmul.calls``."""
-    m, k = x2.shape
+    xq, x_scale = w8a8_quantize(x2, w8a8_row_amax(x2))
+    return (w8a8_int_mm(xq, q8).float() * x_scale * scale.float()).to(x2.dtype)
+
+
+def w8a8_row_amax(x2: torch.Tensor) -> torch.Tensor:
+    """max|x| of each row [m, 1] (f32): what w8a8 quantizes a row by. A
+    row-parallel product under tensor parallelism takes the maximum of the
+    ranks' (``ops/nn.run_layer_stack_tp``), as GSPMD all-reduces it."""
+    return x2.float().abs().amax(dim=-1, keepdim=True)
+
+
+def w8a8_quantize(x2: torch.Tensor, amax: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows of x quantized by their ``amax`` [m, 1]: (int8 x, f32 scale [m, 1])."""
+    x_scale = _absmax_scale(amax)
+    return torch.clamp(torch.round(x2.float() / x_scale), -127, 127).to(torch.int8), x_scale
+
+
+def w8a8_int_mm(xq: torch.Tensor, q8: torch.Tensor) -> torch.Tensor:
+    """The exact int8 x int8 -> int32 product [m, N] of ``w8a8_matmul``."""
+    m, k = xq.shape
     n = q8.shape[1]
-    xf = x2.float()
-    x_scale = _absmax_scale(xf.abs().amax(dim=-1, keepdim=True))
-    xq = torch.clamp(torch.round(xf / x_scale), -127, 127).to(torch.int8)
-    if x2.device.type == "cuda":
-        if k % W8A8_ALIGN or n % W8A8_ALIGN:
-            raise ValueError(f"w8a8_matmul: torch._int_mm on the card wants K and N multiples of {W8A8_ALIGN}; "
-                             f"got K={k} N={n}")
-        rows = max(-(-m // W8A8_ALIGN) * W8A8_ALIGN, W8A8_MIN_ROWS + W8A8_ALIGN)
-        if rows != m:
-            xq = torch.cat([xq, xq.new_zeros((rows - m, k))])
-        acc = torch._int_mm(xq, q8.contiguous())[:m]
-        w8a8_matmul.calls += 1
-    else:
-        acc = torch._int_mm(xq, q8)
-    return (acc.float() * x_scale * scale.float()).to(x2.dtype)
+    if xq.device.type != "cuda":
+        return torch._int_mm(xq, q8)
+    if k % W8A8_ALIGN or n % W8A8_ALIGN:
+        raise ValueError(f"w8a8_matmul: torch._int_mm on the card wants K and N multiples of {W8A8_ALIGN}; "
+                         f"got K={k} N={n}")
+    rows = max(-(-m // W8A8_ALIGN) * W8A8_ALIGN, W8A8_MIN_ROWS + W8A8_ALIGN)
+    if rows != m:
+        xq = torch.cat([xq, xq.new_zeros((rows - m, k))])
+    acc = torch._int_mm(xq, q8.contiguous())[:m]
+    w8a8_matmul.calls += 1
+    return acc
 
 
 w8a8_matmul.calls = 0  # calls on the card

@@ -28,7 +28,9 @@ bucketed decode of [reference || frames] with the reference's share of the
 samples cut). Throughput mode: ``synthesize_batch`` (B utterances, one
 batched frame loop a prompt layout, one vocoder pass) and
 ``synthesize_streaming_batch`` (a ``StreamingBatchSession`` of one
-layout, every stream a chunk at a time).
+layout, every stream a chunk at a time). Multi-GPU serving: ``shard(mesh)``
+and ``from_pretrained(..., mesh=)`` place the model on a (dp, tp)
+``parallel.sharding.Mesh``, and every entry point then runs on it.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import logging
 import time
 from dataclasses import dataclass, fields, replace
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -54,6 +57,7 @@ from .models.codec.encoder import Encoder12Hz, MimiEncoderConfig
 from .models.config import ModelConfig, ModelType, config_for_variant, parse_config_json
 from .models.speaker import SpeakerEncoder
 from .ops import fused_layer, nn, quant, rng, sampling
+from .parallel import collectives, sharding
 from .tokenizer import TextTokenizer
 from .utils.bucketing import next_bucket
 from .utils.device import device_or_card
@@ -197,7 +201,8 @@ class Qwen3TTS:
     in f32 on the device that holds their weights.
 
     ``from_pretrained``, ``from_random`` and ``from_numpy`` build on the CUDA
-    card unless given ``device="cpu"``.
+    card unless given ``device="cpu"``; ``shard`` (or ``from_pretrained(...,
+    mesh=)``) then spreads the model over a (dp, tp) mesh.
     """
 
     def __init__(
@@ -229,15 +234,7 @@ class Qwen3TTS:
         self.cp_params = cp_params
         self.compute_dtype = talker_params["norm"].dtype
         self.device = talker_params["norm"].device
-        self.cp_frame_pack = self.cp_step_pack = None
-        route = cp.cp_route(cp_params, config.code_predictor)  # raises on an unknown decode_mode
-        if on_card and route == "frame":
-            self.cp_frame_pack = fused_layer.CpFramePack(cp_params, config.code_predictor, self.compute_dtype,
-                                                         self.device)
-        elif on_card and route in ("streamed_step", "layer_steps"):
-            step_pack = fused_layer.CpStepPack if route == "streamed_step" else fused_layer.FusedStepPack
-            self.cp_step_pack = step_pack(cp_params["layers"], config.code_predictor.layer_stack(),
-                                          self.compute_dtype, self.device)
+        self.cp_frame_pack, self.cp_step_pack = self._cp_packs(cp_params, self.device)
         self.talker_step_pack = None
         layers, stack = talker_params["layers"], config.talker.layer_stack()
         if (on_card and fused_layer.has_stream_pack(layers, stack.hidden_size)
@@ -248,6 +245,115 @@ class Qwen3TTS:
         self.tokenizer = tokenizer
         self.speaker_encoder = speaker_encoder
         self.speech_encoder = speech_encoder
+        # Multi-GPU serving (``shard``): the mesh, every dp replica's trees,
+        # and replica 0's ranks' kernel-5/6 packs.
+        self.mesh: sharding.Mesh | None = None
+        self.replicas: list[Replica] = []
+        self.tp_step_packs: list | None = None
+
+    def _cp_packs(self, cp_params: dict, dev: torch.device) -> tuple:
+        """The code predictor's kernel pack on a card for the route it takes
+        (``cp.cp_route``, which raises on an unknown decode_mode): (frame pack,
+        per-step pack), either or both None."""
+        route = cp.cp_route(cp_params, self.config.code_predictor)
+        if dev.type != "cuda":
+            return None, None
+        if route == "frame":
+            return fused_layer.CpFramePack(cp_params, self.config.code_predictor, self.compute_dtype, dev), None
+        if route in ("streamed_step", "layer_steps"):
+            step_pack = fused_layer.CpStepPack if route == "streamed_step" else fused_layer.FusedStepPack
+            return None, step_pack(cp_params["layers"], self.config.code_predictor.layer_stack(), self.compute_dtype,
+                                   dev)
+        return None, None
+
+    # ------------------------------------------------------------------
+    # Multi-GPU serving
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def shard(self, mesh: sharding.Mesh) -> "Qwen3TTS":
+        """Place the model on a (dp, tp) ``mesh`` (``parallel.sharding.make_mesh``)
+        for tensor- and data-parallel serving; returns self, with
+        ``self.mesh`` set. Every entry point then runs on the mesh unchanged.
+
+        * The talker splits over each replica's tp ranks by
+          ``sharding.talker_specs`` (heads, intermediate and the codec head's
+          vocabulary on tp; a fused projection block by block; embeddings and
+          norms whole): ``self.talker_params`` becomes replica 0's
+          ``sharding.ShardedTree``, and its layer path the tensor-parallel
+          one (``nn.run_layer_stack_tp``, kernel 4 per rank on an int8 tree).
+          tp must divide the heads, the KV heads, the intermediate, the text
+          projection's intermediate and the codec vocabulary.
+        * The whole-step talker kernel's pack is dropped (kernel 3 cannot
+          span ranks), as the JAX package drops its stream pack. An int8
+          talker at tp > 1 gets the head-aligned re-layout
+          (``fused_layer.make_tp_pack``, each rank's chunk serving as its
+          fused qkv and gate|up) and, on the cards, each rank of replica 0
+          its own kernel-5/6 pack (``fused_layer.tp_step_packs``): its
+          batch-1 decode steps run kernels 5 and 6 on every rank with an
+          all-reduce between them (``fused_layer.tp_decode_step``).
+        * The code predictor is not split: each replica holds it whole on its
+          first device, replica 0 with its single-card kernel pack (kernel 1,
+          or its per-step route). This departs from the JAX package, which
+          shards it too, with the same results: kernel 1 cannot span cards,
+          and the 1.7B code predictor is about 0.16 GB of bf16 layer weights.
+        * Batch-1 synthesis runs on replica 0; ``synthesize_batch`` and
+          ``synthesize_streaming_batch`` split a batch's streams over the dp
+          replicas (``_split_batch``). The vocoder decodes on replica 0's
+          first device, where every frame comes back.
+        * On distinct cards the ranks' collectives are NCCL's, their
+          communicators made here; ranks that share a device add locally
+          (``parallel.collectives``).
+
+        A second, unsharded model in the process keeps its packs and kernels.
+        """
+        if self.mesh is not None:
+            raise RuntimeError("shard(): the model is already sharded")
+        tcfg, tp = self.config.talker, mesh.shape["tp"]
+        stack = tcfg.layer_stack()
+        nn.tp_local_config(stack, tp)  # raises unless tp divides the heads and the intermediate
+        for name, width in (("text projection intermediate", tcfg.text_proj_intermediate),
+                            ("codec vocabulary", tcfg.codec_vocab_size)):
+            if width % tp:
+                raise ValueError(f"shard(): tp={tp} does not divide the {name} ({width})")
+        tree = dict(self.talker_params)
+        tpack = fused_layer.make_tp_pack(tree["layers"], stack, tp) if tp > 1 else None
+        if tpack is not None:
+            tree["tp_pack"] = tpack
+        ranks = sharding.shard_pytree(tree, sharding.talker_specs(tcfg, tree), mesh)
+        if tpack is not None:
+            # A rank's tp-pack chunk is its block slice of the fused tree: one copy serves both.
+            for rank in (r for row in ranks for r in row):
+                rank["layers"] = dict(rank["layers"], qkv_proj=rank["tp_pack"]["qkv"],
+                                      gateup_proj=rank["tp_pack"]["gu"])
+        del tree, tpack
+        self.talker_step_pack = None
+        self.replicas = []
+        for r in range(mesh.shape["dp"]):
+            dev = mesh.first(r)
+            collectives.connect(mesh.replica(r))
+            self.replicas.append(Replica(sharding.ShardedTree(ranks[r], mesh.replica(r)),
+                                         sharding.place_pytree(self.cp_params, dev), dev))
+        first = self.replicas[0]
+        self.talker_params, self.cp_params, self.device = first.talker_params, first.cp_params, first.device
+        with collectives.device_scope(self.device):
+            self.cp_frame_pack, self.cp_step_pack = self._cp_packs(self.cp_params, self.device)
+            self.vocoder_params = sharding.place_pytree(self.vocoder_params, self.device)
+        if "tp_pack" in self.talker_params and self.device.type == "cuda":
+            self.tp_step_packs = fused_layer.tp_step_packs(
+                [r["layers"] for r in first.talker_params.ranks], [r["tp_pack"] for r in first.talker_params.ranks],
+                stack, self.compute_dtype, first.talker_params.devices)
+        self.mesh = mesh
+        logger.info("shard(): %s; talker decode steps on %s", mesh,
+                    "kernels 5 + 6 per rank" if "tp_pack" in self.talker_params else "the tensor-parallel layer path")
+        return self
+
+    def _place_cache(self, cache: nn.KVCache) -> nn.KVCache | nn.TPCache:
+        """A batch-1 cache split over replica 0's ranks by KV heads
+        (``sharding.serving_cache_spec``), if the model is sharded."""
+        if self.mesh is None:
+            return cache
+        return _split_cache(cache, sharding.serving_cache_spec(), self.mesh.replica_mesh(0))[0]
 
     @classmethod
     def from_pretrained(
@@ -260,6 +366,7 @@ class Qwen3TTS:
         quantize_int8: bool = False,
         device: torch.device | str | None = None,
         int8_activations: bool = False,
+        mesh: sharding.Mesh | None = None,
     ) -> "Qwen3TTS":
         """Load a local HF checkpoint directory (config.json +
         model.safetensors + speech_tokenizer/model.safetensors, and the text
@@ -281,10 +388,12 @@ class Qwen3TTS:
         tensors; an incomplete or malformed ``encoder.*`` set (``KeyError``,
         ``ValueError``) leaves it None (no ICL cloning), any other error
         raises. ``int8_activations`` (with ``quantize_int8``): w8a8 in the
-        batched programs, as in ``Qwen3TTS``. The JAX package's ``mesh``
-        (tensor-parallel serving) is not ported yet: it waits for multi-GPU
-        serving.
+        batched programs, as in ``Qwen3TTS``. ``mesh``: a
+        ``parallel.sharding.Mesh``; the model loads on its first device (unless
+        ``device`` says otherwise) and is sharded on it (``shard``).
         """
+        if device is None and mesh is not None:
+            device = mesh.first(0)
         device = device_or_card(device)
         model_dir = Path(model_dir)
         if vocoder_config is None:
@@ -325,8 +434,9 @@ class Qwen3TTS:
                 logger.warning("Speech encoder not built (%s: %s); ICL voice cloning is unavailable.",
                                type(e).__name__, e)
         del raw, st_raw
-        return cls(config, talker_params, cp_params, vocoder_params, tokenizer, speaker, speech,
-                   vocoder_config=vocoder_config, quantize_int8=quantize_int8, int8_activations=int8_activations)
+        model = cls(config, talker_params, cp_params, vocoder_params, tokenizer, speaker, speech,
+                    vocoder_config=vocoder_config, quantize_int8=quantize_int8, int8_activations=int8_activations)
+        return model.shard(mesh) if mesh is not None else model
 
     @classmethod
     def from_random(
@@ -437,9 +547,8 @@ class Qwen3TTS:
 
     def _new_cache(self, prompt_len: int, max_new: int) -> nn.KVCache:
         rows = ((prompt_len + max_new + 8 + 15) // 16) * 16
-        return nn.init_kv_cache(
-            self.config.talker.layer_stack(), 1, rows, self.compute_dtype, self.device
-        )
+        return self._place_cache(nn.init_kv_cache(self.config.talker.layer_stack(), 1, rows, self.compute_dtype,
+                                                  self.device))
 
     def _normalize_options(self, options: SynthesisOptions) -> SynthesisOptions:
         """Clamp max_length to the largest frame bucket (2048 frames)."""
@@ -801,7 +910,8 @@ class Qwen3TTS:
         batched loop runs the layer path (never kernels 1 and 3, which are
         batch-1); the vocoder decodes all streams in one bucketed pass, ICL
         streams behind their reference codes (cut at ``ref_len * 1920``
-        samples).
+        samples). On a sharded model a group's streams split over the dp
+        replicas (``_split_batch``), whose loops run one after another.
 
         On an H100 this is slower today than calling the batch-1 entry
         points once a text, at B = 8 too: the batched loop is the eager
@@ -880,16 +990,52 @@ class Qwen3TTS:
 
     def _generate_batch_group(self, group: "BatchGroup") -> tuple[list[np.ndarray], np.ndarray]:
         """Run a prepared group's batched frame loop to its end (w8a8 when
-        ``self.w8a8``); returns (per-stream frames [max_new, 16], frame
-        counts)."""
+        ``self.w8a8``; each dp replica's streams on that replica, one after
+        another); returns (per-stream frames [max_new, 16], frame counts)."""
+        self._run_batch_loops(group, group.frame_limits)
+        frames = np.concatenate([g.state.frames.cpu().numpy() for g in group.shards])
+        counts = [n for g in group.shards for n in g.state.frame_idx]
+        return [frames[j] for j in range(frames.shape[0])], np.asarray(counts, np.int64)
+
+    def _run_batch_loops(self, group: "BatchGroup", frame_limits: list[int]) -> None:
+        """Advance every share of ``group`` (``BatchGroup.shards``) on its
+        replica until each stream is done or at its limit in ``frame_limits``
+        (one a stream of the whole group)."""
+        at = 0
         with quant.w8a8_scope(self.w8a8):
-            core.generate_frames_batch(
-                self.talker_params, self.cp_params, self.config.talker, self.config.code_predictor, group.scfg,
-                group.state, group.trailing, group.trailing_lens, group.pad_embed, group.uniforms,
-                group.frame_limits,
-            )
-        frames = group.state.frames.cpu().numpy()
-        return [frames[j] for j in range(frames.shape[0])], np.asarray(group.state.frame_idx, np.int64)
+            for g in group.shards:
+                tree, cp_tree = self._replica_trees(g.replica)
+                core.generate_frames_batch(
+                    tree, cp_tree, self.config.talker, self.config.code_predictor, g.scfg, g.state, g.trailing,
+                    g.trailing_lens, g.pad_embed, g.uniforms, frame_limits[at:at + g.batch], self.mesh,
+                )
+                at += g.batch
+
+    def _replica_trees(self, r: int) -> tuple:
+        """(talker, code predictor) of dp replica r: the model's own for 0."""
+        if r == 0:
+            return self.talker_params, self.cp_params
+        return self.replicas[r].talker_params, self.replicas[r].cp_params
+
+    def _split_batch(self, b: int, cache: nn.KVCache) -> list[tuple[int, range, nn.KVCache | nn.TPCache]]:
+        """How a batch of ``b`` streams, prepared with one padding, runs: a list
+        of (replica, its streams, its cache). Unsharded: all on the model's
+        device. Under a mesh with dp > 1 and ``b`` a multiple of dp: the
+        streams split evenly over the replicas in order, the cache by
+        ``sharding.batch_cache_spec`` (streams on dp, KV heads on tp); when
+        ``b`` is not a multiple, the JAX package's warning, and every stream
+        on replica 0."""
+        if self.mesh is None:
+            return [(0, range(b), cache)]
+        dp = self.mesh.shape["dp"]
+        if dp == 1 or b % dp:
+            if dp > 1:
+                logger.warning("synthesize_batch: batch %d not divisible by dp=%d; running without dp sharding.",
+                               b, dp)
+            return [(0, range(b), self._place_cache(cache))]
+        per = b // dp
+        parts = _split_cache(cache, sharding.batch_cache_spec(), self.mesh)
+        return [(r, range(r * per, (r + 1) * per), parts[r]) for r in range(dp)]
 
     @torch.no_grad()
     def _prepare_batch_group(
@@ -978,11 +1124,20 @@ class Qwen3TTS:
                 rows = [prefill.custom_voice_rows(tp, text_ids[i], n, T.speaker_info(v).token_id, lang_ids[i])
                         for i, (n, v) in enumerate(zip(text_lens, voices))]
                 prefill_rows = CUSTOM_VOICE_PROMPT_LEN
-        with quant.w8a8_scope(self.w8a8):
-            started = prefill.finish_batch(tp, self.config.talker, scfg, rows, new_caches(prefill_rows), uniforms,
-                                           max_new_bucket)
-        state, trailing, trailing_lens, pad = started
-        return BatchGroup(state, scfg, trailing, trailing_lens, pad, uniforms, per_max, refs)
+        shards = []
+        for r, idx, cache in self._split_batch(b, new_caches(prefill_rows)):
+            tree, _ = self._replica_trees(r)
+            rdev = tree["norm"].device
+            rows_r = [tuple(x.to(rdev) if isinstance(x, torch.Tensor) else x for x in rows[i]) for i in idx]
+            uniforms_r = uniforms[idx.start:idx.stop].to(rdev)
+            with quant.w8a8_scope(self.w8a8), collectives.device_scope(rdev):
+                state, trailing, trailing_lens, pad = prefill.finish_batch(
+                    tree, self.config.talker, scfg, rows_r, cache, uniforms_r, max_new_bucket)
+            shards.append(BatchGroup(state, scfg, trailing, trailing_lens, pad, uniforms_r,
+                                     [per_max[i] for i in idx], [refs[i] for i in idx], r))
+        if len(shards) == 1:
+            return shards[0]
+        return BatchGroup(None, scfg, None, [], None, uniforms, per_max, refs, parts=shards)
 
     def synthesize_streaming_batch(
         self,
@@ -1057,20 +1212,61 @@ def _pad_rows(t: torch.Tensor, delta: int) -> torch.Tensor:
     return torch.cat([t, t.new_zeros(t.shape[:2] + (delta,) + t.shape[3:])], dim=2)
 
 
+def _grown_cache(cache: nn.KVCache | nn.TPCache, delta: int) -> nn.KVCache | nn.TPCache:
+    """``cache`` with ``delta`` zero rows, every rank's part of a split one."""
+    if isinstance(cache, nn.TPCache):
+        return nn.TPCache(tuple(_grown_cache(part, delta) for part in cache.parts))
+    return nn.KVCache(_pad_rows(cache.k, delta), _pad_rows(cache.v, delta))
+
+
+def _split_cache(cache: nn.KVCache, spec: sharding.P, mesh: sharding.Mesh) -> list[nn.TPCache]:
+    """Every replica's ranks' parts of ``cache`` by ``spec``."""
+    k, v = sharding.shard_leaf(cache.k, spec, mesh), sharding.shard_leaf(cache.v, spec, mesh)
+    return [nn.TPCache(tuple(nn.KVCache(a, b) for a, b in zip(kr, vr))) for kr, vr in zip(k, v)]
+
+
+class Replica(NamedTuple):
+    """One dp replica of a sharded model: its tp ranks' talker, its whole
+    code predictor and its first device."""
+
+    talker_params: sharding.ShardedTree
+    cp_params: dict
+    device: torch.device
+
+
 @dataclass
 class BatchGroup:
     """One prompt-layout group of a batch, prefilled: the batched loop's
     state and inputs, each stream's frame budget, and each stream's ICL
-    reference codes (None outside ICL)."""
+    reference codes (None outside ICL); under a mesh, split over the dp
+    replicas (``parts``)."""
 
-    state: core.BatchGenState
+    state: core.BatchGenState | None
     scfg: sampling.SamplingConfig
-    trailing: torch.Tensor  # [B, Tb, hidden]
+    trailing: torch.Tensor | None  # [B, Tb, hidden]
     trailing_lens: list[int]
-    pad_embed: torch.Tensor  # [hidden]
+    pad_embed: torch.Tensor | None  # [hidden]
     uniforms: torch.Tensor  # [B, max_new + 1]
     frame_limits: list[int]
     refs: list[np.ndarray | None]
+    replica: int = 0  # the dp replica whose devices hold the state
+    # Under a dp split: each replica's share of the streams, in stream order,
+    # each a group of its own (this group then holds no loop state itself).
+    parts: list["BatchGroup"] | None = None
+
+    @property
+    def shards(self) -> list["BatchGroup"]:
+        """The groups whose loops run: the dp parts, or this group."""
+        return self.parts or [self]
+
+    @property
+    def batch(self) -> int:
+        return len(self.frame_limits)
+
+    @property
+    def max_new(self) -> int:
+        """The frames buffer's rows."""
+        return self.shards[0].state.frames.shape[1]
 
 
 class StreamingSession:
@@ -1123,7 +1319,7 @@ class StreamingSession:
         self.state = core.generate_frames(
             m.talker_params, m.cp_params, m.config.talker, m.config.code_predictor, self.scfg, self.state,
             self.trailing, self.trailing_len, self.pad_embed, self.uniforms, frame_limit,
-            m.cp_frame_pack, m.talker_step_pack, m.cp_step_pack, self.on_frame,
+            m.cp_frame_pack, m.talker_step_pack, m.cp_step_pack, self.on_frame, m.mesh, m.tp_step_packs,
         )
 
     @torch.no_grad()
@@ -1168,13 +1364,14 @@ class StreamingSession:
                    next_bucket(self.options.max_length, buckets=FRAME_BUCKETS))
 
     def _grow(self, new_cap: int) -> None:
-        """Extend the frames buffer, the talker cache and the streaming
-        vocoder's KV cache to ``new_cap`` frames (zero rows: rows past the
-        loop's position are masked, so nothing computed changes)."""
+        """Extend the frames buffer, the talker cache (every rank's, under a
+        mesh) and the streaming vocoder's KV cache to ``new_cap`` frames (zero
+        rows: rows past the loop's position are masked, so nothing computed
+        changes)."""
         s = self.state
         delta = new_cap - s.frames.shape[0]
         s.frames = torch.cat([s.frames, s.frames.new_zeros((delta, s.frames.shape[1]))])
-        s.cache = nn.KVCache(_pad_rows(s.cache.k, delta), _pad_rows(s.cache.v, delta))
+        s.cache = _grown_cache(s.cache, delta)
         if self.vstate is not None:
             self.vstate = self.vstate._replace(kv_k=_pad_rows(self.vstate.kv_k, delta),
                                                kv_v=_pad_rows(self.vstate.kv_v, delta))
@@ -1398,7 +1595,7 @@ class StreamingBatchSession:
         self.model = model
         self.group = group
         self.options = options
-        self.batch = group.state.batch
+        self.batch = group.batch
         self.frames_emitted = 0
         self._exhausted = False
         self._stream_done = [False] * self.batch
@@ -1415,7 +1612,7 @@ class StreamingBatchSession:
         # The grid's end: every stream's reference prefix and its own budget.
         self._grid_max = max(n + m for n, m in zip(self._ref_lens, group.frame_limits))
         headroom = max(options.chunk_frames, options.first_chunk_frames or 1, 1)
-        self.vstate = vocoder.init_stream_state(model.vocoder_config, group.state.frames.shape[1] + cmax + headroom,
+        self.vstate = vocoder.init_stream_state(model.vocoder_config, group.max_new + cmax + headroom,
                                                 batch=self.batch, device=model.device)
 
     def is_done(self) -> bool:
@@ -1430,14 +1627,10 @@ class StreamingBatchSession:
         [B, chunk * 1920] on the device, frames made a stream, done a
         stream)."""
         m, g = self.model, self.group
-        s = g.state
-        with quant.w8a8_scope(m.w8a8):
-            core.generate_frames_batch(
-                m.talker_params, m.cp_params, m.config.talker, m.config.code_predictor, g.scfg, s, g.trailing,
-                g.trailing_lens, g.pad_embed, g.uniforms, [min(limit, target) for limit in g.frame_limits],
-            )
-        b, _, n_codes = s.frames.shape
-        frames_ext = torch.cat([s.frames, s.frames.new_zeros((b, chunk, n_codes))], dim=1)
+        m._run_batch_loops(g, [min(limit, target) for limit in g.frame_limits])
+        frames = torch.cat([p.state.frames.to(m.device) for p in g.shards])
+        b, _, n_codes = frames.shape
+        frames_ext = torch.cat([frames, frames.new_zeros((b, chunk, n_codes))], dim=1)
         if self.ref_codes is None:
             start = min(emitted, frames_ext.shape[1] - chunk)
             rows = frames_ext[:, start:start + chunk]  # [B, chunk, 16]
@@ -1452,7 +1645,8 @@ class StreamingBatchSession:
             rows = torch.where((t_idx[None, :] < ref_lens[:, None])[..., None], ref_rows, gen_rows)
         wav, self.vstate = vocoder.decode_stream_chunk(m.vocoder_params, m.vocoder_config, self.vstate,
                                                        rows.transpose(1, 2))
-        return wav, list(s.frame_idx), s.done.tolist()
+        counts = [n for p in g.shards for n in p.state.frame_idx]
+        return wav, counts, [d for p in g.shards for d in p.state.done.tolist()]
 
     def next_chunks(self) -> list[AudioBuffer | None] | None:
         """Advance all live streams one chunk; None when every stream is done."""

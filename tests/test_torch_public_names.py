@@ -12,13 +12,21 @@
   the tiny model.
 * ``utils.device.auto_device()``: raises without a card (no CPU fallback);
   with ``torch.cuda`` reporting one card, it is ``cuda:0``.
+* The multi-GPU serving names: ``parallel.sharding.make_mesh`` (a (dp, tp)
+  mesh of the JAX package's shape), ``Qwen3TTS.shard`` (returns the model),
+  ``Qwen3TTS.mesh`` (None until sharded, then the mesh) and
+  ``from_pretrained``'s ``mesh`` keyword, each as the JAX package has it.
 """
 
+import inspect
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import qwen3_tts_tpu.pipeline as JP
 from qwen3_tts_tpu.audio.io import AudioBuffer as JAudio
 from qwen3_tts_tpu.generation import prefill as jprefill
 from qwen3_tts_tpu.ops import nn as jnn
@@ -30,6 +38,7 @@ from qwen3_tts_tpu_torch.audio.resample import resample_to_24k
 from qwen3_tts_tpu_torch.generation import prefill as tprefill
 from qwen3_tts_tpu_torch.ops import nn as tnn
 from qwen3_tts_tpu_torch.ops import sampling as tsampling
+from qwen3_tts_tpu_torch.pipeline import Qwen3TTS
 from qwen3_tts_tpu_torch.utils import device as tdevice
 from test_pipeline import TINY_TALKER
 from test_torch_voice_clone import REF_TEXT, build_models
@@ -106,3 +115,31 @@ def test_auto_device_is_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert tdevice.auto_device() == torch.device("cuda", 0)
     assert tdevice.parse_device("auto") == torch.device("cuda", 0)
+
+
+def test_make_mesh_is_public():
+    from qwen3_tts_tpu.parallel import sharding as jsharding
+    from qwen3_tts_tpu_torch.parallel import sharding as tsharding
+
+    assert tsharding.make_mesh(["cpu"] * 4, tp=2).shape == dict(jsharding.make_mesh(jax.devices()[:4], tp=2).shape)
+
+
+def test_shard_returns_the_model(models):
+    from qwen3_tts_tpu_torch.parallel import sharding as tsharding
+
+    _, tm = models
+    model = Qwen3TTS(tm.config, tm.talker_params, tm.cp_params, tm.vocoder_params, tm.tokenizer,
+                     vocoder_config=tm.vocoder_config)
+    mesh = tsharding.make_mesh(["cpu"] * 2, tp=2)
+    assert model.shard(mesh) is model and model.mesh is mesh
+
+
+def test_mesh_attribute(models):
+    jm, tm = models
+    assert jm.mesh is None and tm.mesh is None
+
+
+def test_from_pretrained_takes_a_mesh():
+    want = inspect.signature(JP.Qwen3TTS.from_pretrained).parameters["mesh"]
+    got = inspect.signature(Qwen3TTS.from_pretrained).parameters["mesh"]
+    assert got.default is want.default is None and got.kind == want.kind
