@@ -230,7 +230,23 @@ Phases, each printing a line (any failure exits nonzero before the last):
      and of its frames' length; the same batch run directly on it and on
      the weight-only int8 model (ms/frame, share of codes equal, not a
      gate), and ``w8a8_matmul`` on the card bit-equal to the CPU at every
-     shape the batch gives it, on its own first input of each;
+     shape the batch gives it, on its own first input of each; then phase
+     ``loop`` (``loop_phase``, after the bf16 server and after the int8
+     batch), each line with the card's name and power limit: the
+     staged run and a stream (32 frames; kernels 1 and 3, kernel 2's stream
+     entry), a B = 8 batch and streaming batch (16 frames; kernel 2, kernel
+     2's stream entry, kernel 4 in int8) with every frame between two of the
+     loops' looks under ``torch.cuda.set_sync_debug_mode("error")``
+     (``sync_free_loops``: a synchronising call fails the run); the host
+     reads (``TransferAudit``) of a batch-1 loop call of 32 and 125 frames
+     and a B = 8 call of 16, each within ceil(frames / N) + 2, and of a
+     whole staged utterance; the frozen frames past EOS of a staged run
+     whose EOS id is a token first drawn at frame 40 (at most 2N - 1, the
+     frames before EOS those of the staged session, none after); the
+     streamed utterance at ``streaming_lookahead`` 0 and 1 in turns (TTFA,
+     gaps; every chunk bit-equal across the two); the staged batch-1
+     ms/frame and phase ``batch``'s B = 8 frames/s beside them (the sweep
+     of N is ``synthesis_timing.py --cells loop-sweep-bf16``);
  11. loading and the command line (phase ``ckpt``): a seeded 1.7B
      CustomVoice checkpoint in the HF layout (all 28 talker layers, bf16,
      the full-width vocoder f32; ``qwen3_tts_tpu_torch/ckpt_fixture.py``,
@@ -324,6 +340,7 @@ from qwen3_tts_tpu_torch import build, ckpt_fixture, cli, cp_fixture, encoder_fi
 from qwen3_tts_tpu_torch import server, vocoder_fixture  # noqa: E402
 from qwen3_tts_tpu_torch.audio.io import AudioBuffer  # noqa: E402
 from qwen3_tts_tpu_torch.audio.resample import resample_to_24k  # noqa: E402
+from qwen3_tts_tpu_torch.generation import core  # noqa: E402
 from qwen3_tts_tpu_torch import kernel_timing as kt  # noqa: E402
 from qwen3_tts_tpu_torch import synthesis_timing as st  # noqa: E402
 from qwen3_tts_tpu_torch.models import code_predictor as cp  # noqa: E402
@@ -3518,6 +3535,210 @@ def server_w8a8(m8: Qwen3TTS, m8w: Qwen3TTS, card: str) -> dict:
             "launches": launches, "w8a8_calls": w8}
 
 
+# Phase ``loop``: the frame loops' contract (``generation/core.py``) on the card.
+LOOP_FRAMES = 32  # the sync check's and the read count's staged run and stream
+LOOP_BATCH_FRAMES = 16  # its B = 8 batch and streaming batch (the eager batched loop: ~150 ms a frame)
+LOOP_EOS_FROM = 40  # the overrun check's EOS id first appears at this frame of the staged run, or later
+
+
+@contextlib.contextmanager
+def sync_free_loops():
+    """While entered, every frame that a frame loop runs between two of its
+    looks at the device runs under ``torch.cuda.set_sync_debug_mode("error")``:
+    a call that waits for the card there raises. The mode is off during each
+    look (its wait on the previous look's event, the one blocking call the
+    contract allows) and outside the loops (the prologue, the vocoder, the
+    sessions' reads)."""
+    read, loops = core._FlagReader.read, (core.generate_frames, core.generate_frames_batch)
+
+    def looked(self, flag):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return read(self, flag)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    def scoped(fn):
+        def run(*args, **kwargs):
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    core._FlagReader.read = looked
+    core.generate_frames, core.generate_frames_batch = (scoped(fn) for fn in loops)
+    try:
+        yield
+    finally:
+        core._FlagReader.read = read
+        core.generate_frames, core.generate_frames_batch = loops
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def loop_read_bound(frames: int) -> int:
+    """The contract's most host reads a loop call of ``frames`` frames."""
+    return math.ceil(frames / core.DONE_READ_EVERY) + 2
+
+
+def loop_sync_check(model: Qwen3TTS, label: str, card: str) -> dict:
+    """The staged run and a stream at lookahead 1 (``LOOP_FRAMES`` frames),
+    a B = 8 ``synthesize_batch`` and ``synthesize_streaming_batch``
+    (``LOOP_BATCH_FRAMES`` frames) under ``sync_free_loops``, each with the
+    launch counts set to 0 just before it: nothing synchronises between two
+    looks, and the kernels of each path launch."""
+    opts = main_options(LOOP_FRAMES)
+    bopts = replace(st.batch_options(), max_length=LOOP_BATCH_FRAMES, min_new_tokens=LOOP_BATCH_FRAMES)
+    texts = list(st.BATCH_TEXTS[:BATCH])
+    runs = {
+        "staged": lambda: model._custom_voice_session(TEXT, "ryan", "english", opts).run_to_completion(),
+        "stream": lambda: list(model.synthesize_streaming(TEXT, "ryan", "english", opts)),
+        "batch8": lambda: model.synthesize_batch(texts, options=bopts),
+        "stream_batch8": lambda: list(model.synthesize_streaming_batch(texts, options=bopts)),
+    }
+    out = {}
+    tokenizer = model.tokenizer
+    try:
+        for name, run in runs.items():
+            model.tokenizer = st.WordTokenizer() if name.endswith("8") else tokenizer
+            _reset_counts()
+            error = None
+            with sync_free_loops():
+                try:
+                    run()
+                except RuntimeError as e:  # the sync debug mode's error
+                    error = str(e).splitlines()[0]
+            out[name] = launches = _counts()
+            phase("loop", f"{card}: {label} {name} under set_sync_debug_mode('error') between looks: "
+                  f"{'no synchronising call' if error is None else 'RAISED: ' + error}; launches {launches}")
+            check(error is None, f"loop {label} {name}: a synchronising call in the frame loop: {error}")
+    finally:
+        model.tokenizer = tokenizer
+    staged, stream, batch, sbatch = (out[k] for k in runs)
+    check(staged["cp_frame"] == staged["talker_step"] == LOOP_FRAMES, f"loop {label} staged: launches {staged}")
+    check(stream["residual_unit_stream"] > 0 and stream["cp_frame"] == LOOP_FRAMES,
+          f"loop {label} stream: launches {stream}")
+    check(batch["residual_unit"] == 9 and batch["cp_frame"] == 0, f"loop {label} batch: launches {batch}")
+    check(sbatch["residual_unit_stream"] > 0, f"loop {label} streaming batch: launches {sbatch}")
+    check(("int8" not in label) or batch["int8_matmul"] > 0, f"loop {label} batch: kernel 4 never launched")
+    return out
+
+
+def loop_reads(model: Qwen3TTS, label: str, card: str) -> dict:
+    """``TransferAudit`` over one loop call of batch 1 (``LOOP_FRAMES`` and
+    ``FRAMES`` frames) and of B = 8 (``LOOP_BATCH_FRAMES``): within
+    ``loop_read_bound``; and over a whole staged utterance (a record)."""
+    out = {}
+    for frames in (LOOP_FRAMES, FRAMES):
+        session = model._custom_voice_session(TEXT, "ryan", "english", main_options(frames))
+        _, out[f"batch1_{frames}"] = count_host_transfers(session._advance, frames)
+        check(session.frames_generated == frames, f"loop {label}: {session.frames_generated} frames, want {frames}")
+    tokenizer, model.tokenizer = model.tokenizer, st.WordTokenizer()
+    try:
+        opts = replace(st.batch_options(), max_length=LOOP_BATCH_FRAMES, min_new_tokens=LOOP_BATCH_FRAMES)
+        b = BATCH
+        g = model._prepare_batch_group("basic", list(st.BATCH_TEXTS[:b]), ["ryan"] * b, ["english"] * b, [None] * b,
+                                       model._normalize_options(opts), [42 + i for i in range(b)])
+        _, out["batch8"] = count_host_transfers(
+            core.generate_frames_batch, model.talker_params, model.cp_params, model.config.talker,
+            model.config.code_predictor, g.scfg, g.state, g.trailing, g.trailing_lens, g.pad_embed, g.uniforms,
+            g.frame_limits)
+    finally:
+        model.tokenizer = tokenizer
+    _, out["utterance"] = count_host_transfers(model.synthesize_with_timing, TEXT, "ryan", "english", main_options())
+    bounds = {k: loop_read_bound(LOOP_BATCH_FRAMES if k == "batch8" else int(k.split("_")[1]))
+              for k in out if k != "utterance"}
+    phase("loop", f"{card}: {label} host reads (TransferAudit), N = {core.DONE_READ_EVERY}: batch-1 loop call of "
+          f"{LOOP_FRAMES} frames {out[f'batch1_{LOOP_FRAMES}']} (bound {bounds[f'batch1_{LOOP_FRAMES}']}), of "
+          f"{FRAMES} frames {out[f'batch1_{FRAMES}']} (bound {bounds[f'batch1_{FRAMES}']}); B={BATCH} loop call of "
+          f"{LOOP_BATCH_FRAMES} frames {out['batch8']} (bound {bounds['batch8']}); a whole staged utterance of "
+          f"{FRAMES} frames (prefill, loop, decode) {out['utterance']}")
+    check(all(out[k] <= bound for k, bound in bounds.items()), f"loop {label}: host reads {out} over {bounds}")
+    return out
+
+
+def eos_run(model: Qwen3TTS, ref: np.ndarray) -> tuple[int, int, int, np.ndarray]:
+    """The staged run with its EOS id set to the first token of ``ref`` (the
+    staged session's frames) that appears at frame ``LOOP_EOS_FROM`` or
+    later, one loop call: (that frame, frames made, iterations launched, the
+    frames buffer)."""
+    tokens = ref[:, 0]
+    at = next((i for i in range(LOOP_EOS_FROM, len(tokens)) if tokens[i] not in tokens[:i]), None)
+    check(at is not None, f"loop: no token of the staged run first appears after frame {LOOP_EOS_FROM}")
+    opts = replace(main_options(), min_new_tokens=2, eos_token_id=int(tokens[at]))
+    session = model._custom_voice_session(TEXT, "ryan", "english", opts)
+    session._advance(FRAMES)
+    check(bool(session.state.done), f"loop: the run with EOS at frame {at} is not done")
+    return at, session.frames_generated, session.state.steps, session.state.frames.cpu().numpy()
+
+
+def loop_overrun(model: Qwen3TTS, label: str, card: str, ref: np.ndarray) -> dict:
+    """Frames run past EOS (``eos_run``): the loop must stop at EOS, its
+    frames those of ``ref`` up to it, and run at most 2N - 1 frozen
+    iterations."""
+    at, n, steps, frames = eos_run(model, ref)
+    overrun = steps - n
+    phase("loop", f"{card}: {label} EOS at frame {at} (token {int(ref[at, 0])}): {n} frames, {steps} iterations "
+          f"launched, {overrun} frozen past EOS (bound 2N - 1 = {2 * core.DONE_READ_EVERY - 1}); frames equal to the "
+          f"staged run's up to EOS {np.array_equal(frames[:n], ref[:n])}, rows past it zero {not frames[n:].any()}")
+    check(n == at, f"loop {label}: EOS at frame {at}, the loop made {n} frames")
+    check(0 <= overrun <= 2 * core.DONE_READ_EVERY - 1, f"loop {label}: {overrun} frames past EOS")
+    check(np.array_equal(frames[:n], ref[:n]) and not frames[n:].any(), f"loop {label}: frames past EOS leaked")
+    return {"eos_at": at, "overrun": overrun}
+
+
+def stream_timing(model: Qwen3TTS, lookahead: int) -> tuple[list, float, list]:
+    """One ``synthesize_streaming`` of the main path's utterance at
+    ``lookahead``, pulled chunk by chunk: (chunks, TTFA ms, gaps ms)."""
+    opts = replace(main_options(), streaming_lookahead=lookahead)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunks, at = [], []
+    for chunk in model.synthesize_streaming(TEXT, "ryan", "english", opts):
+        at.append(time.perf_counter())
+        chunks.append(chunk.samples)
+    return chunks, (at[0] - t0) * 1e3, [(b - a) * 1e3 for a, b in zip(at, at[1:])]
+
+
+def loop_streams(model: Qwen3TTS, label: str, card: str) -> dict:
+    """The streamed utterance at lookahead 0 and 1, in turns (0, 1, 1, 0)
+    after a warm stream at each: TTFA and the gaps between chunks; every
+    chunk at lookahead 1 bit-equal to lookahead 0's."""
+    runs = {0: [], 1: []}
+    for k in (0, 1, 1, 0, 0, 1):
+        runs[k].append(stream_timing(model, k))
+    runs = {k: v[1:] for k, v in runs.items()}  # each lookahead's first stream: warm
+    base = runs[0][0][0]
+    equal = all(len(c) == len(base) and all(np.array_equal(a, b) for a, b in zip(c, base))
+                for r in runs.values() for c, _, _ in r)
+    out = {k: {"ttfa_ms": [t for _, t, _ in r], "gap_ms": [g for _, _, gs in r for g in gs]} for k, r in runs.items()}
+    phase("loop", f"{card}: {label} streamed ({len(base)} chunks): " + "; ".join(
+        f"lookahead {k}: TTFA {', '.join(f'{t:.2f}' for t in v['ttfa_ms'])} ms, gaps {min(v['gap_ms']):.2f}-"
+        f"{max(v['gap_ms']):.2f} ms (median {float(np.median(v['gap_ms'])):.2f})" for k, v in out.items())
+          + f"; chunks bit-equal across lookaheads {equal}")
+    check(equal, f"loop {label}: the stream at lookahead 1 differs from lookahead 0")
+    return out
+
+
+def loop_phase(model: Qwen3TTS, label: str, ref: np.ndarray, batch: dict) -> dict:
+    """Phase ``loop`` on a 1.7B main-path ``model`` (kernels 1 and 3 at
+    batch 1, kernel 2's stream entry in the streams, kernel 2 at B = 8 and,
+    in int8, kernel 4 in the batches): the sync check, the host reads, the
+    frames past EOS, the streams at lookahead 0 and 1,
+    and the B = 8 frames/s phase ``batch`` measured on the same loop (its
+    ``batch`` cells). The f32 fixtures' token-exactness through the same
+    loops is phase ``utterance``'s."""
+    t0 = time.perf_counter()
+    card = card_line()
+    out = {"launches": loop_sync_check(model, label, card), "reads": loop_reads(model, label, card),
+           "overrun": loop_overrun(model, label, card, ref), "streams": loop_streams(model, label, card)}
+    cell = batch["cells"][BATCH]
+    phase("loop", f"{card}: {label} staged batch-1 {STAGED_MS_PER_FRAME[label]:.4f} ms/frame (phase e2e's timed "
+          f"run); B={BATCH} {cell['frames_per_s']:.1f} frames/s, {cell['ms_per_frame']:.3f} ms/frame (phase batch); "
+          f"phase wall time {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _row(name: str) -> dict:
     return next(row for row in KERNEL_ROWS if row["name"] == name)
 
@@ -3548,6 +3769,7 @@ def main_path(encoders: tuple) -> dict:
     _row("residual_unit_stream")["prefix_pieces"] = prefix_pieces_timing(model)
     batch_bf16 = batch_main(model, "1.7B bf16", int8=False)
     served = server_phase(model, "1.7B bf16")
+    loop_phase(model, "1.7B bf16", ref[0], batch_bf16)
 
     t0 = time.perf_counter()
     m8 = Qwen3TTS(model.config, model.talker_params, model.cp_params, model.vocoder_params, model.tokenizer,
@@ -3566,6 +3788,7 @@ def main_path(encoders: tuple) -> dict:
     voice_int8 = voice_session(m8, "1.7B int8", staged, *ref[1:], ("cp_frame", "talker_step"))
     clone_int8 = clone_and_design(m8, "1.7B int8", encoders, ("cp_frame", "talker_step", "int8_matmul"))
     batch_int8 = batch_main(m8, "1.7B int8", int8=True)
+    loop_phase(m8, "1.7B int8", ref[0], batch_int8)  # before server_w8a8 changes its tokenizer
     served["w8a8"] = server_w8a8(m8, m8w, card_line())
     del m8, m8w
     prompt_rows = sorted({m for m in clone_int8["rows"].values() if m > 16})

@@ -25,39 +25,54 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 
 from .audio.io import AudioBuffer, load_wav, save_wav  # noqa: E402
+from .audio.resample import resample, resample_to_24k  # noqa: E402
 from .models import tokens  # noqa: E402
 from .models.config import (  # noqa: E402
     CodePredictorConfig,
     ModelConfig,
     ModelType,
+    SpeakerEncoderConfig,
     TalkerConfig,
     config_for_variant,
     parse_config_json,
 )
+from .models.tokens import CODEC_EOS as CODEC_EOS_TOKEN_ID  # noqa: E402
+from .models.tokens import SAMPLES_PER_FRAME  # noqa: E402
+from .ops.sampling import SamplingConfig  # noqa: E402
 from .pipeline import (  # noqa: E402
     Qwen3TTS,
-    StreamingBatchSession,
+    StreamingBatchSession,  # noqa: F401 (importable here; not in the JAX package's __all__)
     StreamingSession,
     SynthesisOptions,
     SynthesisTiming,
     VoiceClonePrompt,
 )
+from .tokenizer import TextTokenizer  # noqa: E402
 
+__version__ = "0.1.0"
+
+# The JAX package's public names, one for one.
 __all__ = [
     "AudioBuffer",
+    "CODEC_EOS_TOKEN_ID",
     "CodePredictorConfig",
     "ModelConfig",
     "ModelType",
     "Qwen3TTS",
-    "StreamingBatchSession",
+    "SAMPLES_PER_FRAME",
+    "SamplingConfig",
+    "SpeakerEncoderConfig",
     "StreamingSession",
     "SynthesisOptions",
     "SynthesisTiming",
     "TalkerConfig",
+    "TextTokenizer",
     "VoiceClonePrompt",
     "config_for_variant",
     "load_wav",
     "parse_config_json",
+    "resample",
+    "resample_to_24k",
     "save_wav",
     "tokens",
 ]

@@ -10,9 +10,22 @@ PyTorch port of ``qwen3_tts_tpu/generation/core.py``. Per frame:
   6. penalties (repetition, suppression, min-new-tokens) -> sample,
   7. update the penalty mask; done := (next == EOS).
 
-The JAX loop is one ``while_loop`` with no host syncs. Here the frame index
-and cache position are host integers, all tensors stay on the device, and
-the loop reads ``done`` once per frame (the only device-to-host read).
+The JAX loop is one ``while_loop`` whose condition reads ``done`` on the
+device. Here the host launches the iterations, and the loop keeps the JAX
+carry's contract: ``done`` and the frame count stay on the device, and
+once ``done`` is set the token, penalty mask, frames, frame count and last
+hidden state are frozen by a device-side select (the JAX body's ``sel``),
+while the cache position advances every iteration (JAX's ``pos + 1``).
+The host counts the iterations it launched (``steps``), which is the frame
+count of every live stream, and learns of EOS from a lagged read every
+``DONE_READ_EVERY`` iterations (``_FlagReader``), so the loop never drains
+the card's stream and runs at most ``2 * DONE_READ_EVERY - 1`` frozen
+iterations past EOS in a call (``DONE_READ_EVERY - 1`` on the CPU, which
+reads at the boundary). A call given ``until`` (a streaming session's chunk
+queued ahead) takes no look: it stops when ``until`` says so or at its
+frame limit, one chunk on. The Jacobi code predictor still reads once a pass
+(``code_predictor.predict_acoustic_codes_jacobi``): its pass count depends
+on the data.
 
 ``generate_frames`` re-enters: a streaming session calls it chunk by chunk
 with a higher ``frame_limit``, on a frames buffer and a cache that may have
@@ -26,7 +39,8 @@ frame count and frame limit, re-entered the same way by a
 
 Both take the ``mesh`` of a sharded model (``Qwen3TTS.shard``): the talker
 is then one replica's ``parallel.sharding.ShardedTree`` and the cache an
-``nn.TPCache``; the rest of the frame stays on the replica's first device.
+``nn.TPCache``; the rest of the frame stays on the replica's first device,
+which holds the flags the host reads.
 """
 
 from __future__ import annotations
@@ -43,6 +57,56 @@ from ..ops import nn, sampling
 from ..parallel import collectives
 from ..parallel.sharding import ShardedTree
 
+# Iterations between two looks at the loop's stop flag (a loop call also
+# looks on entry). A look waits for the flag copied one look earlier, so the
+# host runs at most 2N - 1 frozen iterations past an EOS met in the call (N
+# when the state was done on entry) and stays at most 2N - 1 iterations
+# ahead of the card. 2 on an NVIDIA H100 80GB HBM3 at 700 W
+# (``synthesis_timing.py --cells loop-sweep-bf16``, N from 1 to 12 on the
+# 1.7B bf16 model, forward then back): the staged frame is level from N = 2
+# up (4.7658-4.7712 ms; N = 1 4.7766-4.7767), the streamed TTFA shows no
+# trend in N beyond its own spread, and every frozen frame past EOS costs a
+# whole frame (~4.8 ms at batch 1, ~150 ms in the eager B = 8 loop): 1, 2,
+# 4-5 and 20 of them at N = 1, 2, 3-4 and 12.
+DONE_READ_EVERY = 2
+
+
+class _FlagReader:
+    """The host's view of a 0-d bool device flag, taken at loop boundaries.
+
+    On the card a boundary enqueues a non-blocking copy of the flag into one
+    of two pinned host slots and records an event, then waits on the
+    previous boundary's event only and reads that slot: the stream is never
+    drained, and the value read is one boundary old. On the CPU there is no
+    stream: the flag is read at the boundary. Each look is one host read."""
+
+    def __init__(self, dev: torch.device):
+        self.lagged = dev.type == "cuda"
+        self.slots = torch.zeros(2, dtype=torch.bool, pin_memory=True) if self.lagged else None
+        self.events: list = [None, None]
+        self.looks = 0
+
+    def read(self, flag: torch.Tensor) -> bool:
+        if not self.lagged:
+            return bool(flag)
+        slot = self.looks % 2
+        self.looks += 1
+        self.slots[slot].copy_(flag, non_blocking=True)
+        self.events[slot] = torch.cuda.Event()
+        self.events[slot].record()
+        prev = self.events[1 - slot]
+        if prev is None:
+            return False
+        prev.synchronize()
+        return bool(self.slots[1 - slot])
+
+
+def to_device(values: list[int], dev: torch.device) -> torch.Tensor:
+    """Host ints as an int64 tensor on ``dev``; to a card through pinned
+    memory with no host wait."""
+    t = torch.tensor(values, dtype=torch.int64)
+    return t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
+
 
 @dataclass
 class GenState:
@@ -53,9 +117,10 @@ class GenState:
     token: torch.Tensor  # [] int64 current semantic token
     penalty_mask: torch.Tensor  # [codec_vocab] float32
     frames: torch.Tensor  # [max_new, 16] int32
-    frame_idx: int  # frames generated so far
-    pos: int  # next talker cache write position
+    frame_idx: torch.Tensor  # [] int64 frames generated so far (frozen once done)
+    pos: int  # next talker cache write position (advances every iteration)
     done: torch.Tensor  # [] bool
+    steps: int = 0  # iterations launched: the frame count until EOS, past it on frozen iterations
 
 
 def init_state(
@@ -74,14 +139,14 @@ def init_state(
     suppression = sampling.build_suppression_mask(vocab, scfg.eos_token_id, dev)
     logits = sampling.apply_generation_penalties(prefill_logits, penalty_mask, suppression, scfg, 0)
     token = sampling.sample(logits, scfg, uniforms[0])[0]
-    penalty_mask[token] = 1.0
+    penalty_mask[token.reshape(1)] = 1.0
     return GenState(
         cache=cache,
         last_hidden=last_hidden,
         token=token,
         penalty_mask=penalty_mask,
         frames=torch.zeros((max_new_tokens, T.NUM_CODE_GROUPS), dtype=torch.int32, device=dev),
-        frame_idx=0,
+        frame_idx=torch.zeros((), dtype=torch.int64, device=dev),
         pos=prefill_len,
         done=token == scfg.eos_token_id,
     )
@@ -105,14 +170,30 @@ def generate_frames(
     on_frame=None,
     mesh=None,  # parallel.sharding.Mesh of a sharded model (talker_params one replica's ShardedTree)
     tp_step_packs=None,  # the ranks' fused_layer.tp_step_packs, on the cards
+    until=None,  # () -> bool: stop launching once True, with no look at done
 ) -> GenState:
     """Advance the loop until EOS or ``frame_limit`` frames exist (at most
-    the frames buffer's rows); a state already done does not move.
+    the frames buffer's rows); a state already done does not move (its
+    iterations are frozen).
+
+    The host launches iterations until ``state.steps`` reaches the limit or
+    a look at ``done`` (on entry and every ``DONE_READ_EVERY`` iterations,
+    lagged by one look on the card) shows EOS; the true frame count is
+    ``state.frame_idx`` on the device.
 
     ``on_frame(idx, token, codes, logits)``, when given, is called once a
     frame with the frame's index, its semantic token, its 15 acoustic codes
     and the post-penalty logits the next token is sampled from (device
-    tensors; ``generation/debug.py`` reads them).
+    tensors; ``generation/debug.py`` reads them); the loop then reads
+    ``done`` before every frame and stops at EOS, as the debug path did.
+
+    ``until``, when given, is called before every iteration, and the loop
+    stops launching as soon as it returns True; it then takes no look at
+    ``done``, so the host never waits for the card inside the call. A
+    streaming session queues a chunk ahead this way and stops once the
+    chunk before it is on the host (``pipeline.StreamingSession``): the
+    iterations past EOS it launches are frozen, at most ``frame_limit``
+    less the steps on entry.
 
     Under a ``mesh`` the talker is a replica's ``ShardedTree`` and the cache
     an ``nn.TPCache``: decode steps run kernels 5 and 6 on every rank
@@ -125,7 +206,12 @@ def generate_frames(
         state.penalty_mask.shape[0], scfg.eos_token_id, state.penalty_mask.device
     )
     max_new = state.frames.shape[0]
-    frame_limit = min(frame_limit, max_new)  # never run past the frames buffer
+    # Never run past the frames buffer: iterations stop at frame_limit <=
+    # max_new, so ``steps`` indexes a row of the buffer and ``pos`` stays
+    # within the cache (prefill + max_new rows). A frozen iteration past EOS
+    # writes its own old row back, and cache rows past the live frontier,
+    # which nothing reads.
+    frame_limit = min(frame_limit, max_new)
     tb = trailing.shape[0]
     # Whole-step kernel mode: take the cache's [L, S, KV*D] plane views once
     # per call (views of the same memory, written in place; a grown cache
@@ -136,13 +222,23 @@ def generate_frames(
     if mesh is None and talker.stream_plane_mode(talker_params, tcfg, state.cache):
         planes = talker.plane_views(state.cache)
     with collectives.device_scope(state.frames.device):
-        while state.frame_idx < frame_limit and not bool(state.done):
-            idx = state.frame_idx
-            semantic_embed = talker.embed_codec(talker_params, state.token)[None, None, :]
+        reader = _FlagReader(state.frames.device) if on_frame is None and until is None else None
+        stop = reader is not None and reader.read(state.done)
+        ran = 0
+        while not stop and state.steps < frame_limit:
+            if on_frame is not None and bool(state.done):
+                break
+            if until is not None and until():
+                break
+            idx = state.steps
+            # A 1-element index: a 0-d index tensor is read on the host (``item``) by
+            # PyTorch's indexing, a synchronising call.
+            semantic_embed = talker.embed_codec(talker_params, state.token.reshape(1))[None]
             codes = cp.predict_acoustic_codes(cp_params, cpcfg, state.last_hidden, semantic_embed, cp_frame_pack,
                                               cp_step_pack)
-            state.frames[idx, 0] = state.token
-            state.frames[idx, 1:] = codes
+            frame = torch.cat([state.token.reshape(1).to(torch.int32), codes])
+            done = state.done
+            state.frames[idx] = torch.where(done, state.frames[idx], frame)
 
             acoustic_sum = cp.acoustic_embedding_sum(cp_params, codes).to(semantic_embed.dtype)
             text_add = trailing[min(idx, tb - 1)] if idx < trailing_len else pad_embed
@@ -162,15 +258,20 @@ def generate_frames(
                 logits, state.penalty_mask, suppression, scfg, token_count
             )
             next_token = sampling.sample(logits, scfg, uniforms[min(token_count, max_new)])[0]
-            state.penalty_mask[next_token] = 1.0
+            seen = state.penalty_mask[next_token.reshape(1)]
+            state.penalty_mask.scatter_(0, next_token.reshape(1), torch.where(done, seen, torch.ones_like(seen)))
             if on_frame is not None:
                 on_frame(idx, state.token, codes, logits)
 
-            state.last_hidden = hidden
-            state.token = next_token
-            state.frame_idx = token_count
+            state.last_hidden = torch.where(done, state.last_hidden, hidden)
+            state.token = torch.where(done, state.token, next_token)
+            state.frame_idx = state.frame_idx + ~done
+            state.done = done | (next_token == scfg.eos_token_id)
+            state.steps = token_count
             state.pos += 1
-            state.done = next_token == scfg.eos_token_id
+            ran += 1
+            if reader is not None and ran % DONE_READ_EVERY == 0 and state.steps < frame_limit:
+                stop = reader.read(state.done)
     return state
 
 
@@ -187,18 +288,17 @@ def _check_mesh(talker_params, mesh) -> None:
 @dataclass
 class BatchGenState:
     """The frame loop's state for B streams (the JAX package's ``GenState``
-    with a leading batch axis; tensors updated in place). Each stream has
-    its own cache position and frame count, kept on the host: every
-    prefill length is known there."""
+    with a leading batch axis; tensors updated in place)."""
 
     cache: nn.KVCache | nn.TPCache  # [L, B, S, KV, D] (KV heads over tp ranks under a mesh)
     last_hidden: torch.Tensor  # [B, 1, hidden]
     token: torch.Tensor  # [B] int64
     penalty_mask: torch.Tensor  # [B, codec_vocab] float32
     frames: torch.Tensor  # [B, max_new, 16] int32
-    frame_idx: list[int]  # frames generated so far, a stream
-    pos: list[int]  # next talker cache write position, a stream
+    frame_idx: torch.Tensor  # [B] int64 frames generated so far, a stream
+    pos: torch.Tensor  # [B] int64 next talker cache write position, a stream (advances every iteration)
     done: torch.Tensor  # [B] bool
+    steps: int = 0  # iterations launched: the frame count of every live stream
 
     @property
     def batch(self) -> int:
@@ -229,8 +329,8 @@ def init_state_batch(
         token=token,
         penalty_mask=penalty_mask,
         frames=torch.zeros((b, max_new_tokens, T.NUM_CODE_GROUPS), dtype=torch.int32, device=dev),
-        frame_idx=[0] * b,
-        pos=list(prefill_lens),
+        frame_idx=torch.zeros((b,), dtype=torch.int64, device=dev),
+        pos=to_device(list(prefill_lens), dev),
         done=token == scfg.eos_token_id,
     )
 
@@ -248,68 +348,80 @@ def generate_frames_batch(
     uniforms: torch.Tensor,  # [B, max_new + 1]
     frame_limits: list[int],  # per-stream frame budgets
     mesh=None,  # parallel.sharding.Mesh of a sharded model (talker_params one replica's ShardedTree)
+    until=None,  # () -> bool: stop launching once True, with no look at the device (generate_frames')
 ) -> BatchGenState:
     """Advance B streams together until each is done or at its frame limit
     (the semantics of the JAX package's vmapped ``_generate_frames``).
 
-    The body runs while any stream is live, for all B streams at once, on
-    the layer path (``talker.decode_step_batch``,
-    ``cp.predict_acoustic_codes_batch``): every projection multiplies the B
-    rows with one weight read. A stream that is done or at its limit keeps
-    its token, penalty mask, frames, frame count and last hidden state; its
-    cache position goes on advancing (the rows it writes lie past its live
-    frontier and are never read). ``done`` is read on the host once a frame.
-    Tiered decode attention is off here, as in the JAX package's batched
-    programs (its window is picked per stream position, on the host at
-    batch 1). Under a ``mesh`` the talker is one replica's ``ShardedTree``
-    (the tensor-parallel layer path) holding this state's streams, the
-    code predictor that replica's, on its first device.
+    The body runs for all B streams at once, on the layer path
+    (``talker.decode_step_batch``, ``cp.predict_acoustic_codes_batch``):
+    every projection multiplies the B rows with one weight read. A stream
+    that is done or at its limit keeps its token, penalty mask, frames,
+    frame count and last hidden state (a device-side select on ``live``);
+    its cache position goes on advancing (the rows it writes lie past its
+    live frontier and are never read). The limits go to the device once a
+    call. Every live stream has made ``state.steps`` frames (all start
+    together, and a stream stops being live only for good within a call:
+    the limits a session raises are all its common target), so the frame
+    row, the text row, the uniform's index and the min-new-tokens count
+    are host integers. The host stops at the largest limit, or when a look
+    at the device (on entry and every ``DONE_READ_EVERY`` iterations,
+    lagged on the card) shows no stream live; with ``until``, when it
+    returns True, with no look (``generate_frames``' ``until``, a
+    ``StreamingBatchSession``'s chunk queued ahead). Tiered decode attention is off here, as in
+    the JAX package's batched programs (its window is picked per stream
+    position, on the host at batch 1). Under a ``mesh`` the talker is one
+    replica's ``ShardedTree`` (the tensor-parallel layer path) holding this
+    state's streams, the code predictor that replica's, on its first
+    device.
     """
     _check_mesh(talker_params, mesh)
     tcfg = replace(tcfg, decode_tiering=False)
     with collectives.device_scope(state.frames.device):
-        b = state.batch
         dev = state.frames.device
         max_new = state.frames.shape[1]
-        limits = [min(limit, max_new) for limit in frame_limits]  # never run past the frames buffer
+        limits_host = [min(limit, max_new) for limit in frame_limits]  # never run past the frames buffer
+        top = max(limits_host, default=0)
+        limits = to_device(limits_host, dev)
+        in_text_until = to_device(list(trailing_lens), dev)
         tb = trailing.shape[1]
-        rows = torch.arange(b, device=dev)
         suppression = sampling.build_suppression_mask(state.penalty_mask.shape[1], scfg.eos_token_id, dev)
-        done = state.done.tolist()
-        while True:
-            live = [not d and i < limit for d, i, limit in zip(done, state.frame_idx, limits)]
-            if not any(live):
-                return state
-            idx = state.frame_idx
-            # The frame's per-stream indices in one host-to-device copy.
-            meta = torch.tensor(
-                [state.pos, [min(i, max_new - 1) for i in idx], [min(i, tb - 1) for i in idx],
-                 [int(i < n) for i, n in zip(idx, trailing_lens)], [min(i + 1, max_new) for i in idx],
-                 [int(v) for v in live]], dtype=torch.int64,
-            ).to(dev)
-            pos, frame_row, text_row, in_text, uniform_idx, live_t = meta
-            live_t = live_t.bool()
-
+        reader = _FlagReader(dev) if until is None else None
+        stop = reader is not None and reader.read(_idle(state, limits))
+        ran = 0
+        while not stop and state.steps < top:
+            if until is not None and until():
+                break
+            idx = state.steps
+            live = ~state.done & (state.frame_idx < limits)
             semantic_embed = talker.embed_codec(talker_params, state.token)[:, None, :]  # [B, 1, H]
             codes = cp.predict_acoustic_codes_batch(cp_params, cpcfg, state.last_hidden, semantic_embed)  # [B, 15]
             frame = torch.cat([state.token[:, None].to(torch.int32), codes], dim=1)
-            state.frames[rows, frame_row] = torch.where(live_t[:, None], frame, state.frames[rows, frame_row])
+            state.frames[:, idx] = torch.where(live[:, None], frame, state.frames[:, idx])
 
             acoustic_sum = cp.acoustic_embedding_sum(cp_params, codes).to(semantic_embed.dtype)
-            text_add = torch.where(in_text.bool()[:, None], trailing[rows, text_row], pad_embed)
+            text_add = torch.where((in_text_until > idx)[:, None], trailing[:, min(idx, tb - 1)], pad_embed)
             step_input = semantic_embed + acoustic_sum + text_add.to(semantic_embed.dtype)[:, None, :]
-            hidden, logits = talker.decode_step_batch(talker_params, tcfg, step_input, pos, state.cache)
+            hidden, logits = talker.decode_step_batch(talker_params, tcfg, step_input, state.pos, state.cache)
 
-            # Every live stream has made the same number of frames.
-            token_count = min(i for i, v in zip(idx, live) if v) + 1
+            token_count = idx + 1
             logits = sampling.apply_generation_penalties(logits, state.penalty_mask, suppression, scfg, token_count)
-            next_token = sampling.sample(logits, scfg, uniforms[rows, uniform_idx])
-            seen = state.penalty_mask[rows, next_token]
-            state.penalty_mask[rows, next_token] = torch.where(live_t, torch.ones_like(seen), seen)
+            next_token = sampling.sample(logits, scfg, uniforms[:, min(token_count, max_new)])
+            seen = state.penalty_mask.gather(1, next_token[:, None])
+            state.penalty_mask.scatter_(1, next_token[:, None], torch.where(live[:, None], torch.ones_like(seen), seen))
 
-            state.last_hidden = torch.where(live_t[:, None, None], hidden, state.last_hidden)
-            state.token = torch.where(live_t, next_token, state.token)
-            state.done = state.done | (live_t & (next_token == scfg.eos_token_id))
-            state.frame_idx = [i + v for i, v in zip(idx, live)]
-            state.pos = [p + 1 for p in state.pos]
-            done = state.done.tolist()
+            state.last_hidden = torch.where(live[:, None, None], hidden, state.last_hidden)
+            state.token = torch.where(live, next_token, state.token)
+            state.done = state.done | (live & (next_token == scfg.eos_token_id))
+            state.frame_idx = state.frame_idx + live
+            state.pos = state.pos + 1
+            state.steps = token_count
+            ran += 1
+            if reader is not None and ran % DONE_READ_EVERY == 0 and state.steps < top:
+                stop = reader.read(_idle(state, limits))
+    return state
+
+
+def _idle(state: BatchGenState, limits: torch.Tensor) -> torch.Tensor:
+    """[] bool: no stream is live (each done or at its limit)."""
+    return ~(~state.done & (state.frame_idx < limits)).any()

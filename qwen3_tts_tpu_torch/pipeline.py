@@ -97,11 +97,10 @@ class SynthesisOptions:
     # chunks, so the streamed audio is the batch decode's. False = each
     # chunk decoded with chunk-local context only.
     streaming_exact: bool = True
-    # Chunks to run ahead of the one being returned. Accepted for the JAX
-    # package's interface; the port runs each chunk when it is asked for
-    # (its frame loop reads ``done`` on the host every frame, so work queued
-    # ahead would run before the chunk returns), and every value gives the
-    # same chunks.
+    # Speculative dispatch-ahead: chunks queued on the device beyond the one
+    # being returned (a chunk queued past EOS is frozen and discarded), so
+    # the card works on chunk k+1 while the host copies chunk k. Every value
+    # gives the same chunks.
     streaming_lookahead: int = 1
 
     def sampling_config(self) -> sampling.SamplingConfig:
@@ -994,20 +993,21 @@ class Qwen3TTS:
         another); returns (per-stream frames [max_new, 16], frame counts)."""
         self._run_batch_loops(group, group.frame_limits)
         frames = np.concatenate([g.state.frames.cpu().numpy() for g in group.shards])
-        counts = [n for g in group.shards for n in g.state.frame_idx]
-        return [frames[j] for j in range(frames.shape[0])], np.asarray(counts, np.int64)
+        counts = np.concatenate([g.state.frame_idx.cpu().numpy() for g in group.shards])  # one read a shard
+        return [frames[j] for j in range(frames.shape[0])], counts
 
-    def _run_batch_loops(self, group: "BatchGroup", frame_limits: list[int]) -> None:
+    def _run_batch_loops(self, group: "BatchGroup", frame_limits: list[int], until=None) -> None:
         """Advance every share of ``group`` (``BatchGroup.shards``) on its
         replica until each stream is done or at its limit in ``frame_limits``
-        (one a stream of the whole group)."""
+        (one a stream of the whole group), or until ``until`` returns True
+        (``core.generate_frames_batch``)."""
         at = 0
         with quant.w8a8_scope(self.w8a8):
             for g in group.shards:
                 tree, cp_tree = self._replica_trees(g.replica)
                 core.generate_frames_batch(
                     tree, cp_tree, self.config.talker, self.config.code_predictor, g.scfg, g.state, g.trailing,
-                    g.trailing_lens, g.pad_embed, g.uniforms, frame_limits[at:at + g.batch], self.mesh,
+                    g.trailing_lens, g.pad_embed, g.uniforms, frame_limits[at:at + g.batch], self.mesh, until,
                 )
                 at += g.batch
 
@@ -1269,6 +1269,64 @@ class BatchGroup:
         return self.shards[0].state.frames.shape[1]
 
 
+class _HostCopy:
+    """Device tensors on their way to the host behind the work queued so
+    far. On a card each is copied without blocking into pinned memory and
+    an event is recorded after the copies, so that ``wait`` waits for that
+    work only: a plain ``.cpu()`` of chunk k after chunk k+1 is queued would
+    wait for chunk k+1 too. On the CPU, clones (the loop goes on updating
+    its state in place)."""
+
+    def __init__(self, *tensors: torch.Tensor):
+        self.events = []
+        host = []
+        for t in tensors:
+            if t.device.type == "cuda":
+                host.append(torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(t, non_blocking=True))
+            else:
+                host.append(t.clone())
+        for dev in {t.device for t in tensors if t.device.type == "cuda"}:
+            with torch.cuda.device(dev):
+                self.events.append(torch.cuda.Event())
+                self.events[-1].record()
+        self.host = tuple(host)
+
+    def wait(self) -> tuple:
+        for event in self.events:
+            event.synchronize()
+        return self.host
+
+
+class _Landed:
+    """The ``until`` of a chunk queued ahead (``core.generate_frames``):
+    True once the chunk before it, the one the host reads next, is on the
+    host (its ``_HostCopy``'s events have completed: a query, no wait). The
+    host then stops launching the queued chunk's frames and reads, so a
+    chunk queued ahead never delays the one before it. ``cut`` records that
+    it returned True: the queued chunk may then lack frames, and is resumed
+    before its decode is queued."""
+
+    def __init__(self, fetch: _HostCopy):
+        self.fetch, self.cut = fetch, False
+
+    def __call__(self) -> bool:
+        self.cut = self.cut or all(event.query() for event in self.fetch.events)
+        return self.cut
+
+
+def _landed(fetch: _HostCopy) -> _Landed | None:
+    """The ``until`` of a chunk queued behind ``fetch``; None on the CPU,
+    where ``fetch`` was taken at once and nothing runs behind the host (the
+    chunk ahead is queued whole)."""
+    return _Landed(fetch) if fetch.events else None
+
+
+def _status(frame_idx: torch.Tensor, done: torch.Tensor) -> torch.Tensor:
+    """[2, ...] int64: the frame counts over the done flags, so that one
+    host read takes both."""
+    return torch.stack([frame_idx, done.to(torch.int64)])
+
+
 class StreamingSession:
     """Pull-based streaming synthesis; also drives non-streaming synthesis.
 
@@ -1282,6 +1340,16 @@ class StreamingSession:
     vocoder takes them ahead of the first chunk (``_feed_prefix``), the
     chunk-local modes decode them in front of the frames, and their
     samples are never emitted.
+
+    The host reads the device once a chunk (its samples, frame count and
+    done flag, copied behind it: ``_HostCopy``), or once a segment of
+    ``run_to_completion``. With ``options.streaming_lookahead`` k,
+    ``next_chunk`` queues up to k more chunks while the card makes the one
+    it returns (``_pending``, up to ``_spec_frontier``), and stops launching
+    their frames as soon as that one is on the host (``_Landed``), so the
+    queue never delays it; a chunk cut short is carried on first at the next
+    call. A chunk queued past EOS runs frozen frames and its samples are
+    dropped.
     """
 
     def __init__(self, model: Qwen3TTS, state: core.GenState, scfg: sampling.SamplingConfig,
@@ -1305,21 +1373,44 @@ class StreamingSession:
         # Called once a frame by the frame loop (``core.generate_frames``'s
         # ``on_frame``); ``generation.debug.debug_generate`` sets it.
         self.on_frame = None
+        # Chunks queued ahead (options.streaming_lookahead): [start frame,
+        # chunk size, frame target, _HostCopy of (samples, status) or None
+        # while ``_Landed`` has cut its loop short].
+        self._pending: list[list] = []
+        # Dispatch frontier in frames (>= frames_emitted while speculating).
+        self._spec_frontier = 0
 
     @property
     def frames_generated(self) -> int:
-        return self.state.frame_idx
+        return int(self.state.frame_idx)
+
+    def _status(self) -> tuple[int, bool]:
+        """(frames made, done): one host read, which waits for the loop."""
+        n, done = _status(self.state.frame_idx, self.state.done).tolist()
+        return n, bool(done)
+
+    def _fetch(self, wav: torch.Tensor) -> _HostCopy:
+        """A chunk's samples [chunk * 1920], frame count and done flag, on
+        their way to the host."""
+        return _HostCopy(wav[0], _status(self.state.frame_idx, self.state.done))
+
+    @staticmethod
+    def _read(fetch: _HostCopy) -> tuple[np.ndarray, int, bool]:
+        """A chunk's (samples, frames made, done) on the host."""
+        wav, status = fetch.wait()
+        n, done = status.tolist()
+        return wav.numpy(), n, bool(done)
 
     def is_done(self) -> bool:
         return self._exhausted
 
     @torch.no_grad()
-    def _advance(self, frame_limit: int) -> None:
+    def _advance(self, frame_limit: int, until=None) -> None:
         m = self.model
         self.state = core.generate_frames(
             m.talker_params, m.cp_params, m.config.talker, m.config.code_predictor, self.scfg, self.state,
             self.trailing, self.trailing_len, self.pad_embed, self.uniforms, frame_limit,
-            m.cp_frame_pack, m.talker_step_pack, m.cp_step_pack, self.on_frame, m.mesh, m.tp_step_packs,
+            m.cp_frame_pack, m.talker_step_pack, m.cp_step_pack, self.on_frame, m.mesh, m.tp_step_packs, until,
         )
 
     @torch.no_grad()
@@ -1330,32 +1421,37 @@ class StreamingSession:
         the JAX package's dynamic slice clamps it). Rows past the frames made are
         zeros and the vocoder is causal, so trimming the samples to the true
         frame count is exact. The buffers grow first to hold ``frame_limit``
-        frames. Returns (wav [1, chunk * 1920] on the device, frames made,
-        done)."""
+        frames. Returns the ``_HostCopy`` of (samples, frames made, done),
+        queued behind the decode."""
         self._grow_for(frame_limit)
         self._advance(frame_limit)
         s, m = self.state, self.model
         start = max(min(emitted, s.frames.shape[0] - chunk), 0)
         rows = s.frames[start:start + chunk]  # [chunk, 16]
-        return vocoder.decode(m.vocoder_params, m.vocoder_config, rows.T[None]), s.frame_idx, bool(s.done)
+        return self._fetch(vocoder.decode(m.vocoder_params, m.vocoder_config, rows.T[None]))
 
     @torch.no_grad()
-    def _advance_and_decode_chunk_exact(self, frame_limit: int, emitted: int, chunk: int):
+    def _advance_and_decode_chunk_exact(self, frame_limit: int, emitted: int, chunk: int,
+                                        until: _Landed | None = None) -> _HostCopy | None:
         """One chunk of a stream on the sample-exact streaming vocoder: advance
         the frame loop to ``frame_limit``, then decode the ``chunk`` frame rows
         from ``emitted`` carrying ``self.vstate``. The frames buffer is padded
         with ``chunk`` zero rows so that the last, partial chunk's slice is
         whole. The buffers grow first to hold ``frame_limit`` frames, so the
-        loop runs once (a second run would feed the stateful vocoder twice).
-        Returns (wav [1, chunk * 1920] on the device, frames made, done)."""
+        decode follows the whole chunk (a second decode would feed the
+        stateful vocoder twice). Returns the ``_HostCopy`` of (samples, frames
+        made, done), queued behind the decode and before any later chunk; or
+        None when ``until`` cut the loop short: a second call carries it on."""
         self._grow_for(frame_limit)
         self._start_vstate(chunk)
-        self._advance(frame_limit)
+        self._advance(frame_limit, until)
+        if until is not None and until.cut:
+            return None
         s, m = self.state, self.model
         frames_ext = torch.cat([s.frames, s.frames.new_zeros((chunk, s.frames.shape[1]))])
         rows = frames_ext[emitted:emitted + chunk]  # [chunk, 16]
         wav, self.vstate = vocoder.decode_stream_chunk(m.vocoder_params, m.vocoder_config, self.vstate, rows.T[None])
-        return wav, s.frame_idx, bool(s.done)
+        return self._fetch(wav)
 
     def _next_cap(self) -> int:
         """The frame capacity one tier up, at most the requested length's bucket."""
@@ -1428,12 +1524,12 @@ class StreamingSession:
     def _advance_managed(self, target: int) -> tuple[int, bool]:
         """Advance to ``target`` total frames, growing the buffers a tier at a
         time only when the loop stops at a full one (a session that meets EOS
-        early never holds the requested length's buffers). Returns (frames
-        made, done)."""
+        early never holds the requested length's buffers). One host read a
+        segment. Returns (frames made, done)."""
         target = min(target, self.options.max_length)
         while True:
             self._advance(target)
-            n, done = self.state.frame_idx, bool(self.state.done)
+            n, done = self._status()
             if done or n >= target:
                 return n, done
             self._grow_for(n + 1)  # stopped at a full buffer: one tier up
@@ -1450,28 +1546,49 @@ class StreamingSession:
         """Non-streaming synthesis as chunks of ``DECODE_BUCKET`` frames on
         the sample-exact streaming vocoder (an ICL prefix fed first, in
         pieces of up to ``DECODE_BUCKET``): the audio of
-        ``decode_codes(frames)`` up to matmul-tiling ulps. With
-        ``streaming_exact=False``, or once the session is exhausted: every
-        frame, then one bucketed decode (with a prefix: of [prefix ||
-        frames], the prefix's share of the samples cut from the front)."""
+        ``decode_codes(frames)`` up to matmul-tiling ulps. Each chunk is
+        queued before the previous one is read, so one chunk stays in flight
+        ahead of the read frontier; a chunk queued past EOS runs frozen
+        frames and is dropped. Chunks that ``next_chunk`` queued ahead come
+        first. With ``streaming_exact=False``, or once the session is
+        exhausted: every frame, then one bucketed decode (with a prefix: of
+        [prefix || frames], the prefix's share of the samples cut from the
+        front)."""
         if not self.options.streaming_exact or self._exhausted:
             frames = self.run_to_completion()
             return self.model._decode_behind(self._prefix() if len(frames) else None, frames)
-        if self.frames_emitted == 0:
-            self._start_vstate(DECODE_BUCKET)
         chunk, max_len = DECODE_BUCKET, self.options.max_length
         parts: list[np.ndarray] = []
-        spec = self.frames_emitted
         total: int | None = None  # the true frame count once EOS or the limit is seen
+
+        def take(e0: int, size: int, target: int, fetch: _HostCopy | None) -> None:
+            nonlocal total
+            if total is not None and e0 >= total:
+                return  # queued past EOS: dropped
+            if fetch is None:  # queued ahead and cut short: the rest of its frames, then its decode
+                fetch = self._advance_and_decode_chunk_exact(target, e0, size)
+            wav, n, done = self._read(fetch)
+            emitted_here = min(n, e0 + size) - e0
+            if emitted_here > 0:
+                parts.append(wav[:emitted_here * T.SAMPLES_PER_FRAME])
+            if done or n >= max_len:
+                total = n if total is None else min(total, n)
+
+        # Chunks queued by next_chunk were never returned, and the stateful
+        # vocoder has consumed them: their audio heads this output.
+        spec = self._spec_frontier if self._pending else self.frames_emitted
+        for queued in self._pending:
+            take(*queued)
+        self._pending.clear()
+        inflight: list[tuple] = []
         while spec < max_len and total is None:
             target = min(spec + chunk, max_len)
-            wav, n, done = self._advance_and_decode_chunk_exact(target, spec, chunk)
-            emitted_here = min(n, spec + chunk) - spec
-            if emitted_here > 0:
-                parts.append(wav[0, :emitted_here * T.SAMPLES_PER_FRAME].cpu().numpy())
-            if done or n >= max_len:
-                total = n
+            inflight.append((spec, chunk, target, self._advance_and_decode_chunk_exact(target, spec, chunk)))
             spec = target
+            while len(inflight) > 1:
+                take(*inflight.pop(0))
+        for queued in inflight:
+            take(*queued)
         self.frames_emitted = total if total is not None else spec
         self._exhausted = True
         return AudioBuffer(np.concatenate(parts) if parts else np.zeros(0, np.float32), T.OUTPUT_SAMPLE_RATE)
@@ -1494,33 +1611,59 @@ class StreamingSession:
             return self._next_chunk_exact(chunk)
         return self._next_chunk_legacy(chunk)
 
-    def _dispatch_exact_ahead(self, chunk: int):
-        """Run the next chunk at the frontier. The JAX package queues
-        ``streaming_lookahead`` further chunks here; the port runs only the
-        chunk asked for, so the chunk being returned never waits for work
-        queued ahead of it."""
-        target = min(self.frames_emitted + chunk, self.options.max_length)
-        return self._advance_and_decode_chunk_exact(target, self.frames_emitted, chunk)
+    def _queue_exact(self, chunk: int, until: _Landed | None = None) -> None:
+        """Queue one chunk at the dispatch frontier: its frames, its decode
+        and the copy of its results; with ``until``, as far as it lets the
+        host go."""
+        e0, target = self._spec_frontier, min(self._spec_frontier + chunk, self.options.max_length)
+        self._pending.append([e0, chunk, target, self._advance_and_decode_chunk_exact(target, e0, chunk, until)])
+        self._spec_frontier = target
+
+    def _resume_last(self, until: _Landed | None = None) -> None:
+        """Carry the last queued chunk on where ``_Landed`` cut it short (the
+        loop is sequential: nothing is queued behind it until it is whole)."""
+        e0, size, target, _ = self._pending[-1]
+        self._pending[-1][3] = self._advance_and_decode_chunk_exact(target, e0, size, until)
 
     def _next_chunk_exact(self, chunk: int) -> AudioBuffer | None:
-        e0 = self.frames_emitted
-        wav, n, done = self._dispatch_exact_ahead(chunk)
+        if not self._pending:
+            self._queue_exact(chunk)
+        elif self._pending[0][3] is None:
+            self._resume_last()
+        # Queue up to streaming_lookahead further chunks while the card makes
+        # this one, and stop launching once it is on the host: the card then
+        # runs chunk k+1's frames while the host hands chunk k back.
+        until = _landed(self._pending[0][3])
+        steady = max(self.options.chunk_frames, 1)
+        while until is None or not until.cut:
+            if self._pending[-1][3] is None:
+                self._resume_last(until)
+            elif (len(self._pending) <= max(self.options.streaming_lookahead, 0)
+                  and self._spec_frontier < self.options.max_length):
+                self._queue_exact(steady, until)
+            else:
+                break
+        e0, size, _, fetch = self._pending.pop(0)
+        wav, n, done = self._read(fetch)
         done = done or n >= self.options.max_length
         if n <= e0:
             self._exhausted = True
+            self._pending.clear()
             return None
+        # The chunk ran with frame_limit e0 + size, so n <= e0 + size.
         self.frames_emitted = n
         if done:
             self._exhausted = True
+            self._pending.clear()
         # Rows past n were zero-code frames: decoded, their samples dropped.
-        return AudioBuffer(wav[0, :(n - e0) * T.SAMPLES_PER_FRAME].cpu().numpy(), T.OUTPUT_SAMPLE_RATE)
+        return AudioBuffer(wav[:(n - e0) * T.SAMPLES_PER_FRAME], T.OUTPUT_SAMPLE_RATE)
 
     def _next_chunk_legacy(self, chunk: int) -> AudioBuffer | None:
         target = min(self.frames_emitted + chunk, self.options.max_length)
         prefix = self._prefix() if self.frames_emitted == 0 else None
         if prefix is not None:
             return self._first_chunk_legacy_prefixed(prefix, target, chunk)
-        wav, n, done = self._advance_and_decode_chunk(target, self.frames_emitted, chunk)
+        wav, n, done = self._read(self._advance_and_decode_chunk(target, self.frames_emitted, chunk))
         done = done or n >= self.options.max_length
         if n <= self.frames_emitted:
             self._exhausted = True
@@ -1535,7 +1678,7 @@ class StreamingSession:
             wavb = vocoder.decode_bucketed(self.model.vocoder_params, self.model.vocoder_config,
                                            self.model.codes_to_tensor(new), bucket=chunk)
             return AudioBuffer(wavb[0], T.OUTPUT_SAMPLE_RATE)
-        return AudioBuffer(wav[0, :(n - emitted_before) * T.SAMPLES_PER_FRAME].cpu().numpy(), T.OUTPUT_SAMPLE_RATE)
+        return AudioBuffer(wav[:(n - emitted_before) * T.SAMPLES_PER_FRAME], T.OUTPUT_SAMPLE_RATE)
 
     @torch.no_grad()
     def _first_chunk_legacy_prefixed(self, prefix: np.ndarray, target: int, chunk: int) -> AudioBuffer | None:
@@ -1544,7 +1687,8 @@ class StreamingSession:
         (the vocoder is causal, 1920 samples a frame)."""
         self._grow_for(target)
         self._advance(target)
-        n, done = self.state.frame_idx, bool(self.state.done) or self.state.frame_idx >= self.options.max_length
+        n, done = self._status()
+        done = done or n >= self.options.max_length
         if n == 0:
             self._exhausted = True
             return None
@@ -1584,11 +1728,13 @@ class StreamingBatchSession:
 
     Buffers hold the max_length bucket from the start (no growth tiers);
     the vocoder's KV cache gets room for the longest reference and a chunk
-    of headroom. ``options.streaming_lookahead`` is accepted and changes
-    nothing: each chunk runs when it is asked for, as in the port's
-    ``StreamingSession``. Its loop runs with ``decode_tiering=False``, as the
-    JAX package's batched session forces it (``core.generate_frames_batch``
-    switches it off for every batched loop).
+    of headroom. ``options.streaming_lookahead`` chunks are queued ahead of
+    the one returned, as in ``StreamingSession`` (``_pending``, cut short
+    once that one is on the host);
+    each chunk's samples, frame counts and done flags are copied to the host
+    behind it and read when it is popped. Its loop runs with
+    ``decode_tiering=False``, as the JAX package's batched session forces it
+    (``core.generate_frames_batch`` switches it off for every batched loop).
     """
 
     def __init__(self, model: Qwen3TTS, group: BatchGroup, options: SynthesisOptions):
@@ -1609,25 +1755,35 @@ class StreamingBatchSession:
                 if r is not None:
                     arr[i, :len(r)] = r
             self.ref_codes = torch.from_numpy(arr).to(model.device)
+            self._ref_lens_dev = core.to_device(self._ref_lens, model.device)
         # The grid's end: every stream's reference prefix and its own budget.
         self._grid_max = max(n + m for n, m in zip(self._ref_lens, group.frame_limits))
         headroom = max(options.chunk_frames, options.first_chunk_frames or 1, 1)
         self.vstate = vocoder.init_stream_state(model.vocoder_config, group.max_new + cmax + headroom,
                                                 batch=self.batch, device=model.device)
+        # Chunks queued ahead: [start grid row, chunk size, grid target,
+        # _HostCopy of (samples [B, chunk * 1920], status [2, B]) or None
+        # while ``_Landed`` has cut its loops short].
+        self._pending: list[list] = []
+        self._spec_frontier = 0
 
     def is_done(self) -> bool:
         return self._exhausted
 
     @torch.no_grad()
-    def _advance_and_decode_chunk_batch(self, target: int, emitted: int, chunk: int):
+    def _advance_and_decode_chunk_batch(self, target: int, emitted: int, chunk: int,
+                                        until: _Landed | None = None) -> _HostCopy | None:
         """Advance every live stream to at most ``target`` frames (each within
         its own budget), then decode grid rows ``emitted .. emitted + chunk``
         of all streams on the streaming vocoder. Rows past a stream's frames
-        are zero codes (the stack is causal: trimming is exact). Returns (wav
-        [B, chunk * 1920] on the device, frames made a stream, done a
-        stream)."""
+        are zero codes (the stack is causal: trimming is exact). Returns the
+        ``_HostCopy`` of (samples [B, chunk * 1920], status [2, B]: frames
+        made and done, a stream), queued behind the decode; or None when
+        ``until`` cut the loops short: a second call carries them on."""
         m, g = self.model, self.group
-        m._run_batch_loops(g, [min(limit, target) for limit in g.frame_limits])
+        m._run_batch_loops(g, [min(limit, target) for limit in g.frame_limits], until)
+        if until is not None and until.cut:
+            return None
         frames = torch.cat([p.state.frames.to(m.device) for p in g.shards])
         b, _, n_codes = frames.shape
         frames_ext = torch.cat([frames, frames.new_zeros((b, chunk, n_codes))], dim=1)
@@ -1638,15 +1794,27 @@ class StreamingBatchSession:
             # The grid gather: each stream's reference prefix, then its frames.
             dev = frames_ext.device
             t_idx = emitted + torch.arange(chunk, device=dev)
-            ref_lens = torch.tensor(self._ref_lens, device=dev)
+            ref_lens = self._ref_lens_dev
             gen_idx = (t_idx[None, :] - ref_lens[:, None]).clamp(0, frames_ext.shape[1] - 1)  # [B, chunk]
             gen_rows = torch.gather(frames_ext, 1, gen_idx[..., None].expand(-1, -1, n_codes))
             ref_rows = self.ref_codes[:, t_idx.clamp(0, self.ref_codes.shape[1] - 1)]
             rows = torch.where((t_idx[None, :] < ref_lens[:, None])[..., None], ref_rows, gen_rows)
         wav, self.vstate = vocoder.decode_stream_chunk(m.vocoder_params, m.vocoder_config, self.vstate,
                                                        rows.transpose(1, 2))
-        counts = [n for p in g.shards for n in p.state.frame_idx]
-        return wav, counts, [d for p in g.shards for d in p.state.done.tolist()]
+        status = torch.cat([_status(p.state.frame_idx, p.state.done).to(m.device) for p in g.shards], dim=1)
+        return _HostCopy(wav, status)
+
+    def _dispatch_ahead(self, chunk: int, until: _Landed | None = None) -> None:
+        """Queue one chunk of every stream at the dispatch frontier; with
+        ``until``, as far as it lets the host go."""
+        e0, target = self._spec_frontier, min(self._spec_frontier + chunk, self._grid_max)
+        self._pending.append([e0, chunk, target, self._advance_and_decode_chunk_batch(target, e0, chunk, until)])
+        self._spec_frontier = target
+
+    def _resume_last(self, until: _Landed | None = None) -> None:
+        """Carry the last queued chunk on where ``_Landed`` cut it short."""
+        e0, chunk, target, _ = self._pending[-1]
+        self._pending[-1][3] = self._advance_and_decode_chunk_batch(target, e0, chunk, until)
 
     def next_chunks(self) -> list[AudioBuffer | None] | None:
         """Advance all live streams one chunk; None when every stream is done."""
@@ -1655,10 +1823,24 @@ class StreamingBatchSession:
         chunk = max(self.options.chunk_frames, 1)
         if self.frames_emitted == 0 and self.options.first_chunk_frames:
             chunk = max(min(self.options.first_chunk_frames, chunk), 1)
-        e0 = self.frames_emitted
-        target = min(e0 + chunk, self._grid_max)
-        wav, ns, dones = self._advance_and_decode_chunk_batch(target, e0, chunk)
-        wav = wav.cpu().numpy()
+        if not self._pending:
+            self._dispatch_ahead(chunk)
+        elif self._pending[0][3] is None:
+            self._resume_last()
+        # As StreamingSession._next_chunk_exact: queue ahead until this chunk is on the host.
+        until = _landed(self._pending[0][3])
+        steady = max(self.options.chunk_frames, 1)
+        while until is None or not until.cut:
+            if self._pending[-1][3] is None:
+                self._resume_last(until)
+            elif len(self._pending) <= max(self.options.streaming_lookahead, 0) and self._spec_frontier < self._grid_max:
+                self._dispatch_ahead(steady, until)
+            else:
+                break
+        e0, chunk, _, fetch = self._pending.pop(0)
+        wav, status = fetch.wait()
+        wav = wav.numpy()
+        ns, dones = status.tolist()
         spf = T.SAMPLES_PER_FRAME
         out: list[AudioBuffer | None] = []
         for i in range(self.batch):
@@ -1674,8 +1856,9 @@ class StreamingBatchSession:
             if (dones[i] or ns[i] >= self.group.frame_limits[i]) and n_grid <= e0 + chunk:
                 self._stream_done[i] = True
         self.frames_emitted = e0 + chunk
-        if all(self._stream_done) or target >= self._grid_max:
+        if all(self._stream_done) or (self._spec_frontier >= self._grid_max and not self._pending):
             self._exhausted = True
+            self._pending.clear()
         return out
 
     def __iter__(self):

@@ -34,8 +34,17 @@ bf16 model over HTTP (``server.serve`` on 127.0.0.1, a free port, in a
 thread of this process) and times ``mixed_load`` (``chip_smoke.py`` phase
 ``server``'s step 4): one long solo stream, and ``SERVER_REQUESTS`` short
 requests posted at once after its first audio; each request's latency,
-p50 / p95, the stream's TTFA and its gaps between chunks. Needs a CUDA
-device.
+p50 / p95, the stream's TTFA and its gaps between chunks.
+``stream-bf16`` pulls ``synthesize_streaming`` of the utterance chunk by
+chunk (4 frames, then 10 a chunk) at ``streaming_lookahead`` 0 and 1, in
+turns (0, 1, 1, 0), with a consumer that holds each chunk 0 or
+``STREAM_CONSUMER_MS`` ms before it asks for the next (a player, a socket):
+TTFA, the time the consumer waits for each later chunk, the wall time.
+``loop-sweep-bf16`` sets ``generation.core.DONE_READ_EVERY`` (N) to each
+of ``LOOP_SWEEP``, forward then backward: the staged ms a frame, the
+streamed TTFA at lookahead 0 and 1, and the frozen iterations that a loop
+call runs past EOS (the utterance with its EOS id set to a token that first
+appears at frame ``SWEEP_EOS_FROM`` or later). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -82,6 +91,9 @@ SERVER_FRAMES = 32
 SERVER_REQUESTS = 8
 SERVER_STREAM_FRAMES = 96
 WAV_HEADER_BYTES = 44
+STREAM_CONSUMER_MS = 20
+LOOP_SWEEP = (1, 2, 3, 4, 6, 8, 12)
+SWEEP_EOS_FROM = 40
 
 
 class WordTokenizer:
@@ -381,6 +393,64 @@ def timed_calls(model, form: str, tag: str, repeats: int, calls_of: tuple = ("sy
             yield line
 
 
+def main_options(**kw):
+    """The utterance's options: ``FRAMES`` frames forced, seed 42."""
+    from qwen3_tts_tpu_torch.pipeline import SynthesisOptions
+
+    return SynthesisOptions(max_length=FRAMES, min_new_tokens=FRAMES, seed=42, temperature=0.9, **kw)
+
+
+def time_stream(model, lookahead: int, consumer_ms: float = 0.0) -> dict:
+    """One ``synthesize_streaming`` of the utterance at ``lookahead``, each
+    chunk held ``consumer_ms`` before the next is asked for."""
+    opts = main_options(streaming_lookahead=lookahead)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    at = []
+    for _ in model.synthesize_streaming(TEXT, "ryan", "english", opts):
+        at.append(time.perf_counter())
+        time.sleep(consumer_ms / 1e3)
+    waits = sorted((b - a) * 1e3 - consumer_ms for a, b in zip(at, at[1:]))
+    return {"lookahead": lookahead, "consumer_ms": consumer_ms, "chunks": len(at), "ttfa_ms": (at[0] - t0) * 1e3,
+            "wait_ms_median": waits[len(waits) // 2], "wait_ms_max": waits[-1], "wall_ms": (at[-1] - t0) * 1e3}
+
+
+def stream_lines(model, tag: str, repeats: int):
+    """The ``stream-bf16`` cell: one warm stream at each lookahead, then
+    ``repeats`` rounds of (0, 1, 1, 0) at each consumer time."""
+    for k in (0, 1):
+        time_stream(model, k)
+    for i in range(repeats):
+        for consumer_ms in (0, STREAM_CONSUMER_MS):
+            for k in (0, 1, 1, 0):
+                yield {"tag": tag, "form": "bf16", "call": "synthesize_streaming", "round": i,
+                       **time_stream(model, k, consumer_ms)}
+
+
+def loop_sweep_lines(model, tag: str, repeats: int):
+    """The ``loop-sweep-bf16`` cell: one JSON object an N a turn."""
+    from qwen3_tts_tpu_torch.generation import core
+
+    tokens = model._custom_voice_session(TEXT, "ryan", "english", main_options()).run_to_completion()[:, 0]
+    at = next(i for i in range(SWEEP_EOS_FROM, len(tokens)) if tokens[i] not in tokens[:i])
+    eos_opts = replace(main_options(), min_new_tokens=2, eos_token_id=int(tokens[at]))
+    chosen = core.DONE_READ_EVERY
+    try:
+        for i in range(repeats):
+            for n in LOOP_SWEEP + LOOP_SWEEP[::-1]:
+                core.DONE_READ_EVERY = n
+                _, timing = model.synthesize_with_timing(TEXT, "ryan", "english", main_options())
+                ttfa = [time_stream(model, k)["ttfa_ms"] for k in (0, 1)]
+                session = model._custom_voice_session(TEXT, "ryan", "english", eos_opts)
+                session._advance(FRAMES)
+                yield {"tag": tag, "form": "bf16", "call": "loop_sweep", "round": i, "done_read_every": n,
+                       "ms_per_frame": timing.generation_ms / timing.generation_frames, "ttfa_ms_lookahead0": ttfa[0],
+                       "ttfa_ms_lookahead1": ttfa[1], "eos_at": at, "frames": session.frames_generated,
+                       "past_eos": session.state.steps - session.frames_generated}
+    finally:
+        core.DONE_READ_EVERY = chosen
+
+
 def batch_lines(model, form: str, tag: str, repeats: int, batch: bool, stream: bool):
     """The batch cells of ``model`` (a ``WordTokenizer`` set): one warm call,
     then ``repeats`` rounds of ``synthesize_batch`` at each of
@@ -406,7 +476,7 @@ def main() -> None:
     ap.add_argument("--repeats", type=int, default=2)
     ap.add_argument("--cells", default="bf16,int8", help="comma-separated: bf16, int8, int8-cp-i2816, batch8-bf16, "
                                                          "batch8-int8, stream-batch8-bf16, profile-batch8-bf16, "
-                                                         "server-mixed-bf16")
+                                                         "server-mixed-bf16, stream-bf16, loop-sweep-bf16")
     args = ap.parse_args()
     cells = args.cells.split(",")
     if not torch.cuda.is_available():
@@ -420,13 +490,20 @@ def main() -> None:
     build.build()
     dev = torch.device("cuda", 0)
     base = config_for_variant("1.7B", "custom_voice")
-    bf16_cells = {"bf16", "batch8-bf16", "stream-batch8-bf16", "profile-batch8-bf16", "server-mixed-bf16"}
+    bf16_cells = {"bf16", "batch8-bf16", "stream-batch8-bf16", "profile-batch8-bf16", "server-mixed-bf16",
+                  "stream-bf16", "loop-sweep-bf16"}
     int8_cells = {"int8", "batch8-int8"}
     if set(cells) & (bf16_cells | int8_cells):
         model = Qwen3TTS.from_random(base, seed=0, device=dev)
         model.tokenizer = BenchTokenizer()
         if "bf16" in cells:
             for line in timed_calls(model, "bf16", tag, args.repeats):
+                print(json.dumps(line), flush=True)
+        if "stream-bf16" in cells:
+            for line in stream_lines(model, tag, args.repeats):
+                print(json.dumps(line), flush=True)
+        if "loop-sweep-bf16" in cells:
+            for line in loop_sweep_lines(model, tag, args.repeats):
                 print(json.dumps(line), flush=True)
         model.tokenizer = WordTokenizer()
         if "profile-batch8-bf16" in cells:

@@ -90,7 +90,7 @@ def test_icl_batch_matches_jax(models, prompts, low_icl_floor, temperature):
     assert [len(f) for f in frames] == [6, 16]
     group = tm._prepare_batch_group("icl", ICL_TEXTS, prompts[1], ["english"] * 2, [None] * 2,
                                     TP.SynthesisOptions(max_length=16, seed=42), [42, 43])
-    assert group.state.pos == [9 + 16 + 1, 9 + 10 + 1] and group.frame_limits == [6, 16]
+    assert group.state.pos.tolist() == [9 + 16 + 1, 9 + 10 + 1] and group.frame_limits == [6, 16]
     assert group.scfg.repetition_penalty == 1.5
 
 

@@ -40,7 +40,7 @@ def test_design_batch_matches_jax(models, temperature):
     check_batch(jm, tm, DESIGN_TEXTS, instructs=INSTRUCTS, max_length=12, seed=42, temperature=temperature)
     group = tm._prepare_batch_group("design", DESIGN_TEXTS, ["ryan"] * 2, ["english"] * 2, INSTRUCTS,
                                     TP.SynthesisOptions(max_length=12), [0, 1])
-    assert group.state.pos == [40 + 9, 34 + 9]
+    assert group.state.pos.tolist() == [40 + 9, 34 + 9]
 
 
 @TEMPERATURES
@@ -52,7 +52,7 @@ def test_icl_sequential_batch_matches_jax(models, prompts, low_icl_floor, temper
     group = tm._prepare_batch_group("icl", ICL_TEXTS, prompts[1], ["english"] * 2, [None] * 2,
                                     TP.SynthesisOptions(max_length=16, icl_sequential=True), [0, 1])
     n_text = [len(p.ref_text_ids) + len(tm.tokenizer.encode(t)) + 1 for p, t in zip(prompts[1], ICL_TEXTS)]
-    assert group.state.pos == [9 + n_text[0] + 17, 9 + n_text[1] + 11]
+    assert group.state.pos.tolist() == [9 + n_text[0] + 17, 9 + n_text[1] + 11]
 
 
 @TEMPERATURES

@@ -9,10 +9,16 @@ inside its reference prefix), and every other chunk's samples within atol
 ``synthesize_batch`` within the JAX package's bar for that pair
 (``tests/test_streaming_batch.py``: atol 2e-5, the streaming vocoder and
 the bucketed decode tile their matmuls differently). Cases: preset speakers
-(``streaming_lookahead`` 0 and 1, which changes nothing), uneven EOS (the
+(``streaming_lookahead`` 0 and 1, which changes no sample), uneven EOS (the
 codec head's EOS column scaled, as in ``test_torch_batch.py``), ICL clones
 with references of 16 and 10 frames and per-stream caps, and a final chunk
-cut short by ``max_length``; a session of mixed layouts is refused.
+cut short by ``max_length``; a session of mixed layouts is refused. Uneven
+EOS and ICL streams again at ``streaming_lookahead`` 0 (the cases above run
+the default 1: chunks queued ahead, some past EOS), and with the chunks
+queued ahead cut short after a set number of frames (on the card the host
+stops launching them once the chunk before is on the host: ``_Landed``,
+here ``test_torch_lookahead.FiresAfter``), and a chunk pending after
+``next_chunks`` exactly when the lookahead asks for one.
 """
 
 import numpy as np
@@ -24,6 +30,7 @@ import qwen3_tts_tpu_torch.pipeline as TP
 from qwen3_tts_tpu_torch.models.tokens import SAMPLES_PER_FRAME
 from test_torch_batch import EOS_TEXTS, eos_models
 from test_torch_batch_clone import ICL_TEXTS, icl_prompts, low_icl_floor, wide_models  # noqa: F401
+from test_torch_lookahead import FiresAfter
 
 torch.set_num_threads(1)
 
@@ -120,3 +127,40 @@ def test_mixed_layouts_refused(models, prompts):
         tm.synthesize_streaming_batch(["a", "b"], instructs=["calm", None])
     xvector = TP.VoiceClonePrompt(prompts[1][0].speaker_embedding)
     assert tm.synthesize_streaming_batch(["a", "b"], ["ryan", xvector]).batch == 2  # one layout: they mix
+
+
+def test_uneven_eos_stream_without_lookahead(models):
+    jm, tm = eos_models(models)
+    got = check_stream(jm, tm, EOS_TEXTS, max_length=16, seed=7, chunk_frames=4, streaming_lookahead=0)
+    assert any(c is None for rnd in got for c in rnd)
+
+
+def test_icl_stream_without_lookahead(models, prompts, low_icl_floor):  # noqa: F811
+    jm, tm = models
+    check_stream(jm, tm, ICL_TEXTS, prompts[0], prompts[1], max_length=16, seed=42, chunk_frames=6,
+                 first_chunk_frames=4, streaming_lookahead=0)
+
+
+@pytest.mark.parametrize("after", [0, 3])
+def test_uneven_eos_stream_cut_short(models, monkeypatch, after):
+    jm, tm = eos_models(models)
+    monkeypatch.setattr(TP, "_landed", lambda fetch: FiresAfter(after))
+    got = check_stream(jm, tm, EOS_TEXTS, max_length=16, seed=7, chunk_frames=4, streaming_lookahead=2)
+    assert any(c is None for rnd in got for c in rnd)
+
+
+def test_icl_stream_cut_short(models, prompts, low_icl_floor, monkeypatch):  # noqa: F811
+    jm, tm = models
+    monkeypatch.setattr(TP, "_landed", lambda fetch: FiresAfter(2))
+    check_stream(jm, tm, ICL_TEXTS, prompts[0], prompts[1], max_length=16, seed=42, chunk_frames=6,
+                 first_chunk_frames=4, streaming_lookahead=1)
+
+
+@pytest.mark.parametrize("lookahead", [0, 1])
+def test_chunk_pending_after_next_chunks(models, lookahead):
+    _, tm = models
+    opts = TP.SynthesisOptions(max_length=12, seed=42, chunk_frames=3, first_chunk_frames=2,
+                               streaming_lookahead=lookahead)
+    session = tm.synthesize_streaming_batch(STREAM_TEXTS[:2], options=opts)
+    session.next_chunks()
+    assert len(session._pending) == lookahead and session._spec_frontier == 2 + 3 * lookahead

@@ -8,10 +8,13 @@ here a ``meta`` tensor, which the hook counts before the copy refuses it);
 ``torch.Tensor`` is restored on exit, and nothing is counted outside the
 context. Reads planted in a loop are counted exactly. Then a regression
 guard on the port's frame loops (the tiny Base model of
-``test_torch_voice_clone.py``): ``generate_frames`` (batch 1) reads the
-device once a frame (``done``), ``generate_frames_batch`` (B = 3) once a
-frame and once on entry; a PR that adds a read to either loop fails here.
+``test_torch_voice_clone.py``): ``generate_frames`` (batch 1) and
+``generate_frames_batch`` (B = 3) look at the device once every
+``core.DONE_READ_EVERY`` frames, at most ceil(frames / N) + 2 reads a call;
+a PR that adds a read to either loop fails here.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -114,17 +117,23 @@ def model():
     return build_models()[1]
 
 
-@pytest.mark.parametrize("frames", [4, 12])
-def test_batch1_loop_reads_once_a_frame(model, frames):
+def _read_bound(frames: int) -> int:
+    """The loop contract: one look at the device every
+    ``core.DONE_READ_EVERY`` iterations, plus a constant."""
+    return math.ceil(frames / core.DONE_READ_EVERY) + 2
+
+
+@pytest.mark.parametrize("frames", [4, 12, 40])
+def test_batch1_loop_reads_once_every_n_frames(model, frames):
     opts = SynthesisOptions(max_length=frames, min_new_tokens=frames, seed=3)
     session = model._custom_voice_session("Hello there", "ryan", "english", opts)
     _, reads = count_host_transfers(session._advance, frames)
-    assert session.state.frame_idx == frames
-    assert reads <= frames + 1, reads
+    assert session.state.steps == int(session.state.frame_idx) == frames
+    assert reads <= _read_bound(frames), reads
 
 
-@pytest.mark.parametrize("frames", [4, 12])
-def test_batched_loop_reads_once_a_frame(model, frames):
+@pytest.mark.parametrize("frames", [4, 12, 40])
+def test_batched_loop_reads_once_every_n_frames(model, frames):
     opts = SynthesisOptions(max_length=frames, min_new_tokens=frames, seed=3)
     m = model
     g = m._prepare_batch_group("basic", ["a b", "c d e", "f"], ["ryan"] * 3, ["english"] * 3, [None] * 3, opts,
@@ -132,5 +141,5 @@ def test_batched_loop_reads_once_a_frame(model, frames):
     _, reads = count_host_transfers(core.generate_frames_batch, m.talker_params, m.cp_params, m.config.talker,
                                     m.config.code_predictor, g.scfg, g.state, g.trailing, g.trailing_lens,
                                     g.pad_embed, g.uniforms, g.frame_limits)
-    assert g.state.frame_idx == [frames] * 3
-    assert reads <= frames + 1, reads
+    assert g.state.frame_idx.tolist() == [frames] * 3 and g.state.steps == frames
+    assert reads <= _read_bound(frames), reads

@@ -16,9 +16,15 @@
   mesh of the JAX package's shape), ``Qwen3TTS.shard`` (returns the model),
   ``Qwen3TTS.mesh`` (None until sharded, then the mesh) and
   ``from_pretrained``'s ``mesh`` keyword, each as the JAX package has it.
+* The package's ``__all__`` and ``models.codec.__all__``: the JAX package's
+  names as sets, each name bound; ``hub``: its constants equal, and
+  ``download`` asks ``huggingface_hub.hf_hub_download`` for the JAX
+  module's files in the same order and directories (the function
+  replaced in both, so nothing reaches the network).
 """
 
 import inspect
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -143,3 +149,60 @@ def test_from_pretrained_takes_a_mesh():
     want = inspect.signature(JP.Qwen3TTS.from_pretrained).parameters["mesh"]
     got = inspect.signature(Qwen3TTS.from_pretrained).parameters["mesh"]
     assert got.default is want.default is None and got.kind == want.kind
+
+
+def test_package_all_matches_jax():
+    import qwen3_tts_tpu
+    import qwen3_tts_tpu_torch
+
+    assert set(qwen3_tts_tpu_torch.__all__) == set(qwen3_tts_tpu.__all__)
+    assert all(hasattr(qwen3_tts_tpu_torch, name) for name in qwen3_tts_tpu_torch.__all__)
+    assert qwen3_tts_tpu_torch.CODEC_EOS_TOKEN_ID == qwen3_tts_tpu.CODEC_EOS_TOKEN_ID
+    assert qwen3_tts_tpu_torch.SAMPLES_PER_FRAME == qwen3_tts_tpu.SAMPLES_PER_FRAME
+
+
+def test_codec_all_matches_jax():
+    from qwen3_tts_tpu.models import codec as jcodec
+    from qwen3_tts_tpu_torch.models import codec as tcodec
+
+    assert set(tcodec.__all__) == set(jcodec.__all__)
+    assert all(hasattr(tcodec, name) for name in tcodec.__all__)
+
+
+def test_hub_constants_match_jax():
+    from qwen3_tts_tpu import hub as jhub
+    from qwen3_tts_tpu_torch import hub as thub
+
+    assert thub.MODEL_IDS == jhub.MODEL_IDS
+    assert (thub.SPEECH_TOKENIZER_ID, thub.TEXT_TOKENIZER_ID) == (jhub.SPEECH_TOKENIZER_ID, jhub.TEXT_TOKENIZER_ID)
+    assert inspect.signature(thub.download) == inspect.signature(jhub.download)
+
+
+@pytest.mark.parametrize("tokenizer_json", [True, False], ids=["tokenizer_json", "vocab_merges"])
+def test_hub_download_asks_for_the_jax_files(tmp_path, monkeypatch, tokenizer_json):
+    """Both ``download``s against a stand-in ``hf_hub_download`` (the module
+    is imported inside the function, so the stand-in is what it finds):
+    the same (repo, file, revision, directory) requests, the same returned
+    directory; without ``tokenizer.json`` both fall back to vocab + merges."""
+    huggingface_hub = pytest.importorskip("huggingface_hub")
+    from qwen3_tts_tpu import hub as jhub
+    from qwen3_tts_tpu_torch import hub as thub
+
+    def run(download, root):
+        calls = []
+
+        def fake(repo, fname, revision=None, local_dir=None):
+            calls.append((repo, fname, revision, str(Path(local_dir).relative_to(root))))
+            if fname == "tokenizer.json" and not tokenizer_json:
+                raise FileNotFoundError(fname)
+            return str(Path(local_dir) / fname)
+
+        monkeypatch.setattr(huggingface_hub, "hf_hub_download", fake)
+        out = download("1.7b-customvoice", root, revision="r1")
+        return calls, str(out.relative_to(root))
+
+    want = run(jhub.download, tmp_path / "jax")
+    got = run(thub.download, tmp_path / "port")
+    assert got == want
+    assert got[1] == "Qwen3-TTS-12Hz-1.7B-CustomVoice"
+    assert [c[1] for c in got[0]][-1] == ("tokenizer.json" if tokenizer_json else "tokenizer_config.json")

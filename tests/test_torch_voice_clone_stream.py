@@ -92,7 +92,9 @@ def test_icl_last_chunk_runs_past_vocoder_cache(models, monkeypatch):  # noqa: F
     opts = SynthesisOptions(max_length=16, min_new_tokens=16, seed=3, chunk_frames=3)
     session = tm.synthesize_voice_clone_streaming(TEXT, prompt, "english", opts)
     first = session.next_chunk()
-    assert session.vstate.kv_k.shape[2] == 4 + 8  # the first tier's frames and the prefix's room
+    # The second chunk (frames 4-6) is queued ahead of the first's return (streaming_lookahead 1): the
+    # second tier's frames and the prefix's room.
+    assert session.vstate.kv_k.shape[2] == 8 + 8
     stream = np.concatenate([first.samples] + _samples(session))
     assert session.frames_generated == 16
     # 8 reference rows + 15 frames emitted + a 3-row chunk: past 16 + 8 rows.
