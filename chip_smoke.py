@@ -304,7 +304,13 @@ Phases, each printing a line (any failure exits nonzero before the last):
      unsharded model's and the first differing frame's top-2 margin
      (reported); ms/frame beside the unsharded model's, the step's time by
      host clock and by CUDA events, one all-reduce's time, peak memory per
-     device;
+     device; (d) the same int8 trees in bf16 at dp = 2 x tp = 1, a batch of
+     8 (4 a replica) for 16 frames (``tp_dp_batch``): the rounds alternate
+     between the replicas, kernel 4 launches in each replica's frames on
+     its own device, the lock-step loop's host reads within ceil(16 / N) +
+     2, its frames bit-equal to the same replicas run one after another;
+     ms/frame of the lock-step loop, of the replicas one after another and
+     of the unsharded B = 8 batch, in this process;
  14. the script's wall time, a JSON line of the kernels (each with its
      launches on its main path, its time, its plain version's, the card's
      bound for the same work and, where one PyTorch call computes the same
@@ -3549,7 +3555,7 @@ def sync_free_loops():
     look (its wait on the previous look's event, the one blocking call the
     contract allows) and outside the loops (the prologue, the vocoder, the
     sessions' reads)."""
-    read, loops = core._FlagReader.read, (core.generate_frames, core.generate_frames_batch)
+    read, loops = core._FlagReader.read, (core.generate_frames, core.generate_frames_replicas)
 
     def looked(self, flag):
         torch.cuda.set_sync_debug_mode(0)
@@ -3567,12 +3573,12 @@ def sync_free_loops():
         return run
 
     core._FlagReader.read = looked
-    core.generate_frames, core.generate_frames_batch = (scoped(fn) for fn in loops)
+    core.generate_frames, core.generate_frames_replicas = (scoped(fn) for fn in loops)
     try:
         yield
     finally:
         core._FlagReader.read = read
-        core.generate_frames, core.generate_frames_batch = loops
+        core.generate_frames, core.generate_frames_replicas = loops
         torch.cuda.set_sync_debug_mode(0)
 
 
@@ -4219,8 +4225,9 @@ def tp_step_trials(sh: Qwen3TTS, ref: Qwen3TTS, dtype: torch.dtype, gen: torch.G
                 margin = _top2_margin(logits_ref)
                 r["flips"].append((pos, margin, moved))
                 r["unexplained"] += margin > TP_F32_SPREAD_FACTOR * moved
-            r["row_err"] = max(r["row_err"], rel_err(torch.cat([c[:, pos] for c in cks], -1), ck[:, pos]),
-                               rel_err(torch.cat([c[:, pos] for c in cvs], -1), cv[:, pos]))
+            # The ranks' rows, gathered onto the first card (each rank's on its own card under NCCL).
+            r["row_err"] = max(r["row_err"], rel_err(torch.cat([c[:, pos].to(DEV) for c in cks], -1), ck[:, pos]),
+                               rel_err(torch.cat([c[:, pos].to(DEV) for c in cvs], -1), cv[:, pos]))
     # Times at the last pos: the step (host clock, every card synchronised, and the
     # first card's span by CUDA events) over 20 steps; one all-reduce of the step's parts.
     steps = 20
@@ -4320,7 +4327,129 @@ def tp_full_depth() -> dict:
             del sh
         del ref
     torch.cuda.empty_cache()
+    _row("int8_matmul")["tp_dp_batch"] = tp_dp_batch(cfg, trees[torch.bfloat16], voc)
     return out
+
+
+TP_DP_FRAMES = 16  # part (d): the dp = 2 batch's frames (the eager batched loop: ~0.2 s a frame at B = 8)
+
+
+def _sync_all() -> None:
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def tp_dp_batch(cfg: ModelConfig, trees: tuple, voc: dict) -> dict:
+    """(d) The full-depth 1.7B int8 model in bf16 at dp = 2 x tp = 1 on the
+    cards there are (both replicas on cuda:0 with one card): a batch of
+    BATCH streams (BATCH / 2 a replica) for TP_DP_FRAMES frames forced.
+    One run with ``core.batch_frame`` recorded, ``TransferAudit`` on and
+    ``sync_free_loops``: the rounds alternate between the replicas, kernel
+    4 launches in every replica's frames and only on its first device, the
+    loop's host reads stay within ``loop_read_bound``, and nothing
+    synchronises between two looks; kernel 4 at replica 0's talker
+    projections and codec head (its rows: BATCH / 2) on the run's own
+    inputs, as phase ``kernel4-batch`` (``kernel4_batch_shapes``). Then, each with the launch counts set
+    to 0 just before it: the lock-step loop timed, the same replicas run one
+    after another (each alone through the driver, as the loops ran before
+    the lock-step driver) timed, and the unsharded B = BATCH batch timed,
+    all in this process: ms a frame of each; the lock-step frames bit-equal
+    to the one-after-another frames, their share of codes equal to the
+    unsharded batch's reported (the layer path at 4 rows against 8); kernels
+    1 and 3 never, no call the gate sent to kernel 4's plain form."""
+    card = card_line()
+    opts = replace(st.batch_options(), max_length=TP_DP_FRAMES, min_new_tokens=TP_DP_FRAMES)
+    texts = list(st.BATCH_TEXTS[:BATCH])
+
+    def build(mesh=None) -> Qwen3TTS:
+        m = Qwen3TTS(cfg, *trees, voc, st.WordTokenizer(), quantize_int8=True)
+        return m.shard(mesh) if mesh is not None else m
+
+    def group(m: Qwen3TTS):
+        return m._prepare_batch_group("basic", texts, ["ryan"] * BATCH, ["english"] * BATCH, [None] * BATCH,
+                                      m._normalize_options(opts), [42 + i for i in range(BATCH)])
+
+    def timed(g, run) -> tuple:
+        _sync_all()
+        _reset_counts()
+        quant.int8_matmul.gated = 0
+        t0 = time.perf_counter()
+        run(g, g.frame_limits)
+        _sync_all()
+        ms = (time.perf_counter() - t0) * 1e3 / TP_DP_FRAMES
+        launches = {**_counts(), "gated": quant.int8_matmul.gated}
+        return np.concatenate([p.state.frames.cpu().numpy() for p in g.shards]), ms, launches
+
+    ref = build()
+    ref_frames, ref_ms, ref_launches = timed(group(ref), ref._run_batch_loops)
+    del ref
+    sh = build(_mesh(2, 1))
+    devs = [str(sh.mesh.first(r)) for r in range(2)]
+    g = group(sh)
+    replica = {id(p.state): r for r, p in enumerate(g.shards)}
+    order, k4, k4_devs, current, inputs = [], [0, 0], [set(), set()], [None], {}
+    talker_shapes = {*TALKER_PROJ_SHAPES, (cfg.talker.hidden_size, cfg.talker.codec_vocab_size)}
+    frame, mm = core.batch_frame, quant._int8_mm_core
+
+    def recorded(run):
+        r = current[0] = replica[id(run.state)]
+        order.append((r, run.state.steps))
+        before = quant.int8_matmul.launches
+        frame(run)
+        k4[r] += quant.int8_matmul.launches - before
+        current[0] = None
+
+    def seen(x2, q8, scale):
+        if current[0] is not None and x2.is_cuda and quant.int8_matmul_route(x2, q8) == "kernel":
+            k4_devs[current[0]].add(str(x2.device))
+            if current[0] == 0 and (x2.shape[1], q8.shape[1]) in talker_shapes:
+                inputs.setdefault((x2.shape[0], x2.shape[1], q8.shape[1]), (x2.clone(), q8, scale))
+        return mm(x2, q8, scale)
+
+    core.batch_frame, quant._int8_mm_core = recorded, seen
+    error, reads = None, -1
+    try:
+        with sync_free_loops():
+            _, reads = count_host_transfers(sh._run_batch_loops, g, g.frame_limits)
+    except RuntimeError as e:  # the sync debug mode's error
+        error = str(e).splitlines()[0]
+    finally:
+        core.batch_frame, quant._int8_mm_core = frame, mm
+    shapes = kernel4_batch_shapes(inputs)  # a replica's talker projections and codec head at its rows
+    lock_frames, lock_ms, launches = timed(group(sh), sh._run_batch_loops)
+
+    def one_after_another(g, limits):
+        for share in sh._replica_loops(g, limits):
+            core.generate_frames_replicas(cfg.talker, cfg.code_predictor, g.scfg, [share], sh.mesh)
+
+    seq_frames, seq_ms, seq_launches = timed(group(sh), one_after_another)
+    del sh
+    torch.cuda.empty_cache()
+    want_order = [(r, step) for step in range(TP_DP_FRAMES) for r in range(2)]
+    bound_reads = loop_read_bound(TP_DP_FRAMES)
+    share = float((lock_frames == ref_frames).mean())
+    phase("tp", f"(d) {card}: full-depth 1.7B int8 bf16, dp=2 x tp=1 on {devs}, B={BATCH} ({BATCH // 2} a replica), "
+          f"{TP_DP_FRAMES} frames: round order {'alternates' if order == want_order else order} "
+          f"({len(order)} replica frames); kernel 4 launches in each replica's frames {k4} on devices "
+          f"{[sorted(d) for d in k4_devs]}; host reads of the lock-step loop {reads} (bound {bound_reads}); "
+          f"under set_sync_debug_mode('error') between looks: "
+          f"{'no synchronising call' if error is None else 'RAISED: ' + error}")
+    phase("tp", f"(d) {card}: ms/frame lock-step {lock_ms:.3f}, the replicas one after another {seq_ms:.3f}, "
+          f"unsharded B={BATCH} {ref_ms:.3f}; lock-step frames bit-equal to one after another "
+          f"{bool((lock_frames == seq_frames).all())}, share of codes equal to the unsharded batch {share:.4f} "
+          f"(reported); launches lock-step {launches}, one after another {seq_launches}, unsharded {ref_launches}")
+    check(order == want_order, f"tp dp batch: the rounds' order {order[:8]}..., want {want_order[:8]}...")
+    check(all(n > 0 for n in k4) and [sorted(d) for d in k4_devs] == [[d] for d in devs],
+          f"tp dp batch: kernel 4 launches a replica {k4} on {k4_devs}, want each nonzero on {devs}")
+    check(error is None, f"tp dp batch: a synchronising call in the lock-step loop: {error}")
+    check(0 <= reads <= bound_reads, f"tp dp batch: {reads} host reads, bound {bound_reads}")
+    check(bool((lock_frames == seq_frames).all()), "tp dp batch: lock-step frames differ from one after another")
+    for name, n in (("lock-step", launches), ("one after another", seq_launches), ("unsharded", ref_launches)):
+        check(n["cp_frame"] == n["talker_step"] == 0 and n["int8_matmul"] > 0 and n["gated"] == 0,
+              f"tp dp batch {name}: launches {n}")
+    return {"ms_per_frame": lock_ms, "one_after_another_ms_per_frame": seq_ms, "unsharded_ms_per_frame": ref_ms,
+            "kernel4_launches_by_replica": k4, "host_reads": reads, "share_equal_unsharded": share,
+            "kernel4_replica_shapes": shapes}
 
 
 def tp_phase() -> None:

@@ -705,13 +705,8 @@ static cudaError_t launch_frame(FrameArgs a, const FrameMaps& maps, const void* 
                                 int* codes, cudaStream_t st) {
   if (!frame_ok(a, Vec<T>::n, Vec<W>::n)) return cudaErrorInvalidValue;
   for (int j = 0; j < kProjs; ++j) a.proj[j].col_shift = col_shift(a.proj[j], j == kMtp ? Vec<T>::n : Vec<W>::n);
-  static int smem_set = 0;  // the attribute, once per instantiation (never during a graph capture)
-  if (a.smem_bytes > smem_set) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(cp_frame_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
-    if (e != cudaSuccess) return e;
-    smem_set = a.smem_bytes;
-  }
+  static int smem_set[kMaxDevices] = {};  // the attribute, per device and instantiation
+  if (const cudaError_t e = allow_smem(cp_frame_kernel<T, W>, smem_set, a.smem_bytes)) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.grid);
   cfg.blockDim = dim3(kFrameThreads);

@@ -739,14 +739,10 @@ mlp_step_kernel(const FsArgs a, const __grid_constant__ FsMaps maps) {
 
 // One cooperative launch of `kernel` (attention_step_kernel or
 // mlp_step_kernel of one T); `smem_set` the shared memory its attribute
-// allows so far (set once per size, never during a graph capture).
+// allows so far on each device (``allow_smem``).
 template <typename K>
-static cudaError_t launch_fs(K kernel, int& smem_set, const FsArgs& a, const FsMaps& maps, cudaStream_t st) {
-  if (a.smem_bytes > smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
-    if (e != cudaSuccess) return e;
-    smem_set = a.smem_bytes;
-  }
+static cudaError_t launch_fs(K kernel, int* smem_set, const FsArgs& a, const FsMaps& maps, cudaStream_t st) {
+  if (const cudaError_t e = allow_smem(kernel, smem_set, a.smem_bytes)) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.grid);
   cfg.blockDim = dim3(kFrameThreads);
@@ -811,7 +807,7 @@ static cudaError_t encode_fs_maps(const FsArgs& a, FsMaps* out) {
 template <typename T>
 static cudaError_t launch_fs_t(const FsArgs& a, const FsMaps& m, bool attention, cudaStream_t st) {
   if (!fs_ok(a, Vec<T>::n)) return cudaErrorInvalidValue;
-  static int smem_set[2] = {0, 0};
+  static int smem_set[2][kMaxDevices] = {};
   return attention ? launch_fs(attention_step_kernel<T>, smem_set[0], a, m, st)
                    : launch_fs(mlp_step_kernel<T>, smem_set[1], a, m, st);
 }

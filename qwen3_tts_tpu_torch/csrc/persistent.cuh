@@ -17,6 +17,25 @@ namespace q3 {
 constexpr int kFrameThreads = 256;
 constexpr int kSmemLimit = 232448;  // an H100 block's dynamic shared memory
 
+// The attribute that lets a kernel take more than 48 KB of dynamic shared
+// memory holds only for the device current when it is set, so each device
+// sets its own: `smem_set[d]` is the most it allows so far on device d,
+// raised when a launch there needs more (never during a graph capture).
+constexpr int kMaxDevices = 64;
+template <typename K>
+inline cudaError_t allow_smem(K kernel, int* smem_set, int bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes > smem_set[dev]) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    smem_set[dev] = bytes;
+  }
+  return cudaSuccess;
+}
+
 // A weight vector: 16 bytes of a row, the least a TMA box row may hold
 // (4 f32, 8 bf16 or 16 int8 columns).
 constexpr int kVecBytes = 16;

@@ -687,13 +687,8 @@ static cudaError_t launch_step(const StepArgs& a, const StepMaps& maps, cudaStre
   // sum: every live row in one chunk.
   if (!step_ok(a, Vec<T>::n, Vec<W>::n, step_head_floats<kNorm>() / 5) || (kNorm && a.max_seq > kStepChunkRows))
     return cudaErrorInvalidValue;
-  static int smem_set = 0;  // the attribute, once per instantiation (never during a graph capture)
-  if (a.smem_bytes > smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(talker_step_kernel<T, W, kNorm>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
-    if (e != cudaSuccess) return e;
-    smem_set = a.smem_bytes;
-  }
+  static int smem_set[kMaxDevices] = {};  // the attribute, per device and instantiation
+  if (const cudaError_t e = allow_smem(talker_step_kernel<T, W, kNorm>, smem_set, a.smem_bytes)) return e;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(a.grid);
   cfg.blockDim = dim3(kFrameThreads);

@@ -35,9 +35,13 @@ depend on the buffer's size.
 ``generate_frames_batch`` is the loop of B streams (the JAX package's
 vmapped loop in its ``generation/batch.py``), each with its own cache position,
 frame count and frame limit, re-entered the same way by a
-``StreamingBatchSession``.
+``StreamingBatchSession``. ``generate_frames_replicas`` runs the dp
+replicas of a sharded batch in lock-step, one frame of every replica a
+round (``batch_frame``) and one look for the group, as the JAX package's
+one program over dp does; ``generate_frames_batch`` is its one-replica
+case.
 
-Both take the ``mesh`` of a sharded model (``Qwen3TTS.shard``): the talker
+Both loops take the ``mesh`` of a sharded model (``Qwen3TTS.shard``): the talker
 is then one replica's ``parallel.sharding.ShardedTree`` and the cache an
 ``nn.TPCache``; the rest of the frame stays on the replica's first device,
 which holds the flags the host reads.
@@ -72,33 +76,47 @@ DONE_READ_EVERY = 2
 
 
 class _FlagReader:
-    """The host's view of a 0-d bool device flag, taken at loop boundaries.
+    """The host's view of 0-d bool device flags, taken at loop boundaries:
+    one flag (``read`` gives a bool), or one a dp replica, each on its
+    replica's device (``read`` of a list gives a list; a None entry is not
+    looked at, and its element of the answer means nothing).
 
-    On the card a boundary enqueues a non-blocking copy of the flag into one
-    of two pinned host slots and records an event, then waits on the
-    previous boundary's event only and reads that slot: the stream is never
-    drained, and the value read is one boundary old. On the CPU there is no
-    stream: the flag is read at the boundary. Each look is one host read."""
+    On the card a boundary enqueues a non-blocking copy of each flag into
+    its element of one of two pinned host slots and records an event on
+    its device, then waits on the previous boundary's events only and reads
+    that slot: no stream is drained, and the values read are one boundary
+    old. On the CPU there is no stream: the flags are read at the boundary.
+    Each look is one host read, whatever the number of flags."""
 
-    def __init__(self, dev: torch.device):
-        self.lagged = dev.type == "cuda"
-        self.slots = torch.zeros(2, dtype=torch.bool, pin_memory=True) if self.lagged else None
+    def __init__(self, devs):
+        self.devs = list(devs) if isinstance(devs, (list, tuple)) else [devs]
+        self.lagged = self.devs[0].type == "cuda"
+        self.slots = torch.zeros((2, len(self.devs)), dtype=torch.bool, pin_memory=True) if self.lagged else None
         self.events: list = [None, None]
         self.looks = 0
 
-    def read(self, flag: torch.Tensor) -> bool:
+    def read(self, flags):
+        if isinstance(flags, torch.Tensor):
+            return self.read([flags])[0]
         if not self.lagged:
-            return bool(flag)
+            seen = iter(torch.stack([f for f in flags if f is not None]).tolist())
+            return [next(seen) if f is not None else True for f in flags]
         slot = self.looks % 2
         self.looks += 1
-        self.slots[slot].copy_(flag, non_blocking=True)
-        self.events[slot] = torch.cuda.Event()
-        self.events[slot].record()
+        events = []
+        for i, (dev, flag) in enumerate(zip(self.devs, flags)):
+            if flag is not None:
+                with torch.cuda.device(dev):
+                    self.slots[slot, i].copy_(flag, non_blocking=True)
+                    events.append(torch.cuda.Event())
+                    events[-1].record()
+        self.events[slot] = events
         prev = self.events[1 - slot]
         if prev is None:
-            return False
-        prev.synchronize()
-        return bool(self.slots[1 - slot])
+            return [False] * len(flags)
+        for event in prev:
+            event.synchronize()
+        return self.slots[1 - slot].tolist()
 
 
 def to_device(values: list[int], dev: torch.device) -> torch.Tensor:
@@ -335,6 +353,134 @@ def init_state_batch(
     )
 
 
+@dataclass
+class ReplicaLoop:
+    """One dp replica's share of a batched loop: its trees (a plain tree, or
+    under a mesh the replica's ``ShardedTree`` and whole code predictor), the
+    state of its streams and their inputs (``generate_frames_batch``'s)."""
+
+    talker_params: dict
+    cp_params: dict
+    state: BatchGenState
+    trailing: torch.Tensor  # [B, Tb, hidden]
+    trailing_lens: list[int]
+    pad_embed: torch.Tensor  # [hidden]
+    uniforms: torch.Tensor  # [B, max_new + 1]
+    frame_limits: list[int]  # per-stream frame budgets
+
+
+class BatchRun:
+    """A replica's loop for one driver call: its share, the configs, and its
+    limits and text schedule on its first device (sent once a call)."""
+
+    def __init__(self, share: ReplicaLoop, tcfg: TalkerConfig, cpcfg: CodePredictorConfig,
+                 scfg: sampling.SamplingConfig, mesh):
+        _check_mesh(share.talker_params, mesh)
+        self.share, self.state, self.tcfg, self.cpcfg, self.scfg = share, share.state, tcfg, cpcfg, scfg
+        self.dev = share.state.frames.device
+        self.max_new = share.state.frames.shape[1]
+        limits = [min(limit, self.max_new) for limit in share.frame_limits]  # never run past the frames buffer
+        self.top = max(limits, default=0)
+        with collectives.device_scope(self.dev):
+            self.limits = to_device(limits, self.dev)
+            self.in_text_until = to_device(list(share.trailing_lens), self.dev)
+            self.suppression = sampling.build_suppression_mask(share.state.penalty_mask.shape[1], scfg.eos_token_id,
+                                                               self.dev)
+
+    def idle(self) -> torch.Tensor:
+        """[] bool on the replica's device: no stream is live."""
+        with collectives.device_scope(self.dev):
+            return _idle(self.state, self.limits)
+
+
+def batch_frame(run: BatchRun) -> None:
+    """Launch one frame of one replica's streams on its devices (no read):
+    every projection multiplies its B rows with one weight read; a stream
+    that is done or at its limit is frozen by a device-side select."""
+    state, share, scfg = run.state, run.share, run.scfg
+    tp, cpp = share.talker_params, share.cp_params
+    with collectives.device_scope(run.dev):
+        idx = state.steps
+        live = ~state.done & (state.frame_idx < run.limits)
+        semantic_embed = talker.embed_codec(tp, state.token)[:, None, :]  # [B, 1, H]
+        codes = cp.predict_acoustic_codes_batch(cpp, run.cpcfg, state.last_hidden, semantic_embed)  # [B, 15]
+        frame = torch.cat([state.token[:, None].to(torch.int32), codes], dim=1)
+        state.frames[:, idx] = torch.where(live[:, None], frame, state.frames[:, idx])
+
+        acoustic_sum = cp.acoustic_embedding_sum(cpp, codes).to(semantic_embed.dtype)
+        trailing = share.trailing
+        text_add = torch.where((run.in_text_until > idx)[:, None], trailing[:, min(idx, trailing.shape[1] - 1)],
+                               share.pad_embed)
+        step_input = semantic_embed + acoustic_sum + text_add.to(semantic_embed.dtype)[:, None, :]
+        hidden, logits = talker.decode_step_batch(tp, run.tcfg, step_input, state.pos, state.cache)
+
+        token_count = idx + 1
+        logits = sampling.apply_generation_penalties(logits, state.penalty_mask, run.suppression, scfg, token_count)
+        next_token = sampling.sample(logits, scfg, share.uniforms[:, min(token_count, run.max_new)])
+        seen = state.penalty_mask.gather(1, next_token[:, None])
+        state.penalty_mask.scatter_(1, next_token[:, None], torch.where(live[:, None], torch.ones_like(seen), seen))
+
+        state.last_hidden = torch.where(live[:, None, None], hidden, state.last_hidden)
+        state.token = torch.where(live, next_token, state.token)
+        state.done = state.done | (live & (next_token == scfg.eos_token_id))
+        state.frame_idx = state.frame_idx + live
+        state.pos = state.pos + 1
+        state.steps = token_count
+
+
+def _look(reader, runs: list[BatchRun], on: list[bool]) -> list[bool]:
+    """One look at every replica still in: which stay in (not idle). A lone
+    replica's look reads its flag alone, as the batch-1 loop's does."""
+    flags = [run.idle() if o else None for run, o in zip(runs, on)]
+    idle = [reader.read(flags[0])] if len(runs) == 1 else reader.read(flags)
+    return [o and not i for o, i in zip(on, idle)]
+
+
+def generate_frames_replicas(
+    tcfg: TalkerConfig,
+    cpcfg: CodePredictorConfig,
+    scfg: sampling.SamplingConfig,
+    shares: list[ReplicaLoop],
+    mesh=None,  # parallel.sharding.Mesh of a sharded model (each share's talker its replica's ShardedTree)
+    until=None,  # () -> bool: stop launching once True, with no look at the device (generate_frames')
+) -> list[BatchGenState]:
+    """Advance the dp replicas of one batch in lock-step, as the JAX
+    package's one vmapped program over dp advances every replica the same
+    frame in the same step; returns their states, in order.
+
+    The host runs rounds: a round launches the next frame (``batch_frame``)
+    of every replica still in, in replica order, each on its own devices,
+    so replicas on distinct cards run at once. A replica is in while its
+    ``steps`` is below its largest limit and no look has shown it idle. The
+    group looks once on entry and every ``DONE_READ_EVERY`` rounds: each
+    replica's idle flag goes into its element of one pinned slot, and the
+    host reads the previous look's slot once (``_FlagReader``); so each
+    replica runs at most ``2 * DONE_READ_EVERY - 1`` frozen frames past
+    its EOS, as alone. ``until``, when given, is called once a round, before
+    any replica launches, and ends the rounds with no look: a cut leaves
+    every replica that was in at the same ``steps``."""
+    tcfg = replace(tcfg, decode_tiering=False)
+    runs = [BatchRun(share, tcfg, cpcfg, scfg, mesh) for share in shares]
+    on = [run.state.steps < run.top for run in runs]
+    reader = None
+    if until is None and any(on):
+        devs = [run.dev for run in runs]
+        reader = _FlagReader(devs[0] if len(runs) == 1 else devs)
+        on = _look(reader, runs, on)
+    rounds = 0
+    while any(on):
+        if until is not None and until():
+            break
+        for run, o in zip(runs, on):
+            if o:
+                batch_frame(run)
+        rounds += 1
+        on = [o and run.state.steps < run.top for run, o in zip(runs, on)]
+        if reader is not None and rounds % DONE_READ_EVERY == 0 and any(on):
+            on = _look(reader, runs, on)
+    return [run.state for run in runs]
+
+
 def generate_frames_batch(
     talker_params: dict,
     cp_params: dict,
@@ -351,7 +497,8 @@ def generate_frames_batch(
     until=None,  # () -> bool: stop launching once True, with no look at the device (generate_frames')
 ) -> BatchGenState:
     """Advance B streams together until each is done or at its frame limit
-    (the semantics of the JAX package's vmapped ``_generate_frames``).
+    (the semantics of the JAX package's vmapped ``_generate_frames``): the
+    one-replica case of ``generate_frames_replicas``.
 
     The body runs for all B streams at once, on the layer path
     (``talker.decode_step_batch``, ``cp.predict_acoustic_codes_batch``):
@@ -375,51 +522,8 @@ def generate_frames_batch(
     state's streams, the code predictor that replica's, on its first
     device.
     """
-    _check_mesh(talker_params, mesh)
-    tcfg = replace(tcfg, decode_tiering=False)
-    with collectives.device_scope(state.frames.device):
-        dev = state.frames.device
-        max_new = state.frames.shape[1]
-        limits_host = [min(limit, max_new) for limit in frame_limits]  # never run past the frames buffer
-        top = max(limits_host, default=0)
-        limits = to_device(limits_host, dev)
-        in_text_until = to_device(list(trailing_lens), dev)
-        tb = trailing.shape[1]
-        suppression = sampling.build_suppression_mask(state.penalty_mask.shape[1], scfg.eos_token_id, dev)
-        reader = _FlagReader(dev) if until is None else None
-        stop = reader is not None and reader.read(_idle(state, limits))
-        ran = 0
-        while not stop and state.steps < top:
-            if until is not None and until():
-                break
-            idx = state.steps
-            live = ~state.done & (state.frame_idx < limits)
-            semantic_embed = talker.embed_codec(talker_params, state.token)[:, None, :]  # [B, 1, H]
-            codes = cp.predict_acoustic_codes_batch(cp_params, cpcfg, state.last_hidden, semantic_embed)  # [B, 15]
-            frame = torch.cat([state.token[:, None].to(torch.int32), codes], dim=1)
-            state.frames[:, idx] = torch.where(live[:, None], frame, state.frames[:, idx])
-
-            acoustic_sum = cp.acoustic_embedding_sum(cp_params, codes).to(semantic_embed.dtype)
-            text_add = torch.where((in_text_until > idx)[:, None], trailing[:, min(idx, tb - 1)], pad_embed)
-            step_input = semantic_embed + acoustic_sum + text_add.to(semantic_embed.dtype)[:, None, :]
-            hidden, logits = talker.decode_step_batch(talker_params, tcfg, step_input, state.pos, state.cache)
-
-            token_count = idx + 1
-            logits = sampling.apply_generation_penalties(logits, state.penalty_mask, suppression, scfg, token_count)
-            next_token = sampling.sample(logits, scfg, uniforms[:, min(token_count, max_new)])
-            seen = state.penalty_mask.gather(1, next_token[:, None])
-            state.penalty_mask.scatter_(1, next_token[:, None], torch.where(live[:, None], torch.ones_like(seen), seen))
-
-            state.last_hidden = torch.where(live[:, None, None], hidden, state.last_hidden)
-            state.token = torch.where(live, next_token, state.token)
-            state.done = state.done | (live & (next_token == scfg.eos_token_id))
-            state.frame_idx = state.frame_idx + live
-            state.pos = state.pos + 1
-            state.steps = token_count
-            ran += 1
-            if reader is not None and ran % DONE_READ_EVERY == 0 and state.steps < top:
-                stop = reader.read(_idle(state, limits))
-    return state
+    share = ReplicaLoop(talker_params, cp_params, state, trailing, trailing_lens, pad_embed, uniforms, frame_limits)
+    return generate_frames_replicas(tcfg, cpcfg, scfg, [share], mesh, until)[0]
 
 
 def _idle(state: BatchGenState, limits: torch.Tensor) -> torch.Tensor:

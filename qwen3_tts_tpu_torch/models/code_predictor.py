@@ -243,3 +243,8 @@ def acoustic_embedding_sum(params: dict, codes: torch.Tensor) -> torch.Tensor:
     tables = params["codec_embeddings"]  # [G, vocab, dim]
     groups = torch.arange(tables.shape[0], device=tables.device)
     return tables[groups, codes.reshape(-1, tables.shape[0]).long()].sum(dim=1)[:, None]
+
+
+def embed_codes_for_group(params: dict, group_idx: int, codes: torch.Tensor) -> torch.Tensor:
+    """Embed a [T] code sequence with acoustic group ``group_idx``'s table -> [1, T, dim]."""
+    return params["codec_embeddings"][group_idx][codes.long()][None]

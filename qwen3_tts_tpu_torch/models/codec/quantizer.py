@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ...utils.device import device_or_card
+
 
 def nearest_code(x: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Euclidean nearest-neighbour indices: x [..., D], codebook [V, D] -> int64 [...].
@@ -28,6 +30,14 @@ class VectorQuantizer:
     def __init__(self, codebook: torch.Tensor):
         """codebook: [codebook_size, dim]."""
         self.codebook = codebook
+
+    @classmethod
+    def random(cls, generator: torch.Generator, codebook_size: int, dim: int, scale: float = 1.0,
+               device: torch.device | str | None = None) -> "VectorQuantizer":
+        """A [codebook_size, dim] codebook of normal draws from ``generator``
+        (on the CPU) times ``scale``, placed on ``device`` (the card when
+        None)."""
+        return cls((torch.randn((codebook_size, dim), generator=generator) * scale).to(device_or_card(device)))
 
     @property
     def size(self) -> int:
@@ -52,6 +62,15 @@ class ResidualVectorQuantizer:
     def __init__(self, codebooks: torch.Tensor):
         """codebooks: [num_quantizers, codebook_size, dim]."""
         self.codebooks = codebooks
+
+    @classmethod
+    def random(cls, generator: torch.Generator, num_quantizers: int, codebook_size: int, dim: int,
+               device: torch.device | str | None = None) -> "ResidualVectorQuantizer":
+        """[num_quantizers, codebook_size, dim] codebooks of normal draws from
+        ``generator`` (on the CPU), placed on ``device`` (the card when
+        None)."""
+        shape = (num_quantizers, codebook_size, dim)
+        return cls(torch.randn(shape, generator=generator).to(device_or_card(device)))
 
     @property
     def num_quantizers(self) -> int:

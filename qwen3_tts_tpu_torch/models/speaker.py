@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..audio.mel import MelSpectrogram, speaker_encoder_config
+from ..utils.device import device_or_card
 from .config import SpeakerEncoderConfig
 
 
@@ -167,5 +168,44 @@ class SpeakerEncoder:
             "asp": {"tdnn": tdnn(f"{p}.asp.tdnn"), "conv_w": asp_w, "conv_b": asp_b},
             "fc_w": fc_w,
             "fc_b": fc_b,
+        }
+        return cls(params, cfg)
+
+    @classmethod
+    def from_random(cls, generator: torch.Generator, cfg: SpeakerEncoderConfig | None = None,
+                    device: torch.device | str | None = None) -> "SpeakerEncoder":
+        """An encoder of random weights drawn from ``generator`` on the CPU
+        (the JAX package's shapes and scales: normal x 0.05, zero biases;
+        other numbers than its ``jax.random`` key gives), in the port's
+        layout, then placed on ``device`` (the card when None)."""
+        cfg = cfg or SpeakerEncoderConfig()
+        dev = device_or_card(device)
+
+        def rnd(*shape: int) -> torch.Tensor:
+            return (torch.randn(shape, generator=generator) * 0.05).to(dev)
+
+        def zeros(n: int) -> torch.Tensor:
+            return torch.zeros(n, device=dev)
+
+        def tdnn(cin: int, cout: int, k: int) -> dict:
+            return {"w": rnd(cout, cin, k), "b": zeros(cout)}  # F.conv1d's [Cout, Cin, K]
+
+        ch, ks = cfg.enc_channels, cfg.enc_kernel_sizes
+        chunk = ch[1] // cfg.enc_res2net_scale
+        se_blocks = [{
+            "tdnn1": tdnn(ch[i], ch[i], 1),
+            "res2net": [tdnn(chunk, chunk, ks[i]) for _ in range(cfg.enc_res2net_scale - 1)],
+            "tdnn2": tdnn(ch[i], ch[i], 1),
+            "se": {"conv1_w": rnd(ch[i], cfg.enc_se_channels), "conv1_b": zeros(cfg.enc_se_channels),
+                   "conv2_w": rnd(cfg.enc_se_channels, ch[i]), "conv2_b": zeros(ch[i])},
+        } for i in range(1, 4)]
+        params = {
+            "initial": tdnn(cfg.mel_dim, ch[0], ks[0]),
+            "se_res2net": se_blocks,
+            "mfa": tdnn(sum(ch[1:4]), ch[4], ks[4]),
+            "asp": {"tdnn": tdnn(ch[4] * 3, cfg.enc_attention_channels, 1),
+                    "conv_w": rnd(cfg.enc_attention_channels, ch[4]), "conv_b": zeros(ch[4])},
+            "fc_w": rnd(ch[4] * 2, cfg.enc_dim),
+            "fc_b": zeros(cfg.enc_dim),
         }
         return cls(params, cfg)

@@ -220,6 +220,13 @@ def tp_pack_specs() -> dict:
     return {"qkv": dict(col), "gu": dict(col)}
 
 
+def kv_cache_spec() -> P:
+    """A talker KV cache [L, B, S, KV, D]: streams on dp, KV heads on tp (the
+    JAX package's spec, in the layout both packages give such a cache; the
+    same spec as ``batch_cache_spec``)."""
+    return P(None, "dp", None, "tp", None)
+
+
 def serving_cache_spec() -> P:
     """The batch-1 serving cache [L, B=1, S, KV, D]: KV heads on tp (batch 1
     does not split over dp: it runs on replica 0)."""

@@ -47,6 +47,7 @@ import torch
 
 from .audio.io import AudioBuffer
 from .audio.resample import resample_to_24k
+from .generation import batch as gbatch
 from .generation import core, prefill
 from .models import code_predictor as cp
 from .models import talker
@@ -910,7 +911,8 @@ class Qwen3TTS:
         batch-1); the vocoder decodes all streams in one bucketed pass, ICL
         streams behind their reference codes (cut at ``ref_len * 1920``
         samples). On a sharded model a group's streams split over the dp
-        replicas (``_split_batch``), whose loops run one after another.
+        replicas (``_split_batch``), which advance in lock-step: a frame of
+        every replica a round, one look at the device for the group.
 
         On an H100 this is slower today than calling the batch-1 entry
         points once a text, at B = 8 too: the batched loop is the eager
@@ -989,8 +991,9 @@ class Qwen3TTS:
 
     def _generate_batch_group(self, group: "BatchGroup") -> tuple[list[np.ndarray], np.ndarray]:
         """Run a prepared group's batched frame loop to its end (w8a8 when
-        ``self.w8a8``; each dp replica's streams on that replica, one after
-        another); returns (per-stream frames [max_new, 16], frame counts)."""
+        ``self.w8a8``; each dp replica's streams on that replica, the
+        replicas in lock-step); returns (per-stream frames [max_new, 16],
+        frame counts)."""
         self._run_batch_loops(group, group.frame_limits)
         frames = np.concatenate([g.state.frames.cpu().numpy() for g in group.shards])
         counts = np.concatenate([g.state.frame_idx.cpu().numpy() for g in group.shards])  # one read a shard
@@ -998,18 +1001,23 @@ class Qwen3TTS:
 
     def _run_batch_loops(self, group: "BatchGroup", frame_limits: list[int], until=None) -> None:
         """Advance every share of ``group`` (``BatchGroup.shards``) on its
-        replica until each stream is done or at its limit in ``frame_limits``
-        (one a stream of the whole group), or until ``until`` returns True
-        (``core.generate_frames_batch``)."""
-        at = 0
+        replica, the replicas in lock-step, until each stream is done or at
+        its limit in ``frame_limits`` (one a stream of the whole group), or
+        until ``until`` returns True (``core.generate_frames_replicas``)."""
         with quant.w8a8_scope(self.w8a8):
-            for g in group.shards:
-                tree, cp_tree = self._replica_trees(g.replica)
-                core.generate_frames_batch(
-                    tree, cp_tree, self.config.talker, self.config.code_predictor, g.scfg, g.state, g.trailing,
-                    g.trailing_lens, g.pad_embed, g.uniforms, frame_limits[at:at + g.batch], self.mesh, until,
-                )
-                at += g.batch
+            core.generate_frames_replicas(self.config.talker, self.config.code_predictor, group.scfg,
+                                          self._replica_loops(group, frame_limits), self.mesh, until)
+
+    def _replica_loops(self, group: "BatchGroup", frame_limits: list[int]) -> list[core.ReplicaLoop]:
+        """Each share of ``group`` as the driver takes it: its replica's
+        trees, its state and inputs, its streams' slice of ``frame_limits``."""
+        shares, at = [], 0
+        for g in group.shards:
+            tree, cp_tree = self._replica_trees(g.replica)
+            shares.append(core.ReplicaLoop(tree, cp_tree, g.state, g.trailing, g.trailing_lens, g.pad_embed,
+                                           g.uniforms, frame_limits[at:at + g.batch]))
+            at += g.batch
+        return shares
 
     def _replica_trees(self, r: int) -> tuple:
         """(talker, code predictor) of dp replica r: the model's own for 0."""
@@ -1057,7 +1065,10 @@ class Qwen3TTS:
         + the frames' bucket + 8 rows for every stream (no growth tiers). A
         ``basic`` group of preset speakers only runs the CustomVoice layout;
         one with an x-vector clone runs the clone layout for all its streams,
-        a preset speaker's vector being its codec speaker-token embedding."""
+        a preset speaker's vector being its codec speaker-token embedding.
+        The prefill is the layout's ``generation.batch`` function, called
+        once a dp replica on its share of the padded inputs (all streams on
+        the model's device when unsharded)."""
         b = len(texts)
         dev = self.device
         encoded = [self._encode_text(t) for t in texts]
@@ -1091,49 +1102,41 @@ class Qwen3TTS:
                 for v in voices
             ])
 
-        tp = self.talker_params
         if kind == "icl":
             all_text_ids, n_texts = padded([list(v.ref_text_ids) + list(e) + [T.TTS_EOS]
                                             for v, e in zip(voices, encoded)])
             refs = [np.asarray(v.ref_codes, np.int32) for v in voices]
             cb = next_bucket(max(r.shape[0] for r in refs) + 1, TEXT_BUCKET)
-            bos = talker.embed_codec(tp, torch.tensor([T.CODEC_BOS], device=dev))
+            bos = talker.embed_codec(self.talker_params, torch.tensor([T.CODEC_BOS], device=dev))
             codec_rows = bos.new_zeros((b, cb, bos.shape[-1]))
             for i, r in enumerate(refs):
                 codec_rows[i, :1] = bos
                 codec_rows[i, 1:r.shape[0] + 1] = self._sum_ref_codec_embeddings(r)
-            vecs = speaker_vecs()
-            rows = [prefill.voice_clone_icl_rows(tp, all_text_ids[i], n_texts[i], vecs[i], codec_rows[i],
-                                                 r.shape[0] + 1, lang_ids[i], options.icl_sequential)
-                    for i, r in enumerate(refs)]
+            inputs = (all_text_ids, n_texts, speaker_vecs(), codec_rows, [r.shape[0] + 1 for r in refs], lang_ids)
+            run, kw = gbatch.prefill_voice_clone_icl_batch, {"sequential": options.icl_sequential}
             prefill_rows = 9 + cb + (all_text_ids.shape[1] if options.icl_sequential else 0)
         else:
             text_ids, text_lens = padded(encoded)
+            prefill_rows, kw = CUSTOM_VOICE_PROMPT_LEN, {}
             if kind == "design":
                 instruct_ids, instruct_lens = padded(
                     [self._encode_text(f"<|im_start|>user\n{ins}<|im_end|>\n") for ins in instructs])
-                rows = [prefill.voice_design_rows(tp, text_ids[i], n, instruct_ids[i], instruct_lens[i], lang_ids[i])
-                        for i, n in enumerate(text_lens)]
-                prefill_rows = instruct_ids.shape[1] + 9
+                inputs = (text_ids, text_lens, instruct_ids, instruct_lens, lang_ids)
+                run, prefill_rows = gbatch.prefill_voice_design_batch, instruct_ids.shape[1] + 9
             elif any(isinstance(v, VoiceClonePrompt) for v in voices):
-                vecs = speaker_vecs()
-                rows = [prefill.voice_clone_xvector_rows(tp, text_ids[i], n, vecs[i], lang_ids[i])
-                        for i, n in enumerate(text_lens)]
-                prefill_rows = CUSTOM_VOICE_PROMPT_LEN
+                inputs, run = (text_ids, text_lens, speaker_vecs(), lang_ids), gbatch.prefill_voice_clone_batch
             else:
-                rows = [prefill.custom_voice_rows(tp, text_ids[i], n, T.speaker_info(v).token_id, lang_ids[i])
-                        for i, (n, v) in enumerate(zip(text_lens, voices))]
-                prefill_rows = CUSTOM_VOICE_PROMPT_LEN
+                inputs = (text_ids, text_lens, [T.speaker_info(v).token_id for v in voices], lang_ids)
+                run = gbatch.prefill_custom_voice_batch
         shards = []
         for r, idx, cache in self._split_batch(b, new_caches(prefill_rows)):
             tree, _ = self._replica_trees(r)
             rdev = tree["norm"].device
-            rows_r = [tuple(x.to(rdev) if isinstance(x, torch.Tensor) else x for x in rows[i]) for i in idx]
-            uniforms_r = uniforms[idx.start:idx.stop].to(rdev)
-            with quant.w8a8_scope(self.w8a8), collectives.device_scope(rdev):
-                state, trailing, trailing_lens, pad = prefill.finish_batch(
-                    tree, self.config.talker, scfg, rows_r, cache, uniforms_r, max_new_bucket)
-            shards.append(BatchGroup(state, scfg, trailing, trailing_lens, pad, uniforms_r,
+            part = [x[idx.start:idx.stop].to(rdev) if isinstance(x, torch.Tensor) else x[idx.start:idx.stop]
+                    for x in (*inputs, uniforms)]
+            state, trailing, trailing_lens, pad = run(tree, self.config.talker, scfg, *part[:-1], cache, part[-1],
+                                                      max_new_bucket, mesh=self.mesh, w8a8=self.w8a8, **kw)
+            shards.append(BatchGroup(state, scfg, trailing, trailing_lens, pad, part[-1],
                                      [per_max[i] for i in idx], [refs[i] for i in idx], r))
         if len(shards) == 1:
             return shards[0]

@@ -45,6 +45,10 @@ PRETOKENIZE_REGEX = (
     r" ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+"
 )
 
+# The Hub id of the Qwen2 vocabulary the JAX package falls back to; here a
+# name only: ``TextTokenizer`` reads local files, and a Hub id raises.
+DEFAULT_TOKENIZER_REPO = "Qwen/Qwen2-0.5B"
+
 # Unicode White_Space: what ``\s`` matches in the ``tokenizers`` package.
 _WHITE_SPACE = ((0x09, 0x0D), (0x20, 0x20), (0x85, 0x85), (0xA0, 0xA0), (0x1680, 0x1680), (0x2000, 0x200A),
                 (0x2028, 0x2029), (0x202F, 0x202F), (0x205F, 0x205F), (0x3000, 0x3000))

@@ -21,6 +21,19 @@
   ``download`` asks ``huggingface_hub.hf_hub_download`` for the JAX
   module's files in the same order and directories (the function
   replaced in both, so nothing reaches the network).
+* The last names: ``generation.batch``'s five functions with the JAX
+  parameters in order (``tests/test_torch_batch_module.py`` holds their
+  results), ``code_predictor.embed_codes_for_group`` equal to the JAX
+  gather, ``sharding.kv_cache_spec`` the JAX spec (and the port's
+  ``batch_cache_spec``), ``tokenizer.DEFAULT_TOKENIZER_REPO`` the JAX
+  constant, and ``SpeakerEncoder.from_random``, ``VectorQuantizer.random``
+  and ``ResidualVectorQuantizer.random`` the same under one generator seed,
+  other under another, in the JAX shapes (an ECAPA kernel in
+  ``F.conv1d``'s layout), each usable. Then an AST walk of both packages:
+  every public JAX name (module functions, classes and their methods,
+  constants) has a counterpart of that name in the same module of the
+  port, or stands in ``NOT_PORTED`` with its reason (ROADMAP "Not to
+  port").
 """
 
 import inspect
@@ -206,3 +219,157 @@ def test_hub_download_asks_for_the_jax_files(tmp_path, monkeypatch, tokenizer_js
     assert got == want
     assert got[1] == "Qwen3-TTS-12Hz-1.7B-CustomVoice"
     assert [c[1] for c in got[0]][-1] == ("tokenizer.json" if tokenizer_json else "tokenizer_config.json")
+
+
+BATCH_NAMES = ("prefill_custom_voice_batch", "prefill_voice_clone_batch", "prefill_voice_design_batch",
+               "prefill_voice_clone_icl_batch", "generate_frames_batch")
+
+
+@pytest.mark.parametrize("name", BATCH_NAMES)
+def test_generation_batch_names_match_jax(name):
+    from qwen3_tts_tpu.generation import batch as jbatch
+    from qwen3_tts_tpu_torch.generation import batch as tbatch
+
+    want = inspect.signature(getattr(jbatch, name)).parameters
+    got = inspect.signature(getattr(tbatch, name)).parameters
+    assert list(got) == list(want)
+    assert [p.default for p in got.values()] == [p.default for p in want.values()]
+
+
+def test_embed_codes_for_group_matches_jax(models):
+    from qwen3_tts_tpu.models import code_predictor as jcp
+    from qwen3_tts_tpu_torch.models import code_predictor as tcp
+
+    jm, tm = models
+    codes = np.random.RandomState(2).randint(0, tm.config.code_predictor.vocab_size, 7)
+    for group in (0, tm.config.code_predictor.num_acoustic - 1):
+        want = np.asarray(jcp.embed_codes_for_group(jm.cp_params, group, jnp.asarray(codes, jnp.int32)))
+        got = tcp.embed_codes_for_group(tm.cp_params, group, torch.from_numpy(codes))
+        assert got.shape == want.shape == (1, 7, tm.cp_params["codec_embeddings"].shape[-1])
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_kv_cache_spec_matches_jax():
+    from qwen3_tts_tpu.parallel import sharding as jsharding
+    from qwen3_tts_tpu_torch.parallel import sharding as tsharding
+
+    assert tuple(tsharding.kv_cache_spec()) == tuple(jsharding.kv_cache_spec()) == (None, "dp", None, "tp", None)
+    assert tsharding.kv_cache_spec() == tsharding.batch_cache_spec()
+
+
+def test_default_tokenizer_repo_matches_jax():
+    from qwen3_tts_tpu import tokenizer as jtokenizer
+    from qwen3_tts_tpu_torch import tokenizer as ttokenizer
+
+    assert ttokenizer.DEFAULT_TOKENIZER_REPO == jtokenizer.DEFAULT_TOKENIZER_REPO
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def test_speaker_encoder_from_random():
+    from qwen3_tts_tpu.models import speaker as jspeaker
+    from qwen3_tts_tpu.models.config import SpeakerEncoderConfig as JConfig
+    from qwen3_tts_tpu_torch.models.config import SpeakerEncoderConfig
+    from qwen3_tts_tpu_torch.models.speaker import SpeakerEncoder
+    from test_torch_voice_clone import SPEAKER
+
+    cfg = SpeakerEncoderConfig(**SPEAKER)
+    a, b, c = (SpeakerEncoder.from_random(torch.Generator().manual_seed(s), cfg, device="cpu") for s in (1, 1, 2))
+    want = dict(_leaves(jspeaker.SpeakerEncoder.from_random(jax.random.PRNGKey(0), JConfig(**SPEAKER)).params))
+    got, same, other = dict(_leaves(a.params)), dict(_leaves(b.params)), dict(_leaves(c.params))
+    assert set(got) == set(want)
+    for path, leaf in got.items():
+        shape = tuple(want[path].shape)
+        # An ECAPA kernel: the JAX package's [K, Cin, Cout], F.conv1d's [Cout, Cin, K].
+        assert tuple(leaf.shape) == (shape[::-1] if path.endswith("/w") else shape), path
+        assert torch.equal(leaf, same[path]), path
+    assert any(not torch.equal(leaf, other[path]) for path, leaf in got.items())
+    xvec = a.encode(np.sin(np.arange(24000, dtype=np.float32) * 0.05))
+    assert xvec.shape == (cfg.enc_dim,) and np.isfinite(xvec).all() and np.abs(xvec).max() > 0
+
+
+def test_quantizers_random():
+    from qwen3_tts_tpu.models.codec import quantizer as jq
+    from qwen3_tts_tpu_torch.models.codec import quantizer as tq
+
+    def vq(seed):
+        return tq.VectorQuantizer.random(torch.Generator().manual_seed(seed), 64, 8, scale=0.5, device="cpu")
+
+    def rvq(seed):
+        return tq.ResidualVectorQuantizer.random(torch.Generator().manual_seed(seed), 3, 64, 8, device="cpu")
+
+    a = vq(4)
+    assert a.codebook.shape == jq.VectorQuantizer.random(jax.random.PRNGKey(0), 64, 8, 0.5).codebook.shape
+    assert torch.equal(a.codebook, vq(4).codebook) and not torch.equal(a.codebook, vq(5).codebook)
+    assert abs(float(a.codebook.std()) - 0.5) < 0.1
+    assert a.encode(a.codebook[None, [3, 9, 60]])[1].tolist() == [[3, 9, 60]]
+
+    r = rvq(6)
+    assert r.codebooks.shape == jq.ResidualVectorQuantizer.random(jax.random.PRNGKey(0), 3, 64, 8).codebooks.shape
+    assert torch.equal(r.codebooks, rvq(6).codebooks) and not torch.equal(r.codebooks, rvq(7).codebooks)
+    quantized, indices = r.encode(torch.randn((2, 5, 8), generator=torch.Generator().manual_seed(8)))
+    assert quantized.shape == (2, 5, 8) and indices.shape == (2, 3, 5)
+
+
+# The public JAX names that the port does not have, each with its reason
+# (ROADMAP "Not to port"; the code predictor's specs: Queue 3).
+NOT_PORTED = {
+    "generation/core.py": {"generate_frames_jit": "an XLA program", "prefill_and_start": "an XLA program"},
+    "models/codec/vocoder.py": {"decode_jit": "an XLA program", "decode_stream_chunk_jit": "an XLA program"},
+    "utils/compile_cache.py": {"enable": "XLA's compilation cache"},
+    "models/codec/blocks.py": {"CONV_DN": "XLA's convolution dimension numbers; F.conv1d has one layout"},
+    "models/codec/encoder.py": {
+        "forward_bucketed": "one XLA program a bucket; the port runs forward, which gives the same codes",
+        "init_encoder_params": "the port builds the Mimi tree from numpy (encoder_fixture.mimi_numpy_params)"},
+    "models/code_predictor.py": {"scan_slices": "pre-slices the inputs of lax.scan"},
+    "ops/quant.py": {"pallas_dequant_scope": "chooses Pallas or XLA's dequant dot; the port has one int8 route",
+                     "set_pallas_enabled": "the same choice, process-wide",
+                     "pallas_allowed": "the same choice, read"},
+    "ops/nn.py": {"decode_attention_flash": "unused, and slower than dense attention",
+                  "DECODE_FLASH_BLOCK": "its block size"},
+    "ops/fused_layer.py": {
+        "make_stream_pack": "the TPU's [H, H] DMA tiles; the CUDA kernels read the canonical tree",
+        "STREAM_NBUF": "a Pallas DMA depth", "CP_STREAM_NBUF": "a Pallas DMA depth",
+        "TALKER_STREAM_NBUF": "a Pallas DMA depth", "CP_WRES_BUDGET": "a VMEM residency budget",
+        "cp_resident_layers": "VMEM residency under that budget",
+        "streamed_cp_frame": "kernel 1, here fused_layer.cp_frame",
+        "streamed_talker_step": "kernel 3, here fused_layer.talker_step"},
+    "parallel/sharding.py": {"code_predictor_specs": "the code predictor stays whole on each replica"},
+}
+
+
+def _public_names(root: Path) -> dict:
+    """Each module's public top-level functions, classes (and their public
+    methods, as ``Class.method``) and constants, by path under ``root``."""
+    import ast
+
+    out = {}
+    for f in sorted(root.rglob("*.py")):
+        names = set()
+        for node in ast.parse(f.read_text()).body:
+            if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and not node.name.startswith("_"):
+                names.add(node.name)
+                if isinstance(node, ast.ClassDef):
+                    names |= {f"{node.name}.{m.name}" for m in node.body
+                              if isinstance(m, ast.FunctionDef) and not m.name.startswith("_")}
+            elif isinstance(node, ast.Assign):
+                names |= {t.id for t in node.targets if isinstance(t, ast.Name) and not t.id.startswith("_")}
+        out[str(f.relative_to(root))] = names
+    return out
+
+
+def test_every_jax_name_has_a_counterpart_or_a_reason():
+    repo = Path(__file__).resolve().parent.parent
+    jax_names, port_names = _public_names(repo / "qwen3_tts_tpu"), _public_names(repo / "qwen3_tts_tpu_torch")
+    missing = {path: names - port_names.get(path, set()) for path, names in jax_names.items()}
+    assert {path: names for path, names in missing.items() if names} == {
+        path: set(reasons) for path, reasons in NOT_PORTED.items()}
