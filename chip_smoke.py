@@ -63,7 +63,11 @@ Phases, each printing a line (any failure exits nonzero before the last):
      the per-step code predictor's: within one bf16 ulp of the plain
      output's scale, the same bits twice; its device span (CUDA graph,
      weights cold in L2) and its time per call (host included), beside a
-     bf16 matmul on the dequantized weight timed both ways;
+     bf16 matmul on the dequantized weight timed both ways; then its row
+     invariance (``kernel4_row_invariance``): at the 1.7B talker's and code
+     predictor's five shapes each, in bf16 and f32 x, the first m rows of a
+     [1024, K] x at every m of ``INVARIANT_ROWS`` bit-equal to the same
+     rows at m = 1024;
   7. kernels 5 and 6 (int8 attention and MLP sub-layer steps, one
      persistent launch a call) against their plain versions through a
      ``FusedStepPack`` of 5 layers (each trial the next layer) at the 1.7B
@@ -181,7 +185,9 @@ Phases, each printing a line (any failure exits nonzero before the last):
      streams), and in int8 kernel 4 at exactly the rows of
      ``kernel4_batch_rows`` (B in the loop, 2·B in the code predictor's
      prefill, 10·B in the talker's), none sent to the plain form by its
-     gate; in bf16 also the B = 8 codes against each stream's solo run
+     gate; each stream's codes at B = 1 and 4 against its codes at B = 8
+     (``batch_sizes_agree``: bit-equal in int8, reported in bf16); in bf16
+     also the B = 8 codes against each stream's solo run
      (kernels 1 and 3; the share equal printed, not a gate), a bf16
      witness at full depth (``bf16_witness``: greedy CustomVoice and
      voice-design batches against each stream's B = 1 run through the same
@@ -308,7 +314,13 @@ Phases, each printing a line (any failure exits nonzero before the last):
      8 (4 a replica) for 16 frames (``tp_dp_batch``): the rounds alternate
      between the replicas, kernel 4 launches in each replica's frames on
      its own device, the lock-step loop's host reads within ceil(16 / N) +
-     2, its frames bit-equal to the same replicas run one after another;
+     2, its frames bit-equal to the same replicas run one after another
+     and every code equal to the unsharded B = 8 batch's, and first every
+     op of replica 0's prefill and first frame, at dp = 2 and for the first
+     streams alone at B = 1 and 4 (phase ``batch``'s caches), bit-equal to
+     the same rows of the unsharded batch's
+     (``replica0_records``, ``first_divergence``: the first op that
+     differs and every op that differs from equal inputs are printed);
      ms/frame of the lock-step loop, of the replicas one after another and
      of the unsharded B = 8 batch, in this process;
  14. the script's wall time, a JSON line of the kernels (each with its
@@ -320,6 +332,7 @@ Phases, each printing a line (any failure exits nonzero before the last):
 from __future__ import annotations
 
 import contextlib
+import difflib
 import io
 import json
 import math
@@ -334,6 +347,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 if not torch.cuda.is_available():
     print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -346,7 +361,8 @@ from qwen3_tts_tpu_torch import build, ckpt_fixture, cli, cp_fixture, encoder_fi
 from qwen3_tts_tpu_torch import server, vocoder_fixture  # noqa: E402
 from qwen3_tts_tpu_torch.audio.io import AudioBuffer  # noqa: E402
 from qwen3_tts_tpu_torch.audio.resample import resample_to_24k  # noqa: E402
-from qwen3_tts_tpu_torch.generation import core  # noqa: E402
+from qwen3_tts_tpu_torch.generation import batch as gbatch  # noqa: E402
+from qwen3_tts_tpu_torch.generation import core, prefill  # noqa: E402
 from qwen3_tts_tpu_torch import kernel_timing as kt  # noqa: E402
 from qwen3_tts_tpu_torch import synthesis_timing as st  # noqa: E402
 from qwen3_tts_tpu_torch.models import code_predictor as cp  # noqa: E402
@@ -373,6 +389,9 @@ from qwen3_tts_tpu_torch.profiling import count_host_transfers  # noqa: E402
 from qwen3_tts_tpu_torch.utils.bucketing import next_bucket  # noqa: E402
 
 DEV = torch.device("cuda", 0)
+# The four projections (K, N) at 1.7B, qkv, o, gate|up, down: the code predictor's and the talker's.
+CP_PROJ_SHAPES = ((1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024))
+TALKER_PROJ_SHAPES = ((2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048))
 FRAMES = 125
 CP_FRAMES = 32
 BF16_MIN_FIRST_EQUAL = 28  # of CP_FRAMES
@@ -962,7 +981,46 @@ def kernel4() -> None:
                               "max_abs_err": err, **times, **b})
         if (m, k, n) == (1, 2048, 3072):  # the codec head, every frame
             row.update(**times, **b)
+    row["row_invariance"] = kernel4_row_invariance()
     KERNEL_ROWS.append(row)
+
+
+# Phase kernel4's row invariance: the rows a projection meets on the paths
+# (decode at B <= 16, a B = 1 prefill 10, a dp = 2 replica's 40, voice design
+# 41, ICL 73 and 105, the B = 8 prefill 80, the Jacobi batch 128), the tier
+# switch (16, 17) and the largest call (1024); the 1.7B talker's qkv, o,
+# gate|up, down and codec head, the code predictor's qkv, o, gate|up, down
+# and lm heads.
+INVARIANT_ROWS = (1, 4, 8, 10, 16, 17, 40, 41, 73, 80, 105, 128, 1024)
+INVARIANT_SHAPES = (*TALKER_PROJ_SHAPES, (2048, 3072), *CP_PROJ_SHAPES, (1024, 2048))
+
+
+def kernel4_row_invariance() -> dict:
+    """Kernel 4 sums each output element in one order whatever m is: for
+    every (K, N) of ``INVARIANT_SHAPES`` in bf16 and f32 x, the first m
+    rows of a seeded [1024, K] x at each m of ``INVARIANT_ROWS`` give, row
+    for row, the bits of the same rows at m = 1024."""
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    checked, rows = 0, 0
+    for k, n in INVARIANT_SHAPES:
+        w = quant.quantize_linear(torch.randn((k, n), generator=gen, device=DEV) * 0.02)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = torch.randn((quant.KERNEL_MAX_ROWS, k), generator=gen, device=DEV).to(dtype)
+            before = quant.int8_matmul.launches
+            whole = quant.int8_matmul(x, w["q8"], w["scale"])
+            for m in INVARIANT_ROWS:
+                got = quant.int8_matmul(x[:m], w["q8"], w["scale"])
+                plans = quant.int8_matmul_plan(m, k, n, sms), quant.int8_matmul_plan(quant.KERNEL_MAX_ROWS, k, n, sms)
+                check(same_bits(got, whole[:m]), f"kernel 4 K={k} N={n} {dtype}: the first {m} rows differ from "
+                                                 f"the same rows at m={quant.KERNEL_MAX_ROWS} (plans {plans})")
+                rows += m
+            check(quant.int8_matmul.launches == before + 1 + len(INVARIANT_ROWS),
+                  f"kernel 4 K={k} N={n} {dtype}: launches")
+            checked += 1
+    phase("kernel4", f"row invariance: {checked} (shape, x dtype) cases, {rows} rows at m {list(INVARIANT_ROWS)}, "
+                     f"each bit-equal to its row at m={quant.KERNEL_MAX_ROWS}")
+    return {"cases": checked, "rows": rows, "m": list(INVARIANT_ROWS)}
 
 
 def step_layers(gen: torch.Generator, dims: dict, dtype: torch.dtype, n_layers: int = 1) -> dict:
@@ -1480,9 +1538,6 @@ JACOBI_TIMED_PASSES = 20
 JACOBI_BATCH_FRAMES = 16
 JACOBI_REPEATED_FRAMES = 8  # frames run a second time for the same bits
 JACOBI_WITNESS_B = 8  # frames at once in ``batch_rows_witness``: the B of ``jacobi_batch``
-# The code predictor's four projections (K, N) at 1.7B: qkv, o, gate|up, down.
-CP_PROJ_SHAPES = ((1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024))
-TALKER_PROJ_SHAPES = ((2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048))
 
 
 def jacobi_cfg(cfg: CodePredictorConfig) -> CodePredictorConfig:
@@ -2768,7 +2823,7 @@ def kernel4_batch_shapes(inputs: dict) -> list:
     prefill), on those inputs and weights, printed as phase
     ``kernel4-batch``: against its plain version (one bf16 ulp of the
     output's scale), timed by ``kt.time_shape`` beside ``torch.matmul`` on
-    the dequantized weight, with the bound."""
+    the dequantized weight and the plain version, with the bound."""
     sms = torch.cuda.get_device_properties(DEV).multi_processor_count
     shapes = []
     for (m, k, n), (x, q8, scale) in sorted(inputs.items()):
@@ -2777,13 +2832,15 @@ def kernel4_batch_shapes(inputs: dict) -> list:
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         tol = want.float().abs().max().item() * 2.0**-7
-        times = kt.time_shape(quant, x, {"q8": q8, "scale": scale})
+        times = {**kt.time_shape(quant, x, {"q8": q8, "scale": scale}),
+                 "plain_ms": time_ms(lambda: quant.int8_matmul_plain(x, q8, scale), iters=20)}
         b = bound(nbytes(x, q8, scale) + m * n * x.element_size(), 2 * m * k * n)
         plan = quant.int8_matmul_plan(m, k, n, sms)
         phase("kernel4-batch", f"m={m} K={k} N={n} (tier {plan.tier}, {plan.splits} K splits), the batch's own "
               f"input and weight: max|err| {err:.4e} (bar {tol:.4e}); device span: kernel {times['device_ms']:.4f} "
               f"ms, torch.matmul on the dequantized weight {times['library_device_ms']:.4f} ms; per call: kernel "
-              f"{times['ms']:.4f}, library {times['library_ms']:.4f}; bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+              f"{times['ms']:.4f}, library {times['library_ms']:.4f}, plain {times['plain_ms']:.4f}; bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
         check(err <= tol, f"kernel 4 at the batch's m={m} K={k} N={n}: max|err| {err:.4e} > {tol:.4e}")
         shapes.append({"m": m, "k": k, "n": n, "tier": plan.tier, "max_abs_err": err, **times, **b})
     return shapes
@@ -2859,6 +2916,26 @@ def batch_cells(model: Qwen3TTS, label: str, staged_ms_per_frame: float, int8: b
     return out
 
 
+def batch_sizes_agree(cells: dict, label: str, gate: bool) -> float:
+    """Stream i's codes (seed 42 + i) at every B of ``batch_cells`` it runs
+    in against its codes at the largest B: the share of streams whose codes
+    are bit-equal, printed; a gate where ``gate`` (int8: kernel 4 sums each
+    row in one order at every row count, and the rest of the layer path
+    works row by row), reported in bf16 (``torch.matmul`` at B·m rows)."""
+    big = cells[max(cells)]["codes"]
+    equal = [[bool(c.shape == big[i].shape and (c == big[i]).all()) for i, c in enumerate(cells[b]["codes"])]
+             for b in sorted(cells)]
+    share = float(np.mean([e for row in equal for e in row]))
+    firsts = {(b, i): divmod(int(np.argmax((c != big[i]).reshape(-1))), c.shape[1])
+              for b in sorted(cells) for i, c in enumerate(cells[b]["codes"]) if c.shape == big[i].shape
+              and not (c == big[i]).all()}
+    phase("batch", f"{label}: each stream's codes at B={sorted(cells)} against its codes at B={max(cells)}, "
+          f"bit-equal {equal} (share {share:.4f}; {'a gate' if gate else 'reported'}); first differing (frame, "
+          f"code) by (B, stream) {firsts}")
+    check(not gate or share == 1.0, f"{label}: a stream's codes differ between batch sizes: {equal}")
+    return share
+
+
 def batch_frames(model: Qwen3TTS, texts: list, options: SynthesisOptions, seeds: list, speakers=None,
                  instructs=None) -> list:
     """Each stream's frames from one batched loop of one layout."""
@@ -2897,7 +2974,7 @@ def batch_records(cpcfg: CodePredictorConfig):
     frame f's first code), ``cp`` the code predictor's head outputs (15 a
     frame: frame f's code j from call 15·f + j - 1). Yields the dict."""
     out = {"hidden": [], "talker": [], "cp": []}
-    routed = talker.prefill_batch, talker.decode_step_batch, sampling.sample, quant.mm
+    routed = talker.prefill_batch, talker.decode_step_batch, sampling.sample_rows, quant.mm
 
     def prefill_batch(*args, **kwargs):
         last, logits = routed[0](*args, **kwargs)
@@ -2919,12 +2996,12 @@ def batch_records(cpcfg: CodePredictorConfig):
             out["cp"].append(y.reshape(-1, y.shape[-1]).float())
         return y
 
-    talker.prefill_batch, talker.decode_step_batch, sampling.sample, quant.mm = (
+    talker.prefill_batch, talker.decode_step_batch, sampling.sample_rows, quant.mm = (
         prefill_batch, decode_step_batch, sample, mm)
     try:
         yield out
     finally:
-        talker.prefill_batch, talker.decode_step_batch, sampling.sample, quant.mm = routed
+        talker.prefill_batch, talker.decode_step_batch, sampling.sample_rows, quant.mm = routed
 
 
 WITNESS_FRAMES = 16
@@ -3112,7 +3189,7 @@ def top2_margins(cpcfg: CodePredictorConfig):
     logits (the sampler's input) and of the code predictor's heads
     (``is_cp_head``). Yields a dict."""
     out = {"talker": math.inf, "cp": math.inf}
-    routed_mm, routed_sample = quant.mm, sampling.sample
+    routed_mm, routed_sample = quant.mm, sampling.sample_rows
 
     def gap(y):
         return float(top2_gap(y).min())
@@ -3127,11 +3204,11 @@ def top2_margins(cpcfg: CodePredictorConfig):
         out["talker"] = min(out["talker"], gap(logits))
         return routed_sample(logits, cfg, uniform)
 
-    quant.mm, sampling.sample = mm, sample
+    quant.mm, sampling.sample_rows = mm, sample
     try:
         yield out
     finally:
-        quant.mm, sampling.sample = routed_mm, routed_sample
+        quant.mm, sampling.sample_rows = routed_mm, routed_sample
 
 
 def batch_fixture(model: Qwen3TTS, label: str = "batch") -> None:
@@ -3229,6 +3306,7 @@ def batch_main(model: Qwen3TTS, label: str, int8: bool) -> dict:
     tokenizer = model.tokenizer
     try:
         out = {"cells": batch_cells(model, label, STAGED_MS_PER_FRAME[label], int8)}
+        out["streams_equal"] = batch_sizes_agree(out["cells"], label, int8)
         if not int8:
             frames = out["cells"][BATCH]["codes"]
             out["solo_share"] = batch_against_solo(model, label, frames)
@@ -4339,6 +4417,200 @@ def _sync_all() -> None:
         torch.cuda.synchronize(i)
 
 
+class _OpRecorder(TorchDispatchMode):
+    """While ``on``, each aten op's tensor inputs and outputs on the card
+    (``DEV``'s device type), cloned, as events in call order; views,
+    in-place ops and fresh allocations are skipped (their contents are no
+    result of their own)."""
+
+    def __init__(self, events: list):
+        super().__init__()
+        self.events, self.on, self.where = events, False, ""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        name = func.overloadpacket.__name__
+        if self.on and not func.is_view and not name.endswith("_") and not name.startswith(("empty", "new_empty")):
+            def here(tree):
+                return [t.clone() for t in tree_leaves(tree) if isinstance(t, torch.Tensor) and t.device.type == DEV.type]
+            outs = here(out)
+            if outs:
+                self.events.append({"op": str(func), "where": self.where, "seq": len(self.events),
+                                    "in": here((args, kwargs)), "out": outs})
+        return out
+
+
+def replica0_records(m: Qwen3TTS, make_group) -> list:
+    """Every op of replica 0's talker prefill and of its first frame, in
+    order (``_OpRecorder`` events; kernel 4, the attention and the sampling
+    as events of their own too, with their inputs and outputs), while
+    ``make_group(m)`` prefills a CustomVoice batch group and
+    ``m._run_batch_loops`` runs its first frame."""
+    events: list = []
+    rec = _OpRecorder(events)
+    prefill_fn, frame_fn, layer_fn, rows_fn, mm = (gbatch.prefill_custom_voice_batch, core.batch_frame,
+                                                   nn.layer_params_at, prefill.custom_voice_rows, quant._int8_mm_core)
+    attention_fn, sample_fn = nn.gqa_attention, sampling.sample_rows
+    state = {"prefill": 0, "frame": 0, "layer": 0, "stream": 0}
+
+    def window(kind: str, fn):
+        def run(*args, **kwargs):
+            state[kind] += 1
+            if state[kind] > 1:
+                return fn(*args, **kwargs)
+            rec.on, state["layer"], rec.where = True, 0, kind
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                rec.on = False
+        return run
+
+    def layer(*args, **kwargs):  # a layer's weights are taken as the layer starts, on every path
+        if rec.on:
+            rec.where = f"{rec.where.split(' ')[0]} layer {state['layer']}"
+            state["layer"] += 1
+        return layer_fn(*args, **kwargs)
+
+    def rows(*args, **kwargs):
+        if not rec.on:
+            return rows_fn(*args, **kwargs)
+        rec.where, state["stream"] = f"prefill rows of stream {state['stream']}", state["stream"] + 1
+        try:
+            return rows_fn(*args, **kwargs)
+        finally:
+            rec.where = "prefill"
+
+    def whole(name: str, fn, inside: bool = True):  # inside: record the ops it makes too
+        def run(*args):
+            on = rec.on
+            rec.on = on and inside
+            out = fn(*args)
+            rec.on = on
+            if rec.on:
+                rec.on = False
+                ins = args[:1] if name == "kernel4" else args  # not the weights
+                events.append({"op": name, "where": rec.where, "seq": len(events),
+                               "in": [a.clone() for a in ins if isinstance(a, torch.Tensor)], "out": [out.clone()]})
+                if name == "kernel4":
+                    events[-1]["mkn"] = (args[0].shape[0], args[0].shape[1], args[1].shape[1])
+                rec.on = True
+            return out
+        return run
+
+    gbatch.prefill_custom_voice_batch, core.batch_frame = window("prefill", prefill_fn), window("frame", frame_fn)
+    nn.layer_params_at, prefill.custom_voice_rows, quant._int8_mm_core = layer, rows, whole("kernel4", mm)
+    # An einsum lays a lone stream's operands out otherwise: the attention is compared whole.
+    nn.gqa_attention, sampling.sample_rows = whole("gqa_attention", attention_fn, False), whole("sample", sample_fn)
+    try:
+        with rec:
+            g = make_group(m)
+            m._run_batch_loops(g, g.frame_limits, until=lambda: state["frame"] > 0)
+    finally:
+        gbatch.prefill_custom_voice_batch, core.batch_frame = prefill_fn, frame_fn
+        nn.layer_params_at, prefill.custom_voice_rows, quant._int8_mm_core = layer_fn, rows_fn, mm
+        nn.gqa_attention, sampling.sample_rows = attention_fn, sample_fn
+    _sync_all()
+    return events
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        ints = {8: torch.int64, 4: torch.int32, 2: torch.int16}[a.element_size()]
+        return torch.equal(a.contiguous().view(ints), b.contiguous().view(ints))
+    return torch.equal(a, b)
+
+
+def _comparable(small: torch.Tensor, big: torch.Tensor) -> bool:
+    return small.ndim == big.ndim and all(s <= b for s, b in zip(small.shape, big.shape))
+
+
+def _rows_equal(small: torch.Tensor, big: torch.Tensor) -> bool:
+    """``small`` (a run of fewer streams) bit-equal to the leading slice of
+    every axis of ``big``: a batch's streams lead each axis they fold into,
+    so the first streams' rows of the larger run are that slice."""
+    return _comparable(small, big) and _bits_equal(small, big[tuple(slice(0, s) for s in small.shape)])
+
+
+def _by_where(events: list) -> dict:
+    out: dict = {}
+    for e in events:
+        out.setdefault(e["where"], []).append(e)
+    return out
+
+
+def _key(e: dict) -> tuple:
+    return e["op"], tuple((x.ndim, x.dtype) for x in e["out"])
+
+
+def _plan_of(m: int, k: int, n: int, sms: int) -> tuple | None:
+    """Kernel 4's plan (tier, bm, bk, splits, cluster), None where its gate sends the shape to the plain form."""
+    return tuple(quant.int8_matmul_plan(m, k, n, sms)) if quant.int8_matmul_route(
+        torch.empty((m, k), device="meta"), torch.empty((k, n), device="meta")) == "kernel" else None
+
+
+def first_divergence(small: list, big: list, sms: int) -> dict:
+    """Replica 0's records of a run of fewer streams (``small``) against a
+    larger run's (``big``), within each stretch of the run (``where``: the
+    prompt rows of stream i, the prefill, a layer; the larger run's
+    rows of its other streams have no counterpart), the events paired by
+    ``difflib`` on (op, output ranks and dtypes), so that a layout copy
+    one run makes and the other does not (an einsum's operand at B = 1)
+    pairs with nothing: the first op whose output rows differ in bits
+    (``first``), and every op whose input rows were equal and whose output
+    rows were not (``guilty``: a sum whose order follows the rows), by op
+    and shapes, kernel 4 with both runs' plans; ``unpaired`` counts the
+    events of each run left without a partner."""
+    first, guilty = None, {}
+    stretches = _by_where(big)
+    pairs, unpaired = [], [0, 0]
+    for where, events in _by_where(small).items():
+        others = stretches.get(where, [])
+        blocks = difflib.SequenceMatcher(None, [_key(e) for e in events], [_key(e) for e in others],
+                                         autojunk=False).get_matching_blocks()
+        paired = sum(blk.size for blk in blocks)
+        unpaired[0] += len(events) - paired
+        unpaired[1] += len(others) - paired
+        for blk in blocks:
+            for s, b in zip(events[blk.a:blk.a + blk.size], others[blk.b:blk.b + blk.size]):
+                if len(s["out"]) == len(b["out"]) and all(_comparable(x, y) for x, y in zip(s["out"], b["out"])):
+                    pairs.append((s, b))
+                else:  # a layout the runs lay out otherwise (an operand squeezed at B = 1)
+                    unpaired[0] += 1
+                    unpaired[1] += 1
+    pairs.sort(key=lambda p: p[0]["seq"])
+    for s, b in pairs:
+        if all(_rows_equal(x, y) for x, y in zip(s["out"], b["out"])):
+            continue
+        inputs_equal = len(s["in"]) == len(b["in"]) and all(_rows_equal(x, y) for x, y in zip(s["in"], b["in"]))
+        entry = {"index": s["seq"], "op": s["op"], "where": s["where"], "inputs_equal": inputs_equal,
+                 "shapes": [tuple(x.shape) for x in s["out"]], "big_shapes": [tuple(x.shape) for x in b["out"]]}
+        if s["op"] == "kernel4":
+            entry["plans"] = [_plan_of(*e["mkn"], sms) for e in (s, b)]
+            entry["mkn"] = [s["mkn"], b["mkn"]]
+        first = first or entry
+        if inputs_equal:
+            key = (s["op"], str(entry.get("mkn", entry["shapes"])))
+            guilty.setdefault(key, {**entry, "count": 0})["count"] += 1
+    return {"events": (len(small), len(big)), "first": first, "guilty": guilty, "unpaired": unpaired}
+
+
+def divergence_line(label: str, d: dict) -> str:
+    """``first_divergence``'s result as a phase line."""
+    f = d["first"]
+    first = "none" if f is None else (
+        f"event {f['index']} {f['op']} in {f['where']}, output {f['shapes']} against {f['big_shapes']}, its input "
+        f"rows equal {f['inputs_equal']}"
+        + (f", (m, K, N) {f['mkn']}, plans (tier, bm, bk, splits) {f['plans']}" if "plans" in f else ""))
+    guilty = "; ".join(f"{g['op']} {g.get('mkn', g['shapes'])} x{g['count']}"
+                       + (f" plans {g['plans']}" if "plans" in g else "") + f" (first in {g['where']})"
+                       for g in d["guilty"].values()) or "none"
+    return (f"{label}: {d['events'][0]} / {d['events'][1]} events of replica 0's prefill and first frame "
+            f"({d['unpaired'][0]} / {d['unpaired'][1]} unpaired); first_divergence: {first}; ops whose input rows were equal and output rows were not: {guilty}")
+
+
 def tp_dp_batch(cfg: ModelConfig, trees: tuple, voc: dict) -> dict:
     """(d) The full-depth 1.7B int8 model in bf16 at dp = 2 x tp = 1 on the
     cards there are (both replicas on cuda:0 with one card): a batch of
@@ -4354,9 +4626,12 @@ def tp_dp_batch(cfg: ModelConfig, trees: tuple, voc: dict) -> dict:
     after another (each alone through the driver, as the loops ran before
     the lock-step driver) timed, and the unsharded B = BATCH batch timed,
     all in this process: ms a frame of each; the lock-step frames bit-equal
-    to the one-after-another frames, their share of codes equal to the
-    unsharded batch's reported (the layer path at 4 rows against 8); kernels
-    1 and 3 never, no call the gate sent to kernel 4's plain form."""
+    to the one-after-another frames and to the unsharded batch's, every
+    code; kernels 1 and 3 never, no call the gate sent to kernel 4's plain
+    form. First, every op of replica 0's prefill and first frame
+    (``replica0_records``) of the dp = 2 run and of stream 0 alone at B = 1,
+    each against the same rows of the unsharded batch's (``first_divergence``):
+    no op's output rows may differ in bits."""
     card = card_line()
     opts = replace(st.batch_options(), max_length=TP_DP_FRAMES, min_new_tokens=TP_DP_FRAMES)
     texts = list(st.BATCH_TEXTS[:BATCH])
@@ -4365,9 +4640,9 @@ def tp_dp_batch(cfg: ModelConfig, trees: tuple, voc: dict) -> dict:
         m = Qwen3TTS(cfg, *trees, voc, st.WordTokenizer(), quantize_int8=True)
         return m.shard(mesh) if mesh is not None else m
 
-    def group(m: Qwen3TTS):
-        return m._prepare_batch_group("basic", texts, ["ryan"] * BATCH, ["english"] * BATCH, [None] * BATCH,
-                                      m._normalize_options(opts), [42 + i for i in range(BATCH)])
+    def group(m: Qwen3TTS, b: int = BATCH, options: SynthesisOptions = opts):
+        return m._prepare_batch_group("basic", texts[:b], ["ryan"] * b, ["english"] * b, [None] * b,
+                                      m._normalize_options(options), [42 + i for i in range(b)])
 
     def timed(g, run) -> tuple:
         _sync_all()
@@ -4382,8 +4657,20 @@ def tp_dp_batch(cfg: ModelConfig, trees: tuple, voc: dict) -> dict:
 
     ref = build()
     ref_frames, ref_ms, ref_launches = timed(group(ref), ref._run_batch_loops)
+    # The records: phase batch's options (its caches), one frame.
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    cells = st.batch_options()
+    whole = replica0_records(ref, lambda m: group(m, BATCH, cells))
+    parts = {b: first_divergence(replica0_records(ref, lambda m: group(m, b, cells)), whole, sms) for b in (1, 4)}
     del ref
     sh = build(_mesh(2, 1))
+    split = first_divergence(replica0_records(sh, lambda m: group(m, BATCH, cells)), whole, sms)
+    del whole
+    for b, d in parts.items():
+        phase("tp", divergence_line(f"(d) {card}: streams 0-{b - 1} at B={b} against the unsharded B={BATCH} batch",
+                                    d))
+    phase("tp", divergence_line(f"(d) {card}: replica 0 of dp=2 ({BATCH // 2} streams) against the unsharded "
+                                f"B={BATCH} batch", split))
     devs = [str(sh.mesh.first(r)) for r in range(2)]
     g = group(sh)
     replica = {id(p.state): r for r, p in enumerate(g.shards)}
@@ -4437,18 +4724,22 @@ def tp_dp_batch(cfg: ModelConfig, trees: tuple, voc: dict) -> dict:
     phase("tp", f"(d) {card}: ms/frame lock-step {lock_ms:.3f}, the replicas one after another {seq_ms:.3f}, "
           f"unsharded B={BATCH} {ref_ms:.3f}; lock-step frames bit-equal to one after another "
           f"{bool((lock_frames == seq_frames).all())}, share of codes equal to the unsharded batch {share:.4f} "
-          f"(reported); launches lock-step {launches}, one after another {seq_launches}, unsharded {ref_launches}")
+          f"(bar 1.0000); launches lock-step {launches}, one after another {seq_launches}, unsharded {ref_launches}")
     check(order == want_order, f"tp dp batch: the rounds' order {order[:8]}..., want {want_order[:8]}...")
     check(all(n > 0 for n in k4) and [sorted(d) for d in k4_devs] == [[d] for d in devs],
           f"tp dp batch: kernel 4 launches a replica {k4} on {k4_devs}, want each nonzero on {devs}")
     check(error is None, f"tp dp batch: a synchronising call in the lock-step loop: {error}")
     check(0 <= reads <= bound_reads, f"tp dp batch: {reads} host reads, bound {bound_reads}")
     check(bool((lock_frames == seq_frames).all()), "tp dp batch: lock-step frames differ from one after another")
+    check(share == 1.0, f"tp dp batch: {share:.4f} of codes equal to the unsharded batch's")
+    for name, d in (("B=1", parts[1]), ("B=4", parts[4]), ("replica 0 of dp=2", split)):
+        check(d["first"] is None, f"tp dp batch: {name} departs from the unsharded B={BATCH} batch: {d['first']}")
     for name, n in (("lock-step", launches), ("one after another", seq_launches), ("unsharded", ref_launches)):
         check(n["cp_frame"] == n["talker_step"] == 0 and n["int8_matmul"] > 0 and n["gated"] == 0,
               f"tp dp batch {name}: launches {n}")
     return {"ms_per_frame": lock_ms, "one_after_another_ms_per_frame": seq_ms, "unsharded_ms_per_frame": ref_ms,
             "kernel4_launches_by_replica": k4, "host_reads": reads, "share_equal_unsharded": share,
+            "first_divergence": {"b1": parts[1]["first"], "b4": parts[4]["first"], "dp2": split["first"]},
             "kernel4_replica_shapes": shapes}
 
 

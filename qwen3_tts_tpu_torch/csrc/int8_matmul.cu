@@ -21,7 +21,8 @@
 //   converted and multiplied. K is split across the blocks of a
 //   thread-block cluster, in whole 64-row chunks, so that blocks stream
 //   weights on about three quarters of the SMs, in clusters of at most 8
-//   (the plan's rule, fitted to a sweep of every split count on an H100).
+//   (the plan's rule, fitted to a sweep of every split count on an H100);
+//   the same segments serve every m (below).
 // - m = 1024: the multiply-adds (17 GFLOP at K 2048, N 4096), which FMAs
 //   on CUDA cores cap at 67 TFLOP/s. Tier 1: a block of 8 warps (2 x 4, each
 //   32 x 32) owns a 64 x 128 tile and walks K in 32-row chunks through the
@@ -37,19 +38,33 @@
 // (g, t) ends holding columns 8t..8t+7 of its warp's 32, stored as one run.
 // Rows of both shared tiles are padded by 16 bytes, which keeps the word
 // reads and ldmatrix free of bank conflicts.
-// Split K: the splits of one output tile form a cluster (at most 16
-// blocks). Each block owns a share of the tile; every block sends its f32
-// partial sums straight into the owners' shared memory (distributed shared
-// memory) with asynchronous stores that complete on the owner's mbarrier,
-// and each owner, once its own barrier has seen every byte, adds its share
-// in split order. One launch, no scratch in device memory, no atomics, the
-// same bits on every run. (Two earlier versions were slower: adding the
-// splits through device memory, the last block of a tile, found by an
-// atomic counter, summing them, cost a fence, an atomic and L2 round
-// trips; a full cluster barrier after the stores cost most of that again.)
-// The launch plan (tile rows, chunk rows, splits) is the caller's:
-// ops/quant.py:int8_matmul_plan, whose tiers are the two instantiations
-// below; the entry refuses a plan that matches neither.
+// One order of summation for every m: K is cut into S segments, segment z
+// the 64-row steps [z * (K/64) / S, (z + 1) * (K/64) / S) (floors), S a
+// function of (K, N) alone (the plan's). Each segment is summed from zero
+// in ascending k16 steps (tier 1 walks it as pairs of its 32-row chunks),
+// and the segments' partial sums are added in segment order. An output
+// element's f32 sum then depends on its own row and column only, so a row
+// gets the same bits whatever rows share its launch (a stream's rows at any
+// batch size, a dp replica's against the whole batch), in either tier.
+// Two ways to the same order, the plan's `cluster`:
+// - cluster = S: the segments of one output tile are the blocks of a
+//   cluster (at most 16). Each block owns a share of the tile; every block
+//   sends its f32 partial sums straight into the owners' shared memory
+//   (distributed shared memory) with asynchronous stores that complete on
+//   the owner's mbarrier, and each owner, once its own barrier has seen
+//   every byte, adds its share in segment order. One launch, no scratch in
+//   device memory, no atomics, the same bits on every run. (Two earlier
+//   versions were slower: adding the splits through device memory, the
+//   last block of a tile, found by an atomic counter, summing them, cost a
+//   fence, an atomic and L2 round trips; a full cluster barrier after the
+//   stores cost most of that again.)
+// - cluster = 1 (tier 1, where the tiles alone fill the card): one block
+//   walks all S segments, each into a fresh accumulator that is then added
+//   to the running sum, the first copied: the cluster's additions, in its
+//   order, with no extra blocks.
+// The launch plan (tile rows, chunk rows, segments, cluster) is the
+// caller's: ops/quant.py:int8_matmul_plan, whose tiers are the two
+// instantiations below; the entry refuses a plan that matches neither.
 
 #include <atomic>
 #include <type_traits>
@@ -122,13 +137,14 @@ template <> __device__ __forceinline__ void store4<__nv_bfloat16>(__nv_bfloat16*
                                             pack_bf16x2(__fmul_rn(v.z, s.z), __fmul_rn(v.w, s.w)));
 }
 
-// grid (N / 128, ceil(m / BM), splits), clusters (1, 1, splits); split z
-// owns K chunks [z * C / splits, (z + 1) * C / splits), C = K / BK (splits
-// <= C, so none is empty).
-template <typename T, int WARPS_M, int WM, int BK, int STAGES>
+// grid (N / 128, ceil(m / BM), P), clusters (1, 1, P). SERIAL (P = 1): the
+// block walks all `segs` segments; else P = segs and block z walks segment
+// z. Segment z is the K chunks [R * (z * C64 / segs), R * ((z + 1) * C64 /
+// segs)), C64 = K / 64, R = 64 / BK (segs <= C64, so none is empty).
+template <typename T, bool SERIAL, int WARPS_M, int WM, int BK, int STAGES>
 __global__ void __launch_bounds__(MmTier<WARPS_M, WM, BK, STAGES>::kThreads)
 int8_mm_tc(const T* __restrict__ x, const int8_t* __restrict__ w, const float* __restrict__ scale,
-           T* __restrict__ out, int m, int K, int N) {
+           T* __restrict__ out, int m, int K, int N, int segs) {
   using Tier = MmTier<WARPS_M, WM, BK, STAGES>;
   constexpr int BM = Tier::kBM, THREADS = Tier::kThreads, XS = Tier::kXStride;
   // Dynamic shared memory: STAGES int8 tiles, STAGES bf16 x tiles, the
@@ -140,9 +156,12 @@ int8_mm_tc(const T* __restrict__ x, const int8_t* __restrict__ w, const float* _
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp / 4, wn = warp % 4, g = lane >> 2, t = lane & 3;
   const int col0 = blockIdx.x * kMmBN, row0 = blockIdx.y * BM;
-  const int chunks = K / BK;
-  const int c_begin = blockIdx.z * chunks / gridDim.z;
-  const int n = (blockIdx.z + 1) * chunks / gridDim.z - c_begin;  // this split's chunks, >= 1
+  constexpr int R = 64 / BK;  // chunks a 64-row step of K
+  const int c64 = K / 64;
+  // Segment z's first chunk (the cluster's blocks are the segments unless SERIAL).
+  auto seg_start = [&](int z) { return R * (z * c64 / (SERIAL ? segs : (int)gridDim.z)); };
+  const int c_begin = SERIAL ? 0 : seg_start(blockIdx.z);
+  const int n = SERIAL ? K / BK : seg_start(blockIdx.z + 1) - c_begin;  // this block's chunks, >= 1
 
   // This thread's x load: row xr of the tile, values xk..xk+7 of the chunk.
   const int xr = tid / (BK / 8), xk = (tid % (BK / 8)) * 8;
@@ -194,6 +213,9 @@ int8_mm_tc(const T* __restrict__ x, const int8_t* __restrict__ w, const float* _
     for (int j = 0; j < 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+  // SERIAL: the segments' running sum; segment `seg` ends before chunk `seg_end`.
+  float run[SERIAL ? WM : 1][4][4] = {};
+  int seg = 0, seg_end = SERIAL ? seg_start(1) : n;
 
   // Prologue: chunks 0..STAGES-2 in flight (one commit group each, empty
   // past the split's end, so that group i is always chunk i).
@@ -245,10 +267,33 @@ int8_mm_tc(const T* __restrict__ x, const int8_t* __restrict__ w, const float* _
 #pragma unroll
         for (int j = 0; j < 4; ++j) mma_bf16_16816(acc[mi][j], a[mi], b0[j], b1[j]);
     }
+    if constexpr (SERIAL) {
+      if (i + 1 == seg_end) {  // the segment's sum joins the running sum (the first is copied), in order
+#pragma unroll
+        for (int mi = 0; mi < WM; ++mi)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              run[mi][j][e] = seg == 0 ? acc[mi][j][e] : run[mi][j][e] + acc[mi][j][e];
+              acc[mi][j][e] = 0.f;
+            }
+        ++seg;
+        seg_end = seg < segs ? seg_start(seg + 1) : n;
+      }
+    }
     if constexpr (!kAsyncX)
       if (more) store_x(xv, nxt % STAGES);
   }
   cp_async_wait<0>();
+  if constexpr (SERIAL) {
+#pragma unroll
+    for (int mi = 0; mi < WM; ++mi)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][j][e] = run[mi][j][e];
+  }
 
   // Thread (g, t) holds, for m tile mi and half h, row (wm*WM + mi)*16 + g +
   // 8h and columns c + o, o = 4e + j: acc[mi][j][2h + e].
@@ -268,11 +313,11 @@ int8_mm_tc(const T* __restrict__ x, const int8_t* __restrict__ w, const float* _
     return;
   }
 
-  // Split K: the cluster is this tile's S blocks, rank z = split z. Block
+  // Split K: the cluster is this tile's S blocks, rank z = segment z. Block
   // q owns the tile's float4s e with e % S == q. Every block sends each of
   // its partial float4s into its owner's [S][slots] buffer, row z, by an
   // asynchronous store that completes on the owner's barrier; each owner
-  // waits on its own barrier alone, then adds its float4s over z in split
+  // waits on its own barrier alone, then adds its float4s over z in segment
   // order, times the scale, rounded once. A block leaves only when all that
   // is sent to it has landed.
   const int slots = (kTile4 + S - 1) / S;
@@ -309,11 +354,12 @@ int8_mm_tc(const T* __restrict__ x, const int8_t* __restrict__ w, const float* _
   }
 }
 
-template <typename T, int WARPS_M, int WM, int BK, int STAGES>
+template <typename T, bool SERIAL, int WARPS_M, int WM, int BK, int STAGES>
 static cudaError_t launch_mm(const void* x, const int8_t* w, const float* scale, void* out, int m, int K, int N,
-                             int splits, cudaStream_t st) {
+                             int segs, cudaStream_t st) {
   using Tier = MmTier<WARPS_M, WM, BK, STAGES>;
-  auto* kernel = int8_mm_tc<T, WARPS_M, WM, BK, STAGES>;
+  auto* kernel = int8_mm_tc<T, SERIAL, WARPS_M, WM, BK, STAGES>;
+  const int splits = SERIAL ? 1 : segs;  // blocks a tile
   // The attributes hold for the current device only: set once per device
   // and instantiation (setting them twice, from two threads, is harmless).
   static std::atomic<bool> configured[kMmMaxDevices];
@@ -337,17 +383,18 @@ static cudaError_t launch_mm(const void* x, const int8_t* w, const float* scale,
   cluster.id = cudaLaunchAttributeClusterDimension;
   cluster.val.clusterDim.x = 1;
   cluster.val.clusterDim.y = 1;
-  cluster.val.clusterDim.z = splits;  // one cluster per output tile: its K splits
+  cluster.val.clusterDim.z = splits;  // one cluster per output tile: its K segments
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), w, scale, static_cast<T*>(out), m, K, N);
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), w, scale, static_cast<T*>(out), m, K, N, segs);
 }
 
 template <typename T>
-static cudaError_t run_mm(bool tier0, const void* x, const int8_t* w, const float* scale, void* out, int m, int K,
-                          int N, int splits, cudaStream_t st) {
-  if (tier0) return launch_mm<T, Q3_MM_TIER0>(x, w, scale, out, m, K, N, splits, st);
-  return launch_mm<T, Q3_MM_TIER1>(x, w, scale, out, m, K, N, splits, st);
+static cudaError_t run_mm(bool tier0, bool serial, const void* x, const int8_t* w, const float* scale, void* out,
+                          int m, int K, int N, int segs, cudaStream_t st) {
+  if (tier0) return launch_mm<T, false, Q3_MM_TIER0>(x, w, scale, out, m, K, N, segs, st);
+  if (serial) return launch_mm<T, true, Q3_MM_TIER1>(x, w, scale, out, m, K, N, segs, st);
+  return launch_mm<T, false, Q3_MM_TIER1>(x, w, scale, out, m, K, N, segs, st);
 }
 
 }  // namespace q3
@@ -359,24 +406,28 @@ extern "C" {
 // 16-byte aligned. 1 <= m <= 1024, K and N multiples of 128. The plan
 // (ops/quant.py:int8_matmul_plan): a tile of `bm` rows walking K in chunks
 // of `bk` rows, which must be one of the two instantiations (16, 64) or
-// (64, 32) -- any other is refused, so the plan cannot drift from them --
-// and `splits`, the K splits (whole chunks spread evenly; 1 <= splits <=
-// min(K / bk, 16)), each output tile's cluster.
+// (64, 32) -- any other is refused, so the plan cannot drift from them --;
+// `splits`, the K segments (whole 64-row steps spread evenly; 1 <= splits
+// <= min(K / 64, 16)); `cluster`, the blocks a tile: `splits` (a segment a
+// block, each output tile's cluster) or, in tier 1 only, 1 (one block
+// walks every segment).
 int q3_int8_matmul(int dtype, const void* x, const int8_t* w, const float* scale, void* out, int m, int K, int N,
-                   int bm, int bk, int splits, void* stream) {
+                   int bm, int bk, int splits, int cluster, void* stream) {
   using q3::MmTier0;
   using q3::MmTier1;
   const bool tier0 = bm == MmTier0::kBM && bk == MmTier0::kBK;
   if (!(dtype == 0 || dtype == 1) || !(tier0 || (bm == MmTier1::kBM && bk == MmTier1::kBK)))
     return (int)cudaErrorInvalidValue;
   if (m < 1 || m > 1024 || K <= 0 || K % 128 || N <= 0 || N % 128) return (int)cudaErrorInvalidValue;
-  if (splits < 1 || splits > K / bk || splits > q3::kMmMaxSplits) return (int)cudaErrorInvalidValue;
+  if (splits < 1 || splits > K / 64 || splits > q3::kMmMaxSplits) return (int)cudaErrorInvalidValue;
+  const bool serial = cluster == 1 && splits > 1;
+  if (cluster != splits && !(serial && !tier0)) return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(scale) |
        reinterpret_cast<uintptr_t>(out)) & 15)
     return (int)cudaErrorMisalignedAddress;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = dtype == 0 ? q3::run_mm<float>(tier0, x, w, scale, out, m, K, N, splits, st)
-                                   : q3::run_mm<__nv_bfloat16>(tier0, x, w, scale, out, m, K, N, splits, st);
+  const cudaError_t e = dtype == 0 ? q3::run_mm<float>(tier0, serial, x, w, scale, out, m, K, N, splits, st)
+                                   : q3::run_mm<__nv_bfloat16>(tier0, serial, x, w, scale, out, m, K, N, splits, st);
   return (int)e;
 }
 

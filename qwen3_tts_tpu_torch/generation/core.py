@@ -339,7 +339,7 @@ def init_state_batch(
     penalty_mask = torch.zeros((b, vocab), dtype=torch.float32, device=dev)
     suppression = sampling.build_suppression_mask(vocab, scfg.eos_token_id, dev)
     logits = sampling.apply_generation_penalties(prefill_logits, penalty_mask, suppression, scfg, 0)
-    token = sampling.sample(logits, scfg, uniforms[:, 0])
+    token = sampling.sample_rows(logits, scfg, uniforms[:, 0])
     penalty_mask[torch.arange(b, device=dev), token] = 1.0
     return BatchGenState(
         cache=cache,
@@ -416,7 +416,7 @@ def batch_frame(run: BatchRun) -> None:
 
         token_count = idx + 1
         logits = sampling.apply_generation_penalties(logits, state.penalty_mask, run.suppression, scfg, token_count)
-        next_token = sampling.sample(logits, scfg, share.uniforms[:, min(token_count, run.max_new)])
+        next_token = sampling.sample_rows(logits, scfg, share.uniforms[:, min(token_count, run.max_new)])
         seen = state.penalty_mask.gather(1, next_token[:, None])
         state.penalty_mask.scatter_(1, next_token[:, None], torch.where(live[:, None], torch.ones_like(seen), seen))
 

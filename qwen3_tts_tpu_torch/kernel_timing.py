@@ -2,7 +2,7 @@
 
     python3 qwen3_tts_tpu_torch/kernel_timing.py
         --kernel int8_matmul|cp_frame|talker_step|cp_step|fused_step|residual_unit
-        [--root DIR] [--tag NAME] [--repeats R] [--sweep] [--sass] [--trace] [--forms F,...] [--kernels]
+        [--root DIR] [--tag NAME] [--repeats R] [--sweep] [--rows] [--sass] [--trace] [--forms F,...] [--kernels]
         [--sublayer attention|mlp]
 
 Times one kernel's wrapper of the checkout at ``--root`` (default: the one
@@ -88,9 +88,13 @@ width and window of taps that fits (``fused_blocks.residual_unit_ring``,
 the deepest ring), through the kernel's C entry, where the checkout has
 that plan.
 
-``--sweep`` (int8_matmul) also times the kernel at every K split count its plan could
-pick, at each m <= 16 shape, through the library's C entry directly (the
-checkout's entry must take the plan: rows, K rows per chunk, splits).
+``--rows`` (int8_matmul) times ``ROW_SHAPES`` in place of ``SHAPES``: the
+talker's projections at the rows of the batched and prompt prefills, the
+code predictor's at the Jacobi stack's. ``--sweep`` (int8_matmul) also
+times the kernel at every K segment count at each m <= 16 shape, and in
+both cluster forms at the plan's segments above, through the library's C
+entry directly (the checkout's entry must take the plan: rows, K rows per
+chunk, segments, cluster).
 ``--sass`` (int8_matmul) first counts, in each instantiation of the kernel in the built
 library's SASS (``cuobjdump -sass``), its tensor-core products (HMMA), its
 asynchronous copies (LDGSTS), ldmatrix (LDSM) and any atomics (ATOM, ATOMS,
@@ -149,6 +153,15 @@ CP_KN = [(1024, 4096), (2048, 1024), (1024, 5632), (2816, 1024), (1024, 6144), (
 # 1-row heads.
 SHAPES = [(10, 2048, 4096), (10, 2048, 2048), (10, 2048, 12288), (10, 6144, 2048), (1, 2048, 3072),
           (32, 2048, 4096), (64, 2048, 4096), (1024, 2048, 4096)] + [(m, k, n) for k, n in CP_KN for m in (2, 1)]
+# ``--rows``: the talker's four projections (qkv, o, gate|up, down) at the
+# rows of a B = 1 prefill (10), a dp = 2 replica's and the B = 8 batch's
+# (40, 80), the ICL prompts' (105; 128 the tier's second row tile), a
+# batch of long prompts (256, 512) and the largest call (1024), and the
+# code predictor's four at the Jacobi stack's 16 and 128 rows.
+TALKER_PROJ_KN = [(2048, 4096), (2048, 2048), (2048, 12288), (6144, 2048)]
+CP_PROJ_KN = [(1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024)]
+ROW_SHAPES = [(m, k, n) for m in (10, 40, 80, 105, 128, 256, 512, 1024) for k, n in TALKER_PROJ_KN] + [
+    (m, k, n) for m in (16, 128) for k, n in CP_PROJ_KN]
 
 
 def call_ms(fn, iters: int = GRAPH_CALLS) -> float:
@@ -227,8 +240,11 @@ def time_shape(quant, x: torch.Tensor, w: dict) -> dict:
 
 
 def sweep_shape(quant, x: torch.Tensor, w: dict, repeats: int) -> dict:
-    """Device span of the kernel at every split count 1..min(chunks, 16),
-    its plan's rows and chunk rows kept, launched through the C entry."""
+    """Device span of the kernel, its plan's rows and chunk rows kept,
+    launched through the C entry: at m <= 16 at every segment count
+    1..min(K / 64, 16) (a segment a block of the tile's cluster); above, at
+    the plan's segments both ways, a segment a block of the cluster and one
+    block walking them all (the same bits)."""
     dev = x.device
     plan = quant.int8_matmul_plan(x.shape[0], x.shape[1], w["q8"].shape[1],
                                   torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -239,19 +255,23 @@ def sweep_shape(quant, x: torch.Tensor, w: dict, repeats: int) -> dict:
     out = torch.empty((m, n), dtype=x.dtype, device=dev)
     iters = max(GRAPH_CALLS, len(ws))
 
-    def launch(c, splits):
+    def launch(c, splits, cluster):
         err = lib.q3_int8_matmul(quant._DTYPES[x.dtype], x.data_ptr(), c["q8"].data_ptr(), c["scale"].data_ptr(),
-                                 out.data_ptr(), m, k, n, plan.bm, plan.bk, splits,
+                                 out.data_ptr(), m, k, n, plan.bm, plan.bk, splits, cluster,
                                  torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {err}")
 
-    counts = range(1, min(k // plan.bk, 16) + 1)
-    times = {s: [] for s in counts}
+    if plan.tier == 0:
+        cases = {s: (s, s) for s in range(1, min(k // quant.INT8_MM_STEP, 16) + 1)}
+    else:
+        cases = {c: (plan.splits, c) for c in sorted({plan.splits, 1})}
+    times = {key: [] for key in cases}
     for _ in range(repeats):
-        for s in counts:
-            times[s].append(graph_ms([lambda c=c, s=s: launch(c, s) for c in ws], iters))
-    return {"plan_splits": plan.splits, "device_ms_by_splits": times}
+        for key, (splits, cluster) in cases.items():
+            times[key].append(graph_ms([lambda c=c: launch(c, splits, cluster) for c in ws], iters))
+    key = "device_ms_by_splits" if plan.tier == 0 else "device_ms_by_cluster"
+    return {"plan_splits": plan.splits, "plan_cluster": plan.cluster, key: times}
 
 
 def sass_counts() -> list[dict]:
@@ -678,18 +698,18 @@ def residual_unit_lines(tag: str, repeats: int, sweep: bool):
            "bound_f32_ms": flops / F32_FLOPS * 1e3, "bound_3xtf32_ms": 3 * flops / TF32_FLOPS * 1e3}
 
 
-def int8_matmul_lines(tag: str, repeats: int, sweep: bool):
+def int8_matmul_lines(tag: str, repeats: int, sweep: bool, shapes=SHAPES):
     """One JSON line per shape of kernel 4."""
     from qwen3_tts_tpu_torch.ops import quant
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(6)
-    for m, k, n in SHAPES:
+    for m, k, n in shapes:
         x = torch.randn((m, k), generator=gen, device=dev).to(torch.bfloat16)
         w = quant.quantize_linear(torch.randn((k, n), generator=gen, device=dev) * 0.02)
         runs = [time_shape(quant, x, w) for _ in range(repeats)]
         line = {"tag": tag, "m": m, "k": k, "n": n, **{key: [r[key] for r in runs] for key in runs[0]}}
-        if sweep and m <= 16:
+        if sweep:
             line.update(sweep_shape(quant, x, w, repeats))
         yield line
 
@@ -703,7 +723,9 @@ def main() -> None:
     ap.add_argument("--tag", default="", help="name printed on every line (default: --root)")
     ap.add_argument("--repeats", type=int, default=3)
     ap.add_argument("--sweep", action="store_true",
-                    help="int8_matmul: also time every K split count at m <= 16; residual_unit: every chunk width and window of taps")
+                    help="int8_matmul: also time every K segment count at m <= 16 and both cluster forms above; "
+                         "residual_unit: every chunk width and window of taps")
+    ap.add_argument("--rows", action="store_true", help="int8_matmul: time ROW_SHAPES in place of SHAPES")
     ap.add_argument("--sass", action="store_true", help="int8_matmul: first count the kernel's SASS instructions")
     ap.add_argument("--trace", action="store_true",
                     help="cp_frame, talker_step, cp_step, fused_step: add each form's per-phase breakdown")
@@ -741,7 +763,7 @@ def main() -> None:
     if args.sass:
         for line in sass_counts():
             print(json.dumps({"tag": tag, **line}), flush=True)
-    for line in int8_matmul_lines(tag, args.repeats, args.sweep):
+    for line in int8_matmul_lines(tag, args.repeats, args.sweep, ROW_SHAPES if args.rows else SHAPES):
         print(json.dumps(line), flush=True)
 
 

@@ -4,7 +4,8 @@ PyTorch port of ``qwen3_tts_tpu/models/codec/blocks.py``, in the JAX
 package's channels-last layout: activations ``[batch, time, channels]``,
 conv kernels ``[K, Cin/groups, Cout]``. Dense convs run as K shifted matmuls
 and depthwise convs as K shifted broadcast multiplies (the JAX package's
-taps form), so the two packages sum in the same order. Every op is causal
+taps form), so the two packages sum in the same order; other group counts
+as K shifted products a group. Every op is causal
 (output at t depends only on inputs <= t), which makes right-padded time
 bucketing exact for the whole vocoder.
 
@@ -27,10 +28,15 @@ def causal_conv1d(
     """Left-padded causal conv. x: [B, T, Cin]; kernel: [K, Cin/groups, Cout].
 
     out[t] = sum_i x[t - (k-1-i)*d] @ w[i], taps ascending. Dense
-    (groups=1) and depthwise (groups == Cin == Cout) only.
+    (groups=1) taps are matmuls and depthwise (groups == Cin == Cout) taps
+    broadcast multiplies; any other ``groups`` (the JAX package's
+    ``conv_general_dilated`` with ``feature_group_count``) takes, a tap at a
+    time, one product a group: output channels [g·Cout/G, (g+1)·Cout/G) from
+    input channels [g·Cin/G, (g+1)·Cin/G). Channels that ``groups`` does not
+    divide raise ``ValueError``, as XLA refuses them.
     """
     k, cpg, cout = kernel.shape
-    t, cin = x.shape[1], x.shape[2]
+    b, t, cin = x.shape
     pad = dilation * (k - 1)
     xp = F.pad(x, (0, 0, pad, 0))
     if groups == 1:
@@ -38,7 +44,17 @@ def causal_conv1d(
     elif groups == cin and cpg == 1 and cout == cin:
         taps = (xp[:, i * dilation : i * dilation + t] * kernel[i, 0] for i in range(k))
     else:
-        raise NotImplementedError(f"causal_conv1d: groups={groups} with kernel {tuple(kernel.shape)}")
+        if groups < 1 or cin % groups or cout % groups or cin // groups != cpg:
+            raise ValueError(f"causal_conv1d: groups={groups} does not divide x's {cin} input channels into the "
+                             f"kernel's {tuple(kernel.shape)} [K, Cin/groups, Cout]")
+        # [K, G, Cin/G, Cout/G]: group g's columns of the kernel.
+        wg = kernel.reshape(k, cpg, groups, cout // groups).transpose(1, 2)
+
+        def tap(i: int) -> torch.Tensor:
+            xg = xp[:, i * dilation : i * dilation + t].reshape(b * t, groups, cpg).transpose(0, 1)
+            return (xg @ wg[i]).transpose(0, 1).reshape(b, t, cout)
+
+        taps = (tap(i) for i in range(k))
     out = None
     for o in taps:
         out = o if out is None else out + o

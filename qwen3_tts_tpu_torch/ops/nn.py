@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from ..parallel.collectives import all_reduce, broadcast, device_scope
 from . import quant
 from .quant import mm
+from .rows import row_mean, row_sum
 
 
 @dataclass(frozen=True)
@@ -101,7 +102,7 @@ def init_kv_cache(
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     """RMSNorm with float32 accumulation, cast back to input dtype."""
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    var = row_mean(xf * xf)  # on the card in an order the row alone fixes (``rows``)
     normed = xf * torch.rsqrt(var + eps)
     return (normed * weight.float()).to(x.dtype)
 
@@ -192,6 +193,8 @@ def gqa_attention(
     b, sq, h, d = q.shape
     kv = k.shape[2]
     g = h // kv
+    if q.device.type == "cuda" and sq == 1:
+        return _step_attention(q, k, v, mask, scale)
     qg = q.reshape(b, sq, kv, g, d)
     # scores: [B, KV, G, Sq, Sk]
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
@@ -200,6 +203,30 @@ def gqa_attention(
     weights = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", weights, v)
     return out.reshape(b, sq, h, d)
+
+
+def _step_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor | None,
+                    scale: float) -> torch.Tensor:
+    """``gqa_attention`` of one query row a stream on the card, each of its
+    two products an elementwise product and a ``row_sum`` over the row it
+    reduces (the head dim, then the cache rows), laid out last: the same
+    function (a bf16 x bf16 product is exact in f32), summed in an order the
+    row alone fixes. cuBLAS's batched products pick their kernel by the
+    batch count, so a stream's scores among 4 streams took other bits than
+    among 8 (``chip_smoke.py`` phase ``tp`` (d), an H100)."""
+    b, _, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    f32 = dict(dtype=torch.float32, memory_format=torch.contiguous_format)
+    qf = q.reshape(b, kv, g, 1, d).float()
+    kf = k.permute(0, 2, 1, 3).to(**f32)[:, :, None]  # [B, KV, 1, Sk, D]
+    scores = row_sum(qf * kf).reshape(b, kv, g, 1, -1) * scale  # [B, KV, G, 1, Sk]
+    if mask is not None:
+        scores = scores.masked_fill(~mask, -1e30)
+    weights = torch.softmax(scores, dim=-1).to(v.dtype)
+    vf = v.permute(0, 2, 3, 1).to(**f32)[:, :, None]  # [B, KV, 1, D, Sk]
+    out = row_sum(weights.float() * vf).to(v.dtype)  # [B, KV, G, D, 1]
+    return out.reshape(b, 1, h, d)
 
 
 def decode_attention_tiers(max_seq: int, base: int = 256) -> tuple[int, ...]:

@@ -99,20 +99,36 @@ def int8_matmul_plain(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -
 # other pair). Every tile is 128 columns.
 INT8_MM_TIERS = ((16, 64), (64, 32))
 INT8_MM_COLS = 128
-# A tile's K splits form one thread-block cluster. The kernel takes up to 16
+# K is summed in segments of whole 64-row steps (a tier-0 chunk, two tier-1
+# chunks), the same segments at every m.
+INT8_MM_STEP = 64
+# A tile's segments form one thread-block cluster. The kernel takes up to 16
 # (an H100's largest cluster); the plan stops at 8, the portable cluster
 # size: above it no GEMV shape of the 1.7B model ran more than 4% faster
 # than at its best count of 8 or fewer on an H100, and most ran slower
 # (PERF.md, PR 5).
 INT8_MM_MAX_SPLITS = 8
-INT8_MM_WAVE = 0.75  # the share of the SMs a split launch aims to fill
+INT8_MM_WAVE = 0.75  # the share of the SMs a split GEMV launch aims to fill
 
 
 class Int8MatmulPlan(NamedTuple):
     tier: int  # 0: m <= 16 (weight-bound); 1: 16 < m <= 1024
     bm: int  # output rows per block
     bk: int  # K rows per chunk (one stage of the kernel's ring)
-    splits: int  # K splits (grid.z), whole chunks spread evenly
+    splits: int  # K segments, whole 64-row steps spread evenly: S(K, N), the same at every m
+    cluster: int  # blocks a tile: ``splits`` (a segment each, added in the cluster) or 1 (one walks them all)
+
+
+def int8_matmul_splits(k: int, n: int, sms: int) -> int:
+    """S(K, N): the K segments that every product of a (K, N) weight sums,
+    whatever its rows. It is the count the GEMV tier's tiles (N / 128 of
+    them at m <= 16) ask for: the blocks nearest to three quarters of the
+    SMs, at most ``INT8_MM_MAX_SPLITS`` and one 64-row step a segment. On
+    an H100 a sweep of every split count at the 1.7B model's GEMV shapes
+    found this count the fastest, or within 3% of it, at all but one: at N
+    12288 (96 tiles, 1 split) 2 splits ran 5-7% faster (PERF.md, PR 5)."""
+    tiles = n // INT8_MM_COLS
+    return max(1, min(round(sms * INT8_MM_WAVE / tiles), k // INT8_MM_STEP, INT8_MM_MAX_SPLITS))
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,23 +136,26 @@ def int8_matmul_plan(m: int, k: int, n: int, sms: int) -> Int8MatmulPlan:
     """The launch plan of the W8A16 kernel for ``[m, k] @ [k, n]`` on a card
     with ``sms`` SMs.
 
-    The tier follows m. When the output tiles alone leave much of the
-    card idle (the GEMV shapes), K is split into runs of whole chunks so
-    that the blocks come nearest to three quarters of the SMs, at most
-    ``INT8_MM_MAX_SPLITS`` (a tile's splits are one cluster, which adds
-    their partial sums in shared memory: no scratch); the splits cover K
-    exactly and none is empty. On an H100 a sweep of every split count at
-    the 1.7B model's GEMV shapes found this count the fastest, or within 3%
-    of it, at all but one: at N 12288 (96 tiles, 1 split) 2 splits ran 5-7%
-    faster (PERF.md, PR 5).
+    The tier follows m; the K segments do not (``int8_matmul_splits``): a
+    row's sum runs over the same segments in the same order at every m, so
+    it has the same bits whatever rows share the launch. Segment z covers
+    the 64-row steps ``[z * (K/64) // S, (z + 1) * (K/64) // S)``; they
+    cover K exactly and none is empty. A tile's segments are the blocks of
+    one cluster, which adds their partial sums in segment order in shared
+    memory (``cluster`` = S), except in tier 1 where the tiles are half the
+    SMs or more: there one block walks every segment and adds them in the
+    same order (``cluster`` = 1), with no extra blocks. On an H100 that
+    rule picked the faster form at every 1.7B projection timed both ways,
+    m 40 to 1024 (PERF.md, PR 21).
     """
     if not (1 <= m <= KERNEL_MAX_ROWS and k > 0 and k % KERNEL_ALIGN == 0 and n > 0 and n % KERNEL_ALIGN == 0):
         raise ValueError(f"int8_matmul_plan: the kernel does not take m={m} K={k} N={n}")
     tier = 0 if m <= 16 else 1
     bm, bk = INT8_MM_TIERS[tier]
+    splits = int8_matmul_splits(k, n, sms)
     tiles = (n // INT8_MM_COLS) * -(-m // bm)
-    splits = max(1, min(round(sms * INT8_MM_WAVE / tiles), k // bk, INT8_MM_MAX_SPLITS))
-    return Int8MatmulPlan(tier, bm, bk, splits)
+    cluster = splits if tier == 0 or tiles < sms // 2 else 1
+    return Int8MatmulPlan(tier, bm, bk, splits, cluster)
 
 
 def _kernel_lib():
@@ -146,7 +165,7 @@ def _kernel_lib():
     if not getattr(lib, "_q3_int8_mm_bound", False):
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.q3_int8_matmul.restype = i32
-        lib.q3_int8_matmul.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+        lib.q3_int8_matmul.argtypes = [i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
         lib._q3_int8_mm_bound = True
     return lib
 
@@ -283,7 +302,7 @@ def _int8_mm_core(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> to
     out = torch.empty((m, n), dtype=x2.dtype, device=dev)
     err = _kernel_lib().q3_int8_matmul(
         _DTYPES[x2.dtype], x2.data_ptr(), q8.data_ptr(), scale.data_ptr(), out.data_ptr(), m, k, n,
-        plan.bm, plan.bk, plan.splits, torch.cuda.current_stream(dev).cuda_stream,
+        plan.bm, plan.bk, plan.splits, plan.cluster, torch.cuda.current_stream(dev).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {err}")

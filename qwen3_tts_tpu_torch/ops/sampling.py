@@ -16,15 +16,22 @@ min-new-tokens EOS blocking. Everything stays on the logits' device.
 Every form works row by row on ``[batch, vocab]``: a batch of streams
 passes its penalty masks as ``[B, vocab]`` and one uniform a stream
 (``[B]``), and each row's token is the one its stream alone would draw.
+On the card PyTorch's sums and prefix sums over a row take other bits at
+other row counts, so the batched frame loops sample with ``sample_rows``,
+whose sums run in an order the row alone fixes there (``ops/rows.py``): a
+stream draws the same codes at every batch size. ``sample`` keeps PyTorch's
+(fewer launches: the batch-1 loop's frame is one stream at every call).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Callable, NamedTuple
 
 import torch
 
 from ..models import tokens as T
+from .rows import row_cumsum, row_sum
 
 NEG_INF = float("-inf")
 
@@ -45,8 +52,19 @@ class SamplingConfig:
         return self.temperature < 0.01
 
 
-def _exclusive_cumsum(probs: torch.Tensor) -> torch.Tensor:
-    cumulative = torch.cumsum(probs, dim=-1)
+class _Sums(NamedTuple):
+    """A row's sum (kept as a last axis of 1) and its inclusive prefix sums."""
+
+    total: Callable[[torch.Tensor], torch.Tensor]
+    prefix: Callable[[torch.Tensor], torch.Tensor]
+
+
+_PLAIN = _Sums(lambda x: x.sum(dim=-1, keepdim=True), lambda x: torch.cumsum(x, dim=-1))
+_ROWS = _Sums(row_sum, row_cumsum)
+
+
+def _exclusive_cumsum(probs: torch.Tensor, sums: _Sums = _PLAIN) -> torch.Tensor:
+    cumulative = sums.prefix(probs)
     return torch.cat([torch.zeros_like(cumulative[..., :1]), cumulative[..., :-1]], dim=-1)
 
 
@@ -57,17 +75,17 @@ def top_k_filter(logits: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(logits >= threshold, logits, NEG_INF)
 
 
-def top_p_filter(logits: torch.Tensor, p: float) -> torch.Tensor:
+def top_p_filter(logits: torch.Tensor, p: float, sums: _Sums = _PLAIN) -> torch.Tensor:
     """Nucleus filtering via descending sort + exclusive-cumsum threshold."""
     sorted_desc = torch.sort(logits, dim=-1, descending=True).values
     probs = torch.exp(sorted_desc - sorted_desc.amax(dim=-1, keepdim=True))
-    probs = probs / probs.sum(dim=-1, keepdim=True)
-    kept = torch.where(_exclusive_cumsum(probs) >= p, float("inf"), sorted_desc)
+    probs = probs / sums.total(probs)
+    kept = torch.where(_exclusive_cumsum(probs, sums) >= p, float("inf"), sorted_desc)
     min_kept = kept.amin(dim=-1, keepdim=True)
     return torch.where(logits >= min_kept, logits, NEG_INF)
 
 
-def multinomial(probs: torch.Tensor, uniform: torch.Tensor) -> torch.Tensor:
+def multinomial(probs: torch.Tensor, uniform: torch.Tensor, sums: _Sums = _PLAIN) -> torch.Tensor:
     """First index whose inclusive cumulative probability >= uniform.
 
     ``probs``: [batch, vocab]; ``uniform``: scalar or [batch]. Returns [batch]
@@ -75,7 +93,7 @@ def multinomial(probs: torch.Tensor, uniform: torch.Tensor) -> torch.Tensor:
     JAX package's argmin does).
     """
     vocab = probs.shape[-1]
-    cumulative = torch.cumsum(probs, dim=-1)
+    cumulative = sums.prefix(probs)
     u = torch.as_tensor(uniform, dtype=probs.dtype, device=probs.device)
     hit = cumulative >= u.reshape(-1, 1)
     positions = torch.arange(1, vocab + 1, dtype=probs.dtype, device=probs.device)
@@ -83,7 +101,7 @@ def multinomial(probs: torch.Tensor, uniform: torch.Tensor) -> torch.Tensor:
     return torch.argmin(masked, dim=-1)
 
 
-def _fused_top_k_top_p(logits: torch.Tensor, k: int, p: float) -> torch.Tensor:
+def _fused_top_k_top_p(logits: torch.Tensor, k: int, p: float, sums: _Sums = _PLAIN) -> torch.Tensor:
     """top-k then top-p using only the top-k values (no full-vocab sort).
 
     Equivalent to top_k_filter followed by top_p_filter: after the top-k mask
@@ -94,8 +112,8 @@ def _fused_top_k_top_p(logits: torch.Tensor, k: int, p: float) -> torch.Tensor:
     top_vals = torch.topk(logits, k, dim=-1).values  # [batch, k], descending
     thr_k = top_vals[..., k - 1 : k]
     probs = torch.exp(top_vals - top_vals[..., :1])
-    probs = probs / probs.sum(dim=-1, keepdim=True)
-    kept = torch.where(_exclusive_cumsum(probs) >= p, float("inf"), top_vals)
+    probs = probs / sums.total(probs)
+    kept = torch.where(_exclusive_cumsum(probs, sums) >= p, float("inf"), top_vals)
     min_kept = kept.amin(dim=-1, keepdim=True)
     threshold = torch.maximum(min_kept, thr_k)
     return torch.where(logits >= threshold, logits, NEG_INF)
@@ -103,6 +121,17 @@ def _fused_top_k_top_p(logits: torch.Tensor, k: int, p: float) -> torch.Tensor:
 
 def sample(logits: torch.Tensor, cfg: SamplingConfig, uniform: torch.Tensor) -> torch.Tensor:
     """Full sampling pipeline on float32 logits [batch, vocab] -> [batch] ids."""
+    return _sample(logits, cfg, uniform, _PLAIN)
+
+
+def sample_rows(logits: torch.Tensor, cfg: SamplingConfig, uniform: torch.Tensor) -> torch.Tensor:
+    """``sample`` with every sum and prefix sum over a row in an order the
+    row alone fixes on the card: a row's token is the same at any batch size
+    (on the CPU, ``sample``)."""
+    return _sample(logits, cfg, uniform, _ROWS)
+
+
+def _sample(logits: torch.Tensor, cfg: SamplingConfig, uniform: torch.Tensor, sums: _Sums) -> torch.Tensor:
     logits = logits.float()
     if cfg.temperature != 1.0 and cfg.temperature > 0.0:
         # A device tensor, not a Python scalar: CUDA turns division by a host
@@ -111,14 +140,14 @@ def sample(logits: torch.Tensor, cfg: SamplingConfig, uniform: torch.Tensor) -> 
     if cfg.greedy:
         return torch.argmax(logits, dim=-1)
     if cfg.top_k > 0 and 0.0 < cfg.top_p < 1.0:
-        logits = _fused_top_k_top_p(logits, cfg.top_k, cfg.top_p)
+        logits = _fused_top_k_top_p(logits, cfg.top_k, cfg.top_p, sums)
     elif cfg.top_k > 0:
         logits = top_k_filter(logits, cfg.top_k)
     elif 0.0 < cfg.top_p < 1.0:
-        logits = top_p_filter(logits, cfg.top_p)
+        logits = top_p_filter(logits, cfg.top_p, sums)
     probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    probs = probs / probs.sum(dim=-1, keepdim=True)
-    return multinomial(probs, uniform)
+    probs = probs / sums.total(probs)
+    return multinomial(probs, uniform, sums)
 
 
 def build_suppression_mask(

@@ -80,7 +80,7 @@ def margins(model: Qwen3TTS) -> tuple[float, float]:
     greedy batch (port, f32, plain ops)."""
     cp_vocab = model.config.code_predictor.vocab_size
     talker_gaps, cp_gaps = [], []
-    routed_mm, routed_sample = quant.mm, sampling.sample
+    routed_mm, routed_sample = quant.mm, sampling.sample_rows
 
     def top2_gap(y):
         top2 = torch.topk(y.float(), 2, dim=-1).values
@@ -96,11 +96,11 @@ def margins(model: Qwen3TTS) -> tuple[float, float]:
         talker_gaps.append(top2_gap(logits))
         return routed_sample(logits, cfg, uniform)
 
-    quant.mm, sampling.sample = mm, sample
+    quant.mm, sampling.sample_rows = mm, sample
     try:
         port_run(model, 0.0)
     finally:
-        quant.mm, sampling.sample = routed_mm, routed_sample
+        quant.mm, sampling.sample_rows = routed_mm, routed_sample
     return min(talker_gaps), min(cp_gaps)
 
 

@@ -473,6 +473,24 @@ CP_PROJ_SHAPES = [(1024, 4096), (2048, 1024), (1024, 6144), (3072, 1024)]
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(2048, 4096), (3072, 1024)])
+def test_cuda_int8_matmul_rows_invariant(k, n, dtype):
+    """``chip_smoke.py`` phase ``kernel4``'s row invariance at the talker's
+    qkv and the code predictor's down projection: the first m rows of a
+    [1024, K] x give, row for row, the bits of the same rows at m = 1024,
+    at every m a path meets (both tiers, one and several row tiles)."""
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(k + n)
+    x = torch.randn((quant.KERNEL_MAX_ROWS, k), generator=gen, device=dev).to(dtype)
+    w = quant.quantize_linear(torch.randn((k, n), generator=gen, device=dev) * 0.02)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    whole = quant.int8_matmul(x, w["q8"], w["scale"]).view(bits)
+    for m in (1, 4, 8, 10, 16, 17, 40, 41, 73, 80, 105, 128):
+        assert torch.equal(quant.int8_matmul(x[:m], w["q8"], w["scale"]).view(bits), whole[:m]), m
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("k,n", CP_PROJ_SHAPES)
 @pytest.mark.parametrize("b", [1, 8])
 def test_cuda_int8_matmul_at_jacobi_rows(b, k, n):
@@ -676,12 +694,16 @@ def test_cuda_wrappers_check_their_inputs():
     out = torch.empty((2, 384), dtype=x.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def entry(bm, bk):
+    def entry(bm, bk, splits=1, cluster=1):
         return quant._kernel_lib().q3_int8_matmul(1, x.data_ptr(), w["q8"].data_ptr(), w["scale"].data_ptr(),
-                                                  out.data_ptr(), 2, 256, 384, bm, bk, 1, stream)
+                                                  out.data_ptr(), 2, 256, 384, bm, bk, splits, cluster, stream)
 
     assert [entry(bm, bk) for bm, bk in quant.INT8_MM_TIERS] == [0, 0]
     assert entry(16, 32) != 0 and entry(64, 64) != 0
+    # Segments of whole 64-row steps (K 256: at most 4), a block each or,
+    # in tier 1 only, one block walking them all.
+    assert entry(16, 64, 4, 4) == 0 and entry(64, 32, 4, 1) == 0 and entry(64, 32, 4, 4) == 0
+    assert entry(16, 64, 8, 8) != 0 and entry(16, 64, 4, 1) != 0 and entry(64, 32, 4, 2) != 0
 
 
 def _cp_step_inputs(device, dtype, layers, seed=0):

@@ -155,38 +155,45 @@ WIDTHS_1P7B = [
 H100_SMS = 132
 
 
+def _segments(p, k):
+    """The K rows [start, end) of plan ``p``'s segments as its tier's kernel
+    walks them: segment z is the 64-row steps [z * (K/64) // S, (z + 1) *
+    (K/64) // S), in ``p.bk``-row chunks."""
+    steps, per = k // tq.INT8_MM_STEP, tq.INT8_MM_STEP // p.bk
+    chunks = [(per * (z * steps // p.splits), per * ((z + 1) * steps // p.splits)) for z in range(p.splits)]
+    return [(a * p.bk, b * p.bk) for a, b in chunks]
+
+
 def _check_plan(m, k, n):
     """The rules of a kernel-4 launch plan on an H100: the tier follows m;
-    every split covers whole K chunks and the splits cover K exactly, none
-    empty; at most 8 splits (a tile's cluster); the block count is the
-    nearest to three quarters of the SMs that whole splits give (unless the
-    chunks or the cluster cap it), so shapes with fewer tiles are split and
-    shapes with that many tiles or more are not. Returns the blocks."""
+    the K segments do not: S is S(K, N) at every m, so a row's f32 sum runs
+    over the same K rows in the same order whatever rows share its launch,
+    and the segments are the same K rows in both tiers (whole 64-row steps,
+    two tier-1 chunks each); they cover K exactly, none is empty; at most 8
+    (a tile's cluster). A tile's blocks are its segments (tier 0, and tier 1
+    where the tiles leave the card idle) or one block that walks them all
+    (tier 1 only). Returns the blocks."""
     p = tq.int8_matmul_plan(m, k, n, H100_SMS)
     assert p.tier == (0 if m <= 16 else 1)
     assert (p.bm, p.bk) == tq.INT8_MM_TIERS[p.tier]
-    chunks = k // p.bk
-    assert chunks * p.bk == k
-    spans = [(z * chunks // p.splits, (z + 1) * chunks // p.splits) for z in range(p.splits)]
-    assert spans[0][0] == 0 and spans[-1][1] == chunks
-    assert all(end > start for start, end in spans)
+    assert p.splits == tq.int8_matmul_splits(k, n, H100_SMS)
+    other = tq.int8_matmul_plan(1 if p.tier else tq.KERNEL_MAX_ROWS, k, n, H100_SMS)
+    assert other.tier != p.tier and other.splits == p.splits
+    spans = _segments(p, k)
+    assert spans == _segments(other, k)
+    assert spans[0][0] == 0 and spans[-1][1] == k
+    assert all(end > start and start % tq.INT8_MM_STEP == 0 for start, end in spans)
     assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert 1 <= p.splits <= min(k // tq.INT8_MM_STEP, tq.INT8_MM_MAX_SPLITS)
+    assert p.cluster == p.splits or (p.tier == 1 and p.cluster == 1)
     tiles = (n // tq.INT8_MM_COLS) * -(-m // p.bm)
-    blocks = tiles * p.splits
-    cap = min(chunks, tq.INT8_MM_MAX_SPLITS)
-    assert 1 <= p.splits <= cap
-    target = tq.INT8_MM_WAVE * H100_SMS
-    if p.splits < cap:
-        assert blocks >= target - tiles / 2
-    if p.splits > 1:
-        assert blocks <= target + tiles / 2
-    if tiles >= target:
-        assert p.splits == 1
-    return blocks
+    return tiles * p.cluster
 
 
 @pytest.mark.parametrize("k,n", WIDTHS_1P7B)
 def test_int8_matmul_plan_every_m_at_1p7b_widths(k, n):
+    splits = {tq.int8_matmul_plan(m, k, n, H100_SMS).splits for m in range(1, tq.KERNEL_MAX_ROWS + 1)}
+    assert len(splits) == 1
     for m in range(1, tq.KERNEL_MAX_ROWS + 1):
         _check_plan(m, k, n)
 
@@ -213,9 +220,11 @@ def test_int8_matmul_plan_refuses_shapes_outside_the_gate():
     for m, k, n in ((0, 128, 128), (1025, 128, 128), (1, 64, 128), (1, 128, 100)):
         with pytest.raises(ValueError, match="does not take"):
             tq.int8_matmul_plan(m, k, n, H100_SMS)
-    # The smallest K: two 64-row chunks (tier 0) or four 32-row ones (tier 1).
-    assert tq.int8_matmul_plan(1, 128, 128, H100_SMS) == (0, 16, 64, 2)
-    assert tq.int8_matmul_plan(1024, 128, 128, H100_SMS) == (1, 64, 32, 4)
+    # The smallest K: two 64-row segments at every m, as two 64-row chunks
+    # (tier 0) or two pairs of 32-row ones (tier 1); its 16 tiles at m 1024
+    # leave the card idle, so each segment is a block of the tile's cluster.
+    assert tq.int8_matmul_plan(1, 128, 128, H100_SMS) == (0, 16, 64, 2, 2)
+    assert tq.int8_matmul_plan(1024, 128, 128, H100_SMS) == (1, 64, 32, 2, 2)
 
 
 def test_int8_layer_stack_matches_jax():

@@ -78,6 +78,34 @@ def test_conv_blocks_match_jax():
     )
 
 
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no-bias"])
+@pytest.mark.parametrize("dilation", [1, 3])
+@pytest.mark.parametrize("groups", [2, 4, 8])
+def test_grouped_causal_conv_matches_jax(groups, dilation, bias):
+    """``causal_conv1d`` with 1 < groups < Cin (Cin 24, Cout 16) against the
+    JAX function's ``conv_general_dilated`` with ``feature_group_count``."""
+    rs = np.random.RandomState(groups * 10 + dilation)
+    x = rs.randn(2, 37, 24).astype(np.float32)
+    w = rs.randn(5, 24 // groups, 16).astype(np.float32) * 0.1
+    b = rs.randn(16).astype(np.float32) if bias else None
+    got = tblocks.causal_conv1d(torch.from_numpy(x), torch.from_numpy(w), None if b is None else torch.from_numpy(b),
+                                dilation, groups)
+    want = jblocks.causal_conv1d(jnp.asarray(x), jnp.asarray(w), None if b is None else jnp.asarray(b), dilation,
+                                 groups)
+    assert got.shape == (2, 37, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("groups,kernel_shape", [(5, (3, 4, 16)), (3, (3, 8, 16)), (4, (3, 8, 16))],
+                         ids=["cin", "cout", "kernel"])
+def test_grouped_causal_conv_refuses_channels_groups_do_not_divide(groups, kernel_shape):
+    """Cin 24 not a multiple of 5, Cout 16 not of 3, or a kernel whose
+    Cin/groups is not x's: ``ValueError``, as XLA refuses them."""
+    x = torch.zeros((1, 8, 24))
+    with pytest.raises(ValueError, match="groups"):
+        tblocks.causal_conv1d(x, torch.zeros(kernel_shape), None, 1, groups)
+
+
 @pytest.fixture(scope="module")
 def voc_params():
     jp = jax.jit(jvoc.init_vocoder_params, static_argnums=1)(jax.random.PRNGKey(11), TINY_VOC)
