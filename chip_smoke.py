@@ -132,7 +132,7 @@ Phases, each printing a line (any failure exits nonzero before the last):
      which split decode into kernel 2's share and the rest), and the
      int8-path kernels must not; the timed run's audio
      must equal the warm run's bit for bit (same seed, deterministic
-     kernels); then a 32-frame utterance with ``decode_mode="jacobi"`` on
+     kernels); then a 16-frame utterance with ``decode_mode="jacobi"`` on
      the same trees beside the sequential one (``jacobi_utterance``:
      ms/frame, RTF, passes per frame; kernel 1 never, kernel 3 once a
      frame, kernel 2 9 times, in int8 kernel 4 at 16 rows 20 times a pass)
@@ -271,7 +271,22 @@ Phases, each printing a line (any failure exits nonzero before the last):
      run_to_completion()``, kernels 1 and 3 once a frame, kernel 2's batch
      entry 9 times (its stream entry 9 times a chunk under
      ``--streaming``), kernel 4 under ``--int8`` only, kernels 5, 6 and 7
-     never; the CLI's RTF printed; the directory deleted;
+     never; the CLI's RTF printed; then, in the same directory, phase
+     ``validation`` (``validation_phase``: the port's validation chain,
+     ``qwen3_tts_tpu_torch/validation``): the quant report at full depth
+     (worst-layer weight SNR, logit KL and flip rates for int8 and for w8a8,
+     the promote decision; the int8 run launches kernels 1 and 3 once a step
+     and kernel 4, the w8a8 run only ``w8a8_matmul``), the parity matrix at
+     4 frames on this machine's dp = 2 x tp = 2 mesh (distinct cards where
+     there are four, else ranks sharing ``cuda:0``: every cell passes but
+     the int8 and w8a8 cross-placement ones, which are reported; kernels 5
+     and 6 in the int8 mesh cells) and on the drill's tiny checkpoint
+     (every cell passes), the quality gate on the CLI's WAV (the drill's gates), the
+     audit (no read site outside the loop contract, the dynamic reads within
+     ``loop_read_bound``), the w8a8 product at K = 2050, N = 3074 bit-equal
+     to the CPU's ``torch._int_mm``, and the trace report of the CLI run
+     with ``--profile`` in a process of its own (kernels 1, 2 and 3 among
+     the top kernels, their ms a frame); the directory deleted;
  12. the 1.7B-width utterance (phase ``utterance``): the seeded checkpoint
      of ``ckpt_fixture.write_utterance_checkpoint`` (2 talker layers, drawn
      from numpy) loaded by ``from_pretrained`` in f32 on the card (kernels
@@ -387,6 +402,9 @@ from qwen3_tts_tpu_torch.pipeline import (  # noqa: E402
     DECODE_BUCKET, Qwen3TTS, SynthesisOptions, VoiceClonePrompt, prefix_piece_sizes)
 from qwen3_tts_tpu_torch.profiling import count_host_transfers  # noqa: E402
 from qwen3_tts_tpu_torch.utils.bucketing import next_bucket  # noqa: E402
+from qwen3_tts_tpu_torch.validation import (  # noqa: E402
+    audit, launch_counts, launches_since, parity_matrix, quality, quant_report, trace_report)
+from qwen3_tts_tpu_torch.validation.audit import loop_read_bound  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 # The four projections (K, N) at 1.7B, qkv, o, gate|up, down: the code predictor's and the talker's.
@@ -1535,7 +1553,10 @@ def per_step_path() -> None:
 # Jacobi code prediction (phase ``jacobi``): the passes timed in a row, and
 # the B = 8 batch's frames.
 JACOBI_TIMED_PASSES = 20
-JACOBI_BATCH_FRAMES = 16
+# The Jacobi utterance's and batch's frames (cut from 32 and 16 to keep the
+# whole run within its time with phase ``validation``).
+JACOBI_UTTERANCE_FRAMES = 16
+JACOBI_BATCH_FRAMES = 8
 JACOBI_REPEATED_FRAMES = 8  # frames run a second time for the same bits
 JACOBI_WITNESS_B = 8  # frames at once in ``batch_rows_witness``: the B of ``jacobi_batch``
 
@@ -1721,7 +1742,7 @@ def jacobi_phase() -> dict:
 
 
 def jacobi_utterance(model: Qwen3TTS, label: str, int8: bool) -> dict:
-    """A staged ``synthesize_with_timing`` of ``CP_FRAMES`` frames on
+    """A staged ``synthesize_with_timing`` of ``JACOBI_UTTERANCE_FRAMES`` frames on
     ``model``'s trees with ``decode_mode="jacobi"`` beside ``model`` itself
     (sequential), with every launch count set to 0 just before each (no
     warm run: ``run_main_path`` warmed ``model``, phase ``jacobi`` the
@@ -1729,7 +1750,7 @@ def jacobi_utterance(model: Qwen3TTS, label: str, int8: bool) -> dict:
     frame, kernel 2 9 times, and on int8 kernel 4 at 16 rows 4 times a code
     predictor layer and pass. In bf16 also ``jacobi_batch``."""
     mj = jacobi_model(model)
-    opts = main_options(CP_FRAMES)
+    opts = main_options(JACOBI_UTTERANCE_FRAMES)
     layers = model.config.code_predictor.num_hidden_layers
     out = {}
     for name, m in (("sequential", model), ("jacobi", mj)):
@@ -1745,24 +1766,25 @@ def jacobi_utterance(model: Qwen3TTS, label: str, int8: bool) -> dict:
         passes = cp.predict_acoustic_codes_jacobi.iterations - passes0
         r = out[name] = {"ms_per_frame": timing.generation_ms / timing.generation_frames,
                          "rtf": wall / (len(audio.samples) / OUTPUT_SAMPLE_RATE), "wall_ms": wall * 1e3,
-                         "passes_per_frame": passes / CP_FRAMES, "launches": launches,
+                         "passes_per_frame": passes / JACOBI_UTTERANCE_FRAMES, "launches": launches,
                          "kernel4_rows": dict(sorted(rows.items()))}
         phase("jacobi", f"{label} {name} synthesize_with_timing, {timing.generation_frames} frames: "
               f"{r['ms_per_frame']:.3f} ms/frame, wall {r['wall_ms']:.1f} ms, RTF {r['rtf']:.4f}"
               + (f", Jacobi passes per frame {r['passes_per_frame']:.2f}" if name == "jacobi" else "")
               + f"; launches {launches}" + (f", kernel 4 by rows {r['kernel4_rows']}" if int8 else ""))
-        check(timing.generation_frames == CP_FRAMES and bool(np.isfinite(audio.samples).all()),
+        check(timing.generation_frames == JACOBI_UTTERANCE_FRAMES and bool(np.isfinite(audio.samples).all()),
               f"{label} {name}: {timing.generation_frames} frames, finite audio {np.isfinite(audio.samples).all()}")
-        check(launches["talker_step"] == CP_FRAMES and launches["residual_unit"] == 9,
-              f"{label} {name}: kernel 3 {launches['talker_step']} (want {CP_FRAMES}), kernel 2 "
+        check(launches["talker_step"] == JACOBI_UTTERANCE_FRAMES and launches["residual_unit"] == 9,
+              f"{label} {name}: kernel 3 {launches['talker_step']} (want {JACOBI_UTTERANCE_FRAMES}), kernel 2 "
               f"{launches['residual_unit']} (want 9)")
         if name == "jacobi":
-            check(launches["cp_frame"] == 0 and passes >= 2 * CP_FRAMES,
+            check(launches["cp_frame"] == 0 and passes >= 2 * JACOBI_UTTERANCE_FRAMES,
                   f"{label} Jacobi: kernel 1 launched {launches['cp_frame']} times, {passes} passes")
             check(not int8 or r["kernel4_rows"].get(16) == 4 * layers * passes,
                   f"{label} Jacobi: kernel 4 at 16 rows {r['kernel4_rows'].get(16)}, want {4 * layers * passes}")
         else:
-            check(launches["cp_frame"] == CP_FRAMES, f"{label}: kernel 1 launched {launches['cp_frame']} times")
+            check(launches["cp_frame"] == JACOBI_UTTERANCE_FRAMES,
+                  f"{label}: kernel 1 launched {launches['cp_frame']} times")
     if not int8:
         out["batch"] = jacobi_batch(model, mj, label)
     return out
@@ -3660,11 +3682,6 @@ def sync_free_loops():
         torch.cuda.set_sync_debug_mode(0)
 
 
-def loop_read_bound(frames: int) -> int:
-    """The contract's most host reads a loop call of ``frames`` frames."""
-    return math.ceil(frames / core.DONE_READ_EVERY) + 2
-
-
 def loop_sync_check(model: Qwen3TTS, label: str, card: str) -> dict:
     """The staged run and a stream at lookahead 1 (``LOOP_FRAMES`` frames),
     a B = 8 ``synthesize_batch`` and ``synthesize_streaming_batch``
@@ -4069,7 +4086,165 @@ def ckpt_phase() -> None:
             check(all(launches[k] == 0 for k in never), f"ckpt {label}: kernel 5, 6 or 7 launched: {launches}")
             del model, seen
             torch.cuda.empty_cache()
-    phase("ckpt", f"phase wall time {time.perf_counter() - t_phase:.1f} s; the checkpoint directory deleted")
+        phase("ckpt", f"phase wall time {time.perf_counter() - t_phase:.1f} s")
+        validation_phase(d, Path(d) / "out.wav")
+    phase("ckpt", "the checkpoint directory deleted")
+
+
+# ---------------------------------------------------------------------------
+# Phase validation: the port's validation chain (qwen3_tts_tpu_torch/validation)
+# ---------------------------------------------------------------------------
+
+VALIDATION_STEPS = 16  # the quant report's decode steps (its default)
+VALIDATION_MATRIX_FRAMES = 4
+VALIDATION_PROFILE_FRAMES = 32
+# Random weights cannot meet the production audio gates: the drill's gates.
+DRILL_GATES = {"min_rms": 0.0, "max_clipping": 1.0, "max_leading_silence": 99.0, "max_dc": 1.0}
+# torch._int_mm's K and N on the card are multiples of 8: the w8a8 product
+# at a K and N that are not (``quant.w8a8_padded``).
+W8A8_ODD_KN = (2050, 3074)
+
+
+def validation_quant_report(d: str, card: str) -> dict:
+    """The quant report at full depth on the checkpoint: the promote numbers
+    of int8 and of w8a8 and the decision; the int8 run takes kernels 1 and
+    3 once a step and kernel 4, the w8a8 run (the batched loop's layer
+    paths) ``w8a8_matmul`` for every product and no kernel."""
+    t0 = time.perf_counter()
+    plain = Qwen3TTS.from_pretrained(d, device=DEV)
+    int8 = Qwen3TTS.from_pretrained(d, device=DEV, quantize_int8=True)
+    rep = quant_report.report(plain, int8, VALIDATION_STEPS, d)
+    del plain, int8
+    torch.cuda.empty_cache()
+    snrs = [v["min_db"] for sec in ("talker_weight_snr", "cp_weight_snr") for v in rep[sec].values()]
+    for key in ("logit_drift", "logit_drift_w8a8"):
+        dr = rep[key]
+        phase("validation", f"{card}: quant-report {key} over {dr['steps']} steps: worst-layer weight SNR "
+              f"{min(snrs):.2f} dB (criterion >= 30), mean logit KL {dr['mean_logit_kl']:.4e} (<= 5e-3), talker "
+              f"argmax flip rate {dr['talker_argmax_flip_rate']:.4f} (<= 0.01), CP code flip rate "
+              f"{dr['cp_code_flip_rate']:.4f} (<= 0.01); the int8 run's launches {dr['launches']}")
+    phase("validation", f"quant-report: promote_int8 {rep['promote_int8']} (random weights: near-uniform logits, "
+          f"the flip rates overstate drift); device {rep['device']}; {time.perf_counter() - t0:.1f} s")
+    steps, wo, wa = VALIDATION_STEPS, rep["logit_drift"]["launches"], rep["logit_drift_w8a8"]["launches"]
+    check(snrs and min(snrs) >= quant_report.PROMOTE_CRITERION["min_weight_snr_db"],
+          f"quant-report: worst-layer weight SNR {min(snrs)} dB (uniform weights give ~48)")
+    check(all(math.isfinite(rep[k][m]) for k in ("logit_drift", "logit_drift_w8a8")
+              for m in ("mean_logit_kl", "talker_argmax_flip_rate", "cp_code_flip_rate")), "quant-report: a NaN")
+    check(wo.get("cp_frame") == wo.get("talker_step") == steps and wo.get("int8_matmul", 0) > 0
+          and "w8a8_matmul" not in wo, f"quant-report int8 launches {wo}")
+    check(set(wa) == {"w8a8_matmul"}, f"quant-report w8a8 launches {wa} (the layer paths: w8a8_matmul alone)")
+    return rep
+
+
+def validation_trace(d: str, card: str) -> dict:
+    """The CLI with ``--profile`` in a process of its own (in this process
+    the profiler's later sessions record nothing), then the trace report of
+    its trace: kernels 1, 2 and 3 among the top device kernels by name."""
+    n = VALIDATION_PROFILE_FRAMES
+    trace_dir = Path(d) / "trace"
+    cmd = [sys.executable, "-m", "qwen3_tts_tpu_torch", "-m", d, "-t", TEXT, "-f", str(n), "--min-new-tokens", str(n),
+           "--seed", "42", "--output", str(Path(d) / "profiled.wav"), "--profile", str(trace_dir)]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+    check(r.returncode == 0, f"the CLI with --profile exited {r.returncode}: {r.stderr[-2000:]}")
+    planes = trace_report.summarize(trace_dir, "kernel")
+    check(len(planes) == 1, f"trace-report: {len(planes)} kernel categories in {trace_dir}")
+    top, groups = planes[0]["top"], planes[0]["groups"]
+    named = {row["group"]: row for row in top}
+    want = ("kernel 1: cp_frame", "kernel 2: residual_unit", "kernel 3: talker_step")
+    per_frame = {g: round(groups[g] / n, 4) for g in want if g in groups}
+    phase("validation", f"{card}: trace-report of the CLI --profile run ({n} frames, bf16; "
+          f"{time.perf_counter() - t0:.1f} s): device time {planes[0]['total_ms']:.3f} ms, ms a frame {per_frame}; launches in the trace "
+          f"{ {g: named[g]['count'] for g in want if g in named} }; top 5 "
+          f"{[(row['group'], round(row['ms'], 3), row['count']) for row in top[:5]]}")
+    check(all(g in named for g in want), f"trace-report: kernels 1-3 not among the top named device kernels: "
+          f"{[row['group'] for row in top]}")
+    check(named[want[0]]["count"] == named[want[2]]["count"] == n and named[want[1]]["count"] == 9,
+          f"trace-report: launches {[(g, named[g]['count']) for g in want]}, want {n}, 9, {n}")
+    return {"ms_per_frame": per_frame, "total_ms": planes[0]["total_ms"]}
+
+
+BF16_PLACEMENT = "bf16 mesh == solo (f32 greedy frames; audio atol 1e-5)"
+INT8_PLACEMENT = "int8 mesh == solo (f32 greedy frames; audio atol 1e-5)"
+W8A8_PLACEMENT = "w8a8 batch mesh == solo (f32 greedy, atol 1e-5)"
+
+
+def validation_parity(d: str, card: str) -> dict:
+    """The parity matrix at ``VALIDATION_MATRIX_FRAMES`` frames on the 1.7B
+    checkpoint, then at its default frames on the drill's tiny checkpoint
+    (``validation.__main__.drill_checkpoint``), each on this machine's mesh
+    (four distinct cards, or ranks sharing the first). Every cell of the
+    tiny matrix must pass; of the 1.7B one every cell but the int8 and w8a8
+    cross-placement ones, which are reported: their products round the
+    activations (int8: to bf16; w8a8: to int8 by each row's amax), so the
+    mesh's partial sums in another order (row-parallel products, the text
+    projection) flip a rounding here and there, and 28 random layers carry
+    the flip to the codes (phase ``tp`` (b) gates the tp int8 step against
+    the unsharded kernel-3 step by its own spread under a 2^-22 change of
+    the scales). The int8 mesh cells must take kernels 5 and 6."""
+    from qwen3_tts_tpu_torch.validation.__main__ import drill_checkpoint
+
+    def log(line: str) -> None:
+        phase("validation", line.strip())
+
+    t0 = time.perf_counter()
+    full = parity_matrix.run(d, VALIDATION_MATRIX_FRAMES, device=DEV, log=log)
+    t_full = time.perf_counter() - t0
+    tiny = parity_matrix.run(str(drill_checkpoint(Path(d) / "drill")), device=DEV, log=log)
+    cells = full["cells"]
+    int8, w8a8 = cells[INT8_PLACEMENT], cells[W8A8_PLACEMENT]
+    mesh = int8["launches"]["f32_greedy"]
+    phase("validation", f"{card}: parity-matrix on {full['mesh']}: 1.7B at {VALIDATION_MATRIX_FRAMES} frames "
+          f"({t_full:.1f} s): cross-placement bf16 {cells[BF16_PLACEMENT]['pass']} (gated); int8 frames equal "
+          f"{int8['frames_equal']} (share {int8['share']:.4f}, first differing frame {int8['first_differing_frame']}, "
+          f"max|audio delta| {int8['audio_delta']:.3e}); w8a8 max|audio delta| {w8a8['audio_delta']:.3e} (both "
+          f"reported); the int8 mesh's launches {mesh}; the drill's tiny checkpoint, every cell gated: failures "
+          f"{tiny['failures']} ({time.perf_counter() - t0:.1f} s in all)")
+    check(set(full["failures"]) <= {INT8_PLACEMENT, W8A8_PLACEMENT}, f"parity-matrix 1.7B: {full['failures']}")
+    check(not tiny["failures"], f"parity-matrix on the drill's checkpoint: {tiny['failures']}")
+    check(mesh.get("fused_attention_step", 0) > 0 and mesh.get("fused_mlp_step", 0) > 0,
+          f"parity-matrix: the int8 mesh never took kernels 5 and 6: {mesh}")
+    return {"full": full, "tiny": tiny}
+
+
+def validation_phase(d: str, wav: Path) -> dict:
+    """Phase ``validation`` (see the module docstring, item 11) in phase
+    ``ckpt``'s directory, on its 1.7B checkpoint."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    out = {"quant_report": validation_quant_report(d, card)}
+
+    out["parity_matrix"] = validation_parity(d, card)
+
+    gate = quality.check_wav(wav, **DRILL_GATES)
+    default = quality.check_wav(wav)
+    phase("validation", f"quality gate on the CLI's WAV: {gate} (the drill's gates); the production gates: "
+          f"{'PASS' if default['pass'] else 'FAIL ' + '; '.join(default['failures'])} (a record: random weights)")
+    check(gate["pass"], f"quality gate: {gate['failures']}")
+
+    bad = [f"{s['module']}:{s['line']}" for s in audit.read_sites()
+           if (s["module"], s["function"]) not in audit.ALLOWED]
+    before = launch_counts()
+    reads = audit.dynamic_audit(DEV)
+    phase("validation", f"audit: static read sites outside the loop contract {bad}; dynamic host reads {reads} "
+          f"(bound {loop_read_bound(8)}); launches {launches_since(before)}")
+    check(not bad, f"audit: read sites outside the loop contract: {bad}")
+
+    g = torch.Generator().manual_seed(W8A8_ODD_KN[0])
+    k, n = W8A8_ODD_KN
+    for m in (1, 24):
+        x = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+        w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+        got = quant.w8a8_int_mm(x.to(DEV), w.to(DEV)).cpu()
+        equal = got.shape == (m, n) and torch.equal(got, torch._int_mm(x, w))
+        phase("validation", f"w8a8 at m={m} K={k} N={n} (not multiples of 8) on the card through the padded "
+              f"torch._int_mm: bit-equal to the CPU's torch._int_mm {equal}")
+        check(equal, f"w8a8 at m={m} K={k} N={n}: not the CPU's product")
+
+    out["trace_report"] = validation_trace(d, card)
+    phase("validation", f"phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return out
+
 
 
 # ---------------------------------------------------------------------------

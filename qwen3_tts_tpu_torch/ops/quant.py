@@ -28,8 +28,9 @@ batched programs only, as in the JAX package) ``int8_matmul`` takes
 an exact int8 x int8 -> int32 product (``torch._int_mm``, the counterpart
 of the JAX package's XLA dot; not a Pallas kernel there), lossy by
 design. On the card ``torch._int_mm`` wants more than 16 rows and K and N
-multiples of 8: the rows are padded with zeros, and a K or N it cannot
-take raises (nothing falls back to the weight-only path).
+multiples of 8: the rows, K and N are padded with zeros (``w8a8_padded``,
+which also hands it the weight column-major), which leaves the int32
+product exact, and cut back after it.
 """
 
 from __future__ import annotations
@@ -230,10 +231,10 @@ def w8a8_matmul(x2: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torc
     ``_w8a8_matmul`` step for step: x quantized per row (dynamic symmetric
     absmax: ``max(amax, 1e-8) / 127``, round half to even, clip to +-127),
     an exact int32 product, then ``acc.float() * x_scale * scale`` in that
-    order, cast to x's dtype. On the card the rows are padded with zeros
-    to the next multiple of 8 above 16 for ``torch._int_mm`` (zero rows
-    add nothing to the others) and cut again; a K or N that is not a
-    multiple of 8 raises. Calls on the card count in ``w8a8_matmul.calls``."""
+    order, cast to x's dtype. On the card the rows, K and N are padded with
+    zeros for ``torch._int_mm`` (``w8a8_padded``: zeros add nothing to an
+    int32 sum) and the product cut again. Calls on the card count in
+    ``w8a8_matmul.calls``."""
     xq, x_scale = w8a8_quantize(x2, w8a8_row_amax(x2))
     return (w8a8_int_mm(xq, q8).float() * x_scale * scale.float()).to(x2.dtype)
 
@@ -251,19 +252,33 @@ def w8a8_quantize(x2: torch.Tensor, amax: torch.Tensor) -> tuple[torch.Tensor, t
     return torch.clamp(torch.round(x2.float() / x_scale), -127, 127).to(torch.int8), x_scale
 
 
+def w8a8_padded(xq: torch.Tensor, q8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The operands of ``w8a8_int_mm`` in the shapes and layout
+    ``torch._int_mm`` takes on the card: x's rows zero-padded to the next
+    multiple of ``W8A8_ALIGN`` above ``W8A8_MIN_ROWS``, K zero-padded in
+    both operands and N in the weight's columns to multiples of
+    ``W8A8_ALIGN``; the weight in column-major order, the layout of
+    cuBLASLt's int8 products (a row-major weight it refuses at some shapes,
+    e.g. 24 rows, K = 64, N = 256 on an H100). A zero adds nothing to an
+    int32 sum, so the first [m, N] of the padded product is the product,
+    bit for bit."""
+    (m, k), n, a = xq.shape, q8.shape[1], W8A8_ALIGN
+    rows, kp, np_ = max(-(-m // a) * a, W8A8_MIN_ROWS + a), -(-k // a) * a, -(-n // a) * a
+    if (rows, kp) != (m, k):
+        xq = torch.nn.functional.pad(xq, (0, kp - k, 0, rows - m))
+    if (kp, np_) != (k, n):
+        q8 = torch.nn.functional.pad(q8, (0, np_ - n, 0, kp - k))
+    return xq, q8.t().contiguous().t()
+
+
 def w8a8_int_mm(xq: torch.Tensor, q8: torch.Tensor) -> torch.Tensor:
-    """The exact int8 x int8 -> int32 product [m, N] of ``w8a8_matmul``."""
-    m, k = xq.shape
-    n = q8.shape[1]
+    """The exact int8 x int8 -> int32 product [m, N] of ``w8a8_matmul``; on
+    the card through ``torch._int_mm`` on the padded operands
+    (``w8a8_padded``), cut back to [m, N]."""
     if xq.device.type != "cuda":
         return torch._int_mm(xq, q8)
-    if k % W8A8_ALIGN or n % W8A8_ALIGN:
-        raise ValueError(f"w8a8_matmul: torch._int_mm on the card wants K and N multiples of {W8A8_ALIGN}; "
-                         f"got K={k} N={n}")
-    rows = max(-(-m // W8A8_ALIGN) * W8A8_ALIGN, W8A8_MIN_ROWS + W8A8_ALIGN)
-    if rows != m:
-        xq = torch.cat([xq, xq.new_zeros((rows - m, k))])
-    acc = torch._int_mm(xq, q8.contiguous())[:m]
+    m, n = xq.shape[0], q8.shape[1]
+    acc = torch._int_mm(*w8a8_padded(xq, q8))[:m, :n]
     w8a8_matmul.calls += 1
     return acc
 

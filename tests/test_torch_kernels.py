@@ -425,6 +425,25 @@ def test_cuda_w8a8_matmul_bit_equal_to_cpu(m, k, n, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(1, 2050, 3074), (24, 2050, 3074), (5, 7, 13), (40, 1024, 3073), (2, 64, 256),
+                                   (17, 8, 32), (24, 96, 4096), (80, 16, 12288), (40, 48, 3072)])
+def test_cuda_w8a8_int_mm_any_shape(m, k, n):
+    """A K or N that is not a multiple of 8, or a small K (cuBLASLt refused
+    a row-major int8 weight at 24 rows, K = 64, N = 256), goes through the
+    padded, column-major ``torch._int_mm`` on the card
+    (``quant.w8a8_padded``), bit-equal to the CPU's unpadded int32
+    product."""
+    dev = _cuda()
+    g = torch.Generator().manual_seed(m + k + n)
+    x = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    before = quant.w8a8_matmul.calls
+    got = quant.w8a8_int_mm(x.to(dev), w.to(dev))
+    assert quant.w8a8_matmul.calls == before + 1
+    assert got.shape == (m, n) and torch.equal(got.cpu(), torch._int_mm(x, w))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("k,n", [(1024, 2048), (2048, 12288), (6144, 2048)])
 def test_cuda_quantize_linear_bit_equal_to_cpu(k, n):
     """Weights quantized on the card have the CPU's scales and codes (the

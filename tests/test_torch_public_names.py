@@ -33,7 +33,11 @@
   every public JAX name (module functions, classes and their methods,
   constants) has a counterpart of that name in the same module of the
   port, or stands in ``NOT_PORTED`` with its reason (ROADMAP "Not to
-  port").
+  port"). The same walk over ``scripts/`` (the JAX side's validation
+  chain): each script has its counterpart in ``qwen3_tts_tpu_torch/
+  validation/`` (``PORTED_SCRIPTS``), whose module has each of its public
+  names or a reason in ``NOT_PORTED_SCRIPT_NAMES``, or stands in
+  ``NOT_PORTED_SCRIPTS`` with its reason.
 """
 
 import inspect
@@ -373,3 +377,42 @@ def test_every_jax_name_has_a_counterpart_or_a_reason():
     missing = {path: names - port_names.get(path, set()) for path, names in jax_names.items()}
     assert {path: names for path, names in missing.items() if names} == {
         path: set(reasons) for path, reasons in NOT_PORTED.items()}
+
+
+# scripts/ (the JAX side's validation chain): each script's counterpart in
+# qwen3_tts_tpu_torch/validation/, or the reason it has none.
+PORTED_SCRIPTS = {
+    "quality_check.py": "quality.py",
+    "trace_report.py": "trace_report.py",
+    "audit_host_syncs.py": "audit.py",
+    "quant_report.py": "quant_report.py",
+    "parity_matrix.py": "parity_matrix.py",
+    "test_variants.py": "variants.py",
+}
+NOT_PORTED_SCRIPTS = {
+    "__init__.py": "makes scripts/ a package",
+    "warmup.py": "compiles the XLA programs ahead of time",
+    "count_programs.py": "counts XLA programs and their instructions",
+    "render_bench_docs.py": "renders the JAX side's docs",
+    "torch_oracle.py": "the independent oracle, kept independent (the port copies none of it)",
+    "dump_reference_values.py": "the oracle's golden dump, kept independent (validation parity --golden reads it)",
+    "make_synthetic_ckpt.py": "ckpt_fixture.py takes its place (validation drill)",
+    "transcribe.py": "imports neither package; the quality gate takes its callable as it is",
+}
+NOT_PORTED_SCRIPT_NAMES = {
+    "audit_host_syncs.py": {"ROOT": "the JAX package's directory (the port's: audit.PACKAGE)"},
+    "parity_matrix.py": {"flags": "XLA_FLAGS for a virtual CPU mesh"},
+    "trace_report.py": {"load_xspaces": "reads a jax.profiler xplane (the port's trace is Chrome JSON: load_traces)"},
+}
+
+
+def test_every_script_has_a_counterpart_or_a_reason():
+    repo = Path(__file__).resolve().parent.parent
+    scripts = {f.name for f in (repo / "scripts").glob("*.py")}
+    assert not set(PORTED_SCRIPTS) & set(NOT_PORTED_SCRIPTS)
+    assert scripts == set(PORTED_SCRIPTS) | set(NOT_PORTED_SCRIPTS)
+    script_names = _public_names(repo / "scripts")
+    port_names = _public_names(repo / "qwen3_tts_tpu_torch" / "validation")
+    missing = {script: script_names[script] - port_names[module] for script, module in PORTED_SCRIPTS.items()}
+    assert {s: names for s, names in missing.items() if names} == {
+        s: set(reasons) for s, reasons in NOT_PORTED_SCRIPT_NAMES.items()}

@@ -12,7 +12,10 @@ int8_activations=True)`` gives the JAX package's frames through
 ``EOS_BOOST`` model of ``test_torch_batch.py``), and its audio within
 atol 1e-5; its solo ``synthesize_with_timing`` is bit-equal to the same
 model's without ``int8_activations``; ``int8_activations`` without
-``quantize_int8`` raises.
+``quantize_int8`` raises. The card's padding (``w8a8_padded``: rows, K and
+N zero-padded to what ``torch._int_mm`` takes there, the weight
+column-major) leaves the int32 product bit-equal to the unpadded one at any
+K and N.
 """
 
 import threading
@@ -34,6 +37,19 @@ torch.set_num_threads(1)
 
 def _quantized(rs, k: int, n: int) -> dict:
     return quant.quantize_linear(torch.from_numpy(rs.randn(k, n).astype(np.float32) * 0.05))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 2050, 3074), (3, 7, 5), (17, 2048, 3072), (40, 13, 1), (24, 16, 8)])
+def test_w8a8_padded_product_is_exact(m, k, n):
+    g = torch.Generator().manual_seed(m * k + n)
+    x = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    xp, wp = quant.w8a8_padded(x, w)
+    a = quant.W8A8_ALIGN
+    assert xp.shape[0] > quant.W8A8_MIN_ROWS and xp.shape[0] % a == xp.shape[1] % a == wp.shape[1] % a == 0
+    assert xp.shape[1] == wp.shape[0] and xp.shape[0] >= m and wp.shape[1] >= n
+    assert wp.stride() == (1, wp.shape[0])  # column-major
+    assert torch.equal(torch._int_mm(xp, wp)[:m, :n], torch._int_mm(x, w))
 
 
 def test_w8a8_matmul_close_to_dense():
