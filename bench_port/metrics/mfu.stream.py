@@ -1,0 +1,7 @@
+"""The whole step's share of the card's peak: model FLOPs of the traced window's requests over its seconds times 989 TFLOP/s (bf16 dense; the f32 vocoder counted against the same peak), in %. Moves ttfa_p90_ms, in the stream cell."""
+
+from bench_port.harness.readings import mfu
+
+
+def read(run):
+    return mfu(run)
