@@ -53,6 +53,7 @@ from dataclasses import dataclass, replace
 
 import torch
 
+from .. import profiling
 from ..models import code_predictor as cp
 from ..models import talker
 from ..models import tokens as T
@@ -99,7 +100,8 @@ class _FlagReader:
         if isinstance(flags, torch.Tensor):
             return self.read([flags])[0]
         if not self.lagged:
-            seen = iter(torch.stack([f for f in flags if f is not None]).tolist())
+            with profiling.annotate("q3.wait"):
+                seen = iter(torch.stack([f for f in flags if f is not None]).tolist())
             return [next(seen) if f is not None else True for f in flags]
         slot = self.looks % 2
         self.looks += 1
@@ -114,9 +116,10 @@ class _FlagReader:
         prev = self.events[1 - slot]
         if prev is None:
             return [False] * len(flags)
-        for event in prev:
-            event.synchronize()
-        return self.slots[1 - slot].tolist()
+        with profiling.annotate("q3.wait"):
+            for event in prev:
+                event.synchronize()
+            return self.slots[1 - slot].tolist()
 
 
 def to_device(values: list[int], dev: torch.device) -> torch.Tensor:
@@ -219,77 +222,79 @@ def generate_frames(
     the tensor-parallel layer path, never the whole-step kernel; the code
     predictor, the sampling and the step input stay on the replica's first
     device, whose kernels launch there."""
-    _check_mesh(talker_params, mesh)
-    suppression = sampling.build_suppression_mask(
-        state.penalty_mask.shape[0], scfg.eos_token_id, state.penalty_mask.device
-    )
-    max_new = state.frames.shape[0]
-    # Never run past the frames buffer: iterations stop at frame_limit <=
-    # max_new, so ``steps`` indexes a row of the buffer and ``pos`` stays
-    # within the cache (prefill + max_new rows). A frozen iteration past EOS
-    # writes its own old row back, and cache rows past the live frontier,
-    # which nothing reads.
-    frame_limit = min(frame_limit, max_new)
-    tb = trailing.shape[0]
-    # Whole-step kernel mode: take the cache's [L, S, KV*D] plane views once
-    # per call (views of the same memory, written in place; a grown cache
-    # is a new tensor). Under a mesh: every rank's planes, for kernels 5 + 6.
-    tp_planes = talker.tp_plane_views(state.cache) if talker.tp_plane_mode(talker_params, tcfg, state.cache,
-                                                                           mesh) else None
-    planes = None
-    if mesh is None and talker.stream_plane_mode(talker_params, tcfg, state.cache):
-        planes = talker.plane_views(state.cache)
-    with collectives.device_scope(state.frames.device):
-        reader = _FlagReader(state.frames.device) if on_frame is None and until is None else None
-        stop = reader is not None and reader.read(state.done)
-        ran = 0
-        while not stop and state.steps < frame_limit:
-            if on_frame is not None and bool(state.done):
-                break
-            if until is not None and until():
-                break
-            idx = state.steps
-            # A 1-element index: a 0-d index tensor is read on the host (``item``) by
-            # PyTorch's indexing, a synchronising call.
-            semantic_embed = talker.embed_codec(talker_params, state.token.reshape(1))[None]
-            codes = cp.predict_acoustic_codes(cp_params, cpcfg, state.last_hidden, semantic_embed, cp_frame_pack,
-                                              cp_step_pack)
-            frame = torch.cat([state.token.reshape(1).to(torch.int32), codes])
-            done = state.done
-            state.frames[idx] = torch.where(done, state.frames[idx], frame)
+    with profiling.annotate("q3.loop") as span:
+        _check_mesh(talker_params, mesh)
+        suppression = sampling.build_suppression_mask(
+            state.penalty_mask.shape[0], scfg.eos_token_id, state.penalty_mask.device
+        )
+        max_new = state.frames.shape[0]
+        # Never run past the frames buffer: iterations stop at frame_limit <=
+        # max_new, so ``steps`` indexes a row of the buffer and ``pos`` stays
+        # within the cache (prefill + max_new rows). A frozen iteration past EOS
+        # writes its own old row back, and cache rows past the live frontier,
+        # which nothing reads.
+        frame_limit = min(frame_limit, max_new)
+        tb = trailing.shape[0]
+        # Whole-step kernel mode: take the cache's [L, S, KV*D] plane views once
+        # per call (views of the same memory, written in place; a grown cache
+        # is a new tensor). Under a mesh: every rank's planes, for kernels 5 + 6.
+        tp_planes = talker.tp_plane_views(state.cache) if talker.tp_plane_mode(talker_params, tcfg, state.cache,
+                                                                               mesh) else None
+        planes = None
+        if mesh is None and talker.stream_plane_mode(talker_params, tcfg, state.cache):
+            planes = talker.plane_views(state.cache)
+        with collectives.device_scope(state.frames.device):
+            reader = _FlagReader(state.frames.device) if on_frame is None and until is None else None
+            stop = reader is not None and reader.read(state.done)
+            ran = 0
+            while not stop and state.steps < frame_limit:
+                if on_frame is not None and bool(state.done):
+                    break
+                if until is not None and until():
+                    break
+                idx = state.steps
+                # A 1-element index: a 0-d index tensor is read on the host (``item``) by
+                # PyTorch's indexing, a synchronising call.
+                semantic_embed = talker.embed_codec(talker_params, state.token.reshape(1))[None]
+                codes = cp.predict_acoustic_codes(cp_params, cpcfg, state.last_hidden, semantic_embed, cp_frame_pack,
+                                                  cp_step_pack)
+                frame = torch.cat([state.token.reshape(1).to(torch.int32), codes])
+                done = state.done
+                state.frames[idx] = torch.where(done, state.frames[idx], frame)
 
-            acoustic_sum = cp.acoustic_embedding_sum(cp_params, codes).to(semantic_embed.dtype)
-            text_add = trailing[min(idx, tb - 1)] if idx < trailing_len else pad_embed
-            step_input = semantic_embed + acoustic_sum + text_add.to(semantic_embed.dtype)[None, None, :]
+                acoustic_sum = cp.acoustic_embedding_sum(cp_params, codes).to(semantic_embed.dtype)
+                text_add = trailing[min(idx, tb - 1)] if idx < trailing_len else pad_embed
+                step_input = semantic_embed + acoustic_sum + text_add.to(semantic_embed.dtype)[None, None, :]
 
-            if tp_planes is not None:
-                hidden, logits = talker.decode_step_planes_tp(talker_params, tcfg, step_input, state.pos,
-                                                              *tp_planes, tp_step_packs)
-            elif planes is not None:
-                hidden, logits = talker.decode_step_planes(talker_params, tcfg, step_input, state.pos, *planes,
-                                                           talker_step_pack)
-            else:
-                hidden, logits = talker.decode_step(talker_params, tcfg, step_input, state.pos, state.cache)
+                if tp_planes is not None:
+                    hidden, logits = talker.decode_step_planes_tp(talker_params, tcfg, step_input, state.pos,
+                                                                  *tp_planes, tp_step_packs)
+                elif planes is not None:
+                    hidden, logits = talker.decode_step_planes(talker_params, tcfg, step_input, state.pos, *planes,
+                                                               talker_step_pack)
+                else:
+                    hidden, logits = talker.decode_step(talker_params, tcfg, step_input, state.pos, state.cache)
 
-            token_count = idx + 1
-            logits = sampling.apply_generation_penalties(
-                logits, state.penalty_mask, suppression, scfg, token_count
-            )
-            next_token = sampling.sample(logits, scfg, uniforms[min(token_count, max_new)])[0]
-            seen = state.penalty_mask[next_token.reshape(1)]
-            state.penalty_mask.scatter_(0, next_token.reshape(1), torch.where(done, seen, torch.ones_like(seen)))
-            if on_frame is not None:
-                on_frame(idx, state.token, codes, logits)
+                token_count = idx + 1
+                logits = sampling.apply_generation_penalties(
+                    logits, state.penalty_mask, suppression, scfg, token_count
+                )
+                next_token = sampling.sample(logits, scfg, uniforms[min(token_count, max_new)])[0]
+                seen = state.penalty_mask[next_token.reshape(1)]
+                state.penalty_mask.scatter_(0, next_token.reshape(1), torch.where(done, seen, torch.ones_like(seen)))
+                if on_frame is not None:
+                    on_frame(idx, state.token, codes, logits)
 
-            state.last_hidden = torch.where(done, state.last_hidden, hidden)
-            state.token = torch.where(done, state.token, next_token)
-            state.frame_idx = state.frame_idx + ~done
-            state.done = done | (next_token == scfg.eos_token_id)
-            state.steps = token_count
-            state.pos += 1
-            ran += 1
-            if reader is not None and ran % DONE_READ_EVERY == 0 and state.steps < frame_limit:
-                stop = reader.read(state.done)
+                state.last_hidden = torch.where(done, state.last_hidden, hidden)
+                state.token = torch.where(done, state.token, next_token)
+                state.frame_idx = state.frame_idx + ~done
+                state.done = done | (next_token == scfg.eos_token_id)
+                state.steps = token_count
+                state.pos += 1
+                ran += 1
+                if reader is not None and ran % DONE_READ_EVERY == 0 and state.steps < frame_limit:
+                    stop = reader.read(state.done)
+        span.set("iterations", ran)
     return state
 
 

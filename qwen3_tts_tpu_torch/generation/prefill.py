@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from ..models import talker
 from ..models.config import TalkerConfig
 from ..ops import nn, sampling
@@ -80,8 +81,9 @@ def custom_voice_impl(
     max_new_tokens: int,
 ):
     """Returns (state, trailing [Tb, hidden], trailing_len, pad [hidden])."""
-    rows = custom_voice_rows(talker_params, text_ids, text_len, speaker_id, lang_id)
-    return _finish(talker_params, tcfg, scfg, rows, cache, uniforms, max_new_tokens)
+    with profiling.annotate("q3.prefill"):
+        rows = custom_voice_rows(talker_params, text_ids, text_len, speaker_id, lang_id)
+        return _finish(talker_params, tcfg, scfg, rows, cache, uniforms, max_new_tokens)
 
 
 def voice_design_rows(talker_params: dict, text_ids: torch.Tensor, text_len: int, instruct_ids: torch.Tensor,
@@ -112,8 +114,9 @@ def voice_design_impl(
 ):
     """The instruct rows, then the 9 suffix rows at ``instruct_len``; the
     prompt is [1, Ib + 9, hidden]."""
-    rows = voice_design_rows(talker_params, text_ids, text_len, instruct_ids, instruct_len, lang_id)
-    return _finish(talker_params, tcfg, scfg, rows, cache, uniforms, max_new_tokens)
+    with profiling.annotate("q3.prefill"):
+        rows = voice_design_rows(talker_params, text_ids, text_len, instruct_ids, instruct_len, lang_id)
+        return _finish(talker_params, tcfg, scfg, rows, cache, uniforms, max_new_tokens)
 
 
 def voice_clone_xvector_rows(talker_params: dict, text_ids: torch.Tensor, text_len: int,
@@ -136,8 +139,9 @@ def voice_clone_xvector_impl(
     uniforms: torch.Tensor,
     max_new_tokens: int,
 ):
-    rows = voice_clone_xvector_rows(talker_params, text_ids, text_len, speaker_embed, lang_id)
-    return _finish(talker_params, tcfg, scfg, rows, cache, uniforms, max_new_tokens)
+    with profiling.annotate("q3.prefill"):
+        rows = voice_clone_xvector_rows(talker_params, text_ids, text_len, speaker_embed, lang_id)
+        return _finish(talker_params, tcfg, scfg, rows, cache, uniforms, max_new_tokens)
 
 
 def voice_clone_icl_rows(talker_params: dict, all_text_ids: torch.Tensor, n_text: int, speaker_embed: torch.Tensor,
@@ -169,9 +173,10 @@ def voice_clone_icl_impl(
 ):
     """The 9 x-vector rows (no first-text row), then the ICL rows: overlaid
     (``n_codec`` true rows) or sequential (``n_text + n_codec``)."""
-    rows = voice_clone_icl_rows(talker_params, all_text_ids, n_text, speaker_embed, codec_rows, n_codec, lang_id,
-                                sequential)
-    return _finish(talker_params, tcfg, scfg, rows, cache, uniforms, max_new_tokens)
+    with profiling.annotate("q3.prefill"):
+        rows = voice_clone_icl_rows(talker_params, all_text_ids, n_text, speaker_embed, codec_rows, n_codec, lang_id,
+                                    sequential)
+        return _finish(talker_params, tcfg, scfg, rows, cache, uniforms, max_new_tokens)
 
 
 # The JAX package's names for its jitted programs; here the functions themselves.

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ... import profiling
 from ...ops import nn as tnn
 from . import blocks
 
@@ -98,22 +99,23 @@ def rvq_deembed(params: dict, cfg: VocoderConfig, codes: torch.Tensor) -> torch.
 
 def decode(params: dict, cfg: VocoderConfig, codes: torch.Tensor) -> torch.Tensor:
     """Decode codec tokens [B, 16, T] -> waveform [B, T * 1920] float32."""
-    h = rvq_deembed(params, cfg, codes).float()
-    h = blocks.causal_conv1d(h, params["pre_conv_w"], params["pre_conv_b"])  # -> latent_dim
-    h = h @ params["input_proj_w"] + params["input_proj_b"]  # -> hidden
-    h = _pre_transformer(params, cfg, h)
-    h = tnn.rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
-    h = h @ params["output_proj_w"] + params["output_proj_b"]  # -> latent_dim
+    with profiling.annotate("q3.vocoder"):
+        h = rvq_deembed(params, cfg, codes).float()
+        h = blocks.causal_conv1d(h, params["pre_conv_w"], params["pre_conv_b"])  # -> latent_dim
+        h = h @ params["input_proj_w"] + params["input_proj_b"]  # -> hidden
+        h = _pre_transformer(params, cfg, h)
+        h = tnn.rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+        h = h @ params["output_proj_w"] + params["output_proj_b"]  # -> latent_dim
 
-    for stage, ratio in zip(params["upsample"], cfg.upsampling_ratios):
-        h = blocks.upsample_stage(h, stage, ratio)
-    h = blocks.causal_conv1d(h, params["init_conv_w"], params["init_conv_b"])
-    for block, rate in zip(params["decoder_blocks"], cfg.upsample_rates):
-        h = blocks.decoder_block(h, block, rate)
+        for stage, ratio in zip(params["upsample"], cfg.upsampling_ratios):
+            h = blocks.upsample_stage(h, stage, ratio)
+        h = blocks.causal_conv1d(h, params["init_conv_w"], params["init_conv_b"])
+        for block, rate in zip(params["decoder_blocks"], cfg.upsample_rates):
+            h = blocks.decoder_block(h, block, rate)
 
-    h = blocks.snake_beta(h, params["final_snake_alpha"], params["final_snake_beta"])
-    h = blocks.causal_conv1d(h, params["final_conv_w"], params["final_conv_b"])
-    return torch.clamp(h[..., 0], -1.0, 1.0)
+        h = blocks.snake_beta(h, params["final_snake_alpha"], params["final_snake_beta"])
+        h = blocks.causal_conv1d(h, params["final_conv_w"], params["final_conv_b"])
+        return torch.clamp(h[..., 0], -1.0, 1.0)
 
 
 def decode_bucketed(params: dict, cfg: VocoderConfig, codes: np.ndarray, bucket: int = 64) -> np.ndarray:
@@ -123,13 +125,15 @@ def decode_bucketed(params: dict, cfg: VocoderConfig, codes: np.ndarray, bucket:
     t = codes.shape[-1]
     if t == 0:
         return np.zeros((codes.shape[0], 0), np.float32)
-    padded_t = ((t + bucket - 1) // bucket) * bucket
-    padded = np.zeros((codes.shape[0], codes.shape[1], padded_t), np.int64)
-    padded[..., :t] = codes
-    dev = params["first_codebook"].device
-    with torch.no_grad():
-        wav = decode(params, cfg, torch.from_numpy(padded).to(dev))
-    return wav[:, : t * cfg.total_upsample].cpu().numpy()
+    with profiling.annotate("q3.vocoder"):
+        padded_t = ((t + bucket - 1) // bucket) * bucket
+        padded = np.zeros((codes.shape[0], codes.shape[1], padded_t), np.int64)
+        padded[..., :t] = codes
+        dev = params["first_codebook"].device
+        with torch.no_grad():
+            wav = decode(params, cfg, torch.from_numpy(padded).to(dev))
+        with profiling.annotate("q3.wait"):
+            return wav[:, : t * cfg.total_upsample].cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -305,42 +309,43 @@ def decode_stream_chunk(
     matching slice of the batch ``decode`` of all frames fed so far (up to
     matmul-tiling ulps), at the cost of a chunk-local decode.
     """
-    s = codes.shape[-1]
-    if state.pos + s > state.kv_k.shape[2]:
-        # A chunk that runs past the KV cache (a stream's last chunk, padded
-        # with zero-code rows): room for it, so that its rows land at their
-        # own positions (the JAX package's in-place update clamps them back).
-        pad = state.kv_k.new_zeros(state.kv_k.shape[:2] + (state.pos + s - state.kv_k.shape[2],)
-                                   + state.kv_k.shape[3:])
-        state = state._replace(kv_k=torch.cat([state.kv_k, pad], 2), kv_v=torch.cat([state.kv_v, pad], 2))
-    cs = state.conv
-    new_cs: dict = {"upsample": [], "blocks": []}
-    q = rvq_deembed(params, cfg, codes).float()
+    with profiling.annotate("q3.vocoder"):
+        s = codes.shape[-1]
+        if state.pos + s > state.kv_k.shape[2]:
+            # A chunk that runs past the KV cache (a stream's last chunk, padded
+            # with zero-code rows): room for it, so that its rows land at their
+            # own positions (the JAX package's in-place update clamps them back).
+            pad = state.kv_k.new_zeros(state.kv_k.shape[:2] + (state.pos + s - state.kv_k.shape[2],)
+                                       + state.kv_k.shape[3:])
+            state = state._replace(kv_k=torch.cat([state.kv_k, pad], 2), kv_v=torch.cat([state.kv_v, pad], 2))
+        cs = state.conv
+        new_cs: dict = {"upsample": [], "blocks": []}
+        q = rvq_deembed(params, cfg, codes).float()
 
-    h, new_cs["pre_conv"] = _conv_stream(q, cs["pre_conv"], params["pre_conv_w"], params["pre_conv_b"])
-    h = h @ params["input_proj_w"] + params["input_proj_b"]
-    h = _pre_transformer_cached(params, cfg, h, state.kv_k, state.kv_v, state.pos)
-    h = tnn.rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
-    h = h @ params["output_proj_w"] + params["output_proj_b"]  # [B, S, latent]
+        h, new_cs["pre_conv"] = _conv_stream(q, cs["pre_conv"], params["pre_conv_w"], params["pre_conv_b"])
+        h = h @ params["input_proj_w"] + params["input_proj_b"]
+        h = _pre_transformer_cached(params, cfg, h, state.kv_k, state.kv_v, state.pos)
+        h = tnn.rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+        h = h @ params["output_proj_w"] + params["output_proj_b"]  # [B, S, latent]
 
-    for stage, st, ratio in zip(params["upsample"], cs["upsample"], cfg.upsampling_ratios):
-        h, new_up = _tconv_stream(h, st["up"], stage["up_w"], stage["up_b"], ratio)
-        h, new_dw = _convnext_stream(h, st["dw"], stage["convnext"])
-        new_cs["upsample"].append({"up": new_up, "dw": new_dw})
+        for stage, st, ratio in zip(params["upsample"], cs["upsample"], cfg.upsampling_ratios):
+            h, new_up = _tconv_stream(h, st["up"], stage["up_w"], stage["up_b"], ratio)
+            h, new_dw = _convnext_stream(h, st["dw"], stage["convnext"])
+            new_cs["upsample"].append({"up": new_up, "dw": new_dw})
 
-    h, new_cs["init_conv"] = _conv_stream(h, cs["init_conv"], params["init_conv_w"], params["init_conv_b"])
-    for block, st, rate in zip(params["decoder_blocks"], cs["blocks"], cfg.upsample_rates):
-        hb = blocks.snake_beta(h, block["snake_alpha"], block["snake_beta"])
-        h, new_up = _tconv_stream(hb, st["up"], block["up_w"], block["up_b"], rate)
-        new_blk = {"up": new_up}
-        for key, dil in (("res1", 1), ("res2", 3), ("res3", 9)):
-            h, new_blk[key] = _residual_unit_stream(h, st[key], block[key], dil)
-        new_cs["blocks"].append(new_blk)
+        h, new_cs["init_conv"] = _conv_stream(h, cs["init_conv"], params["init_conv_w"], params["init_conv_b"])
+        for block, st, rate in zip(params["decoder_blocks"], cs["blocks"], cfg.upsample_rates):
+            hb = blocks.snake_beta(h, block["snake_alpha"], block["snake_beta"])
+            h, new_up = _tconv_stream(hb, st["up"], block["up_w"], block["up_b"], rate)
+            new_blk = {"up": new_up}
+            for key, dil in (("res1", 1), ("res2", 3), ("res3", 9)):
+                h, new_blk[key] = _residual_unit_stream(h, st[key], block[key], dil)
+            new_cs["blocks"].append(new_blk)
 
-    h = blocks.snake_beta(h, params["final_snake_alpha"], params["final_snake_beta"])
-    h, new_cs["final"] = _conv_stream(h, cs["final"], params["final_conv_w"], params["final_conv_b"])
-    wav = torch.clamp(h[..., 0], -1.0, 1.0)
-    return wav, VocoderStreamState(state.kv_k, state.kv_v, new_cs, state.pos + s)
+        h = blocks.snake_beta(h, params["final_snake_alpha"], params["final_snake_beta"])
+        h, new_cs["final"] = _conv_stream(h, cs["final"], params["final_conv_w"], params["final_conv_b"])
+        wav = torch.clamp(h[..., 0], -1.0, 1.0)
+        return wav, VocoderStreamState(state.kv_k, state.kv_v, new_cs, state.pos + s)
 
 
 def _conv_w(w: torch.Tensor) -> torch.Tensor:

@@ -45,6 +45,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import profiling
 from .audio.io import AudioBuffer
 from .audio.resample import resample_to_24k
 from .generation import batch as gbatch
@@ -589,38 +590,42 @@ class Qwen3TTS:
     def _custom_voice_session(
         self, text: str, speaker: str, language: str, options: SynthesisOptions
     ) -> "StreamingSession":
-        options = self._normalize_options(options)
-        ids = self._encode_text(text)
-        text_ids, text_len = self._pad_ids(ids)
-        initial, cache, uniforms = self._session_inputs(options, CUSTOM_VOICE_PROMPT_LEN)
-        started = prefill.custom_voice_impl(
-            self.talker_params,
-            self.config.talker,
-            options.sampling_config(),
-            text_ids,
-            text_len,
-            T.speaker_info(speaker).token_id,
-            T.language_token_id(language),
-            cache,
-            uniforms,
-            initial,
-        )
-        return self._make_session(started, options, uniforms)
+        request = profiling.new_request()
+        with profiling.annotate("q3.open", request):
+            options = self._normalize_options(options)
+            ids = self._encode_text(text)
+            text_ids, text_len = self._pad_ids(ids)
+            initial, cache, uniforms = self._session_inputs(options, CUSTOM_VOICE_PROMPT_LEN)
+            started = prefill.custom_voice_impl(
+                self.talker_params,
+                self.config.talker,
+                options.sampling_config(),
+                text_ids,
+                text_len,
+                T.speaker_info(speaker).token_id,
+                T.language_token_id(language),
+                cache,
+                uniforms,
+                initial,
+            )
+            return self._make_session(started, options, uniforms, request)
 
     @torch.no_grad()
     def _voice_design_session(
         self, text: str, instruct: str, language: str, options: SynthesisOptions
     ) -> "StreamingSession":
-        options = self._normalize_options(options)
-        text_ids, text_len = self._pad_ids(self._encode_text(text))
-        # The voice description in a ChatML user turn.
-        instruct_ids, instruct_len = self._pad_ids(self._encode_text(f"<|im_start|>user\n{instruct}<|im_end|>\n"))
-        initial, cache, uniforms = self._session_inputs(options, instruct_ids.shape[0] + 9)
-        started = prefill.voice_design_impl(
-            self.talker_params, self.config.talker, options.sampling_config(), text_ids, text_len,
-            instruct_ids, instruct_len, T.language_token_id(language), cache, uniforms, initial,
-        )
-        return self._make_session(started, options, uniforms)
+        request = profiling.new_request()
+        with profiling.annotate("q3.open", request):
+            options = self._normalize_options(options)
+            text_ids, text_len = self._pad_ids(self._encode_text(text))
+            # The voice description in a ChatML user turn.
+            instruct_ids, instruct_len = self._pad_ids(self._encode_text(f"<|im_start|>user\n{instruct}<|im_end|>\n"))
+            initial, cache, uniforms = self._session_inputs(options, instruct_ids.shape[0] + 9)
+            started = prefill.voice_design_impl(
+                self.talker_params, self.config.talker, options.sampling_config(), text_ids, text_len,
+                instruct_ids, instruct_len, T.language_token_id(language), cache, uniforms, initial,
+            )
+            return self._make_session(started, options, uniforms, request)
 
     @torch.no_grad()
     def _voice_clone_session(
@@ -631,47 +636,49 @@ class Qwen3TTS:
         drawn: repetition penalty at least ``ICL_MIN_REPETITION_PENALTY``,
         ``max_length`` at most max(``ICL_MIN_FRAMES``,
         ``ICL_FRAMES_PER_TOKEN`` x text tokens)."""
-        options = self._normalize_options(options)
-        ids = self._encode_text(text)
-        is_icl = prompt_data.ref_codes is not None and prompt_data.ref_text_ids is not None
-        if is_icl:
-            options = replace(
-                options,
-                repetition_penalty=max(options.repetition_penalty, ICL_MIN_REPETITION_PENALTY),
-                max_length=min(options.max_length, max(ICL_MIN_FRAMES, len(ids) * ICL_FRAMES_PER_TOKEN)),
-            )
-        # The x-vector in the compute dtype (bf16 on the bf16 path).
-        speaker_vec = torch.as_tensor(np.asarray(prompt_data.speaker_embedding), device=self.device).to(
-            self.compute_dtype)
-        lang_id = T.language_token_id(language)
+        request = profiling.new_request()
+        with profiling.annotate("q3.open", request):
+            options = self._normalize_options(options)
+            ids = self._encode_text(text)
+            is_icl = prompt_data.ref_codes is not None and prompt_data.ref_text_ids is not None
+            if is_icl:
+                options = replace(
+                    options,
+                    repetition_penalty=max(options.repetition_penalty, ICL_MIN_REPETITION_PENALTY),
+                    max_length=min(options.max_length, max(ICL_MIN_FRAMES, len(ids) * ICL_FRAMES_PER_TOKEN)),
+                )
+            # The x-vector in the compute dtype (bf16 on the bf16 path).
+            speaker_vec = torch.as_tensor(np.asarray(prompt_data.speaker_embedding), device=self.device).to(
+                self.compute_dtype)
+            lang_id = T.language_token_id(language)
 
-        if not is_icl:
-            text_ids, text_len = self._pad_ids(ids)
-            initial, cache, uniforms = self._session_inputs(options, CUSTOM_VOICE_PROMPT_LEN)
-            started = prefill.voice_clone_xvector_impl(
-                self.talker_params, self.config.talker, options.sampling_config(), text_ids, text_len,
-                speaker_vec, lang_id, cache, uniforms, initial,
-            )
-            return self._make_session(started, options, uniforms)
+            if not is_icl:
+                text_ids, text_len = self._pad_ids(ids)
+                initial, cache, uniforms = self._session_inputs(options, CUSTOM_VOICE_PROMPT_LEN)
+                started = prefill.voice_clone_xvector_impl(
+                    self.talker_params, self.config.talker, options.sampling_config(), text_ids, text_len,
+                    speaker_vec, lang_id, cache, uniforms, initial,
+                )
+                return self._make_session(started, options, uniforms, request)
 
-        # ICL: prompt = [voice clone (9 rows) || ICL rows].
-        ref_codes = np.asarray(prompt_data.ref_codes, np.int32)  # [Tr, 16]
-        t_ref = ref_codes.shape[0]
-        all_text, n_text = self._pad_ids(list(prompt_data.ref_text_ids) + list(ids) + [T.TTS_EOS])
-        codec_rows = self._sum_ref_codec_embeddings(ref_codes)  # [Tr, hidden]
-        cb = next_bucket(t_ref + 1, TEXT_BUCKET)
-        codec_padded = codec_rows.new_zeros((cb, codec_rows.shape[-1]))
-        codec_padded[:1] = talker.embed_codec(self.talker_params, torch.tensor([T.CODEC_BOS], device=self.device))
-        codec_padded[1:t_ref + 1] = codec_rows
-        prefill_bucket = 9 + cb + (all_text.shape[0] if options.icl_sequential else 0)
-        initial, cache, uniforms = self._session_inputs(options, prefill_bucket)
-        started = prefill.voice_clone_icl_impl(
-            self.talker_params, self.config.talker, options.sampling_config(), all_text, n_text, speaker_vec,
-            codec_padded, t_ref + 1, lang_id, cache, uniforms, initial, sequential=options.icl_sequential,
-        )
-        session = self._make_session(started, options, uniforms)
-        session.prefix_codes = ref_codes
-        return session
+            # ICL: prompt = [voice clone (9 rows) || ICL rows].
+            ref_codes = np.asarray(prompt_data.ref_codes, np.int32)  # [Tr, 16]
+            t_ref = ref_codes.shape[0]
+            all_text, n_text = self._pad_ids(list(prompt_data.ref_text_ids) + list(ids) + [T.TTS_EOS])
+            codec_rows = self._sum_ref_codec_embeddings(ref_codes)  # [Tr, hidden]
+            cb = next_bucket(t_ref + 1, TEXT_BUCKET)
+            codec_padded = codec_rows.new_zeros((cb, codec_rows.shape[-1]))
+            codec_padded[:1] = talker.embed_codec(self.talker_params, torch.tensor([T.CODEC_BOS], device=self.device))
+            codec_padded[1:t_ref + 1] = codec_rows
+            prefill_bucket = 9 + cb + (all_text.shape[0] if options.icl_sequential else 0)
+            initial, cache, uniforms = self._session_inputs(options, prefill_bucket)
+            started = prefill.voice_clone_icl_impl(
+                self.talker_params, self.config.talker, options.sampling_config(), all_text, n_text, speaker_vec,
+                codec_padded, t_ref + 1, lang_id, cache, uniforms, initial, sequential=options.icl_sequential,
+            )
+            session = self._make_session(started, options, uniforms, request)
+            session.prefix_codes = ref_codes
+            return session
 
     def _sum_ref_codec_embeddings(self, ref_codes: np.ndarray) -> torch.Tensor:
         """[T, 16] codes -> [T, hidden]: the talker's codec embedding of
@@ -682,10 +689,11 @@ class Qwen3TTS:
         groups = torch.arange(tables.shape[0], device=self.device)[:, None]
         return semantic + tables[groups, codes[:, 1:].T].sum(dim=0)
 
-    def _make_session(self, started, options: SynthesisOptions, uniforms: torch.Tensor) -> "StreamingSession":
+    def _make_session(self, started, options: SynthesisOptions, uniforms: torch.Tensor,
+                      request: int | None = None) -> "StreamingSession":
         state, trailing, trailing_len, pad = started
         return StreamingSession(self, state, options.sampling_config(), options, trailing, trailing_len, pad,
-                                uniforms)
+                                uniforms, request)
 
     # ------------------------------------------------------------------
     # Public synthesis API
@@ -1357,8 +1365,10 @@ class StreamingSession:
 
     def __init__(self, model: Qwen3TTS, state: core.GenState, scfg: sampling.SamplingConfig,
                  options: SynthesisOptions, trailing: torch.Tensor, trailing_len: int, pad_embed: torch.Tensor,
-                 uniforms: torch.Tensor):
+                 uniforms: torch.Tensor, request: int | None = None):
         self.model = model
+        # The id every span of this session carries (``profiling.annotate``).
+        self.request = request
         self.state = state
         self.scfg = scfg
         self.options = options
@@ -1389,7 +1399,8 @@ class StreamingSession:
 
     def _status(self) -> tuple[int, bool]:
         """(frames made, done): one host read, which waits for the loop."""
-        n, done = _status(self.state.frame_idx, self.state.done).tolist()
+        with profiling.annotate("q3.wait"):
+            n, done = _status(self.state.frame_idx, self.state.done).tolist()
         return n, bool(done)
 
     def _fetch(self, wav: torch.Tensor) -> _HostCopy:
@@ -1400,9 +1411,10 @@ class StreamingSession:
     @staticmethod
     def _read(fetch: _HostCopy) -> tuple[np.ndarray, int, bool]:
         """A chunk's (samples, frames made, done) on the host."""
-        wav, status = fetch.wait()
-        n, done = status.tolist()
-        return wav.numpy(), n, bool(done)
+        with profiling.annotate("q3.wait"):
+            wav, status = fetch.wait()
+            n, done = status.tolist()
+            return wav.numpy(), n, bool(done)
 
     def is_done(self) -> bool:
         return self._exhausted
@@ -1467,13 +1479,14 @@ class StreamingSession:
         mesh) and the streaming vocoder's KV cache to ``new_cap`` frames (zero
         rows: rows past the loop's position are masked, so nothing computed
         changes)."""
-        s = self.state
-        delta = new_cap - s.frames.shape[0]
-        s.frames = torch.cat([s.frames, s.frames.new_zeros((delta, s.frames.shape[1]))])
-        s.cache = _grown_cache(s.cache, delta)
-        if self.vstate is not None:
-            self.vstate = self.vstate._replace(kv_k=_pad_rows(self.vstate.kv_k, delta),
-                                               kv_v=_pad_rows(self.vstate.kv_v, delta))
+        with profiling.annotate("q3.grow"):
+            s = self.state
+            delta = new_cap - s.frames.shape[0]
+            s.frames = torch.cat([s.frames, s.frames.new_zeros((delta, s.frames.shape[1]))])
+            s.cache = _grown_cache(s.cache, delta)
+            if self.vstate is not None:
+                self.vstate = self.vstate._replace(kv_k=_pad_rows(self.vstate.kv_k, delta),
+                                                   kv_v=_pad_rows(self.vstate.kv_v, delta))
 
     def _grow_for(self, target: int) -> None:
         """Grow tier by tier until the buffers hold ``target`` frames (or the
@@ -1539,11 +1552,13 @@ class StreamingSession:
 
     def run_to_completion(self) -> np.ndarray:
         """Generate every remaining frame; returns [n, 16] int32."""
-        n, _ = self._advance_managed(self.options.max_length)
-        frames = self.state.frames[:n].cpu().numpy()
-        self.frames_emitted = n
-        self._exhausted = True
-        return frames
+        with profiling.annotate("q3.audio", self.request):
+            n, _ = self._advance_managed(self.options.max_length)
+            with profiling.annotate("q3.wait"):
+                frames = self.state.frames[:n].cpu().numpy()
+            self.frames_emitted = n
+            self._exhausted = True
+            return frames
 
     def run_to_audio(self) -> AudioBuffer:
         """Non-streaming synthesis as chunks of ``DECODE_BUCKET`` frames on
@@ -1557,44 +1572,45 @@ class StreamingSession:
         exhausted: every frame, then one bucketed decode (with a prefix: of
         [prefix || frames], the prefix's share of the samples cut from the
         front)."""
-        if not self.options.streaming_exact or self._exhausted:
-            frames = self.run_to_completion()
-            return self.model._decode_behind(self._prefix() if len(frames) else None, frames)
-        chunk, max_len = DECODE_BUCKET, self.options.max_length
-        parts: list[np.ndarray] = []
-        total: int | None = None  # the true frame count once EOS or the limit is seen
+        with profiling.annotate("q3.audio", self.request):
+            if not self.options.streaming_exact or self._exhausted:
+                frames = self.run_to_completion()
+                return self.model._decode_behind(self._prefix() if len(frames) else None, frames)
+            chunk, max_len = DECODE_BUCKET, self.options.max_length
+            parts: list[np.ndarray] = []
+            total: int | None = None  # the true frame count once EOS or the limit is seen
 
-        def take(e0: int, size: int, target: int, fetch: _HostCopy | None) -> None:
-            nonlocal total
-            if total is not None and e0 >= total:
-                return  # queued past EOS: dropped
-            if fetch is None:  # queued ahead and cut short: the rest of its frames, then its decode
-                fetch = self._advance_and_decode_chunk_exact(target, e0, size)
-            wav, n, done = self._read(fetch)
-            emitted_here = min(n, e0 + size) - e0
-            if emitted_here > 0:
-                parts.append(wav[:emitted_here * T.SAMPLES_PER_FRAME])
-            if done or n >= max_len:
-                total = n if total is None else min(total, n)
+            def take(e0: int, size: int, target: int, fetch: _HostCopy | None) -> None:
+                nonlocal total
+                if total is not None and e0 >= total:
+                    return  # queued past EOS: dropped
+                if fetch is None:  # queued ahead and cut short: the rest of its frames, then its decode
+                    fetch = self._advance_and_decode_chunk_exact(target, e0, size)
+                wav, n, done = self._read(fetch)
+                emitted_here = min(n, e0 + size) - e0
+                if emitted_here > 0:
+                    parts.append(wav[:emitted_here * T.SAMPLES_PER_FRAME])
+                if done or n >= max_len:
+                    total = n if total is None else min(total, n)
 
-        # Chunks queued by next_chunk were never returned, and the stateful
-        # vocoder has consumed them: their audio heads this output.
-        spec = self._spec_frontier if self._pending else self.frames_emitted
-        for queued in self._pending:
-            take(*queued)
-        self._pending.clear()
-        inflight: list[tuple] = []
-        while spec < max_len and total is None:
-            target = min(spec + chunk, max_len)
-            inflight.append((spec, chunk, target, self._advance_and_decode_chunk_exact(target, spec, chunk)))
-            spec = target
-            while len(inflight) > 1:
-                take(*inflight.pop(0))
-        for queued in inflight:
-            take(*queued)
-        self.frames_emitted = total if total is not None else spec
-        self._exhausted = True
-        return AudioBuffer(np.concatenate(parts) if parts else np.zeros(0, np.float32), T.OUTPUT_SAMPLE_RATE)
+            # Chunks queued by next_chunk were never returned, and the stateful
+            # vocoder has consumed them: their audio heads this output.
+            spec = self._spec_frontier if self._pending else self.frames_emitted
+            for queued in self._pending:
+                take(*queued)
+            self._pending.clear()
+            inflight: list[tuple] = []
+            while spec < max_len and total is None:
+                target = min(spec + chunk, max_len)
+                inflight.append((spec, chunk, target, self._advance_and_decode_chunk_exact(target, spec, chunk)))
+                spec = target
+                while len(inflight) > 1:
+                    take(*inflight.pop(0))
+            for queued in inflight:
+                take(*queued)
+            self.frames_emitted = total if total is not None else spec
+            self._exhausted = True
+            return AudioBuffer(np.concatenate(parts) if parts else np.zeros(0, np.float32), T.OUTPUT_SAMPLE_RATE)
 
     def next_chunk(self) -> AudioBuffer | None:
         """Generate and decode the next chunk of frames (``first_chunk_frames``
@@ -1607,12 +1623,13 @@ class StreamingSession:
         """
         if self._exhausted:
             return None
-        chunk = max(self.options.chunk_frames, 1)
-        if self.frames_emitted == 0 and self.options.first_chunk_frames:
-            chunk = max(min(self.options.first_chunk_frames, chunk), 1)
-        if self.options.streaming_exact:
-            return self._next_chunk_exact(chunk)
-        return self._next_chunk_legacy(chunk)
+        with profiling.annotate("q3.chunk", self.request):
+            chunk = max(self.options.chunk_frames, 1)
+            if self.frames_emitted == 0 and self.options.first_chunk_frames:
+                chunk = max(min(self.options.first_chunk_frames, chunk), 1)
+            if self.options.streaming_exact:
+                return self._next_chunk_exact(chunk)
+            return self._next_chunk_legacy(chunk)
 
     def _queue_exact(self, chunk: int, until: _Landed | None = None) -> None:
         """Queue one chunk at the dispatch frontier: its frames, its decode
@@ -1677,7 +1694,8 @@ class StreamingSession:
         if emitted_before + chunk > self.state.frames.shape[0]:
             # The chunk's rows ran past the buffer, so the decoded slice was
             # moved back: decode the true rows on their own instead.
-            new = self.state.frames[emitted_before:n].cpu().numpy()
+            with profiling.annotate("q3.wait"):
+                new = self.state.frames[emitted_before:n].cpu().numpy()
             wavb = vocoder.decode_bucketed(self.model.vocoder_params, self.model.vocoder_config,
                                            self.model.codes_to_tensor(new), bucket=chunk)
             return AudioBuffer(wavb[0], T.OUTPUT_SAMPLE_RATE)
@@ -1698,7 +1716,8 @@ class StreamingSession:
         self.frames_emitted = n
         if done:
             self._exhausted = True
-        new = self.state.frames[:n].cpu().numpy()
+        with profiling.annotate("q3.wait"):
+            new = self.state.frames[:n].cpu().numpy()
         m = self.model
         wav = vocoder.decode_bucketed(m.vocoder_params, m.vocoder_config,
                                       m.codes_to_tensor(np.concatenate([prefix, new])), bucket=chunk)

@@ -1,4 +1,4 @@
-"""Profiling: ``torch.profiler`` traces and named regions.
+"""Profiling: ``torch.profiler`` traces, the program's spans and host reads.
 
 The port's counterpart of ``trace`` and ``annotate`` in
 ``qwen3_tts_tpu/profiling.py`` (the CLI's ``--profile``):
@@ -7,20 +7,38 @@ The port's counterpart of ``trace`` and ``annotate`` in
   activity and, when a CUDA card is present, its kernels, and writes a
   Chrome trace to ``dir/trace.json`` (open it in ui.perfetto.dev or
   chrome://tracing);
-* ``annotate(name)`` adds a named region visible in the trace;
+* ``annotate(name, request)`` opens one span of the program: its name, the
+  request it serves, the span around it on the same thread, its start and
+  end on ``time.time_ns`` (the clock of ``torch.profiler``'s events) and
+  the counters the code sets on it. A span records only inside
+  ``spans()``, which yields the list it recorded, or while a
+  ``torch.profiler`` records: then it also enters ``record_function(name)``,
+  so it shows in the trace beside the kernels, and it joins the record
+  ``recorded_spans()`` returns. Otherwise it costs one check of two flags;
 * ``TransferAudit`` / ``count_host_transfers(fn)`` count the reads that
   bring a tensor's value to the host while they are active (the JAX
   package's host-transfer audit).
+
+The spans of the batch-1 path (``README.md`` lists them): ``q3.open``
+(a session's set-up, where its request id is drawn), ``q3.prefill``,
+``q3.loop`` (one ``generation.core.generate_frames`` call, counter
+``iterations``), ``q3.vocoder``, ``q3.chunk``, ``q3.audio``, ``q3.grow`` and
+``q3.wait``, around every place the host waits for the device or reads
+from it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
+import time
+from collections import deque
 from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile, record_function
 
 
@@ -38,9 +56,118 @@ def trace(log_dir: str | Path):
     prof.export_chrome_trace(str(out / "trace.json"))
 
 
-def annotate(name: str):
-    """Named trace region: ``with annotate("prefill"): ...``."""
-    return record_function(name)
+# The spans closed while a torch.profiler recorded, the newest ``maxlen``.
+_record: deque = deque(maxlen=1 << 18)
+# The lists of the ``spans()`` contexts open now.
+_collectors: list[list] = []
+_local = threading.local()
+_request_ids = itertools.count(1)
+
+
+def _open_spans() -> list:
+    """This thread's open spans, outermost first."""
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class Span:
+    """One region of the program on the host's clock (``time.time_ns``, in
+    ns). ``parent`` is the span open around it on the same thread; a span
+    opened with no request takes its parent's. ``set(name, value)`` sets a
+    counter before the span closes."""
+
+    __slots__ = ("name", "request", "parent", "start_ns", "end_ns", "counters", "_region")
+
+    def __init__(self, name: str, request: int | None):
+        self.name, self.request, self.parent = name, request, None
+        self.start_ns = self.end_ns = 0
+        self.counters: dict = {}
+        self._region = None
+
+    def set(self, counter: str, value) -> None:
+        self.counters[counter] = value
+
+    def __enter__(self) -> "Span":
+        stack = _open_spans()
+        if stack:
+            self.parent = stack[-1]
+            if self.request is None:
+                self.request = self.parent.request
+        stack.append(self)
+        if _autograd_profiler._is_profiler_enabled:
+            self._region = record_function(self.name)
+            self.start_ns = time.time_ns()
+            self._region.__enter__()
+        else:
+            self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end_ns = time.time_ns()
+        region, self._region = self._region, None
+        if region is not None:
+            region.__exit__(*exc)
+            _record.append(self)
+        for got in _collectors:
+            got.append(self)
+        stack = _open_spans()
+        if stack and stack[-1] is self:
+            stack.pop()
+        return False
+
+
+class _Off:
+    """What ``annotate`` returns while nothing records: it does nothing."""
+
+    __slots__ = ()
+    request = None
+
+    def set(self, counter: str, value) -> None:
+        pass
+
+    def __enter__(self) -> "_Off":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _Off()
+
+
+def annotate(name: str, request: int | None = None):
+    """A span of the program: ``with annotate("q3.loop") as span: ...;
+    span.set("iterations", n)``. It records inside ``spans()`` or while a
+    ``torch.profiler`` records (as ``record_function(name)`` too); else it
+    does nothing, at the cost of one check of two flags."""
+    if _collectors or _autograd_profiler._is_profiler_enabled:
+        return Span(name, request)
+    return _OFF
+
+
+def new_request() -> int:
+    """A fresh request id (``q3.open`` draws one per session)."""
+    return next(_request_ids)
+
+
+@contextlib.contextmanager
+def spans():
+    """Record every span that closes inside the context, on any thread;
+    yields the list they are appended to, in the order they close."""
+    got: list = []
+    _collectors.append(got)
+    try:
+        yield got
+    finally:
+        _collectors[:] = [c for c in _collectors if c is not got]
+
+
+def recorded_spans() -> list:
+    """The spans that closed while a ``torch.profiler`` recorded (the newest
+    2**18), in the order they closed; nothing clears them."""
+    return list(_record)
 
 
 # Tensor methods through which a value reaches the host. The value reads
