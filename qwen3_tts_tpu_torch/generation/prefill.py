@@ -6,7 +6,11 @@ the prompt embedding on the device (``*_rows``), run the talker prefill,
 sample the first semantic token, and return the generation state with the
 trailing-text schedule. Lengths are host ints; prompts are right-padded to
 their buckets (the prefill is causal, so the padding rows change nothing
-before ``prefill_len``, and decode steps overwrite their cache rows).
+before ``prefill_len``, and decode steps overwrite their cache rows). Each
+entry takes the model's ``talker.PrefillGraph``, which the talker's prefill
+replays where the prompt fits it (the 10-row CustomVoice and x-vector
+prompts on the card); the ``q3.prefill`` span's counter ``graph`` says
+whether it did.
 
 Batched synthesis (the JAX package's ``generation/batch.py``) builds each
 stream's rows with the same ``*_rows`` builders and prefills them together
@@ -33,9 +37,12 @@ def _finish(
     cache: nn.KVCache,
     uniforms: torch.Tensor,
     max_new_tokens: int,
+    span,  # the ``q3.prefill`` span: counter ``graph``, 1 where the talker's prefill replays ``graph``, else 0
+    graph: talker.PrefillGraph | None,
 ):
     prompt, prefill_len, trailing, trailing_len = rows
-    last, logits = talker.prefill(talker_params, tcfg, prompt, prefill_len, cache)
+    span.set("graph", int(talker.graph_fits(graph, talker_params, prompt, prefill_len, cache)))
+    last, logits = talker.prefill(talker_params, tcfg, prompt, prefill_len, cache, graph)
     state = core.init_state(scfg, logits, last, prefill_len, cache, uniforms, max_new_tokens)
     pad = talker.tts_pad_embed(talker_params)[0]
     return state, trailing, trailing_len, pad
@@ -79,11 +86,13 @@ def custom_voice_impl(
     cache: nn.KVCache,
     uniforms: torch.Tensor,
     max_new_tokens: int,
+    graph: talker.PrefillGraph | None = None,
 ):
-    """Returns (state, trailing [Tb, hidden], trailing_len, pad [hidden])."""
-    with profiling.annotate("q3.prefill"):
+    """Returns (state, trailing [Tb, hidden], trailing_len, pad [hidden]).
+    ``graph``: the model's ``talker.PrefillGraph``, replayed where it fits."""
+    with profiling.annotate("q3.prefill") as span:
         rows = custom_voice_rows(talker_params, text_ids, text_len, speaker_id, lang_id)
-        return _finish(talker_params, tcfg, scfg, rows, cache, uniforms, max_new_tokens)
+        return _finish(talker_params, tcfg, scfg, rows, cache, uniforms, max_new_tokens, span, graph)
 
 
 def voice_design_rows(talker_params: dict, text_ids: torch.Tensor, text_len: int, instruct_ids: torch.Tensor,
@@ -111,12 +120,13 @@ def voice_design_impl(
     cache: nn.KVCache,
     uniforms: torch.Tensor,
     max_new_tokens: int,
+    graph: talker.PrefillGraph | None = None,
 ):
     """The instruct rows, then the 9 suffix rows at ``instruct_len``; the
     prompt is [1, Ib + 9, hidden]."""
-    with profiling.annotate("q3.prefill"):
+    with profiling.annotate("q3.prefill") as span:
         rows = voice_design_rows(talker_params, text_ids, text_len, instruct_ids, instruct_len, lang_id)
-        return _finish(talker_params, tcfg, scfg, rows, cache, uniforms, max_new_tokens)
+        return _finish(talker_params, tcfg, scfg, rows, cache, uniforms, max_new_tokens, span, graph)
 
 
 def voice_clone_xvector_rows(talker_params: dict, text_ids: torch.Tensor, text_len: int,
@@ -138,10 +148,11 @@ def voice_clone_xvector_impl(
     cache: nn.KVCache,
     uniforms: torch.Tensor,
     max_new_tokens: int,
+    graph: talker.PrefillGraph | None = None,
 ):
-    with profiling.annotate("q3.prefill"):
+    with profiling.annotate("q3.prefill") as span:
         rows = voice_clone_xvector_rows(talker_params, text_ids, text_len, speaker_embed, lang_id)
-        return _finish(talker_params, tcfg, scfg, rows, cache, uniforms, max_new_tokens)
+        return _finish(talker_params, tcfg, scfg, rows, cache, uniforms, max_new_tokens, span, graph)
 
 
 def voice_clone_icl_rows(talker_params: dict, all_text_ids: torch.Tensor, n_text: int, speaker_embed: torch.Tensor,
@@ -170,13 +181,14 @@ def voice_clone_icl_impl(
     uniforms: torch.Tensor,
     max_new_tokens: int,
     sequential: bool = False,
+    graph: talker.PrefillGraph | None = None,
 ):
     """The 9 x-vector rows (no first-text row), then the ICL rows: overlaid
     (``n_codec`` true rows) or sequential (``n_text + n_codec``)."""
-    with profiling.annotate("q3.prefill"):
+    with profiling.annotate("q3.prefill") as span:
         rows = voice_clone_icl_rows(talker_params, all_text_ids, n_text, speaker_embed, codec_rows, n_codec, lang_id,
                                     sequential)
-        return _finish(talker_params, tcfg, scfg, rows, cache, uniforms, max_new_tokens)
+        return _finish(talker_params, tcfg, scfg, rows, cache, uniforms, max_new_tokens, span, graph)
 
 
 # The JAX package's names for its jitted programs; here the functions themselves.

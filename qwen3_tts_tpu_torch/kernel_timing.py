@@ -1,7 +1,7 @@
 """A kernel's timings on the card, for comparing two checkouts.
 
     python3 qwen3_tts_tpu_torch/kernel_timing.py
-        --kernel int8_matmul|cp_frame|talker_step|cp_step|fused_step|residual_unit
+        --kernel int8_matmul|cp_frame|talker_step|cp_step|fused_step|residual_unit|prefill
         [--root DIR] [--tag NAME] [--repeats R] [--sweep] [--rows] [--sass] [--trace] [--forms F,...] [--kernels]
         [--sublayer attention|mlp]
 
@@ -88,6 +88,16 @@ width and window of taps that fits (``fused_blocks.residual_unit_ring``,
 the deepest ring), through the kernel's C entry, where the checkout has
 that plan.
 
+``--kernel prefill`` (the talker's batch-1 prefill, ``models.talker.
+prefill``, of a 10-row CustomVoice prompt at the 1.7B and 0.6B talkers'
+widths, full depth, bf16 and int8): eager, and replayed as one CUDA graph
+where the checkout has ``talker.PrefillGraph``. Per call from Python
+(CUDA events around back-to-back calls), per call on the host's clock with
+a synchronise after each (what the benchmark's ``prefill_ms_p50`` reads),
+the replay's device span (CUDA events around the bare graph launch), and,
+from one torch.profiler session over one call of each, the device kernels
+each launched and their summed time on the device.
+
 ``--rows`` (int8_matmul) times ``ROW_SHAPES`` in place of ``SHAPES``: the
 talker's projections at the rows of the batched and prompt prefills, the
 code predictor's at the Jacobi stack's. ``--sweep`` (int8_matmul) also
@@ -111,6 +121,7 @@ import math
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -698,6 +709,97 @@ def residual_unit_lines(tag: str, repeats: int, sweep: bool):
            "bound_f32_ms": flops / F32_FLOPS * 1e3, "bound_3xtf32_ms": 3 * flops / TF32_FLOPS * 1e3}
 
 
+def wall_ms(fn, iters: int = GRAPH_CALLS) -> float:
+    """Per call on the host's clock with a synchronise after each (after
+    one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    return total * 1e3 / iters
+
+
+def profiled(fns: dict) -> dict:
+    """One torch.profiler session over one warm call of each of ``fns`` in
+    turn, a synchronise after each: for each key, the device kernels its
+    call launched and their summed time on the device, in ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i, fn in enumerate(fns.values()):
+            with torch.profiler.record_function(f"timing.{i}"):
+                fn()
+                torch.cuda.synchronize()
+    events = prof.events()
+    keys = {f"timing.{i}": key for i, key in enumerate(fns)}
+    starts = sorted((e.time_range.start, keys[e.name]) for e in events if e.name in keys)
+    out = {key: {"kernels": 0, "busy_ms": 0.0} for key in fns}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.name in keys:
+            continue
+        owner = [key for start, key in starts if start <= e.time_range.start]
+        if owner:
+            out[owner[-1]]["kernels"] += 1
+            out[owner[-1]]["busy_ms"] += e.time_range.elapsed_us() / 1e3
+    return out
+
+
+# The talker prefill's timed forms: the CustomVoice talkers, bf16 and int8 weights.
+PREFILL_VARIANTS = ("1.7B", "0.6B")
+PREFILL_FORMS = (("bfloat16", False), ("int8", True))
+
+
+def prefill_lines(tag: str, repeats: int, forms: tuple = ()):
+    """One JSON line per talker and form (those in ``forms``, or all) of the
+    batch-1 prefill of a 10-row prompt: eager, and replayed where the
+    checkout has ``talker.PrefillGraph``. The device kernels come from one
+    profiler session over every line's calls (a process's later sessions
+    may record nothing)."""
+    from qwen3_tts_tpu_torch import build
+    from qwen3_tts_tpu_torch.models import talker
+    from qwen3_tts_tpu_torch.models import weights as W
+    from qwen3_tts_tpu_torch.models.config import config_for_variant
+    from qwen3_tts_tpu_torch.ops import nn, quant
+
+    build.build()
+    dev = torch.device("cuda", 0)
+    lines, calls = [], {}
+    for variant in PREFILL_VARIANTS:
+        cfg = config_for_variant(variant, "custom_voice").talker
+        gen = torch.Generator(device=dev).manual_seed(9)
+        tree = W.fuse_model_params(W.init_talker_params(gen, cfg))
+        prompt = (torch.randn((1, 10, cfg.hidden_size), generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        for form, int8 in PREFILL_FORMS:
+            if forms and form not in forms:
+                continue
+            params = quant.quantize_talker_params(tree) if int8 else tree
+            cache = nn.init_kv_cache(cfg.layer_stack(), 1, 96, torch.bfloat16, dev)
+            fns = {"eager": lambda p=params, c=cfg, x=prompt, kv=cache: talker.prefill(p, c, x, 10, kv)}
+            graph = talker.PrefillGraph(params, cfg, 10) if hasattr(talker, "PrefillGraph") else None
+            if graph is not None:
+                fns["graph"] = lambda p=params, c=cfg, x=prompt, kv=cache, g=graph: talker.prefill(p, c, x, 10, kv, g)
+            line = {"tag": tag, "variant": variant, "form": form}
+            for name, fn in fns.items():
+                line[f"{name}_ms"] = [call_ms(fn) for _ in range(repeats)]
+                line[f"{name}_wall_ms"] = [wall_ms(fn) for _ in range(repeats)]
+                calls[(len(lines), name)] = fn
+            if graph is not None:
+                line["replay_device_ms"] = [call_ms(graph.graph.replay) for _ in range(repeats)]
+                eager, replayed = fns["eager"](), fns["graph"]()
+                line["bit_equal"] = all(torch.equal(a, b) for a, b in zip(eager, replayed))
+            lines.append(line)
+    for (i, name), got in profiled(calls).items():
+        lines[i][f"{name}_kernels"], lines[i][f"{name}_busy_ms"] = got["kernels"], got["busy_ms"]
+    yield from lines
+
+
 def int8_matmul_lines(tag: str, repeats: int, sweep: bool, shapes=SHAPES):
     """One JSON line per shape of kernel 4."""
     from qwen3_tts_tpu_torch.ops import quant
@@ -717,7 +819,8 @@ def int8_matmul_lines(tag: str, repeats: int, sweep: bool, shapes=SHAPES):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", required=True,
-                    choices=("int8_matmul", "cp_frame", "talker_step", "cp_step", "fused_step", "residual_unit"))
+                    choices=("int8_matmul", "cp_frame", "talker_step", "cp_step", "fused_step", "residual_unit",
+                             "prefill"))
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent.parent,
                     help="checkout whose qwen3_tts_tpu_torch is timed")
     ap.add_argument("--tag", default="", help="name printed on every line (default: --root)")
@@ -730,7 +833,7 @@ def main() -> None:
     ap.add_argument("--trace", action="store_true",
                     help="cp_frame, talker_step, cp_step, fused_step: add each form's per-phase breakdown")
     ap.add_argument("--forms", default="",
-                    help="talker_step, cp_step, fused_step: only these comma-separated forms "
+                    help="talker_step, cp_step, fused_step, prefill: only these comma-separated forms "
                          "(float32, bfloat16, int8)")
     ap.add_argument("--kernels", action="store_true",
                     help="talker_step, cp_step, fused_step: add the device kernels one call launches (torch.profiler)")
@@ -751,6 +854,10 @@ def main() -> None:
             print(json.dumps(line), flush=True)
         return
     forms = tuple(f for f in args.forms.split(",") if f)
+    if args.kernel == "prefill":
+        for line in prefill_lines(tag, args.repeats, forms):
+            print(json.dumps(line), flush=True)
+        return
     if args.kernel == "fused_step":
         for line in fused_step_lines(tag, args.repeats, args.trace, forms, args.kernels, args.sublayer):
             print(json.dumps(line), flush=True)

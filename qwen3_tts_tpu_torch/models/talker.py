@@ -3,7 +3,10 @@
 PyTorch port of ``qwen3_tts_tpu/models/talker.py`` (dual text/codec
 embeddings, SiLU text projection, the prompt layouts of the three variants,
 final norm + codec head). The prefill runs on the layer path
-(``ops/nn.py``, plain or int8 weights, fused or not). A decode step on a
+(``ops/nn.py``, plain or int8 weights, fused or not); on the card a batch-1
+prefill of a prompt whose rows are all live replays it as one CUDA graph
+where the caller hands one in (``PrefillGraph``, ``prefill_graph_key``:
+the CustomVoice and x-vector prompts' 10 rows). A decode step on a
 fused tree (all int8, or all plain: what the JAX package would stream-pack)
 runs the whole-step kernel on the cache's [L, S, KV*D] plane view
 (``stream_plane_mode``, ``decode_step_planes``) while the cache holds at
@@ -43,10 +46,12 @@ positions after the instruct (``build_voice_design_suffix``).
 
 from __future__ import annotations
 
+import threading
+
 import torch
 import torch.nn.functional as F
 
-from ..ops import fused_layer, nn
+from ..ops import fused_layer, nn, quant
 from ..ops.quant import mm
 from ..parallel import collectives
 from ..parallel.sharding import ShardedTree
@@ -216,17 +221,18 @@ def forward(
     positions: torch.Tensor,
     write_pos: int | torch.Tensor,
     self_attn_prefill: bool = False,
+    tables: tuple | None = None,
 ) -> torch.Tensor:
-    """Run the layer stack on embeddings x [B, S, hidden] (``positions`` and
-    ``write_pos`` as ``nn.run_layer_stack`` takes them); returns normed
-    hidden. A sharded tree takes ``nn.run_layer_stack_tp`` on its ranks'
-    layers and an ``nn.TPCache``."""
+    """Run the layer stack on embeddings x [B, S, hidden] (``positions``,
+    ``write_pos`` and ``tables`` as ``nn.run_layer_stack`` takes them);
+    returns normed hidden. A sharded tree takes ``nn.run_layer_stack_tp`` on
+    its ranks' layers and an ``nn.TPCache``."""
     if isinstance(params, ShardedTree):
         h = nn.run_layer_stack_tp([r["layers"] for r in params.ranks], params.devices, x, cfg.layer_stack(),
                                   list(cache.parts), positions, write_pos, self_attn_prefill=self_attn_prefill)
     else:
         h = nn.run_layer_stack(params["layers"], x, cfg.layer_stack(), cache, positions, write_pos,
-                               self_attn_prefill=self_attn_prefill)
+                               self_attn_prefill=self_attn_prefill, tables=tables)
     return nn.rms_norm(h, params["norm"], cfg.rms_norm_eps)
 
 
@@ -249,13 +255,18 @@ def prefill(
     prompt: torch.Tensor,
     prefill_len: int,
     cache: nn.KVCache,
+    graph: PrefillGraph | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fresh-cache prefill of a right-padded prompt embedding [1, Pb, hidden].
 
     Attention reads only the prompt's own rows (S x S). Writes the cache in
     place. Returns (last_hidden [1,1,hidden] normed, logits [1, codec_vocab]
-    at the last valid position).
+    at the last valid position). ``graph``: a ``PrefillGraph``, replayed
+    where it fits the call (``graph_fits``); otherwise, and without one, the
+    eager layer path.
     """
+    if graph_fits(graph, params, prompt, prefill_len, cache):
+        return graph.replay(prompt, cache)
     return prefill_batch(params, cfg, prompt, [prefill_len], cache)
 
 
@@ -273,8 +284,108 @@ def prefill_batch(
     positions = torch.arange(prompt.shape[1], device=prompt.device)
     h = forward(params, cfg, prompt, cache, positions, 0, self_attn_prefill=True)
     rows = torch.tensor([n - 1 for n in prefill_lens], device=prompt.device)
-    last = h[torch.arange(h.shape[0], device=prompt.device), rows][:, None]
+    return _last_rows(params, h, torch.arange(h.shape[0], device=prompt.device), rows)
+
+
+def _last_rows(params: dict, h: torch.Tensor, streams: torch.Tensor, rows: torch.Tensor) -> tuple:
+    """Stream b's normed hidden at row ``rows[b]`` [B, 1, hidden] and its
+    codec logits [B, codec_vocab]."""
+    last = h[streams, rows][:, None]
     return last, codec_logits(params, last)[:, 0, :]
+
+
+def prefill_graph_key(params: dict, prompt: torch.Tensor, prefill_len: int, cache) -> tuple | None:
+    """What a ``PrefillGraph`` must have been captured for to replay this
+    prefill: (device, prompt dtype, prompt shape, cache dtype, the tree's
+    id). None where the prefill runs eagerly whatever the graph: on a
+    sharded tree or a ``TPCache``, at more than one stream, where padding
+    rows follow the prompt (``prefill_len`` short of its rows), with the
+    cache on another device, or under ``quant.w8a8_scope``. A graph exists
+    only on the card, so a CPU prompt's key matches none."""
+    if (isinstance(params, ShardedTree) or not isinstance(cache, nn.KVCache) or prompt.shape[0] != 1
+            or cache.k.shape[1] != 1 or prefill_len != prompt.shape[1] or cache.k.device != prompt.device
+            or quant._w8a8_allowed()):
+        return None
+    return prompt.device, prompt.dtype, tuple(prompt.shape), cache.k.dtype, id(params)
+
+
+def graph_fits(graph, params: dict, prompt: torch.Tensor, prefill_len: int, cache) -> bool:
+    """Whether ``prefill`` replays ``graph`` (None: never) for this call."""
+    return graph is not None and prefill_graph_key(params, prompt, prefill_len, cache) == graph.key
+
+
+class PrefillGraph:
+    """The batch-1 prefill of one tree at one prompt length, captured once
+    as a CUDA graph and replayed by ``prefill`` for every call it fits.
+
+    The graph holds the layer stack, the final norm, the last row's pick
+    and the codec head, on static buffers: the prompt [1, rows, hidden] in;
+    the last hidden [1, 1, hidden], the logits [1, codec_vocab] and the K/V
+    rows [L, 1, rows, KV, D] out. The RoPE tables, the mask and the row
+    index are made once, before the capture. A replay copies the prompt in,
+    replays, copies the K/V rows into the call's cache and returns copies
+    of the hidden and the logits (the next replay overwrites the buffers,
+    and sessions may be open side by side). It runs the eager prefill's
+    kernels on the same inputs, so its results are the eager prefill's.
+
+    The capture is made at the first replay: an eager warm-up on a side
+    stream, then ``torch.cuda.graph`` on it. An int8 tree's kernel 4 is
+    recorded in the graph; ``quant.int8_matmul.launches`` counts the
+    launches each replay makes, and none for the capture, which launches
+    nothing.
+    """
+
+    def __init__(self, params: dict, cfg: TalkerConfig, rows: int):
+        dev, dtype = params["norm"].device, params["norm"].dtype
+        if dev.type != "cuda" or isinstance(params, ShardedTree):
+            raise ValueError(f"PrefillGraph: a CUDA graph of one card's tree, not of a tree on {dev}")
+        self.params, self.cfg, self.rows = params, cfg, rows
+        self.key = (dev, dtype, (1, rows, cfg.hidden_size), dtype, id(params))
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.k4_launches = 0  # kernel-4 launches a replay makes
+        self._lock = threading.Lock()
+
+    @torch.no_grad()
+    def _capture(self) -> None:
+        dev, dtype, shape, cache_dtype, _ = self.key
+        stack = self.cfg.layer_stack()
+        self.prompt = torch.zeros(shape, dtype=dtype, device=dev)
+        self.kv = nn.init_kv_cache(stack, 1, self.rows, cache_dtype, dev)
+        positions = torch.arange(self.rows, device=dev)
+        tables = nn.rope_and_mask(stack, self.rows, dev, positions, None, True)
+        streams = torch.zeros(1, dtype=torch.int64, device=dev)
+        rows = torch.full((1,), self.rows - 1, dtype=torch.int64, device=dev)
+
+        def body():
+            h = forward(self.params, self.cfg, self.prompt, self.kv, positions, 0, self_attn_prefill=True,
+                        tables=tables)
+            return _last_rows(self.params, h, streams, rows)
+
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph, launches = torch.cuda.CUDAGraph(), quant.int8_matmul.launches
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            self.last, self.logits = body()
+        self.k4_launches, quant.int8_matmul.launches = quant.int8_matmul.launches - launches, launches
+        # The graph reads these at their addresses on every replay: they live as long as it does.
+        self._inputs = (positions, tables, streams, rows)
+        self.graph = graph
+
+    def replay(self, prompt: torch.Tensor, cache: nn.KVCache) -> tuple[torch.Tensor, torch.Tensor]:
+        """``prefill``'s result for a call that fits the graph, its K/V rows
+        written into ``cache``."""
+        with self._lock:
+            if self.graph is None:
+                self._capture()
+            self.prompt.copy_(prompt)
+            self.graph.replay()
+            quant.int8_matmul.launches += self.k4_launches
+            cache.k[:, :, :self.rows].copy_(self.kv.k)
+            cache.v[:, :, :self.rows].copy_(self.kv.v)
+            return self.last.clone(), self.logits.clone()
 
 
 def decode_step_batch(

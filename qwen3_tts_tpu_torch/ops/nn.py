@@ -409,10 +409,10 @@ def run_layer_stack_nocache(stacked_params: dict, x: torch.Tensor, cfg: LayerSta
     return h
 
 
-def _rope_and_mask(cfg: LayerStackConfig, max_seq: int, dev: torch.device, positions, positions_thw,
-                   self_attn_prefill: bool) -> tuple:
+def rope_and_mask(cfg: LayerStackConfig, max_seq: int, dev: torch.device, positions, positions_thw,
+                  self_attn_prefill: bool) -> tuple:
     """The RoPE tables and the causal mask ``run_layer_stack`` takes from
-    its positions (see there), on ``dev``."""
+    its positions (see there), on ``dev``: (cos, sin, mask)."""
     inv_freq = rope_inv_freq(cfg.head_dim, cfg.rope_theta, device=dev)
     if positions_thw is not None:
         if positions is not None:
@@ -446,6 +446,7 @@ def run_layer_stack(
     self_attn_prefill: bool = False,
     matmul=mm,
     positions_thw: torch.Tensor | None = None,
+    tables: tuple | None = None,
 ) -> torch.Tensor:
     """Run all layers against the full pre-allocated cache (updated in place).
 
@@ -468,9 +469,13 @@ def run_layer_stack(
 
     ``self_attn_prefill=True``: fresh-cache prefill (write_pos == 0, no
     earlier live rows); attention runs over the S new rows only.
-    ``matmul``: as ``decoder_layer``'s.
+    ``matmul``: as ``decoder_layer``'s. ``tables``: the (cos, sin, mask)
+    that ``rope_and_mask`` made for these positions ahead of the call (a
+    CUDA graph's capture makes them once, outside the graph); the positions
+    are then not read.
     """
-    cos, sin, mask = _rope_and_mask(cfg, cache.max_seq, x.device, positions, positions_thw, self_attn_prefill)
+    cos, sin, mask = tables or rope_and_mask(cfg, cache.max_seq, x.device, positions, positions_thw,
+                                             self_attn_prefill)
     h = x
     for i in range(cfg.num_layers):
         h = decoder_layer(
@@ -578,7 +583,7 @@ def run_layer_stack_tp(
     tables: dict = {}
     for dev in devices:
         if dev not in tables:
-            tables[dev] = _rope_and_mask(cfg, caches[0].max_seq, dev, positions, positions_thw, self_attn_prefill)
+            tables[dev] = rope_and_mask(cfg, caches[0].max_seq, dev, positions, positions_thw, self_attn_prefill)
     wps = [write_pos.to(dev) if isinstance(write_pos, torch.Tensor) else write_pos for dev in devices]
     hs = broadcast(x, devices)
     for i in range(cfg.num_layers):

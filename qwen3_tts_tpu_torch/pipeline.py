@@ -167,7 +167,9 @@ class Qwen3TTS:
     tile re-layout), and the separate projections are dropped. On the CPU
     the talker keeps the separate projections, as the JAX package's main
     path does (a talker tree handed in fused stays fused). Prefill runs the
-    layer path on either tree.
+    layer path on either tree; on the card the model also holds a
+    ``talker.PrefillGraph`` (``prefill_graph``), and the batch-1 prefill of
+    a 10-row prompt (CustomVoice, x-vector clone) replays that CUDA graph.
 
     ``quantize_int8=True``: weight-only int8, as the JAX package's (without
     its [H, H] stream-tile re-layout). The talker and the code predictor are
@@ -241,6 +243,9 @@ class Qwen3TTS:
         if (on_card and fused_layer.has_stream_pack(layers, stack.hidden_size)
                 and fused_layer.supports_talker_step_kernel(layers, stack, fused_layer.TALKER_STREAM_MAX_SEQ)):
             self.talker_step_pack = fused_layer.TalkerStepPack(layers, stack, self.compute_dtype, self.device)
+        # The batch-1 prefill of the 10-row prompts as one CUDA graph, captured at its first replay.
+        self.prefill_graph = (talker.PrefillGraph(talker_params, config.talker, CUSTOM_VOICE_PROMPT_LEN)
+                              if on_card else None)
         self.vocoder_params = vocoder_params
         self.vocoder_config = vocoder_config
         self.tokenizer = tokenizer
@@ -285,8 +290,9 @@ class Qwen3TTS:
           one (``nn.run_layer_stack_tp``, kernel 4 per rank on an int8 tree).
           tp must divide the heads, the KV heads, the intermediate, the text
           projection's intermediate and the codec vocabulary.
-        * The whole-step talker kernel's pack is dropped (kernel 3 cannot
-          span ranks), as the JAX package drops its stream pack. An int8
+        * The whole-step talker kernel's pack and the prefill graph are
+          dropped (kernel 3 and a graph cannot span ranks), as the JAX
+          package drops its stream pack. An int8
           talker at tp > 1 gets the head-aligned re-layout
           (``fused_layer.make_tp_pack``, each rank's chunk serving as its
           fused qkv and gate|up) and, on the cards, each rank of replica 0
@@ -328,7 +334,7 @@ class Qwen3TTS:
                 rank["layers"] = dict(rank["layers"], qkv_proj=rank["tp_pack"]["qkv"],
                                       gateup_proj=rank["tp_pack"]["gu"])
         del tree, tpack
-        self.talker_step_pack = None
+        self.talker_step_pack = self.prefill_graph = None
         self.replicas = []
         for r in range(mesh.shape["dp"]):
             dev = mesh.first(r)
@@ -607,6 +613,7 @@ class Qwen3TTS:
                 cache,
                 uniforms,
                 initial,
+                graph=self.prefill_graph,
             )
             return self._make_session(started, options, uniforms, request)
 
@@ -624,6 +631,7 @@ class Qwen3TTS:
             started = prefill.voice_design_impl(
                 self.talker_params, self.config.talker, options.sampling_config(), text_ids, text_len,
                 instruct_ids, instruct_len, T.language_token_id(language), cache, uniforms, initial,
+                graph=self.prefill_graph,
             )
             return self._make_session(started, options, uniforms, request)
 
@@ -657,7 +665,7 @@ class Qwen3TTS:
                 initial, cache, uniforms = self._session_inputs(options, CUSTOM_VOICE_PROMPT_LEN)
                 started = prefill.voice_clone_xvector_impl(
                     self.talker_params, self.config.talker, options.sampling_config(), text_ids, text_len,
-                    speaker_vec, lang_id, cache, uniforms, initial,
+                    speaker_vec, lang_id, cache, uniforms, initial, graph=self.prefill_graph,
                 )
                 return self._make_session(started, options, uniforms, request)
 
@@ -675,6 +683,7 @@ class Qwen3TTS:
             started = prefill.voice_clone_icl_impl(
                 self.talker_params, self.config.talker, options.sampling_config(), all_text, n_text, speaker_vec,
                 codec_padded, t_ref + 1, lang_id, cache, uniforms, initial, sequential=options.icl_sequential,
+                graph=self.prefill_graph,
             )
             session = self._make_session(started, options, uniforms, request)
             session.prefix_codes = ref_codes

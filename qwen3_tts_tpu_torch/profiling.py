@@ -20,7 +20,8 @@ The port's counterpart of ``trace`` and ``annotate`` in
   package's host-transfer audit).
 
 The spans of the batch-1 path (``README.md`` lists them): ``q3.open``
-(a session's set-up, where its request id is drawn), ``q3.prefill``,
+(a session's set-up, where its request id is drawn), ``q3.prefill``
+(counter ``graph``: 1 where the talker's prefill replayed its CUDA graph),
 ``q3.loop`` (one ``generation.core.generate_frames`` call, counter
 ``iterations``), ``q3.vocoder``, ``q3.chunk``, ``q3.audio``, ``q3.grow`` and
 ``q3.wait``, around every place the host waits for the device or reads
