@@ -13,7 +13,11 @@ at the cell's own load, and every number the check reads
   the program's are;
 * the reference vocoder in TF32, the nearest precision below the vocoder's
   float32: its decode of the bfloat16 run's served codes judged against the
-  float32 reference's, as the served audio is.
+  float32 reference's, as the served audio is;
+* in a clone's cell, the reference encoders in TF32, the nearest precision
+  below the float32 encoders: their x-vector and reference codes of each
+  judged request's clip in place of the served prompt, judged as it is
+  (``xvector_err``, ``speech_code_gap_*``).
 
 One JSON line a reading; a control that crashes prints its error and counts
 as failed. ``bench_port/tests/test_bench_port_control.py`` runs the controls
@@ -51,6 +55,36 @@ def tf32_audio_err(dims: dict, seed: int, device, cases: list) -> float:
             ref.strict_f32()
             worst = max(worst, float((got - want).abs().max() / want.abs().max().clamp(min=1e-30)))
     return worst
+
+
+def tf32_encoder_readings(dims: dict, seed: int, device, cases: list) -> dict:
+    """The reference encoders in TF32 in the program's place: the clone
+    prompts' readings (``check.encoder_readings``) of their x-vectors and
+    codes of the cases' clips; {} where no case is a clone."""
+    import torch
+
+    from bench_port.harness import check, weights
+    from bench_port.reference import encoders as ref_enc
+    from bench_port.reference import qwen3_tts as ref
+
+    enc = weights.draw_encoders(dims, seed, device)
+    swapped = []
+    with torch.no_grad():
+        for case in cases:
+            if "clip" not in case:
+                continue
+            clip = torch.from_numpy(case["clip"]).to(device)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.backends.cudnn.allow_tf32 = True
+            try:
+                xvector = ref_enc.speaker_xvector(enc["speaker_encoder"], dims["speaker_encoder"], clip)
+                codes = None
+                if case["ref_codes"] is not None:
+                    codes = ref_enc.speech_codes(enc["speech_encoder"], dims["speech_encoder"], clip).cpu().numpy()
+            finally:
+                ref.strict_f32()
+            swapped.append(dict(case, xvector=xvector.cpu().numpy(), ref_codes=codes))
+        return check.encoder_readings(dims, enc, device, swapped)[1]
 
 
 def readings(spec, seed: int, seconds: float, device, int8: bool) -> tuple[dict, list]:
@@ -94,6 +128,12 @@ def main() -> int:
         except Exception:  # a control that crashes has failed
             out = {"error": traceback.format_exc()}
         print(json.dumps({"cell": args.workload, "seed": seed, "run": "control_vocoder_tf32", **out}), flush=True)
+        if any("clip" in case for case in cases):
+            try:
+                out = tf32_encoder_readings(s.dims, seed, dev, cases)
+            except Exception:
+                out = {"error": traceback.format_exc()}
+            print(json.dumps({"cell": args.workload, "seed": seed, "run": "control_encoders_tf32", **out}), flush=True)
         try:
             out, _ = readings(s, seed, args.seconds, dev, True)
         except Exception:

@@ -1,6 +1,7 @@
 """One run of one cell: set-up, the measured window, the check, the result line.
 
-``run`` builds the model from the seed, warms up the mix's sizes, then runs
+``run`` builds the model from the seed (with a clone mix, its voices too,
+and each voice's clone prompt made once), warms up the mix's sizes, then runs
 the closed loop for ``seconds``: requests are sent one after another while
 the window is open, and the window closes when the last of them has returned,
 so every metric covers all the work and all the time of the window. With
@@ -120,9 +121,13 @@ def measure(spec: Spec, seed: int, seconds: float, trace: bool, device, t_start:
     ``quantize_int8`` runs the program's own int8 path, the check's control."""
     dims, mix = spec.dims, spec.traffic
     dev = torch.device(device)
-    model = program.build(dims, bench_weights.draw(dims, seed, dev), traffic.WordTokenizer(), quantize_int8)
-    driver = program.Driver(model, mix)
+    plan = traffic.Plan(mix, seed)  # refuses a mix the program cannot serve, before any set-up
+    voices = traffic.voices(mix, seed)
+    model = program.build(dims, bench_weights.draw(dims, seed, dev), traffic.WordTokenizer(), quantize_int8,
+                          bench_weights.draw_encoders(dims, seed, dev))
+    driver = program.Driver(model, mix, voices, dims)
     with torch.no_grad():
+        driver.prepare()
         for req in traffic.warmup(mix, seed):
             served = driver.run(req)
             if served.samples != req.frames * program.SAMPLES_PER_FRAME:
@@ -130,7 +135,6 @@ def measure(spec: Spec, seed: int, seconds: float, trace: bool, device, t_start:
         _sync(dev)
         setup_s = time.perf_counter() - t_start
 
-        plan = traffic.Plan(mix, seed)
         prof = audit = None
         prefill = program.PrefillClock()
         if trace:
@@ -159,9 +163,9 @@ def measure(spec: Spec, seed: int, seconds: float, trace: bool, device, t_start:
               file=sys.stderr)
         del prof
     # The check's inputs leave the program's memory; then the program goes.
-    cases = check.take(check.sample(done, seed, mix["check_requests"]))
+    cases = check.take(check.sample(done, seed, mix["check_requests"]), voices, mix)
     for _, served in done:
-        served.codes = served.audio = None
+        served.codes = served.audio = served.xvector = served.ref_codes = None
     del model, driver
     gc.collect()  # the driver's wrapper and the model refer to each other
     if dev.type == "cuda":

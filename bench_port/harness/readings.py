@@ -35,10 +35,11 @@ def device_idle_share(run):
 
 def mfu(run):
     """The whole step's share of the card's peak: the model FLOPs of every
-    request completed in the traced window (``roofline.request_flops``) over
+    request completed in the traced window (``roofline.request_flops``, at
+    the counts of its prompt layout: ``program.Served.layout``) over
     the window's seconds times 989 TFLOP/s, the bf16 dense peak; the f32
     vocoder's FLOPs count once against the same peak. In %."""
     if run.trace is None or not run.served:
         return None
-    flops = sum(request_flops(run.dims, s.frames, len(r.text_ids)) for r, s in run.done if s.error is None)
+    flops = sum(request_flops(run.dims, s.frames, len(r.text_ids), **s.layout) for r, s in run.done if s.error is None)
     return 100.0 * flops / (run.window_s * PEAK_OPS_PER_S["bf16"])

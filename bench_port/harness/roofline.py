@@ -9,6 +9,10 @@ Each input byte is counted read once and each output byte written once.
 
 from __future__ import annotations
 
+import math
+
+from .spec import downsample_stride
+
 # NVIDIA H100 SXM data sheet, dense rates.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12, "tf32": 495e12}
@@ -119,15 +123,23 @@ def vocoder_flops_per_frame(v: dict) -> int:
     return f + rows * 2 * v["final_kernel"] * ch
 
 
-def request_flops(dims: dict, frames: int, text_tokens: int, prompt_rows: int = 10) -> int:
-    """Model FLOPs of one CustomVoice request of ``frames`` frames: the text
-    projection of its rows, the talker's prefill, the frames - 1 steps that
-    make codes 1.. (each attending over every row before it), the codec head
-    at each of those, the code predictor's 16 rows a frame and 15 heads, and
-    the vocoder."""
+def request_flops(dims: dict, frames: int, text_tokens: int, prompt_rows: int = 10, text_rows: int | None = None,
+                  prefix_frames: int = 0, encoder_flops: int = 0) -> int:
+    """Model FLOPs of one request of ``frames`` frames: the text projection of
+    its ``text_rows`` rows (a preset speaker's prompt_rows + text_tokens + 1:
+    the prompt's, the trailing text's and the pad's), the talker's prefill of
+    ``prompt_rows``, the frames - 1 steps that make codes 1.. (each attending
+    over every row before it), the codec head at each of those, the code
+    predictor's 16 rows a frame and 15 heads, and the vocoder over the
+    frames behind ``prefix_frames`` reference frames that it decodes first
+    (an in-context clone's), attending over all of them; and
+    ``encoder_flops`` (``encoder_flops``, where the request makes its clone
+    prompt). The defaults are a preset speaker's 10-row prompt."""
     t, c, v = dims["talker"], dims["code_predictor"], dims["vocoder"]
     h, e = t["hidden_size"], t["text_hidden_size"]
-    f = 2 * (prompt_rows + text_tokens + 1) * (e * e + e * h)
+    if text_rows is None:
+        text_rows = prompt_rows + text_tokens + 1
+    f = 2 * text_rows * (e * e + e * h)
     f += _stack_flops(t, prompt_rows, _tri(prompt_rows))
     steps = frames - 1
     f += _stack_flops(t, steps, sum(prompt_rows + 1 + i for i in range(steps)))
@@ -136,5 +148,64 @@ def request_flops(dims: dict, frames: int, text_tokens: int, prompt_rows: int = 
     mtp = 2 * 16 * h * ch if h != ch else 0
     f += frames * (_stack_flops(c, 16, _tri(16)) + mtp + 2 * (c["num_code_groups"] - 1) * ch * c["vocab_size"])
     hd = v["num_heads"] * v["head_dim"]
-    f += frames * vocoder_flops_per_frame(v) + v["num_layers"] * 4 * _tri(frames) * hd
+    decoded = frames + prefix_frames
+    f += decoded * vocoder_flops_per_frame(v) + v["num_layers"] * 4 * _tri(decoded) * hd
+    return f + encoder_flops
+
+
+# ---------------------------------------------------------------------------
+# A Base model's audio encoders, on a clip of n samples
+# ---------------------------------------------------------------------------
+
+
+def _causal_len(length: int, k: int, stride: int) -> int:
+    """The output length of Mimi's causal convolution (padded to whole frames)."""
+    return math.ceil((length - k + (k - stride)) / stride + 1)
+
+
+def speaker_encoder_flops(s: dict, samples: int) -> int:
+    """The ECAPA-TDNN's products over a clip's mel frames (hop 256 after a
+    (1024 - 256) / 2 reflect pad a side): its convolutions, the SE gates,
+    the pooling's two and the projection. The mel runs on the host and is
+    not counted."""
+    t = (samples + 768 - 1024) // 256 + 1
+    ch, ks, scale, se, att = (s["enc_channels"], s["enc_kernel_sizes"], s["enc_res2net_scale"],
+                              s["enc_se_channels"], s["enc_attention_channels"])
+    f = 2 * t * s["mel_dim"] * ch[0] * ks[0]
+    for i in range(1, 4):
+        part = ch[i] // scale
+        f += 2 * t * (ch[i - 1] * ch[i] + ch[i] * ch[i]) + (scale - 1) * 2 * t * part * part * ks[i]
+        f += 2 * 2 * ch[i] * se
+    f += 2 * t * sum(ch[1:4]) * ch[4] * ks[4]
+    f += 2 * t * (3 * ch[4] * att + att * ch[4]) + 2 * 2 * ch[4] * s["enc_dim"]
     return f
+
+
+def speech_encoder_flops(e: dict, samples: int) -> int:
+    """The 12 Hz speech encoder's products over a clip: SEANet's convolutions
+    at each stage's length, the transformer at 25 Hz (attention over the
+    sliding window), the downsampling convolution, the two quantisers'
+    projections and every stage's distances to its whole codebook."""
+    length, ch = _causal_len(samples, e["kernel_size"], 1), e["num_filters"]
+    f = 2 * length * ch * e["kernel_size"]
+    for r in reversed(e["upsampling_ratios"]):
+        half = ch // e["compress"]
+        f += 2 * length * (ch * half * e["residual_kernel_size"] + half * ch)
+        length = _causal_len(length, 2 * r, r)
+        f += 2 * length * ch * 2 * ch * 2 * r
+        ch *= 2
+    h, hd = e["hidden_size"], e["num_attention_heads"] * e["head_dim"]
+    f += 2 * length * ch * h * e["last_kernel_size"]
+    pairs = sum(min(q + 1, e["sliding_window"]) for q in range(length))
+    f += e["num_hidden_layers"] * (2 * length * (4 * h * hd + 2 * h * e["intermediate_size"]) + 4 * pairs * hd)
+    stride = downsample_stride(e)
+    frames = _causal_len(length, 2 * stride, stride)
+    f += 2 * frames * h * h * 2 * stride
+    return f + 2 * frames * (2 * h * e["codebook_dim"] + e["num_quantizers"] * e["codebook_size"] * e["codebook_dim"])
+
+
+def encoder_flops(dims: dict, samples: int, icl: bool) -> int:
+    """A clone prompt's encoders on a clip: the speaker encoder, and for an
+    in-context clone the speech encoder too."""
+    f = speaker_encoder_flops(dims["speaker_encoder"], samples)
+    return f + speech_encoder_flops(dims["speech_encoder"], samples) if icl else f

@@ -5,12 +5,15 @@ the ``file`` of its ``configs`` entry; the traffic mix is
 ``bench_port/traffic/<traffic>.json``; each metric is read by
 ``bench_port/metrics/<name>.py``; the limits of the cell's check are in
 ``bench_port/limits/<cell>.json``. A later cell, mix or metric is new files
-and new entries, never an edit of these.
+and new entries, never an edit of these: a configuration of any of the three
+published model types (``tts_model_type``), and a mix of any of the four
+prompt layouts (``harness/traffic.py``), are data.
 """
 
 from __future__ import annotations
 
 import json
+import math
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -33,16 +36,33 @@ class Spec:
         return dims(self.config)
 
 
+MODEL_TYPES = ("custom_voice", "base", "voice_design")
+
+
 def dims(config: dict) -> dict:
     """A configuration file's widths as the harness and the reference read
     them: ``talker`` and ``code_predictor`` (the HF ``talker_config`` keys,
     the code predictor's nested inside it there), ``vocoder``, ``dtype``,
-    the talker's ``mrope_section`` and the ``model_size`` tag."""
+    the talker's ``mrope_section``, the ``model_size`` tag, the
+    ``model_type`` (``tts_model_type``: ``custom_voice``, the default,
+    ``base`` or ``voice_design``) and, where the file declares them, a Base
+    model's ``speaker_encoder`` (the published ``speaker_encoder_config``)
+    and ``speech_encoder`` (the speech tokenizer's ``encoder_config``)."""
     t = dict(config["talker_config"])
     c = t.pop("code_predictor_config")
     mrope = (t.pop("rope_scaling", None) or {}).get("mrope_section")
+    model_type = config.get("tts_model_type", "custom_voice")
+    if model_type not in MODEL_TYPES:
+        raise ValueError(f"tts_model_type {model_type!r} is none of {MODEL_TYPES}")
     return {"talker": t, "code_predictor": c, "vocoder": dict(config["vocoder"]), "dtype": config["dtype"],
-            "mrope_section": mrope, "model_size": config.get("tts_model_size", "custom")}
+            "mrope_section": mrope, "model_size": config.get("tts_model_size", "custom"), "model_type": model_type,
+            "speaker_encoder": config.get("speaker_encoder_config"), "speech_encoder": config.get("encoder_config")}
+
+
+def downsample_stride(encoder: dict) -> int:
+    """The speech encoder's last stride (``encoder_config``): its SEANet's
+    frame rate over the codes' (24000 / 960 Hz over 12.5 Hz: 2)."""
+    return round(encoder["sampling_rate"] / math.prod(encoder["upsampling_ratios"]) / encoder["frame_rate"])
 
 
 def _applies(metric: dict, cell: str) -> bool:

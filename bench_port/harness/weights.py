@@ -9,13 +9,26 @@ its layers, made in float32 on the generator's device and cast to the served
 type, so the same seed gives the same weights on every run. The trees are the
 raw, unfused layout the program's ``Qwen3TTS`` takes and fuses itself, and the
 reference reads.
+
+A Base model's two audio encoders (``draw_encoders``) come from a generator
+of their own, so the three trees of every configuration are the same with or
+without them. They are flat trees named as the published checkpoints name
+them (``speaker_encoder.*``, and the speech tokenizer's ``encoder.*``), in
+float32: convolution and linear weights normal of standard deviation
+1 / sqrt(fan-in) (so a clip's level carries through both stacks), biases 0,
+norms 1, layer scales as configured, codebooks normal of standard deviation
+1 / sqrt(their width) (unit-norm codewords) with every usage 1.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .spec import downsample_stride
+
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# The encoders' generator is seeded with seed * ENCODER_SEED_MIX + 1 (mod 2**63).
+ENCODER_SEED_MIX = 0x9E3779B97F4A7C15
 
 
 def _draw(gen: torch.Generator, shape, dtype: torch.dtype, scale: float = 0.02) -> torch.Tensor:
@@ -168,3 +181,88 @@ def draw(dims: dict, seed: int, device) -> tuple[dict, dict, dict]:
     t = talker(gen, dims["talker"], dtype)
     c = code_predictor(gen, dims["code_predictor"], dims["talker"]["hidden_size"], dtype)
     return t, c, vocoder(gen, dims["vocoder"])
+
+
+def speaker_encoder(gen: torch.Generator, s: dict) -> dict:
+    """The ECAPA-TDNN speaker encoder's tensors, ``speaker_encoder.*``."""
+    dev, f, ch, ks = gen.device, torch.float32, s["enc_channels"], s["enc_kernel_sizes"]
+    tree = {}
+
+    def conv(key, cin, cout, k, conv_key=True):
+        name = f"speaker_encoder.{key}.conv" if conv_key else f"speaker_encoder.{key}"
+        tree[f"{name}.weight"] = _draw(gen, (cout, cin, k), f, (cin * k) ** -0.5)
+        tree[f"{name}.bias"] = _zeros((cout,), f, dev)
+
+    conv("blocks.0", s["mel_dim"], ch[0], ks[0])
+    part = ch[1] // s["enc_res2net_scale"]
+    for i in range(1, 4):
+        conv(f"blocks.{i}.tdnn1", ch[i - 1], ch[i], 1)
+        for j in range(s["enc_res2net_scale"] - 1):
+            conv(f"blocks.{i}.res2net_block.blocks.{j}", part, part, ks[i])
+        conv(f"blocks.{i}.tdnn2", ch[i], ch[i], 1)
+        conv(f"blocks.{i}.se_block.conv1", ch[i], s["enc_se_channels"], 1, conv_key=False)
+        conv(f"blocks.{i}.se_block.conv2", s["enc_se_channels"], ch[i], 1, conv_key=False)
+    conv("mfa", sum(ch[1:4]), ch[4], ks[4])
+    conv("asp.tdnn", 3 * ch[4], s["enc_attention_channels"], 1)
+    conv("asp.conv", s["enc_attention_channels"], ch[4], 1, conv_key=False)
+    conv("fc", 2 * ch[4], s["enc_dim"], 1, conv_key=False)
+    return tree
+
+
+def speech_encoder(gen: torch.Generator, e: dict) -> dict:
+    """The 12 Hz speech encoder's tensors, ``encoder.*``: SEANet, the
+    transformer, the downsampling convolution and the two residual
+    quantisers."""
+    dev, f = gen.device, torch.float32
+    tree = {}
+
+    def conv(key, cin, cout, k, bias=True):
+        tree[f"encoder.{key}.weight"] = _draw(gen, (cout, cin, k), f, (cin * k) ** -0.5)
+        if bias:
+            tree[f"encoder.{key}.bias"] = _zeros((cout,), f, dev)
+
+    ch = e["num_filters"]
+    conv("encoder.layers.0.conv", 1, ch, e["kernel_size"])
+    for i, ratio in enumerate(reversed(e["upsampling_ratios"])):
+        conv(f"encoder.layers.{3 * i + 1}.block.1.conv", ch, ch // e["compress"], e["residual_kernel_size"])
+        conv(f"encoder.layers.{3 * i + 1}.block.3.conv", ch // e["compress"], ch, 1)
+        conv(f"encoder.layers.{3 * i + 3}.conv", ch, 2 * ch, 2 * ratio)
+        ch *= 2
+    h, hd, inter = e["hidden_size"], e["num_attention_heads"] * e["head_dim"], e["intermediate_size"]
+    conv(f"encoder.layers.{3 * len(e['upsampling_ratios']) + 2}.conv", ch, h, e["last_kernel_size"])
+    for i in range(e["num_hidden_layers"]):
+        p = f"encoder.encoder_transformer.layers.{i}"
+        for norm in ("input_layernorm", "post_attention_layernorm"):
+            tree[f"{p}.{norm}.weight"], tree[f"{p}.{norm}.bias"] = _ones((h,), f, dev), _zeros((h,), f, dev)
+        for name, (cin, cout) in (("q_proj", (h, hd)), ("k_proj", (h, hd)), ("v_proj", (h, hd)), ("o_proj", (hd, h))):
+            tree[f"{p}.self_attn.{name}.weight"] = _draw(gen, (cout, cin), f, cin ** -0.5)
+        tree[f"{p}.mlp.fc1.weight"] = _draw(gen, (inter, h), f, h ** -0.5)
+        tree[f"{p}.mlp.fc2.weight"] = _draw(gen, (h, inter), f, inter ** -0.5)
+        for scale in ("self_attn_layer_scale", "mlp_layer_scale"):
+            tree[f"{p}.{scale}.scale"] = torch.full((h,), e["layer_scale_initial_scale"], device=dev)
+    conv("downsample.conv", h, h, 2 * downsample_stride(e), bias=False)
+    dim, size = e["codebook_dim"], e["codebook_size"]
+    for name, n in (("semantic", e["num_semantic_quantizers"]),
+                    ("acoustic", e["num_quantizers"] - e["num_semantic_quantizers"])):
+        p = f"encoder.quantizer.{name}_residual_vector_quantizer"
+        tree[f"{p}.input_proj.weight"] = _draw(gen, (dim, h, 1), f, h ** -0.5)
+        for j in range(n):
+            tree[f"{p}.layers.{j}.codebook.embed_sum"] = _draw(gen, (size, dim), f, dim ** -0.5)
+            tree[f"{p}.layers.{j}.codebook.cluster_usage"] = _ones((size,), f, dev)
+    return tree
+
+
+def draw_encoders(dims: dict, seed: int, device) -> dict:
+    """The audio encoders that the configuration declares, from ``seed`` on
+    ``device``, by a generator of their own: {"speaker_encoder": tree,
+    "speech_encoder": tree}, either absent; {} for a model with none."""
+    if not (dims.get("speaker_encoder") or dims.get("speech_encoder")):
+        return {}
+    gen = torch.Generator(device=device)
+    gen.manual_seed((seed * ENCODER_SEED_MIX + 1) % 2**63)
+    out = {}
+    if dims.get("speaker_encoder"):
+        out["speaker_encoder"] = speaker_encoder(gen, dims["speaker_encoder"])
+    if dims.get("speech_encoder"):
+        out["speech_encoder"] = speech_encoder(gen, dims["speech_encoder"])
+    return out

@@ -1,4 +1,4 @@
-"""Plain float32 reference of a Qwen3-TTS CustomVoice model, for the benchmark's check.
+"""Plain float32 reference of a Qwen3-TTS model (CustomVoice, Base or VoiceDesign), for the benchmark's check.
 
 The talker (28-layer Qwen3 decoder with per-head QK-norm, RoPE and grouped KV
 heads, a SiLU text projection and a codec head), the code predictor (5 layers,
@@ -7,19 +7,29 @@ an optional 2048 -> 1024 projection, 15 codebook tables and 15 heads) and the
 ConvNeXt upsamplers and four BigVGAN blocks), written from their equations in
 plain PyTorch: every matmul and convolution in float32 with TF32 off, no cache,
 no fused weights, no kernels. It imports nothing of the program under test.
+A Base model's two audio encoders are in ``encoders.py`` beside it.
 
 The inputs are the benchmark's raw weight trees (the layout the benchmark draws
 them in: linear weights ``[in, out]`` stacked over layers, conv kernels
 ``[K, Cin/groups, Cout]``, transposed-conv kernels ``[K, Cout, Cin]``), the
-request's text ids, speaker and language tokens, and the codes the program
-served. Every function is teacher-forced: it runs once over the prompt and the
-served codes and returns the logits at every position, so that a served code
-can be judged by how far its logit lies below the reference's best.
+request's prompt and the codes the program served. The four prompt layouts:
+a preset speaker's (``custom_voice_prompt``), an x-vector clone's
+(``xvector_prompt``), an in-context clone's (``icl_prompt``: the reference
+clip's codes and transcript, overlaid on the text or after it) and a voice
+description's (``design_prompt``). Every function is teacher-forced: it runs
+once over the prompt and the served codes and returns the logits at every
+position, so that a served code can be judged by how far its logit lies below
+the reference's best, after the repetition penalty the request ran under
+(``served_penalty``).
 
 Departures from the published model, shared with the program under test: the
 vocoder's pre-transformer attends causally over every earlier frame (the
 published decoder limits it to a window); the three MRoPE streams of the
-talker are equal for speech, so its RoPE is the standard one.
+talker are equal for speech, so its RoPE is the standard one; an in-context
+clone's layouts are the program's (its overlay puts the text over the
+reference's codec rows from the first, its sequential form puts all the text
+first), and a clone's reference codes are decoded ahead of its frames and
+their samples cut.
 """
 
 from __future__ import annotations
@@ -35,6 +45,9 @@ CODEC_THINK, CODEC_THINK_BOS, CODEC_THINK_EOS = 2154, 2156, 2157
 # The codec head's last 1024 ids are control tokens that are never sampled,
 # except EOS.
 CONTROL_IDS = 1024
+SAMPLES_PER_FRAME = 1920  # 24 kHz, 12.5 frames a second
+# An in-context clone's repetition penalty is at least this, greedy or not.
+ICL_MIN_REPETITION_PENALTY = 1.5
 
 
 def f32(t: torch.Tensor) -> torch.Tensor:
@@ -106,37 +119,118 @@ def embed_codec(talker: dict, ids: torch.Tensor) -> torch.Tensor:
     return f32(talker["codec_embedding"][ids])
 
 
+def _ids(talker: dict, values) -> torch.Tensor:
+    return torch.tensor(list(values), dtype=torch.long, device=talker["codec_embedding"].device)
+
+
+def _role(talker: dict) -> torch.Tensor:
+    """The assistant role's three rows."""
+    return embed_text(talker, _ids(talker, [IM_START, ASSISTANT, NEWLINE]))
+
+
+def _first_row(talker: dict, text_ids: list[int]) -> torch.Tensor:
+    """The first text token over CODEC_BOS."""
+    return embed_text(talker, _ids(talker, text_ids[:1])) + embed_codec(talker, _ids(talker, [CODEC_BOS]))
+
+
 def custom_voice_prompt(talker: dict, text_ids: list[int], speaker_id: int, lang_id: int) -> torch.Tensor:
     """The 10 prompt rows of a CustomVoice request: the assistant role; six
     rows of text pads (then TTS_BOS) over the think, language and speaker
     codec tokens; the first text token over CODEC_BOS."""
-    dev = talker["codec_embedding"].device
-
-    def ids(values):
-        return torch.tensor(values, dtype=torch.long, device=dev)
-
-    role = embed_text(talker, ids([IM_START, ASSISTANT, NEWLINE]))
-    overlay = embed_text(talker, ids([TTS_PAD] * 5 + [TTS_BOS])) + embed_codec(
-        talker, ids([CODEC_THINK, CODEC_THINK_BOS, lang_id, CODEC_THINK_EOS, speaker_id, CODEC_PAD]))
-    first = embed_text(talker, ids(text_ids[:1])) + embed_codec(talker, ids([CODEC_BOS]))
-    return torch.cat([role, overlay, first])
+    overlay = embed_text(talker, _ids(talker, [TTS_PAD] * 5 + [TTS_BOS])) + embed_codec(
+        talker, _ids(talker, [CODEC_THINK, CODEC_THINK_BOS, lang_id, CODEC_THINK_EOS, speaker_id, CODEC_PAD]))
+    return torch.cat([_role(talker), overlay, _first_row(talker, text_ids)])
 
 
-def text_additions(talker: dict, text_ids: list[int], frames: int) -> torch.Tensor:
-    """The text row added to frame i's step input [frames, hidden]: text
-    token i + 1 while there is one, then TTS_EOS once, then TTS_PAD."""
-    seq = list(text_ids[1:]) + [TTS_EOS]
-    seq = (seq + [TTS_PAD] * frames)[:frames]
+def _xvector_rows(talker: dict, xvector: torch.Tensor, lang_id: int) -> torch.Tensor:
+    """A clone's role and overlay rows [9, hidden]: as a preset speaker's,
+    with the x-vector in the speaker token's place."""
+    codec = torch.cat([embed_codec(talker, _ids(talker, [CODEC_THINK, CODEC_THINK_BOS, lang_id, CODEC_THINK_EOS])),
+                       f32(xvector)[None], embed_codec(talker, _ids(talker, [CODEC_PAD]))])
+    return torch.cat([_role(talker), embed_text(talker, _ids(talker, [TTS_PAD] * 5 + [TTS_BOS])) + codec])
+
+
+def xvector_prompt(talker: dict, text_ids: list[int], xvector: torch.Tensor, lang_id: int) -> torch.Tensor:
+    """The 10 prompt rows of an x-vector clone: the clone's 9 rows, then the
+    first text token over CODEC_BOS."""
+    return torch.cat([_xvector_rows(talker, xvector, lang_id), _first_row(talker, text_ids)])
+
+
+def frame_embeddings(talker: dict, cp: dict, codes: torch.Tensor) -> torch.Tensor:
+    """Frames [n, 16] -> [n, hidden]: the semantic code's codec embedding and
+    the 15 acoustic codes' group embeddings, summed."""
+    groups = torch.arange(codes.shape[1] - 1, device=codes.device)
+    acoustic = f32(cp["codec_embeddings"][groups[None, :], codes[:, 1:]]).sum(dim=1)
+    return embed_codec(talker, codes[:, 0]) + acoustic
+
+
+def icl_prompt(talker: dict, cp: dict, text_ids: list[int], ref_text_ids: list[int], xvector: torch.Tensor,
+               ref_codes: torch.Tensor, lang_id: int, sequential: bool) -> tuple[torch.Tensor, list[int]]:
+    """An in-context clone's prompt rows and the text ids left for its
+    frames. The text is the transcript, the target text and TTS_EOS; the
+    codec rows are CODEC_BOS and the reference frames. After the clone's 9
+    rows: overlaid, codec row i plus text token i (TTS_PAD past the text),
+    and the text past the codec rows is left for the frames; sequential, the
+    text rows over CODEC_PAD, then the codec rows over TTS_PAD, and nothing
+    is left."""
+    text = list(ref_text_ids) + list(text_ids) + [TTS_EOS]
+    codec = torch.cat([embed_codec(talker, _ids(talker, [CODEC_BOS])), frame_embeddings(talker, cp, ref_codes.long())])
+    n = codec.shape[0]
+    if sequential:
+        rows = torch.cat([embed_text(talker, _ids(talker, text)) + embed_codec(talker, _ids(talker, [CODEC_PAD])),
+                          codec + embed_text(talker, _ids(talker, [TTS_PAD]))])
+        left = []
+    else:
+        rows = codec + embed_text(talker, _ids(talker, (text + [TTS_PAD] * n)[:n]))
+        left = text[n:]
+    return torch.cat([_xvector_rows(talker, xvector, lang_id), rows]), left
+
+
+def design_prompt(talker: dict, text_ids: list[int], instruct_ids: list[int], lang_id: int) -> torch.Tensor:
+    """A voice description's prompt rows: the description's text rows (its
+    ChatML user turn), the assistant role, five rows of text pads (then
+    TTS_BOS) over the think, language and pad codec tokens, and the first
+    text token over CODEC_BOS."""
+    overlay = embed_text(talker, _ids(talker, [TTS_PAD] * 4 + [TTS_BOS])) + embed_codec(
+        talker, _ids(talker, [CODEC_THINK, CODEC_THINK_BOS, lang_id, CODEC_THINK_EOS, CODEC_PAD]))
+    return torch.cat([embed_text(talker, _ids(talker, instruct_ids)), _role(talker), overlay,
+                      _first_row(talker, text_ids)])
+
+
+def served_penalty(requested: float, icl: bool) -> float:
+    """The repetition penalty a request runs under: an in-context clone's is
+    at least ``ICL_MIN_REPETITION_PENALTY``."""
+    return max(requested, ICL_MIN_REPETITION_PENALTY) if icl else requested
+
+
+def trailing_text(text_ids: list[int]) -> list[int]:
+    """The text ids left for the frames of a prompt that holds only the first
+    text token: the rest, then TTS_EOS."""
+    return list(text_ids[1:]) + [TTS_EOS]
+
+
+def text_additions(talker: dict, trailing: list[int], frames: int) -> torch.Tensor:
+    """The text row added to frame i's step input [frames, hidden]: the
+    trailing text id i while there is one, then TTS_PAD."""
+    seq = (list(trailing) + [TTS_PAD] * frames)[:frames]
     return embed_text(talker, torch.tensor(seq, dtype=torch.long, device=talker["codec_embedding"].device))
 
 
-def step_inputs(talker: dict, cp: dict, text_ids: list[int], codes: torch.Tensor) -> torch.Tensor:
+def step_inputs(talker: dict, cp: dict, trailing: list[int], codes: torch.Tensor) -> torch.Tensor:
     """Frame i's talker input [n, hidden]: its semantic code's embedding, the
     15 acoustic codes' group embeddings and its text row."""
-    n = codes.shape[0]
-    groups = torch.arange(codes.shape[1] - 1, device=codes.device)
-    acoustic = f32(cp["codec_embeddings"][groups[None, :], codes[:, 1:]]).sum(dim=1)
-    return embed_codec(talker, codes[:, 0]) + acoustic + text_additions(talker, text_ids, n)
+    return frame_embeddings(talker, cp, codes) + text_additions(talker, trailing, codes.shape[0])
+
+
+def penalised(logits: torch.Tensor, semantic: torch.Tensor, penalty: float) -> torch.Tensor:
+    """The logits [n, vocab] that predict semantic codes 0..n-1 under the
+    repetition penalty: at row i, each code served in frames 0..i-1 has a
+    positive logit divided by ``penalty`` and another multiplied by it."""
+    if penalty == 1.0:
+        return logits
+    seen = F.one_hot(semantic, logits.shape[-1]).cumsum(0) > 0
+    seen = torch.cat([torch.zeros_like(seen[:1]), seen[:-1]])
+    return torch.where(seen, torch.where(logits > 0, logits / penalty, logits * penalty), logits)
 
 
 def talker_logits(talker: dict, dims: dict, rows: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -255,33 +349,42 @@ def vocoder_decode(voc: dict, dims: dict, codes: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def judge_request(talker: dict, cp: dict, voc: dict, dims: dict, text_ids: list[int], speaker_id: int, lang_id: int,
-                  codes: torch.Tensor, audio: torch.Tensor | None = None) -> dict:
+def judge_request(talker: dict, cp: dict, voc: dict, dims: dict, prompt: torch.Tensor, trailing: list[int],
+                  codes: torch.Tensor, audio: torch.Tensor | None = None, penalty: float = 1.0,
+                  prefix: torch.Tensor | None = None) -> dict:
     """The reference's verdict on one greedy request's served codes [n, 16]
-    (and, when given, its served audio [n * 1920]).
+    (and, when given, its served audio [n * 1920]), after its prompt rows
+    [P, hidden] and with ``trailing`` the text ids left for its frames.
 
     ``talker_gaps`` [n]: by how much each served semantic code's logit lies
     below the reference's best over the codes the sampler may pick (the codec
-    ids below the control range; EOS is blocked while frames are forced);
-    ``cp_gaps`` [n, 15]: the same for the acoustic codes (argmax over the whole
-    codebook); ``audio_err``: the largest difference of the served samples from
-    the reference's decode of the served codes, over the reference's largest
-    sample."""
+    ids below the control range; EOS is blocked while frames are forced),
+    both after the repetition ``penalty`` (``penalised``), and
+    ``penalty_moved`` [n], where the penalty moved the best; ``cp_gaps`` [n, 15]:
+    the same for the acoustic codes (argmax over the whole codebook);
+    ``audio_err``: the largest difference of the served samples from the
+    reference's decode of the served codes, over the reference's largest
+    sample; behind an in-context clone's reference codes ``prefix`` [m, 16],
+    of the decode of [prefix || codes] with the prefix's m * 1920 samples
+    cut."""
     t, c, v = dims["talker"], dims["code_predictor"], dims["vocoder"]
     codes = codes.long()
     n = codes.shape[0]
-    prompt = custom_voice_prompt(talker, text_ids, speaker_id, lang_id)
-    rows = torch.cat([prompt, step_inputs(talker, cp, text_ids, codes[: n - 1])])
+    rows = torch.cat([prompt, step_inputs(talker, cp, trailing, codes[: n - 1])])
     hidden, logits = talker_logits(talker, t, rows)
     at = prompt.shape[0] - 1
     # Position at + i predicts frame i's semantic code, and its hidden state
     # feeds frame i's code predictor.
-    sem = logits[at: at + n, : t["vocab_size"] - CONTROL_IDS]
+    raw = logits[at: at + n, : t["vocab_size"] - CONTROL_IDS]
+    sem = penalised(logits[at: at + n], codes[:, 0], penalty)[:, : t["vocab_size"] - CONTROL_IDS]
     talker_gaps = sem.max(dim=-1).values - sem.gather(1, codes[:, :1])[:, 0]
     cp_logits = code_predictor_logits(cp, c, hidden[at: at + n], embed_codec(talker, codes[:, 0]), codes[:, 1:])
     cp_gaps = cp_logits.max(dim=-1).values - cp_logits.gather(2, codes[:, 1:, None])[..., 0]
-    out = {"talker_gaps": talker_gaps, "cp_gaps": cp_gaps}
+    out = {"talker_gaps": talker_gaps, "cp_gaps": cp_gaps, "penalty_moved": sem.argmax(-1) != raw.argmax(-1)}
     if audio is not None:
-        want = vocoder_decode(voc, v, codes)
+        if prefix is None:
+            want = vocoder_decode(voc, v, codes)
+        else:
+            want = vocoder_decode(voc, v, torch.cat([prefix.long(), codes]))[prefix.shape[0] * SAMPLES_PER_FRAME:]
         out["audio_err"] = float((f32(audio) - want).abs().max() / want.abs().max().clamp(min=1e-30))
     return out

@@ -1,4 +1,4 @@
-"""The harness end to end on the CPU at a tiny size, through the program's plain paths."""
+"""The harness end to end on the CPU at a tiny size, through the program's plain paths, in each prompt layout."""
 
 import json
 import os
@@ -22,7 +22,11 @@ def run_tiny(root, name: str, trace: bool, seconds: float = 2.0, seed: int = 2**
     return cell.run(spec.load(name, root), seed, seconds, trace, "cpu", time.perf_counter())
 
 
-@pytest.mark.parametrize("name", ["tiny-utterances-cell", "tiny-stream-cell"])
+CELLS = ["tiny-utterances-cell", "tiny-stream-cell", "tiny-icl-stream-cell", "tiny-icl-seq-utterances-cell",
+         "tiny-xvector-utterances-cell", "tiny-design-stream-cell"]
+
+
+@pytest.mark.parametrize("name", CELLS)
 @pytest.mark.parametrize("trace", [False, True])
 def test_cell_runs_end_to_end(tiny_checkout, name, trace):
     root, originals = tiny_checkout
@@ -47,7 +51,8 @@ def test_cell_runs_end_to_end(tiny_checkout, name, trace):
     # The float32 program and the float32 reference agree to rounding.
     for key, (value, limit) in line["compared"].items():
         assert value is not None and value <= limit, key
-    assert notes[-3:] == [f"{k} {v} limit {lim}" for k, (v, lim) in line["compared"].items()]
+    compared = line["compared"]
+    assert notes[-len(compared):] == [f"{k} {v} limit {lim}" for k, (v, lim) in compared.items()]
     # Adding the cell edited no file that was there.
     for path, data in originals.items():
         assert path.read_bytes() == data, path
@@ -81,3 +86,18 @@ def test_forbidden_modules_compares_whole_top_level_names(monkeypatch):
     monkeypatch.setitem(sys.modules, "qwen3_tts_tpu.models", object())
     monkeypatch.setitem(sys.modules, "jax", object())
     assert cell.forbidden_modules() == ["jax", "qwen3_tts_tpu.models"]
+
+
+def test_encoder_control_reads_a_clone_cell(tiny_checkout):
+    """``control.tf32_encoder_readings`` reads a clone cell's cases; on the
+    CPU, which has no TF32, the control is the float32 reference itself."""
+    from bench_port import control
+
+    root, _ = tiny_checkout
+    torch.set_num_threads(2)
+    s = spec.load("tiny-icl-stream-cell", root)
+    _, cases, _ = cell.measure(s, 2**31 + 17, 1.0, False, "cpu", time.perf_counter())
+    got = control.tf32_encoder_readings(s.dims, 2**31 + 17, torch.device("cpu"), cases)
+    assert set(got) == {"xvector_err", "speech_code_gap_mean", "speech_code_gap_max", "speech_code_gap_miss"}
+    assert got["xvector_err"] < 1e-5 and got["speech_code_gap_max"] == 0.0
+    assert control.tf32_encoder_readings(s.dims, 2**31 + 17, torch.device("cpu"), []) == {}

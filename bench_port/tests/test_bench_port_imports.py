@@ -38,4 +38,4 @@ def test_reference_imports_nothing_of_the_program(path):
 
 def test_only_program_module_imports_the_program():
     users = {p.relative_to(BENCH_DIR).as_posix() for p in SOURCES if "qwen3_tts_tpu_torch" in top_level_imports(p)}
-    assert users <= {"harness/program.py", "tests/test_bench_port_faults.py"}
+    assert users <= {"harness/program.py", "tests/test_bench_port_faults.py", "tests/test_bench_port_prompts.py"}
