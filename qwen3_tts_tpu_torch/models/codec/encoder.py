@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ... import profiling
 from .quantizer import nearest_code
 
 
@@ -213,12 +214,17 @@ class Encoder12Hz:
 
     @torch.no_grad()
     def encode(self, samples: np.ndarray) -> np.ndarray:
-        samples = np.asarray(samples, np.float32)
-        if len(samples) == 0:
-            return np.zeros((0, self.cfg.num_quantizers), np.int32)
-        _, _, t12 = stage_lengths(self.cfg, len(samples))
-        codes = forward(self.params, self.cfg, torch.from_numpy(samples).to(self.device)[None])
-        return codes[0, :t12].to(torch.int32).cpu().numpy()
+        with profiling.annotate("q3.speech_encoder") as span:
+            samples = np.asarray(samples, np.float32)
+            if len(samples) == 0:
+                span.set("frames", 0)
+                return np.zeros((0, self.cfg.num_quantizers), np.int32)
+            _, _, t12 = stage_lengths(self.cfg, len(samples))
+            codes = forward(self.params, self.cfg, torch.from_numpy(samples).to(self.device)[None])
+            with profiling.annotate("q3.wait"):
+                out = codes[0, :t12].to(torch.int32).cpu().numpy()
+            span.set("frames", len(out))
+            return out
 
     @classmethod
     def from_weights(cls, weights: dict, cfg: MimiEncoderConfig = MimiEncoderConfig()) -> "Encoder12Hz":

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import profiling
 from ..audio.mel import MelSpectrogram, speaker_encoder_config
 from ..utils.device import device_or_card
 from .config import SpeakerEncoderConfig
@@ -126,9 +127,11 @@ class SpeakerEncoder:
     @torch.no_grad()
     def encode(self, samples: np.ndarray) -> np.ndarray:
         """24 kHz mono samples -> [enc_dim] float32 x-vector."""
-        mel = self.mel.compute_for_speaker_encoder(np.asarray(samples))  # [n_mels, T]
-        out = forward(self.params, self.cfg, torch.from_numpy(mel).to(self.device)[None])
-        return out[0].cpu().numpy()
+        with profiling.annotate("q3.speaker_encoder"):
+            mel = self.mel.compute_for_speaker_encoder(np.asarray(samples))  # [n_mels, T]
+            out = forward(self.params, self.cfg, torch.from_numpy(mel).to(self.device)[None])
+            with profiling.annotate("q3.wait"):
+                return out[0].cpu().numpy()
 
     @classmethod
     def from_weights(cls, weights: dict, cfg: SpeakerEncoderConfig | None = None) -> "SpeakerEncoder":

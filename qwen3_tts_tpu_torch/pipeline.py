@@ -807,23 +807,26 @@ class Qwen3TTS:
                 ModelType.VOICE_DESIGN: " VoiceDesign models use text-described voices; use a Base model for cloning.",
             }.get(self.config.model_type, " Only Base checkpoints include a speaker encoder.")
             raise RuntimeError("Speaker encoder not available." + hint)
-        if ref_audio.sample_rate != T.OUTPUT_SAMPLE_RATE:
-            ref_audio = resample_to_24k(ref_audio)
-        if pad_to_seconds:
-            unit = int(pad_to_seconds * T.OUTPUT_SAMPLE_RATE)
-            padded = np.zeros(max(-(-len(ref_audio.samples) // unit) * unit, unit), np.float32)
-            padded[:len(ref_audio.samples)] = ref_audio.samples
-            ref_audio = AudioBuffer(padded, T.OUTPUT_SAMPLE_RATE)
-        speaker_embedding = self.speaker_encoder.encode(ref_audio.samples)
-        ref_codes = ref_text_ids = None
-        if ref_text is not None:
-            if self.speech_encoder is None:
-                raise RuntimeError(
-                    "ICL voice cloning requires the speech encoder; pass ref_text=None for x-vector-only cloning."
-                )
-            ref_codes = self.speech_encoder.encode(ref_audio.samples)
-            ref_text_ids = self._encode_text(ref_text)
-        return VoiceClonePrompt(np.asarray(speaker_embedding), ref_codes, ref_text_ids)
+        with profiling.annotate("q3.clone_prompt") as span:
+            if ref_audio.sample_rate != T.OUTPUT_SAMPLE_RATE:
+                ref_audio = resample_to_24k(ref_audio)
+            if pad_to_seconds:
+                unit = int(pad_to_seconds * T.OUTPUT_SAMPLE_RATE)
+                padded = np.zeros(max(-(-len(ref_audio.samples) // unit) * unit, unit), np.float32)
+                padded[:len(ref_audio.samples)] = ref_audio.samples
+                ref_audio = AudioBuffer(padded, T.OUTPUT_SAMPLE_RATE)
+            span.set("samples", len(ref_audio.samples))
+            span.set("icl", int(ref_text is not None))
+            speaker_embedding = self.speaker_encoder.encode(ref_audio.samples)
+            ref_codes = ref_text_ids = None
+            if ref_text is not None:
+                if self.speech_encoder is None:
+                    raise RuntimeError(
+                        "ICL voice cloning requires the speech encoder; pass ref_text=None for x-vector-only cloning."
+                    )
+                ref_codes = self.speech_encoder.encode(ref_audio.samples)
+                ref_text_ids = self._encode_text(ref_text)
+            return VoiceClonePrompt(np.asarray(speaker_embedding), ref_codes, ref_text_ids)
 
     def synthesize_voice_clone(
         self,
@@ -1540,11 +1543,17 @@ class StreamingSession:
         package's pieces, so that each shape compiles once there: see
         ``prefix_piece_sizes``)."""
         m, at = self.model, 0
-        codes = torch.from_numpy(prefix).to(m.device)
-        for size in prefix_piece_sizes(len(prefix), chunk):
-            _, self.vstate = vocoder.decode_stream_chunk(m.vocoder_params, m.vocoder_config, self.vstate,
-                                                         codes[at:at + size].T[None])
-            at += size
+        sizes = prefix_piece_sizes(len(prefix), chunk)
+        with profiling.annotate("q3.prefix", self.request) as span:
+            span.set("pieces", len(sizes))
+            span.set("frames", len(prefix))
+            codes = torch.from_numpy(prefix).to(m.device)
+            for size in sizes:
+                with profiling.annotate("q3.piece") as piece:
+                    piece.set("frames", size)
+                    _, self.vstate = vocoder.decode_stream_chunk(m.vocoder_params, m.vocoder_config, self.vstate,
+                                                                 codes[at:at + size].T[None])
+                at += size
 
     def _advance_managed(self, target: int) -> tuple[int, bool]:
         """Advance to ``target`` total frames, growing the buffers a tier at a

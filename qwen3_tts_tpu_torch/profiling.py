@@ -25,7 +25,10 @@ The spans of the batch-1 path (``README.md`` lists them): ``q3.open``
 ``q3.loop`` (one ``generation.core.generate_frames`` call, counter
 ``iterations``), ``q3.vocoder``, ``q3.chunk``, ``q3.audio``, ``q3.grow`` and
 ``q3.wait``, around every place the host waits for the device or reads
-from it.
+from it; a clone's ``q3.clone_prompt`` (counters ``samples`` and ``icl``)
+over ``q3.speaker_encoder`` and ``q3.speech_encoder`` (counter ``frames``),
+and an in-context clone's ``q3.prefix`` (counters ``pieces`` and
+``frames``) over one ``q3.piece`` (counter ``frames``) a vocoder call.
 """
 
 from __future__ import annotations

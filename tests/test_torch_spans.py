@@ -6,6 +6,10 @@ On the tiny Base model of ``test_torch_voice_clone.py``:
   (``q3.open`` > ``q3.prefill``; ``q3.chunk`` or ``q3.audio`` > ``q3.loop``,
   ``q3.vocoder``, ``q3.grow``, ``q3.wait``), each inside its parent's time,
   and all carry the request id ``q3.open`` drew;
+* an in-context clone's prompt records ``q3.clone_prompt`` >
+  ``q3.speaker_encoder``, ``q3.speech_encoder`` (each read in a ``q3.wait``),
+  and its stream feeds the reference codes under ``q3.prefix`` > one
+  ``q3.piece`` a ``prefix_piece_sizes`` piece > ``q3.vocoder``;
 * ``q3.loop``'s ``iterations`` are the frames the host launched;
 * with nothing recording, a span enters no ``record_function``, runs no
   tensor operation and records nothing;
@@ -21,7 +25,8 @@ import pytest
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from qwen3_tts_tpu_torch import pipeline, profiling
+from qwen3_tts_tpu_torch import encoder_fixture, pipeline, profiling
+from qwen3_tts_tpu_torch.audio.io import AudioBuffer
 from qwen3_tts_tpu_torch.pipeline import SynthesisOptions
 from qwen3_tts_tpu_torch.profiling import TransferAudit
 from test_torch_voice_clone import build_models
@@ -31,16 +36,22 @@ torch.set_num_threads(1)
 TEXT = "Hello there, a few words."
 # Children each span may have on the batch-1 path.
 CHILDREN = {
-    None: {"q3.open", "q3.chunk", "q3.audio"},
+    None: {"q3.open", "q3.chunk", "q3.audio", "q3.clone_prompt"},
     "q3.open": {"q3.prefill"},
     "q3.prefill": set(),
-    "q3.chunk": {"q3.loop", "q3.vocoder", "q3.grow", "q3.wait"},
-    "q3.audio": {"q3.loop", "q3.vocoder", "q3.grow", "q3.wait"},
+    "q3.chunk": {"q3.loop", "q3.vocoder", "q3.grow", "q3.wait", "q3.prefix"},
+    "q3.audio": {"q3.loop", "q3.vocoder", "q3.grow", "q3.wait", "q3.prefix"},
     "q3.loop": {"q3.wait"},
     "q3.vocoder": {"q3.wait"},
     "q3.grow": set(),
     "q3.wait": set(),
+    "q3.clone_prompt": {"q3.speaker_encoder", "q3.speech_encoder"},
+    "q3.speaker_encoder": {"q3.wait"},
+    "q3.speech_encoder": {"q3.wait"},
+    "q3.prefix": {"q3.piece"},
+    "q3.piece": {"q3.vocoder"},
 }
+REF_TEXT = "A short reference line."
 
 
 @pytest.fixture(scope="module")
@@ -74,9 +85,22 @@ def _utterance(model, frames: int = 24):
     return kept["session"], [audio]
 
 
+def _clone_stream(model, seconds: float = 1.2, frames: int = 12):
+    """(the clip, the in-context clone prompt, the session, its chunks' samples)."""
+    clip = encoder_fixture.reference_audio(24000, seed=5, seconds=seconds)
+    prompt = model.create_voice_clone_prompt(AudioBuffer(clip, 24000), REF_TEXT)
+    session = model.synthesize_voice_clone_streaming(TEXT, prompt, "english", _options(frames))
+    return clip, prompt, session, [c.samples for c in session]
+
+
 def _check_tree(spans: list) -> None:
     """One request id; each span's parent allowed and around it in time."""
     assert {s.request for s in spans} == {spans[0].request} and spans[0].request is not None
+    _check_nesting(spans)
+
+
+def _check_nesting(spans: list) -> None:
+    """Each span's parent allowed and around it in time."""
     for s in spans:
         parent = s.parent.name if s.parent is not None else None
         assert s.name in CHILDREN[parent], (parent, s.name)
@@ -106,6 +130,56 @@ def test_utterance_spans_nest_and_share_a_request(model):
     tops = [s.name for s in spans if s.parent is None]
     assert tops == ["q3.open", "q3.audio"]
     assert {"q3.loop", "q3.vocoder", "q3.wait"} <= {s.name for s in spans}
+
+
+def _under(span, name: str) -> bool:
+    while span is not None:
+        if span.name == name:
+            return True
+        span = span.parent
+    return False
+
+
+def test_clone_stream_spans_nest_and_count(model):
+    with profiling.spans() as spans:
+        clip, prompt, session, chunks = _clone_stream(model)
+    clone = [s for s in spans if _under(s, "q3.clone_prompt")]
+    _check_nesting(clone)
+    _check_tree([s for s in spans if not _under(s, "q3.clone_prompt")])
+    (top,) = [s for s in clone if s.name == "q3.clone_prompt"]
+    assert top.parent is None and top.counters == {"samples": len(clip), "icl": 1}
+    encoders = {s.name: s for s in clone if s.parent is top}
+    assert set(encoders) == {"q3.speaker_encoder", "q3.speech_encoder"}
+    n = len(prompt.ref_codes)
+    assert encoders["q3.speech_encoder"].counters == {"frames": n}
+    for enc in encoders.values():
+        assert [s.name for s in clone if s.parent is enc] == ["q3.wait"]
+    (prefix,) = [s for s in spans if s.name == "q3.prefix"]
+    sizes = pipeline.prefix_piece_sizes(n, 4)  # the first chunk's 4 frames
+    assert len(sizes) > 4 and sizes[-1] < 4  # whole pieces, then a binary split of the rest
+    assert prefix.parent.name == "q3.chunk" and prefix.request == session.request
+    assert prefix.counters == {"pieces": len(sizes), "frames": n}
+    pieces = [s for s in spans if s.parent is prefix]
+    assert [s.name for s in pieces] == ["q3.piece"] * len(sizes)
+    assert [s.counters["frames"] for s in pieces] == sizes and sum(sizes) == n
+    for piece in pieces:
+        assert [s.name for s in spans if s.parent is piece] == ["q3.vocoder"]
+    assert chunks
+
+
+def test_clone_prompt_off_records_nothing(model, monkeypatch):
+    entered = []
+    real = profiling.record_function
+    monkeypatch.setattr(profiling, "record_function", lambda name: entered.append(name) or real(name))
+    clip = encoder_fixture.reference_audio(24000, seed=5, seconds=1.2)
+    before = len(profiling.recorded_spans())
+    off = model.create_voice_clone_prompt(AudioBuffer(clip, 24000), REF_TEXT)
+    assert entered == [] and len(profiling.recorded_spans()) == before
+    with profiling.spans() as spans:
+        on = model.create_voice_clone_prompt(AudioBuffer(clip, 24000), REF_TEXT)
+    assert len(spans) == 5 and entered == []
+    assert np.array_equal(on.speaker_embedding, off.speaker_embedding)
+    assert np.array_equal(on.ref_codes, off.ref_codes) and on.ref_text_ids == off.ref_text_ids
 
 
 def test_two_sessions_two_requests(model):
